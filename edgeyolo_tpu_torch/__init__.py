@@ -1,0 +1,8 @@
+"""edgeyolo_tpu_torch: the PyTorch/CUDA port of edgeyolo_tpu for one NVIDIA H100.
+
+The JAX package `edgeyolo_tpu` is the reference this port is held against;
+the port imports nothing of it and no JAX. Hand-written CUDA kernels live in
+`csrc/` and are built with nvcc on first use (ops/_build.py).
+"""
+
+__version__ = "0.1.0"

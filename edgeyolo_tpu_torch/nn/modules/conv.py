@@ -1,0 +1,107 @@
+"""Convolution modules, NCHW (edgeyolo_tpu/nn/modules/conv.py).
+
+Parameter names are the reference's torch state_dict keys (`conv`, `bn`,
+`dw`, `pw`), so weights carried over from the JAX package land by name.
+
+BatchNorm runs in f32 and casts back to the compute dtype, as the JAX
+ConvBN does, so a bf16 model keeps f32 norm statistics. Every BatchNorm of a
+detection model uses the reference's model-level override eps 1e-3 and
+momentum 0.03 (torch convention; flax 0.97), not the torch defaults.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+MODEL_BN_EPS = 1e-3
+MODEL_BN_MOMENTUM = 0.03
+
+def autopad(k: int, p: int | None = None, d: int = 1) -> int:
+    """'same' padding for stride 1 (floor behaviour for stride 2)."""
+    if d > 1:
+        k = d * (k - 1) + 1
+    return k // 2 if p is None else p
+
+
+def batch_norm(c: int) -> nn.BatchNorm2d:
+    return nn.BatchNorm2d(c, eps=MODEL_BN_EPS, momentum=MODEL_BN_MOMENTUM)
+
+
+def norm_f32(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
+    """BatchNorm in f32, then back to the compute dtype."""
+    return bn(x.float()).to(x.dtype)
+
+
+def activation(act: bool | None):
+    """SiLU for True, none for False or None."""
+    if act is True:
+        return F.silu
+    if act is False or act is None:
+        return None
+    raise ValueError(f"act must be True, False or None, got {act!r}")
+
+
+class ConvBN(nn.Module):
+    """conv (no bias) -> BatchNorm -> activation."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, p: int | None = None,
+                 g: int = 1, d: int = 1, act: bool = True):
+        super().__init__()
+        self.conv = nn.Conv2d(c1, c2, k, s, autopad(k, p, d), dilation=d, groups=g, bias=False)
+        self.bn = batch_norm(c2)
+        self.act = activation(act)
+
+    def forward(self, x):
+        x = norm_f32(self.bn, self.conv(x))
+        return self.act(x) if self.act else x
+
+
+class DWConv(ConvBN):
+    """Depthwise conv (+BN+act), groups = gcd(c1, c2)."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, d: int = 1,
+                 act: bool = True):
+        super().__init__(c1, c2, k, s, None, math.gcd(c1, c2), d, act)
+
+
+class DSConv(nn.Module):
+    """Depthwise-separable conv: DW (no norm) -> PW 1x1 -> BN -> SiLU."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 1, p: int | None = None,
+                 d: int = 1):
+        super().__init__()
+        pad = p if p is not None else (d * (k - 1)) // 2
+        self.dw = nn.Conv2d(c1, c1, k, s, pad, dilation=d, groups=c1, bias=False)
+        self.pw = nn.Conv2d(c1, c2, 1, bias=False)
+        self.bn = batch_norm(c2)
+
+    def forward(self, x):
+        return F.silu(norm_f32(self.bn, self.pw(self.dw(x))))
+
+
+class Concat(nn.Module):
+    """Concatenate along channels."""
+
+    def __init__(self, dim: int = 1):
+        super().__init__()
+        self.dim = dim
+
+    def forward(self, xs):
+        return torch.cat(xs, dim=self.dim)
+
+
+class Upsample(nn.Module):
+    """Nearest or bilinear upsample (torch nn.Upsample semantics)."""
+
+    def __init__(self, size=None, scale_factor: float = 2.0, mode: str = "nearest"):
+        super().__init__()
+        self.size, self.scale_factor, self.mode = size, scale_factor, mode
+
+    def forward(self, x):
+        if self.size is not None:
+            return F.interpolate(x, size=tuple(self.size), mode=self.mode)
+        return F.interpolate(x, scale_factor=float(self.scale_factor), mode=self.mode)

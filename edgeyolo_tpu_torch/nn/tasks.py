@@ -1,0 +1,221 @@
+"""Model spec -> PyTorch graph, and the detection model (edgeyolo_tpu/nn/tasks.py).
+
+`parse_spec` applies the reference parse_model's compound scaling to a spec
+dict (depth n' = max(round(n*depth), 1) for n > 1; width c2' =
+make_divisible(min(c2, max_channels)*width, 8) unless c2 == nc; the CSP
+family takes its repeats as an argument; the C3k2 family forces c3k at
+scales l and x; heads get the per-level input channels) into a tuple of
+`LayerSpec`s. `GraphNet` builds one module per spec under `model.{i}`, the
+reference state_dict layout, and walks them in order.
+
+Only the modules of the EdgeLine flagship graph are registered so far; an
+unknown module name raises.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Sequence
+
+import torch
+from torch import nn
+
+from edgeyolo_tpu_torch.cfg.models import model_cfg
+from edgeyolo_tpu_torch.nn.modules.block import C2f, C3, C3k, C3k2, SPPF, Bottleneck
+from edgeyolo_tpu_torch.nn.modules.conv import Concat, ConvBN, DSConv, DWConv, Upsample
+from edgeyolo_tpu_torch.nn.modules.edgeline import C2PSA_LinearAttention, DSC3K2_Wavelet
+from edgeyolo_tpu_torch.nn.modules.head import GFLHeadv2_uniH
+from edgeyolo_tpu_torch.utils import make_divisible, select_device
+
+# name -> (module class, argument names after c1, i.e. as args stand after parsing)
+_REG: dict[str, tuple[type, list[str]]] = {
+    "Conv": (ConvBN, ["c2", "k", "s", "p", "g", "d", "act"]),
+    "ConvBN": (ConvBN, ["c2", "k", "s", "p", "g", "d", "act"]),
+    "DWConv": (DWConv, ["c2", "k", "s", "d", "act"]),
+    "DSConv": (DSConv, ["c2", "k", "s", "p", "d"]),
+    "Bottleneck": (Bottleneck, ["c2", "shortcut", "g", "k", "e"]),
+    "C2f": (C2f, ["c2", "n", "shortcut", "g", "e"]),
+    "C3": (C3, ["c2", "n", "shortcut", "g", "e"]),
+    "C3k": (C3k, ["c2", "n", "shortcut", "g", "e", "k"]),
+    "C3k2": (C3k2, ["c2", "n", "c3k", "e", "g", "shortcut"]),
+    "SPPF": (SPPF, ["c2", "k"]),
+    "C2PSA_LinearAttention": (C2PSA_LinearAttention,
+                              ["c2", "n", "e", "attn_ratio", "num_heads", "mlp_ratio"]),
+    "DSC3K2_Wavelet": (DSC3K2_Wavelet, ["c2", "n", "dsc3k", "e", "g", "shortcut", "k1", "k2", "d2"]),
+    "Concat": (Concat, ["dim"]),
+    "nn.Upsample": (Upsample, ["size", "scale_factor", "mode"]),
+    "GFLHeadv2_uniH": (GFLHeadv2_uniH, ["nc"]),
+}
+_CONV_LIKE = {"Conv", "ConvBN", "DWConv", "DSConv", "Bottleneck", "C2f", "C3", "C3k", "C3k2",
+              "SPPF", "C2PSA_LinearAttention", "DSC3K2_Wavelet"}
+_REPEAT_INSERT = {"C2f", "C3", "C3k2", "C2PSA_LinearAttention", "DSC3K2_Wavelet"}
+_C3K2_FAMILY = {"C3k2", "DSC3K2_Wavelet"}
+_HEADS = {"GFLHeadv2_uniH"}
+_STRIDE_ARG = {"Conv", "ConvBN", "DWConv", "DSConv"}
+
+
+@dataclass(frozen=True)
+class LayerSpec:
+    """One graph node: inputs f (-1 = previous), input and output channels."""
+
+    i: int
+    f: tuple[int, ...]
+    name: str
+    args: tuple
+    kwargs: tuple[tuple[str, Any], ...]
+    c1: int
+    c2: int
+
+
+def parse_spec(d: dict, ch: int = 3) -> tuple[tuple[LayerSpec, ...], tuple[int, ...], dict]:
+    """Compile a spec dict into (layers, save, info)."""
+    nc = d.get("nc", 80)
+    scales = d.get("scales")
+    scale = d.get("scale") or (next(iter(scales)) if scales else "")
+    depth, width, max_channels = (scales[scale] if scales and scale in scales else (
+        d.get("depth_multiple", 1.0), d.get("width_multiple", 1.0), float("inf")))
+    legacy = True
+    ch_list = [ch]
+    layers: list[LayerSpec] = []
+    save: set[int] = set()
+    for i, (f, n, name, args) in enumerate(d["backbone"] + d["head"]):
+        if name not in _REG:
+            raise KeyError(f"module '{name}' is not ported yet")
+        args = [nc if a == "nc" else a for a in args]
+        n_scaled = max(round(n * depth), 1) if n > 1 else n
+        kwargs: dict[str, Any] = {}
+        f_list = [f] if isinstance(f, int) else list(f)
+        c1 = ch_list[f_list[0]]
+        if name in _CONV_LIKE:
+            c2 = args[0]
+            if c2 != nc:
+                c2 = make_divisible(min(c2, max_channels) * width, 8)
+            args = [c2, *args[1:]]
+            if name in _REPEAT_INSERT:
+                args.insert(1, n_scaled)
+                n_scaled = 1
+            if name in _C3K2_FAMILY:
+                legacy = False
+                if scale and scale in "lx":
+                    if len(args) > 2:
+                        args[2] = True
+                    else:
+                        args.append(True)
+        elif name == "Concat":
+            c2 = sum(ch_list[x] for x in f_list)
+        elif name in _HEADS:
+            kwargs["ch"] = tuple(ch_list[x] for x in f_list)
+            kwargs["legacy"] = legacy
+            c2 = sum(kwargs["ch"])
+        else:  # nn.Upsample
+            c2 = c1
+        if n_scaled != 1:
+            raise NotImplementedError(f"repeated plain module '{name}' (n={n_scaled})")
+        layers.append(LayerSpec(i=i, f=tuple(x if x == -1 else x % i for x in f_list),
+                                name=name, args=tuple(args),
+                                kwargs=tuple(sorted(kwargs.items())), c1=c1, c2=c2))
+        save.update(x % i for x in f_list if x != -1)
+        if i == 0:
+            ch_list = []
+        ch_list.append(c2)
+    return tuple(layers), tuple(sorted(save)), {"nc": nc, "scale": scale}
+
+
+def derive_strides(layers: Sequence[LayerSpec]) -> list[float]:
+    """Output stride of each layer (the image has stride 1)."""
+    strides: list[float] = []
+    for sp in layers:
+        src = sp.f[0]
+        s_in = 1.0 if sp.i == 0 else strides[src if src >= 0 else sp.i - 1]
+        factor = 1.0
+        fields = _REG[sp.name][1]
+        if sp.name in _STRIDE_ARG and fields.index("s") < len(sp.args):
+            factor = float(sp.args[fields.index("s")])
+        elif sp.name == "nn.Upsample":
+            sf = sp.args[1] if len(sp.args) > 1 else 2
+            factor = 1.0 / float(sf or 2)
+        strides.append(s_in * factor)
+    return strides
+
+
+def build_module(sp: LayerSpec, head_stride: Sequence[int]) -> nn.Module:
+    cls, fields = _REG[sp.name]
+    kw = {**dict(zip(fields, sp.args)), **dict(sp.kwargs)}
+    if sp.name in _HEADS:
+        return cls(stride=tuple(head_stride), **kw)
+    if sp.name in _CONV_LIKE:
+        return cls(sp.c1, **kw)
+    return cls(**kw)
+
+
+class GraphNet(nn.Module):
+    """Runs a compiled LayerSpec graph; layer i is `model.{i}`."""
+
+    def __init__(self, layers: tuple[LayerSpec, ...], save: tuple[int, ...],
+                 head_stride: Sequence[int]):
+        super().__init__()
+        self.layers = layers
+        self.save = frozenset(save)
+        self.model = nn.ModuleList(build_module(sp, head_stride) for sp in layers)
+
+    def forward(self, x):
+        y: dict[int, torch.Tensor] = {}
+        out = x
+        for sp, m in zip(self.layers, self.model):
+            if len(sp.f) == 1:
+                inp = out if sp.f[0] == -1 else y[sp.f[0]]
+            else:
+                inp = [out if j == -1 else y[j] for j in sp.f]
+            out = m(inp)
+            if sp.i in self.save:
+                y[sp.i] = out
+        return out
+
+
+def init_weights(model: nn.Module, generator: torch.Generator) -> None:
+    """Seeded initialisation: every trainable conv weight ~ U(+-1/sqrt(fan_in))
+    (torch's Conv2d default, the JAX KERNEL_INIT), conv biases 0. BatchNorm,
+    the wavelet weights and the frozen DFL bins keep their constructor values."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, nn.Conv2d) and m.weight.requires_grad:
+                fan_in = m.weight[0].numel()
+                bound = fan_in ** -0.5
+                w = torch.rand(m.weight.shape, generator=generator, dtype=torch.float32)
+                m.weight.copy_(w * (2 * bound) - bound)
+                if m.bias is not None:
+                    m.bias.zero_()
+
+
+def num_params(model: nn.Module) -> int:
+    """Parameter count as the reference reports it (the frozen DFL bins included)."""
+    return sum(p.numel() for p in model.parameters())
+
+
+class DetectionModel(GraphNet):
+    """The detector: spec by name, seeded weights, explicit device and dtype.
+
+    `dtype` is the compute dtype of every convolution but the quality head's;
+    BatchNorm, the wavelet band weights, the quality head and the box decode
+    stay f32.
+    The model lands on CUDA unless `device` names another device.
+    """
+
+    def __init__(self, cfg: str = "edgeline-yolo.yaml", scale: str | None = None,
+                 device: str | torch.device | None = None, dtype: torch.dtype = torch.float32,
+                 seed: int = 0):
+        layers, save, info = parse_spec(model_cfg(cfg, scale))
+        strides = derive_strides(layers)
+        head = layers[-1]
+        stride = tuple(int(strides[j]) for j in head.f)
+        device = select_device(device)
+        with torch.random.fork_rng(devices=[]):  # module constructors draw from the global RNG
+            super().__init__(layers, save, stride)
+        self.nc, self.dtype = info["nc"], dtype
+        init_weights(self, torch.Generator().manual_seed(seed))
+        self.model[-1].bias_init()
+        for m in self.modules():
+            if isinstance(m, nn.Conv2d):
+                m.to(dtype)
+        self.model[-1].reg_conf.float()  # the quality head is an f32 island, as in JAX
+        self.to(device).eval()

@@ -1,0 +1,50 @@
+"""Carry JAX variables of the reference package into the port's state_dict.
+
+The port's own copy of the key rule of edgeyolo_tpu/utils/torch_convert.py
+(`flax_path_to_torch_key`): flax scope `l{i}_{Type}` is `model.{i}`, a
+trailing `_{digits}` group is module-list indexing (`cv2_0_1` ->
+`cv2.0.1`), and the quality head's second conv sits at index 2 of its torch
+Sequential (`reg_conf.{i}.2`). Leaves map kernel/scale -> weight,
+mean/var -> running_mean/running_var; conv kernels go HWIO -> OIHW.
+"""
+
+from __future__ import annotations
+
+import re
+
+import numpy as np
+import torch
+
+_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias", "mean": "running_mean",
+         "var": "running_var"}
+_COLLECTIONS = ("params", "batch_stats")
+
+
+def jax_path_to_torch_key(path: tuple[str, ...]) -> str:
+    """One flax variable path (without its collection) -> the state_dict key."""
+    parts = list(path)
+    m = re.match(r"^l(\d+)_(.+)$", parts[0])
+    if m:
+        j = re.search(r"_(\d+)$", m.group(2))  # a repeated plain module: model.{i}.{j}
+        parts[0] = f"model.{m.group(1)}" + (f".{j.group(1)}" if j else "")
+    scopes = [re.sub(r"_(?=\d+(?:_\d+)*$)", ".", p) for p in parts[:-1]]
+    key = ".".join(scopes + [_LEAF.get(parts[-1], parts[-1])])
+    return re.sub(r"reg_conf\.(\d+)\.1\.", r"reg_conf.\1.2.", key)
+
+
+def from_jax_variables(flat: dict[tuple[str, ...], np.ndarray]) -> dict[str, torch.Tensor]:
+    """{(collection, *path): array} (flax.traverse_util.flatten_dict of the
+    variables, as numpy) -> {state_dict key: tensor}.
+
+    The result has no source for the reference's frozen DFL bins, which the
+    JAX package computes instead of storing; load it with strict=False.
+    """
+    sd = {}
+    for (coll, *path), arr in flat.items():
+        if coll not in _COLLECTIONS:
+            raise KeyError(f"unexpected variable collection '{coll}'")
+        arr = np.asarray(arr)
+        if path[-1] == "kernel" and arr.ndim == 4:
+            arr = arr.transpose(3, 2, 0, 1)
+        sd[jax_path_to_torch_key(tuple(path))] = torch.tensor(arr)
+    return sd
