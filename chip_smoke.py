@@ -7,7 +7,9 @@ Phases, each timed and each fatal when it fails:
   1. device     card name and power limit, torch and CUDA versions, TF32 switches
   2. build      nvcc builds every CUDA source of edgeyolo_tpu_torch/csrc, all at once
   3. kernels    every kernel's wrapper against its plain PyTorch version, on the card,
-                at the shapes the serving path gives it, with times and the bound
+                at the shapes the serving path gives it, with times and the bound;
+                the attention kernel's split of N and workspace, and two launches
+                on the same inputs compared bit for bit
   4. reference  the f32 model on the card (kernel) against the same model on the
                 CPU (plain version) at 64 px
   5. serve      EdgeLine-YOLO-n in bf16 at 640 px: 1 warm-up and 3 timed requests
@@ -42,6 +44,7 @@ LA_CASES = [
     (32, 400, 2, 64, "float32", "qkv"),
     (32, 400, 2, 64, "bfloat16", "qkv"),  # the serving path: batch 32 at 640 px
     (128, 400, 2, 64, "bfloat16", "qkv"),
+    (128, 1600, 2, 64, "bfloat16", "qkv"),
     (16, 6400, 4, 64, "bfloat16", "qkv"),
     (32, 400, 2, 64, "bfloat16", "bnhd"),
     (4, 999, 3, 32, "float32", "bnhd"),
@@ -100,24 +103,33 @@ def check_kernels(la):
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = []
     for b, n, h, d, dt, layout in LA_CASES:
         dtype = getattr(torch, dt)
         q, k, v = la_inputs(b, n, h, d, dtype, layout, gen)
         y = la.linear_attention_kernel(q, k, v)
+        y_again = la.linear_attention_kernel(q, k, v)
         torch.cuda.synchronize()
         ref = la.linear_attention_reference(q, k, v)
         err = (y.float() - ref.float()).abs().max().item()
         tol = LA_RTOL[dt] * ref.float().abs().max().item()
+        same = torch.equal(y, y_again)
         ms = cuda_ms(lambda: la.linear_attention_kernel(q, k, v))
         plain_ms = cuda_ms(lambda: la.linear_attention_reference(q, k, v))
         bound_ms, bound_by = la_bound(b, n, h, d, dtype)
+        splits, chunk, ws_bytes = la.split_plan(b, n, h, d, sms)
         print(f"linear_attention ({b},{n},{h},{d}) {dt} {layout}: max_abs_err {err:.3e} "
               f"(tol {tol:.3e}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+              f"bound {bound_ms:.4f} ms ({bound_by}); S {splits} chunks of {chunk} tokens, "
+              f"{b * h * splits} context blocks on {sms} SMs, workspace {ws_bytes} B; "
+              f"two launches bit-identical: {same}", flush=True)
         if not err <= tol:
             raise AssertionError(f"linear attention kernel disagrees with the plain version "
                                  f"at ({b},{n},{h},{d}) {dt}: {err} > {tol}")
+        if not same:
+            raise AssertionError(f"linear attention kernel is not deterministic at "
+                                 f"({b},{n},{h},{d}) {dt}")
         rows.append({"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by})
     return rows[LA_MAIN_CASE]

@@ -8,252 +8,422 @@
 //   ctx = k'^T v                                              (D x D, f32)
 //   y = q' ctx, cast to the input type
 //
-// Design. The TPU kernel holds a whole (N, D) block in VMEM, which is why it
-// could not run N = 6400. Here one thread block owns one (batch, head) and
-// sweeps N in tiles of kTileN tokens, twice:
-//   pass 1 reads k, v and q tiles; it row-softmaxes k in shared memory,
-//          accumulates ctx in registers (a 16 x 16 thread grid, R x R values
-//          per thread) and keeps an online max and rescaled sum per column
-//          of q;
-//   pass 2 folds 1 / (sum + 1e-9) into the rows of ctx, re-reads q, and
-//          writes y = exp(q - max) ctx through a shared-memory tile so that
-//          the stores are coalesced.
-// Accumulation is always f32; inputs and outputs are f32 or bf16.
+// Bound on the H100 SXM (3.35 TB/s, 989 TFLOP/s dense bf16, 67 TFLOP/s f32
+// outside the tensor cores). At the serving shape (B, N, H, D) =
+// (32, 400, 2, 64) in bf16 the kernel must read q, k, v and write y once:
+// 13.1 MB, 3.9 us. The two products are 4 B*H N D^2 = 0.42 GFLOP: 0.4 us on
+// the tensor cores, 6.3 us on the CUDA cores. So the bytes bound the kernel,
+// but only if (a) the blocks fill the card: B*H = 64 (batch, head) pairs
+// for 132 SMs, and (b) the products do not run on the CUDA cores.
+//
+// Design. Two launches on the caller's stream.
+//   Context phase, grid (B*H) x S. N is split into S chunks of whole
+//     64-token tiles, S chosen by the caller for about four blocks per SM
+//     (7 chunks, 448 blocks at the serving shape). A block walks its chunk
+//     tile by tile: it loads k, v and q (16-byte loads along the tokens
+//     where the layout allows, else one element per load), row-softmaxes
+//     k over D (four threads per token, shuffle reductions), folds the
+//     tile into an online column max and rescaled sum of q (256 / D threads
+//     per column) and accumulates its partial ctx = k'^T v. It writes the
+//     partial ctx and column statistics to an f32 workspace.
+//   Merge, fixed order, no float atomics. Each block bumps an integer
+//     counter of its (batch, head) after a __threadfence(); the block that
+//     arrives last sums the S partials in the order s = 0 .. S-1, combines
+//     the column statistics (max, and sums rescaled to it), folds
+//     1 / (sum + 1e-9) into the rows of ctx, writes the finished ctx and
+//     column max over partial 0 and resets the counter. The result is the
+//     same bits from run to run.
+//   Output phase, grid (B*H) x ceil(N / 64). A block stages the finished
+//     ctx in shared memory, loads its q tile as exp(q - max) and writes
+//     y = q' ctx through a shared-memory tile, so the stores walk the
+//     unit-stride axis. It reads q a second time: 1.25x the least traffic,
+//     mostly from L2 (q is 3.3 MB at the serving shape; L2 is 50 MB).
+// Accumulation is always f32; inputs and outputs are f32 or bf16. The
+// workspace is B*H*S*(D*D + 2*D) floats (7.6 MB at the serving shape),
+// allocated by the caller, as are the zeroed counters (B*H int32).
 //
 // Layout. Every tensor is addressed through explicit element strides for
 // (b, n, h, d), so the kernel reads q, k and v straight out of the NCHW
 // output of the qkv 1x1 convolution (channel order [3][heads][head_dim],
 // stride 1 along the tokens) and writes y as (B, H*D, N) without transpose
-// copies. Tile loads and stores walk the unit-stride axis with neighbouring
-// threads.
-//
-// Bound on the H100 SXM (3.35 TB/s, 989 TFLOP/s dense bf16). At
-// (B, N, H, D) = (128, 400, 2, 64) in bf16 the kernel must read q, k, v and
-// write y: 4 x 256 x 400 x 64 x 2 B = 52.4 MB, about 16 us. The two products
-// are 4 x B*H x N x D^2 = 1.7 GFLOP, under 2 us at the bf16 tensor rate, so
-// the kernel is memory-bound. Pass 2 re-reads q, 1.25x the minimum traffic;
-// removing it (keeping q on chip, TMA loads, wgmma for the products) is
-// later work.
+// copies. Shared-memory tiles are d-major (one row per head-dim index, the
+// tokens contiguous).
 //
 // C interface, bound with ctypes (no PyTorch headers):
-//   int edgeyolo_la_forward(int dtype, int head_dim, q, k, v, y, B, N, H,
+//   int edgeyolo_la_forward(int dtype, int head_dim, q, k, v, y, workspace,
+//                           counters, B, N, H, S, chunk,
 //                           in strides (b, n, h, d), out strides (b, n, h, d),
 //                           stream)
 // dtype 0 = float32, 1 = bfloat16; head_dim 32 or 64; q, k and v share one
-// set of strides. Returns the cudaError_t of the launch (0 on success).
+// set of strides; chunk is a multiple of 64 with S = ceil(N / chunk).
+// Returns the first non-zero cudaError_t (0 on success).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTileN = 32;
-constexpr int kStatThread0 = 128;  // first thread of the q column statistics
+constexpr int kTileN = 64;          // tokens per tile
+constexpr int kPitch = kTileN + 4;  // f32 row pitch: 16-byte rows, an odd number of 16-byte units
 
 struct Strides {
   long long b, n, h, d;
 };
 
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store_f32(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store_f32(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
-// Element i of a kTileN x D tile as (row r, column c), with neighbouring i on
-// the unit-stride axis of the tensor.
-template <int D>
-__device__ __forceinline__ void tile_coord(int i, bool n_fastest, int& r, int& c) {
-  if (n_fastest) {
-    r = i % kTileN;
-    c = i / kTileN;
-  } else {
-    r = i / D;
-    c = i % D;
+__device__ __forceinline__ float shfl_xor(float x, int mask) {
+  return __shfl_xor_sync(0xffffffffu, x, mask);
+}
+
+// Load the D x kTileN tile of tokens n0 .. n0 + kTileN - 1 of src into shared
+// memory as f32 (row d at s + d * kPitch). Tokens at or past n_end get
+// `fill`; the others go through f(d, x). `vec`: the tokens are the
+// unit-stride axis and every 16-byte group of them is aligned and whole.
+template <typename T, int D, typename F>
+__device__ __forceinline__ void load_tile(float* __restrict__ s, const T* __restrict__ src,
+                                          long long base, const Strides& st, int n0, int n_end,
+                                          bool vec, float fill, F f) {
+  constexpr int V = 16 / sizeof(T);
+  if (vec) {
+    constexpr int kPerRow = kTileN / V;
+    for (int i = threadIdx.x; i < D * kPerRow; i += kThreads) {
+      const int d = i / kPerRow;
+      const int r = (i % kPerRow) * V;
+      const int n = n0 + r;
+      float x[V];
+      if (n < n_end) {
+        const uint4 u = *reinterpret_cast<const uint4*>(src + base + n + d * st.d);
+        const T* e = reinterpret_cast<const T*>(&u);
+#pragma unroll
+        for (int j = 0; j < V; ++j) x[j] = f(d, to_f32(e[j]));
+      } else {
+#pragma unroll
+        for (int j = 0; j < V; ++j) x[j] = fill;
+      }
+      float4* dst = reinterpret_cast<float4*>(s + d * kPitch + r);
+#pragma unroll
+      for (int j = 0; j < V / 4; ++j)
+        dst[j] = make_float4(x[4 * j], x[4 * j + 1], x[4 * j + 2], x[4 * j + 3]);
+    }
+  } else {  // one element per load, neighbouring threads on the unit-stride axis
+    const bool n_fastest = st.n == 1;
+    for (int i = threadIdx.x; i < D * kTileN; i += kThreads) {
+      const int r = n_fastest ? i % kTileN : i / D;
+      const int d = n_fastest ? i / kTileN : i % D;
+      const int n = n0 + r;
+      s[d * kPitch + r] = n < n_end ? f(d, to_f32(src[base + n * st.n + d * st.d])) : fill;
+    }
   }
 }
 
+// Store the D x kTileN f32 tile s (row pitch kPitch) to tokens n0 .. of dst.
+template <typename T, int D>
+__device__ __forceinline__ void store_tile(T* __restrict__ dst, const float* __restrict__ s,
+                                           long long base, const Strides& st, int n0, int N,
+                                           bool vec) {
+  constexpr int V = 16 / sizeof(T);
+  if (vec) {
+    constexpr int kPerRow = kTileN / V;
+    for (int i = threadIdx.x; i < D * kPerRow; i += kThreads) {
+      const int d = i / kPerRow;
+      const int r = (i % kPerRow) * V;
+      const int n = n0 + r;
+      if (n >= N) continue;
+      uint4 u;
+      T* e = reinterpret_cast<T*>(&u);
+#pragma unroll
+      for (int j = 0; j < V; ++j) store_f32(e + j, s[d * kPitch + r + j]);
+      *reinterpret_cast<uint4*>(dst + base + n + d * st.d) = u;
+    }
+  } else {
+    const bool n_fastest = st.n == 1;
+    for (int i = threadIdx.x; i < D * kTileN; i += kThreads) {
+      const int r = n_fastest ? i % kTileN : i / D;
+      const int d = n_fastest ? i / kTileN : i % D;
+      const int n = n0 + r;
+      if (n < N) store_f32(dst + base + n * st.n + d * st.d, s[d * kPitch + r]);
+    }
+  }
+}
+
+// Context phase and merge; block (bh, s) owns tokens [s * chunk, (s + 1) * chunk).
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
-la_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-              T* __restrict__ y, int H, int N, Strides si, Strides so) {
-  static_assert(D % 16 == 0 && D <= 64, "head_dim must be 32 or 64");
-  static_assert(kStatThread0 + D <= kThreads && kTileN <= kStatThread0, "thread roles overlap");
-  constexpr int P = D + 1;            // padded row pitch: a column walk hits distinct banks
+la_context_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                  float* __restrict__ ws, int* __restrict__ counters, int H, int N, int S,
+                  int chunk, Strides si, bool vec) {
+  static_assert(D == 32 || D == 64, "head_dim must be 32 or 64");
   constexpr int R = D / 16;           // ctx rows and columns per thread
-  constexpr int RN = kTileN / 16;     // output rows per thread in pass 2
-  __shared__ float ks[kTileN * P];    // k' tile; the y tile in pass 2
-  __shared__ float vs[kTileN * P];
-  __shared__ float qs[kTileN * P];    // q tile; exp(q - max) in pass 2
-  __shared__ float ctx[D * P];
-  __shared__ float col_m[D];
-  __shared__ float col_s[D];
+  constexpr int kTpc = kThreads / D;  // threads per column of q
+  constexpr int kWs = D * D + 2 * D;  // floats per partial: ctx, column max, column sum
+  extern __shared__ float4 smem[];    // three D x kPitch f32 tiles
+  float* ks = reinterpret_cast<float*>(smem);
+  float* vs = ks + D * kPitch;
+  float* qs = vs + D * kPitch;
+  __shared__ float inv_sum[D];
+  __shared__ bool last;
 
-  const int b = blockIdx.x / H;
-  const int h = blockIdx.x % H;
-  const long long in0 = b * si.b + h * si.h;
-  const long long out0 = b * so.b + h * so.h;
-  const bool in_n_fastest = si.n == 1;
-  const bool out_n_fastest = so.n == 1;
+  const int bh = blockIdx.x;
+  const int s = blockIdx.y;
+  const long long in0 = (bh / H) * si.b + (bh % H) * si.h;
   const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  const int n_begin = s * chunk;
+  const int n_end = min(N, n_begin + chunk);
+
+  // softmax of k: token sr of the tile; quarter sp of the head dim, chosen
+  // so that the 32 lanes of a warp hit 32 distinct banks
+  const int sr = warp * 8 + lane % 8;
+  const int sp = lane / 8;
+  // statistics of q: column qc, rows qp, qp + kTpc, ...
+  const int qc = warp * (32 / kTpc) + lane / kTpc;
+  const int qp = lane % kTpc;
+  // product: ctx rows ty + 16 i, columns tx + 16 j
   const int tx = tid % 16;
   const int ty = tid / 16;
 
-  if (tid < D) {
-    col_m[tid] = -INFINITY;
-    col_s[tid] = 0.f;
-  }
+  float m_run = -INFINITY, s_run = 0.f;
   float acc[R][R];
 #pragma unroll
   for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int j = 0; j < R; ++j) acc[i][j] = 0.f;
 
-  // ---- pass 1: ctx = softmax_D(k)^T v, column max and sum of q ----
-  for (int n0 = 0; n0 < N; n0 += kTileN) {
-    for (int i = tid; i < kTileN * D; i += kThreads) {
-      int r, c;
-      tile_coord<D>(i, in_n_fastest, r, c);
-      const int n = n0 + r;
-      float kv = 0.f, vv = 0.f, qv = -INFINITY;  // rows past N: no weight, no mass
-      if (n < N) {
-        const long long off = in0 + n * si.n + c * si.d;
-        kv = load_f32(k + off);
-        vv = load_f32(v + off);
-        qv = load_f32(q + off);
-      }
-      ks[r * P + c] = kv;
-      vs[r * P + c] = vv;
-      qs[r * P + c] = qv;
-    }
+  const auto identity = [](int, float x) { return x; };
+  for (int n0 = n_begin; n0 < n_end; n0 += kTileN) {
+    // tokens past the chunk: k' and v are 0 (no weight), q is -inf (no mass)
+    load_tile<T, D>(ks, k, in0, si, n0, n_end, vec, 0.f, identity);
+    load_tile<T, D>(vs, v, in0, si, n0, n_end, vec, 0.f, identity);
+    load_tile<T, D>(qs, q, in0, si, n0, n_end, vec, -INFINITY, identity);
     __syncthreads();
-    if (tid < kTileN) {
-      if (n0 + tid < N) {  // a row past N keeps k' = 0
-        float* row = ks + tid * P;
-        float m = -INFINITY;
-        for (int c = 0; c < D; ++c) m = fmaxf(m, row[c]);
-        float s = 0.f;
-        for (int c = 0; c < D; ++c) {
-          const float e = expf(row[c] - m);
-          row[c] = e;
-          s += e;
-        }
-        const float inv = 1.f / s;
-        for (int c = 0; c < D; ++c) row[c] *= inv;
+    {
+      constexpr int J = D / 4;
+      float x[J];
+      float m = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        x[j] = ks[(2 * sp + (j & 1) + 8 * (j >> 1)) * kPitch + sr];
+        m = fmaxf(m, x[j]);
       }
-    } else if (tid >= kStatThread0 && tid < kStatThread0 + D) {
-      // row 0 of every tile is a real token, so the tile max is finite
-      const int c = tid - kStatThread0;
-      float tm = -INFINITY;
-      for (int r = 0; r < kTileN; ++r) tm = fmaxf(tm, qs[r * P + c]);
-      const float m_old = col_m[c];
-      const float m_new = fmaxf(m_old, tm);
-      float s = col_s[c] * expf(m_old - m_new);
-      for (int r = 0; r < kTileN; ++r) s += expf(qs[r * P + c] - m_new);
-      col_m[c] = m_new;
-      col_s[c] = s;
+      m = fmaxf(m, shfl_xor(m, 8));
+      m = fmaxf(m, shfl_xor(m, 16));
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        x[j] = expf(x[j] - m);
+        sum += x[j];
+      }
+      sum += shfl_xor(sum, 8);
+      sum += shfl_xor(sum, 16);
+      const float inv = 1.f / sum;
+#pragma unroll
+      for (int j = 0; j < J; ++j) ks[(2 * sp + (j & 1) + 8 * (j >> 1)) * kPitch + sr] = x[j] * inv;
+    }
+    {
+      // the tile's first token is a real one, so the tile max is finite
+      constexpr int J = kTileN / kTpc;
+      const float* col = qs + qc * kPitch + qp;
+      float m = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < J; ++j) m = fmaxf(m, col[kTpc * j]);
+#pragma unroll
+      for (int o = 1; o < kTpc; o <<= 1) m = fmaxf(m, shfl_xor(m, o));
+      const float m_new = fmaxf(m_run, m);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < J; ++j) sum += expf(col[kTpc * j] - m_new);
+#pragma unroll
+      for (int o = 1; o < kTpc; o <<= 1) sum += shfl_xor(sum, o);
+      s_run = s_run * expf(m_run - m_new) + sum;
+      m_run = m_new;
     }
     __syncthreads();
 #pragma unroll 4
-    for (int r = 0; r < kTileN; ++r) {
-      float kr[R], vr[R];
+    for (int r = 0; r < kTileN; r += 4) {
+      float4 kr[R], vr[R];
 #pragma unroll
-      for (int i = 0; i < R; ++i) kr[i] = ks[r * P + ty + 16 * i];
+      for (int i = 0; i < R; ++i) kr[i] = *reinterpret_cast<const float4*>(ks + (ty + 16 * i) * kPitch + r);
 #pragma unroll
-      for (int j = 0; j < R; ++j) vr[j] = vs[r * P + tx + 16 * j];
+      for (int j = 0; j < R; ++j) vr[j] = *reinterpret_cast<const float4*>(vs + (tx + 16 * j) * kPitch + r);
 #pragma unroll
       for (int i = 0; i < R; ++i)
 #pragma unroll
-        for (int j = 0; j < R; ++j) acc[i][j] = fmaf(kr[i], vr[j], acc[i][j]);
+        for (int j = 0; j < R; ++j) {
+          acc[i][j] = fmaf(kr[i].x, vr[j].x, acc[i][j]);
+          acc[i][j] = fmaf(kr[i].y, vr[j].y, acc[i][j]);
+          acc[i][j] = fmaf(kr[i].z, vr[j].z, acc[i][j]);
+          acc[i][j] = fmaf(kr[i].w, vr[j].w, acc[i][j]);
+        }
     }
     __syncthreads();
   }
 
-  // ctx row d scaled by 1 / (sum_N exp(q[:, d] - max) + 1e-9)
+  float* part = ws + (static_cast<long long>(bh) * S + s) * kWs;
 #pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int d = ty + 16 * i;
-    const float inv = 1.f / (col_s[d] + 1e-9f);
+  for (int i = 0; i < R; ++i)
 #pragma unroll
-    for (int j = 0; j < R; ++j) ctx[d * P + tx + 16 * j] = acc[i][j] * inv;
+    for (int j = 0; j < R; ++j) part[(ty + 16 * i) * D + tx + 16 * j] = acc[i][j];
+  if (qp == 0) {
+    part[D * D + qc] = m_run;
+    part[D * D + D + qc] = s_run;
+  }
+  __threadfence();  // this block's partial is visible before its arrival is counted
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(counters + bh, 1) == S - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+
+  // the last block of this (batch, head) merges the partials, s = 0 .. S-1;
+  // __ldcg reads them from L2, past this SM's L1
+  float* fin = ws + static_cast<long long>(bh) * S * kWs;  // partial 0 takes the result
+  if (tid < D) {
+    float m = -INFINITY;
+    for (int t = 0; t < S; ++t) m = fmaxf(m, __ldcg(fin + t * kWs + D * D + tid));
+    float sum = 0.f;
+    for (int t = 0; t < S; ++t)
+      sum += __ldcg(fin + t * kWs + D * D + D + tid) * expf(__ldcg(fin + t * kWs + D * D + tid) - m);
+    inv_sum[tid] = 1.f / (sum + 1e-9f);
+    fin[D * D + tid] = m;
   }
   __syncthreads();
-
-  // ---- pass 2: y = exp(q - max) ctx ----
-  for (int n0 = 0; n0 < N; n0 += kTileN) {
-    for (int i = tid; i < kTileN * D; i += kThreads) {
-      int r, c;
-      tile_coord<D>(i, in_n_fastest, r, c);
-      const int n = n0 + r;
-      qs[r * P + c] = n < N ? expf(load_f32(q + in0 + n * si.n + c * si.d) - col_m[c]) : 0.f;
-    }
-    __syncthreads();
-    float out[RN][R];
-#pragma unroll
-    for (int i = 0; i < RN; ++i)
-#pragma unroll
-      for (int j = 0; j < R; ++j) out[i][j] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < D; ++c) {
-      float cr[R];
-#pragma unroll
-      for (int j = 0; j < R; ++j) cr[j] = ctx[c * P + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < RN; ++i) {
-        const float p = qs[(ty + 16 * i) * P + c];
-#pragma unroll
-        for (int j = 0; j < R; ++j) out[i][j] = fmaf(p, cr[j], out[i][j]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < RN; ++i)
-#pragma unroll
-      for (int j = 0; j < R; ++j) ks[(ty + 16 * i) * P + tx + 16 * j] = out[i][j];
-    __syncthreads();
-    for (int i = tid; i < kTileN * D; i += kThreads) {
-      int r, c;
-      tile_coord<D>(i, out_n_fastest, r, c);
-      const int n = n0 + r;
-      if (n < N) store_f32(y + out0 + n * so.n + c * so.d, ks[r * P + c]);
-    }
-    __syncthreads();
+  for (int i = tid; i < D * D; i += kThreads) {
+    float c = 0.f;
+    for (int t = 0; t < S; ++t) c += __ldcg(fin + t * kWs + i);
+    fin[i] = c * inv_sum[i / D];
   }
+  if (tid == 0) counters[bh] = 0;
+}
+
+// Output phase; block (bh, t) writes tokens [64 t, 64 t + 64).
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+la_output_kernel(const T* __restrict__ q, const float* __restrict__ ws, T* __restrict__ y,
+                 int H, int N, int S, Strides si, Strides so, bool vec_in, bool vec_out) {
+  constexpr int R = D / 16;
+  constexpr int kWs = D * D + 2 * D;
+  __shared__ __align__(16) float ctx[D * D];
+  __shared__ __align__(16) float qs[D * kPitch];  // exp(q - max), then the y tile
+  __shared__ float col_m[D];
+
+  const int bh = blockIdx.x;
+  const int n0 = blockIdx.y * kTileN;
+  const int tid = threadIdx.x;
+  const float* fin = ws + static_cast<long long>(bh) * S * kWs;
+  for (int i = tid; i < D * D / 4; i += kThreads)
+    reinterpret_cast<float4*>(ctx)[i] = reinterpret_cast<const float4*>(fin)[i];
+  if (tid < D) col_m[tid] = fin[D * D + tid];
+  __syncthreads();
+  const long long in0 = (bh / H) * si.b + (bh % H) * si.h;
+  load_tile<T, D>(qs, q, in0, si, n0, N, vec_in, 0.f,
+                  [&](int d, float x) { return expf(x - col_m[d]); });
+  __syncthreads();
+
+  // tokens 4a .. 4a + 3, columns c + 16 j
+  const int a = tid / 16;
+  const int c = tid % 16;
+  float out[4][R];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < R; ++j) out[i][j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < D; ++d) {
+    const float4 p = *reinterpret_cast<const float4*>(qs + d * kPitch + 4 * a);
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const float w = ctx[d * D + c + 16 * j];
+      out[0][j] = fmaf(p.x, w, out[0][j]);
+      out[1][j] = fmaf(p.y, w, out[1][j]);
+      out[2][j] = fmaf(p.z, w, out[2][j]);
+      out[3][j] = fmaf(p.w, w, out[3][j]);
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < R; ++j)
+    *reinterpret_cast<float4*>(qs + (c + 16 * j) * kPitch + 4 * a) =
+        make_float4(out[0][j], out[1][j], out[2][j], out[3][j]);
+  __syncthreads();
+  const long long out0 = (bh / H) * so.b + (bh % H) * so.h;
+  store_tile<T, D>(y, qs, out0, so, n0, N, vec_out);
+}
+
+struct Args {
+  const void *q, *k, *v;
+  void* y;
+  float* ws;
+  int* counters;
+  int B, N, H, S, chunk;
+  Strides si, so;
+  cudaStream_t stream;
+};
+
+// Tokens are the unit-stride axis and every 16-byte group of them is aligned and whole.
+bool vectorizable(const Strides& st, int N, int V, const void* const* ptrs, int n_ptrs) {
+  if (st.n != 1 || N % V || st.d % V || st.h % V || st.b % V) return false;
+  for (int i = 0; i < n_ptrs; ++i)
+    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16) return false;
+  return true;
+}
+
+template <typename T, int D>
+cudaError_t launch(const Args& a) {
+  constexpr int V = 16 / sizeof(T);
+  constexpr int kSmem = 3 * D * kPitch * sizeof(float);
+  const void* in_ptrs[3] = {a.q, a.k, a.v};
+  const void* out_ptrs[1] = {a.y};
+  const bool vec_in = vectorizable(a.si, a.N, V, in_ptrs, 3);
+  const bool vec_out = vectorizable(a.so, a.N, V, out_ptrs, 1);
+  const T* q = static_cast<const T*>(a.q);
+  const int tiles = (a.N + kTileN - 1) / kTileN;
+  if (a.chunk <= 0 || a.chunk % kTileN || a.S != (a.N + a.chunk - 1) / a.chunk || a.S > 65535 ||
+      tiles > 65535)
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(la_context_kernel<T, D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return err;
+  la_context_kernel<T, D><<<dim3(a.B * a.H, a.S), kThreads, kSmem, a.stream>>>(
+      q, static_cast<const T*>(a.k), static_cast<const T*>(a.v), a.ws, a.counters, a.H, a.N,
+      a.S, a.chunk, a.si, vec_in);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  la_output_kernel<T, D><<<dim3(a.B * a.H, tiles), kThreads, 0, a.stream>>>(
+      q, a.ws, static_cast<T*>(a.y), a.H, a.N, a.S, a.si, a.so, vec_in, vec_out);
+  return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch(int head_dim, const void* q, const void* k, const void* v, void* y, int B,
-                   int N, int H, Strides si, Strides so, cudaStream_t stream) {
-  const dim3 grid(B * H), block(kThreads);
-  const T* qp = static_cast<const T*>(q);
-  const T* kp = static_cast<const T*>(k);
-  const T* vp = static_cast<const T*>(v);
-  T* yp = static_cast<T*>(y);
-  if (head_dim == 64) {
-    la_fwd_kernel<T, 64><<<grid, block, 0, stream>>>(qp, kp, vp, yp, H, N, si, so);
-  } else if (head_dim == 32) {
-    la_fwd_kernel<T, 32><<<grid, block, 0, stream>>>(qp, kp, vp, yp, H, N, si, so);
-  } else {
-    return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+cudaError_t launch_dim(int head_dim, const Args& a) {
+  if (head_dim == 64) return launch<T, 64>(a);
+  if (head_dim == 32) return launch<T, 32>(a);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" int edgeyolo_la_forward(int dtype, int head_dim, const void* q, const void* k,
-                                   const void* v, void* y, int B, int N, int H, long long in_b,
-                                   long long in_n, long long in_h, long long in_d, long long out_b,
+                                   const void* v, void* y, void* workspace, void* counters, int B,
+                                   int N, int H, int S, int chunk, long long in_b, long long in_n,
+                                   long long in_h, long long in_d, long long out_b,
                                    long long out_n, long long out_h, long long out_d,
                                    void* stream) {
   if (B <= 0 || N <= 0 || H <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const Strides si{in_b, in_n, in_h, in_d};
-  const Strides so{out_b, out_n, out_h, out_d};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Args a{q, k, v, y, static_cast<float*>(workspace), static_cast<int*>(counters),
+               B, N, H, S, chunk, Strides{in_b, in_n, in_h, in_d},
+               Strides{out_b, out_n, out_h, out_d}, static_cast<cudaStream_t>(stream)};
   cudaError_t err;
   if (dtype == 0) {
-    err = launch<float>(head_dim, q, k, v, y, B, N, H, si, so, st);
+    err = launch_dim<float>(head_dim, a);
   } else if (dtype == 1) {
-    err = launch<__nv_bfloat16>(head_dim, q, k, v, y, B, N, H, si, so, st);
+    err = launch_dim<__nv_bfloat16>(head_dim, a);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -20,7 +20,7 @@ class DetectionPredictor:
     """`predictor(images)` -> (det (B, max_det, 6) [x1, y1, x2, y2, conf, cls], n (B,))."""
 
     def __init__(self, model, conf: float = 0.25, iou: float = 0.7, max_det: int = 300,
-                 max_nms: int = 1024, device=None):
+                 max_nms: int = 8192, device=None):
         self.device = select_device(device)
         self.model = model.to(self.device).eval()
         self.conf, self.iou, self.max_det, self.max_nms = conf, iou, max_det, max_nms

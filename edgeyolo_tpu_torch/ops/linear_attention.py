@@ -10,6 +10,10 @@ with any strides: the module hands in views of the qkv convolution's NCHW
 output and gets y back in the same channel-first layout, so no transpose is
 copied on the way in or out.
 
+The kernel splits N into S chunks across thread blocks (`split_plan`) and
+merges their partial contexts in a fixed order through an f32 workspace that
+the wrapper allocates, so its output is the same bits from run to run.
+
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises. The backward recomputes through the plain version with autograd, as
 `_la_bwd` does with `jax.vjp(_la_reference)`.
@@ -26,6 +30,9 @@ from edgeyolo_tpu_torch.ops import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64)
+TILE_N = 64  # tokens per tile of the kernel; chunks are whole tiles
+BLOCKS_PER_SM = 4  # the context phase's grid aims at this many blocks per SM
+H100_SMS = 132
 
 
 def linear_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -39,14 +46,49 @@ def linear_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     return torch.einsum("bnhd,bhde->bnhe", q, ctx).to(dtype)
 
 
+def split_plan(b: int, n: int, h: int, d: int, sms: int = H100_SMS) -> tuple[int, int, int]:
+    """(S, chunk, workspace bytes) of the kernel's context phase.
+
+    N is cut into S chunks of `chunk` tokens (whole tiles, the last one
+    ragged), with S the least that gives about BLOCKS_PER_SM blocks of the
+    (B*H) x S grid per SM, and at most one chunk per tile. Each block writes
+    a D x D partial context and two D-vectors of column statistics, in f32.
+    """
+    tiles = -(-n // TILE_N)
+    s = max(1, min(tiles, -(-BLOCKS_PER_SM * sms // (b * h))))
+    chunk_tiles = -(-tiles // s)
+    s = -(-tiles // chunk_tiles)  # no empty chunk
+    return s, chunk_tiles * TILE_N, b * h * s * (d * d + 2 * d) * 4
+
+
+def _declare(fn):
+    """Set the C signature of edgeyolo_la_forward on a ctypes function."""
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6
+                   + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 8 + [ctypes.c_void_p])
+    return fn
+
+
 @functools.cache
 def _forward_fn():
     """The bound C entry point, built, loaded and declared once per process."""
-    fn = _build.load("linear_attention").edgeyolo_la_forward
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4
-                   + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 8 + [ctypes.c_void_p])
-    return fn
+    return _declare(_build.load("linear_attention").edgeyolo_la_forward)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _launch(fn, q, k, v, y, sms: int, stream: int) -> int:
+    """Allocate the workspace and counters and call fn, the C entry point."""
+    b, n, h, d = q.shape
+    s, chunk, ws_bytes = split_plan(b, n, h, d, sms)
+    ws = torch.empty(ws_bytes // 4, dtype=torch.float32, device=q.device)
+    counters = torch.zeros(b * h, dtype=torch.int32, device=q.device)
+    return fn(_DTYPE_CODE[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(), y.data_ptr(),
+              ws.data_ptr(), counters.data_ptr(), b, n, h, s, chunk, *q.stride(), *y.stride(),
+              stream)
 
 
 def linear_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -74,9 +116,8 @@ def linear_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -
     else:
         y = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
-        err = _forward_fn()(
-            _DTYPE_CODE[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(), y.data_ptr(),
-            b, n, h, *q.stride(), *y.stride(), torch.cuda.current_stream(q.device).cuda_stream)
+        err = _launch(_forward_fn(), q, k, v, y, _sm_count(q.device.index),
+                      torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"linear attention kernel launch failed: cudaError {err}")
     linear_attention_kernel.launches += 1

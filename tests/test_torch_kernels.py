@@ -38,6 +38,25 @@ def test_kernel_wrapper_refuses_cpu_tensors():
         la.linear_attention_kernel(q, k, v)
 
 
+@pytest.mark.parametrize("shape,splits,chunk", [
+    ((32, 400, 2, 64), 7, 64),       # the serving shape: 448 blocks, one tile each
+    ((128, 400, 2, 64), 3, 192),
+    ((128, 1600, 2, 64), 3, 576),
+    ((16, 6400, 4, 64), 9, 768),
+    ((4, 999, 3, 32), 16, 64),
+    ((1, 33, 1, 64), 1, 64),
+], ids=str)
+def test_split_plan_fills_the_card_with_whole_tiles(shape, splits, chunk):
+    b, n, h, d = shape
+    s, c, ws = la.split_plan(b, n, h, d)
+    assert (s, c) == (splits, chunk)
+    assert c % la.TILE_N == 0 and (s - 1) * c < n <= s * c  # no empty chunk
+    assert s <= -(-n // la.TILE_N)
+    assert ws == b * h * s * (d * d + 2 * d) * 4
+    if s < -(-n // la.TILE_N):  # chunks of more than one tile only when the grid is full
+        assert b * h * s >= la.BLOCKS_PER_SM * la.H100_SMS
+
+
 def test_build_targets_hopper_and_keys_on_the_source():
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     for name in _build.SOURCES:
@@ -53,8 +72,12 @@ def cuda_card():
     return torch.device("cuda")
 
 
-# (B, N, H, D, layout): "qkv" = the module's strided views of the conv output
-CARD_CASES = [(4, 400, 2, 64, "qkv"), (2, 999, 3, 32, "bnhd"), (1, 33, 1, 64, "bnhd")]
+# (B, N, H, D, layout): "qkv" = the module's strided views of the conv output.
+# N = 1000 and 6400 span several chunks with a ragged last one (16-byte
+# loads); N = 250 in the qkv layout and every bnhd case take one element
+# per load.
+CARD_CASES = [(4, 400, 2, 64, "qkv"), (2, 999, 3, 32, "bnhd"), (1, 33, 1, 64, "bnhd"),
+              (2, 1000, 2, 64, "qkv"), (1, 6400, 4, 64, "qkv"), (3, 250, 2, 32, "qkv")]
 
 
 def _card_qkv(b, n, h, d, layout, dtype, device):
@@ -79,6 +102,17 @@ def test_kernel_matches_plain_on_card(cuda_card, case, dtype, rtol):
     assert y.shape == q.shape and y.dtype == dtype
     ref = la.linear_attention_reference(q, k, v).float()
     assert (y.float() - ref).abs().max().item() <= rtol * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_kernel_is_bit_identical_across_launches_on_card(cuda_card, dtype):
+    """The partial contexts are merged in a fixed order, with no float atomics."""
+    q, k, v = _card_qkv(2, 1000, 2, 64, "qkv", dtype, cuda_card)
+    assert la.split_plan(2, 1000, 2, 64)[0] > 1
+    ys = [la.linear_attention_kernel(q, k, v) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(ys[0], y) for y in ys[1:])
 
 
 @pytest.mark.cuda

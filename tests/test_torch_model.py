@@ -107,11 +107,11 @@ def test_state_dict_bridges_to_jax_tree(flagship):
     assert rep["matched"] == len(jax.tree.leaves(variables))
 
 
-def _jax_serve_nms(pred):
-    det, n = jax_nms(jnp.asarray(pred), conf_thres=0.25, iou_thres=0.7, max_det=300,
-                     max_nms=1024, multi_label=False)
+def _jax_serve_nms(pred, max_det=300, max_nms=1024, imgsz=IMGSZ):
+    det, n = jax_nms(jnp.asarray(pred), conf_thres=0.25, iou_thres=0.7, max_det=max_det,
+                     max_nms=max_nms, multi_label=False)
     det = np.asarray(det).copy()
-    det[..., 0:4] = np.clip(det[..., 0:4], 0, IMGSZ)  # the JAX postprocess clip
+    det[..., 0:4] = np.clip(det[..., 0:4], 0, imgsz)  # the JAX postprocess clip
     return det, np.asarray(n)
 
 
@@ -128,6 +128,27 @@ def test_predictor_matches_jax_nms(flagship):
     jdet, jn = _jax_serve_nms(pred)
     np.testing.assert_array_equal(n.numpy(), jn)
     assert int(n.min()) > 0
+    np.testing.assert_allclose(det.numpy(), jdet, atol=1e-5)
+
+
+def test_predictor_default_max_nms_keeps_what_jax_keeps(flagship):
+    """At 320 px all 2100 anchors pass the gate. With max_det above the
+    survivor count, the served (det, n) at the predictor's default max_nms
+    equal the JAX NMS at its predictor default (max_nms=8192); a cap of 1024
+    would drop survivors that JAX keeps."""
+    _, _, pm, _, _ = flagship
+    imgsz, anchors = 320, 2100
+    imgs = np.random.RandomState(3).randint(0, 256, (1, imgsz, imgsz, 3)).astype(np.uint8)
+    det, n = DetectionPredictor(pm, max_det=anchors, device="cpu")(imgs)
+    with torch.no_grad():
+        x = torch.from_numpy(imgs).permute(0, 3, 1, 2).contiguous().float() / 255
+        pred = pm(x)["pred"].numpy()
+    assert pred.shape[1] == anchors and int((pred[..., 4:].max(-1) > 0.25).sum()) > 1024
+    jdet, jn = _jax_serve_nms(pred, max_det=anchors, max_nms=8192, imgsz=imgsz)
+    _, n_capped = non_max_suppression(torch.from_numpy(pred), conf_thres=0.25, iou_thres=0.7,
+                                      max_det=anchors, max_nms=1024)
+    assert not np.array_equal(n_capped.numpy(), jn)  # a cap of 1024 keeps fewer
+    np.testing.assert_array_equal(n.numpy(), jn)
     np.testing.assert_allclose(det.numpy(), jdet, atol=1e-5)
 
 
