@@ -99,6 +99,22 @@ def la_bound(b, n, h, d, dtype):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def device_ms_by_kernel(fn, calls: int = 20) -> dict[str, float]:
+    """Device time per call of fn, by kernel name, from torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / calls / 1e3 for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+
+
 def check_kernels(la):
     import torch
 
@@ -130,6 +146,10 @@ def check_kernels(la):
         if not same:
             raise AssertionError(f"linear attention kernel is not deterministic at "
                                  f"({b},{n},{h},{d}) {dt}")
+        if len(rows) == LA_MAIN_CASE:
+            by_kernel = device_ms_by_kernel(lambda: la.linear_attention_kernel(q, k, v))
+            print(f"  device ms per call by kernel: {sum(by_kernel.values()):.4f} in all; "
+                  + "; ".join(f"{key[:70]} {t:.4f}" for key, t in by_kernel.items()), flush=True)
         rows.append({"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by})
     return rows[LA_MAIN_CASE]

@@ -294,10 +294,29 @@ la_context_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
     fin[D * D + tid] = m;
   }
   __syncthreads();
-  for (int i = tid; i < D * D; i += kThreads) {
-    float c = 0.f;
-    for (int t = 0; t < S; ++t) c += __ldcg(fin + t * kWs + i);
-    fin[i] = c * inv_sum[i / D];
+  // float4 columns tid, tid + kThreads, ...: kVec independent loads in flight per partial
+  constexpr int kVec = D * D / 4 / kThreads;
+  float4 c[kVec];
+#pragma unroll
+  for (int u = 0; u < kVec; ++u) c[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 2
+  for (int t = 0; t < S; ++t) {
+    const float4* src = reinterpret_cast<const float4*>(fin + t * kWs);
+#pragma unroll
+    for (int u = 0; u < kVec; ++u) {
+      const float4 x = __ldcg(src + tid + u * kThreads);
+      c[u].x += x.x;
+      c[u].y += x.y;
+      c[u].z += x.z;
+      c[u].w += x.w;
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < kVec; ++u) {
+    const int i = 4 * (tid + u * kThreads);
+    const float inv = inv_sum[i / D];  // the 4 columns share row i / D
+    reinterpret_cast<float4*>(fin)[tid + u * kThreads] =
+        make_float4(c[u].x * inv, c[u].y * inv, c[u].z * inv, c[u].w * inv);
   }
   if (tid == 0) counters[bh] = 0;
 }
