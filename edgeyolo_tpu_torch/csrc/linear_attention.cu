@@ -152,6 +152,190 @@ __device__ __forceinline__ void store_tile(T* __restrict__ dst, const float* __r
   }
 }
 
+// The products. Each thread holds D * D / kThreads = D * kTileN / kThreads / 4
+// accumulators in both: f32 FMAs on the CUDA cores for f32 inputs (their
+// tolerance, 1e-5 of the output scale, takes no bf16 rounding), and
+// mma.sync m16n8k16 on the tensor cores for bf16 inputs, with bf16 operands
+// rounded once from the f32 tiles while the fragments are built and f32
+// accumulation. Fragment layouts are those of the PTX ISA for
+// mma.m16n8k16 .row.col: lane = 4 g + t; A (16 x 16) registers hold rows
+// g, g + 8 and columns 2t, 2t + 1 (+ 8); B (16 x 8) rows 2t, 2t + 1 (+ 8) of
+// column g; C rows g, g + 8 and columns 2t, 2t + 1.
+template <typename T>
+constexpr bool kTensorCores = false;
+template <>
+constexpr bool kTensorCores<__nv_bfloat16> = true;
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // lo in the low 16 bits
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(const float* p) {  // p[0], p[1]; 8-byte aligned
+  const float2 x = *reinterpret_cast<const float2*>(p);
+  return pack_bf16(x.x, x.y);
+}
+
+// d += a b, bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// ctx[d][e] += sum over the tile's tokens r of ks[d][r] vs[e][r]. FMA path:
+// thread (ty, tx) owns rows ty + 16 i and columns tx + 16 j.
+template <int D>
+__device__ __forceinline__ void ctx_fma(const float* ks, const float* vs, float* acc) {
+  constexpr int R = D / 16;
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+#pragma unroll 4
+  for (int r = 0; r < kTileN; r += 4) {
+    float4 kr[R], vr[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) kr[i] = *reinterpret_cast<const float4*>(ks + (ty + 16 * i) * kPitch + r);
+#pragma unroll
+    for (int j = 0; j < R; ++j) vr[j] = *reinterpret_cast<const float4*>(vs + (tx + 16 * j) * kPitch + r);
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        float& a = acc[i * R + j];
+        a = fmaf(kr[i].x, vr[j].x, a);
+        a = fmaf(kr[i].y, vr[j].y, a);
+        a = fmaf(kr[i].z, vr[j].z, a);
+        a = fmaf(kr[i].w, vr[j].w, a);
+      }
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void store_ctx_fma(float* part, const float* acc) {
+  constexpr int R = D / 16;
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < R; ++j) part[(ty + 16 * i) * D + tx + 16 * j] = acc[i * R + j];
+}
+
+// Tensor-core path: M = d, N = e, K = tokens. A = k' (row-major: a row of
+// ks is one d over the tokens), B = v (column e of B is the row e of vs).
+// Warp w owns the m-tile w / (8 / kMw) and kN n-tiles.
+template <int D>
+struct CtxTiles {
+  static constexpr int kN = D * D / 128 / 8;  // n-tiles of 8 per warp: 4 (D = 64), 1 (D = 32)
+  static constexpr int kWarpsPerM = D / 8 / kN;
+};
+
+template <int D>
+__device__ __forceinline__ void ctx_mma(const float* ks, const float* vs, float* acc) {
+  constexpr int kN = CtxTiles<D>::kN;
+  const int warp = threadIdx.x / 32, g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
+  const int m0 = warp / CtxTiles<D>::kWarpsPerM * 16;
+  const int e0 = warp % CtxTiles<D>::kWarpsPerM * kN * 8;
+#pragma unroll
+  for (int k0 = 0; k0 < kTileN; k0 += 16) {
+    const float* ar = ks + (m0 + g) * kPitch + k0 + 2 * t;
+    const uint32_t a[4] = {pack_bf16(ar), pack_bf16(ar + 8 * kPitch), pack_bf16(ar + 8),
+                           pack_bf16(ar + 8 * kPitch + 8)};
+#pragma unroll
+    for (int j = 0; j < kN; ++j) {
+      const float* br = vs + (e0 + 8 * j + g) * kPitch + k0 + 2 * t;
+      const uint32_t b[2] = {pack_bf16(br), pack_bf16(br + 8)};
+      mma_bf16(acc + 4 * j, a, b);
+    }
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void store_ctx_mma(float* part, const float* acc) {
+  constexpr int kN = CtxTiles<D>::kN;
+  const int warp = threadIdx.x / 32, g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
+  const int m0 = warp / CtxTiles<D>::kWarpsPerM * 16;
+  const int e0 = warp % CtxTiles<D>::kWarpsPerM * kN * 8;
+#pragma unroll
+  for (int j = 0; j < kN; ++j) {
+    float* c = part + (m0 + g) * D + e0 + 8 * j + 2 * t;
+    *reinterpret_cast<float2*>(c) = make_float2(acc[4 * j], acc[4 * j + 1]);
+    *reinterpret_cast<float2*>(c + 8 * D) = make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+}
+
+// y[r][e] = sum over d of qs[d][r] ctx[d][e] for the tile's 64 tokens, both
+// tiles with row pitch kPitch, written to ys[e][r] (which may alias qs:
+// every read is done before the first write). FMA path: thread (a, c) owns
+// tokens 4a .. 4a + 3 and columns c + 16 j.
+template <int D>
+__device__ __forceinline__ void y_fma(const float* qs, const float* ctx, float* ys) {
+  constexpr int R = D / 16;
+  const int a = threadIdx.x / 16;
+  const int c = threadIdx.x % 16;
+  float out[4][R];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < R; ++j) out[i][j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < D; ++d) {
+    const float4 p = *reinterpret_cast<const float4*>(qs + d * kPitch + 4 * a);
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const float w = ctx[d * kPitch + c + 16 * j];
+      out[0][j] = fmaf(p.x, w, out[0][j]);
+      out[1][j] = fmaf(p.y, w, out[1][j]);
+      out[2][j] = fmaf(p.z, w, out[2][j]);
+      out[3][j] = fmaf(p.w, w, out[3][j]);
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < R; ++j)
+    *reinterpret_cast<float4*>(ys + (c + 16 * j) * kPitch + 4 * a) =
+        make_float4(out[0][j], out[1][j], out[2][j], out[3][j]);
+}
+
+// Tensor-core path: M = tokens, N = e, K = d. A = q' (element (r, d) is
+// qs[d][r]), B = ctx. Warp w owns the m-tile w / 2 and D / 16 n-tiles.
+template <int D>
+__device__ __forceinline__ void y_mma(const float* qs, const float* ctx, float* ys) {
+  constexpr int kN = D / 16;
+  const int warp = threadIdx.x / 32, g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
+  const int m0 = warp / 2 * 16;
+  const int e0 = warp % 2 * kN * 8;
+  float acc[kN][4];
+#pragma unroll
+  for (int j = 0; j < kN; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+#pragma unroll
+  for (int k0 = 0; k0 < D; k0 += 16) {
+    const float* ac = qs + (k0 + 2 * t) * kPitch + m0 + g;
+    const uint32_t a[4] = {pack_bf16(ac[0], ac[kPitch]), pack_bf16(ac[8], ac[kPitch + 8]),
+                           pack_bf16(ac[8 * kPitch], ac[9 * kPitch]),
+                           pack_bf16(ac[8 * kPitch + 8], ac[9 * kPitch + 8])};
+#pragma unroll
+    for (int j = 0; j < kN; ++j) {
+      const float* bc = ctx + (k0 + 2 * t) * kPitch + e0 + 8 * j + g;
+      const uint32_t b[2] = {pack_bf16(bc[0], bc[kPitch]), pack_bf16(bc[8 * kPitch], bc[9 * kPitch])};
+      mma_bf16(acc[j], a, b);
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < kN; ++j) {
+    float* c = ys + (e0 + 8 * j + 2 * t) * kPitch + m0 + g;
+    c[0] = acc[j][0];
+    c[kPitch] = acc[j][1];
+    c[8] = acc[j][2];
+    c[kPitch + 8] = acc[j][3];
+  }
+}
+
 // Context phase and merge; block (bh, s) owns tokens [s * chunk, (s + 1) * chunk).
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
@@ -159,8 +343,8 @@ la_context_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
                   float* __restrict__ ws, int* __restrict__ counters, int H, int N, int S,
                   int chunk, Strides si, bool vec) {
   static_assert(D == 32 || D == 64, "head_dim must be 32 or 64");
-  constexpr int R = D / 16;           // ctx rows and columns per thread
-  constexpr int kTpc = kThreads / D;  // threads per column of q
+  constexpr int kAcc = D * D / kThreads;  // ctx accumulators per thread
+  constexpr int kTpc = kThreads / D;      // threads per column of q
   constexpr int kWs = D * D + 2 * D;  // floats per partial: ctx, column max, column sum
   extern __shared__ float4 smem[];    // three D x kPitch f32 tiles
   float* ks = reinterpret_cast<float*>(smem);
@@ -185,16 +369,11 @@ la_context_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
   // statistics of q: column qc, rows qp, qp + kTpc, ...
   const int qc = warp * (32 / kTpc) + lane / kTpc;
   const int qp = lane % kTpc;
-  // product: ctx rows ty + 16 i, columns tx + 16 j
-  const int tx = tid % 16;
-  const int ty = tid / 16;
 
   float m_run = -INFINITY, s_run = 0.f;
-  float acc[R][R];
+  float acc[kAcc];
 #pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int j = 0; j < R; ++j) acc[i][j] = 0.f;
+  for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
 
   const auto identity = [](int, float x) { return x; };
   for (int n0 = n_begin; n0 < n_end; n0 += kTileN) {
@@ -245,31 +424,20 @@ la_context_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
       m_run = m_new;
     }
     __syncthreads();
-#pragma unroll 4
-    for (int r = 0; r < kTileN; r += 4) {
-      float4 kr[R], vr[R];
-#pragma unroll
-      for (int i = 0; i < R; ++i) kr[i] = *reinterpret_cast<const float4*>(ks + (ty + 16 * i) * kPitch + r);
-#pragma unroll
-      for (int j = 0; j < R; ++j) vr[j] = *reinterpret_cast<const float4*>(vs + (tx + 16 * j) * kPitch + r);
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int j = 0; j < R; ++j) {
-          acc[i][j] = fmaf(kr[i].x, vr[j].x, acc[i][j]);
-          acc[i][j] = fmaf(kr[i].y, vr[j].y, acc[i][j]);
-          acc[i][j] = fmaf(kr[i].z, vr[j].z, acc[i][j]);
-          acc[i][j] = fmaf(kr[i].w, vr[j].w, acc[i][j]);
-        }
+    if constexpr (kTensorCores<T>) {
+      ctx_mma<D>(ks, vs, acc);
+    } else {
+      ctx_fma<D>(ks, vs, acc);
     }
     __syncthreads();
   }
 
   float* part = ws + (static_cast<long long>(bh) * S + s) * kWs;
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int j = 0; j < R; ++j) part[(ty + 16 * i) * D + tx + 16 * j] = acc[i][j];
+  if constexpr (kTensorCores<T>) {
+    store_ctx_mma<D>(part, acc);
+  } else {
+    store_ctx_fma<D>(part, acc);
+  }
   if (qp == 0) {
     part[D * D + qc] = m_run;
     part[D * D + D + qc] = s_run;
@@ -326,9 +494,8 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 la_output_kernel(const T* __restrict__ q, const float* __restrict__ ws, T* __restrict__ y,
                  int H, int N, int S, Strides si, Strides so, bool vec_in, bool vec_out) {
-  constexpr int R = D / 16;
   constexpr int kWs = D * D + 2 * D;
-  __shared__ __align__(16) float ctx[D * D];
+  __shared__ __align__(16) float ctx[D * kPitch];
   __shared__ __align__(16) float qs[D * kPitch];  // exp(q - max), then the y tile
   __shared__ float col_m[D];
 
@@ -337,7 +504,8 @@ la_output_kernel(const T* __restrict__ q, const float* __restrict__ ws, T* __res
   const int tid = threadIdx.x;
   const float* fin = ws + static_cast<long long>(bh) * S * kWs;
   for (int i = tid; i < D * D / 4; i += kThreads)
-    reinterpret_cast<float4*>(ctx)[i] = reinterpret_cast<const float4*>(fin)[i];
+    *reinterpret_cast<float4*>(ctx + i / (D / 4) * kPitch + i % (D / 4) * 4) =
+        reinterpret_cast<const float4*>(fin)[i];
   if (tid < D) col_m[tid] = fin[D * D + tid];
   __syncthreads();
   const long long in0 = (bh / H) * si.b + (bh % H) * si.h;
@@ -345,31 +513,11 @@ la_output_kernel(const T* __restrict__ q, const float* __restrict__ ws, T* __res
                   [&](int d, float x) { return expf(x - col_m[d]); });
   __syncthreads();
 
-  // tokens 4a .. 4a + 3, columns c + 16 j
-  const int a = tid / 16;
-  const int c = tid % 16;
-  float out[4][R];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < R; ++j) out[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    const float4 p = *reinterpret_cast<const float4*>(qs + d * kPitch + 4 * a);
-#pragma unroll
-    for (int j = 0; j < R; ++j) {
-      const float w = ctx[d * D + c + 16 * j];
-      out[0][j] = fmaf(p.x, w, out[0][j]);
-      out[1][j] = fmaf(p.y, w, out[1][j]);
-      out[2][j] = fmaf(p.z, w, out[2][j]);
-      out[3][j] = fmaf(p.w, w, out[3][j]);
-    }
+  if constexpr (kTensorCores<T>) {
+    y_mma<D>(qs, ctx, qs);
+  } else {
+    y_fma<D>(qs, ctx, qs);
   }
-  __syncthreads();
-#pragma unroll
-  for (int j = 0; j < R; ++j)
-    *reinterpret_cast<float4*>(qs + (c + 16 * j) * kPitch + 4 * a) =
-        make_float4(out[0][j], out[1][j], out[2][j], out[3][j]);
   __syncthreads();
   const long long out0 = (bh / H) * so.b + (bh % H) * so.h;
   store_tile<T, D>(y, qs, out0, so, n0, N, vec_out);
