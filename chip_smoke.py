@@ -62,22 +62,26 @@ def done(name: str, t0: float):
     print(f"phase {name}: {time.perf_counter() - t0:.3f} s", flush=True)
 
 
-def cuda_ms(fn, iters: int = 30, warmup: int = 5) -> float:
-    """Median time of one call, by CUDA events around each call, after warm-up."""
+def cuda_ms(fn, iters: int = 30, warmup: int = 5, runs: int = 5) -> float:
+    """Time of one call: CUDA events around `iters` calls back to back, over
+    the count, after warm-up; the median of `runs` such runs. Where the host
+    enqueues a call faster than the card runs it, this is the card's time;
+    where it does not, it is the host's."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     events = []
-    for _ in range(iters):
+    for _ in range(runs):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(iters):
+            fn()
         end.record()
         events.append((start, end))
     torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in events)
+    return statistics.median(s.elapsed_time(e) / iters for s, e in events)
 
 
 def la_inputs(b, n, h, d, dtype, layout, gen):
@@ -100,7 +104,8 @@ def la_bound(b, n, h, d, dtype):
 
 
 def device_ms_by_kernel(fn, calls: int = 20) -> dict[str, float]:
-    """Device time per call of fn, by kernel name, from torch.profiler."""
+    """Device time per call of fn, by kernel name, from torch.profiler: the
+    kernels alone, where cuda_ms also counts the host's launch work."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -134,11 +139,15 @@ def check_kernels(la):
         ms = cuda_ms(lambda: la.linear_attention_kernel(q, k, v))
         plain_ms = cuda_ms(lambda: la.linear_attention_reference(q, k, v))
         bound_ms, bound_by = la_bound(b, n, h, d, dtype)
-        splits, chunk, ws_bytes = la.split_plan(b, n, h, d, sms)
+        per_sm = la.blocks_per_sm(dtype, d, 0)
+        splits, chunk, ws_bytes = la.split_plan(b, n, h, d, sms, per_sm)
+        by_kernel = device_ms_by_kernel(lambda: la.linear_attention_kernel(q, k, v))
+        device_ms = sum(by_kernel.values())
         print(f"linear_attention ({b},{n},{h},{d}) {dt} {layout}: max_abs_err {err:.3e} "
-              f"(tol {tol:.3e}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"(tol {tol:.3e}), kernel {ms:.4f} ms (device {device_ms:.4f} ms), "
+              f"plain {plain_ms:.4f} ms, "
               f"bound {bound_ms:.4f} ms ({bound_by}); S {splits} chunks of {chunk} tokens, "
-              f"{b * h * splits} context blocks on {sms} SMs, workspace {ws_bytes} B; "
+              f"{b * h * splits} context blocks, {per_sm} per SM on {sms} SMs, workspace {ws_bytes} B; "
               f"two launches bit-identical: {same}", flush=True)
         if not err <= tol:
             raise AssertionError(f"linear attention kernel disagrees with the plain version "
@@ -146,12 +155,10 @@ def check_kernels(la):
         if not same:
             raise AssertionError(f"linear attention kernel is not deterministic at "
                                  f"({b},{n},{h},{d}) {dt}")
-        if len(rows) == LA_MAIN_CASE:
-            by_kernel = device_ms_by_kernel(lambda: la.linear_attention_kernel(q, k, v))
-            print(f"  device ms per call by kernel: {sum(by_kernel.values()):.4f} in all; "
-                  + "; ".join(f"{key[:70]} {t:.4f}" for key, t in by_kernel.items()), flush=True)
-        rows.append({"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by})
+        print("  device ms per call by kernel: "
+              + "; ".join(f"{key[:60]} {t:.4f}" for key, t in by_kernel.items()), flush=True)
+        rows.append({"max_abs_err": err, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by})
     return rows[LA_MAIN_CASE]
 
 

@@ -18,14 +18,17 @@
 //
 // Design. Two launches on the caller's stream.
 //   Context phase, grid (B*H) x S. N is split into S chunks of whole
-//     64-token tiles, S chosen by the caller for about four blocks per SM
-//     (7 chunks, 448 blocks at the serving shape). A block walks its chunk
-//     tile by tile: it loads k, v and q (16-byte loads along the tokens
-//     where the layout allows, else one element per load), row-softmaxes
-//     k over D (four threads per token, shuffle reductions), folds the
-//     tile into an online column max and rescaled sum of q (256 / D threads
-//     per column) and accumulates its partial ctx = k'^T v. It writes the
-//     partial ctx and column statistics to an f32 workspace.
+//     64-token tiles; the caller takes S as large as keeps the grid within
+//     one wave of the blocks an SM holds (4 in bf16, 2 in f32, from the
+//     occupancy calculator): 7 chunks, 448 blocks at the serving shape. A
+//     block walks its chunk tile by tile: it loads k, v and q (16-byte
+//     loads along the tokens where the layout allows, else one element per
+//     load), row-softmaxes k over D (four threads per token, shuffle
+//     reductions), folds the tile into an online column max and rescaled
+//     sum of q (256 / D threads per column) and accumulates its partial
+//     ctx = k'^T v: on the tensor cores (mma.sync, bf16 operands, f32
+//     accumulation) for bf16 inputs, with f32 FMAs for f32 inputs. It
+//     writes the partial ctx and column statistics to an f32 workspace.
 //   Merge, fixed order, no float atomics. Each block bumps an integer
 //     counter of its (batch, head) after a __threadfence(); the block that
 //     arrives last sums the S partials in the order s = 0 .. S-1, combines
@@ -35,12 +38,14 @@
 //     same bits from run to run.
 //   Output phase, grid (B*H) x ceil(N / 64). A block stages the finished
 //     ctx in shared memory, loads its q tile as exp(q - max) and writes
-//     y = q' ctx through a shared-memory tile, so the stores walk the
-//     unit-stride axis. It reads q a second time: 1.25x the least traffic,
-//     mostly from L2 (q is 3.3 MB at the serving shape; L2 is 50 MB).
+//     y = q' ctx (tensor cores in bf16, as above) through a shared-memory
+//     tile, so the stores walk the unit-stride axis. It reads q a second
+//     time: 1.25x the least traffic, mostly from L2 (q is 3.3 MB at the
+//     serving shape; L2 is 50 MB).
 // Accumulation is always f32; inputs and outputs are f32 or bf16. The
-// workspace is B*H*S*(D*D + 2*D) floats (7.6 MB at the serving shape),
-// allocated by the caller, as are the zeroed counters (B*H int32).
+// workspace is B*H*S*(D*D + 2*D) floats (7.6 MB at the serving shape); the
+// caller allocates it and the B*H int32 counters, which are zero between
+// launches, and may keep both for the launches on one stream.
 //
 // Layout. Every tensor is addressed through explicit element strides for
 // (b, n, h, d), so the kernel reads q, k and v straight out of the NCHW
@@ -53,10 +58,13 @@
 //   int edgeyolo_la_forward(int dtype, int head_dim, q, k, v, y, workspace,
 //                           counters, B, N, H, S, chunk,
 //                           in strides (b, n, h, d), out strides (b, n, h, d),
-//                           stream)
+//                           stream, device)
 // dtype 0 = float32, 1 = bfloat16; head_dim 32 or 64; q, k and v share one
-// set of strides; chunk is a multiple of 64 with S = ceil(N / chunk).
+// set of strides; chunk is a multiple of 64 with S = ceil(N / chunk); the
+// launches go to `device` (made current for the call) on `stream`.
 // Returns the first non-zero cudaError_t (0 on success).
+//   int edgeyolo_la_blocks_per_sm(int dtype, int head_dim, device)
+// returns the context blocks one SM holds at once (negative: -cudaError_t).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -76,6 +84,14 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store_f32(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store_f32(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+
+// exp for f32 inputs is the accurate expf (their tolerance is 1e-5 of the
+// output scale); for bf16 inputs, whose outputs keep 8 bits, it is one MUFU
+// ex2 (__expf, a few ulp near 0).
+template <typename T>
+__device__ __forceinline__ float exp_t(float x) { return expf(x); }
+template <>
+__device__ __forceinline__ float exp_t<__nv_bfloat16>(float x) { return __expf(x); }
 
 __device__ __forceinline__ float shfl_xor(float x, int mask) {
   return __shfl_xor_sync(0xffffffffu, x, mask);
@@ -337,8 +353,10 @@ __device__ __forceinline__ void y_mma(const float* qs, const float* ctx, float* 
 }
 
 // Context phase and merge; block (bh, s) owns tokens [s * chunk, (s + 1) * chunk).
+// The bf16 kernel is held to 64 registers a thread, so that four blocks fit
+// an SM and the serving shape's 448 blocks run in one wave.
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kTensorCores<T> ? 4 : 2)
 la_context_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                   float* __restrict__ ws, int* __restrict__ counters, int H, int N, int S,
                   int chunk, Strides si, bool vec) {
@@ -396,7 +414,7 @@ la_context_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
       float sum = 0.f;
 #pragma unroll
       for (int j = 0; j < J; ++j) {
-        x[j] = expf(x[j] - m);
+        x[j] = exp_t<T>(x[j] - m);
         sum += x[j];
       }
       sum += shfl_xor(sum, 8);
@@ -417,10 +435,10 @@ la_context_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
       const float m_new = fmaxf(m_run, m);
       float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < J; ++j) sum += expf(col[kTpc * j] - m_new);
+      for (int j = 0; j < J; ++j) sum += exp_t<T>(col[kTpc * j] - m_new);
 #pragma unroll
       for (int o = 1; o < kTpc; o <<= 1) sum += shfl_xor(sum, o);
-      s_run = s_run * expf(m_run - m_new) + sum;
+      s_run = s_run * exp_t<T>(m_run - m_new) + sum;
       m_run = m_new;
     }
     __syncthreads();
@@ -449,36 +467,41 @@ la_context_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
   if (!last) return;
   __threadfence();
 
-  // the last block of this (batch, head) merges the partials, s = 0 .. S-1;
-  // __ldcg reads them from L2, past this SM's L1
+  // The last block of this (batch, head) merges the partials, s = 0 .. S-1,
+  // reading them from L2 (__ldcg, past this SM's L1). Every thread sums
+  // float4 columns tid, tid + kThreads, ... of ctx; beside that, threads
+  // tid < D fold the column statistics in one online pass (max, and the sum
+  // rescaled to it). The loads of a partial do not wait on the previous one.
   float* fin = ws + static_cast<long long>(bh) * S * kWs;  // partial 0 takes the result
-  if (tid < D) {
-    float m = -INFINITY;
-    for (int t = 0; t < S; ++t) m = fmaxf(m, __ldcg(fin + t * kWs + D * D + tid));
-    float sum = 0.f;
-    for (int t = 0; t < S; ++t)
-      sum += __ldcg(fin + t * kWs + D * D + D + tid) * expf(__ldcg(fin + t * kWs + D * D + tid) - m);
-    inv_sum[tid] = 1.f / (sum + 1e-9f);
-    fin[D * D + tid] = m;
-  }
-  __syncthreads();
-  // float4 columns tid, tid + kThreads, ...: kVec independent loads in flight per partial
   constexpr int kVec = D * D / 4 / kThreads;
   float4 c[kVec];
 #pragma unroll
   for (int u = 0; u < kVec; ++u) c[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+  float m = -INFINITY, sum = 0.f;
 #pragma unroll 2
   for (int t = 0; t < S; ++t) {
-    const float4* src = reinterpret_cast<const float4*>(fin + t * kWs);
+    const float* p = fin + t * kWs;
 #pragma unroll
     for (int u = 0; u < kVec; ++u) {
-      const float4 x = __ldcg(src + tid + u * kThreads);
+      const float4 x = __ldcg(reinterpret_cast<const float4*>(p) + tid + u * kThreads);
       c[u].x += x.x;
       c[u].y += x.y;
       c[u].z += x.z;
       c[u].w += x.w;
     }
+    if (tid < D) {
+      const float mt = __ldcg(p + D * D + tid);
+      const float st = __ldcg(p + D * D + D + tid);
+      const float m_new = fmaxf(m, mt);
+      sum = sum * exp_t<T>(m - m_new) + st * exp_t<T>(mt - m_new);
+      m = m_new;
+    }
   }
+  if (tid < D) {
+    inv_sum[tid] = 1.f / (sum + 1e-9f);
+    fin[D * D + tid] = m;
+  }
+  __syncthreads();
 #pragma unroll
   for (int u = 0; u < kVec; ++u) {
     const int i = 4 * (tid + u * kThreads);
@@ -510,7 +533,7 @@ la_output_kernel(const T* __restrict__ q, const float* __restrict__ ws, T* __res
   __syncthreads();
   const long long in0 = (bh / H) * si.b + (bh % H) * si.h;
   load_tile<T, D>(qs, q, in0, si, n0, N, vec_in, 0.f,
-                  [&](int d, float x) { return expf(x - col_m[d]); });
+                  [&](int d, float x) { return exp_t<T>(x - col_m[d]); });
   __syncthreads();
 
   if constexpr (kTensorCores<T>) {
@@ -531,6 +554,7 @@ struct Args {
   int B, N, H, S, chunk;
   Strides si, so;
   cudaStream_t stream;
+  int device;
 };
 
 // Tokens are the unit-stride axis and every 16-byte group of them is aligned and whole.
@@ -541,10 +565,33 @@ bool vectorizable(const Strides& st, int N, int V, const void* const* ptrs, int 
   return true;
 }
 
+template <int D>
+constexpr int kContextSmem = 3 * D * kPitch * sizeof(float);
+
+// More than 48 KB of dynamic shared memory needs an opt-in, once per device.
+template <typename T, int D>
+cudaError_t allow_context_smem(int device) {
+  constexpr int kMaxDevices = 64;
+  static bool allowed[kMaxDevices] = {};
+  if (device >= 0 && device < kMaxDevices && allowed[device]) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      la_context_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kContextSmem<D>);
+  if (err == cudaSuccess && device >= 0 && device < kMaxDevices) allowed[device] = true;
+  return err;
+}
+
+template <typename T, int D>
+cudaError_t context_blocks_per_sm(int device, int* blocks) {
+  const cudaError_t err = allow_context_smem<T, D>(device);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, la_context_kernel<T, D>, kThreads,
+                                                       kContextSmem<D>);
+}
+
 template <typename T, int D>
 cudaError_t launch(const Args& a) {
   constexpr int V = 16 / sizeof(T);
-  constexpr int kSmem = 3 * D * kPitch * sizeof(float);
+  constexpr int kSmem = kContextSmem<D>;
   const void* in_ptrs[3] = {a.q, a.k, a.v};
   const void* out_ptrs[1] = {a.y};
   const bool vec_in = vectorizable(a.si, a.N, V, in_ptrs, 3);
@@ -554,8 +601,7 @@ cudaError_t launch(const Args& a) {
   if (a.chunk <= 0 || a.chunk % kTileN || a.S != (a.N + a.chunk - 1) / a.chunk || a.S > 65535 ||
       tiles > 65535)
     return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(la_context_kernel<T, D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  cudaError_t err = allow_context_smem<T, D>(a.device);
   if (err != cudaSuccess) return err;
   la_context_kernel<T, D><<<dim3(a.B * a.H, a.S), kThreads, kSmem, a.stream>>>(
       q, static_cast<const T*>(a.k), static_cast<const T*>(a.v), a.ws, a.counters, a.H, a.N,
@@ -574,25 +620,50 @@ cudaError_t launch_dim(int head_dim, const Args& a) {
   return cudaErrorInvalidValue;
 }
 
+// Run f() with `device` current, then make the caller's device current again.
+template <typename F>
+cudaError_t on_device(int device, F f) {
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  err = f();
+  if (current != device) {
+    const cudaError_t restored = cudaSetDevice(current);
+    if (err == cudaSuccess) err = restored;
+  }
+  return err;
+}
+
 }  // namespace
+
+// Blocks of the context kernel that one SM holds at once (the split of N
+// aims at one wave of them); a negative cudaError_t on failure.
+extern "C" int edgeyolo_la_blocks_per_sm(int dtype, int head_dim, int device) {
+  int blocks = 0;
+  const cudaError_t err = on_device(device, [&]() -> cudaError_t {
+    if (dtype == 0 && head_dim == 64) return context_blocks_per_sm<float, 64>(device, &blocks);
+    if (dtype == 0 && head_dim == 32) return context_blocks_per_sm<float, 32>(device, &blocks);
+    if (dtype == 1 && head_dim == 64) return context_blocks_per_sm<__nv_bfloat16, 64>(device, &blocks);
+    if (dtype == 1 && head_dim == 32) return context_blocks_per_sm<__nv_bfloat16, 32>(device, &blocks);
+    return cudaErrorInvalidValue;
+  });
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
+}
 
 extern "C" int edgeyolo_la_forward(int dtype, int head_dim, const void* q, const void* k,
                                    const void* v, void* y, void* workspace, void* counters, int B,
                                    int N, int H, int S, int chunk, long long in_b, long long in_n,
                                    long long in_h, long long in_d, long long out_b,
                                    long long out_n, long long out_h, long long out_d,
-                                   void* stream) {
+                                   void* stream, int device) {
   if (B <= 0 || N <= 0 || H <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k, v, y, static_cast<float*>(workspace), static_cast<int*>(counters),
                B, N, H, S, chunk, Strides{in_b, in_n, in_h, in_d},
-               Strides{out_b, out_n, out_h, out_d}, static_cast<cudaStream_t>(stream)};
-  cudaError_t err;
-  if (dtype == 0) {
-    err = launch_dim<float>(head_dim, a);
-  } else if (dtype == 1) {
-    err = launch_dim<__nv_bfloat16>(head_dim, a);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+               Strides{out_b, out_n, out_h, out_d}, static_cast<cudaStream_t>(stream), device};
+  return static_cast<int>(on_device(device, [&]() -> cudaError_t {
+    if (dtype == 0) return launch_dim<float>(head_dim, a);
+    if (dtype == 1) return launch_dim<__nv_bfloat16>(head_dim, a);
+    return cudaErrorInvalidValue;
+  }));
 }

@@ -31,8 +31,8 @@ from edgeyolo_tpu_torch.ops import _build
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64)
 TILE_N = 64  # tokens per tile of the kernel; chunks are whole tiles
-BLOCKS_PER_SM = 4  # the context phase's grid aims at this many blocks per SM
 H100_SMS = 132
+BLOCKS_PER_SM = 4  # context blocks an H100 SM holds at once in bf16 (2 in f32)
 
 
 def linear_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -46,16 +46,18 @@ def linear_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     return torch.einsum("bnhd,bhde->bnhe", q, ctx).to(dtype)
 
 
-def split_plan(b: int, n: int, h: int, d: int, sms: int = H100_SMS) -> tuple[int, int, int]:
+def split_plan(b: int, n: int, h: int, d: int, sms: int = H100_SMS,
+               blocks_per_sm: int = BLOCKS_PER_SM) -> tuple[int, int, int]:
     """(S, chunk, workspace bytes) of the kernel's context phase.
 
     N is cut into S chunks of `chunk` tokens (whole tiles, the last one
-    ragged), with S the least that gives about BLOCKS_PER_SM blocks of the
-    (B*H) x S grid per SM, and at most one chunk per tile. Each block writes
+    ragged). S is the most that keeps the (B*H) x S grid within one wave of
+    `blocks_per_sm` blocks on each of `sms` SMs (a second wave would double
+    the phase), at least 1 and at most one chunk per tile. Each block writes
     a D x D partial context and two D-vectors of column statistics, in f32.
     """
     tiles = -(-n // TILE_N)
-    s = max(1, min(tiles, -(-BLOCKS_PER_SM * sms // (b * h))))
+    s = max(1, min(tiles, blocks_per_sm * sms // (b * h)))
     chunk_tiles = -(-tiles // s)
     s = -(-tiles // chunk_tiles)  # no empty chunk
     return s, chunk_tiles * TILE_N, b * h * s * (d * d + 2 * d) * 4
@@ -65,7 +67,8 @@ def _declare(fn):
     """Set the C signature of edgeyolo_la_forward on a ctypes function."""
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6
-                   + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 8 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 8
+                   + [ctypes.c_void_p, ctypes.c_int])
     return fn
 
 
@@ -80,15 +83,42 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _launch(fn, q, k, v, y, sms: int, stream: int) -> int:
-    """Allocate the workspace and counters and call fn, the C entry point."""
+@functools.cache
+def blocks_per_sm(dtype: torch.dtype, d: int, index: int) -> int:
+    """Context blocks of the kernel for dtype and head dim d that one SM of
+    CUDA device `index` holds at once, by the CUDA occupancy calculator."""
+    fn = _build.load("linear_attention").edgeyolo_la_blocks_per_sm
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 3
+    n = fn(_DTYPE_CODE[dtype], d, index)
+    if n <= 0:
+        raise RuntimeError(f"linear attention occupancy query failed: cudaError {-n}")
+    return n
+
+
+# (device index, stream) -> (workspace, counters). Launches on one stream run
+# in order, so they share one workspace, as a BLAS library keeps one per
+# stream; it grows to the largest launch seen. The counters start at zero and
+# every launch leaves them at zero (the merging block resets its own).
+_scratch: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _scratch_for(device: torch.device, stream: int, ws_floats: int, pairs: int):
+    ws, counters = _scratch.get((device.index, stream), (None, None))
+    if ws is None or ws.numel() < ws_floats:
+        ws = torch.empty(ws_floats, dtype=torch.float32, device=device)
+    if counters is None or counters.numel() < pairs:
+        counters = torch.zeros(pairs, dtype=torch.int32, device=device)
+    _scratch[(device.index, stream)] = ws, counters
+    return ws, counters
+
+
+def _call(fn, q, k, v, y, ws, counters, splits: int, chunk: int, stream: int, device: int) -> int:
+    """Call fn, the C entry point, on q, k, v, y and the scratch buffers."""
     b, n, h, d = q.shape
-    s, chunk, ws_bytes = split_plan(b, n, h, d, sms)
-    ws = torch.empty(ws_bytes // 4, dtype=torch.float32, device=q.device)
-    counters = torch.zeros(b * h, dtype=torch.int32, device=q.device)
     return fn(_DTYPE_CODE[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(), y.data_ptr(),
-              ws.data_ptr(), counters.data_ptr(), b, n, h, s, chunk, *q.stride(), *y.stride(),
-              stream)
+              ws.data_ptr(), counters.data_ptr(), b, n, h, splits, chunk, *q.stride(),
+              *y.stride(), stream, device)
 
 
 def linear_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -111,13 +141,17 @@ def linear_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -
     b, n, h, d = q.shape
     if min(b, n, h) <= 0:
         raise ValueError(f"empty input {tuple(q.shape)}")
-    if q.stride(1) == 1:
-        y = torch.empty((b, h, d, n), dtype=q.dtype, device=q.device).permute(0, 3, 1, 2)
+    if q.stride(1) == 1:  # (B, H, D, N) in memory
+        y = torch.empty_strided((b, n, h, d), (h * d * n, 1, d * n, n), dtype=q.dtype,
+                                device=q.device)
     else:
         y = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
-    with torch.cuda.device(q.device):
-        err = _launch(_forward_fn(), q, k, v, y, _sm_count(q.device.index),
-                      torch.cuda.current_stream(q.device).cuda_stream)
+    dev = q.device.index
+    splits, chunk, ws_bytes = split_plan(b, n, h, d, _sm_count(dev), blocks_per_sm(q.dtype, d, dev))
+    # the raw handle of the current stream, without building a torch.cuda.Stream
+    stream = torch._C._cuda_getCurrentRawStream(dev)
+    ws, counters = _scratch_for(q.device, stream, ws_bytes // 4, b * h)
+    err = _call(_forward_fn(), q, k, v, y, ws, counters, splits, chunk, stream, dev)
     if err != 0:
         raise RuntimeError(f"linear attention kernel launch failed: cudaError {err}")
     linear_attention_kernel.launches += 1

@@ -40,21 +40,40 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 
 @pytest.mark.parametrize("shape,splits,chunk", [
     ((32, 400, 2, 64), 7, 64),       # the serving shape: 448 blocks, one tile each
-    ((128, 400, 2, 64), 3, 192),
-    ((128, 1600, 2, 64), 3, 576),
-    ((16, 6400, 4, 64), 9, 768),
+    ((128, 400, 2, 64), 2, 256),
+    ((128, 1600, 2, 64), 2, 832),
+    ((16, 6400, 4, 64), 8, 832),
     ((4, 999, 3, 32), 16, 64),
     ((1, 33, 1, 64), 1, 64),
+    ((1024, 400, 2, 64), 1, 448),    # more pairs than one wave holds: no split
 ], ids=str)
-def test_split_plan_fills_the_card_with_whole_tiles(shape, splits, chunk):
+def test_split_plan_fills_one_wave_with_whole_tiles(shape, splits, chunk):
     b, n, h, d = shape
     s, c, ws = la.split_plan(b, n, h, d)
     assert (s, c) == (splits, chunk)
     assert c % la.TILE_N == 0 and (s - 1) * c < n <= s * c  # no empty chunk
     assert s <= -(-n // la.TILE_N)
     assert ws == b * h * s * (d * d + 2 * d) * 4
-    if s < -(-n // la.TILE_N):  # chunks of more than one tile only when the grid is full
-        assert b * h * s >= la.BLOCKS_PER_SM * la.H100_SMS
+    assert s == 1 or b * h * s <= la.BLOCKS_PER_SM * la.H100_SMS  # one wave
+
+
+def test_split_plan_follows_the_occupancy():
+    assert la.split_plan(32, 400, 2, 64, blocks_per_sm=2)[0] == 4  # 264 slots: 4 chunks of 2 tiles
+    assert la.split_plan(32, 400, 2, 64, sms=1, blocks_per_sm=1)[0] == 1
+
+
+def test_scratch_is_kept_per_stream_and_grows():
+    dev, stream = torch.device("cpu"), -1  # a key no launch uses
+    try:
+        ws, counters = la._scratch_for(dev, stream, 100, 8)
+        assert ws.numel() == 100 and counters.tolist() == [0] * 8
+        assert all(a is b for a, b in zip(la._scratch_for(dev, stream, 50, 4), (ws, counters)))
+        ws2, counters2 = la._scratch_for(dev, stream, 200, 16)
+        assert ws2.numel() == 200 and counters2.numel() == 16 and int(counters2.sum()) == 0
+        assert la._scratch_for(dev, stream + 1, 10, 1)[0] is not ws2  # another stream
+    finally:
+        for key in ((None, stream), (None, stream + 1)):
+            la._scratch.pop(key, None)
 
 
 def test_build_targets_hopper_and_keys_on_the_source():
