@@ -147,7 +147,8 @@ def check_kernels(la):
               f"(tol {tol:.3e}), kernel {ms:.4f} ms (device {device_ms:.4f} ms), "
               f"plain {plain_ms:.4f} ms, "
               f"bound {bound_ms:.4f} ms ({bound_by}); S {splits} chunks of {chunk} tokens, "
-              f"{b * h * splits} context blocks, {per_sm} per SM on {sms} SMs, workspace {ws_bytes} B; "
+              f"{b * h * splits} context blocks, {per_sm} per SM on {sms} SMs, "
+              f"workspace {ws_bytes} B; "
               f"two launches bit-identical: {same}", flush=True)
         if not err <= tol:
             raise AssertionError(f"linear attention kernel disagrees with the plain version "

@@ -193,7 +193,8 @@ __device__ __forceinline__ uint32_t pack_bf16(const float* p) {  // p[0], p[1]; 
 }
 
 // d += a b, bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
@@ -212,9 +213,11 @@ __device__ __forceinline__ void ctx_fma(const float* ks, const float* vs, float*
   for (int r = 0; r < kTileN; r += 4) {
     float4 kr[R], vr[R];
 #pragma unroll
-    for (int i = 0; i < R; ++i) kr[i] = *reinterpret_cast<const float4*>(ks + (ty + 16 * i) * kPitch + r);
+    for (int i = 0; i < R; ++i)
+      kr[i] = *reinterpret_cast<const float4*>(ks + (ty + 16 * i) * kPitch + r);
 #pragma unroll
-    for (int j = 0; j < R; ++j) vr[j] = *reinterpret_cast<const float4*>(vs + (tx + 16 * j) * kPitch + r);
+    for (int j = 0; j < R; ++j)
+      vr[j] = *reinterpret_cast<const float4*>(vs + (tx + 16 * j) * kPitch + r);
 #pragma unroll
     for (int i = 0; i < R; ++i)
 #pragma unroll
@@ -241,10 +244,11 @@ __device__ __forceinline__ void store_ctx_fma(float* part, const float* acc) {
 
 // Tensor-core path: M = d, N = e, K = tokens. A = k' (row-major: a row of
 // ks is one d over the tokens), B = v (column e of B is the row e of vs).
-// Warp w owns the m-tile w / (8 / kMw) and kN n-tiles.
+// The (D / 16) x (D / 8) output tiles go to the 8 warps: warp w owns m-tile
+// w / kWarpsPerM and kN n-tiles from (w % kWarpsPerM) * kN.
 template <int D>
 struct CtxTiles {
-  static constexpr int kN = D * D / 128 / 8;  // n-tiles of 8 per warp: 4 (D = 64), 1 (D = 32)
+  static constexpr int kN = D * D / 1024;  // 4 (D = 64), 1 (D = 32)
   static constexpr int kWarpsPerM = D / 8 / kN;
 };
 
@@ -337,7 +341,8 @@ __device__ __forceinline__ void y_mma(const float* qs, const float* ctx, float* 
 #pragma unroll
     for (int j = 0; j < kN; ++j) {
       const float* bc = ctx + (k0 + 2 * t) * kPitch + e0 + 8 * j + g;
-      const uint32_t b[2] = {pack_bf16(bc[0], bc[kPitch]), pack_bf16(bc[8 * kPitch], bc[9 * kPitch])};
+      const uint32_t b[2] = {pack_bf16(bc[0], bc[kPitch]),
+                             pack_bf16(bc[8 * kPitch], bc[9 * kPitch])};
       mma_bf16(acc[j], a, b);
     }
   }
@@ -641,11 +646,12 @@ cudaError_t on_device(int device, F f) {
 // aims at one wave of them); a negative cudaError_t on failure.
 extern "C" int edgeyolo_la_blocks_per_sm(int dtype, int head_dim, int device) {
   int blocks = 0;
+  using bf16 = __nv_bfloat16;
   const cudaError_t err = on_device(device, [&]() -> cudaError_t {
     if (dtype == 0 && head_dim == 64) return context_blocks_per_sm<float, 64>(device, &blocks);
     if (dtype == 0 && head_dim == 32) return context_blocks_per_sm<float, 32>(device, &blocks);
-    if (dtype == 1 && head_dim == 64) return context_blocks_per_sm<__nv_bfloat16, 64>(device, &blocks);
-    if (dtype == 1 && head_dim == 32) return context_blocks_per_sm<__nv_bfloat16, 32>(device, &blocks);
+    if (dtype == 1 && head_dim == 64) return context_blocks_per_sm<bf16, 64>(device, &blocks);
+    if (dtype == 1 && head_dim == 32) return context_blocks_per_sm<bf16, 32>(device, &blocks);
     return cudaErrorInvalidValue;
   });
   return err == cudaSuccess ? blocks : -static_cast<int>(err);

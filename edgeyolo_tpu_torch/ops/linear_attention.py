@@ -12,7 +12,7 @@ copied on the way in or out.
 
 The kernel splits N into S chunks across thread blocks (`split_plan`) and
 merges their partial contexts in a fixed order through an f32 workspace that
-the wrapper allocates, so its output is the same bits from run to run.
+the wrapper keeps per stream, so its output is the same bits from run to run.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises. The backward recomputes through the plain version with autograd, as
@@ -63,19 +63,15 @@ def split_plan(b: int, n: int, h: int, d: int, sms: int = H100_SMS,
     return s, chunk_tiles * TILE_N, b * h * s * (d * d + 2 * d) * 4
 
 
-def _declare(fn):
-    """Set the C signature of edgeyolo_la_forward on a ctypes function."""
+@functools.cache
+def _forward_fn():
+    """The bound C entry point, built, loaded and declared once per process."""
+    fn = _build.load("linear_attention").edgeyolo_la_forward
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6
                    + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 8
                    + [ctypes.c_void_p, ctypes.c_int])
     return fn
-
-
-@functools.cache
-def _forward_fn():
-    """The bound C entry point, built, loaded and declared once per process."""
-    return _declare(_build.load("linear_attention").edgeyolo_la_forward)
 
 
 @functools.cache
@@ -147,7 +143,8 @@ def linear_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -
     else:
         y = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
     dev = q.device.index
-    splits, chunk, ws_bytes = split_plan(b, n, h, d, _sm_count(dev), blocks_per_sm(q.dtype, d, dev))
+    splits, chunk, ws_bytes = split_plan(b, n, h, d, _sm_count(dev),
+                                         blocks_per_sm(q.dtype, d, dev))
     # the raw handle of the current stream, without building a torch.cuda.Stream
     stream = torch._C._cuda_getCurrentRawStream(dev)
     ws, counters = _scratch_for(q.device, stream, ws_bytes // 4, b * h)

@@ -7,8 +7,8 @@ without the JAX package:
 
 The `cuda` tests skip without a card. On the card each kernel is held
 against its plain PyTorch version, relative to the output scale: 1e-5 in
-f32 (summation order only), 2e-2 in bf16 (the output is rounded to bf16
-once; about 5 ulp).
+f32 (summation order only), 2e-2 in bf16 (the tensor-core products round
+their operands to bf16 and the output is rounded to bf16 once; about 5 ulp).
 """
 
 import numpy as np
