@@ -76,6 +76,14 @@ def test_scratch_is_kept_per_stream_and_grows():
             la._scratch.pop(key, None)
 
 
+def test_stage_timer_probes_find_their_anchors():
+    from edgeyolo_tpu_torch.tools import la_stage_times
+
+    src = (_build.CSRC / "linear_attention.cu").read_text()
+    out = la_stage_times.instrumented_source(src)
+    assert out.count("ST1(") == 6 and out.count("ST2(") == 4  # 5 + 3 probes, 1 + 1 defines
+
+
 def test_build_targets_hopper_and_keys_on_the_source():
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     for name in _build.SOURCES:
