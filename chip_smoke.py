@@ -18,6 +18,8 @@ Phases, each timed and each fatal when it fails:
                 prediction against the same model with the plain attention, and
                 one profiled request (device time by kernel, device busy share
                 of the unprofiled request time)
+  6. device     each kernel's device time by torch.profiler at the shapes of phase 3;
+     times      after the serve phase, so no profiler session precedes the requests
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside a checkout of
 the repository, the script exits non-zero and prints no result.
@@ -25,6 +27,7 @@ the repository, the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import functools
 import json
 import statistics
 import subprocess
@@ -62,26 +65,41 @@ def done(name: str, t0: float):
     print(f"phase {name}: {time.perf_counter() - t0:.3f} s", flush=True)
 
 
-def cuda_ms(fn, iters: int = 30, warmup: int = 5, runs: int = 5) -> float:
-    """Time of one call: CUDA events around `iters` calls back to back, over
-    the count, after warm-up; the median of `runs` such runs. Where the host
-    enqueues a call faster than the card runs it, this is the card's time;
-    where it does not, it is the host's."""
+def cuda_ms(fn, calls_per_event: int = 1, samples: int = 30, warmup: int = 5) -> float:
+    """Time of one call after warm-up: the median over `samples` of CUDA events
+    around `calls_per_event` calls, over the count. With one call per event
+    pair (the `ms` of the kernel table) the reading counts the host's work
+    from the start event to the first launch; with calls back to back it is
+    the card's time where the host enqueues faster than the card runs."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     events = []
-    for _ in range(runs):
+    for _ in range(samples):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(iters):
+        for _ in range(calls_per_event):
             fn()
         end.record()
         events.append((start, end))
     torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) / iters for s, e in events)
+    return statistics.median(s.elapsed_time(e) / calls_per_event for s, e in events)
+
+
+def host_ms(fn, calls: int = 200) -> float:
+    """Host time of one call, over `calls` calls enqueued without a wait."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = (time.perf_counter() - t0) / calls * 1e3
+    torch.cuda.synchronize()
+    return t
 
 
 def la_inputs(b, n, h, d, dtype, layout, gen):
@@ -105,7 +123,7 @@ def la_bound(b, n, h, d, dtype):
 
 def device_ms_by_kernel(fn, calls: int = 20) -> dict[str, float]:
     """Device time per call of fn, by kernel name, from torch.profiler: the
-    kernels alone, where cuda_ms also counts the host's launch work."""
+    kernels alone, where cuda_ms may also count the host's work."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -121,11 +139,17 @@ def device_ms_by_kernel(fn, calls: int = 20) -> dict[str, float]:
 
 
 def check_kernels(la):
+    """Every LA_CASES shape against the plain version, timed; returns the rows
+    of the kernel table and the inputs, for device_times after the serve phase."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    rows = []
+    tiny = torch.zeros(1, device="cuda")
+    floor_ms = cuda_ms(lambda: tiny.add_(1))
+    print(f"event pair around one launch of a 1-element add: {floor_ms:.4f} ms "
+          f"(the floor of a one-call `ms`)", flush=True)
+    rows, inputs = [], []
     for b, n, h, d, dt, layout in LA_CASES:
         dtype = getattr(torch, dt)
         q, k, v = la_inputs(b, n, h, d, dtype, layout, gen)
@@ -136,16 +160,17 @@ def check_kernels(la):
         err = (y.float() - ref.float()).abs().max().item()
         tol = LA_RTOL[dt] * ref.float().abs().max().item()
         same = torch.equal(y, y_again)
-        ms = cuda_ms(lambda: la.linear_attention_kernel(q, k, v))
+        kernel = functools.partial(la.linear_attention_kernel, q, k, v)
+        ms = cuda_ms(kernel)
+        ms_b2b = cuda_ms(kernel, calls_per_event=30, samples=5)
+        host = host_ms(kernel)
         plain_ms = cuda_ms(lambda: la.linear_attention_reference(q, k, v))
         bound_ms, bound_by = la_bound(b, n, h, d, dtype)
         per_sm = la.blocks_per_sm(dtype, d, 0)
         splits, chunk, ws_bytes = la.split_plan(b, n, h, d, sms, per_sm)
-        by_kernel = device_ms_by_kernel(lambda: la.linear_attention_kernel(q, k, v))
-        device_ms = sum(by_kernel.values())
         print(f"linear_attention ({b},{n},{h},{d}) {dt} {layout}: max_abs_err {err:.3e} "
-              f"(tol {tol:.3e}), kernel {ms:.4f} ms (device {device_ms:.4f} ms), "
-              f"plain {plain_ms:.4f} ms, "
+              f"(tol {tol:.3e}), kernel {ms:.4f} ms per call, {ms_b2b:.4f} ms back to back, "
+              f"host {host:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {bound_ms:.4f} ms ({bound_by}); S {splits} chunks of {chunk} tokens, "
               f"{b * h * splits} context blocks, {per_sm} per SM on {sms} SMs, "
               f"workspace {ws_bytes} B; "
@@ -156,11 +181,20 @@ def check_kernels(la):
         if not same:
             raise AssertionError(f"linear attention kernel is not deterministic at "
                                  f"({b},{n},{h},{d}) {dt}")
-        print("  device ms per call by kernel: "
+        rows.append({"max_abs_err": err, "ms": ms, "ms_back_to_back": ms_b2b, "host_ms": host,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by})
+        inputs.append((q, k, v))
+    return rows, inputs
+
+
+def device_times(la, rows, inputs):
+    """Add each case's device time (torch.profiler) to its row of the table."""
+    for (b, n, h, d, dt, layout), row, (q, k, v) in zip(LA_CASES, rows, inputs):
+        by_kernel = device_ms_by_kernel(lambda: la.linear_attention_kernel(q, k, v))
+        row["device_ms"] = sum(by_kernel.values())
+        print(f"linear_attention ({b},{n},{h},{d}) {dt} {layout}: device {row['device_ms']:.4f} "
+              f"ms per call; by kernel: "
               + "; ".join(f"{key[:60]} {t:.4f}" for key, t in by_kernel.items()), flush=True)
-        rows.append({"max_abs_err": err, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
-                     "bound_ms": bound_ms, "bound_by": bound_by})
-    return rows[LA_MAIN_CASE]
 
 
 def exercise_branches(model):
@@ -358,7 +392,7 @@ def main() -> int:
     done("build", t0)
 
     t0 = phase("kernels")
-    la_row = check_kernels(la)
+    la_rows, la_inputs_by_case = check_kernels(la)
     done("kernels", t0)
 
     t0 = phase("reference")
@@ -369,10 +403,14 @@ def main() -> int:
     launches, _ = serve(la, card)
     done("serve", t0)
 
+    t0 = phase("device times")
+    device_times(la, la_rows, la_inputs_by_case)
+    done("device times", t0)
+
     kernels = [{"name": "linear_attention", "route": "cuda",
                 "source": "edgeyolo_tpu_torch/csrc/linear_attention.cu",
                 "replaces": "edgeyolo_tpu/ops/pallas/linear_attention.py:25",
-                "launches": launches, **la_row, "library_ms": None}]
+                "launches": launches, **la_rows[LA_MAIN_CASE], "library_ms": None}]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

@@ -55,13 +55,14 @@
 // tokens contiguous).
 //
 // C interface, bound with ctypes (no PyTorch headers):
-//   int edgeyolo_la_forward(int dtype, int head_dim, q, k, v, y, workspace,
-//                           counters, B, N, H, S, chunk,
-//                           in strides (b, n, h, d), out strides (b, n, h, d),
-//                           stream, device)
-// dtype 0 = float32, 1 = bfloat16; head_dim 32 or 64; q, k and v share one
-// set of strides; chunk is a multiple of 64 with S = ceil(N / chunk); the
-// launches go to `device` (made current for the call) on `stream`.
+//   int edgeyolo_la_forward(q, k, v, y, workspace, counters, stream,
+//                           const LaShape* shape)
+// LaShape (below) holds what stays fixed for one input shape: dtype
+// (0 = float32, 1 = bfloat16), head_dim (32 or 64), B, N, H, S, chunk (a
+// multiple of 64 with S = ceil(N / chunk)), the device and the element
+// strides (b, n, h, d) of q, k and v (one set) and of y. The caller builds
+// it once per shape, so a call converts eight arguments. The launches go to
+// `device` (made current for the call) on `stream`.
 // Returns the first non-zero cudaError_t (0 on success).
 //   int edgeyolo_la_blocks_per_sm(int dtype, int head_dim, device)
 // returns the context blocks one SM holds at once (negative: -cudaError_t).
@@ -69,6 +70,11 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+struct LaShape {
+  int dtype, head_dim, B, N, H, S, chunk, device;
+  long long in[4], out[4];  // element strides along (b, n, h, d) of q, k, v and of y
+};
 
 namespace {
 
@@ -657,19 +663,18 @@ extern "C" int edgeyolo_la_blocks_per_sm(int dtype, int head_dim, int device) {
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
-extern "C" int edgeyolo_la_forward(int dtype, int head_dim, const void* q, const void* k,
-                                   const void* v, void* y, void* workspace, void* counters, int B,
-                                   int N, int H, int S, int chunk, long long in_b, long long in_n,
-                                   long long in_h, long long in_d, long long out_b,
-                                   long long out_n, long long out_h, long long out_d,
-                                   void* stream, int device) {
-  if (B <= 0 || N <= 0 || H <= 0) return static_cast<int>(cudaErrorInvalidValue);
+extern "C" int edgeyolo_la_forward(const void* q, const void* k, const void* v, void* y,
+                                   void* workspace, void* counters, void* stream,
+                                   const LaShape* shape) {
+  const LaShape& p = *shape;
+  if (p.B <= 0 || p.N <= 0 || p.H <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k, v, y, static_cast<float*>(workspace), static_cast<int*>(counters),
-               B, N, H, S, chunk, Strides{in_b, in_n, in_h, in_d},
-               Strides{out_b, out_n, out_h, out_d}, static_cast<cudaStream_t>(stream), device};
-  return static_cast<int>(on_device(device, [&]() -> cudaError_t {
-    if (dtype == 0) return launch_dim<float>(head_dim, a);
-    if (dtype == 1) return launch_dim<__nv_bfloat16>(head_dim, a);
+               p.B, p.N, p.H, p.S, p.chunk, Strides{p.in[0], p.in[1], p.in[2], p.in[3]},
+               Strides{p.out[0], p.out[1], p.out[2], p.out[3]}, static_cast<cudaStream_t>(stream),
+               p.device};
+  return static_cast<int>(on_device(p.device, [&]() -> cudaError_t {
+    if (p.dtype == 0) return launch_dim<float>(p.head_dim, a);
+    if (p.dtype == 1) return launch_dim<__nv_bfloat16>(p.head_dim, a);
     return cudaErrorInvalidValue;
   }));
 }

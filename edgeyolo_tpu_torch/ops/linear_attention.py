@@ -31,8 +31,6 @@ from edgeyolo_tpu_torch.ops import _build
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64)
 TILE_N = 64  # tokens per tile of the kernel; chunks are whole tiles
-H100_SMS = 132
-BLOCKS_PER_SM = 4  # context blocks an H100 SM holds at once in bf16 (2 in f32)
 
 
 def linear_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -46,8 +44,8 @@ def linear_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     return torch.einsum("bnhd,bhde->bnhe", q, ctx).to(dtype)
 
 
-def split_plan(b: int, n: int, h: int, d: int, sms: int = H100_SMS,
-               blocks_per_sm: int = BLOCKS_PER_SM) -> tuple[int, int, int]:
+def split_plan(b: int, n: int, h: int, d: int, sms: int,
+               blocks_per_sm: int) -> tuple[int, int, int]:
     """(S, chunk, workspace bytes) of the kernel's context phase.
 
     N is cut into S chunks of `chunk` tokens (whole tiles, the last one
@@ -63,14 +61,20 @@ def split_plan(b: int, n: int, h: int, d: int, sms: int = H100_SMS,
     return s, chunk_tiles * TILE_N, b * h * s * (d * d + 2 * d) * 4
 
 
+class _Shape(ctypes.Structure):
+    """`LaShape` of csrc/linear_attention.cu: what stays fixed for one input shape."""
+
+    _fields_ = [(name, ctypes.c_int) for name in
+                ("dtype", "head_dim", "B", "N", "H", "S", "chunk", "device")] + [
+        ("in_strides", ctypes.c_longlong * 4), ("out_strides", ctypes.c_longlong * 4)]
+
+
 @functools.cache
 def _forward_fn():
     """The bound C entry point, built, loaded and declared once per process."""
     fn = _build.load("linear_attention").edgeyolo_la_forward
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6
-                   + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 8
-                   + [ctypes.c_void_p, ctypes.c_int])
+    fn.argtypes = [ctypes.c_void_p] * 8
     return fn
 
 
@@ -92,6 +96,33 @@ def blocks_per_sm(dtype: torch.dtype, d: int, index: int) -> int:
     return n
 
 
+# (shape, strides, dtype, device) of q -> (y's strides, workspace floats,
+# (batch, head) pairs, _Shape): checked and planned on the first launch at
+# that shape, so later launches only look it up.
+_plans: dict[tuple, tuple] = {}
+
+
+def _plan(shape: torch.Size, strides: tuple, dtype: torch.dtype, device: torch.device) -> tuple:
+    if device.type != "cuda":
+        raise ValueError(f"linear_attention_kernel needs CUDA tensors, got {device}")
+    if dtype not in _DTYPE_CODE:
+        raise ValueError(f"unsupported dtype {dtype}; the kernel takes float32 or bfloat16")
+    if len(shape) != 4 or shape[-1] not in _HEAD_DIMS:
+        raise ValueError(f"expected (B, N, H, D) with D in {_HEAD_DIMS}, got {tuple(shape)}")
+    b, n, h, d = shape
+    if min(b, n, h) <= 0:
+        raise ValueError(f"empty input {tuple(shape)}")
+    if strides[1] == 1:  # (B, H, D, N) in memory: y too
+        y_strides = (h * d * n, 1, d * n, n)
+    else:
+        y_strides = (n * h * d, h * d, d, 1)
+    splits, chunk, ws_bytes = split_plan(b, n, h, d, _sm_count(device.index),
+                                         blocks_per_sm(dtype, d, device.index))
+    args = _Shape(_DTYPE_CODE[dtype], d, b, n, h, splits, chunk, device.index,
+                  (ctypes.c_longlong * 4)(*strides), (ctypes.c_longlong * 4)(*y_strides))
+    return y_strides, ws_bytes // 4, b * h, args
+
+
 # (device index, stream) -> (workspace, counters). Launches on one stream run
 # in order, so they share one workspace, as a BLAS library keeps one per
 # stream; it grows to the largest launch seen. The counters start at zero and
@@ -109,12 +140,10 @@ def _scratch_for(device: torch.device, stream: int, ws_floats: int, pairs: int):
     return ws, counters
 
 
-def _call(fn, q, k, v, y, ws, counters, splits: int, chunk: int, stream: int, device: int) -> int:
+def _call(fn, q, k, v, y, ws, counters, stream: int, args: _Shape) -> int:
     """Call fn, the C entry point, on q, k, v, y and the scratch buffers."""
-    b, n, h, d = q.shape
-    return fn(_DTYPE_CODE[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(), y.data_ptr(),
-              ws.data_ptr(), counters.data_ptr(), b, n, h, splits, chunk, *q.stride(),
-              *y.stride(), stream, device)
+    return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), y.data_ptr(), ws.data_ptr(),
+              counters.data_ptr(), stream, ctypes.addressof(args))
 
 
 def linear_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -124,31 +153,19 @@ def linear_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -
     D must be 32 or 64. y comes back token-minor (B, H, D, N) in memory when q
     is token-minor, else as a contiguous (B, N, H, D).
     """
-    if q.device.type != "cuda":
-        raise ValueError(f"linear_attention_kernel needs CUDA tensors, got {q.device}")
-    if not (q.shape == k.shape == v.shape and q.stride() == k.stride() == v.stride()):
-        raise ValueError("q, k, v must share shape and strides")
-    if not (q.dtype == k.dtype == v.dtype and q.device == k.device == v.device):
-        raise ValueError("q, k, v must share dtype and device")
-    if q.dtype not in _DTYPE_CODE:
-        raise ValueError(f"unsupported dtype {q.dtype}; the kernel takes float32 or bfloat16")
-    if q.ndim != 4 or q.shape[-1] not in _HEAD_DIMS:
-        raise ValueError(f"expected (B, N, H, D) with D in {_HEAD_DIMS}, got {tuple(q.shape)}")
-    b, n, h, d = q.shape
-    if min(b, n, h) <= 0:
-        raise ValueError(f"empty input {tuple(q.shape)}")
-    if q.stride(1) == 1:  # (B, H, D, N) in memory
-        y = torch.empty_strided((b, n, h, d), (h * d * n, 1, d * n, n), dtype=q.dtype,
-                                device=q.device)
-    else:
-        y = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
-    dev = q.device.index
-    splits, chunk, ws_bytes = split_plan(b, n, h, d, _sm_count(dev),
-                                         blocks_per_sm(q.dtype, d, dev))
+    key = (q.shape, q.stride(), q.dtype, q.device)
+    if (k.shape, k.stride(), k.dtype, k.device) != key or (
+            v.shape, v.stride(), v.dtype, v.device) != key:
+        raise ValueError("q, k, v must share shape, strides, dtype and device")
+    plan = _plans.get(key)
+    if plan is None:
+        plan = _plans[key] = _plan(*key)
+    y_strides, ws_floats, pairs, args = plan
+    y = torch.empty_strided(key[0], y_strides, dtype=key[2], device=key[3])
     # the raw handle of the current stream, without building a torch.cuda.Stream
-    stream = torch._C._cuda_getCurrentRawStream(dev)
-    ws, counters = _scratch_for(q.device, stream, ws_bytes // 4, b * h)
-    err = _call(_forward_fn(), q, k, v, y, ws, counters, splits, chunk, stream, dev)
+    stream = torch._C._cuda_getCurrentRawStream(args.device)
+    ws, counters = _scratch_for(key[3], stream, ws_floats, pairs)
+    err = _call(_forward_fn(), q, k, v, y, ws, counters, stream, args)
     if err != 0:
         raise RuntimeError(f"linear attention kernel launch failed: cudaError {err}")
     linear_attention_kernel.launches += 1

@@ -11,6 +11,8 @@ f32 (summation order only), 2e-2 in bf16 (the tensor-core products round
 their operands to bf16 and the output is rounded to bf16 once; about 5 ulp).
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -38,6 +40,9 @@ def test_kernel_wrapper_refuses_cpu_tensors():
         la.linear_attention_kernel(q, k, v)
 
 
+H100_SMS = 132  # the SM count and blocks per SM (4 in bf16, 2 in f32) of the H100
+
+
 @pytest.mark.parametrize("shape,splits,chunk", [
     ((32, 400, 2, 64), 7, 64),       # the serving shape: 448 blocks, one tile each
     ((128, 400, 2, 64), 2, 256),
@@ -49,17 +54,18 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 ], ids=str)
 def test_split_plan_fills_one_wave_with_whole_tiles(shape, splits, chunk):
     b, n, h, d = shape
-    s, c, ws = la.split_plan(b, n, h, d)
+    s, c, ws = la.split_plan(b, n, h, d, H100_SMS, 4)
     assert (s, c) == (splits, chunk)
     assert c % la.TILE_N == 0 and (s - 1) * c < n <= s * c  # no empty chunk
     assert s <= -(-n // la.TILE_N)
     assert ws == b * h * s * (d * d + 2 * d) * 4
-    assert s == 1 or b * h * s <= la.BLOCKS_PER_SM * la.H100_SMS  # one wave
+    assert s == 1 or b * h * s <= 4 * H100_SMS  # one wave
 
 
 def test_split_plan_follows_the_occupancy():
-    assert la.split_plan(32, 400, 2, 64, blocks_per_sm=2)[0] == 4  # 264 slots: 4 chunks of 2 tiles
-    assert la.split_plan(32, 400, 2, 64, sms=1, blocks_per_sm=1)[0] == 1
+    assert la.split_plan(32, 400, 2, 64, H100_SMS, 2)[:2] == (4, 128)  # f32: 264 slots
+    assert la.split_plan(32, 400, 2, 64, 1, 1)[0] == 1
+    assert la.split_plan(32, 400, 2, 64, 2 * H100_SMS, 4)[0] == 7  # one chunk per tile at most
 
 
 def test_scratch_is_kept_per_stream_and_grows():
@@ -76,12 +82,29 @@ def test_scratch_is_kept_per_stream_and_grows():
             la._scratch.pop(key, None)
 
 
-def test_stage_timer_probes_find_their_anchors():
-    from edgeyolo_tpu_torch.tools import la_stage_times
+@pytest.mark.parametrize("case", ["strides", "dtype", "D in"])
+def test_kernel_wrapper_rejects_what_the_kernel_cannot_take_before_any_launch(case):
+    """Inputs are checked on the host before the card is touched: a mismatch
+    of q, k, v in the wrapper, the rest when a shape is first planned."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv((1, 16, 2, 64), 8))
+    before, plans = la.linear_attention_kernel.launches, len(la._plans)
+    with pytest.raises(ValueError, match=case):
+        if case == "strides":
+            la.linear_attention_kernel(q, k.transpose(1, 2).contiguous().transpose(1, 2), v)
+        elif case == "dtype":
+            la._plan(q.shape, q.stride(), torch.float16, torch.device("cuda", 0))
+        else:
+            q48 = q[..., :48]
+            la._plan(q48.shape, q48.stride(), q.dtype, torch.device("cuda", 0))
+    assert la.linear_attention_kernel.launches == before and len(la._plans) == plans
 
-    src = (_build.CSRC / "linear_attention.cu").read_text()
-    out = la_stage_times.instrumented_source(src)
-    assert out.count("ST1(") == 6 and out.count("ST2(") == 4  # 5 + 3 probes, 1 + 1 defines
+
+def test_shape_struct_matches_the_c_layout():
+    # struct LaShape of csrc/linear_attention.cu: eight ints, then two long long[4]
+    assert [name for name, _ in la._Shape._fields_] == [
+        "dtype", "head_dim", "B", "N", "H", "S", "chunk", "device", "in_strides", "out_strides"]
+    assert la._Shape.in_strides.offset == 32 and la._Shape.out_strides.offset == 64
+    assert ctypes.sizeof(la._Shape) == 96
 
 
 def test_build_targets_hopper_and_keys_on_the_source():
@@ -136,7 +159,7 @@ def test_kernel_matches_plain_on_card(cuda_card, case, dtype, rtol):
 def test_kernel_is_bit_identical_across_launches_on_card(cuda_card, dtype):
     """The partial contexts are merged in a fixed order, with no float atomics."""
     q, k, v = _card_qkv(2, 1000, 2, 64, "qkv", dtype, cuda_card)
-    assert la.split_plan(2, 1000, 2, 64)[0] > 1
+    assert la.split_plan(2, 1000, 2, 64, la._sm_count(0), la.blocks_per_sm(dtype, 64, 0))[0] > 1
     ys = [la.linear_attention_kernel(q, k, v) for _ in range(3)]
     torch.cuda.synchronize()
     assert all(torch.equal(ys[0], y) for y in ys[1:])
