@@ -18,8 +18,18 @@ Phases, each timed and each fatal when it fails:
                 prediction against the same model with the plain attention, and
                 one profiled request (device time by kernel, device busy share
                 of the unprofiled request time)
-  6. device     each kernel's device time by torch.profiler at the shapes of phase 3;
-     times      after the serve phase, so no profiler session precedes the requests
+  6. train      one f32 train step at 64 px, batch 2, on the card (kernel) against the
+     reference  same step on the CPU (plain version): same seeded weights, same
+                augmentation draws; the loss, every gradient and the updated params
+  7. train      EdgeLine-YOLO-n training at 640 px, batch 32, bf16 autocast, default
+                hyps (mosaic, photometric, HSV, flips; SGD, accumulate 2): 1 warm-up
+                and 6 timed steps through DetectionTrainer.train_step; bf16 at the
+                kernel's input, saved views not copied, one kernel launch per step,
+                params moving on update steps only, the EMA formula, BatchNorm
+                statistics moving; step ms, img/s, peak memory, and one profiled
+                step (the kernel's share of device time, the top device operations)
+  8. device     each kernel's device time by torch.profiler at the shapes of phase 3;
+     times      after the serve and train phases, so no profiler session precedes them
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside a checkout of
 the repository, the script exits non-zero and prints no result.
@@ -29,6 +39,7 @@ from __future__ import annotations
 
 import functools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -42,6 +53,11 @@ ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 SERVE_BATCH, SERVE_IMGSZ, SERVE_REQUESTS = 32, 640, 3
+# train: batch, image size, padded targets, real boxes per image (bench.py:174-176), timed steps
+TRAIN_BATCH, TRAIN_IMGSZ, TRAIN_M, TRAIN_REAL, TRAIN_STEPS = 32, 640, 16, 4, 6
+TRAIN_REF_BATCH, TRAIN_REF_IMGSZ, TRAIN_REF_M = 2, 64, 8
+# card (kernel) vs CPU (plain), f32: loss relative, each gradient of its max |grad|, params absolute
+TRAIN_REF_TOL = {"loss": 1e-4, "grad": 1e-3, "param": 1e-5}
 # (B, N, H, D, dtype, layout); "qkv" is the module's strided view of the conv output
 LA_CASES = [
     (32, 400, 2, 64, "float32", "qkv"),
@@ -197,10 +213,9 @@ def device_times(la, rows, inputs):
               + "; ".join(f"{key[:60]} {t:.4f}" for key, t in by_kernel.items()), flush=True)
 
 
-def exercise_branches(model):
-    """Seeded random weights, plus: the wavelet residual gates open (gamma 0.5)
-    and class logits start at 0, so the wavelet branch counts and scores
-    straddle the confidence gate, giving NMS real work."""
+def open_wavelet_gates(model):
+    """The wavelet residual gates open (gamma 0.5; init leaves them at 0), so
+    the wavelet branch counts in the output and takes gradients."""
     import torch
 
     from edgeyolo_tpu_torch.nn.modules.edgeline import WaveletEnhancer
@@ -209,7 +224,16 @@ def exercise_branches(model):
         for m in model.modules():
             if isinstance(m, WaveletEnhancer):
                 m.gamma.fill_(0.5)
-        for seq in model.model[-1].cv3:
+    return model
+
+
+def exercise_branches(model):
+    """Seeded random weights with the wavelet gates open, and class logits
+    starting at 0, so scores straddle the confidence gate, giving NMS real work."""
+    import torch
+
+    with torch.no_grad():
+        for seq in open_wavelet_gates(model).model[-1].cv3:
             seq[-1].bias.zero_()
     return model
 
@@ -360,6 +384,236 @@ def profile_request(predictor, imgs, unprofiled_ms: float):
         print(f"  {us / 1e3:9.3f} ms {count:5d}x  {key[:110]}", flush=True)
 
 
+def train_batch(b: int, imgsz: int, m: int, real: int, seed: int) -> dict:
+    """A collated batch as the JAX loader gives it (dataset._collate): uint8
+    NHWC images, classes, normalised xywh boxes, the target mask and n_real;
+    `real` random boxes per image, the rest padding."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    img = torch.randint(0, 256, (b, imgsz, imgsz, 3), dtype=torch.uint8, generator=gen)
+    cls = torch.randint(0, 80, (b, m), generator=gen).float()
+    xy = 0.25 + 0.5 * torch.rand(b, m, 2, generator=gen)
+    wh = 0.1 + 0.3 * torch.rand(b, m, 2, generator=gen)
+    mask = (torch.arange(m) < real).float().expand(b, m).contiguous()
+    return {"img": img, "cls": cls, "bboxes": torch.cat([xy, wh], -1) * mask[..., None],
+            "mask_gt": mask, "n_real": b}
+
+
+def check_train_reference(la):
+    """One f32 train step (default augmentation, accumulate 1 so it updates)
+    on the card with the kernel and on the CPU with the plain version, from
+    the same seeded weights and the same draws of one CPU generator."""
+    import torch
+
+    from edgeyolo_tpu_torch.nn.tasks import DetectionModel
+    from edgeyolo_tpu_torch.train.trainer import DetectionTrainer, batch_to_device
+
+    hyp = {"batch": TRAIN_REF_BATCH, "nbs": TRAIN_REF_BATCH, "epochs": 1, "amp": False,
+           "optimizer": "SGD", "seed": 0}
+    batch = train_batch(TRAIN_REF_BATCH, TRAIN_REF_IMGSZ, TRAIN_REF_M, 4, seed=3)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        model = open_wavelet_gates(DetectionModel("edgeline-yolo.yaml", scale="n", device=dev,
+                                                  seed=0))
+        trainer = DetectionTrainer(model, hyp, device=dev)
+        trainer.setup(nb=1)
+        la.linear_attention_kernel.launches = 0
+        loss, _, updated = trainer.train_step(batch_to_device(batch, torch.device(dev)),
+                                              mosaic=True)
+        if not updated:
+            raise AssertionError("the reference step did not update the parameters")
+        grads = {n: g.detach().cpu().clone()
+                 for n, g in trainer.flat.unflatten(trainer.flat.grad).items()}
+        res[dev] = (loss.item(), grads, trainer.flat.unflatten(trainer.flat.data),
+                    la.linear_attention_kernel.launches)
+    (lc, gc, pc, _), (lg, gg, pg, launches) = res["cpu"], res["cuda"]
+    loss_rel = abs(lg - lc) / abs(lc)
+    # each gradient against its own max |grad|. A bias that feeds a train-mode
+    # BatchNorm through a 1x1 conv has no gradient in exact arithmetic, only
+    # f32 noise: such a tensor (under 1e-6 of the largest gradient on the CPU)
+    # must stay under that bound on the card too.
+    zero_bound = 1e-6 * max(g.abs().max().item() for g in gc.values())
+    zero = [n for n, g in gc.items() if g.abs().max().item() <= zero_bound]
+    zero_ok = all(gg[n].abs().max().item() <= zero_bound for n in zero)
+    grad_rel = sorted(((gg[n] - g).abs().max().item() / g.abs().max().item(), n)
+                      for n, g in gc.items() if n not in zero)[::-1]
+    param_err = max((pg[n].cpu() - p).abs().max().item() for n, p in pc.items())
+    print(f"train step f32 {TRAIN_REF_IMGSZ} px batch {TRAIN_REF_BATCH}, card (kernel, {launches} "
+          f"launch) vs CPU (plain): loss {lg:.6f} vs {lc:.6f}, rel {loss_rel:.3e} (tol "
+          f"{TRAIN_REF_TOL['loss']}); gradients, worst of {len(grad_rel)} of its max |grad|: "
+          + ", ".join(f"{n} {e:.3e}" for e, n in grad_rel[:4])
+          + f" (tol {TRAIN_REF_TOL['grad']}); {len(zero)} gradient(s) zero in exact arithmetic "
+          f"({', '.join(zero)}) under {zero_bound:.3e} on both: {zero_ok}; params after the "
+          f"update {param_err:.3e} (tol {TRAIN_REF_TOL['param']})", flush=True)
+    if launches < 1:
+        raise AssertionError("the train step on the card did not launch the attention kernel")
+    if not (math.isfinite(lg) and loss_rel <= TRAIN_REF_TOL["loss"]
+            and grad_rel[0][0] <= TRAIN_REF_TOL["grad"] and zero_ok
+            and param_err <= TRAIN_REF_TOL["param"]):
+        raise AssertionError("the train step on the card disagrees with the CPU reference")
+
+
+TRAIN_STAGES = ("augment", "forward", "loss", "backward", "optimizer")
+
+
+def stage_times(trainer, batch) -> None:
+    """One more train step with a CUDA event and a host clock reading at each
+    stage boundary: each stage's span on the device timeline (its kernels and
+    any idle time waiting for the host) and the host's time to enqueue it."""
+    import torch
+
+    from edgeyolo_tpu_torch.train import trainer as trainer_mod
+
+    marks = []
+
+    def mark():
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((ev, time.perf_counter()))
+
+    def marked(fn, before=False):
+        def wrapper(*args, **kwargs):
+            if before:
+                mark()
+            out = fn(*args, **kwargs)
+            if not before:
+                mark()
+            return out
+        return wrapper
+
+    torch.cuda.synchronize()
+    mark()
+    with mock.patch.object(trainer_mod, "augment_batch", marked(trainer_mod.augment_batch)), \
+            mock.patch.object(trainer_mod, "train_forward", marked(trainer_mod.train_forward)), \
+            mock.patch.object(trainer, "criterion", marked(trainer.criterion)), \
+            mock.patch.object(trainer.optimizer, "step", marked(trainer.optimizer.step, True)):
+        trainer.train_step(batch, mosaic=True)
+    mark()
+    torch.cuda.synchronize()
+    spans = [(a[0].elapsed_time(b[0]), (b[1] - a[1]) * 1e3) for a, b in zip(marks, marks[1:])]
+    print("train stages, device timeline / host enqueue ms (one step, no profiler): "
+          + ", ".join(f"{name} {dev:.3f} / {host:.3f}" for name, (dev, host) in
+                      zip(TRAIN_STAGES, spans))
+          + f"; step {sum(d for d, _ in spans):.3f} / {sum(h for _, h in spans):.3f}", flush=True)
+
+
+def train(la, card: str):
+    """EdgeLine-YOLO-n training steps at full width and depth; returns the
+    kernel's launches in the timed steps."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from edgeyolo_tpu_torch.nn.modules import edgeline
+    from edgeyolo_tpu_torch.nn.modules.conv import BatchNorm2d
+    from edgeyolo_tpu_torch.nn.modules.edgeline import LinearAttention
+    from edgeyolo_tpu_torch.nn.tasks import DetectionModel, num_trainable
+    from edgeyolo_tpu_torch.train.trainer import DetectionTrainer, ModelEMA, batch_to_device
+
+    model = DetectionModel("edgeline-yolo.yaml", scale="n", device="cuda", seed=0)
+    n_attn = sum(isinstance(m, LinearAttention) for m in model.modules())
+    hyp = {"batch": TRAIN_BATCH, "nbs": 64, "optimizer": "SGD", "lr0": 0.01, "momentum": 0.937,
+           "amp": True, "seed": 0}
+    trainer = DetectionTrainer(model, hyp, device="cuda")
+    trainer.setup(nb=TRAIN_STEPS + 2)
+    print(f"train: EdgeLine-YOLO-n, {num_trainable(model)} trained params (f32 masters), "
+          f"batch {TRAIN_BATCH} x {TRAIN_IMGSZ} px, bf16 autocast, SGD nesterov, accumulate "
+          f"{trainer.accumulate}, mosaic {hyp.get('mosaic', 1.0)}, photometric 1.0", flush=True)
+    batch = batch_to_device(train_batch(TRAIN_BATCH, TRAIN_IMGSZ, TRAIN_M, TRAIN_REAL, seed=5),
+                       torch.device("cuda"))
+    bn = next(m for m in model.modules() if isinstance(m, BatchNorm2d))
+
+    # warm-up, with what reaches the kernel recorded
+    seen = []
+
+    def recording(q, k, v):
+        y = la.linear_attention(q, k, v)
+        saved = y.grad_fn.saved_tensors
+        seen.append((q.dtype, q.is_contiguous(), [t.data_ptr() for t in saved],
+                     [t.data_ptr() for t in (q, k, v)],
+                     {t.untyped_storage().data_ptr() for t in saved}))
+        return y
+
+    t0 = time.perf_counter()
+    with mock.patch.object(edgeline, "linear_attention", recording):
+        trainer.train_step(batch, mosaic=True)
+    torch.cuda.synchronize()
+    print(f"warm-up step: {(time.perf_counter() - t0) * 1e3:.3f} ms", flush=True)
+    if len(seen) != n_attn or any(dt != torch.bfloat16 for dt, *_ in seen):
+        raise AssertionError(f"the attention's input is not bf16: {[s[0] for s in seen]}")
+    if any(contig or saved != inputs or len(storages) != 1
+           for _, contig, saved, inputs, storages in seen):
+        raise AssertionError("the attention's q, k, v are not the saved strided views of one "
+                             "qkv output")
+    print(f"kernel input: bf16, strided views of the qkv conv output, saved for backward "
+          f"without a copy ({n_attn} LinearAttention module(s))", flush=True)
+
+    la.linear_attention_kernel.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        p0, ema0, rv0 = trainer.flat.data.clone(), trainer.ema.ema.clone(), bn.running_var.clone()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _, updated = trainer.train_step(batch, mosaic=True)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+        moved = not torch.equal(trainer.flat.data, p0)
+        if moved != updated:
+            raise AssertionError(f"params moved={moved} on a step with update={updated}")
+        if updated:
+            d = ModelEMA.decay(trainer.ema.updates)
+            ema_ref = ema0 * d + (1 - d) * trainer.flat.data
+            ema_err = (trainer.ema.ema - ema_ref).abs().max().item()
+            if ema_err > 1e-6:
+                raise AssertionError(f"EMA departs from its formula by {ema_err}")
+        elif not torch.equal(trainer.ema.ema, ema0):
+            raise AssertionError("the EMA moved on a step without an update")
+        if torch.equal(bn.running_var, rv0):
+            raise AssertionError("BatchNorm running statistics did not move")
+    launches = la.linear_attention_kernel.launches
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite train losses {losses}")
+    if launches != TRAIN_STEPS * n_attn:
+        raise AssertionError(f"{launches} kernel launches in {TRAIN_STEPS} train steps")
+    ms = statistics.median(times) * 1e3
+    print(f"train: losses {[round(x, 4) for x in losses]}, {trainer.ema.updates} updates, EMA "
+          f"and BatchNorm statistics checked; kernel launches {launches} in {TRAIN_STEPS} steps",
+          flush=True)
+    print(f"train: batch {TRAIN_BATCH} x {TRAIN_IMGSZ} px bf16, step times "
+          f"{[round(t * 1e3, 3) for t in times]} ms, median {ms:.3f} ms, "
+          f"{TRAIN_BATCH / ms * 1e3:.1f} img/s, peak memory {peak / 2**30:.3f} GiB "
+          f"(max_memory_allocated) on {card}", flush=True)
+
+    stage_times(trainer, batch)
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_step(batch, mosaic=True)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = sorted(((e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                  key=lambda r: -r[1])
+    if not rows:
+        print("train profile: no device events in the trace; device time not measured",
+              flush=True)
+        return launches
+    busy_us = sum(r[1] for r in rows)
+    la_us = sum(r[1] for r in rows if "la_context_kernel" in r[0] or "la_output_kernel" in r[0])
+    print(f"train profile: device busy {busy_us / 1e3:.3f} ms in {sum(r[2] for r in rows)} "
+          f"device ops, {100 * busy_us / (ms * 1e3):.1f}% of the unprofiled median step, "
+          f"{100 * busy_us / wall_us:.1f}% of the profiled step ({wall_us / 1e3:.3f} ms); "
+          f"linear-attention kernel {la_us / 1e3:.4f} ms = {100 * la_us / busy_us:.3f}% of "
+          f"device time on {card}", flush=True)
+    for key, us, count in rows[:20]:
+        print(f"  {us / 1e3:9.3f} ms {count:5d}x  {key[:110]}", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -403,6 +657,14 @@ def main() -> int:
     launches, _ = serve(la, card)
     done("serve", t0)
 
+    t0 = phase("train reference")
+    check_train_reference(la)
+    done("train reference", t0)
+
+    t0 = phase("train")
+    train_launches = train(la, card)
+    done("train", t0)
+
     t0 = phase("device times")
     device_times(la, la_rows, la_inputs_by_case)
     done("device times", t0)
@@ -410,7 +672,8 @@ def main() -> int:
     kernels = [{"name": "linear_attention", "route": "cuda",
                 "source": "edgeyolo_tpu_torch/csrc/linear_attention.cu",
                 "replaces": "edgeyolo_tpu/ops/pallas/linear_attention.py:25",
-                "launches": launches, **la_rows[LA_MAIN_CASE], "library_ms": None}]
+                "launches": launches, "launches_train": train_launches,
+                **la_rows[LA_MAIN_CASE], "library_ms": None}]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

@@ -111,8 +111,14 @@ class SPPF(nn.Module):
         return self.cv2(torch.cat(ys, dim=1))
 
 
-def dfl_decode(box_logits: torch.Tensor, bins: torch.Tensor) -> torch.Tensor:
-    """Distribution Focal integral: (..., 4*reg_max) logits -> expected ltrb (..., 4)."""
+def dfl_decode(box_logits: torch.Tensor, bins: torch.Tensor | int = 16) -> torch.Tensor:
+    """Distribution Focal integral: (..., 4*reg_max) logits -> expected ltrb (..., 4).
+
+    `bins` is the bin-value vector (the head's frozen DFL weights) or reg_max,
+    for the arange 0..reg_max-1 that the loss decodes with (JAX's dfl_decode).
+    """
+    if isinstance(bins, int):
+        bins = torch.arange(bins, dtype=torch.float32, device=box_logits.device)
     reg_max = bins.numel()
     p = box_logits.unflatten(-1, (4, reg_max)).softmax(dim=-1)
     return p @ bins.to(p.dtype)

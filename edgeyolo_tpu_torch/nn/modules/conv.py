@@ -6,7 +6,8 @@ Parameter names are the reference's torch state_dict keys (`conv`, `bn`,
 BatchNorm runs in f32 and casts back to the compute dtype, as the JAX
 ConvBN does, so a bf16 model keeps f32 norm statistics. Every BatchNorm of a
 detection model uses the reference's model-level override eps 1e-3 and
-momentum 0.03 (torch convention; flax 0.97), not the torch defaults.
+momentum 0.03 (torch convention; flax 0.97), not the torch defaults, and
+updates its running variance in train mode as flax does (`BatchNorm2d`).
 """
 
 from __future__ import annotations
@@ -27,8 +28,25 @@ def autopad(k: int, p: int | None = None, d: int = 1) -> int:
     return k // 2 if p is None else p
 
 
-def batch_norm(c: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(c, eps=MODEL_BN_EPS, momentum=MODEL_BN_MOMENTUM)
+class BatchNorm2d(nn.BatchNorm2d):
+    """torch BatchNorm2d whose train mode updates the running statistics as
+    flax's BatchNorm does: with the biased batch variance (torch's update
+    uses the unbiased one, n/(n-1) larger), as ra = 0.97 ra + 0.03 stat.
+    It normalises with the batch statistics; eval mode is torch's."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            keep = 1.0 - self.momentum
+            self.running_mean.mul_(keep).add_(mean, alpha=1.0 - keep)
+            self.running_var.mul_(keep).add_(var, alpha=1.0 - keep)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+
+def batch_norm(c: int) -> BatchNorm2d:
+    return BatchNorm2d(c, eps=MODEL_BN_EPS, momentum=MODEL_BN_MOMENTUM)
 
 
 def norm_f32(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:

@@ -82,14 +82,15 @@ class GFLHeadv2_uniH(nn.Module):
     def quality(self, box_logits: torch.Tensor, i: int) -> torch.Tensor:
         """DGQP: top-k and mean of each side's DFL distribution -> (B, 1, H, W) in [0, 1].
 
-        Runs in f32 (the 1e-7 tie-break is below bf16 resolution)."""
+        Runs in f32 (the 1e-7 tie-break is below bf16 resolution), autocast or not."""
         b, _, h, w = box_logits.shape
-        prob = box_logits.float().view(b, 4, self.reg_max, h, w).softmax(dim=2)
-        parts = [topk_small(prob, min(self.reg_topk, self.reg_max), dim=2)]
-        if self.add_mean:
-            parts.append(prob.mean(dim=2, keepdim=True))
-        stat = torch.cat(parts, dim=2).flatten(1, 2)  # side-major, (B, 4*(k+1), H, W)
-        return self.reg_conf[i](stat)
+        with torch.autocast(box_logits.device.type, enabled=False):
+            prob = box_logits.float().view(b, 4, self.reg_max, h, w).softmax(dim=2)
+            parts = [topk_small(prob, min(self.reg_topk, self.reg_max), dim=2)]
+            if self.add_mean:
+                parts.append(prob.mean(dim=2, keepdim=True))
+            stat = torch.cat(parts, dim=2).flatten(1, 2)  # side-major, (B, 4*(k+1), H, W)
+            return self.reg_conf[i](stat)
 
     def decode(self, feats, quality):
         """Levels -> (B, A, 4 + nc) in f32: DFL integral boxes, sigmoid cls x quality."""

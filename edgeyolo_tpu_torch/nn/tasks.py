@@ -192,6 +192,25 @@ def num_params(model: nn.Module) -> int:
     return sum(p.numel() for p in model.parameters())
 
 
+def num_trainable(model: nn.Module) -> int:
+    """Parameters the optimizer updates: JAX's count (the DFL bins are frozen)."""
+    return sum(p.numel() for p in model.parameters() if p.requires_grad)
+
+
+def train_forward(model: nn.Module, x: torch.Tensor, amp: bool = True) -> dict:
+    """The training forward: {"feats", "quality"} per level, in f32.
+
+    With `amp` the f32 model runs under bf16 autocast (JAX's amp_cast of the
+    f32 masters): convolutions and the attention in bf16, BatchNorm, the
+    wavelet band weights and the quality head in f32, as in serving. Unlike
+    amp_cast, autocast leaves the BatchNorm affine and quality-head
+    parameters unrounded.
+    """
+    with torch.autocast(x.device.type, dtype=torch.bfloat16, enabled=amp):
+        out = model(x.to(torch.bfloat16) if amp else x)
+    return {k: [f.float() for f in out[k]] for k in ("feats", "quality")}
+
+
 class DetectionModel(GraphNet):
     """The detector: spec by name, seeded weights, explicit device and dtype.
 

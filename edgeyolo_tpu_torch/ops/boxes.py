@@ -1,10 +1,13 @@
-"""Box math the detection head and NMS need (edgeyolo_tpu/ops/boxes.py)."""
+"""Box math the detection head, NMS and the loss need (edgeyolo_tpu/ops/boxes.py)."""
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
+
+EPS = 1e-7
 
 
 def xywh2xyxy(x: torch.Tensor) -> torch.Tensor:
@@ -32,3 +35,41 @@ def dist2bbox(distance: torch.Tensor, anchor_points: torch.Tensor, xywh: bool = 
     if xywh:
         return torch.cat([(x1y1 + x2y2) / 2, x2y2 - x1y1], dim=-1)
     return torch.cat([x1y1, x2y2], dim=-1)
+
+
+def bbox_iou(box1: torch.Tensor, box2: torch.Tensor, xywh: bool = True,
+             CIoU: bool = False) -> torch.Tensor:
+    """Elementwise IoU, or CIoU, of broadcastable box tensors -> (..., 1).
+
+    As JAX's: EPS goes into the heights of the xyxy branch only, and CIoU's
+    alpha carries no gradient (stop_gradient there, detach here).
+    """
+    if xywh:
+        x1, y1, w1, h1 = box1.chunk(4, dim=-1)
+        x2, y2, w2, h2 = box2.chunk(4, dim=-1)
+        b1x1, b1x2, b1y1, b1y2 = x1 - w1 / 2, x1 + w1 / 2, y1 - h1 / 2, y1 + h1 / 2
+        b2x1, b2x2, b2y1, b2y2 = x2 - w2 / 2, x2 + w2 / 2, y2 - h2 / 2, y2 + h2 / 2
+    else:
+        b1x1, b1y1, b1x2, b1y2 = box1.chunk(4, dim=-1)
+        b2x1, b2y1, b2x2, b2y2 = box2.chunk(4, dim=-1)
+        w1, h1 = b1x2 - b1x1, b1y2 - b1y1 + EPS
+        w2, h2 = b2x2 - b2x1, b2y2 - b2y1 + EPS
+    inter = ((torch.minimum(b1x2, b2x2) - torch.maximum(b1x1, b2x1)).clamp(min=0)
+             * (torch.minimum(b1y2, b2y2) - torch.maximum(b1y1, b2y1)).clamp(min=0))
+    union = w1 * h1 + w2 * h2 - inter + EPS
+    iou = inter / union
+    if not CIoU:
+        return iou
+    cw = torch.maximum(b1x2, b2x2) - torch.minimum(b1x1, b2x1)
+    ch = torch.maximum(b1y2, b2y2) - torch.minimum(b1y1, b2y1)
+    c2 = cw ** 2 + ch ** 2 + EPS
+    rho2 = ((b2x1 + b2x2 - b1x1 - b1x2) ** 2 + (b2y1 + b2y2 - b1y1 - b1y2) ** 2) / 4
+    v = (4 / math.pi ** 2) * (torch.atan(w2 / h2) - torch.atan(w1 / h1)) ** 2
+    alpha = (v / (v - iou + (1 + EPS))).detach()
+    return iou - (rho2 / c2 + v * alpha)
+
+
+def bbox2dist(anchor_points: torch.Tensor, bbox: torch.Tensor, reg_max: float) -> torch.Tensor:
+    """xyxy boxes -> (l, t, r, b) distances from the anchors, clipped to [0, reg_max - 0.01]."""
+    x1y1, x2y2 = bbox.chunk(2, dim=-1)
+    return torch.cat([anchor_points - x1y1, x2y2 - anchor_points], dim=-1).clamp(0, reg_max - 0.01)

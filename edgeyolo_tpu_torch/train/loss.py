@@ -1,0 +1,128 @@
+"""The detection criterion (edgeyolo_tpu/train/loss.py): TAL assignment, the
+quality-joint BCE, CIoU and DFL, over fixed-shape padded targets.
+
+The head hands in NCHW maps; `DetectionLoss` flattens them to (B, A, no) in
+row-major anchor order per level, the order of JAX's NHWC reshape and of
+`make_anchors`.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from edgeyolo_tpu_torch.nn.modules.block import dfl_decode
+from edgeyolo_tpu_torch.ops.boxes import bbox2dist, bbox_iou, dist2bbox, make_anchors, xywh2xyxy
+from edgeyolo_tpu_torch.train.tal import task_aligned_assign
+
+
+def bce_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Elementwise binary cross-entropy with logits, JAX's stable form."""
+    return logits.clamp(min=0) - logits * targets + torch.log1p(torch.exp(-logits.abs()))
+
+
+def df_loss(pred_dist: torch.Tensor, target: torch.Tensor, reg_max: int = 16) -> torch.Tensor:
+    """Distribution Focal Loss: pred_dist (..., 4, reg_max) logits, target (..., 4)
+    in bin units -> (...), the mean over the 4 sides. The two bins' weights
+    come from an iota compare, with no gather, as in JAX."""
+    target = target.clamp(0, reg_max - 1 - 0.01)
+    tl = target.floor().long()
+    tr = tl + 1
+    wl = tr.to(target.dtype) - target
+    wr = 1.0 - wl
+    logp = pred_dist.log_softmax(dim=-1)
+    bins = torch.arange(reg_max, device=pred_dist.device)
+    w = (wl[..., None] * (bins == tl[..., None])
+         + wr[..., None] * (bins == tr.clamp(0, reg_max - 1)[..., None]))
+    return (-(logp * w).sum(dim=-1)).mean(dim=-1)
+
+
+class DetectionLoss:
+    """v8-style detection criterion bound to the head's geometry.
+
+    Call with the head's per-level NCHW feats (B, 4*reg_max + nc, H, W), the
+    per-level qualities (B, 1, H, W) or None, and a padded target batch
+    {"cls": (B, M), "bboxes": (B, M, 4) normalised xywh, "mask_gt": (B, M),
+    optional "img_weight": (B,)}. Returns (total, {"box", "cls", "dfl"}).
+    """
+
+    def __init__(self, nc: int = 80, reg_max: int = 16, stride: Sequence[int] = (8, 16, 32),
+                 hyp: dict | None = None, tal_topk: int = 10):
+        hyp = hyp or {}
+        self.nc, self.reg_max, self.stride, self.tal_topk = nc, reg_max, tuple(stride), tal_topk
+        self.box_gain = float(hyp.get("box", 7.5))
+        self.cls_gain = float(hyp.get("cls", 0.5))
+        self.dfl_gain = float(hyp.get("dfl", 1.5))
+
+    @classmethod
+    def for_model(cls, model, hyp: dict | None = None) -> "DetectionLoss":
+        head = model.model[-1]
+        return cls(nc=head.nc, reg_max=head.reg_max, stride=head.stride, hyp=hyp)
+
+    def __call__(self, feats: Sequence[torch.Tensor], batch: dict,
+                 quality: Sequence[torch.Tensor] | None = None):
+        nc, reg_max = self.nc, self.reg_max
+        b = feats[0].shape[0]
+        device = feats[0].device
+        flat = torch.cat([f.flatten(2) for f in feats], dim=2).transpose(1, 2)  # (B, A, no)
+        pred_dist, pred_scores = flat.split((4 * reg_max, nc), dim=-1)
+        a = flat.shape[1]
+        anchor_points, stride_tensor = make_anchors([f.shape[-2:] for f in feats], self.stride,
+                                                    device=device)
+        img_h = feats[0].shape[2] * self.stride[0]
+        img_w = feats[0].shape[3] * self.stride[0]
+
+        # targets: normalised xywh -> pixel xyxy
+        gt_cls = batch["cls"].long()
+        scale = torch.tensor([img_w, img_h, img_w, img_h], dtype=torch.float32, device=device)
+        gt_bboxes = xywh2xyxy(batch["bboxes"] * scale)
+        mask_gt = batch.get("mask_gt")
+        if mask_gt is None:
+            mask_gt = (batch["bboxes"].sum(dim=-1) > 0).float()
+
+        pred_bboxes = dist2bbox(dfl_decode(pred_dist, reg_max), anchor_points[None], xywh=False)
+        _, target_bboxes, target_scores, fg_mask, _ = task_aligned_assign(
+            pred_scores.detach().sigmoid(), pred_bboxes.detach() * stride_tensor[None],
+            anchor_points * stride_tensor, gt_cls, gt_bboxes, mask_gt,
+            topk=self.tal_topk, num_classes=nc, alpha=0.5, beta=6.0)
+
+        # per-image weight: 0 for the padded duplicates of a fixed-shape batch
+        wimg = batch.get("img_weight")
+        if wimg is not None:
+            target_scores = target_scores * wimg[:, None, None]
+        target_scores_sum = target_scores.sum().clamp(min=1.0)
+        wb = wimg[:, None, None] if wimg is not None else 1.0  # no cls negatives either
+
+        # classification: BCE on the joint sigmoid(cls) x quality when the head emits it
+        if quality is not None:
+            q = torch.cat([qi.reshape(b, -1, 1) for qi in quality], dim=1)
+            j = (pred_scores.sigmoid() * q).clamp(1e-6, 1 - 1e-6)
+            loss_cls = (bce_logits(torch.log(j / (1 - j)), target_scores) * wb).sum()
+        else:
+            loss_cls = (bce_logits(pred_scores, target_scores) * wb).sum()
+        loss_cls = loss_cls / target_scores_sum
+
+        # box: CIoU weighted by the target score, DFL to the ltrb bins
+        fg = fg_mask.float()
+        weight = target_scores.sum(dim=-1) * fg
+        tb_grid = target_bboxes / stride_tensor[None]
+        # a zero-gt image puts (0, 0, 0, 0) targets on every anchor, whose CIoU
+        # is 0/0; a safe dummy box under a where keeps the NaN out of the grads
+        dummy = torch.tensor([0.0, 0.0, 1.0, 1.0], device=device)
+        safe_tb = torch.where(fg[..., None] > 0, tb_grid, dummy)
+        iou = bbox_iou(pred_bboxes, safe_tb, xywh=False, CIoU=True)[..., 0]
+        loss_iou = torch.where(fg > 0, (1.0 - iou) * weight, 0.0).sum() / target_scores_sum
+
+        target_ltrb = bbox2dist(anchor_points[None], tb_grid, reg_max - 1)
+        dl = df_loss(pred_dist.reshape(b, a, 4, reg_max), target_ltrb, reg_max)
+        loss_dfl = (dl * weight).sum() / target_scores_sum
+
+        loss_box = loss_iou * self.box_gain
+        loss_cls = loss_cls * self.cls_gain
+        loss_dfl = loss_dfl * self.dfl_gain
+        # the reference's total is the sum times the batch's real-image count
+        n_img = wimg.sum() if wimg is not None else b
+        total = (loss_box + loss_cls + loss_dfl) * n_img
+        items = {"box": loss_box.detach(), "cls": loss_cls.detach(), "dfl": loss_dfl.detach()}
+        return total, items
