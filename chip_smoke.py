@@ -37,6 +37,7 @@ the repository, the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import math
@@ -58,6 +59,11 @@ TRAIN_BATCH, TRAIN_IMGSZ, TRAIN_M, TRAIN_REAL, TRAIN_STEPS = 32, 640, 16, 4, 6
 TRAIN_REF_BATCH, TRAIN_REF_IMGSZ, TRAIN_REF_M = 2, 64, 8
 # card (kernel) vs CPU (plain), f32: loss relative, each gradient of its max |grad|, params absolute
 TRAIN_REF_TOL = {"loss": 1e-4, "grad": 1e-3, "param": 1e-5}
+TRAIN_REF_HYP = {"batch": TRAIN_REF_BATCH, "nbs": TRAIN_REF_BATCH, "epochs": 1, "amp": False,
+                 "optimizer": "SGD", "seed": 0}
+# each f32 step against the f64 one: card gap <= WITNESS_FACTOR * CPU gap + WITNESS_FLOOR
+WITNESS_FACTOR = 2.0
+WITNESS_FLOOR = {"loss": 1e-6, "grad_all": 1e-6, "param": 1e-7}
 # (B, N, H, D, dtype, layout); "qkv" is the module's strided view of the conv output
 LA_CASES = [
     (32, 400, 2, 64, "float32", "qkv"),
@@ -400,58 +406,138 @@ def train_batch(b: int, imgsz: int, m: int, real: int, seed: int) -> dict:
             "mask_gt": mask, "n_real": b}
 
 
-def check_train_reference(la):
-    """One f32 train step (default augmentation, accumulate 1 so it updates)
-    on the card with the kernel and on the CPU with the plain version, from
-    the same seeded weights and the same draws of one CPU generator."""
+def ref_step(la, dev: str, start, batch: dict, replay: tuple | None = None) -> dict:
+    """One train step (default augmentation, accumulate 1 so it updates) on
+    `dev` from seeded weights that `start` prepares, in f32; in f64 when
+    `replay` gives the augmented batch of an f32 step to take in place of
+    this step's own augmentation. Returns the loss, the gradients, the
+    params after the update, the kernel's launches and the augmented batch."""
     import torch
 
     from edgeyolo_tpu_torch.nn.tasks import DetectionModel
-    from edgeyolo_tpu_torch.train.trainer import DetectionTrainer, batch_to_device
+    from edgeyolo_tpu_torch.train import trainer as trainer_mod
 
-    hyp = {"batch": TRAIN_REF_BATCH, "nbs": TRAIN_REF_BATCH, "epochs": 1, "amp": False,
-           "optimizer": "SGD", "seed": 0}
-    batch = train_batch(TRAIN_REF_BATCH, TRAIN_REF_IMGSZ, TRAIN_REF_M, 4, seed=3)
-    res = {}
-    for dev in ("cpu", "cuda"):
-        model = open_wavelet_gates(DetectionModel("edgeline-yolo.yaml", scale="n", device=dev,
-                                                  seed=0))
-        trainer = DetectionTrainer(model, hyp, device=dev)
-        trainer.setup(nb=1)
-        la.linear_attention_kernel.launches = 0
-        loss, _, updated = trainer.train_step(batch_to_device(batch, torch.device(dev)),
-                                              mosaic=True)
-        if not updated:
-            raise AssertionError("the reference step did not update the parameters")
-        grads = {n: g.detach().cpu().clone()
-                 for n, g in trainer.flat.unflatten(trainer.flat.grad).items()}
-        res[dev] = (loss.item(), grads, trainer.flat.unflatten(trainer.flat.data),
-                    la.linear_attention_kernel.launches)
-    (lc, gc, pc, _), (lg, gg, pg, launches) = res["cpu"], res["cuda"]
-    loss_rel = abs(lg - lc) / abs(lc)
-    # each gradient against its own max |grad|. A bias that feeds a train-mode
-    # BatchNorm through a 1x1 conv has no gradient in exact arithmetic, only
-    # f32 noise: such a tensor (under 1e-6 of the largest gradient on the CPU)
-    # must stay under that bound on the card too.
-    zero_bound = 1e-6 * max(g.abs().max().item() for g in gc.values())
-    zero = [n for n, g in gc.items() if g.abs().max().item() <= zero_bound]
-    zero_ok = all(gg[n].abs().max().item() <= zero_bound for n in zero)
-    grad_rel = sorted(((gg[n] - g).abs().max().item() / g.abs().max().item(), n)
-                      for n, g in gc.items() if n not in zero)[::-1]
-    param_err = max((pg[n].cpu() - p).abs().max().item() for n, p in pc.items())
-    print(f"train step f32 {TRAIN_REF_IMGSZ} px batch {TRAIN_REF_BATCH}, card (kernel, {launches} "
-          f"launch) vs CPU (plain): loss {lg:.6f} vs {lc:.6f}, rel {loss_rel:.3e} (tol "
-          f"{TRAIN_REF_TOL['loss']}); gradients, worst of {len(grad_rel)} of its max |grad|: "
-          + ", ".join(f"{n} {e:.3e}" for e, n in grad_rel[:4])
-          + f" (tol {TRAIN_REF_TOL['grad']}); {len(zero)} gradient(s) zero in exact arithmetic "
-          f"({', '.join(zero)}) under {zero_bound:.3e} on both: {zero_ok}; params after the "
-          f"update {param_err:.3e} (tol {TRAIN_REF_TOL['param']})", flush=True)
-    if launches < 1:
+    model = start(open_wavelet_gates(DetectionModel("edgeline-yolo.yaml", scale="n", device=dev,
+                                                    seed=0)))
+    if replay is not None:
+        model.double()
+    trainer = trainer_mod.DetectionTrainer(model, TRAIN_REF_HYP, device=dev)
+    trainer.setup(nb=1)
+    augmented, augment_batch = [], trainer_mod.augment_batch
+
+    def augment(*args, **kwargs):
+        out = (tuple(t.double() for t in replay) if replay is not None
+               else augment_batch(*args, **kwargs))
+        augmented.append(tuple(t.detach().cpu() for t in out))
+        return out
+
+    # f64 throughout: the port's f32 casts (BatchNorm's island, the loss) become f64 ones
+    f64 = (mock.patch.object(torch.Tensor, "float", torch.Tensor.double) if replay is not None
+           else contextlib.nullcontext())
+    la.linear_attention_kernel.launches = 0
+    with mock.patch.object(trainer_mod, "augment_batch", augment), f64:
+        loss, _, updated = trainer.train_step(
+            trainer_mod.batch_to_device(batch, torch.device(dev)), mosaic=True)
+    if not updated:
+        raise AssertionError("the reference step did not update the parameters")
+    return {"loss": loss.item(), "launches": la.linear_attention_kernel.launches,
+            "flat_grad": trainer.flat.grad.detach().cpu().clone(),
+            "grads": {n: g.detach().cpu().double() for n, g in
+                      trainer.flat.unflatten(trainer.flat.grad).items()},
+            "params": {n: p.detach().cpu().double() for n, p in
+                       trainer.flat.unflatten(trainer.flat.data).items()},
+            "augmented": augmented[0]}
+
+
+def step_gap(ref: dict, other: dict) -> dict:
+    """How far `other`'s step is from `ref`'s: the loss relative, each gradient
+    of its own max |grad| in ref and the whole gradient of its norm, the
+    params after the update absolute. A bias that feeds a train-mode
+    BatchNorm through a 1x1 conv has no gradient in exact arithmetic, only
+    rounding noise: such a tensor (under 1e-6 of ref's largest gradient) is
+    held apart, to stay under that bound in other."""
+    gr, go = ref["grads"], other["grads"]
+    zero_bound = 1e-6 * max(g.abs().max().item() for g in gr.values())
+    zero = [n for n, g in gr.items() if g.abs().max().item() <= zero_bound]
+    grad = sorted(((go[n] - g).abs().max().item() / g.abs().max().item(), n)
+                  for n, g in gr.items() if n not in zero)[::-1]
+    norm2 = sum(g.square().sum().item() for g in gr.values())
+    diff2 = sum((go[n] - g).square().sum().item() for n, g in gr.items())
+    return {"loss": abs(other["loss"] - ref["loss"]) / abs(ref["loss"]), "grad": grad,
+            "grad_all": math.sqrt(diff2 / norm2), "zero": zero, "zero_bound": zero_bound,
+            "zero_ok": all(go[n].abs().max().item() <= zero_bound for n in zero),
+            "param": max((other["params"][n] - p).abs().max().item()
+                         for n, p in ref["params"].items())}
+
+
+def gap_text(gap: dict) -> str:
+    return (f"loss rel {gap['loss']:.3e}; worst gradient of its max |grad| "
+            + ", ".join(f"{n} {e:.3e}" for e, n in gap["grad"][:3])
+            + f"; whole gradient of its norm {gap['grad_all']:.3e}; {len(gap['zero'])} zero in "
+            f"exact arithmetic ({', '.join(gap['zero'])}) under {gap['zero_bound']:.3e}: "
+            f"{gap['zero_ok']}; params after the update {gap['param']:.3e}")
+
+
+def card_vs_cpu(la, label: str, start, batch: dict, per_tensor: bool) -> dict:
+    """The f32 step on the card (kernel) and on the CPU (plain), held to
+    TRAIN_REF_TOL: the loss, the params after the update and, with
+    `per_tensor`, each gradient. Returns the CPU's and the card's steps."""
+    cpu, card = (ref_step(la, dev, start, batch) for dev in ("cpu", "cuda"))
+    gap = step_gap(cpu, card)
+    print(f"train step f32 {TRAIN_REF_IMGSZ} px batch {TRAIN_REF_BATCH} from {label}, card "
+          f"(kernel, {card['launches']} launch) vs CPU (plain): loss {card['loss']:.6f} vs "
+          f"{cpu['loss']:.6f}, {gap_text(gap)} (tol {TRAIN_REF_TOL}"
+          + ("" if per_tensor else ", gradients against the f64 step below") + ")", flush=True)
+    if card["launches"] < 1:
         raise AssertionError("the train step on the card did not launch the attention kernel")
-    if not (math.isfinite(lg) and loss_rel <= TRAIN_REF_TOL["loss"]
-            and grad_rel[0][0] <= TRAIN_REF_TOL["grad"] and zero_ok
-            and param_err <= TRAIN_REF_TOL["param"]):
-        raise AssertionError("the train step on the card disagrees with the CPU reference")
+    if not (math.isfinite(card["loss"]) and gap["loss"] <= TRAIN_REF_TOL["loss"]
+            and (gap["grad"][0][0] <= TRAIN_REF_TOL["grad"] or not per_tensor)
+            and gap["zero_ok"] and gap["param"] <= TRAIN_REF_TOL["param"]):
+        raise AssertionError(f"the train step on the card disagrees with the CPU's from {label}")
+    return cpu, card
+
+
+def check_train_reference(la):
+    """One f32 train step on the card with the kernel and on the CPU with the
+    plain version, from the same seeded weights and the same draws of one
+    CPU generator, from two starts:
+
+    - the model's own class prior (loss ~0.16): card against CPU, at
+      TRAIN_REF_TOL;
+    - class logits at 0 (loss ~3928: the update is clipped at norm 10, and
+      the wavelet band weights' gradients, normalised softplus weights with
+      cancelling terms, are the worst conditioned): card against CPU at
+      TRAIN_REF_TOL for the loss and the params; and each f32 side against
+      an f64 step on the CPU's augmented batch, the exact step to f32's eyes.
+      The card may be no farther from it than WITNESS_FACTOR times the CPU's
+      f32 step in the loss, the whole gradient and the params, with
+      WITNESS_FLOOR for gaps at f32 resolution.
+    """
+    import torch
+
+    batch = train_batch(TRAIN_REF_BATCH, TRAIN_REF_IMGSZ, TRAIN_REF_M, 4, seed=3)
+    card_vs_cpu(la, "the class prior", lambda m: m, batch, per_tensor=True)
+    cpu, card = card_vs_cpu(la, "class logits at 0", exercise_branches, batch, per_tensor=False)
+    exact = ref_step(la, "cpu", exercise_branches, batch, replay=cpu["augmented"])
+    img_gap = (card["augmented"][0] - cpu["augmented"][0]).abs().max().item()
+    on_card, on_cpu = step_gap(exact, card), step_gap(exact, cpu)
+    g32 = cpu["flat_grad"]
+    print(f"  f64 step on the CPU's augmented batch (card's img01 within {img_gap:.3e} of it): "
+          f"loss {exact['loss']:.6f}; the clip's global norm of the CPU's f32 gradient "
+          f"({g32.numel()} entries), accumulated in f32 "
+          f"{torch.linalg.vector_norm(g32).item():.6f}, in f64 (as the port does) "
+          f"{torch.linalg.vector_norm(g32, dtype=torch.float64).item():.6f}", flush=True)
+    for side, g in (("card f32", on_card), ("CPU f32", on_cpu)):
+        print(f"  {side} against the f64 step: {gap_text(g)}", flush=True)
+    cpu_err = {n: e for e, n in on_cpu["grad"]}
+    print("  the card's worst gradients, card / CPU against the f64 step: "
+          + ", ".join(f"{n} {e:.3e} / {cpu_err[n]:.3e}" for e, n in on_card["grad"][:4]),
+          flush=True)
+    worse = [k for k in WITNESS_FLOOR
+             if on_card[k] > WITNESS_FACTOR * on_cpu[k] + WITNESS_FLOOR[k]]
+    if worse or not on_card["zero_ok"]:
+        raise AssertionError(f"the card's step is farther from the f64 step than the CPU's: "
+                             f"{worse}")
 
 
 TRAIN_STAGES = ("augment", "forward", "loss", "backward", "optimizer")

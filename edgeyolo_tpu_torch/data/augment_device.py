@@ -10,10 +10,11 @@ a torch.Generator on the CPU, a few numbers per image, so a step on the card
 and one on the CPU draw the same values. `augment_apply` takes them as
 tensors; the tests feed it the parameters the JAX code draws from its keys.
 
-The warp is separable when degrees, shear and perspective are all 0 (the
-default detect hyps): the inverse map is then axis-aligned, each output row
-and column samples two source rows and columns, and the gray border comes
-from the missing weight. Otherwise each pixel gathers its four taps.
+The warp is separable when every drawn homography is axis-aligned (so when
+degrees, shear and perspective are all 0, the default detect hyps): each
+output row and column samples two source rows and columns, and the gray
+border comes from the missing weight. Otherwise each pixel gathers its four
+taps.
 Boxes ride the forward transform (4 corners, min/max, candidate filter),
 fixed-shape: each image carries n_src * M padded slots.
 
@@ -205,60 +206,83 @@ def _bilinear_gather(images: torch.Tensor, img_idx: torch.Tensor, yy: torch.Tens
             + tap(y0 + 1, x0) * fy * (1 - fx) + tap(y0 + 1, x0 + 1) * fy * fx)
 
 
+def axis_aligned(affine: torch.Tensor) -> bool:
+    """Whether every homography of the batch maps rows to rows and columns to
+    columns: no rotation, shear or perspective term."""
+    return not bool(affine[:, 0, 1].any() or affine[:, 1, 0].any() or affine[:, 2, :2].any())
+
+
+def _canvas_offset(s: int, mosaic: bool) -> float:
+    return float(s) if mosaic else 0.5 * s  # half the canvas: 2S for mosaic4, else S
+
+
+def _sample_separable(images: torch.Tensor, sel: torch.Tensor, center: torch.Tensor,
+                      a_inv: torch.Tensor, s: int) -> torch.Tensor:
+    """The warped images of axis-aligned inverse maps a_inv (B, 3, 3): output
+    row i reads canvas row u(i), output column j canvas column v(j)."""
+    b, mosaic = sel.shape[0], sel.shape[1] == 4
+    offs = _canvas_offset(s, mosaic)
+    ar = torch.arange(s, dtype=torch.float32, device=images.device)
+    zero, one = torch.zeros_like(ar), torch.ones_like(ar)
+    src_r = torch.stack([zero, ar, one], dim=-1) @ a_inv.transpose(1, 2)  # (B, S, 3)
+    src_c = torch.stack([ar, zero, one], dim=-1) @ a_inv.transpose(1, 2)
+    u = src_r[..., 1] / src_r[..., 2] + offs  # canvas row of output row i
+    v = src_c[..., 0] / src_c[..., 2] + offs  # canvas column of output column j
+    if not mosaic:
+        src = sel[:, :1, None].expand(b, 1, s)
+        return _separable_sample(images, src, u, v, torch.zeros_like(v, dtype=torch.long))
+    yc, xc = center[:, 0, None], center[:, 1, None]  # (B, 1)
+    bot, rgt = (u >= yc).long(), (v >= xc).long()
+    y_loc = u - torch.where(bot == 1, yc, yc - s)
+    x_loc = v - torch.where(rgt == 1, xc, xc - s)
+    tile = 2 * bot[:, None, :] + torch.arange(2, device=images.device)[None, :, None]  # (B, 2, S)
+    src = sel.gather(1, tile.flatten(1)).view(b, 2, s)
+    return _separable_sample(images, src, y_loc, x_loc, rgt)
+
+
+def _sample_gather(images: torch.Tensor, sel: torch.Tensor, center: torch.Tensor,
+                   a_inv: torch.Tensor, s: int) -> torch.Tensor:
+    """The warped images of any inverse maps a_inv (B, 3, 3), four taps per pixel."""
+    b, mosaic = sel.shape[0], sel.shape[1] == 4
+    offs = _canvas_offset(s, mosaic)
+    ar = torch.arange(s, dtype=torch.float32, device=images.device)
+    gy, gx = torch.meshgrid(ar, ar, indexing="ij")
+    pts = torch.stack([gx, gy, torch.ones_like(gx)], dim=-1)  # (S, S, 3)
+    src = pts[None] @ a_inv.transpose(1, 2)[:, None]  # (B, S, S, 3)
+    u = src[..., 1] / src[..., 2] + offs
+    v = src[..., 0] / src[..., 2] + offs
+    if mosaic:
+        yc4, xc4 = center[:, 0, None, None], center[:, 1, None, None]
+        right, bottom = (v >= xc4).long(), (u >= yc4).long()
+        tile = right + 2 * bottom
+        y_loc = u - torch.where(bottom == 1, yc4, yc4 - s)
+        x_loc = v - torch.where(right == 1, xc4, xc4 - s)
+    else:
+        tile, y_loc, x_loc = torch.zeros_like(u, dtype=torch.long), u, v
+    img_idx = sel.gather(1, tile.flatten(1)).view(b, s, s)
+    return _bilinear_gather(images, img_idx, y_loc, x_loc)
+
+
 def warp(images: torch.Tensor, boxes: torch.Tensor, valid: torch.Tensor, prm: AugParams,
-         s: int, hyp: dict, mosaic: bool):
+         s: int):
     """Place and warp each output image from its n_src sources (JAX's _warp_one,
-    batched). images (N, S, S, 3) uint8; boxes (B, n_src, M, 4) normalised
-    xywh and valid (B, n_src, M) of the selected sources.
+    batched): mosaic4 when prm.sel holds four sources, else single-source.
+    images (N, S, S, 3) uint8; boxes (B, n_src, M, 4) normalised xywh and
+    valid (B, n_src, M) of the selected sources. The separable sampler runs
+    when every drawn homography is axis-aligned, the gather otherwise.
     Returns (img (B, S, S, 3) in 0..255, boxes (B, n_src*M, 4), valid (B, n_src*M))."""
     b, n_src, m = valid.shape
     dev = images.device
-    sel = prm.sel
+    mosaic = n_src == 4
     a, a_inv = prm.affine.float(), torch.linalg.inv(prm.affine.float())
+    sample = _sample_separable if axis_aligned(a) else _sample_gather
     a, a_inv = a.to(dev), a_inv.to(dev)
-    offs = float(s) if mosaic else 0.5 * s  # half the canvas: 2S for mosaic4, else S
-    if mosaic:
-        yc, xc = prm.center[:, 0, None], prm.center[:, 1, None]  # (B, 1)
-
-    separable = (_hyp(hyp, "degrees", 0.0) == 0.0 and _hyp(hyp, "shear", 0.0) == 0.0
-                 and _hyp(hyp, "perspective", 0.0) == 0.0 and not hyp.get("_force_gather"))
-    ar = torch.arange(s, dtype=torch.float32, device=dev)
-    if separable:
-        # the inverse map is axis-aligned: rows from (0, i), columns from (j, 0)
-        zero, one = torch.zeros_like(ar), torch.ones_like(ar)
-        src_r = torch.stack([zero, ar, one], dim=-1) @ a_inv.transpose(1, 2)  # (B, S, 3)
-        src_c = torch.stack([ar, zero, one], dim=-1) @ a_inv.transpose(1, 2)
-        u = src_r[..., 1] / src_r[..., 2] + offs  # canvas row of output row i
-        v = src_c[..., 0] / src_c[..., 2] + offs  # canvas column of output column j
-        if mosaic:
-            bot, rgt = (u >= yc).long(), (v >= xc).long()
-            y_loc = u - torch.where(bot == 1, yc, yc - s)
-            x_loc = v - torch.where(rgt == 1, xc, xc - s)
-            tile = 2 * bot[:, None, :] + torch.arange(2, device=dev)[None, :, None]  # (B, 2, S)
-            src = sel.gather(1, tile.flatten(1)).view(b, 2, s)
-            img = _separable_sample(images, src, y_loc, x_loc, rgt)
-        else:
-            src = sel[:, :1, None].expand(b, 1, s)
-            img = _separable_sample(images, src, u, v, torch.zeros_like(v, dtype=torch.long))
-    else:
-        gy, gx = torch.meshgrid(ar, ar, indexing="ij")
-        pts = torch.stack([gx, gy, torch.ones_like(gx)], dim=-1)  # (S, S, 3)
-        src = pts[None] @ a_inv.transpose(1, 2)[:, None]  # (B, S, S, 3)
-        u = src[..., 1] / src[..., 2] + offs
-        v = src[..., 0] / src[..., 2] + offs
-        if mosaic:
-            yc4, xc4 = yc[:, :, None], xc[:, :, None]
-            right, bottom = (v >= xc4).long(), (u >= yc4).long()
-            tile = right + 2 * bottom
-            y_loc = u - torch.where(bottom == 1, yc4, yc4 - s)
-            x_loc = v - torch.where(right == 1, xc4, xc4 - s)
-        else:
-            tile, y_loc, x_loc = torch.zeros_like(u, dtype=torch.long), u, v
-        img_idx = sel.gather(1, tile.flatten(1)).view(b, s, s)
-        img = _bilinear_gather(images, img_idx, y_loc, x_loc)
+    img = sample(images, prm.sel, prm.center, a_inv, s)
+    offs = _canvas_offset(s, mosaic)
 
     # labels: the forward transform
     if mosaic:
+        yc, xc = prm.center[:, 0, None], prm.center[:, 1, None]  # (B, 1)
         oy = torch.cat([yc - s, yc - s, yc, yc], dim=1)  # (B, 4) per-quadrant origin
         ox = torch.cat([xc - s, xc, xc - s, xc], dim=1)
     else:
@@ -323,8 +347,10 @@ def hsv_aug(img01: torch.Tensor, gains: torch.Tensor) -> torch.Tensor:
 
 
 def augment_apply(images: torch.Tensor, cls: torch.Tensor, bboxes: torch.Tensor,
-                  mask: torch.Tensor, prm: AugParams, imgsz: int, hyp: dict, mosaic: bool):
-    """Apply drawn parameters (JAX's _augment_impl, detect labels).
+                  mask: torch.Tensor, prm: AugParams, imgsz: int):
+    """Apply drawn parameters (JAX's _augment_impl, detect labels); what runs
+    follows from them alone: mosaic4 for four sources per image, each stage
+    whose parameters were drawn.
 
     images (B, S, S, 3) uint8; cls (B, M); bboxes (B, M, 4) normalised xywh;
     mask (B, M). Returns (img01 (B, S, S, 3) f32 in [0, 1], cls (B, M'),
@@ -335,7 +361,7 @@ def augment_apply(images: torch.Tensor, cls: torch.Tensor, bboxes: torch.Tensor,
     n_src = sel.shape[1]
     boxes4, valid4 = bboxes[sel], mask[sel] > 0  # (B, n, M, 4), (B, n, M)
     cls4 = cls[sel].reshape(b, n_src * m)
-    img, boxes_out, valid = warp(images, boxes4, valid4, prm, imgsz, hyp, mosaic)
+    img, boxes_out, valid = warp(images, boxes4, valid4, prm, imgsz)
     img01 = img / 255.0
     if prm.photometric is not None:
         img01 = photometric_apply(img01, prm.photometric)
@@ -370,4 +396,4 @@ def augment_batch(images: torch.Tensor, cls: torch.Tensor, bboxes: torch.Tensor,
                   mosaic: bool = True):
     """Draw one step's parameters from `gen` and apply them on images' device."""
     prm = sample_params(images.shape[0], imgsz, hyp, mosaic, gen)
-    return augment_apply(images, cls, bboxes, mask, prm.to(images.device), imgsz, hyp, mosaic)
+    return augment_apply(images, cls, bboxes, mask, prm.to(images.device), imgsz)

@@ -32,17 +32,23 @@ class BatchNorm2d(nn.BatchNorm2d):
     """torch BatchNorm2d whose train mode updates the running statistics as
     flax's BatchNorm does: with the biased batch variance (torch's update
     uses the unbiased one, n/(n-1) larger), as ra = 0.97 ra + 0.03 stat.
-    It normalises with the batch statistics; eval mode is torch's."""
+    It normalises with the batch statistics; eval mode is torch's.
+
+    One statistics pass: torch's own train-mode update runs, on a copy of the
+    running variance (autograd keeps that copy for the backward), and its
+    variance increment is then scaled by (n-1)/n, in C-sized ops."""
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        n = x.numel() // x.shape[1]
+        rv = self.running_var.clone()
+        y = F.batch_norm(x, self.running_mean, rv, self.weight, self.bias, True,
+                         self.momentum, self.eps)
         with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
-            keep = 1.0 - self.momentum
-            self.running_mean.mul_(keep).add_(mean, alpha=1.0 - keep)
-            self.running_var.mul_(keep).add_(var, alpha=1.0 - keep)
-        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+            kept = self.running_var.mul_(1.0 - self.momentum)
+            kept.add_((rv - kept) * ((n - 1) / n))
+        return y
 
 
 def batch_norm(c: int) -> BatchNorm2d:

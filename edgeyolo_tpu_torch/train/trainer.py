@@ -61,18 +61,19 @@ def _decay_mask(model: nn.Module) -> dict[str, bool]:
 
 class FlatParams:
     """The model's trainable parameters as views of one flat f32 vector, and
-    their gradients as views of a second one."""
+    their gradients as views of a second one (f64 vectors for an f64 model,
+    a reference step)."""
 
     def __init__(self, model: nn.Module):
         self.named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
         total = sum(p.numel() for _, p in self.named)
-        device = self.named[0][1].device
-        self.data = torch.empty(total, dtype=torch.float32, device=device)
-        self.grad = torch.zeros(total, dtype=torch.float32, device=device)
+        device, dtype = self.named[0][1].device, self.named[0][1].dtype
+        self.data = torch.empty(total, dtype=dtype, device=device)
+        self.grad = torch.zeros(total, dtype=dtype, device=device)
         self.slices: dict[str, slice] = {}
         off = 0
         for name, p in self.named:
-            if p.dtype != torch.float32:
+            if p.dtype != dtype or dtype not in (torch.float32, torch.float64):
                 raise TypeError(f"{name} is {p.dtype}; training keeps f32 parameters")
             n = p.numel()
             self.data[off:off + n].copy_(p.detach().flatten())
@@ -118,7 +119,9 @@ class FlatOptimizer:
         lr = self.lr_at(self.count)
         m = self.momentum_at(self.count) if self.momentum_at else self.momentum
         self.count += 1
-        norm = torch.linalg.vector_norm(g)
+        # accumulated in f64: an f32 sum of millions of squares on the CPU
+        # drifts by 4e-4 relative at the flagship's 2.68M parameters
+        norm = torch.linalg.vector_norm(g, dtype=torch.float64).to(g.dtype)
         g = torch.where(norm < CLIP_NORM, g, g / norm * CLIP_NORM)
         wd = self.decay * self.mask
         if self.name == "sgd":

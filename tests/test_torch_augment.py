@@ -123,7 +123,7 @@ def _run_both(hyp, mosaic, b=B, seed=0):
     prm = jax_drawn_params(key, b, S, hyp, mosaic)
     p_img, p_cls, p_box, p_mask = (t.numpy() for t in aug.augment_apply(
         torch.from_numpy(imgs), torch.from_numpy(cls), torch.from_numpy(boxes),
-        torch.from_numpy(mask), prm, S, hyp, mosaic))
+        torch.from_numpy(mask), prm, S))
     return (j_img, j_cls, j_box, j_mask), (p_img, p_cls, p_box, p_mask), prm
 
 
@@ -146,14 +146,29 @@ def test_warp_matches_jax(path, mosaic):
     assert p[3].sum() > 0  # some boxes survive the candidate filter
 
 
-def test_separable_and_gather_paths_agree():
+@pytest.mark.parametrize("mosaic", [True, False], ids=["mosaic4", "single"])
+def test_separable_and_gather_paths_agree(mosaic):
     """The same axis-aligned draw through both samplers of the port."""
-    imgs, cls, boxes, mask = (torch.from_numpy(a) for a in _batch())
-    prm = jax_drawn_params(jax.random.PRNGKey(3), B, S, QUIET, True)
-    sep = aug.augment_apply(imgs, cls, boxes, mask, prm, S, QUIET, True)
-    gat = aug.augment_apply(imgs, cls, boxes, mask, prm, S, {**QUIET, "_force_gather": 1}, True)
-    np.testing.assert_allclose(sep[0].numpy(), gat[0].numpy(), atol=IMG_ATOL, rtol=0)
-    np.testing.assert_array_equal(sep[3].numpy(), gat[3].numpy())
+    imgs = torch.from_numpy(_batch()[0])
+    prm = jax_drawn_params(jax.random.PRNGKey(3), B, S, QUIET, mosaic)
+    assert aug.axis_aligned(prm.affine)
+    a_inv = torch.linalg.inv(prm.affine.float())
+    sep = aug._sample_separable(imgs, prm.sel, prm.center, a_inv, S)
+    gat = aug._sample_gather(imgs, prm.sel, prm.center, a_inv, S)
+    np.testing.assert_allclose(sep.numpy() / 255, gat.numpy() / 255, atol=IMG_ATOL, rtol=0)
+
+
+def test_sampler_follows_the_drawn_homography():
+    """warp takes the separable sampler exactly when every drawn homography
+    is axis-aligned; a rotation, shear or perspective term anywhere in the
+    batch sends the batch through the gather."""
+    gen = torch.Generator().manual_seed(0)
+    assert aug.axis_aligned(aug.sample_params(B, S, QUIET, True, gen).affine)
+    for term in ({"degrees": 1.0}, {"shear": 1.0}, {"perspective": 1e-4}):
+        assert not aug.axis_aligned(aug.sample_params(B, S, {**QUIET, **term}, True, gen).affine)
+    a = torch.eye(3).repeat(B, 1, 1)
+    a[1, 2, 1] = 1e-4
+    assert not aug.axis_aligned(a)
 
 
 @pytest.mark.parametrize("seed", [0, 1])
