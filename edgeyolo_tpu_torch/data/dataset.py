@@ -1,0 +1,337 @@
+"""YOLO-format detection dataset and loader (edgeyolo_tpu/data/dataset.py), detect task.
+
+File scanning with `fraction`, a header check of every image, label parsing
+with the JSON label cache (the JAX package's file name, format and `sig`, so
+either package reads the other's cache), class filtering, `single_cls`, the
+rect-val canvas shapes, letterboxed samples with labels mapped into
+letterbox space, and an optional RAM cache of decoded images.
+
+Batches have fixed shapes: images (B, imgsz, imgsz, 3) uint8, and labels
+padded to the dataset's `max_gt` with a validity mask. The last batch of an
+epoch is padded by repeating its last item, and `n_real` says how many are
+real. The trainer augments on the device (data/augment_device.py); the host
+only decodes and letterboxes, in one prefetch thread.
+"""
+
+from __future__ import annotations
+
+import glob
+import hashlib
+import json
+import os
+import queue as queue_mod
+import random
+import threading
+from pathlib import Path
+
+import numpy as np
+
+from edgeyolo_tpu_torch.data.imageio import image_size, load_image_rgb
+from edgeyolo_tpu_torch.data.letterbox import letterbox
+from edgeyolo_tpu_torch.utils import LOGGER
+from edgeyolo_tpu_torch.utils.yamlfile import yaml_load
+
+IMG_FORMATS = {"bmp", "jpeg", "jpg", "png", "tif", "tiff", "webp"}
+
+
+def img2label_path(img_path: str) -> str:
+    sa, sb = f"{os.sep}images{os.sep}", f"{os.sep}labels{os.sep}"
+    return sb.join(img_path.rsplit(sa, 1)).rsplit(".", 1)[0] + ".txt"
+
+
+def check_det_dataset(data: str | Path | dict) -> dict:
+    """Parse a dataset YAML (or dict) into {path, train, val, test, names, nc, ...}."""
+    if isinstance(data, (str, Path)):
+        data = yaml_load(data, append_filename=True)
+    data = dict(data)
+    root = Path(data.get("path") or Path(data.get("yaml_file", ".")).parent)
+    if not root.is_absolute():
+        root = (Path(data.get("yaml_file", ".")).parent / root).resolve()
+    for split in ("train", "val", "test"):
+        if data.get(split):
+            p = Path(data[split])
+            data[split] = str(p if p.is_absolute() else root / p)
+    names = data.get("names")
+    if isinstance(names, list):
+        names = dict(enumerate(names))
+    data["names"] = {int(k): str(v) for k, v in (names or {}).items()}
+    data["nc"] = data.get("nc") or len(data["names"])
+    if not data["names"]:
+        data["names"] = {i: f"class{i}" for i in range(data["nc"])}
+    data["path"] = str(root)
+    return data
+
+
+class YOLODataset:
+    """Detection dataset over YOLO-format .txt labels."""
+
+    def __init__(self, img_path: str, imgsz: int = 640, augment: bool = False, rect: bool = False,
+                 single_cls: bool = False, classes=None, fraction: float = 1.0,
+                 names: dict | None = None, cache: bool | str = False):
+        self.img_path = img_path
+        self.imgsz = imgsz
+        self.augment = augment
+        self.cache_ram = str(cache).lower() in ("true", "ram", "1")
+        self._im_cache: dict = {}
+        self.rect = bool(rect) and not augment
+        self._rect_shape = None
+        self.single_cls = single_cls
+        self.names = names or {}
+        self.im_files = self._scan_images(img_path, fraction)
+        if not self.im_files:
+            raise FileNotFoundError(f"no images found in {img_path}")
+        self.labels = self._load_labels()
+        if classes is not None:
+            self._filter_classes(classes)
+        counts = [len(lab["cls"]) for lab in self.labels]
+        observed = max(counts) if counts else 1  # labels padded to a multiple of 8, at least 8
+        self.max_gt = max(8, int(np.ceil(max(observed, 1) / 8) * 8))
+
+    def __len__(self):
+        return len(self.im_files)
+
+    @staticmethod
+    def _scan_images(img_path: str, fraction: float) -> list[str]:
+        p = Path(img_path)
+        files: list[str] = []
+        if p.is_dir():
+            files = sorted(x for x in glob.glob(str(p / "**" / "*.*"), recursive=True)
+                           if x.rsplit(".", 1)[-1].lower() in IMG_FORMATS)
+        elif p.is_file() and p.suffix == ".txt":  # a file list
+            base = p.parent
+            for line in p.read_text().splitlines():
+                line = line.strip()
+                if line:
+                    q = Path(line)
+                    files.append(str(q if q.is_absolute() else base / q))
+            files.sort()
+        elif p.is_file():
+            files = [str(p)]
+        if fraction < 1.0:
+            files = files[:max(1, round(len(files) * fraction))]
+        return files
+
+    def _cache_path(self) -> Path:
+        h = hashlib.sha1("".join(self.im_files).encode()).hexdigest()[:16]
+        return Path(self.im_files[0]).parent.parent / f".edgeyolo_labels_{h}.json"
+
+    def _verify_images(self):
+        """Drop images whose header does not read or that are under 10 px, before
+        the cache check, so cached labels align with the kept files."""
+        good = []
+        for f in self.im_files:
+            try:
+                w0, h0 = image_size(f)
+                if w0 < 10 or h0 < 10:
+                    raise ValueError(f"image too small {w0}x{h0}")
+                good.append(f)
+            except (OSError, ValueError) as e:
+                LOGGER.warning(f"dropping corrupt image {f}: {e}")
+        self.im_files = good
+        if not self.im_files:
+            raise FileNotFoundError(f"all images under {self.img_path} failed verification")
+
+    def _load_labels(self):
+        self._verify_images()
+        cache = self._cache_path()
+        sig = ["v2"] + [os.path.getmtime(f) if os.path.exists(f) else 0
+                        for f in map(img2label_path, self.im_files)]
+        if cache.exists():
+            try:
+                d = json.loads(cache.read_text())
+                if d.get("sig") == sig and d.get("task") == "detect":
+                    return [{"cls": np.asarray(lab["cls"], np.float32),
+                             "bboxes": np.asarray(lab["bboxes"], np.float32).reshape(-1, 4)}
+                            for lab in d["labels"]]
+            except (ValueError, KeyError, TypeError) as e:
+                LOGGER.warning(f"ignoring unreadable label cache {cache}: {e}")
+        labels = []
+        nm = nf = ne = nch = 0
+        for f in self.im_files:
+            lp = img2label_path(f)
+            cls, boxes = [], []
+            if os.path.exists(lp):
+                for line in Path(lp).read_text().splitlines():
+                    parts = line.split()
+                    if len(parts) < 5:
+                        continue
+                    c = float(parts[0])
+                    vals = [float(x) for x in parts[1:]]
+                    if len(vals) > 5 and len(vals) % 2 == 0:  # a polygon: its box
+                        poly = np.asarray(vals, np.float32).reshape(-1, 2)
+                        x1, y1 = poly[:, 0].min(), poly[:, 1].min()
+                        x2, y2 = poly[:, 0].max(), poly[:, 1].max()
+                        b = [(x1 + x2) / 2, (y1 + y2) / 2, x2 - x1, y2 - y1]
+                    else:
+                        b = vals[:4]
+                    if all(0 <= v <= 1.001 for v in b) and b[2] > 0 and b[3] > 0:
+                        cls.append(c)
+                        boxes.append(b)
+                    else:
+                        nch += 1
+                nf += 1 if cls else 0
+                ne += 0 if cls else 1
+            else:
+                nm += 1
+            labels.append({"cls": np.asarray(cls, np.float32),
+                           "bboxes": np.asarray(boxes, np.float32).reshape(-1, 4)})
+        LOGGER.info(f"dataset {self.img_path}: {len(self.im_files)} images, {nf} labelled, "
+                    f"{ne} empty, {nm} missing labels, {nch} corrupt boxes dropped")
+        try:
+            cache.write_text(json.dumps({
+                "sig": sig, "task": "detect",
+                "labels": [{"cls": lab["cls"].tolist(), "bboxes": lab["bboxes"].tolist(),
+                            "segments": [], "keypoints": []} for lab in labels]}))
+        except OSError as e:
+            LOGGER.warning(f"label cache not written ({e})")
+        return labels
+
+    def _filter_classes(self, classes):
+        keep = list(set(classes))
+        for lab in self.labels:
+            m = np.isin(lab["cls"], keep)
+            lab["cls"], lab["bboxes"] = lab["cls"][m], lab["bboxes"][m]
+
+    def set_rectangle(self, batch_size: int):
+        """Rect val batching: sort by aspect ratio and give each batch one canvas,
+        quantised up to a multiple of 64."""
+        shapes = []
+        for f in self.im_files:
+            w, h = image_size(f)
+            shapes.append((h, w))
+        ar = np.asarray([h / w for h, w in shapes], np.float64)
+        order = np.argsort(ar).tolist()
+        self.im_files = [self.im_files[i] for i in order]
+        self.labels = [self.labels[i] for i in order]
+        ar = ar[order]
+        n = len(ar)
+        self._rect_shape = [None] * n
+        for b in range(0, n, batch_size):
+            sl = ar[b:b + batch_size]
+            shape = [1.0, 1.0]
+            if sl.max() < 1:
+                shape = [float(sl.max()), 1.0]
+            elif sl.min() > 1:
+                shape = [1.0, float(1 / sl.min())]
+            H = int(np.ceil(shape[0] * self.imgsz / 64) * 64)
+            W = int(np.ceil(shape[1] * self.imgsz / 64) * 64)
+            for i in range(b, min(b + batch_size, n)):
+                self._rect_shape[i] = (H, W)
+        self.rect = True
+
+    def get_item(self, i: int) -> dict:
+        """One sample: letterboxed uint8 image and padded normalised-xywh labels."""
+        target = self._rect_shape[i] if (self.rect and self._rect_shape) else self.imgsz
+        ck = (i, target)
+        if self.cache_ram and ck in self._im_cache:
+            img, r, (pw, ph), (h0, w0) = self._im_cache[ck]
+        else:
+            img0 = load_image_rgb(self.im_files[i])
+            h0, w0 = img0.shape[:2]
+            img, r, (pw, ph) = letterbox(img0, target, scaleup=self.augment)
+            if self.cache_ram:
+                self._im_cache[ck] = (img, r, (pw, ph), (h0, w0))
+        H, W = img.shape[:2]
+        lab = self.labels[i]
+        cls = lab["cls"].copy()
+        boxes = lab["bboxes"].copy()  # normalised xywh in the original image
+        if self.single_cls:
+            cls[:] = 0
+        if len(boxes):  # into normalised letterbox coordinates
+            boxes = boxes * np.array([w0 * r / W, h0 * r / H, w0 * r / W, h0 * r / H])
+            boxes[:, 0] += pw / W
+            boxes[:, 1] += ph / H
+        n = min(len(cls), self.max_gt)
+        pc = np.zeros(self.max_gt, np.float32)
+        pb = np.zeros((self.max_gt, 4), np.float32)
+        pm = np.zeros(self.max_gt, np.float32)
+        pc[:n], pm[:n] = cls[:n], 1.0
+        if n:
+            pb[:n] = boxes[:n]
+        return {"img": img, "cls": pc, "bboxes": pb, "mask_gt": pm, "ori_shape": (h0, w0),
+                "ratio_pad": (r, (pw, ph)), "im_file": self.im_files[i],
+                "ori_cls": cls, "ori_bboxes": lab["bboxes"]}
+
+
+class DataLoader:
+    """Fixed-shape numpy batches, decoded one epoch ahead by one thread.
+
+    `shuffle` orders each epoch by `random.Random(seed + epoch)`; the epoch
+    advances with each `iter`. A decode error in the thread is raised in the
+    consumer."""
+
+    PREFETCH = 2  # batches decoded ahead
+
+    def __init__(self, dataset: YOLODataset, batch_size: int = 16, shuffle: bool = False,
+                 seed: int = 0):
+        self.dataset = dataset
+        self.bs = batch_size
+        self.shuffle = shuffle
+        self.seed = seed
+        self.epoch = 0
+
+    def __len__(self):
+        return (len(self.dataset) + self.bs - 1) // self.bs
+
+    def _indices(self):
+        idx = list(range(len(self.dataset)))
+        if self.shuffle:
+            random.Random(self.seed + self.epoch).shuffle(idx)
+        return idx
+
+    def _collate(self, chunk: list[int]) -> dict:
+        """Stack one batch; a short final batch repeats its last item (n_real says)."""
+        n_real = len(chunk)
+        chunk = chunk + [chunk[-1]] * (self.bs - len(chunk))
+        items = [self.dataset.get_item(j) for j in chunk]
+        return {"img": np.stack([it["img"] for it in items]),
+                "cls": np.stack([it["cls"] for it in items]),
+                "bboxes": np.stack([it["bboxes"] for it in items]),
+                "mask_gt": np.stack([it["mask_gt"] for it in items]),
+                "n_real": n_real, "meta": items}
+
+    def first_batch(self) -> dict:
+        """Batch 0, made in the caller's thread, without advancing the epoch."""
+        return self._collate(self._indices()[:self.bs])
+
+    def __iter__(self):
+        idx = self._indices()
+        self.epoch += 1
+        q: queue_mod.Queue = queue_mod.Queue(maxsize=self.PREFETCH)
+        stop = threading.Event()
+
+        def put(item):
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue_mod.Full:
+                    continue
+            return False
+
+        def produce():
+            try:
+                for start in range(0, len(idx), self.bs):
+                    if not put(self._collate(idx[start:start + self.bs])):
+                        return
+                put(None)
+            except Exception as e:  # noqa: BLE001 - handed to the consumer, raised there
+                put(e)
+
+        t = threading.Thread(target=produce, daemon=True)
+        t.start()
+        try:
+            while True:
+                b = q.get()
+                if b is None:
+                    return
+                if isinstance(b, Exception):
+                    raise b
+                yield b
+        finally:  # a consumer that stops early releases the thread
+            stop.set()
+            t.join(timeout=5)
+
+
+def build_dataloader(dataset, batch_size, shuffle=True, seed=0):
+    return DataLoader(dataset, batch_size, shuffle=shuffle, seed=seed)

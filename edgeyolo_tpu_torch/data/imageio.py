@@ -1,0 +1,223 @@
+"""Image files without PIL: PNG decode and encode, 24-bit BMP decode, and
+header-only size reads (the part of PIL that edgeyolo_tpu/data/letterbox.py's
+`load_image_rgb` and dataset.py's verify and `set_rectangle` use).
+
+- PNG decode: bit depths 1, 2, 4 and 8 for gray and palette, 8 for gray+alpha,
+  RGB and RGBA; non-interlaced; the five row filters; zlib from the standard
+  library. The result is HWC RGB uint8 as PIL's `convert("RGB")` gives it:
+  alpha is dropped, gray is repeated, a palette is looked up.
+  None and Up rows are one numpy operation for the whole row and Sub a cumulative
+  sum, but Average and Paeth rows decode in a per-pixel Python loop, since each
+  byte depends on the one decoded before it. PIL's encoder picks a filter per
+  row, so files written by PIL take that loop on most rows; the port's own
+  encoder writes None or Up rows only.
+- PNG encode: RGB, filter None or Up, zlib level 1.
+- BMP decode: uncompressed 24-bit, bottom-up or top-down.
+- JPEG: the size is read from the header, but decoding raises (ROADMAP A.9).
+"""
+
+from __future__ import annotations
+
+import struct
+import zlib
+from pathlib import Path
+
+import numpy as np
+
+PNG_SIG = b"\x89PNG\r\n\x1a\n"
+JPEG_TODO = ("JPEG decoding is not ported yet (ROADMAP.md §A.9, 'JPEG decode': nvJPEG "
+             "against a port-owned decoder); use PNG or BMP images")
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # PNG colour type -> samples per pixel
+
+
+def _chunks(data: bytes, check_crc: bool = True):
+    """(type, payload) of each chunk of a PNG file."""
+    if data[:8] != PNG_SIG:
+        raise ValueError("not a PNG file")
+    i = 8
+    while i + 8 <= len(data):
+        n, kind = struct.unpack(">I4s", data[i:i + 8])
+        payload = data[i + 8:i + 8 + n]
+        if len(payload) != n or i + 12 + n > len(data):
+            raise ValueError(f"truncated PNG chunk {kind!r}")
+        if check_crc:
+            crc = struct.unpack(">I", data[i + 8 + n:i + 12 + n])[0]
+            if zlib.crc32(kind + payload) != crc:
+                raise ValueError(f"bad CRC in PNG chunk {kind!r}")
+        yield kind, payload
+        if kind == b"IEND":
+            return
+        i += 12 + n
+    raise ValueError("PNG file has no IEND chunk")
+
+
+def _paeth_row(cur: bytearray, prev: bytes, bpp: int) -> None:
+    for i in range(len(cur)):
+        a = cur[i - bpp] if i >= bpp else 0
+        b = prev[i]
+        c = prev[i - bpp] if i >= bpp else 0
+        pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
+        cur[i] = (cur[i] + (a if pa <= pb and pa <= pc else b if pb <= pc else c)) & 0xFF
+
+
+def _average_row(cur: bytearray, prev: bytes, bpp: int) -> None:
+    for i in range(len(cur)):
+        a = cur[i - bpp] if i >= bpp else 0
+        cur[i] = (cur[i] + ((a + prev[i]) >> 1)) & 0xFF
+
+
+def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
+    """Undo the PNG row filters: (h, stride) uint8."""
+    if len(raw) < h * (stride + 1):
+        raise ValueError("PNG image data is truncated")
+    rows = np.frombuffer(raw, np.uint8, h * (stride + 1)).reshape(h, stride + 1)
+    out = np.empty((h, stride), np.uint8)
+    prev = np.zeros(stride, np.uint8)
+    for y in range(h):
+        ftype, cur = rows[y, 0], rows[y, 1:]
+        if ftype == 0:
+            out[y] = cur
+        elif ftype == 1:  # Sub: a running sum per byte of the pixel, mod 256
+            out[y] = np.cumsum(cur.reshape(-1, bpp), axis=0, dtype=np.uint8).reshape(-1)
+        elif ftype == 2:
+            out[y] = cur + prev
+        elif ftype in (3, 4):
+            row = bytearray(cur.tobytes())
+            (_average_row if ftype == 3 else _paeth_row)(row, prev.tobytes(), bpp)
+            out[y] = np.frombuffer(bytes(row), np.uint8)
+        else:
+            raise ValueError(f"bad PNG filter type {ftype}")
+        prev = out[y]
+    return out
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """PNG bytes -> HWC RGB uint8."""
+    header, idat, palette = None, [], None
+    for kind, payload in _chunks(data):
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", payload)
+        elif kind == b"PLTE":
+            palette = np.frombuffer(payload, np.uint8).reshape(-1, 3)
+        elif kind == b"IDAT":
+            idat.append(payload)
+    if header is None:
+        raise ValueError("PNG file has no IHDR chunk")
+    w, h, depth, ctype, _, _, interlace = header
+    if ctype not in _CHANNELS:
+        raise ValueError(f"bad PNG colour type {ctype}")
+    if interlace:
+        raise NotImplementedError("interlaced PNG is not supported")
+    if depth != 8 and not (depth in (1, 2, 4) and ctype in (0, 3)):
+        raise NotImplementedError(f"PNG bit depth {depth} with colour type {ctype}")
+    ch = _CHANNELS[ctype]
+    stride = (w * ch * depth + 7) // 8
+    px = _unfilter(zlib.decompress(b"".join(idat)), h, stride, max(1, ch * depth // 8))
+    if depth < 8:  # packed samples, most significant bits first
+        bits = np.unpackbits(px, axis=1).reshape(h, -1, depth)[:, :w]
+        px = (bits * (1 << np.arange(depth - 1, -1, -1, dtype=np.uint8))).sum(-1, dtype=np.uint8)
+        if ctype == 0:
+            px = (px.astype(np.uint16) * (255 // ((1 << depth) - 1))).astype(np.uint8)
+    px = px.reshape(h, w, ch)
+    if ctype == 3:
+        if palette is None:
+            raise ValueError("palette PNG without a PLTE chunk")
+        full = np.zeros((256, 3), np.uint8)
+        full[:len(palette)] = palette
+        return full[px[..., 0]]
+    if ch in (1, 2):
+        return np.repeat(px[..., :1], 3, axis=2)
+    return np.ascontiguousarray(px[..., :3])
+
+
+def encode_png(img: np.ndarray, filter: str = "up") -> bytes:
+    """HWC RGB uint8 -> PNG bytes; every row filtered None or Up, zlib level 1."""
+    img = np.ascontiguousarray(img, np.uint8)
+    if img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"expected an (H, W, 3) uint8 image, got {img.shape}")
+    h, w, _ = img.shape
+    rows = img.reshape(h, w * 3)
+    if filter == "up":
+        body = rows.copy()
+        body[1:] -= rows[:-1]  # uint8 wraps mod 256
+        ftype = 2
+    elif filter == "none":
+        body, ftype = rows, 0
+    else:
+        raise ValueError(f"unknown PNG filter '{filter}'")
+    raw = np.concatenate([np.full((h, 1), ftype, np.uint8), body], axis=1).tobytes()
+    if filter == "up" and h:
+        raw = bytes([0]) + raw[1:]  # the first row has no row above: filter None
+    def chunk(kind, payload):
+        return (struct.pack(">I", len(payload)) + kind + payload
+                + struct.pack(">I", zlib.crc32(kind + payload)))
+    return (PNG_SIG + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
+
+
+def decode_bmp(data: bytes) -> np.ndarray:
+    """Uncompressed 24-bit BMP bytes -> HWC RGB uint8."""
+    if data[:2] != b"BM":
+        raise ValueError("not a BMP file")
+    offset = struct.unpack("<I", data[10:14])[0]
+    hsize = struct.unpack("<I", data[14:18])[0]
+    if hsize < 40:
+        raise NotImplementedError("BMP with an OS/2 header")
+    w, h, _, bpp, comp = struct.unpack("<iiHHI", data[18:34])
+    if bpp != 24 or comp != 0:
+        raise NotImplementedError(f"BMP with {bpp} bits per pixel, compression {comp}")
+    stride = (w * 3 + 3) & ~3
+    rows = np.frombuffer(data, np.uint8, abs(h) * stride, offset).reshape(abs(h), stride)
+    img = rows[:, :w * 3].reshape(abs(h), w, 3)[..., ::-1]
+    return np.ascontiguousarray(img[::-1] if h > 0 else img)
+
+
+def _jpeg_size(data: bytes) -> tuple[int, int]:
+    i = 2
+    while i + 9 < len(data):
+        if data[i] != 0xFF:
+            raise ValueError("corrupt JPEG marker stream")
+        marker = data[i + 1]
+        if marker in (0xD8, 0x01) or 0xD0 <= marker <= 0xD7:
+            i += 2
+            continue
+        n = struct.unpack(">H", data[i + 2:i + 4])[0]
+        if 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
+            h, w = struct.unpack(">HH", data[i + 5:i + 9])
+            return w, h
+        i += 2 + n
+    raise ValueError("JPEG has no frame header")
+
+
+def image_size(path: str | Path) -> tuple[int, int]:
+    """(width, height) from the file's header, as PIL's `Image.open(f).size`.
+    PNG files are walked chunk by chunk with their CRCs checked, which is what
+    PIL's `verify` checks; a corrupt file raises ValueError."""
+    data = Path(path).read_bytes()
+    if data[:8] == PNG_SIG:
+        for kind, payload in _chunks(data):
+            if kind == b"IHDR":
+                w, h = struct.unpack(">II", payload[:8])
+        return w, h
+    if data[:2] == b"BM":
+        w, h = struct.unpack("<ii", data[18:26])
+        return w, abs(h)
+    if data[:2] == b"\xff\xd8":
+        return _jpeg_size(data)
+    raise ValueError(f"unknown image format: {path}")
+
+
+def load_image_rgb(path: str | Path) -> np.ndarray:
+    """An image file -> HWC RGB uint8 (PNG or 24-bit BMP)."""
+    data = Path(path).read_bytes()
+    if data[:8] == PNG_SIG:
+        return decode_png(data)
+    if data[:2] == b"BM":
+        return decode_bmp(data)
+    if data[:2] == b"\xff\xd8":
+        raise NotImplementedError(f"{path}: {JPEG_TODO}")
+    raise ValueError(f"unknown image format: {path}")
+
+
+def save_png(path: str | Path, img: np.ndarray, filter: str = "up") -> None:
+    Path(path).write_bytes(encode_png(img, filter))

@@ -1,0 +1,156 @@
+"""The YOLO facade (edgeyolo_tpu/engine/model.py), detection task.
+
+    YOLO("edgeline-yolo.yaml")        # a model name (cfg/models.py), seeded weights
+    YOLO("runs/detect/train/best.pt") # a port checkpoint (train/trainer.py)
+
+`train`, `val` and `predict` take the keys of cfg/__init__.py's defaults
+(method kwargs > the handle's overrides > defaults). `train` on a model with
+no trained weights rebuilds its head for the dataset's class count. Every
+mode runs on CUDA unless `device` names another device ("cpu").
+"""
+
+from __future__ import annotations
+
+import json
+from pathlib import Path
+
+import torch
+
+from edgeyolo_tpu_torch.cfg import get_cfg, get_save_dir
+from edgeyolo_tpu_torch.data.dataset import check_det_dataset
+from edgeyolo_tpu_torch.nn.tasks import DetectionModel, for_precision, num_params, num_trainable
+from edgeyolo_tpu_torch.utils import LOGGER, select_device
+
+
+class YOLO:
+    """User-facing handle over a DetectionModel (f32 parameters)."""
+
+    def __init__(self, model: str | Path = "edgeline-yolo.yaml", task: str | None = None,
+                 device: str | torch.device | None = None):
+        if task not in (None, "detect"):
+            raise NotImplementedError(f"task '{task}' is not ported yet (ROADMAP A.10)")
+        self.task = "detect"
+        self.overrides: dict = {}
+        self.device = select_device(device)
+        self.ckpt_path = None
+        self.trained = False  # weights from training or a checkpoint, not a seeded init
+        model = str(model)
+        if model.endswith(".pt"):
+            self._load_checkpoint(model)
+        else:
+            self.model = DetectionModel(model, device=self.device)
+            self.model_name = model
+
+    def _load_checkpoint(self, path: str):
+        from edgeyolo_tpu_torch.train.trainer import load_checkpoint
+
+        ck = torch.load(path, map_location="cpu", weights_only=True)
+        meta = ck.get("meta") or {}
+        side = Path(path).with_suffix(".json")
+        if not meta and side.exists():
+            meta = json.loads(side.read_text())
+        self.model_name = meta.get("model_yaml") or "edgeline-yolo.yaml"
+        self.model = DetectionModel(self.model_name, scale=meta.get("scale") or None,
+                                    nc=meta.get("nc"), device="cpu")
+        load_checkpoint(self.model, path)
+        self.model.to(self.device)
+        self.ckpt_path, self.trained = path, True
+        self.overrides.update({k: v for k, v in (meta.get("train_args") or {}).items()
+                               if k in ("imgsz", "single_cls")})
+
+    def _args(self, mode: str, kwargs: dict):
+        kwargs = dict(kwargs)
+        if "device" in kwargs:
+            dev = kwargs.pop("device")
+            if dev is not None and select_device(dev) != self.device:
+                self.device = select_device(dev)
+                self.model.to(self.device)
+        return get_cfg(overrides={**self.overrides, "mode": mode, "task": self.task,
+                                  "model": self.model_name, **kwargs})
+
+    @property
+    def names(self) -> dict:
+        return self.model.names
+
+    def info(self) -> dict:
+        d = {"model": self.model_name, "scale": self.model.scale, "nc": self.model.nc,
+             "params": num_params(self.model), "trained_params": num_trainable(self.model),
+             "device": str(self.device)}
+        LOGGER.info(", ".join(f"{k} {v}" for k, v in d.items()))
+        return d
+
+    def train(self, **kwargs) -> float:
+        """Train on `data` (a dataset YAML); the handle then holds the EMA weights."""
+        from edgeyolo_tpu_torch.train.trainer import DetectionTrainer
+
+        args = self._args("train", kwargs)
+        if not args.data:
+            raise ValueError("train() requires data=<dataset.yaml>")
+        nc = int(check_det_dataset(args.data)["nc"])
+        if not self.trained and nc != self.model.nc:
+            LOGGER.info(f"rebuilding the model head for dataset nc={nc} (was {self.model.nc})")
+            self.model = DetectionModel(self.model_name, scale=self.model.scale, nc=nc,
+                                        seed=int(args.seed), device=self.device)
+        if args.resume is True:  # continue in the run's own directory, from its last.pt
+            save_dir = Path(args.project or Path("runs") / args.task) / (args.name or "train")
+        else:
+            save_dir = get_save_dir(args, name=args.name or "train")
+        self.trainer = DetectionTrainer(self.model, args, device=self.device, save_dir=save_dir)
+        best = self.trainer.fit()
+        self.model.eval()
+        self.trained = True
+        self.overrides["imgsz"] = args.imgsz
+        return best
+
+    def val(self, **kwargs) -> dict:
+        """Validate on `data`'s val split; returns the metrics dict."""
+        from edgeyolo_tpu_torch.engine.validator import DetectionValidator
+
+        args = self._args("val", kwargs)
+        if not args.data:
+            raise ValueError("val() requires data=<dataset.yaml>")
+        self.validator = DetectionValidator(args, save_dir=get_save_dir(args, name=args.name or "val"),
+                                            device=self.device)
+        return self.validator(self.model)
+
+    def predict(self, source, stream: bool = False, **kwargs):
+        """Results for each image of `source` (a generator with `stream`)."""
+        from edgeyolo_tpu_torch.engine.predictor import DetectionPredictor
+
+        args = self._args("predict", kwargs)
+        model = for_precision(self.model.eval(), bool(args.half))
+        predictor = DetectionPredictor(
+            model, conf=args.conf if args.conf is not None else 0.25, iou=float(args.iou),
+            max_det=int(args.max_det), device=self.device, imgsz=int(args.imgsz),
+            batch=int(args.batch), classes=args.classes,
+            agnostic=bool(args.agnostic_nms), save_txt=bool(args.save_txt),
+            save_conf=bool(args.save_conf), verbose=bool(args.verbose),
+            save_dir=get_save_dir(args, name=args.name or "predict"))
+        return predictor.stream(source) if stream else predictor.predict(source)
+
+    def __call__(self, source, **kwargs):
+        return self.predict(source, **kwargs)
+
+    def save(self, filename: str | Path = "model.pt") -> Path:
+        """A standalone checkpoint that YOLO(<path>) reloads."""
+        dst = Path(filename)
+        dst.parent.mkdir(parents=True, exist_ok=True)
+        sd = {k: v.detach().cpu().clone() for k, v in self.model.state_dict().items()}
+        meta = {"epoch": -1, "best_fitness": 0.0, "model_yaml": self.model_name, "task": self.task,
+                "scale": self.model.scale, "nc": self.model.nc, "names": dict(self.model.names),
+                "train_args": {}}
+        torch.save({"model": sd, "ema": sd, "meta": meta}, dst)
+        dst.with_suffix(".json").write_text(json.dumps(meta, default=str))
+        return dst
+
+    def load(self, weights: str | Path) -> "YOLO":
+        """Load a port checkpoint's weights into the current architecture,
+        keeping only the tensors whose name and shape match."""
+        ck = torch.load(weights, map_location="cpu", weights_only=True)
+        donor = ck.get("ema") or ck["model"]
+        cur = self.model.state_dict()
+        keep = {k: v for k, v in donor.items() if k in cur and cur[k].shape == v.shape}
+        self.model.load_state_dict(keep, strict=False)
+        LOGGER.info(f"load: transferred {len(keep)} tensors, kept {len(cur) - len(keep)}")
+        self.trained = True
+        return self

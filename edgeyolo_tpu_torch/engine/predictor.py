@@ -1,29 +1,53 @@
-"""The serving step: uint8 images in, detections out (edgeyolo_tpu/engine/predictor.py).
+"""Prediction (edgeyolo_tpu/engine/predictor.py): the serving step, and
+batched streaming over still-image sources into Results.
 
-The device part of the JAX predictor's `_build_infer` after bench.py's
+The serving step, `predictor(images)` on a uint8 (B, H, W, 3) batch, is the
+device part of the JAX predictor's `_build_infer` after bench.py's
 normalisation: uint8 NHWC -> model dtype / 255 -> NCHW forward -> f32 DFL
-decode with the DGQP quality product -> class-aware matrix NMS. Boxes are
-clipped to the image, as the JAX predictor's postprocess does for an input
-that was not letterboxed. File I/O, letterboxing and Results come later.
+decode with the DGQP quality product -> class-aware matrix NMS, boxes
+clipped to the image.
+
+`stream(source)` is JAX's `DetectionPredictor.stream`: each frame of a file,
+directory, glob, list or array source is letterboxed (scaleup) to `imgsz`,
+`batch` frames ride one serving step (a short last batch repeats its last
+frame, whose outputs are not read), and each frame's boxes are taken back
+out of the letterbox into a `Results`, with the `speed` dict and, with
+`save_txt`, a label file per frame. `predict(source)` is its list.
 """
 
 from __future__ import annotations
 
+import time
+from pathlib import Path
+
 import numpy as np
 import torch
 
+from edgeyolo_tpu_torch.data.letterbox import letterbox
+from edgeyolo_tpu_torch.data.loaders import load_inference_source
+from edgeyolo_tpu_torch.engine.results import Results
 from edgeyolo_tpu_torch.ops.nms import non_max_suppression
-from edgeyolo_tpu_torch.utils import select_device
+from edgeyolo_tpu_torch.utils import LOGGER, select_device
 
 
 class DetectionPredictor:
-    """`predictor(images)` -> (det (B, max_det, 6) [x1, y1, x2, y2, conf, cls], n (B,))."""
+    """`predictor(images)` -> (det (B, max_det, 6) [x1, y1, x2, y2, conf, cls], n (B,));
+    `predictor.predict(source)` -> [Results]."""
 
     def __init__(self, model, conf: float = 0.25, iou: float = 0.7, max_det: int = 300,
-                 max_nms: int = 8192, device=None):
+                 max_nms: int = 8192, device=None, imgsz: int = 640, batch: int = 1,
+                 classes=None, agnostic: bool = False, save_txt: bool = False,
+                 save_conf: bool = False, save_dir: str | Path = "runs/predict",
+                 verbose: bool = False):
         self.device = select_device(device)
         self.model = model.to(self.device).eval()
         self.conf, self.iou, self.max_det, self.max_nms = conf, iou, max_det, max_nms
+        self.imgsz, self.batch = int(imgsz), max(1, int(batch or 1))
+        self.classes = None if classes is None else tuple(
+            int(c) for c in (classes if isinstance(classes, (list, tuple)) else [classes]))
+        self.agnostic = agnostic
+        self.save_txt, self.save_conf, self.verbose = save_txt, save_conf, verbose
+        self.save_dir = Path(save_dir)
 
     @torch.inference_mode()
     def __call__(self, images_u8_nhwc: np.ndarray | torch.Tensor):
@@ -35,7 +59,56 @@ class DetectionPredictor:
         x = x.to(self.model.dtype) / 255
         pred = self.model(x)["pred"]
         det, n = non_max_suppression(pred, conf_thres=self.conf, iou_thres=self.iou,
-                                     max_det=self.max_det, max_nms=self.max_nms)
+                                     max_det=self.max_det, max_nms=self.max_nms,
+                                     agnostic=self.agnostic, classes=self.classes)
         det[..., 0:4:2] = det[..., 0:4:2].clamp(0, w)
         det[..., 1:4:2] = det[..., 1:4:2].clamp(0, h)
         return det, n
+
+    @staticmethod
+    def _unletterbox_boxes(det: np.ndarray, r: float, pw: float, ph: float,
+                           orig_shape: tuple[int, int]) -> np.ndarray:
+        h0, w0 = orig_shape
+        det[:, [0, 2]] = ((det[:, [0, 2]] - pw) / r).clip(0, w0)
+        det[:, [1, 3]] = ((det[:, [1, 3]] - ph) / r).clip(0, h0)
+        return det
+
+    def _run_batch(self, frames, names):
+        n_real = len(frames)
+        imgs = [f[2] for f in frames] + [frames[-1][2]] * (self.batch - n_real)
+        t1 = time.perf_counter()
+        dets, nvalid = self(np.stack(imgs))
+        dets, nvalid = dets.cpu().numpy(), nvalid.cpu().numpy()
+        infer_ms = (time.perf_counter() - t1) * 1e3 / n_real
+        for i, (path, img0, _img, r, pads, pre_ms) in enumerate(frames):
+            t2 = time.perf_counter()
+            det = dets[i, :int(nvalid[i])].copy()
+            if len(det):
+                det = self._unletterbox_boxes(det, r, *pads, img0.shape[:2])
+            res = Results(img0, path, names, boxes=det,
+                          speed={"preprocess": pre_ms, "inference": infer_ms, "postprocess": 0.0})
+            if self.save_txt:
+                res.save_txt(self.save_dir / "labels" / (Path(path).stem + ".txt"),
+                             save_conf=self.save_conf)
+            res.speed["postprocess"] = (time.perf_counter() - t2) * 1e3
+            if self.verbose:
+                LOGGER.info(f"{path}: {res.verbose_str} ({infer_ms:.1f}ms inference)")
+            yield res
+
+    def stream(self, source):
+        """Results, one per frame of `source`."""
+        names = getattr(self.model, "names", None) or {i: str(i) for i in range(self.model.nc)}
+        loader = load_inference_source(source)
+        buf = []
+        for path, img0 in loader:
+            t0 = time.perf_counter()
+            img, r, pads = letterbox(img0, self.imgsz, scaleup=True)
+            buf.append((path, img0, img, r, pads, (time.perf_counter() - t0) * 1e3))
+            if len(buf) == self.batch:
+                yield from self._run_batch(buf, names)
+                buf = []
+        if buf:
+            yield from self._run_batch(buf, names)
+
+    def predict(self, source) -> list[Results]:
+        return list(self.stream(source))

@@ -1,0 +1,117 @@
+"""Prediction containers (edgeyolo_tpu/engine/results.py), detection parts.
+
+`Boxes` holds (N, 6) [x1, y1, x2, y2, conf, cls] rows in pixels of the
+original image, with the xywh and normalised views; `Results` holds one
+image's boxes with `save_txt`, `to_json` and `verbose_str`. Drawing
+(`plot`, `save`, `save_crop`) is not ported yet (ROADMAP A.9). Host numpy:
+the device work ends at the NMS output.
+"""
+
+from __future__ import annotations
+
+import json
+from pathlib import Path
+
+import numpy as np
+
+
+class Boxes:
+    """Detection boxes: data (N, 6) = [x1, y1, x2, y2, conf, cls], orig_shape = (h, w)."""
+
+    def __init__(self, data: np.ndarray, orig_shape: tuple[int, int]):
+        data = np.asarray(data, dtype=np.float32)
+        self.data = data.reshape(-1, 6)
+        self.orig_shape = orig_shape
+
+    def __len__(self):
+        return len(self.data)
+
+    def __getitem__(self, i):
+        return Boxes(self.data[i], self.orig_shape)
+
+    @property
+    def xyxy(self):
+        return self.data[:, :4]
+
+    @property
+    def conf(self):
+        return self.data[:, 4]
+
+    @property
+    def cls(self):
+        return self.data[:, 5]
+
+    @property
+    def xywh(self):
+        b = self.data[:, :4]
+        return np.concatenate([(b[:, :2] + b[:, 2:4]) / 2, b[:, 2:4] - b[:, :2]], axis=1)
+
+    @property
+    def xyxyn(self):
+        h, w = self.orig_shape
+        return self.xyxy / np.asarray([w, h, w, h], np.float32)
+
+    @property
+    def xywhn(self):
+        h, w = self.orig_shape
+        return self.xywh / np.asarray([w, h, w, h], np.float32)
+
+
+class Results:
+    """One image's detections."""
+
+    def __init__(self, orig_img: np.ndarray, path: str, names: dict,
+                 boxes: np.ndarray | None = None, speed: dict | None = None):
+        self.orig_img = orig_img
+        self.orig_shape = orig_img.shape[:2]
+        self.path = path
+        self.names = names
+        self.boxes = Boxes(boxes, self.orig_shape) if boxes is not None else None
+        self.speed = speed or {}
+
+    def __len__(self):
+        return len(self.boxes) if self.boxes is not None else 0
+
+    def __getitem__(self, i):
+        r = Results(self.orig_img, self.path, self.names)
+        if self.boxes is not None:
+            r.boxes = self.boxes[i]
+        return r
+
+    def save_txt(self, txt_file: str | Path, save_conf: bool = False):
+        """Append one `cls xywhn [conf]` line per box (6 significant digits)."""
+        lines = []
+        if self.boxes is not None:
+            for b, xywhn in zip(self.boxes.data, self.boxes.xywhn):
+                vals = [int(b[5]), *xywhn.tolist()] + ([float(b[4])] if save_conf else [])
+                lines.append(" ".join(f"{v:.6g}" if j else str(v) for j, v in enumerate(vals)))
+        if lines:
+            Path(txt_file).parent.mkdir(parents=True, exist_ok=True)
+            with open(txt_file, "a") as f:
+                f.write("\n".join(lines) + "\n")
+
+    def to_json(self, normalize: bool = False) -> str:
+        out = []
+        h, w = self.orig_shape
+        if self.boxes is not None:
+            for b in self.boxes.data:
+                x1, y1, x2, y2 = b[:4]
+                if normalize:
+                    x1, y1, x2, y2 = x1 / w, y1 / h, x2 / w, y2 / h
+                out.append({
+                    "name": self.names.get(int(b[5]), str(int(b[5]))),
+                    "class": int(b[5]), "confidence": round(float(b[4]), 5),
+                    "box": {"x1": round(float(x1), 5), "y1": round(float(y1), 5),
+                            "x2": round(float(x2), 5), "y2": round(float(y2), 5)},
+                })
+        return json.dumps(out, indent=2)
+
+    @property
+    def verbose_str(self) -> str:
+        if self.boxes is None or len(self.boxes) == 0:
+            return "(no detections)"
+        counts: dict[int, int] = {}
+        for c in self.boxes.cls:
+            counts[int(c)] = counts.get(int(c), 0) + 1
+        return ", ".join(f"{n} {self.names.get(c, c)}{'s' if n > 1 else ''}"
+                         for c, n in sorted(counts.items()))

@@ -1,0 +1,149 @@
+"""Detection validator (edgeyolo_tpu/engine/validator.py, the plain-detection branch).
+
+Per batch of the val loader: upload the uint8 images, /255 in f32 (or bf16
+with `half`), forward, multi-label NMS at conf 0.001, iou 0.7, max_det 300
+(the per-image tiled path, whose memory does not grow with max_nms = 30000);
+then, still on the device, undo the letterbox and clip to the original
+image, pad the ground truth (`_gt_arrays`) and match detections to it over
+the ten IoU thresholds. Only (det, n, tp) come back to the host, into
+`DetMetrics` (101-point AP, the fork's mAP75 column). With `half` a model
+whose convolutions are f32 is validated through a bf16 copy (convolutions
+bf16, BatchNorm, quality head and decode f32, as in serving).
+`save_json`, COCO evaluation, plots, DETR, E2E, int8 and multi-device
+validation are not ported yet.
+"""
+
+from __future__ import annotations
+
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+from torch import nn
+
+from edgeyolo_tpu_torch.cfg import get_cfg
+from edgeyolo_tpu_torch.data.dataset import YOLODataset, build_dataloader, check_det_dataset
+from edgeyolo_tpu_torch.metrics.metrics import DetMetrics, match_predictions_device
+from edgeyolo_tpu_torch.nn.tasks import for_precision
+from edgeyolo_tpu_torch.ops.boxes import box_iou
+from edgeyolo_tpu_torch.ops.nms import non_max_suppression
+from edgeyolo_tpu_torch.utils import LOGGER, select_device
+
+
+class DetectionValidator:
+    """Runs the eval loop and computes detection metrics; `validator(model)`
+    returns `results_dict`."""
+
+    def __init__(self, args=None, save_dir: str | Path = "runs/val", device=None):
+        self.args = args if args is not None else get_cfg(overrides={"mode": "val"})
+        self.save_dir = Path(save_dir)
+        self.device = select_device(device if device is not None else self.args.device)
+        self.metrics = None
+        self._loader = None  # kept across calls (the trainer validates every epoch)
+
+    def _dataloader(self, data_cfg: dict, bs: int):
+        if self._loader is None:
+            split = data_cfg.get(self.args.split or "val") or data_cfg["val"]
+            dataset = YOLODataset(split, imgsz=int(self.args.imgsz), augment=False,
+                                  names=data_cfg["names"],
+                                  single_cls=bool(getattr(self.args, "single_cls", False)))
+            if bool(getattr(self.args, "rect", False)):
+                dataset.set_rectangle(bs)
+            self._loader = build_dataloader(dataset, bs, shuffle=False)
+        return self._loader
+
+    @torch.inference_mode()
+    def infer(self, model, img: torch.Tensor, gt: tuple, max_nms: int):
+        """One batch on the device: forward, NMS, native-space boxes and the TP
+        matrix. img (B, H, W, 3) uint8; gt = (boxes, cls, valid, geom) from
+        `_gt_arrays`, on the device. Returns det (B, max_det, 6) in letterbox
+        space, n (B,) and tp (B, max_det, 10)."""
+        args = self.args
+        x = img.permute(0, 3, 1, 2).contiguous().to(getattr(model, "dtype", torch.float32)) / 255
+        pred = model(x)["pred"]
+        det, n = non_max_suppression(
+            pred, conf_thres=self.conf, iou_thres=float(args.iou), max_det=int(args.max_det),
+            max_nms=max_nms, multi_label=True, agnostic=bool(args.single_cls), method="tiled")
+        gtb, gtc, gtv, geom = gt
+        r, pw, ph, w0, h0 = geom.unbind(-1)
+        shift = torch.stack([pw, ph, pw, ph], -1)[:, None, :]
+        lim = torch.stack([w0, h0, w0, h0], -1)[:, None, :]
+        bx = torch.minimum(((det[..., :4] - shift) / r[:, None, None]).clamp(min=0.0), lim)
+        dvalid = torch.arange(det.shape[1], device=det.device)[None] < n[:, None]
+        tp = match_predictions_device(det[..., 5], gtc, gtv > 0, dvalid, box_iou(gtb, bx))
+        return det, n, tp
+
+    def __call__(self, model, data=None, batch_size: int | None = None, max_nms: int = 30000):
+        args = self.args
+        self.conf = args.conf if args.conf is not None else 0.001
+        data_cfg = check_det_dataset(data or args.data)
+        names = data_cfg["names"]
+        bs = int(batch_size or args.batch or 16)
+        loader = self._dataloader(data_cfg, bs)
+        net = for_precision(model, bool(args.half)) if isinstance(model, nn.Module) else model
+        was_training = getattr(net, "training", False)
+        if hasattr(net, "eval"):
+            net.eval()
+        metrics = DetMetrics(names)
+        seen = 0
+        t_pre = t_inf = t_post = 0.0
+        try:
+            for batch in loader:
+                t0 = time.perf_counter()
+                img = torch.from_numpy(batch["img"]).to(self.device, non_blocking=True)
+                gt = tuple(torch.from_numpy(a).to(self.device) for a in self._gt_arrays(batch))
+                t1 = time.perf_counter()
+                det, n, tp = (t.cpu().numpy() for t in self.infer(net, img, gt, max_nms))
+                t2 = time.perf_counter()
+                for i in range(batch["n_real"]):
+                    seen += 1
+                    k = int(n[i])
+                    metrics.update_batch(tp[i, :k], det[i, :k, 4], det[i, :k, 5],
+                                         batch["meta"][i]["ori_cls"])
+                t_pre += t1 - t0
+                t_inf += t2 - t1
+                t_post += time.perf_counter() - t2
+        finally:
+            if was_training:
+                net.train()
+        metrics.process()
+        metrics.speed = {"preprocess": t_pre / max(seen, 1) * 1000,
+                         "inference": t_inf / max(seen, 1) * 1000,
+                         "postprocess": t_post / max(seen, 1) * 1000, "loss": 0.0}
+        self.metrics = metrics
+        self.seen = seen
+        LOGGER.info(self.results_line())
+        return metrics.results_dict
+
+    def results_line(self) -> str:
+        """The results row: images, P, R, mAP50, mAP75 (the fork's column), mAP50-95."""
+        mp, mr, map50, map_ = self.metrics.mean_results()
+        return (f"{'all':>10}{self.seen:>8}{mp:>11.3g}{mr:>11.3g}{map50:>11.3g}"
+                f"{self.metrics.box.map75:>11.3g}{map_:>11.3g}")
+
+    @staticmethod
+    def _gt_arrays(batch):
+        """Each image's native-space gt padded to Mp (a multiple of 32, at least
+        32) slots: xyxy boxes, classes (-1 in padding, never matching), a
+        validity mask and the letterbox geometry (r, pw, ph, w0, h0)."""
+        metas = batch["meta"]
+        B = len(metas)
+        mx = max((len(m["ori_cls"]) for m in metas), default=0)
+        Mp = max(32, ((mx + 31) // 32) * 32)
+        gtb = np.zeros((B, Mp, 4), np.float32)
+        gtc = np.full((B, Mp), -1.0, np.float32)
+        gtv = np.zeros((B, Mp), np.float32)
+        geom = np.zeros((B, 5), np.float32)
+        for i, m in enumerate(metas):
+            h0, w0 = m["ori_shape"]
+            r, (pw, ph) = m["ratio_pad"]
+            geom[i] = (r, pw, ph, w0, h0)
+            cls = m["ori_cls"]
+            n = len(cls)
+            if n:
+                b = m["ori_bboxes"] * np.array([w0, h0, w0, h0], np.float32)
+                gtb[i, :n] = np.concatenate([b[:, :2] - b[:, 2:] / 2, b[:, :2] + b[:, 2:] / 2], 1)
+                gtc[i, :n] = cls
+                gtv[i, :n] = 1.0
+        return gtb, gtc, gtv, geom

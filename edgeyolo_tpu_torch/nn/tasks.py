@@ -14,6 +14,7 @@ unknown module name raises.
 
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass
 from typing import Any, Sequence
 
@@ -197,18 +198,43 @@ def num_trainable(model: nn.Module) -> int:
     return sum(p.numel() for p in model.parameters() if p.requires_grad)
 
 
+def round_bf16(t: torch.Tensor) -> torch.Tensor:
+    """t rounded to bf16 and back to its own dtype: differentiable, and its
+    gradient arrives rounded to bf16, as through JAX's cast."""
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
 def train_forward(model: nn.Module, x: torch.Tensor, amp: bool = True) -> dict:
     """The training forward: {"feats", "quality"} per level, in f32.
 
-    With `amp` the f32 model runs under bf16 autocast (JAX's amp_cast of the
-    f32 masters): convolutions and the attention in bf16, BatchNorm, the
-    wavelet band weights and the quality head in f32, as in serving. Unlike
-    amp_cast, autocast leaves the BatchNorm affine and quality-head
-    parameters unrounded.
+    With `amp`, as JAX's `amp_cast` of the f32 masters: the forward sees every
+    floating parameter rounded to bf16 (BatchNorm's scale and shift, the
+    wavelet band weights and the quality head included), and runs under bf16
+    autocast, so convolutions and the attention compute in bf16 while
+    BatchNorm, the wavelet band weights and the quality head compute in f32 on
+    the rounded values, as in serving. The parameters are rounded as one
+    concatenated vector (one cast each way, not one per tensor) and handed to
+    the forward as views of it by `torch.func.functional_call`, so gradients
+    flow back into the f32 masters.
     """
-    with torch.autocast(x.device.type, dtype=torch.bfloat16, enabled=amp):
-        out = model(x.to(torch.bfloat16) if amp else x)
+    if not amp:
+        out = model(x)
+    else:
+        named = [(n, p) for n, p in model.named_parameters() if p.is_floating_point()]
+        flat = round_bf16(torch.cat([p.reshape(-1) for _, p in named]))
+        rounded = {n: v.view_as(p) for (n, p), v in
+                   zip(named, flat.split([p.numel() for _, p in named]))}
+        with torch.autocast(x.device.type, dtype=torch.bfloat16):
+            out = torch.func.functional_call(model, rounded, (x.to(torch.bfloat16),))
     return {k: [f.float() for f in out[k]] for k in ("feats", "quality")}
+
+
+def for_precision(model: nn.Module, half: bool) -> nn.Module:
+    """The model an inference runs: `model`, or with `half` a bf16 copy of it
+    (convolutions bf16; BatchNorm, the quality head and the decode f32)."""
+    if not half or model.dtype == torch.bfloat16:
+        return model
+    return copy.deepcopy(model).set_dtype(torch.bfloat16)
 
 
 class DetectionModel(GraphNet):
@@ -216,25 +242,36 @@ class DetectionModel(GraphNet):
 
     `dtype` is the compute dtype of every convolution but the quality head's;
     BatchNorm, the wavelet band weights, the quality head and the box decode
-    stay f32.
+    stay f32. `nc` replaces the spec's class count (a head for a dataset).
     The model lands on CUDA unless `device` names another device.
     """
 
     def __init__(self, cfg: str = "edgeline-yolo.yaml", scale: str | None = None,
                  device: str | torch.device | None = None, dtype: torch.dtype = torch.float32,
-                 seed: int = 0):
-        layers, save, info = parse_spec(model_cfg(cfg, scale))
+                 seed: int = 0, nc: int | None = None):
+        spec = model_cfg(cfg, scale)
+        if nc:
+            spec["nc"] = int(nc)
+        layers, save, info = parse_spec(spec)
         strides = derive_strides(layers)
         head = layers[-1]
         stride = tuple(int(strides[j]) for j in head.f)
         device = select_device(device)
         with torch.random.fork_rng(devices=[]):  # module constructors draw from the global RNG
             super().__init__(layers, save, stride)
-        self.nc, self.dtype = info["nc"], dtype
+        self.nc = info["nc"]
+        self.names = {i: str(i) for i in range(self.nc)}
+        self.cfg, self.scale = cfg, info["scale"]
         init_weights(self, torch.Generator().manual_seed(seed))
         self.model[-1].bias_init()
+        self.set_dtype(dtype)
+        self.to(device).eval()
+
+    def set_dtype(self, dtype: torch.dtype) -> "DetectionModel":
+        """Cast every convolution but the quality head's to `dtype`, in place."""
         for m in self.modules():
             if isinstance(m, nn.Conv2d):
                 m.to(dtype)
         self.model[-1].reg_conf.float()  # the quality head is an f32 island, as in JAX
-        self.to(device).eval()
+        self.dtype = dtype
+        return self

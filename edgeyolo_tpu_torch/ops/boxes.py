@@ -73,3 +73,13 @@ def bbox2dist(anchor_points: torch.Tensor, bbox: torch.Tensor, reg_max: float) -
     """xyxy boxes -> (l, t, r, b) distances from the anchors, clipped to [0, reg_max - 0.01]."""
     x1y1, x2y2 = bbox.chunk(2, dim=-1)
     return torch.cat([anchor_points - x1y1, x2y2 - anchor_points], dim=-1).clamp(0, reg_max - 0.01)
+
+
+def box_iou(box1: torch.Tensor, box2: torch.Tensor) -> torch.Tensor:
+    """Pairwise IoU of xyxy sets, batched: (..., N, 4) x (..., M, 4) -> (..., N, M)."""
+    a1, a2 = box1[..., :, None, :2], box1[..., :, None, 2:]
+    b1, b2 = box2[..., None, :, :2], box2[..., None, :, 2:]
+    inter = (torch.minimum(a2, b2) - torch.maximum(a1, b1)).clamp(min=0).prod(-1)
+    area1 = (box1[..., 2] - box1[..., 0]) * (box1[..., 3] - box1[..., 1])
+    area2 = (box2[..., 2] - box2[..., 0]) * (box2[..., 3] - box2[..., 1])
+    return inter / (area1[..., :, None] + area2[..., None, :] - inter + EPS)

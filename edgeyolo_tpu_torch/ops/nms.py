@@ -11,6 +11,19 @@ runs by one of two methods:
   practice, at most n). This is the serving path.
 - "scan": max_det sequential greedy picks, torchvision's semantics; kept as
   the oracle the tests hold the matrix method against.
+- "tiled": the validator's path, one image at a time, for candidate counts
+  (max_nms = 30000) whose n x n matrix would not fit: the score-sorted
+  candidates above the gate are taken in blocks of `tile`; each block is
+  first suppressed by the boxes kept so far, then resolved by the matrix
+  fixed point within the block (exact greedy, by induction over blocks),
+  and the loop stops once max_det boxes are kept or no candidate is left.
+  Peak memory per image: the n candidates, one tile x tile IoU block and one
+  tile x max_det block against the kept boxes, O(n + tile^2 + tile*max_det)
+  floats (4 MiB for the 1024 x 1024 block) whatever n is.
+
+`multi_label` ranks the A*nc (anchor, class) scores instead of one best
+class per anchor, as the JAX validator does: top-k over the flattened
+scores, anchor = ix // nc, cls = ix % nc.
 
 Output: (B, max_det, 6) [x1, y1, x2, y2, conf, cls], zero rows past the
 count, and the count (B,) int32. Rankings use a stable descending sort, so
@@ -23,7 +36,7 @@ from typing import Sequence
 
 import torch
 
-from edgeyolo_tpu_torch.ops.boxes import xywh2xyxy
+from edgeyolo_tpu_torch.ops.boxes import box_iou, xywh2xyxy
 
 MAX_WH = 7680.0  # class offset: boxes of different classes never overlap
 
@@ -98,16 +111,42 @@ def greedy_nms_scan(boxes: torch.Tensor, scores: torch.Tensor, iou_thres: float,
     return torch.stack(picks, dim=1), torch.stack(valids, dim=1)
 
 
-def non_max_suppression(pred: torch.Tensor, conf_thres: float = 0.25, iou_thres: float = 0.45,
-                        max_det: int = 300, max_nms: int = 4096, agnostic: bool = False,
-                        method: str = "matrix", classes: Sequence[int] | None = None):
-    """pred (B, A, 4 + nc): xywh pixels and class scores -> (dets, n_valid).
+def greedy_nms_tiled(boxes: torch.Tensor, scores: torch.Tensor, iou_thres: float,
+                     max_det: int, tile: int = 1024):
+    """Greedy NMS of one image's score-sorted candidates (n, 4), (n,), block by
+    block; returns the kept indices in score order (at most max_det)."""
+    n_valid = int((scores > 0.0).sum())
+    kept = boxes.new_zeros((0, 4))
+    kept_idx = []
+    n_kept = 0
+    for start in range(0, n_valid, tile):
+        if n_kept >= max_det:
+            break
+        blk = boxes[start:min(start + tile, n_valid)]
+        alive0 = torch.ones(len(blk), dtype=torch.bool, device=boxes.device)
+        if n_kept:
+            alive0 &= ~(box_iou(kept, blk) > iou_thres).any(dim=0)
+        sup = torch.ones(len(blk), len(blk), dtype=torch.bool, device=boxes.device).triu(1)
+        sup &= box_iou(blk, blk) > iou_thres
+        alive = alive0
+        for _ in range(len(blk)):
+            new_alive = alive0 & ~(sup & alive[:, None]).any(dim=0)
+            if torch.equal(new_alive, alive):
+                break
+            alive = new_alive
+        idx = alive.nonzero()[:, 0]
+        kept = torch.cat([kept, blk[idx]])
+        kept_idx.append(idx + start)
+        n_kept += len(idx)
+    if not kept_idx:
+        return torch.zeros(0, dtype=torch.long, device=boxes.device)
+    return torch.cat(kept_idx)[:max_det]
 
-    One label per anchor (its best class). `classes` keeps only those class
-    ids (the others' scores are zeroed before the gate).
-    """
-    if method not in ("matrix", "scan"):
-        raise ValueError(f"unknown NMS method '{method}'")
+
+def _candidates(pred: torch.Tensor, conf_thres: float, max_nms: int, multi_label: bool,
+                classes: Sequence[int] | None):
+    """The top max_nms (box, score, class) candidates of each image, by score;
+    scores at or under conf_thres zeroed."""
     a, nc = pred.shape[1], pred.shape[2] - 4
     boxes = xywh2xyxy(pred[..., :4])
     scores = pred[..., 4:]
@@ -115,14 +154,42 @@ def non_max_suppression(pred: torch.Tensor, conf_thres: float = 0.25, iou_thres:
         keep = torch.zeros(nc, dtype=scores.dtype, device=scores.device)
         keep[list(classes)] = 1.0
         scores = scores * keep
-    best, cls_all = scores.max(dim=-1)
-    top_sc, anchor_ix = _top_k(best, min(max_nms, a))
-    cand_boxes = _gather(boxes, anchor_ix)
-    cls_ix = cls_all.gather(1, anchor_ix).to(pred.dtype)
+    if multi_label and nc > 1:
+        top_sc, top_ix = _top_k(scores.reshape(scores.shape[0], -1), min(max_nms, a * nc))
+        anchor_ix, cls_ix = top_ix // nc, (top_ix % nc).to(pred.dtype)
+    else:
+        best, cls_all = scores.max(dim=-1)
+        top_sc, anchor_ix = _top_k(best, min(max_nms, a))
+        cls_ix = cls_all.gather(1, anchor_ix).to(pred.dtype)
     cand_sc = torch.where(top_sc > conf_thres, top_sc, 0.0)
+    return _gather(boxes, anchor_ix), cand_sc, cls_ix
+
+
+def non_max_suppression(pred: torch.Tensor, conf_thres: float = 0.25, iou_thres: float = 0.45,
+                        max_det: int = 300, max_nms: int = 4096, agnostic: bool = False,
+                        method: str = "matrix", classes: Sequence[int] | None = None,
+                        multi_label: bool = False, tile: int = 1024):
+    """pred (B, A, 4 + nc): xywh pixels and class scores -> (dets, n_valid).
+
+    One label per anchor (its best class) unless `multi_label`. `classes`
+    keeps only those class ids (the others' scores are zeroed before the gate).
+    """
+    if method not in ("matrix", "scan", "tiled"):
+        raise ValueError(f"unknown NMS method '{method}'")
+    cand_boxes, cand_sc, cls_ix = _candidates(pred, conf_thres, max_nms, multi_label, classes)
     offset = torch.zeros_like(cls_ix) if agnostic else cls_ix * MAX_WH
-    nms = greedy_nms_matrix if method == "matrix" else greedy_nms_scan
-    keep_idx, keep_valid = nms(cand_boxes + offset[..., None], cand_sc, iou_thres, max_det)
+    shifted = cand_boxes + offset[..., None]
+    if method == "tiled":
+        b, k = pred.shape[0], min(max_det, cand_sc.shape[1])
+        keep_idx = torch.zeros(b, k, dtype=torch.long, device=pred.device)
+        keep_valid = torch.zeros(b, k, dtype=torch.bool, device=pred.device)
+        for i in range(b):
+            idx = greedy_nms_tiled(shifted[i], cand_sc[i], iou_thres, max_det, tile)
+            keep_idx[i, :len(idx)] = idx
+            keep_valid[i, :len(idx)] = True
+    else:
+        nms = greedy_nms_matrix if method == "matrix" else greedy_nms_scan
+        keep_idx, keep_valid = nms(shifted, cand_sc, iou_thres, max_det)
     det = torch.cat([_gather(cand_boxes, keep_idx),
                      (cand_sc.gather(1, keep_idx) * keep_valid)[..., None],
                      cls_ix.gather(1, keep_idx)[..., None]], dim=-1)

@@ -16,27 +16,44 @@ optax.MultiSteps does (the reference sums them), and the schedule counts
 real updates. The EMA, decay 0.9999 (1 - exp(-t / 2000)), advances on
 completed updates only.
 
-The step: uint8 batch -> `augment_batch` -> bf16 autocast forward in train
-mode -> `DetectionLoss` in f32 -> backward -> accumulate -> update -> EMA.
-`DetectionTrainer.train` runs epochs over a re-iterable of batches in the
-JAX loader's collate format; that iterable is where the dataset and loader
-plug in. Validation, checkpoints, resume, results.csv, freeze and
-multi-host training are not ported yet.
+The step: uint8 batch -> `augment_batch` -> forward in train mode (with
+`amp`, on the parameters rounded to bf16 under bf16 autocast, as JAX's
+`amp_cast`) -> `DetectionLoss` in f32 -> backward -> accumulate -> update
+-> EMA. `DetectionTrainer.train(batches)` runs epochs over a re-iterable of
+batches in the loader's collate format. `DetectionTrainer.fit()` is JAX's
+dataset-driven `DetectionTrainer.train`: the dataset YAML, a shuffled
+augmenting loader, `close_mosaic`, validation each epoch with the EMA
+weights and the current BatchNorm statistics, results.csv, the `best`,
+`last` and `epoch{n}` checkpoints, early stopping on fitness, the `time`
+budget and `resume`. Checkpoints are `torch.save` files that load with
+`weights_only=True`: the state_dicts (reference keys, so
+edgeyolo_tpu/utils/torch_convert.py::convert_state_dict maps them onto the
+flax tree) of the trained and the EMA weights, the optimizer's flat
+buffers, the MultiSteps state, the augmentation generator, the update
+count, the epoch and the best fitness, with a JSON sidecar of metadata.
+Freeze and multi-host training are not ported yet.
 """
 
 from __future__ import annotations
 
+import csv
+import json
 import math
+import time
 from dataclasses import dataclass
+from pathlib import Path
+from types import SimpleNamespace
 from typing import Callable, Iterable
 
 import torch
 from torch import nn
 
 from edgeyolo_tpu_torch.data.augment_device import augment_batch
+from edgeyolo_tpu_torch.data.dataset import YOLODataset, build_dataloader, check_det_dataset
 from edgeyolo_tpu_torch.nn.tasks import train_forward
 from edgeyolo_tpu_torch.train.loss import DetectionLoss
-from edgeyolo_tpu_torch.utils import select_device
+from edgeyolo_tpu_torch.utils import LOGGER, select_device
+from edgeyolo_tpu_torch.utils.yamlfile import yaml_save
 
 # the training keys of the JAX package's cfg/default.yaml
 TRAIN_DEFAULTS = {
@@ -259,17 +276,25 @@ def batch_to_device(batch: dict, device: torch.device) -> dict:
 
 
 class DetectionTrainer:
-    """Trains a DetectionModel on one device; `hyp` overrides TRAIN_DEFAULTS.
+    """Trains a DetectionModel on one device; `hyp` (a dict or a get_cfg
+    namespace) overrides TRAIN_DEFAULTS.
 
     `setup(nb)` builds the optimizer for nb batches per epoch; `train_step`
-    takes one micro-step; `train(batches)` runs the epochs. The model must
-    hold f32 parameters; with hyp["amp"] its forward runs in bf16 autocast.
+    takes one micro-step; `train(batches)` runs the epochs over given batches
+    and `fit()` over hyp["data"]. The model must hold f32 parameters; with
+    hyp["amp"] its forward sees them rounded to bf16 (`train_forward`).
     """
 
-    def __init__(self, model: nn.Module, hyp: dict | None = None,
-                 device: str | torch.device | None = None):
-        self.args = {**TRAIN_DEFAULTS, **(hyp or {})}
+    def __init__(self, model: nn.Module, hyp: dict | SimpleNamespace | None = None,
+                 device: str | torch.device | None = None, save_dir: str | Path = "runs/train"):
+        hyp = vars(hyp) if isinstance(hyp, SimpleNamespace) else (hyp or {})
+        self.args = {**TRAIN_DEFAULTS, **hyp}
         self.device = select_device(device)
+        self.save_dir = Path(save_dir)
+        self.best_fitness = 0.0
+        self.best_metrics: dict = {}
+        self.last_metrics: dict = {}
+        self.validator = None
         self.model = model.to(self.device).train()
         self.criterion = DetectionLoss.for_model(model, self.args)
         self.gen = torch.Generator().manual_seed(int(self.args["seed"]))
@@ -313,28 +338,204 @@ class DetectionTrainer:
             self.ema.update(self.flat.data)
         return loss.detach(), items, updated
 
+    def _epoch(self, batches: Iterable[dict], epoch: int) -> list[float]:
+        """One epoch of micro-steps; the mean (box, cls, dfl) loss items."""
+        a = self.args
+        self.epoch = epoch
+        mosaic = float(a["mosaic"]) > 0 and epoch < int(a["epochs"]) - int(a["close_mosaic"])
+        items = [self.train_step(batch_to_device(b, self.device), mosaic)[1] for b in batches]
+        means = torch.stack([torch.stack([it["box"], it["cls"], it["dfl"]]) for it in items])
+        self.epoch_losses.append(means.mean(0).tolist())
+        return self.epoch_losses[-1]
+
     def train(self, batches: Iterable[dict],
               fitness: Callable[["DetectionTrainer"], float | None] | None = None
               ) -> list[list[float]]:
         """Run the epochs over `batches` (re-iterable, with a len); returns the
         mean (box, cls, dfl) loss items of each epoch. `fitness`, when given,
         scores each epoch for early stopping."""
-        a = self.args
-        epochs = int(a["epochs"])
         self.setup(len(batches))
-        stopper = EarlyStopping(int(a["patience"]))
-        for epoch in range(epochs):
-            self.epoch = epoch
-            mosaic = float(a["mosaic"]) > 0 and epoch < epochs - int(a["close_mosaic"])
-            items = [self.train_step(batch_to_device(b, self.device), mosaic)[1] for b in batches]
-            means = torch.stack([torch.stack([it["box"], it["cls"], it["dfl"]]) for it in items])
-            self.epoch_losses.append(means.mean(0).tolist())
+        stopper = EarlyStopping(int(self.args["patience"]))
+        for epoch in range(int(self.args["epochs"])):
+            self._epoch(batches, epoch)
             if stopper(epoch, fitness(self) if fitness else None):
                 break
         return self.epoch_losses
+
+    # -- the dataset-driven loop ------------------------------------------------
+    def fit(self) -> float:
+        """JAX's DetectionTrainer.train: epochs over args["data"]'s train split,
+        validation with the EMA, results.csv and checkpoints under `save_dir`.
+        Returns the best fitness; the model ends holding the EMA weights."""
+        a = self.args
+        data_cfg = check_det_dataset(a["data"])
+        if data_cfg["nc"] != self.model.nc:
+            raise ValueError(f"dataset nc={data_cfg['nc']} != model nc={self.model.nc}")
+        self.model.names = data_cfg["names"]
+        imgsz, epochs, bs = int(a["imgsz"]), int(a["epochs"]), int(a["batch"])
+        self.save_dir.mkdir(parents=True, exist_ok=True)
+        yaml_save(self.save_dir / "args.yaml", {k: v for k, v in a.items()
+                                                 if isinstance(v, (int, float, str, bool, type(None), list))})
+        train_set = YOLODataset(data_cfg["train"], imgsz=imgsz, augment=True,
+                                single_cls=bool(a.get("single_cls", False)),
+                                fraction=float(a.get("fraction", 1.0)), names=data_cfg["names"],
+                                cache=a.get("cache", False))
+        loader = build_dataloader(train_set, bs, shuffle=True, seed=int(a["seed"]))
+        self.setup(len(loader))
+        start_epoch = 0
+        if a.get("resume"):
+            ck = Path(a["resume"]) if isinstance(a["resume"], (str, Path)) else self.save_dir / "last.pt"
+            if not ck.exists():
+                raise FileNotFoundError(f"resume checkpoint {ck} not found")
+            start_epoch = self.load_state(ck) + 1
+            LOGGER.info(f"resumed from {ck} at epoch {start_epoch} "
+                        f"(best fitness {self.best_fitness:.4f})")
+        loader.epoch = start_epoch  # the shuffle of epoch e is Random(seed + e) on resume too
+        stopper = EarlyStopping(int(a["patience"]))
+        csv_path = self.save_dir / "results.csv"
+        t_start = time.time()
+        self.epoch_times: list[float] = []
+        self.val_times: list[float] = []
+        for epoch in range(start_epoch, epochs):
+            t0 = time.perf_counter()
+            mloss = self._epoch(loader, epoch)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            t1 = time.perf_counter()
+            metrics_row = self._validate(data_cfg) if a.get("val", True) else {}
+            t2 = time.perf_counter()
+            self.epoch_times.append(t1 - t0)
+            self.val_times.append(t2 - t1)
+            fitness_val = metrics_row.get("fitness")
+            self.last_metrics = dict(metrics_row)
+            row = {"epoch": epoch, "time": round(time.time() - t_start, 2),
+                   "train/box_loss": round(float(mloss[0]), 5),
+                   "train/cls_loss": round(float(mloss[1]), 5),
+                   "train/dfl_loss": round(float(mloss[2]), 5),
+                   **{k: round(float(v), 5) for k, v in metrics_row.items()},
+                   "lr/pg0": round(self.schedule.lr_at(self.optimizer.opt.count), 6)}
+            write_header = not csv_path.exists()
+            with open(csv_path, "a", newline="") as f:
+                w = csv.DictWriter(f, fieldnames=list(row))
+                if write_header:
+                    w.writeheader()
+                w.writerow(row)
+            LOGGER.info(f"epoch {epoch + 1}/{epochs} box {mloss[0]:.4f} cls {mloss[1]:.4f} "
+                        f"dfl {mloss[2]:.4f}"
+                        + (f" fitness {fitness_val:.4f}" if fitness_val is not None else ""))
+            if fitness_val is not None and fitness_val >= self.best_fitness:
+                self.best_fitness = fitness_val
+                self.best_metrics = dict(metrics_row)
+                self.save_checkpoint("best", epoch)
+            self.save_checkpoint("last", epoch)
+            sp = int(a.get("save_period", -1))
+            if sp > 0 and (epoch + 1) % sp == 0:
+                self.save_checkpoint(f"epoch{epoch}", epoch)
+            stop = stopper(epoch, fitness_val)
+            if a.get("time") and (time.time() - t_start) > float(a["time"]) * 3600:
+                LOGGER.info("time budget reached, stopping")
+                stop = True
+            if stop:
+                break
+        with torch.no_grad():
+            self.flat.data.copy_(self.ema.ema)  # the model handle keeps the EMA weights
+        LOGGER.info(f"training done in {(time.time() - t_start) / 3600:.3f}h, best fitness "
+                    f"{self.best_fitness:.4f}, results in {self.save_dir}")
+        return self.best_fitness
+
+    def _validate(self, data_cfg: dict) -> dict:
+        """The val split through the EMA weights and the current BatchNorm
+        statistics, at max_nms 4096; the trained weights are put back after."""
+        from edgeyolo_tpu_torch.cfg import get_cfg
+        from edgeyolo_tpu_torch.engine.validator import DetectionValidator
+
+        if self.validator is None:
+            a = self.args
+            vargs = get_cfg(overrides={
+                "mode": "val", "data": a["data"], "imgsz": int(a["imgsz"]),
+                "batch": int(a["batch"]), "conf": 0.001, "iou": 0.7, "max_det": 300,
+                "plots": False, "single_cls": bool(a.get("single_cls", False))})
+            self.validator = DetectionValidator(vargs, save_dir=self.save_dir / "val",
+                                                device=self.device)
+        raw = self.flat.data.clone()
+        try:
+            with torch.no_grad():
+                self.flat.data.copy_(self.ema.ema)
+            return self.validator(self.model, data=data_cfg, batch_size=int(self.args["batch"]),
+                                  max_nms=4096)
+        finally:
+            with torch.no_grad():
+                self.flat.data.copy_(raw)
+
+    # -- checkpoints --------------------------------------------------------------
+    def checkpoint(self, epoch: int) -> dict:
+        """The training state as tensors and plain values (weights_only-loadable)."""
+        def cpu(sd):
+            return {k: v.detach().cpu().clone() for k, v in sd.items()}
+
+        opt = self.optimizer.opt
+        return {
+            "model": cpu(self.model.state_dict()),
+            "ema": cpu(self.ema_state_dict()),
+            "optimizer": {"name": opt.name, "count": opt.count,
+                          **{k: getattr(opt, k).detach().cpu().clone()
+                             for k in ("trace", "mu", "nu") if getattr(opt, k) is not None},
+                          "acc": self.optimizer.acc.detach().cpu().clone(),
+                          "mini_step": self.optimizer.mini_step},
+            "generator": self.gen.get_state(),
+            "updates": self.ema.updates, "epoch": epoch, "best_fitness": float(self.best_fitness),
+            "meta": self.meta(epoch),
+        }
+
+    def meta(self, epoch: int) -> dict:
+        m = self.model
+        return {"epoch": epoch, "best_fitness": float(self.best_fitness),
+                "model_yaml": getattr(m, "cfg", ""), "task": "detect",
+                "scale": getattr(m, "scale", ""), "nc": m.nc, "names": dict(m.names),
+                "train_args": {k: v for k, v in self.args.items()
+                               if isinstance(v, (int, float, str, bool, type(None)))}}
+
+    def save_checkpoint(self, name: str, epoch: int) -> Path:
+        """{save_dir}/{name}.pt and its {name}.json metadata."""
+        self.save_dir.mkdir(parents=True, exist_ok=True)
+        path = self.save_dir / f"{name}.pt"
+        torch.save(self.checkpoint(epoch), path)
+        path.with_suffix(".json").write_text(json.dumps(self.meta(epoch), default=str))
+        return path
+
+    def load_state(self, path: str | Path) -> int:
+        """Restore a checkpoint's training state (after `setup`); returns its epoch."""
+        ck = torch.load(path, map_location="cpu", weights_only=True)
+        self.model.load_state_dict(ck["model"])
+        with torch.no_grad():
+            self.ema.ema.copy_(torch.cat([ck["ema"][n].reshape(-1) for n, _ in self.flat.named]))
+        self.ema.updates = int(ck["updates"])
+        opt, st = self.optimizer.opt, ck["optimizer"]
+        if st["name"] != opt.name:
+            raise ValueError(f"checkpoint optimizer {st['name']} != {opt.name}")
+        opt.count = int(st["count"])
+        for k in ("trace", "mu", "nu"):
+            if k in st:
+                setattr(opt, k, st[k].to(self.device))
+        self.optimizer.acc = st["acc"].to(self.device)
+        self.optimizer.mini_step = int(st["mini_step"])
+        self.gen.set_state(ck["generator"])
+        self.best_fitness = float(ck["best_fitness"])
+        return int(ck["epoch"])
 
     def ema_state_dict(self) -> dict[str, torch.Tensor]:
         """The model's state_dict with the EMA in place of the trained parameters."""
         sd = dict(self.model.state_dict())
         sd.update(self.flat.unflatten(self.ema.ema))
         return sd
+
+
+def load_checkpoint(model: nn.Module, path: str | Path, use_ema: bool = True) -> dict:
+    """Load a trainer checkpoint's weights (the EMA by default) and class names
+    into `model`; returns the checkpoint."""
+    ck = torch.load(path, map_location="cpu", weights_only=True)
+    model.load_state_dict(ck["ema"] if use_ema else ck["model"])
+    names = (ck.get("meta") or {}).get("names")
+    if names:
+        model.names = {int(k): v for k, v in names.items()}
+    return ck

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import logging
 import math
 
 import torch
@@ -23,3 +24,6 @@ def select_device(device: str | torch.device | None = None) -> torch.device:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device available; pass device='cpu' to run on the CPU")
     return torch.device("cuda")
+
+
+LOGGER = logging.getLogger("edgeyolo_tpu_torch")
