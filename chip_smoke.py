@@ -85,6 +85,8 @@ LA_CASES = [
     (16, 6400, 4, 64, "bfloat16", "qkv"),
     (32, 400, 2, 64, "bfloat16", "bnhd"),
     (4, 999, 3, 32, "float32", "bnhd"),
+    (16, 25, 2, 64, "bfloat16", "qkv"),  # the fit phase at 160 px: training (bf16)
+    (16, 25, 2, 64, "float32", "qkv"),  # and its validation and prediction (f32)
 ]
 LA_MAIN_CASE = 1
 LA_RTOL = {"float32": 1e-5, "bfloat16": 2e-2}  # of max |plain| (bf16: about 5 ulp)

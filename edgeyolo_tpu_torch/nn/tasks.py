@@ -204,28 +204,32 @@ def round_bf16(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.bfloat16).to(t.dtype)
 
 
+def amp_params(model: nn.Module) -> dict[str, torch.Tensor]:
+    """Every floating parameter of `model` rounded to bf16, by name, as JAX's
+    `amp_cast` rounds the f32 masters (BatchNorm's scale and shift, the
+    wavelet band weights and the quality head included). Rounded as one
+    concatenated vector (one cast each way, not one per tensor) and returned
+    as views of it, differentiable back to the masters."""
+    named = [(n, p) for n, p in model.named_parameters() if p.is_floating_point()]
+    flat = round_bf16(torch.cat([p.reshape(-1) for _, p in named]))
+    return {n: v.view_as(p) for (n, p), v in zip(named, flat.split([p.numel() for _, p in named]))}
+
+
 def train_forward(model: nn.Module, x: torch.Tensor, amp: bool = True) -> dict:
     """The training forward: {"feats", "quality"} per level, in f32.
 
-    With `amp`, as JAX's `amp_cast` of the f32 masters: the forward sees every
-    floating parameter rounded to bf16 (BatchNorm's scale and shift, the
-    wavelet band weights and the quality head included), and runs under bf16
-    autocast, so convolutions and the attention compute in bf16 while
-    BatchNorm, the wavelet band weights and the quality head compute in f32 on
-    the rounded values, as in serving. The parameters are rounded as one
-    concatenated vector (one cast each way, not one per tensor) and handed to
-    the forward as views of it by `torch.func.functional_call`, so gradients
-    flow back into the f32 masters.
+    With `amp`, as JAX's `amp_cast` of the f32 masters: the forward sees
+    `amp_params(model)` through `torch.func.functional_call`, so gradients
+    flow back into the f32 masters, and runs under bf16 autocast, so
+    convolutions and the attention compute in bf16 while BatchNorm, the
+    wavelet band weights and the quality head compute in f32 on the rounded
+    values, as in serving.
     """
     if not amp:
         out = model(x)
     else:
-        named = [(n, p) for n, p in model.named_parameters() if p.is_floating_point()]
-        flat = round_bf16(torch.cat([p.reshape(-1) for _, p in named]))
-        rounded = {n: v.view_as(p) for (n, p), v in
-                   zip(named, flat.split([p.numel() for _, p in named]))}
         with torch.autocast(x.device.type, dtype=torch.bfloat16):
-            out = torch.func.functional_call(model, rounded, (x.to(torch.bfloat16),))
+            out = torch.func.functional_call(model, amp_params(model), (x.to(torch.bfloat16),))
     return {k: [f.float() for f in out[k]] for k in ("feats", "quality")}
 
 

@@ -3,7 +3,7 @@
 Per image: the best class of each anchor is gated at `conf_thres` (masked,
 not filtered), the `max_nms` best candidates are kept, boxes are shifted by
 class * MAX_WH so one agnostic pass is class-aware, and greedy suppression
-runs by one of two methods:
+runs by one of three methods:
 
 - "matrix": the greedy fixed point on the full IoU matrix,
   alive_i <- valid_i and not any(alive_j and iou[j, i] > thres, j < i),
@@ -13,7 +13,7 @@ runs by one of two methods:
   the oracle the tests hold the matrix method against.
 - "tiled": the validator's path, one image at a time, for candidate counts
   (max_nms = 30000) whose n x n matrix would not fit: the score-sorted
-  candidates above the gate are taken in blocks of `tile`; each block is
+  candidates above the gate are taken in blocks of NMS_TILE; each block is
   first suppressed by the boxes kept so far, then resolved by the matrix
   fixed point within the block (exact greedy, by induction over blocks),
   and the loop stops once max_det boxes are kept or no candidate is left.
@@ -39,6 +39,7 @@ import torch
 from edgeyolo_tpu_torch.ops.boxes import box_iou, xywh2xyxy
 
 MAX_WH = 7680.0  # class offset: boxes of different classes never overlap
+NMS_TILE = 1024  # candidates per block of the tiled method
 
 
 def _top_k(x: torch.Tensor, k: int):
@@ -53,33 +54,11 @@ def _gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return x.gather(1, idx[..., None].expand(*idx.shape, x.shape[-1]))
 
 
-def _pairwise_iou(boxes: torch.Tensor) -> torch.Tensor:
-    """(B, n, 4) xyxy -> (B, n, n)."""
-    x1 = torch.maximum(boxes[:, :, None, 0], boxes[:, None, :, 0])
-    y1 = torch.maximum(boxes[:, :, None, 1], boxes[:, None, :, 1])
-    x2 = torch.minimum(boxes[:, :, None, 2], boxes[:, None, :, 2])
-    y2 = torch.minimum(boxes[:, :, None, 3], boxes[:, None, :, 3])
-    inter = (x2 - x1).clamp(min=0) * (y2 - y1).clamp(min=0)
-    area = (boxes[..., 2] - boxes[..., 0]) * (boxes[..., 3] - boxes[..., 1])
-    return inter / (area[:, :, None] + area[:, None, :] - inter + 1e-7)
-
-
-def _iou_1_vs_all(box: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
-    """(B, 4) against (B, n, 4) -> (B, n)."""
-    x1 = torch.maximum(box[:, None, 0], boxes[..., 0])
-    y1 = torch.maximum(box[:, None, 1], boxes[..., 1])
-    x2 = torch.minimum(box[:, None, 2], boxes[..., 2])
-    y2 = torch.minimum(box[:, None, 3], boxes[..., 3])
-    inter = (x2 - x1).clamp(min=0) * (y2 - y1).clamp(min=0)
-    a1 = (box[:, 2] - box[:, 0]) * (box[:, 3] - box[:, 1])
-    a2 = (boxes[..., 2] - boxes[..., 0]) * (boxes[..., 3] - boxes[..., 1])
-    return inter / (a1[:, None] + a2 - inter + 1e-7)
-
-
-def greedy_nms_matrix(boxes: torch.Tensor, scores: torch.Tensor, iou_thres: float, max_det: int):
-    """Greedy NMS as the fixed point of the IoU matrix; candidates sorted by score."""
+def _greedy_alive(boxes: torch.Tensor, scores: torch.Tensor, iou_thres: float) -> torch.Tensor:
+    """The candidates (B, n) that greedy NMS keeps, as the fixed point of the
+    IoU matrix; candidates sorted by score, those at score 0 never kept."""
     n = boxes.shape[1]
-    iou = _pairwise_iou(boxes)
+    iou = box_iou(boxes, boxes)
     higher = torch.ones(n, n, dtype=torch.bool, device=boxes.device).triu(1)  # [j, i]: j < i
     sup_edge = higher & (iou > iou_thres)
     valid0 = scores > 0.0
@@ -90,7 +69,13 @@ def greedy_nms_matrix(boxes: torch.Tensor, scores: torch.Tensor, iou_thres: floa
         if torch.equal(new_alive, alive):
             break
         alive = new_alive
-    kept = torch.where(alive, scores, 0.0)
+    return alive
+
+
+def greedy_nms_matrix(boxes: torch.Tensor, scores: torch.Tensor, iou_thres: float, max_det: int):
+    """Greedy NMS as the fixed point of the IoU matrix; candidates sorted by score."""
+    n = boxes.shape[1]
+    kept = torch.where(_greedy_alive(boxes, scores, iou_thres), scores, 0.0)
     top, idx = _top_k(kept, min(max_det, n))
     return idx, top > 0.0
 
@@ -103,7 +88,7 @@ def greedy_nms_scan(boxes: torch.Tensor, scores: torch.Tensor, iou_thres: float,
     for _ in range(max_det):
         best, idx = alive.max(dim=1)
         valid = best > 0.0
-        iou = _iou_1_vs_all(_gather(boxes, idx[:, None])[:, 0], boxes)
+        iou = box_iou(_gather(boxes, idx[:, None]), boxes)[:, 0]
         suppress = (iou > iou_thres) | (ar[None] == idx[:, None])
         alive = torch.where(valid[:, None] & suppress, 0.0, alive)
         picks.append(idx)
@@ -112,32 +97,22 @@ def greedy_nms_scan(boxes: torch.Tensor, scores: torch.Tensor, iou_thres: float,
 
 
 def greedy_nms_tiled(boxes: torch.Tensor, scores: torch.Tensor, iou_thres: float,
-                     max_det: int, tile: int = 1024):
+                     max_det: int):
     """Greedy NMS of one image's score-sorted candidates (n, 4), (n,), block by
     block; returns the kept indices in score order (at most max_det)."""
     n_valid = int((scores > 0.0).sum())
     kept = boxes.new_zeros((0, 4))
     kept_idx = []
-    n_kept = 0
-    for start in range(0, n_valid, tile):
-        if n_kept >= max_det:
+    for start in range(0, n_valid, NMS_TILE):
+        if len(kept) >= max_det:
             break
-        blk = boxes[start:min(start + tile, n_valid)]
-        alive0 = torch.ones(len(blk), dtype=torch.bool, device=boxes.device)
-        if n_kept:
-            alive0 &= ~(box_iou(kept, blk) > iou_thres).any(dim=0)
-        sup = torch.ones(len(blk), len(blk), dtype=torch.bool, device=boxes.device).triu(1)
-        sup &= box_iou(blk, blk) > iou_thres
-        alive = alive0
-        for _ in range(len(blk)):
-            new_alive = alive0 & ~(sup & alive[:, None]).any(dim=0)
-            if torch.equal(new_alive, alive):
-                break
-            alive = new_alive
-        idx = alive.nonzero()[:, 0]
+        end = min(start + NMS_TILE, n_valid)
+        blk, sc = boxes[start:end], scores[start:end]
+        if len(kept):
+            sc = torch.where((box_iou(kept, blk) > iou_thres).any(dim=0), 0.0, sc)
+        idx = _greedy_alive(blk[None], sc[None], iou_thres)[0].nonzero()[:, 0]
         kept = torch.cat([kept, blk[idx]])
         kept_idx.append(idx + start)
-        n_kept += len(idx)
     if not kept_idx:
         return torch.zeros(0, dtype=torch.long, device=boxes.device)
     return torch.cat(kept_idx)[:max_det]
@@ -168,7 +143,7 @@ def _candidates(pred: torch.Tensor, conf_thres: float, max_nms: int, multi_label
 def non_max_suppression(pred: torch.Tensor, conf_thres: float = 0.25, iou_thres: float = 0.45,
                         max_det: int = 300, max_nms: int = 4096, agnostic: bool = False,
                         method: str = "matrix", classes: Sequence[int] | None = None,
-                        multi_label: bool = False, tile: int = 1024):
+                        multi_label: bool = False):
     """pred (B, A, 4 + nc): xywh pixels and class scores -> (dets, n_valid).
 
     One label per anchor (its best class) unless `multi_label`. `classes`
@@ -184,7 +159,7 @@ def non_max_suppression(pred: torch.Tensor, conf_thres: float = 0.25, iou_thres:
         keep_idx = torch.zeros(b, k, dtype=torch.long, device=pred.device)
         keep_valid = torch.zeros(b, k, dtype=torch.bool, device=pred.device)
         for i in range(b):
-            idx = greedy_nms_tiled(shifted[i], cand_sc[i], iou_thres, max_det, tile)
+            idx = greedy_nms_tiled(shifted[i], cand_sc[i], iou_thres, max_det)
             keep_idx[i, :len(idx)] = idx
             keep_valid[i, :len(idx)] = True
     else:

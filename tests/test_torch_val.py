@@ -3,7 +3,9 @@ PyTorch port against the JAX package, on the CPU.
 
 - NMS `multi_label` (and one label per anchor) by the matrix, scan and tiled
   methods: detections exactly equal to JAX's at small n; the tiled path
-  exactly equal to the scan oracle at n = 3000 candidates in tiles of 128.
+  exactly equal to the scan oracle at n = 12000 candidates in 40 clusters of
+  near-duplicates (long suppression chains), whose last kept box ranks past
+  the first two tiles of NMS_TILE.
 - Metrics (smooth, compute_ap, ap_per_class, match_predictions, DetMetrics
   with mAP75, ConfusionMatrix, fitness) on seeded arrays: exactly JAX's. The
   torch twin of match_predictions_device: equal to JAX's twin and to the
@@ -40,7 +42,7 @@ from edgeyolo_tpu_torch.engine.predictor import DetectionPredictor
 from edgeyolo_tpu_torch.engine.results import Results
 from edgeyolo_tpu_torch.engine.validator import DetectionValidator
 from edgeyolo_tpu_torch.metrics import metrics
-from edgeyolo_tpu_torch.ops.nms import non_max_suppression
+from edgeyolo_tpu_torch.ops.nms import NMS_TILE, non_max_suppression
 
 NC = 3
 
@@ -54,6 +56,17 @@ def _pred(b, a, nc, seed, spread=100.0):
     return np.concatenate([xy, wh, sc], -1).astype(np.float32)
 
 
+def _crowded_pred(b, n_obj, per_obj, nc, seed):
+    """n_obj objects in a 640 px image, each predicted per_obj times with a
+    few px of jitter in place and 15% in size."""
+    rs = np.random.RandomState(seed)
+    centre, size = rs.uniform(0, 640, (b, n_obj, 1, 2)), rs.uniform(16, 64, (b, n_obj, 1, 2))
+    xy = centre + rs.normal(0, 3.0, (b, n_obj, per_obj, 2))
+    wh = size * rs.uniform(0.85, 1.15, (b, n_obj, per_obj, 2))
+    sc = rs.rand(b, n_obj * per_obj, nc) ** 3
+    return np.concatenate([xy.reshape(b, -1, 2), wh.reshape(b, -1, 2), sc], -1).astype(np.float32)
+
+
 @pytest.mark.parametrize("method", ["matrix", "scan", "tiled"])
 @pytest.mark.parametrize("multi_label", [True, False])
 @pytest.mark.parametrize("max_nms", [200, 3000])
@@ -62,7 +75,7 @@ def test_nms_matches_jax(method, multi_label, max_nms):
     kw = dict(conf_thres=0.05, iou_thres=0.5, max_det=100, max_nms=max_nms)
     jdet, jn = jnms(jnp.asarray(pred), multi_label=multi_label, nc=5, **kw)
     det, n = non_max_suppression(torch.from_numpy(pred), multi_label=multi_label, method=method,
-                                 tile=37, **kw)
+                                 **kw)
     np.testing.assert_array_equal(n.numpy(), np.asarray(jn))
     assert int(n.min()) > 10
     np.testing.assert_array_equal(det.numpy(), np.asarray(jdet)[:, :det.shape[1]])
@@ -70,15 +83,22 @@ def test_nms_matches_jax(method, multi_label, max_nms):
 
 @pytest.mark.parametrize("agnostic,classes", [(False, None), (True, None), (False, (0, 2))])
 def test_tiled_nms_matches_the_scan_oracle_at_3000_candidates(agnostic, classes):
-    """Crowded boxes (long suppression chains) across 24 tiles; the tiled
-    path's memory does not depend on max_nms."""
-    pred = _pred(2, 1000, 3, seed=1, spread=200.0)
+    """Crowded boxes (long suppression chains): the kept boxes reach past the
+    first tiles; the tiled path's memory does not depend on max_nms."""
+    pred = _crowded_pred(2, 40, 100, 3, seed=1)
     kw = dict(conf_thres=0.001, iou_thres=0.6, max_det=300, max_nms=30000, multi_label=True,
               agnostic=agnostic, classes=classes)
     det_s, n_s = non_max_suppression(torch.from_numpy(pred), method="scan", **kw)
-    det_t, n_t = non_max_suppression(torch.from_numpy(pred), method="tiled", tile=128, **kw)
+    det_t, n_t = non_max_suppression(torch.from_numpy(pred), method="tiled", **kw)
     assert torch.equal(n_t, n_s) and int(n_s.min()) > 100
     assert torch.equal(det_t, det_s[:, :det_t.shape[1]])
+    # rank of the last kept candidate among the candidates: past the second tile
+    scores = torch.from_numpy(pred[..., 4:])
+    if classes is not None:
+        scores = scores[..., list(classes)]
+    last = torch.where(det_s[..., 4] > 0, det_s[..., 4], np.inf).amin(1)
+    ranks = (scores.flatten(1) >= last[:, None]).sum(1)
+    assert int(ranks.min()) > 2 * NMS_TILE, ranks
 
 
 # -- metrics ------------------------------------------------------------------------
