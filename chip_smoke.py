@@ -7,21 +7,28 @@ Phases, each timed and each fatal when it fails:
   1. device     card name and power limit, torch and CUDA versions, TF32 switches
   2. build      nvcc builds every CUDA source of edgeyolo_tpu_torch/csrc, all at once
   3. kernels    every kernel's wrapper against its plain PyTorch version, on the card,
-                at the shapes the serving path gives it, with times and the bound;
-                the attention kernel's split of N and workspace, and two launches
-                on the same inputs compared bit for bit
+                at the shapes the serving paths give it (the flagship's D = 64, MSLA's
+                D = 8, 16 and 32 at 640 px, the x scale's 48 and 96), with times and
+                the bound; the attention kernel's split of N and workspace, and two
+                launches on the same inputs compared bit for bit
   4. reference  the f32 model on the card (kernel) against the same model on the
-                CPU (plain version) at 64 px
+                CPU (plain version) at 64 px, gates open: EdgeLine-YOLO-n, the YOLO11
+                ablation family, YOLOv13 and its MSLA variant; launches per forward
   5. serve      EdgeLine-YOLO-n in bf16 at 640 px: 1 warm-up and 3 timed requests
                 of 32 images through DetectionPredictor; kernel launch counts, bf16
                 activations, output checks, NMS against the scan oracle, the
                 prediction against the same model with the plain attention, and
                 one profiled request (device time by kernel, device busy share
-                of the unprofiled request time)
+                of the unprofiled request time); then yolo11n, yolo11-lineattention-n
+                and yolov13-dsc3k2-msla-n the same way (bf16 conv and linear outputs,
+                launches per request, a profiled request, the bf16 prediction against
+                f32 and against the plain attention)
   6. train      one f32 train step at 64 px, batch 2, on the card (kernel) against the
      reference  same step on the CPU (plain version): same seeded weights, same
-                augmentation draws; the loss, every gradient and the updated params
-  7. train      EdgeLine-YOLO-n training at 640 px, batch 32, bf16 autocast, default
+                augmentation draws; the loss, every gradient and the updated params;
+                EdgeLine-YOLO-n from two starts, yolov13-dsc3k2-msla-n from one
+  7. train      EdgeLine-YOLO-n, then yolov13-dsc3k2-msla-n and yolo11n, training at
+                640 px, batch 32, bf16 autocast, default
                 hyps (mosaic, photometric, HSV, flips; SGD, accumulate 2): 1 warm-up
                 and 6 timed steps through DetectionTrainer.train_step; bf16 at the
                 kernel's input, saved views not copied, one kernel launch per step,
@@ -38,7 +45,9 @@ Phases, each timed and each fatal when it fails:
                 and predict; the tiled NMS against the scan oracle at >= 8192 candidates;
                 then the trained model validated at 640 px on 128 synthetic images at
                 batch 32 in bf16: img/s, decode and letterbox ms per image, device ms and
-                NMS ms per batch, the candidates past conf 0.001, peak memory
+                NMS ms per batch, the candidates past conf 0.001, peak memory; then
+                yolo11n (plain Detect, BCE) on the same protocol, held to
+                YOLO11N_FIT_MAP_MIN
   9. device     each kernel's device time by torch.profiler at the shapes of phase 3;
      times      after the serve, train and fit phases, so no profiler session precedes them
 The line before the last is the kernel table as JSON; the last line is
@@ -87,6 +96,21 @@ LA_CASES = [
     (4, 999, 3, 32, "float32", "bnhd"),
     (16, 25, 2, 64, "bfloat16", "qkv"),  # the fit phase at 160 px: training (bf16)
     (16, 25, 2, 64, "float32", "qkv"),  # and its validation and prediction (f32)
+    # MSLA-n at 640 px, batch 32 (layers 2, 4, 17 and 26, 21, 30) ...
+    (32, 25600, 2, 8, "bfloat16", "qkv"),
+    (32, 6400, 2, 16, "bfloat16", "qkv"),
+    (32, 6400, 2, 8, "bfloat16", "qkv"),
+    (32, 1600, 2, 16, "bfloat16", "qkv"),
+    (32, 400, 2, 32, "bfloat16", "qkv"),
+    # ... as the serving path gives them, the four channel quarters batched
+    (128, 25600, 2, 8, "bfloat16", "qkv"),
+    (128, 6400, 2, 16, "bfloat16", "qkv"),
+    (128, 6400, 2, 8, "bfloat16", "qkv"),
+    (128, 1600, 2, 16, "bfloat16", "qkv"),
+    (128, 400, 2, 32, "bfloat16", "qkv"),
+    (32, 25600, 2, 8, "float32", "qkv"),  # f32 at D = 8 (FMA products, split context)
+    (4, 400, 2, 48, "bfloat16", "qkv"),  # the x scale's head dims
+    (4, 400, 2, 96, "bfloat16", "qkv"),
 ]
 LA_MAIN_CASE = 1
 LA_RTOL = {"float32": 1e-5, "bfloat16": 2e-2}  # of max |plain| (bf16: about 5 ulp)
@@ -103,6 +127,25 @@ FIT_RELOAD_TOL = 1e-6  # best.pt validated again on the card vs the trainer's be
 FIT_CPU_TOL = 2e-3  # the same val on the CPU in f32, each metric
 NMS_TILED_MIN = 8192  # candidates in the tiled-vs-scan check
 VAL640 = {"n_val": 128, "imgsz": 640, "batch": 32}
+# the families beside the flagship, at scale n: the reference phase holds each one's card
+# forward against its CPU forward; the serve phase serves those in FAMILY_SERVE
+FAMILIES = ("yolo11n", "yolo11-dsc3k2-wavelet-n", "yolo11-gf2detect-n", "yolo11-lineattention-n",
+            "yolov13n", "yolov13-dsc3k2-msla-n")
+FAMILY_SERVE = ("yolo11n", "yolo11-lineattention-n", "yolov13-dsc3k2-msla-n")
+# the weight scale of each model in tests/test_torch_families.py (its CONFIGS), under which
+# the output depends on the image without saturating. The flagship's, not there, was scanned
+# the same way against JAX on the CPU (at 2.5 its pred is 1.2e-2 px off JAX's). yolov13n takes
+# MSLA-n's 1.8, not the test's 1.87: that is at the edge where rounding grows, and there the
+# card's cuDNN against the CPU read 3.4e-3 px of the 5e-3 tolerance.
+REF_SCALE = {"edgeline-yolo-n": 2.4, "yolo11n": 2.5, "yolo11-dsc3k2-wavelet-n": 2.4,
+             "yolo11-gf2detect-n": 2.5, "yolo11-lineattention-n": 2.5, "yolov13n": 1.8,
+             "yolov13-dsc3k2-msla-n": 1.8}
+MSLA = "yolov13-dsc3k2-msla-n"
+# fit: yolo11n (plain Detect, BCE) on the same protocol; the JAX package's trainer reached
+# mAP50-95 YOLO11N_JAX_MAP there (tools/fit_protocol.py, PERF.md section 6), and the port is
+# held to that less 0.1
+YOLO11N_JAX_MAP = 0.7566  # 0.756571273958199, 275 s on a CPU
+YOLO11N_FIT_MAP_MIN = round(YOLO11N_JAX_MAP - 0.1, 4)
 
 
 def phase(name: str):
@@ -246,48 +289,133 @@ def device_times(la, rows, inputs):
               + "; ".join(f"{key[:60]} {t:.4f}" for key, t in by_kernel.items()), flush=True)
 
 
-def open_wavelet_gates(model):
-    """The wavelet residual gates open (gamma 0.5; init leaves them at 0), so
-    the wavelet branch counts in the output and takes gradients."""
+def open_gates(model):
+    """Every zero-initialised residual gate open at 0.5 (init leaves them at 0,
+    which hides the branch behind it from the output and its gradients): the
+    wavelet enhancers' and DSC3K2_MSLA's gamma (MSLA, and so the attention
+    kernel, is multiplied by tanh(gamma)) and the FullPAD tunnels' gate."""
     import torch
 
     from edgeyolo_tpu_torch.nn.modules.edgeline import WaveletEnhancer
+    from edgeyolo_tpu_torch.nn.modules.extra import FullPAD_Tunnel
+    from edgeyolo_tpu_torch.nn.modules.msla_lgl import DSC3K2_MSLA
 
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, WaveletEnhancer):
+            if isinstance(m, WaveletEnhancer) or (isinstance(m, DSC3K2_MSLA)
+                                                  and m.msla is not None):
                 m.gamma.fill_(0.5)
+            elif isinstance(m, FullPAD_Tunnel):
+                m.gate.fill_(0.5)
     return model
 
 
 def exercise_branches(model):
-    """Seeded random weights with the wavelet gates open, and class logits
-    starting at 0, so scores straddle the confidence gate, giving NMS real work."""
+    """Seeded random weights with the gates open, and class logits starting at
+    0, so scores straddle the confidence gate, giving NMS real work."""
     import torch
 
     with torch.no_grad():
-        for seq in open_wavelet_gates(model).model[-1].cv3:
+        for seq in open_gates(model).model[-1].cv3:
             seq[-1].bias.zero_()
     return model
 
 
-def check_reference():
+def bn_statistics_of(model, x):
+    """Every BatchNorm's running statistics set to those of the batch x (one
+    train-mode forward at momentum 1), as a trained model's would be: at the
+    init statistics the head's output is mostly its biases."""
+    import torch
+
+    from edgeyolo_tpu_torch.nn.modules.conv import MODEL_BN_MOMENTUM, BatchNorm2d
+
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm2d)]
+    for m in bns:
+        m.momentum = 1.0
+    with torch.no_grad():
+        model.train()(x)
+    for m in bns:
+        m.momentum = MODEL_BN_MOMENTUM
+    return model.eval()
+
+
+def n_attention(model) -> int:
+    """LinearAttention modules in the model: kernel launches per forward."""
+    from edgeyolo_tpu_torch.nn.modules.edgeline import LinearAttention
+
+    return sum(isinstance(m, LinearAttention) for m in model.modules())
+
+
+def perturbed(model, scale: float, seed: int = 0):
+    """The weights tests/test_torch_families.py holds against JAX: BatchNorm
+    statistics, scales and shifts moved, every gate opened at random, conv
+    and linear weights times `scale`, class logits spread around 0; under
+    them the output depends on the image (at init it is mostly the head's
+    biases)."""
+    import numpy as np
+    import torch
+
+    sd = model.state_dict()
+    rs = np.random.RandomState(seed)
+    head = next(k for k in sd if k.endswith("dfl.conv.weight")).rsplit(".dfl.", 1)[0]
+    out = {}
+    for k, v in sd.items():
+        a, leaf = v.cpu().numpy().copy(), k.rsplit(".", 1)[-1]
+        if k.endswith("num_batches_tracked") or ".dfl." in k:
+            pass
+        elif leaf in ("gamma", "gate"):
+            a = rs.uniform(0.3, 0.8, a.shape)
+        elif leaf in ("scale_weights", "alpha"):
+            a = a + rs.uniform(-0.3, 0.3, a.shape)
+        elif leaf == "running_mean":
+            a = rs.randn(*a.shape) * 0.1
+        elif leaf == "running_var":
+            a = rs.uniform(0.5, 1.5, a.shape)
+        elif leaf == "bias" and k.startswith(f"{head}.cv3.") and k.endswith(".2.bias"):
+            a = rs.randn(*a.shape) * 0.5
+        elif leaf == "bias" or (leaf == "weight" and a.ndim == 1):
+            a = a + rs.randn(*a.shape) * 0.1
+        elif leaf == "weight":
+            a = a * scale
+        out[k] = torch.from_numpy(np.asarray(a, v.cpu().numpy().dtype))
+    model.load_state_dict(out)
+    return model
+
+
+def check_reference(la) -> dict:
+    """Each model's f32 forward at 64 px on the card (kernel) against the CPU
+    (plain version), gates open, at its seeded weights and at the weights of
+    tests/test_torch_families.py (REF_SCALE); returns the kernel's launches
+    on the card by model."""
     import torch
 
     from edgeyolo_tpu_torch.nn.tasks import DetectionModel
 
     x = torch.rand(2, 3, 64, 64, generator=torch.Generator().manual_seed(1))
-    preds = {}
-    for dev in ("cpu", "cuda"):
-        m = exercise_branches(DetectionModel("edgeline-yolo.yaml", scale="n", device=dev, seed=0))
-        with torch.inference_mode():
-            preds[dev] = m(x.to(dev))["pred"].float().cpu()
-    d = (preds["cuda"] - preds["cpu"]).abs()
-    box, cls = d[..., :4].max().item(), d[..., 4:].max().item()
-    print(f"f32 64px card (kernel) vs CPU (plain): box {box:.3e} px (tol 5e-3), "
-          f"score {cls:.3e} (tol 1e-4)", flush=True)
-    if not (torch.isfinite(preds["cuda"]).all() and box < 5e-3 and cls < 1e-4):
-        raise AssertionError("the model on the card disagrees with the CPU reference")
+    launches = {}
+    for name in ("edgeline-yolo-n", *FAMILIES):
+        for scale in (None, REF_SCALE[name]):
+            preds = {}
+            for dev in ("cpu", "cuda"):
+                m = DetectionModel(name, device=dev, seed=0)
+                m = exercise_branches(m) if scale is None else perturbed(m, scale)
+                la.linear_attention_kernel.launches = 0
+                with torch.inference_mode():
+                    preds[dev] = m(x.to(dev))["pred"].float().cpu()
+            launches[name] = la.linear_attention_kernel.launches
+            d = (preds["cuda"] - preds["cpu"]).abs()
+            box, cls = d[..., :4].max().item(), d[..., 4:].max().item()
+            spread = (preds["cpu"][0] - preds["cpu"][1])[..., :4].abs().max().item()
+            print(f"{name}: f32 64px card (kernel, {launches[name]} launches) vs CPU (plain), "
+                  f"{'seeded weights' if scale is None else f'test weights x{scale}'} (boxes of "
+                  f"the two images apart by up to {spread:.3e} px): box {box:.3e} px (tol 5e-3), "
+                  f"score {cls:.3e} (tol 1e-4)", flush=True)
+            if not (torch.isfinite(preds["cuda"]).all() and box < 5e-3 and cls < 1e-4):
+                raise AssertionError(f"{name} on the card disagrees with the CPU reference")
+            if launches[name] != n_attention(m):
+                raise AssertionError(f"{name}: {launches[name]} kernel launches in one forward, "
+                                     f"{n_attention(m)} LinearAttention modules")
+    return launches
 
 
 def serve(la, card: str):
@@ -407,7 +535,7 @@ def profile_request(predictor, imgs, unprofiled_ms: float):
                   key=lambda r: -r[1])
     if not rows:
         print("profile: no device events in the trace; device time not measured", flush=True)
-        return
+        return None
     busy_us = sum(r[1] for r in rows)
     print(f"profile: device busy {busy_us / 1e3:.3f} ms in {sum(r[2] for r in rows)} device ops; "
           f"{100 * busy_us / (unprofiled_ms * 1e3):.1f}% of the unprofiled median request "
@@ -415,6 +543,110 @@ def profile_request(predictor, imgs, unprofiled_ms: float):
           f"({wall_us / 1e3:.3f} ms)", flush=True)
     for key, us, count in rows[:12]:
         print(f"  {us / 1e3:9.3f} ms {count:5d}x  {key[:110]}", flush=True)
+    la_us = sum(r[1] for r in rows if "la_context_kernel" in r[0] or "la_output_kernel" in r[0])
+    print(f"profile: linear-attention kernel {la_us / 1e3:.4f} ms = "
+          f"{100 * la_us / busy_us:.3f}% of device time", flush=True)
+    return busy_us / 1e3
+
+
+def serve_family(la, card: str, name: str) -> int:
+    """Model `name` served in bf16 at 640 px: a warm-up request with the
+    dtype of every conv and linear output recorded, SERVE_REQUESTS timed
+    requests of SERVE_BATCH images, the output checks, one profiled request,
+    and the prediction against the same weights in f32 (the bf16 departure
+    of ROADMAP section C) and, where the model has attention, against the
+    plain attention in bf16. Returns the kernel's launches per request."""
+    import torch
+    from torch import nn
+
+    from edgeyolo_tpu_torch.engine.predictor import DetectionPredictor
+    from edgeyolo_tpu_torch.nn.modules import edgeline
+    from edgeyolo_tpu_torch.nn.tasks import DetectionModel, for_precision, num_params
+
+    t0 = time.perf_counter()
+    model = exercise_branches(DetectionModel(name, device="cuda", dtype=torch.bfloat16, seed=0))
+    n_attn = n_attention(model)
+    print(f"serve {name}: {num_params(model)} params, bf16, {n_attn} LinearAttention module(s), "
+          f"built in {time.perf_counter() - t0:.3f} s", flush=True)
+    predictor = DetectionPredictor(model, conf=0.25, iou=0.7, max_det=300, max_nms=1024,
+                                   device="cuda")
+    imgs = torch.randint(0, 256, (SERVE_BATCH, SERVE_IMGSZ, SERVE_IMGSZ, 3), dtype=torch.uint8,
+                         generator=torch.Generator().manual_seed(2))
+    out_dtypes = []
+    hooks = [m.register_forward_hook(lambda _m, _i, o: out_dtypes.append(o.dtype))
+             for m in model.modules()
+             if isinstance(m, (nn.Conv2d, nn.Linear)) and m.weight.dtype == torch.bfloat16]
+    t0 = time.perf_counter()
+    predictor(imgs)
+    torch.cuda.synchronize()
+    for hk in hooks:
+        hk.remove()
+    print(f"serve {name}: warm-up request {(time.perf_counter() - t0) * 1e3:.3f} ms", flush=True)
+    if not out_dtypes or any(dt != torch.bfloat16 for dt in out_dtypes):
+        raise AssertionError(f"{name}: conv and linear activations are not all bf16: "
+                             f"{set(out_dtypes)}")
+    print(f"serve {name}: bf16 check: {len(out_dtypes)} conv and linear outputs, all bf16",
+          flush=True)
+
+    la.linear_attention_kernel.launches = 0
+    times = []
+    for _ in range(SERVE_REQUESTS):
+        t0 = time.perf_counter()
+        det, n = predictor(imgs)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = la.linear_attention_kernel.launches
+    if launches != SERVE_REQUESTS * n_attn:
+        raise AssertionError(f"{name}: {launches} kernel launches in {SERVE_REQUESTS} requests, "
+                             f"{n_attn} LinearAttention modules")
+    ms = statistics.median(times) * 1e3
+    print(f"serve {name}: batch {SERVE_BATCH} x {SERVE_IMGSZ} px bf16, request times "
+          f"{[round(t * 1e3, 3) for t in times]} ms, median {ms:.3f} ms, "
+          f"{SERVE_BATCH / ms * 1e3:.1f} img/s, {launches // SERVE_REQUESTS} kernel launches per "
+          f"request, on {card}", flush=True)
+    det, n = det.cpu(), n.cpu()
+    if not (det.shape == (SERVE_BATCH, 300, 6) and bool(torch.isfinite(det).all())
+            and bool(((n >= 0) & (n <= 300)).all())):
+        raise AssertionError(f"{name}: served detections are malformed")
+    print(f"serve {name}: detections per image min {int(n.min())}, max {int(n.max())}",
+          flush=True)
+    profile_request(predictor, imgs, ms)
+
+    with torch.inference_mode():
+        x = imgs[:8].cuda().permute(0, 3, 1, 2).contiguous().float() / 255
+        pred = model(x.to(torch.bfloat16))["pred"]
+        if not bool(torch.isfinite(pred).all()):
+            raise AssertionError(f"{name}: non-finite bf16 prediction")
+        # the bf16 departure (ROADMAP section C): the served weights, then the same weights
+        # with BatchNorm statistics of these images, under which the output depends on them
+        for calibrate in (False, True):
+            m32 = exercise_branches(DetectionModel(name, device="cuda", seed=0))
+            if calibrate:
+                bn_statistics_of(m32, x)
+            m16 = for_precision(m32, True)
+            p16, p32 = m16(x.to(torch.bfloat16))["pred"], m32(x)["pred"]
+            d = (p16 - p32).abs()
+            spread = (p32[0] - p32[1])[..., :4].abs().max().item()
+            mid = ((p32[..., 4:] > 0.01) & (p32[..., 4:] < 0.99)).float().mean().item()
+            print(f"serve {name}: bf16 against f32, "
+                  f"{'BatchNorm statistics of the images' if calibrate else 'served weights'} "
+                  f"(boxes of two images apart by up to {spread:.3e} px, {100 * mid:.1f}% of "
+                  f"scores in (0.01, 0.99)), 8 images: box max {d[..., :4].max().item():.3e} px "
+                  f"(mean {d[..., :4].mean().item():.3e}), score max "
+                  f"{d[..., 4:].max().item():.3e} (mean {d[..., 4:].mean().item():.3e})",
+                  flush=True)
+            del m32, m16
+        if n_attn:
+            with mock.patch.object(edgeline, "linear_attention", la.linear_attention_reference):
+                pred_plain = model(x.to(torch.bfloat16))["pred"]
+            d = (pred - pred_plain).abs()
+            box, cls = d[..., :4].max().item(), d[..., 4:].max().item()
+            print(f"serve {name}: pred kernel vs plain attention, bf16 on the card: box "
+                  f"{box:.3e} px (tol 4), score {cls:.3e} (tol 2e-2)", flush=True)
+            if not (box <= 4.0 and cls <= 2e-2):
+                raise AssertionError(f"{name}: bf16 prediction through the kernel disagrees with "
+                                     f"the plain path")
+    return launches // SERVE_REQUESTS
 
 
 def train_batch(b: int, imgsz: int, m: int, real: int, seed: int) -> dict:
@@ -433,9 +665,11 @@ def train_batch(b: int, imgsz: int, m: int, real: int, seed: int) -> dict:
             "mask_gt": mask, "n_real": b}
 
 
-def ref_step(la, dev: str, start, batch: dict, replay: tuple | None = None) -> dict:
-    """One train step (default augmentation, accumulate 1 so it updates) on
-    `dev` from seeded weights that `start` prepares, in f32; in f64 when
+def ref_step(la, dev: str, start, batch: dict, replay: tuple | None = None,
+             name: str = "edgeline-yolo-n") -> dict:
+    """One train step of model `name` (default augmentation, accumulate 1 so
+    it updates) on `dev` from seeded weights that `start` prepares (gates
+    open), in f32; in f64 when
     `replay` gives the augmented batch of an f32 step to take in place of
     this step's own augmentation. Returns the loss, the gradients, the
     params after the update, the kernel's launches and the augmented batch."""
@@ -444,8 +678,7 @@ def ref_step(la, dev: str, start, batch: dict, replay: tuple | None = None) -> d
     from edgeyolo_tpu_torch.nn.tasks import DetectionModel
     from edgeyolo_tpu_torch.train import trainer as trainer_mod
 
-    model = start(open_wavelet_gates(DetectionModel("edgeline-yolo.yaml", scale="n", device=dev,
-                                                    seed=0)))
+    model = start(open_gates(DetectionModel(name, device=dev, seed=0)))
     if replay is not None:
         model.double()
     trainer = trainer_mod.DetectionTrainer(model, TRAIN_REF_HYP, device=dev)
@@ -505,14 +738,16 @@ def gap_text(gap: dict) -> str:
             f"{gap['zero_ok']}; params after the update {gap['param']:.3e}")
 
 
-def card_vs_cpu(la, label: str, start, batch: dict, per_tensor: bool) -> dict:
-    """The f32 step on the card (kernel) and on the CPU (plain), held to
-    TRAIN_REF_TOL: the loss, the params after the update and, with
-    `per_tensor`, each gradient. Returns the CPU's and the card's steps."""
-    cpu, card = (ref_step(la, dev, start, batch) for dev in ("cpu", "cuda"))
+def card_vs_cpu(la, label: str, start, batch: dict, per_tensor: bool,
+                name: str = "edgeline-yolo-n") -> dict:
+    """The f32 step of model `name` on the card (kernel) and on the CPU
+    (plain), held to TRAIN_REF_TOL: the loss, the params after the update
+    and, with `per_tensor`, each gradient. Returns the CPU's and the card's
+    steps."""
+    cpu, card = (ref_step(la, dev, start, batch, name=name) for dev in ("cpu", "cuda"))
     gap = step_gap(cpu, card)
-    print(f"train step f32 {TRAIN_REF_IMGSZ} px batch {TRAIN_REF_BATCH} from {label}, card "
-          f"(kernel, {card['launches']} launch) vs CPU (plain): loss {card['loss']:.6f} vs "
+    print(f"{name}: train step f32 {TRAIN_REF_IMGSZ} px batch {TRAIN_REF_BATCH} from {label}, "
+          f"card (kernel, {card['launches']} launches) vs CPU (plain): loss {card['loss']:.6f} vs "
           f"{cpu['loss']:.6f}, {gap_text(gap)} (tol {TRAIN_REF_TOL}"
           + ("" if per_tensor else ", gradients against the f64 step below") + ")", flush=True)
     if card["launches"] < 1:
@@ -520,17 +755,19 @@ def card_vs_cpu(la, label: str, start, batch: dict, per_tensor: bool) -> dict:
     if not (math.isfinite(card["loss"]) and gap["loss"] <= TRAIN_REF_TOL["loss"]
             and (gap["grad"][0][0] <= TRAIN_REF_TOL["grad"] or not per_tensor)
             and gap["zero_ok"] and gap["param"] <= TRAIN_REF_TOL["param"]):
-        raise AssertionError(f"the train step on the card disagrees with the CPU's from {label}")
+        raise AssertionError(f"{name}: the train step on the card disagrees with the CPU's from "
+                             f"{label}")
     return cpu, card
 
 
-def check_train_reference(la):
+def check_train_reference(la) -> int:
     """One f32 train step on the card with the kernel and on the CPU with the
     plain version, from the same seeded weights and the same draws of one
-    CPU generator, from two starts:
+    CPU generator, from two starts of the flagship and one of MSLA-n; returns
+    the kernel's launches in the card's MSLA-n step:
 
     - the model's own class prior (loss ~0.16): card against CPU, at
-      TRAIN_REF_TOL;
+      TRAIN_REF_TOL; the same for yolov13-dsc3k2-msla-n;
     - class logits at 0 (loss ~3928: the update is clipped at norm 10, and
       the wavelet band weights' gradients, normalised softplus weights with
       cancelling terms, are the worst conditioned): card against CPU at
@@ -544,6 +781,8 @@ def check_train_reference(la):
 
     batch = train_batch(TRAIN_REF_BATCH, TRAIN_REF_IMGSZ, TRAIN_REF_M, 4, seed=3)
     card_vs_cpu(la, "the class prior", lambda m: m, batch, per_tensor=True)
+    msla_launches = card_vs_cpu(la, "the class prior", lambda m: m, batch, per_tensor=True,
+                                name=MSLA)[1]["launches"]
     cpu, card = card_vs_cpu(la, "class logits at 0", exercise_branches, batch, per_tensor=False)
     exact = ref_step(la, "cpu", exercise_branches, batch, replay=cpu["augmented"])
     img_gap = (card["augmented"][0] - cpu["augmented"][0]).abs().max().item()
@@ -565,12 +804,13 @@ def check_train_reference(la):
     if worse or not on_card["zero_ok"]:
         raise AssertionError(f"the card's step is farther from the f64 step than the CPU's: "
                              f"{worse}")
+    return msla_launches
 
 
 TRAIN_STAGES = ("augment", "forward", "loss", "backward", "optimizer")
 
 
-def stage_times(trainer, batch) -> None:
+def stage_times(trainer, batch, name: str) -> None:
     """One more train step with a CUDA event and a host clock reading at each
     stage boundary: each stage's span on the device timeline (its kernels and
     any idle time waiting for the host) and the host's time to enqueue it."""
@@ -605,32 +845,31 @@ def stage_times(trainer, batch) -> None:
     mark()
     torch.cuda.synchronize()
     spans = [(a[0].elapsed_time(b[0]), (b[1] - a[1]) * 1e3) for a, b in zip(marks, marks[1:])]
-    print("train stages, device timeline / host enqueue ms (one step, no profiler): "
+    print(f"train stages {name}, device timeline / host enqueue ms (one step, no profiler): "
           + ", ".join(f"{name} {dev:.3f} / {host:.3f}" for name, (dev, host) in
                       zip(TRAIN_STAGES, spans))
           + f"; step {sum(d for d, _ in spans):.3f} / {sum(h for _, h in spans):.3f}", flush=True)
 
 
-def train(la, card: str):
-    """EdgeLine-YOLO-n training steps at full width and depth; returns the
-    kernel's launches in the timed steps."""
+def train(la, card: str, name: str = "edgeline-yolo-n"):
+    """Training steps of model `name` (scale n) at full width and depth;
+    returns the kernel's launches in the timed steps."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from edgeyolo_tpu_torch.nn.modules import edgeline
     from edgeyolo_tpu_torch.nn.modules.conv import BatchNorm2d
-    from edgeyolo_tpu_torch.nn.modules.edgeline import LinearAttention
     from edgeyolo_tpu_torch.nn.tasks import DetectionModel, num_trainable
     from edgeyolo_tpu_torch.train.trainer import DetectionTrainer, ModelEMA, batch_to_device
 
-    model = DetectionModel("edgeline-yolo.yaml", scale="n", device="cuda", seed=0)
-    n_attn = sum(isinstance(m, LinearAttention) for m in model.modules())
+    model = DetectionModel(name, device="cuda", seed=0)
+    n_attn = n_attention(model)
     hyp = {"batch": TRAIN_BATCH, "nbs": 64, "optimizer": "SGD", "lr0": 0.01, "momentum": 0.937,
            "amp": True, "seed": 0}
     trainer = DetectionTrainer(model, hyp, device="cuda")
     trainer.setup(nb=TRAIN_STEPS + 2)
-    print(f"train: EdgeLine-YOLO-n, {num_trainable(model)} trained params (f32 masters), "
+    print(f"train: {name}, {num_trainable(model)} trained params (f32 masters), "
           f"batch {TRAIN_BATCH} x {TRAIN_IMGSZ} px, bf16 autocast, SGD nesterov, accumulate "
           f"{trainer.accumulate}, mosaic {hyp.get('mosaic', 1.0)}, photometric 1.0", flush=True)
     batch = batch_to_device(train_batch(TRAIN_BATCH, TRAIN_IMGSZ, TRAIN_M, TRAIN_REAL, seed=5),
@@ -659,8 +898,9 @@ def train(la, card: str):
            for _, contig, saved, inputs, storages in seen):
         raise AssertionError("the attention's q, k, v are not the saved strided views of one "
                              "qkv output")
-    print(f"kernel input: bf16, strided views of the qkv conv output, saved for backward "
-          f"without a copy ({n_attn} LinearAttention module(s))", flush=True)
+    if n_attn:
+        print(f"{name}: kernel input: bf16, strided views of the qkv conv output, saved for "
+              f"backward without a copy ({n_attn} LinearAttention module(s))", flush=True)
 
     la.linear_attention_kernel.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -693,15 +933,16 @@ def train(la, card: str):
     if launches != TRAIN_STEPS * n_attn:
         raise AssertionError(f"{launches} kernel launches in {TRAIN_STEPS} train steps")
     ms = statistics.median(times) * 1e3
-    print(f"train: losses {[round(x, 4) for x in losses]}, {trainer.ema.updates} updates, EMA "
-          f"and BatchNorm statistics checked; kernel launches {launches} in {TRAIN_STEPS} steps",
+    print(f"train {name}: losses {[round(x, 4) for x in losses]}, {trainer.ema.updates} updates, "
+          f"EMA and BatchNorm statistics checked; kernel launches {launches} in {TRAIN_STEPS} "
+          f"steps",
           flush=True)
-    print(f"train: batch {TRAIN_BATCH} x {TRAIN_IMGSZ} px bf16, step times "
+    print(f"train {name}: batch {TRAIN_BATCH} x {TRAIN_IMGSZ} px bf16, step times "
           f"{[round(t * 1e3, 3) for t in times]} ms, median {ms:.3f} ms, "
           f"{TRAIN_BATCH / ms * 1e3:.1f} img/s, peak memory {peak / 2**30:.3f} GiB "
           f"(max_memory_allocated) on {card}", flush=True)
 
-    stage_times(trainer, batch)
+    stage_times(trainer, batch, name)
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -712,12 +953,12 @@ def train(la, card: str):
                    if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
                   key=lambda r: -r[1])
     if not rows:
-        print("train profile: no device events in the trace; device time not measured",
+        print(f"train profile {name}: no device events in the trace; device time not measured",
               flush=True)
         return launches
     busy_us = sum(r[1] for r in rows)
     la_us = sum(r[1] for r in rows if "la_context_kernel" in r[0] or "la_output_kernel" in r[0])
-    print(f"train profile: device busy {busy_us / 1e3:.3f} ms in {sum(r[2] for r in rows)} "
+    print(f"train profile {name}: device busy {busy_us / 1e3:.3f} ms in {sum(r[2] for r in rows)} "
           f"device ops, {100 * busy_us / (ms * 1e3):.1f}% of the unprofiled median step, "
           f"{100 * busy_us / wall_us:.1f}% of the profiled step ({wall_us / 1e3:.3f} ms); "
           f"linear-attention kernel {la_us / 1e3:.4f} ms = {100 * la_us / busy_us:.3f}% of "
@@ -756,22 +997,24 @@ def metrics_gap(a: dict, b: dict) -> float:
     return max(abs(a[k] - b[k]) for k in a)
 
 
-def fit(la, card: str, work: Path) -> dict:
-    """Train, validate and predict EdgeLine-YOLO-n from a dataset on disk;
-    returns the attention kernel's launches in train, val and predict."""
+def fit(la, card: str, work: Path, name: str = "edgeline-yolo.yaml",
+        map_min: float = FIT_MAP_MIN) -> dict:
+    """Train, validate and predict model `name` (scale n) from a dataset on
+    disk, held to mAP50-95 >= map_min; the flagship then validates at 640 px.
+    Returns the attention kernel's launches in train, val and predict."""
     import csv
 
     import torch
 
     from edgeyolo_tpu_torch.data.synthetic import generate_dataset
     from edgeyolo_tpu_torch.engine.model import YOLO
-    from edgeyolo_tpu_torch.nn.modules.edgeline import LinearAttention
     from edgeyolo_tpu_torch.train.trainer import DetectionTrainer
 
     t0 = time.perf_counter()
     data = generate_dataset(work / "fit", **FIT)
     print(f"fit dataset: {FIT}, PNG, written in {time.perf_counter() - t0:.3f} s", flush=True)
-    model = YOLO("edgeline-yolo.yaml", device="cuda")
+    model = YOLO(name, device="cuda")
+    flagship = name == "edgeline-yolo.yaml"
     val_launches = []
     validate = DetectionTrainer._validate
 
@@ -787,11 +1030,12 @@ def fit(la, card: str, work: Path) -> dict:
         model.train(data=str(data), project=str(work / "runs"), name="fit", **FIT_TRAIN)
     wall = time.perf_counter() - t0
     trainer = model.trainer
-    n_attn = sum(isinstance(m, LinearAttention) for m in model.model.modules())
+    n_attn = n_attention(model.model)
+    ran = (lambda k: k > 0) if n_attn else (lambda k: k == 0)  # kernel launches as expected
     launches = {"train": la.linear_attention_kernel.launches - sum(val_launches),
                 "train_val": sum(val_launches)}
     epochs = len(trainer.epoch_times)
-    print(f"fit: {epochs} epochs in {wall:.3f} s; epoch (train steps) median "
+    print(f"fit {name}: {epochs} epochs in {wall:.3f} s; epoch (train steps) median "
           f"{statistics.median(trainer.epoch_times) * 1e3:.3f} ms, first "
           f"{trainer.epoch_times[0] * 1e3:.3f} ms; val median "
           f"{statistics.median(trainer.val_times) * 1e3:.3f} ms, first "
@@ -799,21 +1043,22 @@ def fit(la, card: str, work: Path) -> dict:
           f"{trainer.ema.updates} updates; on {card}", flush=True)
     with open(trainer.save_dir / "results.csv") as f:
         rows = list(csv.DictReader(f))
-    print("fit: results.csv last row: " + json.dumps(rows[-1]), flush=True)
-    print("fit: every 15th epoch (epoch, box, cls, dfl, mAP50, mAP50-95, lr): " + "; ".join(
+    print(f"fit {name}: results.csv last row: " + json.dumps(rows[-1]), flush=True)
+    print(f"fit {name}: every 15th epoch (epoch, box, cls, dfl, mAP50, mAP50-95, lr): " + "; ".join(
         " ".join(r[k] for k in ("epoch", "train/box_loss", "train/cls_loss", "train/dfl_loss",
                                 "metrics/mAP50(B)", "metrics/mAP50-95(B)", "lr/pg0"))
         for r in rows[14::15]), flush=True)
     best = trainer.best_metrics
-    print(f"fit: best fitness {trainer.best_fitness:.6f}; best epoch's metrics {json.dumps(best)}",
-          flush=True)
-    print(f"fit: attention kernel launches: {launches['train']} in train steps "
+    print(f"fit {name}: best fitness {trainer.best_fitness:.6f}; best epoch's metrics "
+          f"{json.dumps(best)}", flush=True)
+    print(f"fit {name}: attention kernel launches: {launches['train']} in train steps "
           f"({epochs} steps x {n_attn}), {launches['train_val']} in the in-loop validations",
           flush=True)
-    if launches["train"] != epochs * n_attn or launches["train_val"] <= 0:
-        raise AssertionError("the fit's training did not go through the attention kernel")
-    if not best.get("metrics/mAP50-95(B)", 0.0) >= FIT_MAP_MIN:
-        raise AssertionError(f"mAP50-95 {best.get('metrics/mAP50-95(B)')} < {FIT_MAP_MIN}")
+    if launches["train"] != epochs * n_attn or not ran(launches["train_val"]):
+        raise AssertionError(f"{name}: the fit's training launched the attention kernel "
+                             f"{launches}, {n_attn} LinearAttention modules")
+    if not best.get("metrics/mAP50-95(B)", 0.0) >= map_min:
+        raise AssertionError(f"{name}: mAP50-95 {best.get('metrics/mAP50-95(B)')} < {map_min}")
 
     # reload best.pt: the same metrics on the card, and within FIT_CPU_TOL on the CPU (f32)
     val_kw = {"data": str(data), "batch": FIT_TRAIN["batch"], "imgsz": FIT["imgsz"],
@@ -824,12 +1069,13 @@ def fit(la, card: str, work: Path) -> dict:
     launches["val"] = la.linear_attention_kernel.launches
     m_cpu = YOLO(trainer.save_dir / "best.pt", device="cpu").val(name="val_cpu", **val_kw)
     gap_reload, gap_cpu = metrics_gap(best, m_card), metrics_gap(m_card, m_cpu)
-    print(f"fit: best.pt reloaded on the card: {json.dumps(m_card)}; largest gap to the best "
-          f"epoch {gap_reload:.3e} (tol {FIT_RELOAD_TOL}); {launches['val']} kernel launches",
+    print(f"fit {name}: best.pt reloaded on the card: {json.dumps(m_card)}; largest gap to the "
+          f"best epoch {gap_reload:.3e} (tol {FIT_RELOAD_TOL}); {launches['val']} kernel "
+          f"launches",
           flush=True)
-    print(f"fit: the same val on the CPU (f32, plain attention): {json.dumps(m_cpu)}; largest "
-          f"gap to the card {gap_cpu:.3e} (tol {FIT_CPU_TOL})", flush=True)
-    if gap_reload > FIT_RELOAD_TOL or gap_cpu > FIT_CPU_TOL or launches["val"] <= 0:
+    print(f"fit {name}: the same val on the CPU (f32, plain attention): {json.dumps(m_cpu)}; "
+          f"largest gap to the card {gap_cpu:.3e} (tol {FIT_CPU_TOL})", flush=True)
+    if gap_reload > FIT_RELOAD_TOL or gap_cpu > FIT_CPU_TOL or not ran(launches["val"]):
         raise AssertionError("best.pt does not validate to the trainer's metrics on the card "
                              "and the CPU")
 
@@ -839,13 +1085,14 @@ def fit(la, card: str, work: Path) -> dict:
     launches["predict"] = la.linear_attention_kernel.launches
     inside = all(((b[:, :2] >= 0) & (b[:, 2:] <= [w, h]) & (b[:, :2] <= b[:, 2:])).all()
                  for b, (h, w) in ((r.boxes.xyxy, r.orig_shape) for r in results))
-    print(f"fit: predict on the val images: {len(results)} Results, boxes per image "
+    print(f"fit {name}: predict on the val images: {len(results)} Results, boxes per image "
           f"{[len(r) for r in results]}, all inside their images: {inside}; first: "
           f"{results[0].verbose_str if results else None}; {launches['predict']} kernel launches",
           flush=True)
-    if len(results) != FIT["n_val"] or not inside or launches["predict"] <= 0:
+    if len(results) != FIT["n_val"] or not inside or not ran(launches["predict"]):
         raise AssertionError("predict on the val images failed")
-    val640(la, reloaded, card, work)
+    if flagship:
+        val640(la, reloaded, card, work)
     return launches
 
 
@@ -950,25 +1197,29 @@ def main() -> int:
     done("kernels", t0)
 
     t0 = phase("reference")
-    check_reference()
+    ref_launches = check_reference(la)
     done("reference", t0)
 
     t0 = phase("serve")
     launches, _ = serve(la, card)
+    family_launches = {name: serve_family(la, card, name) for name in FAMILY_SERVE}
     done("serve", t0)
 
     t0 = phase("train reference")
-    check_train_reference(la)
+    msla_ref_launches = check_train_reference(la)
     done("train reference", t0)
 
     t0 = phase("train")
     train_launches = train(la, card)
+    msla_train_launches = train(la, card, MSLA)
+    train(la, card, "yolo11n")
     done("train", t0)
 
     t0 = phase("fit")
     check_tiled_nms()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_fit_") as work:
-        fit_launches = fit(la, card, Path(work))
+        fit_launches = fit(la, card, Path(work) / "edgeline-yolo")
+        fit(la, card, Path(work) / "yolo11n", "yolo11n.yaml", YOLO11N_FIT_MAP_MIN)
     done("fit", t0)
 
     t0 = phase("device times")
@@ -980,6 +1231,12 @@ def main() -> int:
                 "replaces": "edgeyolo_tpu/ops/pallas/linear_attention.py:25",
                 "launches": launches, "launches_train": train_launches,
                 **{f"launches_fit_{k}": v for k, v in fit_launches.items()},
+                "launches_yolo11_lineattention": family_launches["yolo11-lineattention-n"],
+                "launches_yolo11n": family_launches["yolo11n"],
+                "launches_msla": family_launches[MSLA],
+                "launches_msla_train": msla_train_launches // TRAIN_STEPS,
+                "launches_msla_train_reference": msla_ref_launches,
+                "launches_reference_64px": ref_launches,
                 **la_rows[LA_MAIN_CASE], "library_ms": None}]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,75 +1,56 @@
-"""Model specs as Python literals, so the port needs no YAML reader.
+"""Model specs: the port's own copies of the JAX package's model YAMLs.
 
-EDGELINE_YOLO is edgeyolo_tpu/cfg/models/edgeline-yolo.yaml transcribed:
-[from, repeats, module, args] rows, compound scales [depth, width,
-max_channels]. The reference fork's scale n has 2,678,699 parameters.
+`cfg/models/*.yaml` are byte-identical copies of the files of the same name
+in edgeyolo_tpu/cfg/models/ for the families the port builds (EdgeLine-YOLO,
+the YOLO11 ablation family, YOLOv13 and its MSLA variant), read with the
+port's YAML subset reader: [from, repeats, module, args] rows, compound
+scales [depth, width, max_channels]. The reference fork's EdgeLine-YOLO-n
+has 2,678,699 parameters.
 """
 
 from __future__ import annotations
 
-import copy
 import re
+from pathlib import Path
 
-EDGELINE_YOLO = {
-    "nc": 80,
-    "scales": {  # [depth, width, max_channels]
-        "n": (0.50, 0.25, 1024),
-        "s": (0.50, 0.50, 1024),
-        "m": (0.50, 1.00, 512),
-        "l": (1.00, 1.00, 512),
-        "x": (1.00, 1.50, 512),
-    },
-    "backbone": [
-        [-1, 1, "Conv", [64, 3, 2]],  # 0 P1/2
-        [-1, 1, "Conv", [128, 3, 2]],  # 1 P2/4
-        [-1, 2, "DSC3K2_Wavelet", [256, False, 0.25]],
-        [-1, 1, "Conv", [256, 3, 2]],  # 3 P3/8
-        [-1, 2, "DSC3K2_Wavelet", [512, False, 0.25]],
-        [-1, 1, "Conv", [512, 3, 2]],  # 5 P4/16
-        [-1, 2, "DSC3K2_Wavelet", [512, True]],
-        [-1, 1, "Conv", [1024, 3, 2]],  # 7 P5/32
-        [-1, 2, "DSC3K2_Wavelet", [1024, True]],
-        [-1, 1, "SPPF", [1024, 5]],  # 9
-        [-1, 2, "C2PSA_LinearAttention", [1024]],  # 10
-    ],
-    "head": [
-        [-1, 1, "nn.Upsample", [None, 2, "nearest"]],
-        [[-1, 6], 1, "Concat", [1]],
-        [-1, 2, "DSC3K2_Wavelet", [512, False]],  # 13
-        [-1, 1, "nn.Upsample", [None, 2, "nearest"]],
-        [[-1, 4], 1, "Concat", [1]],
-        [-1, 2, "DSC3K2_Wavelet", [256, False]],  # 16 P3/8 out
-        [-1, 1, "Conv", [256, 3, 2]],
-        [[-1, 13], 1, "Concat", [1]],
-        [-1, 2, "DSC3K2_Wavelet", [512, False]],  # 19 P4/16 out
-        [-1, 1, "Conv", [512, 3, 2]],
-        [[-1, 10], 1, "Concat", [1]],
-        [-1, 2, "DSC3K2_Wavelet", [1024, True]],  # 22 P5/32 out
-        [[16, 19, 22], 1, "GFLHeadv2_uniH", ["nc"]],  # 23
-    ],
-}
+from edgeyolo_tpu_torch.utils.yamlfile import yaml_load
 
-MODELS = {"edgeline-yolo": EDGELINE_YOLO}
+MODELS_DIR = Path(__file__).resolve().parent / "models"
+MODELS = tuple(sorted(p.stem for p in MODELS_DIR.glob("*.yaml")))
 
 
-def model_cfg(name: str, scale: str | None = None) -> dict:
-    """The spec for a model name, with its scale resolved.
+def _file_scale(stem: str) -> str:
+    """The scale a model file's name carries, as the JAX package guesses it
+    (yolo11n -> n); "" when it names none."""
+    m = re.search(r"yolo[v]?\d+([nslmx])", stem)
+    return m.group(1) if m else ""
 
-    "edgeline-yolo-n", "edgeline-yolon.yaml" or "edgeline-yolo.yaml" with
-    scale="n" all give scale n; with no scale anywhere the first entry of the
-    scales table is used, as the JAX package does.
+
+def model_cfg(name: str | Path, scale: str | None = None) -> dict:
+    """The spec for a model name or a model YAML file, with its scale resolved.
+
+    Names resolve against the bundled copies: "yolo11n", "yolo11n.yaml",
+    "yolov13-dsc3k2-msla-n" or "yolo11.yaml" with scale="n" all give scale n;
+    with no scale anywhere the first entry of the scales table is used, as
+    the JAX package does. An existing file is read as it is, its scale from
+    `scale`, its own `scale` key or its name.
     """
-    stem = re.sub(r"\.ya?ml$", "", str(name).rsplit("/", 1)[-1])
-    base, named = stem, ""
-    if stem not in MODELS:
-        m = re.match(r"^(.*?)-?([nslmx])$", stem)
-        if not m or m.group(1) not in MODELS:
-            raise KeyError(f"unknown model '{name}'; known: {sorted(MODELS)}")
-        base, named = m.groups()
+    path = Path(str(name))
+    stem = re.sub(r"\.ya?ml$", "", path.name)
+    if path.suffix in (".yaml", ".yml") and path.is_file():
+        d = yaml_load(path)
+        base, named = stem, d.get("scale") or _file_scale(stem)
+    else:
+        base, named = stem, ""
+        if stem not in MODELS:
+            m = re.match(r"^(.*?)-?([nslmx])$", stem)
+            if not m or m.group(1) not in MODELS:
+                raise KeyError(f"unknown model '{name}'; known: {list(MODELS)}")
+            base, named = m.groups()
+        d = yaml_load(MODELS_DIR / f"{base}.yaml")
     if scale and named and scale != named:
         raise ValueError(f"model '{name}' names scale {named}, but scale={scale!r} was passed")
-    d = copy.deepcopy(MODELS[base])
-    d["scale"] = scale or named or next(iter(d["scales"]))
-    if d["scale"] not in d["scales"]:
+    d["scale"] = scale or named or next(iter(d.get("scales") or {""}))
+    if d.get("scales") and d["scale"] not in d["scales"]:
         raise KeyError(f"unknown scale '{d['scale']}' for {base}; known: {sorted(d['scales'])}")
     return d

@@ -27,8 +27,9 @@
 //     reductions), folds the tile into an online column max and rescaled
 //     sum of q (256 / D threads per column) and accumulates its partial
 //     ctx = k'^T v: on the tensor cores (mma.sync, bf16 operands, f32
-//     accumulation) for bf16 inputs, with f32 FMAs for f32 inputs. It
-//     writes the partial ctx and column statistics to an f32 workspace.
+//     accumulation) for bf16 inputs at D = 32 and 64, with f32 FMAs for
+//     f32 inputs and for the other head dims. It writes the partial ctx and
+//     column statistics to an f32 workspace.
 //   Merge, fixed order, no float atomics. Each block bumps an integer
 //     counter of its (batch, head) after a __threadfence(); the block that
 //     arrives last sums the S partials in the order s = 0 .. S-1, combines
@@ -38,10 +39,10 @@
 //     same bits from run to run.
 //   Output phase, grid (B*H) x ceil(N / 64). A block stages the finished
 //     ctx in shared memory, loads its q tile as exp(q - max) and writes
-//     y = q' ctx (tensor cores in bf16, as above) through a shared-memory
-//     tile, so the stores walk the unit-stride axis. It reads q a second
-//     time: 1.25x the least traffic, mostly from L2 (q is 3.3 MB at the
-//     serving shape; L2 is 50 MB).
+//     y = q' ctx (tensor cores in bf16 at D = 32 and 64, as above; FMAs
+//     otherwise) through a shared-memory tile, so the stores walk the
+//     unit-stride axis. It reads q a second time: 1.25x the least traffic,
+//     mostly from L2 (q is 3.3 MB at the serving shape; L2 is 50 MB).
 // Accumulation is always f32; inputs and outputs are f32 or bf16. The
 // workspace is B*H*S*(D*D + 2*D) floats (7.6 MB at the serving shape); the
 // caller allocates it and the B*H int32 counters, which are zero between
@@ -58,14 +59,26 @@
 //   int edgeyolo_la_forward(q, k, v, y, workspace, counters, stream,
 //                           const LaShape* shape)
 // LaShape (below) holds what stays fixed for one input shape: dtype
-// (0 = float32, 1 = bfloat16), head_dim (32 or 64), B, N, H, S, chunk (a
-// multiple of 64 with S = ceil(N / chunk)), the device and the element
+// (0 = float32, 1 = bfloat16), head_dim (8, 16, 32, 48, 64 or 96), B, N, H,
+// S, chunk (a multiple of 64 with S = ceil(N / chunk)), the device and the element
 // strides (b, n, h, d) of q, k and v (one set) and of y. The caller builds
 // it once per shape, so a call converts eight arguments. The launches go to
 // `device` (made current for the call) on `stream`.
 // Returns the first non-zero cudaError_t (0 on success).
 //   int edgeyolo_la_blocks_per_sm(int dtype, int head_dim, device)
 // returns the context blocks one SM holds at once (negative: -cudaError_t).
+//
+// Head dims. The tensor-core tiles cover D = 32 and 64 (the C2PSA stage);
+// MSLA's quarters give D = 8 and 16 at scale n, 48 and 96 at scale x, which
+// take the FMA products: a simple path, right first. At D = 8 one thread
+// holds no whole row of ctx, so the 64 entries are split over the tile's
+// tokens four ways and summed through shared memory; the q statistics use
+// the largest power-of-two group of threads per column that fits (32 at
+// D = 8, 2 at D = 96), and threads past the last column repeat it and
+// store nothing. At D = 96 the D x D context tile of the output phase is
+// wider than a token tile (row pitch D + 4), and the output kernel's two
+// tiles exceed 48 KB, so both kernels take their tiles as opted-in dynamic
+// shared memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -81,6 +94,10 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kTileN = 64;          // tokens per tile
 constexpr int kPitch = kTileN + 4;  // f32 row pitch: 16-byte rows, an odd number of 16-byte units
+// Row pitch of the D x D context tile of the output phase: kPitch while
+// D <= kTileN, else D + 4.
+template <int D>
+constexpr int kCtxPitch = (D > kTileN ? D : kTileN) + 4;
 
 struct Strides {
   long long b, n, h, d;
@@ -175,18 +192,33 @@ __device__ __forceinline__ void store_tile(T* __restrict__ dst, const float* __r
 }
 
 // The products. Each thread holds D * D / kThreads = D * kTileN / kThreads / 4
-// accumulators in both: f32 FMAs on the CUDA cores for f32 inputs (their
-// tolerance, 1e-5 of the output scale, takes no bf16 rounding), and
-// mma.sync m16n8k16 on the tensor cores for bf16 inputs, with bf16 operands
-// rounded once from the f32 tiles while the fragments are built and f32
-// accumulation. Fragment layouts are those of the PTX ISA for
+// accumulators in both (one at D = 8): f32 FMAs on the CUDA cores for f32
+// inputs (their tolerance, 1e-5 of the output scale, takes no bf16
+// rounding) and for bf16 inputs at D other than 32 and 64, and mma.sync
+// m16n8k16 on the tensor cores for bf16 inputs at D = 32 and 64, with bf16
+// operands rounded once from the f32 tiles while the fragments are built and
+// f32 accumulation. Fragment layouts are those of the PTX ISA for
 // mma.m16n8k16 .row.col: lane = 4 g + t; A (16 x 16) registers hold rows
 // g, g + 8 and columns 2t, 2t + 1 (+ 8); B (16 x 8) rows 2t, 2t + 1 (+ 8) of
 // column g; C rows g, g + 8 and columns 2t, 2t + 1.
-template <typename T>
+template <typename T, int D>
 constexpr bool kTensorCores = false;
 template <>
-constexpr bool kTensorCores<__nv_bfloat16> = true;
+constexpr bool kTensorCores<__nv_bfloat16, 32> = true;
+template <>
+constexpr bool kTensorCores<__nv_bfloat16, 64> = true;
+
+template <int D>
+constexpr bool kHeadDim = D == 8 || D == 16 || D == 32 || D == 48 || D == 64 || D == 96;
+
+// Threads that share one column of q in its statistics: the largest power of
+// two that keeps a column for each group (32 at D = 8, 4 at D = 48 and 64).
+template <int D>
+constexpr int kColThreads = kThreads / D >= 32  ? 32
+                            : kThreads / D >= 16 ? 16
+                            : kThreads / D >= 8  ? 8
+                            : kThreads / D >= 4  ? 4
+                                                 : 2;
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // lo in the low 16 bits
@@ -209,43 +241,75 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t (&a)[4],
 }
 
 // ctx[d][e] += sum over the tile's tokens r of ks[d][r] vs[e][r]. FMA path:
-// thread (ty, tx) owns rows ty + 16 i and columns tx + 16 j.
+// thread (ty, tx) owns rows ty + 16 i and columns tx + 16 j. At D = 8 the
+// D * D entries take kThreads / (D * D) threads each: thread t sums entry
+// t % (D * D) over the tokens of its share t / (D * D) of the tile.
 template <int D>
 __device__ __forceinline__ void ctx_fma(const float* ks, const float* vs, float* acc) {
-  constexpr int R = D / 16;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
+  if constexpr (D < 16) {
+    constexpr int kShare = kTileN * D * D / kThreads;  // tokens of one thread
+    const int e = threadIdx.x % (D * D);
+    const int r0 = threadIdx.x / (D * D) * kShare;
+    const float* kr = ks + e / D * kPitch + r0;
+    const float* vr = vs + e % D * kPitch + r0;
+#pragma unroll
+    for (int r = 0; r < kShare; r += 4) {
+      const float4 a = *reinterpret_cast<const float4*>(kr + r);
+      const float4 b = *reinterpret_cast<const float4*>(vr + r);
+      acc[0] = fmaf(a.x, b.x, acc[0]);
+      acc[0] = fmaf(a.y, b.y, acc[0]);
+      acc[0] = fmaf(a.z, b.z, acc[0]);
+      acc[0] = fmaf(a.w, b.w, acc[0]);
+    }
+  } else {
+    constexpr int R = D / 16;
+    const int tx = threadIdx.x % 16;
+    const int ty = threadIdx.x / 16;
 #pragma unroll 4
-  for (int r = 0; r < kTileN; r += 4) {
-    float4 kr[R], vr[R];
+    for (int r = 0; r < kTileN; r += 4) {
+      float4 kr[R], vr[R];
 #pragma unroll
-    for (int i = 0; i < R; ++i)
-      kr[i] = *reinterpret_cast<const float4*>(ks + (ty + 16 * i) * kPitch + r);
+      for (int i = 0; i < R; ++i)
+        kr[i] = *reinterpret_cast<const float4*>(ks + (ty + 16 * i) * kPitch + r);
 #pragma unroll
-    for (int j = 0; j < R; ++j)
-      vr[j] = *reinterpret_cast<const float4*>(vs + (tx + 16 * j) * kPitch + r);
+      for (int j = 0; j < R; ++j)
+        vr[j] = *reinterpret_cast<const float4*>(vs + (tx + 16 * j) * kPitch + r);
 #pragma unroll
-    for (int i = 0; i < R; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int j = 0; j < R; ++j) {
-        float& a = acc[i * R + j];
-        a = fmaf(kr[i].x, vr[j].x, a);
-        a = fmaf(kr[i].y, vr[j].y, a);
-        a = fmaf(kr[i].z, vr[j].z, a);
-        a = fmaf(kr[i].w, vr[j].w, a);
-      }
+        for (int j = 0; j < R; ++j) {
+          float& a = acc[i * R + j];
+          a = fmaf(kr[i].x, vr[j].x, a);
+          a = fmaf(kr[i].y, vr[j].y, a);
+          a = fmaf(kr[i].z, vr[j].z, a);
+          a = fmaf(kr[i].w, vr[j].w, a);
+        }
+    }
   }
 }
 
+// `red` is kThreads floats of shared memory, free to use (D = 8 sums the
+// token shares there; every thread calls this).
 template <int D>
-__device__ __forceinline__ void store_ctx_fma(float* part, const float* acc) {
-  constexpr int R = D / 16;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
+__device__ __forceinline__ void store_ctx_fma(float* part, const float* acc, float* red) {
+  if constexpr (D < 16) {
+    red[threadIdx.x] = acc[0];
+    __syncthreads();
+    if (threadIdx.x < D * D) {
+      float sum = 0.f;
 #pragma unroll
-  for (int i = 0; i < R; ++i)
+      for (int i = threadIdx.x; i < kThreads; i += D * D) sum += red[i];
+      part[threadIdx.x] = sum;
+    }
+  } else {
+    constexpr int R = D / 16;
+    const int tx = threadIdx.x % 16;
+    const int ty = threadIdx.x / 16;
 #pragma unroll
-    for (int j = 0; j < R; ++j) part[(ty + 16 * i) * D + tx + 16 * j] = acc[i * R + j];
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int j = 0; j < R; ++j) part[(ty + 16 * i) * D + tx + 16 * j] = acc[i * R + j];
+  }
 }
 
 // Tensor-core path: M = d, N = e, K = tokens. A = k' (row-major: a row of
@@ -292,37 +356,52 @@ __device__ __forceinline__ void store_ctx_mma(float* part, const float* acc) {
   }
 }
 
-// y[r][e] = sum over d of qs[d][r] ctx[d][e] for the tile's 64 tokens, both
-// tiles with row pitch kPitch, written to ys[e][r] (which may alias qs:
-// every read is done before the first write). FMA path: thread (a, c) owns
-// tokens 4a .. 4a + 3 and columns c + 16 j.
+// y[r][e] = sum over d of qs[d][r] ctx[d][e] for the tile's 64 tokens, qs
+// with row pitch kPitch and ctx with kCtxPitch<D>, written to ys[e][r]
+// (pitch kPitch; it may alias qs: every read is done before the first
+// write). FMA path: thread (a, c) owns
+// columns c + kCols j (kCols = 16, or D when D < 16) and the kTok tokens
+// from kTok a (4 tokens, 2 at D = 8).
 template <int D>
 __device__ __forceinline__ void y_fma(const float* qs, const float* ctx, float* ys) {
-  constexpr int R = D / 16;
-  const int a = threadIdx.x / 16;
-  const int c = threadIdx.x % 16;
-  float out[4][R];
+  constexpr int kCols = D < 16 ? D : 16;
+  constexpr int R = D / kCols;
+  constexpr int kTok = kTileN * kCols / kThreads;
+  static_assert(kTok == 4 || kTok == 2, "4 or 2 tokens a thread");
+  const int a = threadIdx.x / kCols;
+  const int c = threadIdx.x % kCols;
+  float out[kTok][R];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < kTok; ++i)
 #pragma unroll
     for (int j = 0; j < R; ++j) out[i][j] = 0.f;
 #pragma unroll 4
   for (int d = 0; d < D; ++d) {
-    const float4 p = *reinterpret_cast<const float4*>(qs + d * kPitch + 4 * a);
+    float p[kTok];
+    if constexpr (kTok == 4) {
+      const float4 x = *reinterpret_cast<const float4*>(qs + d * kPitch + 4 * a);
+      p[0] = x.x, p[1] = x.y, p[2] = x.z, p[3] = x.w;
+    } else {
+      const float2 x = *reinterpret_cast<const float2*>(qs + d * kPitch + 2 * a);
+      p[0] = x.x, p[1] = x.y;
+    }
 #pragma unroll
     for (int j = 0; j < R; ++j) {
-      const float w = ctx[d * kPitch + c + 16 * j];
-      out[0][j] = fmaf(p.x, w, out[0][j]);
-      out[1][j] = fmaf(p.y, w, out[1][j]);
-      out[2][j] = fmaf(p.z, w, out[2][j]);
-      out[3][j] = fmaf(p.w, w, out[3][j]);
+      const float w = ctx[d * kCtxPitch<D> + c + kCols * j];
+#pragma unroll
+      for (int i = 0; i < kTok; ++i) out[i][j] = fmaf(p[i], w, out[i][j]);
     }
   }
   __syncthreads();
 #pragma unroll
-  for (int j = 0; j < R; ++j)
-    *reinterpret_cast<float4*>(ys + (c + 16 * j) * kPitch + 4 * a) =
-        make_float4(out[0][j], out[1][j], out[2][j], out[3][j]);
+  for (int j = 0; j < R; ++j) {
+    float* dst = ys + (c + kCols * j) * kPitch + kTok * a;
+    if constexpr (kTok == 4) {
+      *reinterpret_cast<float4*>(dst) = make_float4(out[0][j], out[1][j], out[2][j], out[3][j]);
+    } else {
+      *reinterpret_cast<float2*>(dst) = make_float2(out[0][j], out[1][j]);
+    }
+  }
 }
 
 // Tensor-core path: M = tokens, N = e, K = d. A = q' (element (r, d) is
@@ -346,9 +425,9 @@ __device__ __forceinline__ void y_mma(const float* qs, const float* ctx, float* 
                            pack_bf16(ac[8 * kPitch + 8], ac[9 * kPitch + 8])};
 #pragma unroll
     for (int j = 0; j < kN; ++j) {
-      const float* bc = ctx + (k0 + 2 * t) * kPitch + e0 + 8 * j + g;
-      const uint32_t b[2] = {pack_bf16(bc[0], bc[kPitch]),
-                             pack_bf16(bc[8 * kPitch], bc[9 * kPitch])};
+      constexpr int P = kCtxPitch<D>;
+      const float* bc = ctx + (k0 + 2 * t) * P + e0 + 8 * j + g;
+      const uint32_t b[2] = {pack_bf16(bc[0], bc[P]), pack_bf16(bc[8 * P], bc[9 * P])};
       mma_bf16(acc[j], a, b);
     }
   }
@@ -364,16 +443,16 @@ __device__ __forceinline__ void y_mma(const float* qs, const float* ctx, float* 
 }
 
 // Context phase and merge; block (bh, s) owns tokens [s * chunk, (s + 1) * chunk).
-// The bf16 kernel is held to 64 registers a thread, so that four blocks fit
-// an SM and the serving shape's 448 blocks run in one wave.
+// The tensor-core kernel is held to 64 registers a thread, so that four
+// blocks fit an SM and the serving shape's 448 blocks run in one wave.
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, kTensorCores<T> ? 4 : 2)
+__global__ void __launch_bounds__(kThreads, kTensorCores<T, D> ? 4 : 2)
 la_context_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                   float* __restrict__ ws, int* __restrict__ counters, int H, int N, int S,
                   int chunk, Strides si, bool vec) {
-  static_assert(D == 32 || D == 64, "head_dim must be 32 or 64");
-  constexpr int kAcc = D * D / kThreads;  // ctx accumulators per thread
-  constexpr int kTpc = kThreads / D;      // threads per column of q
+  static_assert(kHeadDim<D>, "head_dim must be 8, 16, 32, 48, 64 or 96");
+  constexpr int kAcc = D * D >= kThreads ? D * D / kThreads : 1;  // ctx accumulators per thread
+  constexpr int kTpc = kColThreads<D>;  // threads per column of q
   constexpr int kWs = D * D + 2 * D;  // floats per partial: ctx, column max, column sum
   extern __shared__ float4 smem[];    // three D x kPitch f32 tiles
   float* ks = reinterpret_cast<float*>(smem);
@@ -395,9 +474,11 @@ la_context_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
   // so that the 32 lanes of a warp hit 32 distinct banks
   const int sr = warp * 8 + lane % 8;
   const int sp = lane / 8;
-  // statistics of q: column qc, rows qp, qp + kTpc, ...
+  // statistics of q: column qc, rows qp, qp + kTpc, ...; the groups past the
+  // last column (D = 48, 96) repeat it and store nothing
   const int qc = warp * (32 / kTpc) + lane / kTpc;
   const int qp = lane % kTpc;
+  const int qc_read = min(qc, D - 1);
 
   float m_run = -INFINITY, s_run = 0.f;
   float acc[kAcc];
@@ -437,7 +518,7 @@ la_context_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
     {
       // the tile's first token is a real one, so the tile max is finite
       constexpr int J = kTileN / kTpc;
-      const float* col = qs + qc * kPitch + qp;
+      const float* col = qs + qc_read * kPitch + qp;
       float m = -INFINITY;
 #pragma unroll
       for (int j = 0; j < J; ++j) m = fmaxf(m, col[kTpc * j]);
@@ -453,7 +534,7 @@ la_context_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
       m_run = m_new;
     }
     __syncthreads();
-    if constexpr (kTensorCores<T>) {
+    if constexpr (kTensorCores<T, D>) {
       ctx_mma<D>(ks, vs, acc);
     } else {
       ctx_fma<D>(ks, vs, acc);
@@ -462,12 +543,12 @@ la_context_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
   }
 
   float* part = ws + (static_cast<long long>(bh) * S + s) * kWs;
-  if constexpr (kTensorCores<T>) {
+  if constexpr (kTensorCores<T, D>) {
     store_ctx_mma<D>(part, acc);
   } else {
-    store_ctx_fma<D>(part, acc);
+    store_ctx_fma<D>(part, acc, ks);  // the tiles are free after the loop's last barrier
   }
-  if (qp == 0) {
+  if (qp == 0 && qc < D) {
     part[D * D + qc] = m_run;
     part[D * D + D + qc] = s_run;
   }
@@ -480,11 +561,13 @@ la_context_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
 
   // The last block of this (batch, head) merges the partials, s = 0 .. S-1,
   // reading them from L2 (__ldcg, past this SM's L1). Every thread sums
-  // float4 columns tid, tid + kThreads, ... of ctx; beside that, threads
+  // float4 columns tid, tid + kThreads, ... of ctx (those that exist: at
+  // D = 8, 16 and 48 the last round is partial); beside that, threads
   // tid < D fold the column statistics in one online pass (max, and the sum
   // rescaled to it). The loads of a partial do not wait on the previous one.
   float* fin = ws + static_cast<long long>(bh) * S * kWs;  // partial 0 takes the result
-  constexpr int kVec = D * D / 4 / kThreads;
+  constexpr int kVec4 = D * D / 4;                       // float4s of ctx
+  constexpr int kVec = (kVec4 + kThreads - 1) / kThreads;  // rounds over them
   float4 c[kVec];
 #pragma unroll
   for (int u = 0; u < kVec; ++u) c[u] = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -494,6 +577,7 @@ la_context_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
     const float* p = fin + t * kWs;
 #pragma unroll
     for (int u = 0; u < kVec; ++u) {
+      if (tid + u * kThreads >= kVec4) break;
       const float4 x = __ldcg(reinterpret_cast<const float4*>(p) + tid + u * kThreads);
       c[u].x += x.x;
       c[u].y += x.y;
@@ -515,6 +599,7 @@ la_context_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
   __syncthreads();
 #pragma unroll
   for (int u = 0; u < kVec; ++u) {
+    if (tid + u * kThreads >= kVec4) break;
     const int i = 4 * (tid + u * kThreads);
     const float inv = inv_sum[i / D];  // the 4 columns share row i / D
     reinterpret_cast<float4*>(fin)[tid + u * kThreads] =
@@ -529,8 +614,9 @@ __global__ void __launch_bounds__(kThreads)
 la_output_kernel(const T* __restrict__ q, const float* __restrict__ ws, T* __restrict__ y,
                  int H, int N, int S, Strides si, Strides so, bool vec_in, bool vec_out) {
   constexpr int kWs = D * D + 2 * D;
-  __shared__ __align__(16) float ctx[D * kPitch];
-  __shared__ __align__(16) float qs[D * kPitch];  // exp(q - max), then the y tile
+  extern __shared__ float4 smem[];  // the D x D context, the D x kTileN q tile
+  float* ctx = reinterpret_cast<float*>(smem);
+  float* qs = ctx + D * kCtxPitch<D>;  // exp(q - max), then the y tile
   __shared__ float col_m[D];
 
   const int bh = blockIdx.x;
@@ -538,7 +624,7 @@ la_output_kernel(const T* __restrict__ q, const float* __restrict__ ws, T* __res
   const int tid = threadIdx.x;
   const float* fin = ws + static_cast<long long>(bh) * S * kWs;
   for (int i = tid; i < D * D / 4; i += kThreads)
-    *reinterpret_cast<float4*>(ctx + i / (D / 4) * kPitch + i % (D / 4) * 4) =
+    *reinterpret_cast<float4*>(ctx + i / (D / 4) * kCtxPitch<D> + i % (D / 4) * 4) =
         reinterpret_cast<const float4*>(fin)[i];
   if (tid < D) col_m[tid] = fin[D * D + tid];
   __syncthreads();
@@ -547,7 +633,7 @@ la_output_kernel(const T* __restrict__ q, const float* __restrict__ ws, T* __res
                   [&](int d, float x) { return exp_t<T>(x - col_m[d]); });
   __syncthreads();
 
-  if constexpr (kTensorCores<T>) {
+  if constexpr (kTensorCores<T, D>) {
     y_mma<D>(qs, ctx, qs);
   } else {
     y_fma<D>(qs, ctx, qs);
@@ -578,22 +664,28 @@ bool vectorizable(const Strides& st, int N, int V, const void* const* ptrs, int 
 
 template <int D>
 constexpr int kContextSmem = 3 * D * kPitch * sizeof(float);
+template <int D>
+constexpr int kOutputSmem = D * (kCtxPitch<D> + kPitch) * sizeof(float);
 
-// More than 48 KB of dynamic shared memory needs an opt-in, once per device.
+// More than 48 KB of dynamic shared memory needs an opt-in, once per kernel
+// and device (the context kernel from D = 64, the output kernel at D = 96).
 template <typename T, int D>
-cudaError_t allow_context_smem(int device) {
+cudaError_t allow_smem(int device) {
   constexpr int kMaxDevices = 64;
   static bool allowed[kMaxDevices] = {};
   if (device >= 0 && device < kMaxDevices && allowed[device]) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
+  cudaError_t err = cudaFuncSetAttribute(
       la_context_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kContextSmem<D>);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(la_output_kernel<T, D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kOutputSmem<D>);
   if (err == cudaSuccess && device >= 0 && device < kMaxDevices) allowed[device] = true;
   return err;
 }
 
 template <typename T, int D>
 cudaError_t context_blocks_per_sm(int device, int* blocks) {
-  const cudaError_t err = allow_context_smem<T, D>(device);
+  const cudaError_t err = allow_smem<T, D>(device);
   if (err != cudaSuccess) return err;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, la_context_kernel<T, D>, kThreads,
                                                        kContextSmem<D>);
@@ -612,22 +704,41 @@ cudaError_t launch(const Args& a) {
   if (a.chunk <= 0 || a.chunk % kTileN || a.S != (a.N + a.chunk - 1) / a.chunk || a.S > 65535 ||
       tiles > 65535)
     return cudaErrorInvalidValue;
-  cudaError_t err = allow_context_smem<T, D>(a.device);
+  cudaError_t err = allow_smem<T, D>(a.device);
   if (err != cudaSuccess) return err;
   la_context_kernel<T, D><<<dim3(a.B * a.H, a.S), kThreads, kSmem, a.stream>>>(
       q, static_cast<const T*>(a.k), static_cast<const T*>(a.v), a.ws, a.counters, a.H, a.N,
       a.S, a.chunk, a.si, vec_in);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  la_output_kernel<T, D><<<dim3(a.B * a.H, tiles), kThreads, 0, a.stream>>>(
+  la_output_kernel<T, D><<<dim3(a.B * a.H, tiles), kThreads, kOutputSmem<D>, a.stream>>>(
       q, a.ws, static_cast<T*>(a.y), a.H, a.N, a.S, a.si, a.so, vec_in, vec_out);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_dim(int head_dim, const Args& a) {
-  if (head_dim == 64) return launch<T, 64>(a);
-  if (head_dim == 32) return launch<T, 32>(a);
+  switch (head_dim) {
+    case 8: return launch<T, 8>(a);
+    case 16: return launch<T, 16>(a);
+    case 32: return launch<T, 32>(a);
+    case 48: return launch<T, 48>(a);
+    case 64: return launch<T, 64>(a);
+    case 96: return launch<T, 96>(a);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <typename T>
+cudaError_t blocks_dim(int head_dim, int device, int* blocks) {
+  switch (head_dim) {
+    case 8: return context_blocks_per_sm<T, 8>(device, blocks);
+    case 16: return context_blocks_per_sm<T, 16>(device, blocks);
+    case 32: return context_blocks_per_sm<T, 32>(device, blocks);
+    case 48: return context_blocks_per_sm<T, 48>(device, blocks);
+    case 64: return context_blocks_per_sm<T, 64>(device, blocks);
+    case 96: return context_blocks_per_sm<T, 96>(device, blocks);
+  }
   return cudaErrorInvalidValue;
 }
 
@@ -654,10 +765,8 @@ extern "C" int edgeyolo_la_blocks_per_sm(int dtype, int head_dim, int device) {
   int blocks = 0;
   using bf16 = __nv_bfloat16;
   const cudaError_t err = on_device(device, [&]() -> cudaError_t {
-    if (dtype == 0 && head_dim == 64) return context_blocks_per_sm<float, 64>(device, &blocks);
-    if (dtype == 0 && head_dim == 32) return context_blocks_per_sm<float, 32>(device, &blocks);
-    if (dtype == 1 && head_dim == 64) return context_blocks_per_sm<bf16, 64>(device, &blocks);
-    if (dtype == 1 && head_dim == 32) return context_blocks_per_sm<bf16, 32>(device, &blocks);
+    if (dtype == 0) return blocks_dim<float>(head_dim, device, &blocks);
+    if (dtype == 1) return blocks_dim<bf16>(head_dim, device, &blocks);
     return cudaErrorInvalidValue;
   });
   return err == cudaSuccess ? blocks : -static_cast<int>(err);

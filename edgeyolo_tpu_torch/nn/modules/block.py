@@ -1,7 +1,12 @@
-"""CSP blocks, SPPF and the DFL decode, NCHW (edgeyolo_tpu/nn/modules/block.py).
+"""CSP blocks, SPPF, the PSA attention and the DFL decode, NCHW
+(edgeyolo_tpu/nn/modules/block.py).
 
 The C2f and C3 skeletons take a `block` factory for their inner blocks, which
 is how C3k2, DSC3k and the wavelet variants swap the block family.
+
+Attention (in C2PSA, YOLO11's S32 stage) is softmax attention over the H*W
+tokens in plain PyTorch matmuls, as the JAX package leaves its einsums to
+XLA: no TPU kernel stands behind it.
 """
 
 from __future__ import annotations
@@ -109,6 +114,66 @@ class SPPF(nn.Module):
         for _ in range(3):
             ys.append(F.max_pool2d(ys[-1], self.k, 1, self.k // 2))
         return self.cv2(torch.cat(ys, dim=1))
+
+
+class Attention(nn.Module):
+    """Self-attention over H*W tokens with a depthwise positional encoding.
+
+    The qkv conv emits, per head, [q (key_dim) | k (key_dim) | v (head_dim)]
+    channels; attention is softmax(q^T k / sqrt(key_dim)) over the keys, and
+    a 3x3 depthwise conv of v is added before the projection.
+    """
+
+    def __init__(self, dim: int, num_heads: int = 8, attn_ratio: float = 0.5):
+        super().__init__()
+        self.num_heads = num_heads
+        self.head_dim = dim // num_heads
+        self.key_dim = int(self.head_dim * attn_ratio)
+        self.scale = self.key_dim ** -0.5
+        self.qkv = ConvBN(dim, dim + 2 * self.key_dim * num_heads, 1, act=False)
+        self.proj = ConvBN(dim, dim, 1, act=False)
+        self.pe = ConvBN(dim, dim, 3, 1, g=dim, act=False)
+
+    def forward(self, x):
+        b, c, h, w = x.shape
+        qkv = self.qkv(x).view(b, self.num_heads, 2 * self.key_dim + self.head_dim, h * w)
+        q, k, v = qkv.split([self.key_dim, self.key_dim, self.head_dim], dim=2)
+        attn = ((q.transpose(-2, -1) @ k) * self.scale).softmax(dim=-1)  # (b, heads, n, n)
+        out = (v @ attn.transpose(-2, -1)).view(b, c, h, w)
+        return self.proj(out + self.pe(v.reshape(b, c, h, w)))
+
+
+class PSABlock(nn.Module):
+    """x = x + Attention(x); x = x + FFN(x)."""
+
+    def __init__(self, c: int, attn_ratio: float = 0.5, num_heads: int | None = None,
+                 mlp_ratio: float = 2.0):
+        super().__init__()
+        heads = max(1, c // 64 if num_heads is None else int(num_heads))
+        self.attn = Attention(c, heads, attn_ratio)
+        hidden = int(c * mlp_ratio)
+        self.ffn = nn.Sequential(ConvBN(c, hidden, 1), ConvBN(hidden, c, 1, act=False))
+
+    def forward(self, x):
+        x = x + self.attn(x)
+        return x + self.ffn(x)
+
+
+class C2PSA(nn.Module):
+    """CSP split with a stack of PSABlocks on one branch; c1 must equal c2."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, e: float = 0.5):
+        super().__init__()
+        if c1 != c2:
+            raise ValueError("C2PSA requires c1 == c2")
+        c = int(c2 * e)
+        self.cv1 = ConvBN(c1, 2 * c, 1)
+        self.m = nn.Sequential(*(PSABlock(c, 0.5, max(1, c // 64)) for _ in range(n)))
+        self.cv2 = ConvBN(2 * c, c2, 1)
+
+    def forward(self, x):
+        a, b = self.cv1(x).chunk(2, dim=1)
+        return self.cv2(torch.cat([a, self.m(b)], dim=1))
 
 
 def dfl_decode(box_logits: torch.Tensor, bins: torch.Tensor | int = 16) -> torch.Tensor:

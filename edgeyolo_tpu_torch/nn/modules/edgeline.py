@@ -3,8 +3,8 @@
 - LinearAttention / PSABlockLinearAttention / C2PSA_LinearAttention: the S32
   stage; the attention itself is ops/linear_attention.py (the CUDA kernel on
   the card).
-- DWT2D / WaveletEnhancer / DSBottleneck / DSC3k / DSC3K2_Wavelet: the
-  wavelet neck.
+- DWT2D / WaveletEnhancer / DSBottleneck / DSC3k / DSC3K2 / DSC3K2_Wavelet:
+  the wavelet neck, and DSC3K2 without the enhancer (YOLOv13).
 
 In a bf16 model the wavelet branch stays in bf16: the softplus-normalised
 band weights and tanh(gamma) are computed from their f32 parameters and cast
@@ -186,6 +186,17 @@ class DSC3k(C3):
                  e: float = 0.5, k1: int = 3, k2: int = 5, d2: int = 1):
         super().__init__(c1, c2, n, shortcut, g, e,
                          block=lambda c: DSBottleneck(c, c, shortcut, 1.0, k1, k2, d2))
+
+
+class DSC3K2(C2f):
+    """C2f whose inner blocks are DSC3k stacks (e = 1.0, the outer k1/k2/d2)
+    or DSBottlenecks."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, dsc3k: bool = False, e: float = 0.5,
+                 g: int = 1, shortcut: bool = True, k1: int = 3, k2: int = 7, d2: int = 1):
+        block = ((lambda c: DSC3k(c, c, 2, shortcut, g, 1.0, k1, k2, d2)) if dsc3k
+                 else (lambda c: DSBottleneck(c, c, shortcut, 1.0, k1, k2, d2)))
+        super().__init__(c1, c2, n, shortcut, g, e, block=block)
 
 
 class DSC3K2_Wavelet(C2f):

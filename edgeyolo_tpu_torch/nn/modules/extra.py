@@ -1,0 +1,251 @@
+"""YOLOv12 area attention and the YOLOv13 hypergraph modules, NCHW
+(edgeyolo_tpu/nn/modules/extra.py).
+
+- AAttn / ABlock / A2C2f: attention within `area` bands of the token axis
+  (the R-ELAN stack), in plain PyTorch matmuls as the JAX package leaves its
+  einsums to XLA.
+- AdaHyperedgeGen / AdaHGConv / AdaHGComputation / C3AH / FuseModule /
+  HyperACE / DownsampleConv / FullPAD_Tunnel: adaptive hypergraph
+  correlation over three fused scales, and the gated tunnels that hand it
+  back to the neck.
+
+As in JAX: the participation softmax runs over the nodes after the mean over
+heads; GELU is exact; no dropout runs, in training either (the JAX module
+applies its dropout deterministically). In a bf16 model the scalar and
+per-channel gates (`gate`, A2C2f's `gamma`) are cast to the activation
+dtype, so activations stay bf16.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from edgeyolo_tpu_torch.nn.modules.block import C3k
+from edgeyolo_tpu_torch.nn.modules.conv import ConvBN
+from edgeyolo_tpu_torch.nn.modules.edgeline import DSBottleneck, DSC3k
+
+
+def avg_pool_2x(x: torch.Tensor) -> torch.Tensor:
+    """2 x 2 average pool, stride 2, no padding (flax's VALID avg_pool)."""
+    return F.avg_pool2d(x, 2)
+
+
+class AAttn(nn.Module):
+    """Area attention: full attention within `area` consecutive chunks of the
+    H*W tokens (1 when the tokens do not split evenly), positional encoding
+    by a 5x5 depthwise conv of v."""
+
+    def __init__(self, dim: int, num_heads: int, area: int = 1):
+        super().__init__()
+        self.num_heads, self.area = num_heads, area
+        self.head_dim = dim // num_heads
+        self.qk = ConvBN(dim, 2 * dim, 1, act=False)
+        self.v = ConvBN(dim, dim, 1, act=False)
+        self.proj = ConvBN(dim, dim, 1, act=False)
+        self.pe = ConvBN(dim, dim, 5, 1, 2, g=dim, act=False)
+
+    def forward(self, x):
+        b, c, h, w = x.shape
+        n, heads, hd = h * w, self.num_heads, self.head_dim
+        v = self.v(x)
+        pp = self.pe(v)
+        a = self.area if self.area > 1 and n % self.area == 0 else 1
+        # channels [2][heads][head_dim]; tokens split into a chunks of n / a
+        qk = self.qk(x).view(b, 2, heads, hd, a, n // a).permute(0, 4, 1, 2, 3, 5)
+        qk = qk.reshape(b * a, 2, heads, hd, n // a)
+        q, k = qk.unbind(1)  # (b*a, heads, hd, n/a)
+        vt = v.view(b, heads, hd, a, n // a).permute(0, 3, 1, 2, 4).reshape(b * a, heads, hd, -1)
+        attn = ((q.transpose(-2, -1) @ k) * hd ** -0.5).softmax(dim=-1)
+        out = (vt @ attn.transpose(-2, -1)).view(b, a, heads, hd, n // a)
+        out = out.permute(0, 2, 3, 1, 4).reshape(b, c, h, w)
+        return self.proj(out + pp)
+
+
+class ABlock(nn.Module):
+    """x = x + AAttn(x); x = x + MLP(x) (1x1 conv MLP)."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 1.2, area: int = 1):
+        super().__init__()
+        self.attn = AAttn(dim, num_heads, area)
+        hidden = int(dim * mlp_ratio)
+        self.mlp = nn.Sequential(ConvBN(dim, hidden, 1), ConvBN(hidden, dim, 1, act=False))
+
+    def forward(self, x):
+        x = x + self.attn(x)
+        return x + self.mlp(x)
+
+
+class A2C2f(nn.Module):
+    """R-ELAN: cv1 -> n stages of (two ABlocks | C3k), each appended -> cv2,
+    with a layer-scaled residual (gamma starts at 0.01) when `residual`."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, a2: bool = True, area: int = 1,
+                 residual: bool = False, mlp_ratio: float = 2.0, e: float = 0.5, g: int = 1,
+                 shortcut: bool = True):
+        super().__init__()
+        c_ = int(c2 * e)
+        heads = max(1, c_ // 32)
+        self.cv1 = ConvBN(c1, c_, 1)
+        self.cv2 = ConvBN((1 + n) * c_, c2, 1)
+        self.m = nn.ModuleList(
+            nn.Sequential(*(ABlock(c_, heads, mlp_ratio, area) for _ in range(2))) if a2
+            else C3k(c_, c_, 2, shortcut, g) for _ in range(n))
+        self.gamma = (nn.Parameter(torch.full((c2,), 0.01)) if a2 and residual else None)
+
+    def forward(self, x):
+        ys = [self.cv1(x)]
+        for m in self.m:
+            ys.append(m(ys[-1]))
+        out = self.cv2(torch.cat(ys, dim=1))
+        if self.gamma is None:
+            return out
+        return x + self.gamma.to(out.dtype).view(1, -1, 1, 1) * out
+
+
+class AdaHyperedgeGen(nn.Module):
+    """Participation matrix (B, N, E): the multi-head similarity of the nodes
+    to context-conditioned hyperedge prototypes, averaged over the heads,
+    softmax over the nodes."""
+
+    def __init__(self, node_dim: int, num_hyperedges: int, num_heads: int = 4,
+                 context: str = "both"):
+        super().__init__()
+        self.num_heads, self.num_hyperedges, self.context = num_heads, num_hyperedges, context
+        self.prototype_base = nn.Parameter(torch.empty(num_hyperedges, node_dim))
+        bound = math.sqrt(6.0 / (num_hyperedges + node_dim))  # xavier uniform
+        nn.init.uniform_(self.prototype_base, -bound, bound)
+        ctx_dim = 2 * node_dim if context == "both" else node_dim
+        self.context_net = nn.Linear(ctx_dim, num_hyperedges * node_dim)
+        self.pre_head_proj = nn.Linear(node_dim, node_dim)
+
+    def forward(self, x):  # (B, N, D)
+        b, n, d = x.shape
+        e, h = self.num_hyperedges, self.num_heads
+        hd = d // h
+        if self.context == "mean":
+            ctx = x.mean(dim=1)
+        elif self.context == "max":
+            ctx = x.amax(dim=1)
+        else:
+            ctx = torch.cat([x.mean(dim=1), x.amax(dim=1)], dim=-1)
+        protos = self.prototype_base.to(x.dtype)[None] + self.context_net(ctx).view(b, e, d)
+        xh = self.pre_head_proj(x).view(b, n, h, hd).transpose(1, 2)  # (B, H, N, hd)
+        ph = protos.view(b, e, h, hd).permute(0, 2, 3, 1)  # (B, H, hd, E)
+        logits = (xh @ ph).mean(dim=1) / math.sqrt(hd)  # (B, N, E)
+        return logits.softmax(dim=1)
+
+
+class AdaHGConv(nn.Module):
+    """Two-stage hypergraph message passing (nodes -> hyperedges -> nodes)
+    with a residual."""
+
+    def __init__(self, embed_dim: int, num_hyperedges: int = 16, num_heads: int = 4,
+                 context: str = "both"):
+        super().__init__()
+        self.edge_generator = AdaHyperedgeGen(embed_dim, num_hyperedges, num_heads, context)
+        self.edge_proj = nn.Sequential(nn.Linear(embed_dim, embed_dim), nn.GELU())
+        self.node_proj = nn.Sequential(nn.Linear(embed_dim, embed_dim), nn.GELU())
+
+    def forward(self, x):  # (B, N, D)
+        a = self.edge_generator(x)
+        he = self.edge_proj(a.transpose(1, 2) @ x)  # (B, E, D)
+        return self.node_proj(a @ he) + x
+
+
+class AdaHGComputation(nn.Module):
+    """AdaHGConv over the H*W tokens of an NCHW map."""
+
+    def __init__(self, embed_dim: int, num_hyperedges: int = 16, num_heads: int = 8,
+                 context: str = "both"):
+        super().__init__()
+        self.hgnn = AdaHGConv(embed_dim, num_hyperedges, num_heads, context)
+
+    def forward(self, x):
+        b, c, h, w = x.shape
+        tokens = self.hgnn(x.flatten(2).transpose(1, 2))
+        return tokens.transpose(1, 2).reshape(b, c, h, w)
+
+
+class C3AH(nn.Module):
+    """CSP split around AdaHGComputation."""
+
+    def __init__(self, c1: int, c2: int, e: float = 1.0, num_hyperedges: int = 8,
+                 context: str = "both"):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = ConvBN(c1, c_, 1)
+        self.cv2 = ConvBN(c1, c_, 1)
+        self.m = AdaHGComputation(c_, num_hyperedges, max(1, c_ // 16), context)
+        self.cv3 = ConvBN(2 * c_, c2, 1)
+
+    def forward(self, x):
+        return self.cv3(torch.cat([self.m(self.cv1(x)), self.cv2(x)], dim=1))
+
+
+class FuseModule(nn.Module):
+    """Three scales brought to the middle one (2x average pool, 2x nearest
+    upsample), concatenated, 1x1 fused to c_in channels. The inputs hold
+    4 c_in channels in all with `channel_adjust`, else 3 c_in (the
+    reference's rule)."""
+
+    def __init__(self, c_in: int, channel_adjust: bool = True):
+        super().__init__()
+        self.conv_out = ConvBN((4 if channel_adjust else 3) * c_in, c_in, 1)
+
+    def forward(self, xs):
+        x3 = F.interpolate(xs[2], scale_factor=2.0, mode="nearest")
+        return self.conv_out(torch.cat([avg_pool_2x(xs[0]), xs[1], x3], dim=1))
+
+
+class HyperACE(nn.Module):
+    """YOLOv13's hypergraph correlation enhancement over three fused scales;
+    c1 is the channel count of the middle input."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, num_hyperedges: int = 8,
+                 dsc3k: bool = True, shortcut: bool = False, e1: float = 0.5, e2: float = 1.0,
+                 context: str = "both", channel_adjust: bool = True):
+        super().__init__()
+        c = int(c2 * e1)
+        self.fuse = FuseModule(c1, channel_adjust)
+        self.cv1 = ConvBN(c1, 3 * c, 1)
+        self.branch1 = C3AH(c, c, e2, num_hyperedges, context)
+        self.branch2 = C3AH(c, c, e2, num_hyperedges, context)
+        self.m = nn.ModuleList(DSC3k(c, c, 2, shortcut, 1, 0.5, 3, 7) if dsc3k
+                               else DSBottleneck(c, c, shortcut) for _ in range(n))
+        self.cv2 = ConvBN((4 + n) * c, c2, 1)
+
+    def forward(self, xs):
+        y = list(self.cv1(self.fuse(xs)).chunk(3, dim=1))
+        out1, out2 = self.branch1(y[1]), self.branch2(y[1])
+        for m in self.m:
+            y.append(m(y[-1]))
+        y[1] = out1
+        y.append(out2)
+        return self.cv2(torch.cat(y, dim=1))
+
+
+class DownsampleConv(nn.Module):
+    """2x average-pool downsample, then a 1x1 conv to 2 c1 channels with
+    `channel_adjust`."""
+
+    def __init__(self, c1: int, channel_adjust: bool = True):
+        super().__init__()
+        self.channel_adjust = ConvBN(c1, 2 * c1, 1) if channel_adjust else nn.Identity()
+
+    def forward(self, x):
+        return self.channel_adjust(avg_pool_2x(x))
+
+
+class FullPAD_Tunnel(nn.Module):
+    """Gated fusion: xs[0] + gate * xs[1], the gate starting at 0."""
+
+    def __init__(self):
+        super().__init__()
+        self.gate = nn.Parameter(torch.zeros(()))
+
+    def forward(self, xs):
+        return xs[0] + self.gate.to(xs[0].dtype) * xs[1]

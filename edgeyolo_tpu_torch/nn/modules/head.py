@@ -1,11 +1,14 @@
-"""The EdgeLine detection head, NCHW (edgeyolo_tpu/nn/modules/head.py).
+"""Detection heads, NCHW (edgeyolo_tpu/nn/modules/head.py).
 
-GFLHeadv2_uniH is GF2Detect: Detect's decoupled reg (cv2) and cls (cv3)
-towers, plus the DGQP quality mini-head (reg_conf) over the top-k statistics
-of each side's DFL distribution. The decode concatenates the levels and runs
-in f32 whatever the tower dtype: box coordinates span [0, imgsz] and bf16
-would round them to about 2 px. Output (B, A, 4 + nc): xywh boxes in input
-pixels, class probabilities times quality.
+Detect is the anchor-free head: per level a reg tower (cv2) of DFL logits
+and a cls tower (cv3), the legacy 3x3 pair or the DWConv + 1x1 pairs. The
+decode concatenates the levels and runs in f32 whatever the tower dtype:
+box coordinates span [0, imgsz] and bf16 would round them to about 2 px.
+Output (B, A, 4 + nc): xywh boxes in input pixels, class probabilities.
+
+GFLHeadv2_uniH is GF2Detect: Detect plus the DGQP quality mini-head
+(reg_conf) over the top-k statistics of each side's DFL distribution,
+whose quality multiplies the class probabilities.
 """
 
 from __future__ import annotations
@@ -40,15 +43,13 @@ def topk_small(x: torch.Tensor, k: int, dim: int = -1) -> torch.Tensor:
     return torch.cat(vals, dim=dim)
 
 
-class GFLHeadv2_uniH(nn.Module):
-    """Detect + DGQP quality head (the working semantics of GF2Detect)."""
+class Detect(nn.Module):
+    """Anchor-free decoupled detection head over the pyramid levels."""
 
     def __init__(self, nc: int = 80, ch: Sequence[int] = (), stride: Sequence[int] = (8, 16, 32),
-                 reg_max: int = 16, legacy: bool = False, reg_topk: int = 4,
-                 add_mean: bool = True, reg_channels: int = 64):
+                 reg_max: int = 16, legacy: bool = False):
         super().__init__()
         self.nc, self.reg_max, self.stride = nc, reg_max, tuple(stride)
-        self.reg_topk, self.add_mean = reg_topk, add_mean
         c2 = max(16, ch[0] // 4, reg_max * 4)
         c3 = max(ch[0], min(nc, 100))
         self.cv2 = nn.ModuleList(
@@ -64,11 +65,6 @@ class GFLHeadv2_uniH(nn.Module):
                               nn.Sequential(DWConv(c3, c3, 3), ConvBN(c3, c3, 1)),
                               nn.Conv2d(c3, nc, 1))
                 for x in ch)
-        stat_ch = 4 * (min(reg_topk, reg_max) + int(add_mean))
-        self.reg_conf = nn.ModuleList(
-            nn.Sequential(nn.Conv2d(stat_ch, reg_channels, 1), nn.ReLU(),
-                          nn.Conv2d(reg_channels, 1, 1), nn.Sigmoid())
-            for _ in ch)
         self.dfl = DFL(reg_max)
 
     @torch.no_grad()
@@ -78,6 +74,48 @@ class GFLHeadv2_uniH(nn.Module):
             seq[-1].bias.fill_(1.0)
         for seq, s in zip(self.cv3, self.stride):
             seq[-1].bias.fill_(math.log(5 / self.nc / (640 / s) ** 2))
+
+    def decode(self, feats, quality=None):
+        """Levels -> (B, A, 4 + nc) in f32: DFL integral boxes, sigmoid cls
+        (times the clipped quality when there is one)."""
+        b = feats[0].shape[0]
+        flat = torch.cat([f.flatten(2) for f in feats], dim=2).float().transpose(1, 2)
+        box_logits, cls_logits = flat.split((4 * self.reg_max, self.nc), dim=-1)
+        anchors, strides = make_anchors([f.shape[-2:] for f in feats], self.stride,
+                                        device=flat.device)
+        dbox = dist2bbox(self.dfl(box_logits), anchors[None], xywh=True) * strides[None]
+        cls_prob = torch.sigmoid(cls_logits)
+        if quality is not None:
+            q = torch.cat([qi.reshape(b, -1, 1) for qi in quality], dim=1)
+            cls_prob = cls_prob * q.clamp(1e-6, 1 - 1e-6)
+        return torch.cat([dbox, cls_prob], dim=-1)
+
+    def towers(self, xs):
+        """(box logits per level, feats per level)."""
+        boxes = [cv2(x) for cv2, x in zip(self.cv2, xs)]
+        return boxes, [torch.cat([bx, cv3(x)], dim=1) for bx, cv3, x in zip(boxes, self.cv3, xs)]
+
+    def forward(self, xs):
+        _, feats = self.towers(xs)
+        out = {"feats": feats}
+        if not self.training:
+            out["pred"] = self.decode(feats)
+        return out
+
+
+class GFLHeadv2_uniH(Detect):
+    """Detect + DGQP quality head (the working semantics of GF2Detect)."""
+
+    def __init__(self, nc: int = 80, ch: Sequence[int] = (), stride: Sequence[int] = (8, 16, 32),
+                 reg_max: int = 16, legacy: bool = False, reg_topk: int = 4,
+                 add_mean: bool = True, reg_channels: int = 64):
+        super().__init__(nc, ch, stride, reg_max, legacy)
+        self.reg_topk, self.add_mean = reg_topk, add_mean
+        stat_ch = 4 * (min(reg_topk, reg_max) + int(add_mean))
+        self.reg_conf = nn.ModuleList(
+            nn.Sequential(nn.Conv2d(stat_ch, reg_channels, 1), nn.ReLU(),
+                          nn.Conv2d(reg_channels, 1, 1), nn.Sigmoid())
+            for _ in ch)
 
     def quality(self, box_logits: torch.Tensor, i: int) -> torch.Tensor:
         """DGQP: top-k and mean of each side's DFL distribution -> (B, 1, H, W) in [0, 1].
@@ -92,21 +130,8 @@ class GFLHeadv2_uniH(nn.Module):
             stat = torch.cat(parts, dim=2).flatten(1, 2)  # side-major, (B, 4*(k+1), H, W)
             return self.reg_conf[i](stat)
 
-    def decode(self, feats, quality):
-        """Levels -> (B, A, 4 + nc) in f32: DFL integral boxes, sigmoid cls x quality."""
-        b = feats[0].shape[0]
-        flat = torch.cat([f.flatten(2) for f in feats], dim=2).float().transpose(1, 2)
-        box_logits, cls_logits = flat.split((4 * self.reg_max, self.nc), dim=-1)
-        anchors, strides = make_anchors([f.shape[-2:] for f in feats], self.stride,
-                                        device=flat.device)
-        dbox = dist2bbox(self.dfl(box_logits), anchors[None], xywh=True) * strides[None]
-        q = torch.cat([qi.reshape(b, -1, 1) for qi in quality], dim=1)
-        cls_prob = torch.sigmoid(cls_logits) * q.clamp(1e-6, 1 - 1e-6)
-        return torch.cat([dbox, cls_prob], dim=-1)
-
     def forward(self, xs):
-        boxes = [cv2(x) for cv2, x in zip(self.cv2, xs)]
-        feats = [torch.cat([bx, cv3(x)], dim=1) for bx, cv3, x in zip(boxes, self.cv3, xs)]
+        boxes, feats = self.towers(xs)
         quality = [self.quality(bx, i) for i, bx in enumerate(boxes)]
         out = {"feats": feats, "quality": quality}
         if not self.training:

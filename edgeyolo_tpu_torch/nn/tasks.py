@@ -4,16 +4,20 @@
 dict (depth n' = max(round(n*depth), 1) for n > 1; width c2' =
 make_divisible(min(c2, max_channels)*width, 8) unless c2 == nc; the CSP
 family takes its repeats as an argument; the C3k2 family forces c3k at
-scales l and x; heads get the per-level input channels) into a tuple of
-`LayerSpec`s. `GraphNet` builds one module per spec under `model.{i}`, the
-reference state_dict layout, and walks them in order.
+scales l and x, A2C2f its residual and mlp_ratio 1.5; HyperACE takes c1
+from its second input and scales its hyperedges by 0.5 at n and 1.5 at x;
+DownsampleConv doubles its channels below l; heads get the per-level input
+channels) into a tuple of `LayerSpec`s. `GraphNet` builds one module per
+spec under `model.{i}`, the reference state_dict layout, and walks them in
+order.
 
-Only the modules of the EdgeLine flagship graph are registered so far; an
-unknown module name raises.
+The modules of EdgeLine-YOLO, the YOLO11 ablation family and YOLOv13 (with
+MSLA) are registered; an unknown module name raises.
 """
 
 from __future__ import annotations
 
+import ast
 import copy
 from dataclasses import dataclass
 from typing import Any, Sequence
@@ -22,10 +26,13 @@ import torch
 from torch import nn
 
 from edgeyolo_tpu_torch.cfg.models import model_cfg
-from edgeyolo_tpu_torch.nn.modules.block import C2f, C3, C3k, C3k2, SPPF, Bottleneck
+from edgeyolo_tpu_torch.nn.modules.block import C2f, C2PSA, C3, C3k, C3k2, SPPF, Bottleneck
 from edgeyolo_tpu_torch.nn.modules.conv import Concat, ConvBN, DSConv, DWConv, Upsample
-from edgeyolo_tpu_torch.nn.modules.edgeline import C2PSA_LinearAttention, DSC3K2_Wavelet
-from edgeyolo_tpu_torch.nn.modules.head import GFLHeadv2_uniH
+from edgeyolo_tpu_torch.nn.modules.edgeline import C2PSA_LinearAttention, DSC3K2, DSC3K2_Wavelet
+from edgeyolo_tpu_torch.nn.modules.extra import (A2C2f, AdaHyperedgeGen, DownsampleConv,
+                                                 FullPAD_Tunnel, HyperACE)
+from edgeyolo_tpu_torch.nn.modules.head import Detect, GFLHeadv2_uniH
+from edgeyolo_tpu_torch.nn.modules.msla_lgl import DSC3K2_MSLA
 from edgeyolo_tpu_torch.utils import make_divisible, select_device
 
 # name -> (module class, argument names after c1, i.e. as args stand after parsing)
@@ -40,19 +47,43 @@ _REG: dict[str, tuple[type, list[str]]] = {
     "C3k": (C3k, ["c2", "n", "shortcut", "g", "e", "k"]),
     "C3k2": (C3k2, ["c2", "n", "c3k", "e", "g", "shortcut"]),
     "SPPF": (SPPF, ["c2", "k"]),
+    "C2PSA": (C2PSA, ["c2", "n", "e"]),
     "C2PSA_LinearAttention": (C2PSA_LinearAttention,
                               ["c2", "n", "e", "attn_ratio", "num_heads", "mlp_ratio"]),
+    "DSC3K2": (DSC3K2, ["c2", "n", "dsc3k", "e", "g", "shortcut", "k1", "k2", "d2"]),
     "DSC3K2_Wavelet": (DSC3K2_Wavelet, ["c2", "n", "dsc3k", "e", "g", "shortcut", "k1", "k2", "d2"]),
+    "DSC3K2_MSLA": (DSC3K2_MSLA, ["c2", "n", "dsc3k", "e", "g", "shortcut", "k1", "k2", "d2"]),
+    "A2C2f": (A2C2f, ["c2", "n", "a2", "area", "residual", "mlp_ratio", "e", "g", "shortcut"]),
+    "HyperACE": (HyperACE, ["c2", "n", "num_hyperedges", "dsc3k", "shortcut", "e1", "e2",
+                            "context", "channel_adjust"]),
+    "DownsampleConv": (DownsampleConv, ["c1", "channel_adjust"]),
+    "FullPAD_Tunnel": (FullPAD_Tunnel, []),
     "Concat": (Concat, ["dim"]),
     "nn.Upsample": (Upsample, ["size", "scale_factor", "mode"]),
+    "Detect": (Detect, ["nc"]),
     "GFLHeadv2_uniH": (GFLHeadv2_uniH, ["nc"]),
 }
 _CONV_LIKE = {"Conv", "ConvBN", "DWConv", "DSConv", "Bottleneck", "C2f", "C3", "C3k", "C3k2",
-              "SPPF", "C2PSA_LinearAttention", "DSC3K2_Wavelet"}
-_REPEAT_INSERT = {"C2f", "C3", "C3k2", "C2PSA_LinearAttention", "DSC3K2_Wavelet"}
-_C3K2_FAMILY = {"C3k2", "DSC3K2_Wavelet"}
-_HEADS = {"GFLHeadv2_uniH"}
+              "SPPF", "C2PSA", "C2PSA_LinearAttention", "DSC3K2", "DSC3K2_Wavelet",
+              "DSC3K2_MSLA", "A2C2f"}
+_REPEAT_INSERT = {"C2f", "C3", "C3k2", "C2PSA", "C2PSA_LinearAttention", "DSC3K2",
+                  "DSC3K2_Wavelet", "DSC3K2_MSLA", "A2C2f"}
+_C3K2_FAMILY = {"C3k2", "DSC3K2", "DSC3K2_Wavelet", "DSC3K2_MSLA"}
+_HEADS = {"Detect", "GFLHeadv2_uniH"}
 _STRIDE_ARG = {"Conv", "ConvBN", "DWConv", "DSConv"}
+_STRIDE_FIXED = {"DownsampleConv": 2.0}
+# built from c1 (the channels of their input, the second one for HyperACE) and the args
+_TAKES_C1 = _CONV_LIKE | {"HyperACE"}
+
+
+def _literal(v):
+    """A YAML string that is a Python literal ("None", "True") -> its value."""
+    if isinstance(v, str):
+        try:
+            return ast.literal_eval(v)
+        except (ValueError, SyntaxError):
+            return v
+    return v
 
 
 @dataclass(frozen=True)
@@ -82,7 +113,7 @@ def parse_spec(d: dict, ch: int = 3) -> tuple[tuple[LayerSpec, ...], tuple[int, 
     for i, (f, n, name, args) in enumerate(d["backbone"] + d["head"]):
         if name not in _REG:
             raise KeyError(f"module '{name}' is not ported yet")
-        args = [nc if a == "nc" else a for a in args]
+        args = [nc if a == "nc" else _literal(a) for a in args]
         n_scaled = max(round(n * depth), 1) if n > 1 else n
         kwargs: dict[str, Any] = {}
         f_list = [f] if isinstance(f, int) else list(f)
@@ -102,13 +133,39 @@ def parse_spec(d: dict, ch: int = 3) -> tuple[tuple[LayerSpec, ...], tuple[int, 
                         args[2] = True
                     else:
                         args.append(True)
+            if name == "A2C2f":
+                legacy = False
+                if scale and scale in "lx":  # residual=True, mlp_ratio=1.5
+                    while len(args) < 6:
+                        args.append({2: True, 3: 1, 4: False, 5: 2.0}.get(len(args)))
+                    args[4] = True
+                    args[5] = 1.5
+        elif name == "HyperACE":  # c1 from the second input; hyperedges scaled by size
+            legacy = False
+            c1 = ch_list[f_list[1]]
+            c2 = make_divisible(min(args[0], max_channels) * width, 8)
+            he = args[1]
+            if scale == "n":
+                he = int(he * 0.5)
+            elif scale == "x":
+                he = int(he * 1.5)
+            args = [c2, n_scaled, he, *args[2:]]
+            n_scaled = 1
+            if scale and scale in "lx":
+                args.append(False)  # channel_adjust
+        elif name == "DownsampleConv":
+            c2 = 2 * c1
+            args = [c1]
+            if scale and scale in "lx":
+                args.append(False)
+                c2 = c1
         elif name == "Concat":
             c2 = sum(ch_list[x] for x in f_list)
         elif name in _HEADS:
             kwargs["ch"] = tuple(ch_list[x] for x in f_list)
             kwargs["legacy"] = legacy
             c2 = sum(kwargs["ch"])
-        else:  # nn.Upsample
+        else:  # nn.Upsample, FullPAD_Tunnel
             c2 = c1
         if n_scaled != 1:
             raise NotImplementedError(f"repeated plain module '{name}' (n={n_scaled})")
@@ -132,6 +189,8 @@ def derive_strides(layers: Sequence[LayerSpec]) -> list[float]:
         fields = _REG[sp.name][1]
         if sp.name in _STRIDE_ARG and fields.index("s") < len(sp.args):
             factor = float(sp.args[fields.index("s")])
+        elif sp.name in _STRIDE_FIXED:
+            factor = _STRIDE_FIXED[sp.name]
         elif sp.name == "nn.Upsample":
             sf = sp.args[1] if len(sp.args) > 1 else 2
             factor = 1.0 / float(sf or 2)
@@ -144,7 +203,7 @@ def build_module(sp: LayerSpec, head_stride: Sequence[int]) -> nn.Module:
     kw = {**dict(zip(fields, sp.args)), **dict(sp.kwargs)}
     if sp.name in _HEADS:
         return cls(stride=tuple(head_stride), **kw)
-    if sp.name in _CONV_LIKE:
+    if sp.name in _TAKES_C1:
         return cls(sp.c1, **kw)
     return cls(**kw)
 
@@ -173,19 +232,26 @@ class GraphNet(nn.Module):
         return out
 
 
+def _uniform_(t: torch.Tensor, bound: float, generator: torch.Generator) -> None:
+    w = torch.rand(t.shape, generator=generator, dtype=torch.float32)
+    t.copy_(w * (2 * bound) - bound)
+
+
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
-    """Seeded initialisation: every trainable conv weight ~ U(+-1/sqrt(fan_in))
-    (torch's Conv2d default, the JAX KERNEL_INIT), conv biases 0. BatchNorm,
-    the wavelet weights and the frozen DFL bins keep their constructor values."""
+    """Seeded initialisation: every trainable conv and linear weight ~
+    U(+-1/sqrt(fan_in)) (torch's default, the JAX KERNEL_INIT), their biases
+    0; hyperedge prototypes xavier-uniform, as flax initialises them.
+    BatchNorm, the gates, the wavelet and MSLA scale weights and the frozen
+    DFL bins keep their constructor values."""
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, nn.Conv2d) and m.weight.requires_grad:
-                fan_in = m.weight[0].numel()
-                bound = fan_in ** -0.5
-                w = torch.rand(m.weight.shape, generator=generator, dtype=torch.float32)
-                m.weight.copy_(w * (2 * bound) - bound)
+            if isinstance(m, (nn.Conv2d, nn.Linear)) and m.weight.requires_grad:
+                _uniform_(m.weight, m.weight[0].numel() ** -0.5, generator)
                 if m.bias is not None:
                     m.bias.zero_()
+            elif isinstance(m, AdaHyperedgeGen):
+                e, d = m.prototype_base.shape
+                _uniform_(m.prototype_base, (6.0 / (e + d)) ** 0.5, generator)
 
 
 def num_params(model: nn.Module) -> int:
@@ -216,7 +282,8 @@ def amp_params(model: nn.Module) -> dict[str, torch.Tensor]:
 
 
 def train_forward(model: nn.Module, x: torch.Tensor, amp: bool = True) -> dict:
-    """The training forward: {"feats", "quality"} per level, in f32.
+    """The training forward: {"feats", "quality"} per level, in f32; "quality"
+    is None for a head without one (Detect).
 
     With `amp`, as JAX's `amp_cast` of the f32 masters: the forward sees
     `amp_params(model)` through `torch.func.functional_call`, so gradients
@@ -230,7 +297,8 @@ def train_forward(model: nn.Module, x: torch.Tensor, amp: bool = True) -> dict:
     else:
         with torch.autocast(x.device.type, dtype=torch.bfloat16):
             out = torch.func.functional_call(model, amp_params(model), (x.to(torch.bfloat16),))
-    return {k: [f.float() for f in out[k]] for k in ("feats", "quality")}
+    return {k: None if out.get(k) is None else [f.float() for f in out[k]]
+            for k in ("feats", "quality")}
 
 
 def for_precision(model: nn.Module, half: bool) -> nn.Module:
@@ -244,7 +312,8 @@ def for_precision(model: nn.Module, half: bool) -> nn.Module:
 class DetectionModel(GraphNet):
     """The detector: spec by name, seeded weights, explicit device and dtype.
 
-    `dtype` is the compute dtype of every convolution but the quality head's;
+    `dtype` is the compute dtype of every convolution and linear layer but
+    the quality head's;
     BatchNorm, the wavelet band weights, the quality head and the box decode
     stay f32. `nc` replaces the spec's class count (a head for a dataset).
     The model lands on CUDA unless `device` names another device.
@@ -272,10 +341,12 @@ class DetectionModel(GraphNet):
         self.to(device).eval()
 
     def set_dtype(self, dtype: torch.dtype) -> "DetectionModel":
-        """Cast every convolution but the quality head's to `dtype`, in place."""
+        """Cast every convolution and linear layer but the quality head's to
+        `dtype`, in place."""
         for m in self.modules():
-            if isinstance(m, nn.Conv2d):
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
                 m.to(dtype)
-        self.model[-1].reg_conf.float()  # the quality head is an f32 island, as in JAX
+        if hasattr(self.model[-1], "reg_conf"):
+            self.model[-1].reg_conf.float()  # the quality head is an f32 island, as in JAX
         self.dtype = dtype
         return self

@@ -69,10 +69,12 @@ CLIP_NORM = 10.0
 
 
 def _decay_mask(model: nn.Module) -> dict[str, bool]:
-    """Parameter name -> whether it takes weight decay: conv kernels only
-    (BatchNorm scales and shifts, biases and the wavelet weights take none)."""
-    convs = {name for name, m in model.named_modules() if isinstance(m, nn.Conv2d)}
-    return {name: name.rpartition(".")[0] in convs and name.endswith(".weight")
+    """Parameter name -> whether it takes weight decay: conv and linear kernels
+    only (BatchNorm scales and shifts, biases, gates, the wavelet and MSLA
+    weights and the hyperedge prototypes take none)."""
+    kernels = {name for name, m in model.named_modules()
+               if isinstance(m, (nn.Conv2d, nn.Linear))}
+    return {name: name.rpartition(".")[0] in kernels and name.endswith(".weight")
             for name, p in model.named_parameters() if p.requires_grad}
 
 
@@ -330,7 +332,7 @@ class DetectionTrainer:
         out = train_forward(self.model, img01.permute(0, 3, 1, 2).contiguous(),
                             amp=bool(a["amp"]))
         tgt = {"cls": cls, "bboxes": bboxes, "mask_gt": mask, "img_weight": batch["img_weight"]}
-        loss, items = self.criterion(out["feats"], tgt, out["quality"])
+        loss, items = self.criterion(out["feats"], tgt, out.get("quality"))
         self.flat.grad.zero_()
         loss.backward()
         updated = self.optimizer.step(self.flat.data, self.flat.grad)

@@ -51,6 +51,9 @@ H100_SMS = 132  # the SM count and blocks per SM (4 in bf16, 2 in f32) of the H1
     ((4, 999, 3, 32), 16, 64),
     ((1, 33, 1, 64), 1, 64),
     ((1024, 400, 2, 64), 1, 448),    # more pairs than one wave holds: no split
+    ((32, 25600, 2, 8), 8, 3200),    # MSLA-n layer 2 at 640 px: 400 tiles
+    ((128, 25600, 2, 8), 2, 12800),  # the same, its four quarters batched
+    ((32, 6400, 2, 16), 8, 832),
 ], ids=str)
 def test_split_plan_fills_one_wave_with_whole_tiles(shape, splits, chunk):
     b, n, h, d = shape
@@ -93,9 +96,9 @@ def test_kernel_wrapper_rejects_what_the_kernel_cannot_take_before_any_launch(ca
             la.linear_attention_kernel(q, k.transpose(1, 2).contiguous().transpose(1, 2), v)
         elif case == "dtype":
             la._plan(q.shape, q.stride(), torch.float16, torch.device("cuda", 0))
-        else:
-            q48 = q[..., :48]
-            la._plan(q48.shape, q48.stride(), q.dtype, torch.device("cuda", 0))
+        else:  # D = 40: a multiple of 8 that no model gives, so the kernel has no instance
+            q40 = q[..., :40]
+            la._plan(q40.shape, q40.stride(), q.dtype, torch.device("cuda", 0))
     assert la.linear_attention_kernel.launches == before and len(la._plans) == plans
 
 
@@ -125,9 +128,13 @@ def cuda_card():
 # (B, N, H, D, layout): "qkv" = the module's strided views of the conv output.
 # N = 1000 and 6400 span several chunks with a ragged last one (16-byte
 # loads); N = 250 in the qkv layout and every bnhd case take one element
-# per load.
+# per load. D = 8, 16, 48 and 96 are MSLA's head dims at scales n to x (FMA
+# products; at D = 8 the context is summed over four token shares).
 CARD_CASES = [(4, 400, 2, 64, "qkv"), (2, 999, 3, 32, "bnhd"), (1, 33, 1, 64, "bnhd"),
-              (2, 1000, 2, 64, "qkv"), (1, 6400, 4, 64, "qkv"), (3, 250, 2, 32, "qkv")]
+              (2, 1000, 2, 64, "qkv"), (1, 6400, 4, 64, "qkv"), (3, 250, 2, 32, "qkv"),
+              (2, 25600, 2, 8, "qkv"), (2, 1000, 2, 8, "bnhd"), (2, 6400, 2, 16, "qkv"),
+              (3, 250, 2, 16, "bnhd"), (2, 999, 2, 48, "qkv"), (2, 400, 2, 96, "qkv"),
+              (1, 33, 3, 96, "bnhd")]
 
 
 def _card_qkv(b, n, h, d, layout, dtype, device):
@@ -155,11 +162,12 @@ def test_kernel_matches_plain_on_card(cuda_card, case, dtype, rtol):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 8, 96])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-def test_kernel_is_bit_identical_across_launches_on_card(cuda_card, dtype):
+def test_kernel_is_bit_identical_across_launches_on_card(cuda_card, dtype, d):
     """The partial contexts are merged in a fixed order, with no float atomics."""
-    q, k, v = _card_qkv(2, 1000, 2, 64, "qkv", dtype, cuda_card)
-    assert la.split_plan(2, 1000, 2, 64, la._sm_count(0), la.blocks_per_sm(dtype, 64, 0))[0] > 1
+    q, k, v = _card_qkv(2, 1000, 2, d, "qkv", dtype, cuda_card)
+    assert la.split_plan(2, 1000, 2, d, la._sm_count(0), la.blocks_per_sm(dtype, d, 0))[0] > 1
     ys = [la.linear_attention_kernel(q, k, v) for _ in range(3)]
     torch.cuda.synchronize()
     assert all(torch.equal(ys[0], y) for y in ys[1:])
@@ -182,6 +190,6 @@ def test_kernel_rejects_what_it_cannot_take(cuda_card):
         la.linear_attention_kernel(q.half(), k.half(), v.half())
     with pytest.raises(ValueError, match="strides"):
         la.linear_attention_kernel(q, k.transpose(1, 2).contiguous().transpose(1, 2), v)
-    q48, k48, v48 = (t[..., :48] for t in (q, k, v))
+    q40, k40, v40 = (t[..., :40] for t in (q, k, v))
     with pytest.raises(ValueError, match="D in"):
-        la.linear_attention_kernel(q48, k48, v48)
+        la.linear_attention_kernel(q40, k40, v40)
