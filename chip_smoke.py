@@ -8,26 +8,36 @@ Phases, each timed and each fatal when it fails:
   2. build      nvcc builds every CUDA source of edgeyolo_tpu_torch/csrc, all at once
   3. kernels    every kernel's wrapper against its plain PyTorch version, on the card,
                 at the shapes the serving paths give it (the flagship's D = 64, MSLA's
-                D = 8, 16 and 32 at 640 px, the x scale's 48 and 96), with times and
-                the bound; the attention kernel's split of N and workspace, and two
-                launches on the same inputs compared bit for bit
+                D = 8, 16 and 32 at 640 px, the x scale's 48 and 96, the wavelet
+                mixer's LL band: N = 100 at 640 px and 1 at 64 px, D = 32 at scale n,
+                128 at l and 192 at x), with times and the bound; the attention
+                kernel's split of N and workspace, and two launches on the same inputs
+                compared bit for bit
   4. reference  the f32 model on the card (kernel) against the same model on the
                 CPU (plain version) at 64 px, gates open: EdgeLine-YOLO-n, the YOLO11
-                ablation family, YOLOv13 and its MSLA variant; launches per forward
+                ablation family, YOLOv13 and its MSLA, LGL, wavelet and E2E variants
+                (an E2E model: its one2one decode before the top-k at the same
+                tolerances, and its (B, 84, 6) selection row by row, rows whose scores
+                tie within the tolerance matched within their group); launches per
+                forward
   5. serve      EdgeLine-YOLO-n in bf16 at 640 px: 1 warm-up and 3 timed requests
                 of 32 images through DetectionPredictor; kernel launch counts, bf16
                 activations, output checks, NMS against the scan oracle, the
                 prediction against the same model with the plain attention, and
                 one profiled request (device time by kernel, device busy share
                 of the unprofiled request time); then yolo11n, yolo11-lineattention-n
-                and yolov13-dsc3k2-msla-n the same way (bf16 conv and linear outputs,
-                launches per request, a profiled request, the bf16 prediction against
-                f32 and against the plain attention)
+                yolov13-dsc3k2-msla-n, yolov13-test-n (E2E: no NMS; 2 kernel launches
+                per request) and yolov13-dsc3k2-lgl-n (no kernel) the same way (bf16
+                conv and linear outputs, launches per request, peak memory, a profiled
+                request, the bf16 prediction against f32 and against the plain
+                attention; an E2E model's before its top-k)
   6. train      one f32 train step at 64 px, batch 2, on the card (kernel) against the
      reference  same step on the CPU (plain version): same seeded weights, same
                 augmentation draws; the loss, every gradient and the updated params;
-                EdgeLine-YOLO-n from two starts, yolov13-dsc3k2-msla-n from one
-  7. train      EdgeLine-YOLO-n, then yolov13-dsc3k2-msla-n and yolo11n, training at
+                EdgeLine-YOLO-n from two starts, yolov13-dsc3k2-msla-n and
+                yolov13-test-n (E2EDetectLoss) from one
+  7. train      EdgeLine-YOLO-n, then yolov13-dsc3k2-msla-n, yolo11n, yolov13-test-n
+                and yolov13-dsc3k2-lgl-n, training at
                 640 px, batch 32, bf16 autocast, default
                 hyps (mosaic, photometric, HSV, flips; SGD, accumulate 2): 1 warm-up
                 and 6 timed steps through DetectionTrainer.train_step; bf16 at the
@@ -47,7 +57,10 @@ Phases, each timed and each fatal when it fails:
                 batch 32 in bf16: img/s, decode and letterbox ms per image, device ms and
                 NMS ms per batch, the candidates past conf 0.001, peak memory; then
                 yolo11n (plain Detect, BCE) on the same protocol, held to
-                YOLO11N_FIT_MAP_MIN
+                YOLO11N_FIT_MAP_MIN, and yolov13-test (E2E head, wavelet HyperACE) at
+                192 px (at 160 px its wavelet mixer meets an odd 5 x 5 band, which
+                JAX's does not take either), held to V13_TEST_FIT_MAP_MIN, validated
+                through the E2E passthrough
   9. device     each kernel's device time by torch.profiler at the shapes of phase 3;
      times      after the serve, train and fit phases, so no profiler session precedes them
 The line before the last is the kernel table as JSON; the last line is
@@ -112,6 +125,12 @@ LA_CASES = [
     (4, 400, 2, 48, "bfloat16", "qkv"),  # the x scale's head dims
     (4, 400, 2, 96, "bfloat16", "qkv"),
 ]
+# the wavelet mixer's LL band (yolov13-test): 10 x 10 tokens at 640 px and 1 x 1 at 64 px,
+# head dim c / 2 = 32, 128 and 192 at scales n, l and x; one long case at D = 128
+WAVELET_CASES = [(32, n, 2, d, dt, "qkv") for n in (100, 1) for d in (32, 128, 192)
+                 for dt in ("bfloat16", "float32")] + [
+    (4, 6400, 2, 128, dt, "qkv") for dt in ("bfloat16", "float32")]
+LA_CASES += WAVELET_CASES
 LA_MAIN_CASE = 1
 LA_RTOL = {"float32": 1e-5, "bfloat16": 2e-2}  # of max |plain| (bf16: about 5 ulp)
 # fit: PARITY.md's protocol (16 train / 8 val images, 160 px, 3 classes, 150 epochs, SGD 0.01),
@@ -130,8 +149,10 @@ VAL640 = {"n_val": 128, "imgsz": 640, "batch": 32}
 # the families beside the flagship, at scale n: the reference phase holds each one's card
 # forward against its CPU forward; the serve phase serves those in FAMILY_SERVE
 FAMILIES = ("yolo11n", "yolo11-dsc3k2-wavelet-n", "yolo11-gf2detect-n", "yolo11-lineattention-n",
-            "yolov13n", "yolov13-dsc3k2-msla-n")
-FAMILY_SERVE = ("yolo11n", "yolo11-lineattention-n", "yolov13-dsc3k2-msla-n")
+            "yolov13n", "yolov13-dsc3k2-msla-n", "yolov13-test-n", "yolov13-gf2-unihead-n",
+            "yolov13-dsc3k2-lgl-n")
+V13_TEST, LGL = "yolov13-test-n", "yolov13-dsc3k2-lgl-n"
+FAMILY_SERVE = ("yolo11n", "yolo11-lineattention-n", "yolov13-dsc3k2-msla-n", V13_TEST, LGL)
 # the weight scale of each model in tests/test_torch_families.py (its CONFIGS), under which
 # the output depends on the image without saturating. The flagship's, not there, was scanned
 # the same way against JAX on the CPU (at 2.5 its pred is 1.2e-2 px off JAX's). yolov13n takes
@@ -139,13 +160,20 @@ FAMILY_SERVE = ("yolo11n", "yolo11-lineattention-n", "yolov13-dsc3k2-msla-n")
 # card's cuDNN against the CPU read 3.4e-3 px of the 5e-3 tolerance.
 REF_SCALE = {"edgeline-yolo-n": 2.4, "yolo11n": 2.5, "yolo11-dsc3k2-wavelet-n": 2.4,
              "yolo11-gf2detect-n": 2.5, "yolo11-lineattention-n": 2.5, "yolov13n": 1.8,
-             "yolov13-dsc3k2-msla-n": 1.8}
+             "yolov13-dsc3k2-msla-n": 1.8, "yolov13-test-n": 1.8, "yolov13-gf2-unihead-n": 1.8,
+             "yolov13-dsc3k2-lgl-n": 1.8}
 MSLA = "yolov13-dsc3k2-msla-n"
 # fit: yolo11n (plain Detect, BCE) on the same protocol; the JAX package's trainer reached
 # mAP50-95 YOLO11N_JAX_MAP there (tools/fit_protocol.py, PERF.md section 6), and the port is
 # held to that less 0.1
 YOLO11N_JAX_MAP = 0.7566  # 0.756571273958199, 275 s on a CPU
 YOLO11N_FIT_MAP_MIN = round(YOLO11N_JAX_MAP - 0.1, 4)
+# fit: yolov13-test on the same protocol at 192 px; the JAX package's trainer reached
+# V13_TEST_JAX_MAP there (tools/fit_protocol.py '{"model": "yolov13-test.yaml", "imgsz": 192,
+# "nbs": 16, "warmup_epochs": 0}', PERF.md section 6), and the port is held to that less 0.1
+V13_TEST_FIT_IMGSZ = 192
+V13_TEST_JAX_MAP = 0.6377  # 0.637664754828572, 608 s on a CPU
+V13_TEST_FIT_MAP_MIN = round(V13_TEST_JAX_MAP - 0.1, 4)
 
 
 def phase(name: str):
@@ -292,18 +320,20 @@ def device_times(la, rows, inputs):
 def open_gates(model):
     """Every zero-initialised residual gate open at 0.5 (init leaves them at 0,
     which hides the branch behind it from the output and its gradients): the
-    wavelet enhancers' and DSC3K2_MSLA's gamma (MSLA, and so the attention
-    kernel, is multiplied by tanh(gamma)) and the FullPAD tunnels' gate."""
+    wavelet enhancers', DSC3K2_MSLA's, the wavelet mixers' and the SS2D
+    context's gamma (MSLA and the mixer, and so the attention kernel, are
+    multiplied by tanh(gamma)) and the FullPAD tunnels' gate."""
     import torch
 
     from edgeyolo_tpu_torch.nn.modules.edgeline import WaveletEnhancer
     from edgeyolo_tpu_torch.nn.modules.extra import FullPAD_Tunnel
-    from edgeyolo_tpu_torch.nn.modules.msla_lgl import DSC3K2_MSLA
+    from edgeyolo_tpu_torch.nn.modules.msla_lgl import (DSC3K2_MSLA, LocalSS2DContext,
+                                                        WaveletMixerMultiLevel)
 
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, WaveletEnhancer) or (isinstance(m, DSC3K2_MSLA)
-                                                  and m.msla is not None):
+            if isinstance(m, (WaveletEnhancer, WaveletMixerMultiLevel, LocalSS2DContext)) or (
+                    isinstance(m, DSC3K2_MSLA) and m.msla is not None):
                 m.gamma.fill_(0.5)
             elif isinstance(m, FullPAD_Tunnel):
                 m.gate.fill_(0.5)
@@ -311,14 +341,46 @@ def open_gates(model):
 
 
 def exercise_branches(model):
-    """Seeded random weights with the gates open, and class logits starting at
-    0, so scores straddle the confidence gate, giving NMS real work."""
+    """Seeded random weights with the gates open, and class logits (of both
+    branches of an E2E head) starting at 0, so scores straddle the confidence
+    gate, giving NMS real work."""
     import torch
 
+    head = open_gates(model).model[-1]
     with torch.no_grad():
-        for seq in open_gates(model).model[-1].cv3:
+        for seq in [*head.cv3, *getattr(head, "one2one_cv3", [])]:
             seq[-1].bias.zero_()
     return model
+
+
+def dense_pred(model, out: dict):
+    """The pred of `model` before any selection: for an end-to-end head its
+    one2one decode, (B, A, 4 + nc) with xywh boxes as Detect's, in place of
+    its top-k; else `out["pred"]`."""
+    head = model.model[-1]
+    if not getattr(model, "end2end", False):
+        return out["pred"]
+    with mock.patch.object(head, "end2end", False):
+        return head.decode(out["one2one_feats"], out.get("one2one_quality"))
+
+
+def unmatched_rows(got, want, box_atol: float, score_atol: float) -> int:
+    """Rows of an E2E selection (B, K, 6) `got` whose class and box are not
+    those of `want`'s row at the same place nor, where scores tie within
+    2 score_atol, of a row of that group; the sorted scores must agree within
+    score_atol (every row counts as unmatched otherwise). As tests/test_torch_e2e.py."""
+    import torch
+
+    if got.shape != want.shape or (got[..., 4] - want[..., 4]).abs().max() > score_atol:
+        return got.shape[0] * got.shape[1]
+    bad = 0
+    for b in range(got.shape[0]):
+        for i in range(got.shape[1]):
+            near = torch.nonzero((want[b, :, 4] - got[b, i, 4]).abs() <= 2 * score_atol)[:, 0]
+            bad += not any(got[b, i, 5] == want[b, j, 5]
+                           and (got[b, i, :4] - want[b, j, :4]).abs().max() <= box_atol
+                           for j in [i, *near.tolist()])
+    return bad
 
 
 def bn_statistics_of(model, x):
@@ -378,6 +440,11 @@ def perturbed(model, scale: float, seed: int = 0):
         elif leaf == "weight":
             a = a * scale
         out[k] = torch.from_numpy(np.asarray(a, v.cpu().numpy().dtype))
+    # an E2E head's one2one class logits spread around 0 too (tests/test_torch_v13_e2e_families.py)
+    rs = np.random.RandomState(1)
+    for k, v in out.items():
+        if k.startswith(f"{head}.one2one_cv3.") and k.endswith(".2.bias"):
+            out[k] = torch.from_numpy((rs.randn(*v.shape) * 0.5).astype(np.float32))
     model.load_state_dict(out)
     return model
 
@@ -395,22 +462,30 @@ def check_reference(la) -> dict:
     launches = {}
     for name in ("edgeline-yolo-n", *FAMILIES):
         for scale in (None, REF_SCALE[name]):
-            preds = {}
+            preds, sels = {}, {}
             for dev in ("cpu", "cuda"):
                 m = DetectionModel(name, device=dev, seed=0)
                 m = exercise_branches(m) if scale is None else perturbed(m, scale)
                 la.linear_attention_kernel.launches = 0
                 with torch.inference_mode():
-                    preds[dev] = m(x.to(dev))["pred"].float().cpu()
+                    out = m(x.to(dev))
+                    preds[dev] = dense_pred(m, out).float().cpu()
+                    sels[dev] = out["pred"].float().cpu()
             launches[name] = la.linear_attention_kernel.launches
             d = (preds["cuda"] - preds["cpu"]).abs()
             box, cls = d[..., :4].max().item(), d[..., 4:].max().item()
             spread = (preds["cpu"][0] - preds["cpu"][1])[..., :4].abs().max().item()
+            e2e = m.end2end
+            bad = unmatched_rows(sels["cuda"], sels["cpu"], 5e-3, 1e-4) if e2e else 0
             print(f"{name}: f32 64px card (kernel, {launches[name]} launches) vs CPU (plain), "
                   f"{'seeded weights' if scale is None else f'test weights x{scale}'} (boxes of "
                   f"the two images apart by up to {spread:.3e} px): box {box:.3e} px (tol 5e-3), "
-                  f"score {cls:.3e} (tol 1e-4)", flush=True)
-            if not (torch.isfinite(preds["cuda"]).all() and box < 5e-3 and cls < 1e-4):
+                  f"score {cls:.3e} (tol 1e-4)"
+                  + (f" in the one2one decode before the top-k; E2E selection "
+                     f"{tuple(out['pred'].shape)}: {bad} rows unmatched in box, score or class "
+                     f"(tol 0)" if e2e else ""), flush=True)
+            if not (torch.isfinite(preds["cuda"]).all() and box < 5e-3 and cls < 1e-4
+                    and bad == 0):
                 raise AssertionError(f"{name} on the card disagrees with the CPU reference")
             if launches[name] != n_attention(m):
                 raise AssertionError(f"{name}: {launches[name]} kernel launches in one forward, "
@@ -552,10 +627,12 @@ def profile_request(predictor, imgs, unprofiled_ms: float):
 def serve_family(la, card: str, name: str) -> int:
     """Model `name` served in bf16 at 640 px: a warm-up request with the
     dtype of every conv and linear output recorded, SERVE_REQUESTS timed
-    requests of SERVE_BATCH images, the output checks, one profiled request,
-    and the prediction against the same weights in f32 (the bf16 departure
-    of ROADMAP section C) and, where the model has attention, against the
-    plain attention in bf16. Returns the kernel's launches per request."""
+    requests of SERVE_BATCH images (with the peak memory), the output checks,
+    one profiled request, and the prediction against the same weights in f32
+    (the bf16 departure of ROADMAP section C) and, where the model has
+    attention, against the plain attention in bf16; an end-to-end model's
+    prediction before its top-k (`dense_pred`). Returns the kernel's launches
+    per request."""
     import torch
     from torch import nn
 
@@ -588,6 +665,7 @@ def serve_family(la, card: str, name: str) -> int:
     print(f"serve {name}: bf16 check: {len(out_dtypes)} conv and linear outputs, all bf16",
           flush=True)
 
+    torch.cuda.reset_peak_memory_stats()
     la.linear_attention_kernel.launches = 0
     times = []
     for _ in range(SERVE_REQUESTS):
@@ -596,14 +674,17 @@ def serve_family(la, card: str, name: str) -> int:
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     launches = la.linear_attention_kernel.launches
+    peak = torch.cuda.max_memory_allocated()
     if launches != SERVE_REQUESTS * n_attn:
         raise AssertionError(f"{name}: {launches} kernel launches in {SERVE_REQUESTS} requests, "
                              f"{n_attn} LinearAttention modules")
     ms = statistics.median(times) * 1e3
-    print(f"serve {name}: batch {SERVE_BATCH} x {SERVE_IMGSZ} px bf16, request times "
+    print(f"serve {name}: batch {SERVE_BATCH} x {SERVE_IMGSZ} px bf16"
+          f"{' (end to end: top-k of the head, no NMS)' if model.end2end else ''}, request times "
           f"{[round(t * 1e3, 3) for t in times]} ms, median {ms:.3f} ms, "
           f"{SERVE_BATCH / ms * 1e3:.1f} img/s, {launches // SERVE_REQUESTS} kernel launches per "
-          f"request, on {card}", flush=True)
+          f"request, peak memory {peak / 2**30:.3f} GiB (max_memory_allocated), on {card}",
+          flush=True)
     det, n = det.cpu(), n.cpu()
     if not (det.shape == (SERVE_BATCH, 300, 6) and bool(torch.isfinite(det).all())
             and bool(((n >= 0) & (n <= 300)).all())):
@@ -614,7 +695,7 @@ def serve_family(la, card: str, name: str) -> int:
 
     with torch.inference_mode():
         x = imgs[:8].cuda().permute(0, 3, 1, 2).contiguous().float() / 255
-        pred = model(x.to(torch.bfloat16))["pred"]
+        pred = dense_pred(model, model(x.to(torch.bfloat16)))
         if not bool(torch.isfinite(pred).all()):
             raise AssertionError(f"{name}: non-finite bf16 prediction")
         # the bf16 departure (ROADMAP section C): the served weights, then the same weights
@@ -624,7 +705,7 @@ def serve_family(la, card: str, name: str) -> int:
             if calibrate:
                 bn_statistics_of(m32, x)
             m16 = for_precision(m32, True)
-            p16, p32 = m16(x.to(torch.bfloat16))["pred"], m32(x)["pred"]
+            p16, p32 = dense_pred(m16, m16(x.to(torch.bfloat16))), dense_pred(m32, m32(x))
             d = (p16 - p32).abs()
             spread = (p32[0] - p32[1])[..., :4].abs().max().item()
             mid = ((p32[..., 4:] > 0.01) & (p32[..., 4:] < 0.99)).float().mean().item()
@@ -638,7 +719,7 @@ def serve_family(la, card: str, name: str) -> int:
             del m32, m16
         if n_attn:
             with mock.patch.object(edgeline, "linear_attention", la.linear_attention_reference):
-                pred_plain = model(x.to(torch.bfloat16))["pred"]
+                pred_plain = dense_pred(model, model(x.to(torch.bfloat16)))
             d = (pred - pred_plain).abs()
             box, cls = d[..., :4].max().item(), d[..., 4:].max().item()
             print(f"serve {name}: pred kernel vs plain attention, bf16 on the card: box "
@@ -760,51 +841,68 @@ def card_vs_cpu(la, label: str, start, batch: dict, per_tensor: bool,
     return cpu, card
 
 
-def check_train_reference(la) -> int:
+def witness(la, start, batch: dict, cpu: dict, card: dict, name: str = "edgeline-yolo-n"):
+    """Each f32 side of a step against an f64 step on the CPU's augmented
+    batch, the exact step to f32's eyes: the card may be no farther from it
+    than WITNESS_FACTOR times the CPU's f32 step in the loss, the whole
+    gradient and the params, with WITNESS_FLOOR for gaps at f32 resolution."""
+    import torch
+
+    exact = ref_step(la, "cpu", start, batch, replay=cpu["augmented"], name=name)
+    img_gap = (card["augmented"][0] - cpu["augmented"][0]).abs().max().item()
+    on_card, on_cpu = step_gap(exact, card), step_gap(exact, cpu)
+    g32 = cpu["flat_grad"]
+    print(f"  {name}: f64 step on the CPU's augmented batch (card's img01 within {img_gap:.3e} "
+          f"of it): loss {exact['loss']:.6f}; the clip's global norm of the CPU's f32 gradient "
+          f"({g32.numel()} entries), accumulated in f32 "
+          f"{torch.linalg.vector_norm(g32).item():.6f}, in f64 (as the port does) "
+          f"{torch.linalg.vector_norm(g32, dtype=torch.float64).item():.6f}", flush=True)
+    for side, g in (("card f32", on_card), ("CPU f32", on_cpu)):
+        print(f"  {name}: {side} against the f64 step: {gap_text(g)}", flush=True)
+    cpu_err = {n: e for e, n in on_cpu["grad"]}
+    print(f"  {name}: the card's worst gradients, card / CPU against the f64 step: "
+          + ", ".join(f"{n} {e:.3e} / {cpu_err[n]:.3e}" for e, n in on_card["grad"][:4]),
+          flush=True)
+    worse = [k for k in WITNESS_FLOOR
+             if on_card[k] > WITNESS_FACTOR * on_cpu[k] + WITNESS_FLOOR[k]]
+    if worse or not on_card["zero_ok"]:
+        raise AssertionError(f"{name}: the card's step is farther from the f64 step than the "
+                             f"CPU's: {worse}")
+
+
+def check_train_reference(la) -> dict:
     """One f32 train step on the card with the kernel and on the CPU with the
     plain version, from the same seeded weights and the same draws of one
-    CPU generator, from two starts of the flagship and one of MSLA-n; returns
-    the kernel's launches in the card's MSLA-n step:
+    CPU generator, from two starts of the flagship and one each of MSLA-n and
+    yolov13-test-n; returns the kernel's launches in the card's MSLA-n and
+    yolov13-test-n steps, by model:
 
     - the model's own class prior (loss ~0.16): card against CPU, at
       TRAIN_REF_TOL; the same for yolov13-dsc3k2-msla-n;
     - class logits at 0 (loss ~3928: the update is clipped at norm 10, and
       the wavelet band weights' gradients, normalised softplus weights with
       cancelling terms, are the worst conditioned): card against CPU at
-      TRAIN_REF_TOL for the loss and the params; and each f32 side against
-      an f64 step on the CPU's augmented batch, the exact step to f32's eyes.
-      The card may be no farther from it than WITNESS_FACTOR times the CPU's
-      f32 step in the loss, the whole gradient and the params, with
-      WITNESS_FLOOR for gaps at f32 resolution.
+      TRAIN_REF_TOL for the loss and the params, and each side against the
+      f64 step (`witness`);
+    - yolov13-test-n (E2EDetectLoss over both branches, the wavelet mixers'
+      gates open) from its class prior: card against CPU for the loss and
+      the params, and the witness for the gradients. At the class prior
+      every anchor predicts the same box, so the task-aligned assignment
+      meets exact ties that f32 rounding breaks: the CPU's own f32 step is
+      0.11 of the max |grad| of the head's level-0 box tower from the f64
+      step there, while its loss is within 1e-9 (both steps on a CPU).
     """
-    import torch
-
     batch = train_batch(TRAIN_REF_BATCH, TRAIN_REF_IMGSZ, TRAIN_REF_M, 4, seed=3)
     card_vs_cpu(la, "the class prior", lambda m: m, batch, per_tensor=True)
-    msla_launches = card_vs_cpu(la, "the class prior", lambda m: m, batch, per_tensor=True,
-                                name=MSLA)[1]["launches"]
+    launches = {MSLA: card_vs_cpu(la, "the class prior", lambda m: m, batch, per_tensor=True,
+                                  name=MSLA)[1]["launches"]}
+    cpu, card = card_vs_cpu(la, "the class prior", lambda m: m, batch, per_tensor=False,
+                            name=V13_TEST)
+    launches[V13_TEST] = card["launches"]
+    witness(la, lambda m: m, batch, cpu, card, V13_TEST)
     cpu, card = card_vs_cpu(la, "class logits at 0", exercise_branches, batch, per_tensor=False)
-    exact = ref_step(la, "cpu", exercise_branches, batch, replay=cpu["augmented"])
-    img_gap = (card["augmented"][0] - cpu["augmented"][0]).abs().max().item()
-    on_card, on_cpu = step_gap(exact, card), step_gap(exact, cpu)
-    g32 = cpu["flat_grad"]
-    print(f"  f64 step on the CPU's augmented batch (card's img01 within {img_gap:.3e} of it): "
-          f"loss {exact['loss']:.6f}; the clip's global norm of the CPU's f32 gradient "
-          f"({g32.numel()} entries), accumulated in f32 "
-          f"{torch.linalg.vector_norm(g32).item():.6f}, in f64 (as the port does) "
-          f"{torch.linalg.vector_norm(g32, dtype=torch.float64).item():.6f}", flush=True)
-    for side, g in (("card f32", on_card), ("CPU f32", on_cpu)):
-        print(f"  {side} against the f64 step: {gap_text(g)}", flush=True)
-    cpu_err = {n: e for e, n in on_cpu["grad"]}
-    print("  the card's worst gradients, card / CPU against the f64 step: "
-          + ", ".join(f"{n} {e:.3e} / {cpu_err[n]:.3e}" for e, n in on_card["grad"][:4]),
-          flush=True)
-    worse = [k for k in WITNESS_FLOOR
-             if on_card[k] > WITNESS_FACTOR * on_cpu[k] + WITNESS_FLOOR[k]]
-    if worse or not on_card["zero_ok"]:
-        raise AssertionError(f"the card's step is farther from the f64 step than the CPU's: "
-                             f"{worse}")
-    return msla_launches
+    witness(la, exercise_branches, batch, cpu, card)
+    return launches
 
 
 TRAIN_STAGES = ("augment", "forward", "loss", "backward", "optimizer")
@@ -998,10 +1096,11 @@ def metrics_gap(a: dict, b: dict) -> float:
 
 
 def fit(la, card: str, work: Path, name: str = "edgeline-yolo.yaml",
-        map_min: float = FIT_MAP_MIN) -> dict:
+        map_min: float = FIT_MAP_MIN, imgsz: int = FIT["imgsz"]) -> dict:
     """Train, validate and predict model `name` (scale n) from a dataset on
-    disk, held to mAP50-95 >= map_min; the flagship then validates at 640 px.
-    Returns the attention kernel's launches in train, val and predict."""
+    disk at `imgsz`, held to mAP50-95 >= map_min; the flagship then validates
+    at 640 px. Returns the attention kernel's launches in train, val and
+    predict."""
     import csv
 
     import torch
@@ -1027,7 +1126,8 @@ def fit(la, card: str, work: Path, name: str = "edgeline-yolo.yaml",
     la.linear_attention_kernel.launches = 0
     t0 = time.perf_counter()
     with mock.patch.object(DetectionTrainer, "_validate", counted):
-        model.train(data=str(data), project=str(work / "runs"), name="fit", **FIT_TRAIN)
+        model.train(data=str(data), project=str(work / "runs"), name="fit",
+                    **{**FIT_TRAIN, "imgsz": imgsz})
     wall = time.perf_counter() - t0
     trainer = model.trainer
     n_attn = n_attention(model.model)
@@ -1061,7 +1161,7 @@ def fit(la, card: str, work: Path, name: str = "edgeline-yolo.yaml",
         raise AssertionError(f"{name}: mAP50-95 {best.get('metrics/mAP50-95(B)')} < {map_min}")
 
     # reload best.pt: the same metrics on the card, and within FIT_CPU_TOL on the CPU (f32)
-    val_kw = {"data": str(data), "batch": FIT_TRAIN["batch"], "imgsz": FIT["imgsz"],
+    val_kw = {"data": str(data), "batch": FIT_TRAIN["batch"], "imgsz": imgsz,
               "project": str(work / "runs")}
     reloaded = YOLO(trainer.save_dir / "best.pt", device="cuda")
     la.linear_attention_kernel.launches = 0
@@ -1080,7 +1180,7 @@ def fit(la, card: str, work: Path, name: str = "edgeline-yolo.yaml",
                              "and the CPU")
 
     la.linear_attention_kernel.launches = 0
-    results = reloaded.predict(str(data.parent / "images" / "val"), imgsz=FIT["imgsz"],
+    results = reloaded.predict(str(data.parent / "images" / "val"), imgsz=imgsz,
                                project=str(work / "runs"))
     launches["predict"] = la.linear_attention_kernel.launches
     inside = all(((b[:, :2] >= 0) & (b[:, 2:] <= [w, h]) & (b[:, :2] <= b[:, 2:])).all()
@@ -1206,13 +1306,15 @@ def main() -> int:
     done("serve", t0)
 
     t0 = phase("train reference")
-    msla_ref_launches = check_train_reference(la)
+    ref_train_launches = check_train_reference(la)
     done("train reference", t0)
 
     t0 = phase("train")
     train_launches = train(la, card)
     msla_train_launches = train(la, card, MSLA)
     train(la, card, "yolo11n")
+    v13_train_launches = train(la, card, V13_TEST)
+    lgl_train_launches = train(la, card, LGL)
     done("train", t0)
 
     t0 = phase("fit")
@@ -1220,6 +1322,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_fit_") as work:
         fit_launches = fit(la, card, Path(work) / "edgeline-yolo")
         fit(la, card, Path(work) / "yolo11n", "yolo11n.yaml", YOLO11N_FIT_MAP_MIN)
+        v13_fit_launches = fit(la, card, Path(work) / "yolov13-test", "yolov13-test.yaml",
+                               V13_TEST_FIT_MAP_MIN, V13_TEST_FIT_IMGSZ)
     done("fit", t0)
 
     t0 = phase("device times")
@@ -1235,9 +1339,18 @@ def main() -> int:
                 "launches_yolo11n": family_launches["yolo11n"],
                 "launches_msla": family_launches[MSLA],
                 "launches_msla_train": msla_train_launches // TRAIN_STEPS,
-                "launches_msla_train_reference": msla_ref_launches,
+                "launches_msla_train_reference": ref_train_launches[MSLA],
+                "launches_yolov13_test": family_launches[V13_TEST],
+                "launches_yolov13_test_train": v13_train_launches // TRAIN_STEPS,
+                "launches_yolov13_test_train_reference": ref_train_launches[V13_TEST],
+                **{f"launches_fit_yolov13_test_{k}": v for k, v in v13_fit_launches.items()},
+                "launches_lgl": family_launches[LGL],
+                "launches_lgl_train": lgl_train_launches // TRAIN_STEPS,
                 "launches_reference_64px": ref_launches,
-                **la_rows[LA_MAIN_CASE], "library_ms": None}]
+                **la_rows[LA_MAIN_CASE], "library_ms": None,
+                "wavelet_rows": [{"shape": list(case[:4]), "dtype": case[4], **row}
+                                 for case, row in zip(LA_CASES, la_rows)
+                                 if case in WAVELET_CASES]}]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,8 @@
 
 `cfg/models/*.yaml` are byte-identical copies of the files of the same name
 in edgeyolo_tpu/cfg/models/ for the families the port builds (EdgeLine-YOLO,
-the YOLO11 ablation family, YOLOv13 and its MSLA variant), read with the
+the YOLO11 ablation family, YOLOv13 and its MSLA, LGL, wavelet and
+NMS-free variants), read with the
 port's YAML subset reader: [from, repeats, module, args] rows, compound
 scales [depth, width, max_channels]. The reference fork's EdgeLine-YOLO-n
 has 2,678,699 parameters.

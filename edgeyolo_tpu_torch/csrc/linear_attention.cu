@@ -59,7 +59,7 @@
 //   int edgeyolo_la_forward(q, k, v, y, workspace, counters, stream,
 //                           const LaShape* shape)
 // LaShape (below) holds what stays fixed for one input shape: dtype
-// (0 = float32, 1 = bfloat16), head_dim (8, 16, 32, 48, 64 or 96), B, N, H,
+// (0 = float32, 1 = bfloat16), head_dim (8, 16, 32, 48, 64, 96, 128 or 192), B, N, H,
 // S, chunk (a multiple of 64 with S = ceil(N / chunk)), the device and the element
 // strides (b, n, h, d) of q, k and v (one set) and of y. The caller builds
 // it once per shape, so a call converts eight arguments. The launches go to
@@ -79,6 +79,18 @@
 // wider than a token tile (row pitch D + 4), and the output kernel's two
 // tiles exceed 48 KB, so both kernels take their tiles as opted-in dynamic
 // shared memory.
+//
+// The wavelet HyperACE's LL-band attention (yolov13-test) gives D = 128 at
+// scale l and 192 at x, over 100 tokens at 640 px and 1 at 64 px. Both take
+// the FMA products, the simple path: each thread owns D * D / 256 = 64 or
+// 144 context accumulators, so the products read k' and v one token at a
+// time (scalar loads, the accumulators leave no registers for float4s) and
+// the context kernel asks for one block per SM, not two; the q statistics
+// take two threads per column and, at 192, two passes of 128 columns; the
+// merge sums its float4 rounds four at a time over the partials. The
+// shared tiles take 102 and 153 KiB in the context kernel, 100 and 198 KiB
+// in the output kernel (the D x D context at pitch D + 4 and the q tile),
+// within the 227 KiB a block may opt in to.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -209,16 +221,21 @@ template <>
 constexpr bool kTensorCores<__nv_bfloat16, 64> = true;
 
 template <int D>
-constexpr bool kHeadDim = D == 8 || D == 16 || D == 32 || D == 48 || D == 64 || D == 96;
+constexpr bool kHeadDim = D == 8 || D == 16 || D == 32 || D == 48 || D == 64 || D == 96 ||
+                          D == 128 || D == 192;
 
 // Threads that share one column of q in its statistics: the largest power of
-// two that keeps a column for each group (32 at D = 8, 4 at D = 48 and 64).
+// two that keeps a column for each group (32 at D = 8, 4 at D = 48 and 64,
+// 2 from D = 96); and the passes over the columns this takes (2 at D = 192,
+// else 1).
 template <int D>
 constexpr int kColThreads = kThreads / D >= 32  ? 32
                             : kThreads / D >= 16 ? 16
                             : kThreads / D >= 8  ? 8
                             : kThreads / D >= 4  ? 4
                                                  : 2;
+template <int D>
+constexpr int kColPasses = (D * kColThreads<D> + kThreads - 1) / kThreads;
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // lo in the low 16 bits
@@ -241,9 +258,11 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t (&a)[4],
 }
 
 // ctx[d][e] += sum over the tile's tokens r of ks[d][r] vs[e][r]. FMA path:
-// thread (ty, tx) owns rows ty + 16 i and columns tx + 16 j. At D = 8 the
-// D * D entries take kThreads / (D * D) threads each: thread t sums entry
-// t % (D * D) over the tokens of its share t / (D * D) of the tile.
+// thread (ty, tx) owns rows ty + 16 i and columns tx + 16 j, and sums the
+// tokens in order. At D = 8 the D * D entries take kThreads / (D * D)
+// threads each: thread t sums entry t % (D * D) over the tokens of its
+// share t / (D * D) of the tile. Above D = 96 the tokens are read one at a
+// time (float4 operands would not fit beside the accumulators).
 template <int D>
 __device__ __forceinline__ void ctx_fma(const float* ks, const float* vs, float* acc) {
   if constexpr (D < 16) {
@@ -260,6 +279,22 @@ __device__ __forceinline__ void ctx_fma(const float* ks, const float* vs, float*
       acc[0] = fmaf(a.y, b.y, acc[0]);
       acc[0] = fmaf(a.z, b.z, acc[0]);
       acc[0] = fmaf(a.w, b.w, acc[0]);
+    }
+  } else if constexpr (D > 96) {
+    constexpr int R = D / 16;
+    const int tx = threadIdx.x % 16;
+    const int ty = threadIdx.x / 16;
+#pragma unroll 2
+    for (int r = 0; r < kTileN; ++r) {
+      float kr[R], vr[R];
+#pragma unroll
+      for (int i = 0; i < R; ++i) kr[i] = ks[(ty + 16 * i) * kPitch + r];
+#pragma unroll
+      for (int j = 0; j < R; ++j) vr[j] = vs[(tx + 16 * j) * kPitch + r];
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int j = 0; j < R; ++j) acc[i * R + j] = fmaf(kr[i], vr[j], acc[i * R + j]);
     }
   } else {
     constexpr int R = D / 16;
@@ -444,13 +479,17 @@ __device__ __forceinline__ void y_mma(const float* qs, const float* ctx, float* 
 
 // Context phase and merge; block (bh, s) owns tokens [s * chunk, (s + 1) * chunk).
 // The tensor-core kernel is held to 64 registers a thread, so that four
-// blocks fit an SM and the serving shape's 448 blocks run in one wave.
+// blocks fit an SM and the serving shape's 448 blocks run in one wave; above
+// D = 96 the accumulators take what one block per SM allows.
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, kTensorCores<T, D> ? 4 : 2)
+constexpr int kMinBlocks = kTensorCores<T, D> ? 4 : D > 96 ? 1 : 2;
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, kMinBlocks<T, D>)
 la_context_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                   float* __restrict__ ws, int* __restrict__ counters, int H, int N, int S,
                   int chunk, Strides si, bool vec) {
-  static_assert(kHeadDim<D>, "head_dim must be 8, 16, 32, 48, 64 or 96");
+  static_assert(kHeadDim<D>, "head_dim must be 8, 16, 32, 48, 64, 96, 128 or 192");
   constexpr int kAcc = D * D >= kThreads ? D * D / kThreads : 1;  // ctx accumulators per thread
   constexpr int kTpc = kColThreads<D>;  // threads per column of q
   constexpr int kWs = D * D + 2 * D;  // floats per partial: ctx, column max, column sum
@@ -474,13 +513,16 @@ la_context_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
   // so that the 32 lanes of a warp hit 32 distinct banks
   const int sr = warp * 8 + lane % 8;
   const int sp = lane / 8;
-  // statistics of q: column qc, rows qp, qp + kTpc, ...; the groups past the
-  // last column (D = 48, 96) repeat it and store nothing
-  const int qc = warp * (32 / kTpc) + lane / kTpc;
+  // statistics of q: in pass p, column qc0 + p * kThreads / kTpc, rows qp,
+  // qp + kTpc, ...; the groups past the last column (D = 48, 96, 192) repeat
+  // it and store nothing
+  constexpr int kPasses = kColPasses<D>;
+  const int qc0 = warp * (32 / kTpc) + lane / kTpc;
   const int qp = lane % kTpc;
-  const int qc_read = min(qc, D - 1);
 
-  float m_run = -INFINITY, s_run = 0.f;
+  float m_run[kPasses], s_run[kPasses];
+#pragma unroll
+  for (int p = 0; p < kPasses; ++p) m_run[p] = -INFINITY, s_run[p] = 0.f;
   float acc[kAcc];
 #pragma unroll
   for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
@@ -515,23 +557,24 @@ la_context_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
 #pragma unroll
       for (int j = 0; j < J; ++j) ks[(2 * sp + (j & 1) + 8 * (j >> 1)) * kPitch + sr] = x[j] * inv;
     }
-    {
+#pragma unroll
+    for (int p = 0; p < kPasses; ++p) {
       // the tile's first token is a real one, so the tile max is finite
       constexpr int J = kTileN / kTpc;
-      const float* col = qs + qc_read * kPitch + qp;
+      const float* col = qs + min(qc0 + p * (kThreads / kTpc), D - 1) * kPitch + qp;
       float m = -INFINITY;
 #pragma unroll
       for (int j = 0; j < J; ++j) m = fmaxf(m, col[kTpc * j]);
 #pragma unroll
       for (int o = 1; o < kTpc; o <<= 1) m = fmaxf(m, shfl_xor(m, o));
-      const float m_new = fmaxf(m_run, m);
+      const float m_new = fmaxf(m_run[p], m);
       float sum = 0.f;
 #pragma unroll
       for (int j = 0; j < J; ++j) sum += exp_t<T>(col[kTpc * j] - m_new);
 #pragma unroll
       for (int o = 1; o < kTpc; o <<= 1) sum += shfl_xor(sum, o);
-      s_run = s_run * exp_t<T>(m_run - m_new) + sum;
-      m_run = m_new;
+      s_run[p] = s_run[p] * exp_t<T>(m_run[p] - m_new) + sum;
+      m_run[p] = m_new;
     }
     __syncthreads();
     if constexpr (kTensorCores<T, D>) {
@@ -548,9 +591,13 @@ la_context_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
   } else {
     store_ctx_fma<D>(part, acc, ks);  // the tiles are free after the loop's last barrier
   }
-  if (qp == 0 && qc < D) {
-    part[D * D + qc] = m_run;
-    part[D * D + D + qc] = s_run;
+#pragma unroll
+  for (int p = 0; p < kPasses; ++p) {
+    const int qc = qc0 + p * (kThreads / kTpc);
+    if (qp == 0 && qc < D) {
+      part[D * D + qc] = m_run[p];
+      part[D * D + D + qc] = s_run[p];
+    }
   }
   __threadfence();  // this block's partial is visible before its arrival is counted
   __syncthreads();
@@ -562,48 +609,55 @@ la_context_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
   // The last block of this (batch, head) merges the partials, s = 0 .. S-1,
   // reading them from L2 (__ldcg, past this SM's L1). Every thread sums
   // float4 columns tid, tid + kThreads, ... of ctx (those that exist: at
-  // D = 8, 16 and 48 the last round is partial); beside that, threads
-  // tid < D fold the column statistics in one online pass (max, and the sum
-  // rescaled to it). The loads of a partial do not wait on the previous one.
+  // D = 8, 16 and 48 the last round is partial), kGroup rounds per pass over
+  // the partials (all of them up to D = 96, four above); beside the first
+  // pass, threads tid < D fold the column statistics in one online pass
+  // (max, and the sum rescaled to it). The loads of a partial do not wait on
+  // the previous one. Each thread writes back only the columns it read.
   float* fin = ws + static_cast<long long>(bh) * S * kWs;  // partial 0 takes the result
   constexpr int kVec4 = D * D / 4;                       // float4s of ctx
   constexpr int kVec = (kVec4 + kThreads - 1) / kThreads;  // rounds over them
-  float4 c[kVec];
-#pragma unroll
-  for (int u = 0; u < kVec; ++u) c[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+  constexpr int kGroup = D > 96 ? 4 : kVec;
   float m = -INFINITY, sum = 0.f;
+  for (int g0 = 0; g0 < kVec; g0 += kGroup) {
+    float4 c[kGroup];
+#pragma unroll
+    for (int u = 0; u < kGroup; ++u) c[u] = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll 2
-  for (int t = 0; t < S; ++t) {
-    const float* p = fin + t * kWs;
+    for (int t = 0; t < S; ++t) {
+      const float* p = fin + t * kWs;
 #pragma unroll
-    for (int u = 0; u < kVec; ++u) {
-      if (tid + u * kThreads >= kVec4) break;
-      const float4 x = __ldcg(reinterpret_cast<const float4*>(p) + tid + u * kThreads);
-      c[u].x += x.x;
-      c[u].y += x.y;
-      c[u].z += x.z;
-      c[u].w += x.w;
+      for (int u = 0; u < kGroup; ++u) {
+        if (tid + (g0 + u) * kThreads >= kVec4) break;
+        const float4 x = __ldcg(reinterpret_cast<const float4*>(p) + tid + (g0 + u) * kThreads);
+        c[u].x += x.x;
+        c[u].y += x.y;
+        c[u].z += x.z;
+        c[u].w += x.w;
+      }
+      if (g0 == 0 && tid < D) {
+        const float mt = __ldcg(p + D * D + tid);
+        const float st = __ldcg(p + D * D + D + tid);
+        const float m_new = fmaxf(m, mt);
+        sum = sum * exp_t<T>(m - m_new) + st * exp_t<T>(mt - m_new);
+        m = m_new;
+      }
     }
-    if (tid < D) {
-      const float mt = __ldcg(p + D * D + tid);
-      const float st = __ldcg(p + D * D + D + tid);
-      const float m_new = fmaxf(m, mt);
-      sum = sum * exp_t<T>(m - m_new) + st * exp_t<T>(mt - m_new);
-      m = m_new;
+    if (g0 == 0) {
+      if (tid < D) {
+        inv_sum[tid] = 1.f / (sum + 1e-9f);
+        fin[D * D + tid] = m;
+      }
+      __syncthreads();
     }
-  }
-  if (tid < D) {
-    inv_sum[tid] = 1.f / (sum + 1e-9f);
-    fin[D * D + tid] = m;
-  }
-  __syncthreads();
 #pragma unroll
-  for (int u = 0; u < kVec; ++u) {
-    if (tid + u * kThreads >= kVec4) break;
-    const int i = 4 * (tid + u * kThreads);
-    const float inv = inv_sum[i / D];  // the 4 columns share row i / D
-    reinterpret_cast<float4*>(fin)[tid + u * kThreads] =
-        make_float4(c[u].x * inv, c[u].y * inv, c[u].z * inv, c[u].w * inv);
+    for (int u = 0; u < kGroup; ++u) {
+      if (tid + (g0 + u) * kThreads >= kVec4) break;
+      const int i = 4 * (tid + (g0 + u) * kThreads);
+      const float inv = inv_sum[i / D];  // the 4 columns share row i / D
+      reinterpret_cast<float4*>(fin)[tid + (g0 + u) * kThreads] =
+          make_float4(c[u].x * inv, c[u].y * inv, c[u].z * inv, c[u].w * inv);
+    }
   }
   if (tid == 0) counters[bh] = 0;
 }
@@ -668,7 +722,7 @@ template <int D>
 constexpr int kOutputSmem = D * (kCtxPitch<D> + kPitch) * sizeof(float);
 
 // More than 48 KB of dynamic shared memory needs an opt-in, once per kernel
-// and device (the context kernel from D = 64, the output kernel at D = 96).
+// and device (the context kernel from D = 64, the output kernel from D = 96).
 template <typename T, int D>
 cudaError_t allow_smem(int device) {
   constexpr int kMaxDevices = 64;
@@ -725,6 +779,8 @@ cudaError_t launch_dim(int head_dim, const Args& a) {
     case 48: return launch<T, 48>(a);
     case 64: return launch<T, 64>(a);
     case 96: return launch<T, 96>(a);
+    case 128: return launch<T, 128>(a);
+    case 192: return launch<T, 192>(a);
   }
   return cudaErrorInvalidValue;
 }
@@ -738,6 +794,8 @@ cudaError_t blocks_dim(int head_dim, int device, int* blocks) {
     case 48: return context_blocks_per_sm<T, 48>(device, blocks);
     case 64: return context_blocks_per_sm<T, 64>(device, blocks);
     case 96: return context_blocks_per_sm<T, 96>(device, blocks);
+    case 128: return context_blocks_per_sm<T, 128>(device, blocks);
+    case 192: return context_blocks_per_sm<T, 192>(device, blocks);
   }
   return cudaErrorInvalidValue;
 }

@@ -5,7 +5,10 @@ The serving step, `predictor(images)` on a uint8 (B, H, W, 3) batch, is the
 device part of the JAX predictor's `_build_infer` after bench.py's
 normalisation: uint8 NHWC -> model dtype / 255 -> NCHW forward -> f32 DFL
 decode with the DGQP quality product -> class-aware matrix NMS, boxes
-clipped to the image.
+clipped to the image. An end-to-end model (`model.end2end`) needs no NMS:
+its pred is already the score-sorted (B, max_det, 6) top-k, and
+`e2e_detections` keeps the rows past `conf` (and of `classes`), valid rows
+first, up to `max_det`.
 
 `stream(source)` is JAX's `DetectionPredictor.stream`: each frame of a file,
 directory, glob, list or array source is letterboxed (scaleup) to `imgsz`,
@@ -28,6 +31,24 @@ from edgeyolo_tpu_torch.data.loaders import load_inference_source
 from edgeyolo_tpu_torch.engine.results import Results
 from edgeyolo_tpu_torch.ops.nms import non_max_suppression
 from edgeyolo_tpu_torch.utils import LOGGER, select_device
+
+
+def e2e_detections(pred: torch.Tensor, conf: float, max_det: int, classes=None):
+    """The NMS-free passthrough (JAX predictor's infer_e2e): pred (B, K, 6)
+    score-sorted -> (det (B, min(max_det, K), 6), n (B,)). Rows at or under
+    `conf`, or of a class not in `classes`, are zeroed; a class filter can
+    punch holes in the sorted prefix, so a stable sort moves the kept rows to
+    the front in their order."""
+    keep = pred[..., 4] > conf
+    if classes is not None:
+        keep &= torch.isin(pred[..., 5], torch.tensor(classes, dtype=pred.dtype,
+                                                      device=pred.device))
+    k = min(int(max_det), pred.shape[1])
+    keep = keep[:, :k]
+    det = torch.where(keep[..., None], pred[:, :k], 0.0)
+    order = torch.argsort((~keep).to(torch.uint8), dim=1, stable=True)
+    det = det.gather(1, order[..., None].expand(-1, -1, det.shape[-1]))
+    return det, keep.sum(dim=1, dtype=torch.int32)
 
 
 class DetectionPredictor:
@@ -58,9 +79,12 @@ class DetectionPredictor:
         x = x.to(self.device).permute(0, 3, 1, 2).contiguous()
         x = x.to(self.model.dtype) / 255
         pred = self.model(x)["pred"]
-        det, n = non_max_suppression(pred, conf_thres=self.conf, iou_thres=self.iou,
-                                     max_det=self.max_det, max_nms=self.max_nms,
-                                     agnostic=self.agnostic, classes=self.classes)
+        if getattr(self.model, "end2end", False):
+            det, n = e2e_detections(pred, self.conf, self.max_det, self.classes)
+        else:
+            det, n = non_max_suppression(pred, conf_thres=self.conf, iou_thres=self.iou,
+                                         max_det=self.max_det, max_nms=self.max_nms,
+                                         agnostic=self.agnostic, classes=self.classes)
         det[..., 0:4:2] = det[..., 0:4:2].clamp(0, w)
         det[..., 1:4:2] = det[..., 1:4:2].clamp(0, h)
         return det, n

@@ -2,15 +2,16 @@
 
 Per batch of the val loader: upload the uint8 images, /255 in f32 (or bf16
 with `half`), forward, multi-label NMS at conf 0.001, iou 0.7, max_det 300
-(the per-image tiled path, whose memory does not grow with max_nms = 30000);
-then, still on the device, undo the letterbox and clip to the original
-image, pad the ground truth (`_gt_arrays`) and match detections to it over
+(the per-image tiled path, whose memory does not grow with max_nms = 30000),
+or for an end-to-end model the passthrough of its score-sorted top-k (rows
+past conf, up to max_det); then, still on the device, undo the letterbox and
+clip to the original image, pad the ground truth (`_gt_arrays`) and match detections to it over
 the ten IoU thresholds. Only (det, n, tp) come back to the host, into
 `DetMetrics` (101-point AP, the fork's mAP75 column). With `half` a model
 whose convolutions are f32 is validated through a bf16 copy (convolutions
 bf16, BatchNorm, quality head and decode f32, as in serving).
-`save_json`, COCO evaluation, plots, DETR, E2E, int8 and multi-device
-validation are not ported yet.
+`save_json`, COCO evaluation, plots, DETR, int8 and multi-device validation
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from torch import nn
 
 from edgeyolo_tpu_torch.cfg import get_cfg
 from edgeyolo_tpu_torch.data.dataset import YOLODataset, build_dataloader, check_det_dataset
+from edgeyolo_tpu_torch.engine.predictor import e2e_detections
 from edgeyolo_tpu_torch.metrics.metrics import DetMetrics, match_predictions_device
 from edgeyolo_tpu_torch.nn.tasks import for_precision
 from edgeyolo_tpu_torch.ops.boxes import box_iou
@@ -62,9 +64,13 @@ class DetectionValidator:
         args = self.args
         x = img.permute(0, 3, 1, 2).contiguous().to(getattr(model, "dtype", torch.float32)) / 255
         pred = model(x)["pred"]
-        det, n = non_max_suppression(
-            pred, conf_thres=self.conf, iou_thres=float(args.iou), max_det=int(args.max_det),
-            max_nms=max_nms, multi_label=True, agnostic=bool(args.single_cls), method="tiled")
+        if getattr(model, "end2end", False):
+            det, n = e2e_detections(pred, self.conf, int(args.max_det))
+        else:
+            det, n = non_max_suppression(
+                pred, conf_thres=self.conf, iou_thres=float(args.iou),
+                max_det=int(args.max_det), max_nms=max_nms, multi_label=True,
+                agnostic=bool(args.single_cls), method="tiled")
         gtb, gtc, gtv, geom = gt
         r, pw, ph, w0, h0 = geom.unbind(-1)
         shift = torch.stack([pw, ph, pw, ph], -1)[:, None, :]

@@ -203,7 +203,10 @@ class FuseModule(nn.Module):
 
 class HyperACE(nn.Module):
     """YOLOv13's hypergraph correlation enhancement over three fused scales;
-    c1 is the channel count of the middle input."""
+    c1 is the channel count of the middle input. `make_branch` builds the two
+    branches on the middle chunk and `enhance_last` transforms the chain's
+    last output: the hooks the wavelet variant (msla_lgl.HyperACE_Wavelet)
+    overrides."""
 
     def __init__(self, c1: int, c2: int, n: int = 1, num_hyperedges: int = 8,
                  dsc3k: bool = True, shortcut: bool = False, e1: float = 0.5, e2: float = 1.0,
@@ -212,17 +215,24 @@ class HyperACE(nn.Module):
         c = int(c2 * e1)
         self.fuse = FuseModule(c1, channel_adjust)
         self.cv1 = ConvBN(c1, 3 * c, 1)
-        self.branch1 = C3AH(c, c, e2, num_hyperedges, context)
-        self.branch2 = C3AH(c, c, e2, num_hyperedges, context)
+        self.branch1 = self.make_branch(c, e2, num_hyperedges, context)
+        self.branch2 = self.make_branch(c, e2, num_hyperedges, context)
         self.m = nn.ModuleList(DSC3k(c, c, 2, shortcut, 1, 0.5, 3, 7) if dsc3k
                                else DSBottleneck(c, c, shortcut) for _ in range(n))
         self.cv2 = ConvBN((4 + n) * c, c2, 1)
+
+    def make_branch(self, c: int, e2: float, num_hyperedges: int, context: str) -> nn.Module:
+        return C3AH(c, c, e2, num_hyperedges, context)
+
+    def enhance_last(self, x):
+        return x
 
     def forward(self, xs):
         y = list(self.cv1(self.fuse(xs)).chunk(3, dim=1))
         out1, out2 = self.branch1(y[1]), self.branch2(y[1])
         for m in self.m:
             y.append(m(y[-1]))
+        y[-1] = self.enhance_last(y[-1])
         y[1] = out1
         y.append(out2)
         return self.cv2(torch.cat(y, dim=1))

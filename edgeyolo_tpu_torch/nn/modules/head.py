@@ -9,6 +9,14 @@ Output (B, A, 4 + nc): xywh boxes in input pixels, class probabilities.
 GFLHeadv2_uniH is GF2Detect: Detect plus the DGQP quality mini-head
 (reg_conf) over the top-k statistics of each side's DFL distribution,
 whose quality multiplies the class probabilities.
+
+End-to-end (NMS-free) heads, E2EDetect and its alias GFLHeadv2_E2E:
+GF2Detect with a second set of towers and quality heads (`one2one_*`) fed
+with detached inputs, as JAX's stop_gradient. They decode their one2one
+branch straight to xyxy and keep the `max_det` best (anchor, class) pairs
+by `e2e_postprocess`: pred is (B, max_det, 6) [x1, y1, x2, y2, score, cls].
+In eval mode the one2many towers, which only the training loss reads, are
+not run (under jit XLA drops them from JAX's inference too).
 """
 
 from __future__ import annotations
@@ -43,63 +51,113 @@ def topk_small(x: torch.Tensor, k: int, dim: int = -1) -> torch.Tensor:
     return torch.cat(vals, dim=dim)
 
 
+def topk_stable(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The k largest values along the last axis and their indices, largest
+    first and, among equal values, the lower index first: jax.lax.top_k's
+    order. torch.topk promises no order among ties (and the CUDA one differs
+    from the CPU one); a stable descending sort keeps equal values in index
+    order."""
+    vals, idx = x.sort(dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def e2e_postprocess(preds: torch.Tensor, max_det: int, nc: int) -> torch.Tensor:
+    """NMS-free selection of an end-to-end head (JAX head.py e2e_postprocess):
+    the max_det anchors of highest best-class score, then the max_det best
+    (anchor, class) pairs among them. preds (B, A, 4 + nc) with xyxy boxes ->
+    (B, max_det, 6) [x1, y1, x2, y2, score, cls], score-sorted."""
+    boxes, scores = preds[..., :4], preds[..., 4:4 + nc]
+    k = min(max_det, scores.shape[1])
+    _, ix = topk_stable(scores.amax(dim=-1), k)
+    boxes = boxes.gather(1, ix[..., None].expand(-1, -1, 4))
+    scores = scores.gather(1, ix[..., None].expand(-1, -1, nc))
+    top, fi = topk_stable(scores.flatten(1), k)
+    bsel = boxes.gather(1, (fi // nc)[..., None].expand(-1, -1, 4))
+    return torch.cat([bsel, top[..., None], (fi % nc)[..., None].to(preds.dtype)], dim=-1)
+
+
+def _tower_lists(ch: Sequence[int], nc: int, reg_max: int, legacy: bool):
+    """The per-level reg (cv2) and cls (cv3) towers."""
+    c2 = max(16, ch[0] // 4, reg_max * 4)
+    c3 = max(ch[0], min(nc, 100))
+    cv2 = nn.ModuleList(
+        nn.Sequential(ConvBN(x, c2, 3), ConvBN(c2, c2, 3), nn.Conv2d(c2, 4 * reg_max, 1))
+        for x in ch)
+    if legacy:
+        cv3 = nn.ModuleList(
+            nn.Sequential(ConvBN(x, c3, 3), ConvBN(c3, c3, 3), nn.Conv2d(c3, nc, 1)) for x in ch)
+    else:
+        cv3 = nn.ModuleList(
+            nn.Sequential(nn.Sequential(DWConv(x, x, 3), ConvBN(x, c3, 1)),
+                          nn.Sequential(DWConv(c3, c3, 3), ConvBN(c3, c3, 1)),
+                          nn.Conv2d(c3, nc, 1))
+            for x in ch)
+    return cv2, cv3
+
+
 class Detect(nn.Module):
-    """Anchor-free decoupled detection head over the pyramid levels."""
+    """Anchor-free decoupled detection head over the pyramid levels; with
+    `end2end` (the class default of the E2E heads) also the one2one towers."""
+
+    end2end = False
 
     def __init__(self, nc: int = 80, ch: Sequence[int] = (), stride: Sequence[int] = (8, 16, 32),
-                 reg_max: int = 16, legacy: bool = False):
+                 reg_max: int = 16, legacy: bool = False, max_det: int = 300):
         super().__init__()
-        self.nc, self.reg_max, self.stride = nc, reg_max, tuple(stride)
-        c2 = max(16, ch[0] // 4, reg_max * 4)
-        c3 = max(ch[0], min(nc, 100))
-        self.cv2 = nn.ModuleList(
-            nn.Sequential(ConvBN(x, c2, 3), ConvBN(c2, c2, 3), nn.Conv2d(c2, 4 * reg_max, 1))
-            for x in ch)
-        if legacy:
-            self.cv3 = nn.ModuleList(
-                nn.Sequential(ConvBN(x, c3, 3), ConvBN(c3, c3, 3), nn.Conv2d(c3, nc, 1))
-                for x in ch)
-        else:
-            self.cv3 = nn.ModuleList(
-                nn.Sequential(nn.Sequential(DWConv(x, x, 3), ConvBN(x, c3, 1)),
-                              nn.Sequential(DWConv(c3, c3, 3), ConvBN(c3, c3, 1)),
-                              nn.Conv2d(c3, nc, 1))
-                for x in ch)
+        self.nc, self.reg_max, self.stride, self.max_det = nc, reg_max, tuple(stride), max_det
+        self.cv2, self.cv3 = _tower_lists(ch, nc, reg_max, legacy)
+        if self.end2end:
+            self.one2one_cv2, self.one2one_cv3 = _tower_lists(ch, nc, reg_max, legacy)
         self.dfl = DFL(reg_max)
 
     @torch.no_grad()
     def bias_init(self):
-        """Box logits start at 1, class logits at the 5-objects-per-640px-image prior."""
-        for seq in self.cv2:
-            seq[-1].bias.fill_(1.0)
-        for seq, s in zip(self.cv3, self.stride):
-            seq[-1].bias.fill_(math.log(5 / self.nc / (640 / s) ** 2))
+        """Box logits start at 1, class logits at the 5-objects-per-640px-image
+        prior, in both branches."""
+        pairs = [(self.cv2, self.cv3)]
+        if self.end2end:
+            pairs.append((self.one2one_cv2, self.one2one_cv3))
+        for cv2, cv3 in pairs:
+            for seq in cv2:
+                seq[-1].bias.fill_(1.0)
+            for seq, s in zip(cv3, self.stride):
+                seq[-1].bias.fill_(math.log(5 / self.nc / (640 / s) ** 2))
 
     def decode(self, feats, quality=None):
-        """Levels -> (B, A, 4 + nc) in f32: DFL integral boxes, sigmoid cls
-        (times the clipped quality when there is one)."""
+        """Levels -> (B, A, 4 + nc) in f32: DFL integral boxes (xywh, or xyxy
+        when end2end), sigmoid cls (times the clipped quality when there is
+        one); end2end then selects (B, max_det, 6) by `e2e_postprocess`."""
         b = feats[0].shape[0]
         flat = torch.cat([f.flatten(2) for f in feats], dim=2).float().transpose(1, 2)
         box_logits, cls_logits = flat.split((4 * self.reg_max, self.nc), dim=-1)
         anchors, strides = make_anchors([f.shape[-2:] for f in feats], self.stride,
                                         device=flat.device)
-        dbox = dist2bbox(self.dfl(box_logits), anchors[None], xywh=True) * strides[None]
+        dbox = dist2bbox(self.dfl(box_logits), anchors[None], xywh=not self.end2end) * strides[None]
         cls_prob = torch.sigmoid(cls_logits)
         if quality is not None:
             q = torch.cat([qi.reshape(b, -1, 1) for qi in quality], dim=1)
             cls_prob = cls_prob * q.clamp(1e-6, 1 - 1e-6)
-        return torch.cat([dbox, cls_prob], dim=-1)
+        out = torch.cat([dbox, cls_prob], dim=-1)
+        return e2e_postprocess(out, self.max_det, self.nc) if self.end2end else out
 
-    def towers(self, xs):
-        """(box logits per level, feats per level)."""
-        boxes = [cv2(x) for cv2, x in zip(self.cv2, xs)]
-        return boxes, [torch.cat([bx, cv3(x)], dim=1) for bx, cv3, x in zip(boxes, self.cv3, xs)]
+    def towers(self, xs, one2one: bool = False):
+        """(box logits per level, feats per level) of the one2many branch, or
+        of the one2one branch on detached inputs."""
+        cv2, cv3 = self.cv2, self.cv3
+        if one2one:
+            cv2, cv3 = self.one2one_cv2, self.one2one_cv3
+            xs = [x.detach() for x in xs]
+        boxes = [m(x) for m, x in zip(cv2, xs)]
+        return boxes, [torch.cat([bx, m(x)], dim=1) for bx, m, x in zip(boxes, cv3, xs)]
 
     def forward(self, xs):
-        _, feats = self.towers(xs)
-        out = {"feats": feats}
+        out = {}
+        if self.training or not self.end2end:
+            out["feats"] = self.towers(xs)[1]
+        if self.end2end:
+            out["one2one_feats"] = self.towers(xs, one2one=True)[1]
         if not self.training:
-            out["pred"] = self.decode(feats)
+            out["pred"] = self.decode(out["one2one_feats" if self.end2end else "feats"])
         return out
 
 
@@ -107,17 +165,27 @@ class GFLHeadv2_uniH(Detect):
     """Detect + DGQP quality head (the working semantics of GF2Detect)."""
 
     def __init__(self, nc: int = 80, ch: Sequence[int] = (), stride: Sequence[int] = (8, 16, 32),
-                 reg_max: int = 16, legacy: bool = False, reg_topk: int = 4,
+                 reg_max: int = 16, legacy: bool = False, max_det: int = 300, reg_topk: int = 4,
                  add_mean: bool = True, reg_channels: int = 64):
-        super().__init__(nc, ch, stride, reg_max, legacy)
+        super().__init__(nc, ch, stride, reg_max, legacy, max_det)
         self.reg_topk, self.add_mean = reg_topk, add_mean
         stat_ch = 4 * (min(reg_topk, reg_max) + int(add_mean))
-        self.reg_conf = nn.ModuleList(
-            nn.Sequential(nn.Conv2d(stat_ch, reg_channels, 1), nn.ReLU(),
-                          nn.Conv2d(reg_channels, 1, 1), nn.Sigmoid())
-            for _ in ch)
 
-    def quality(self, box_logits: torch.Tensor, i: int) -> torch.Tensor:
+        def heads():
+            return nn.ModuleList(
+                nn.Sequential(nn.Conv2d(stat_ch, reg_channels, 1), nn.ReLU(),
+                              nn.Conv2d(reg_channels, 1, 1), nn.Sigmoid())
+                for _ in ch)
+
+        self.reg_conf = heads()
+        if self.end2end:
+            self.one2one_reg_conf = heads()
+
+    def quality_heads(self) -> list[nn.Module]:
+        """The quality mini-heads (one set per branch): the f32 island."""
+        return [self.reg_conf] + ([self.one2one_reg_conf] if self.end2end else [])
+
+    def quality(self, box_logits: torch.Tensor, i: int, one2one: bool = False) -> torch.Tensor:
         """DGQP: top-k and mean of each side's DFL distribution -> (B, 1, H, W) in [0, 1].
 
         Runs in f32 (the 1e-7 tie-break is below bf16 resolution), autocast or not."""
@@ -128,12 +196,27 @@ class GFLHeadv2_uniH(Detect):
             if self.add_mean:
                 parts.append(prob.mean(dim=2, keepdim=True))
             stat = torch.cat(parts, dim=2).flatten(1, 2)  # side-major, (B, 4*(k+1), H, W)
-            return self.reg_conf[i](stat)
+            return (self.one2one_reg_conf if one2one else self.reg_conf)[i](stat)
 
     def forward(self, xs):
-        boxes, feats = self.towers(xs)
-        quality = [self.quality(bx, i) for i, bx in enumerate(boxes)]
-        out = {"feats": feats, "quality": quality}
+        out = {}
+        if self.training or not self.end2end:
+            boxes, out["feats"] = self.towers(xs)
+            out["quality"] = [self.quality(bx, i) for i, bx in enumerate(boxes)]
+        if self.end2end:
+            boxes, out["one2one_feats"] = self.towers(xs, one2one=True)
+            out["one2one_quality"] = [self.quality(bx, i, one2one=True)
+                                      for i, bx in enumerate(boxes)]
         if not self.training:
-            out["pred"] = self.decode(feats, quality)
+            key = "one2one_" if self.end2end else ""
+            out["pred"] = self.decode(out[key + "feats"], out[key + "quality"])
         return out
+
+
+class E2EDetect(GFLHeadv2_uniH):
+    """End-to-end (NMS-free) GF2Detect: the one2one branch and the top-k selection."""
+
+    end2end = True
+
+
+GFLHeadv2_E2E = E2EDetect  # the thesis's name for the GFLv2 head in its NMS-free form

@@ -4,15 +4,17 @@
 dict (depth n' = max(round(n*depth), 1) for n > 1; width c2' =
 make_divisible(min(c2, max_channels)*width, 8) unless c2 == nc; the CSP
 family takes its repeats as an argument; the C3k2 family forces c3k at
-scales l and x, A2C2f its residual and mlp_ratio 1.5; HyperACE takes c1
-from its second input and scales its hyperedges by 0.5 at n and 1.5 at x;
-DownsampleConv doubles its channels below l; heads get the per-level input
-channels) into a tuple of `LayerSpec`s. `GraphNet` builds one module per
+scales l and x, A2C2f its residual and mlp_ratio 1.5; HyperACE and its
+wavelet variants take c1 from their second input and scale their hyperedges
+by 0.5 at n and 1.5 at x; DownsampleConv doubles its channels below l; heads
+get the per-level input channels, and an end-to-end head always the DWConv
+cls tower) into a tuple of `LayerSpec`s. `GraphNet` builds one module per
 spec under `model.{i}`, the reference state_dict layout, and walks them in
 order.
 
-The modules of EdgeLine-YOLO, the YOLO11 ablation family and YOLOv13 (with
-MSLA) are registered; an unknown module name raises.
+The modules of EdgeLine-YOLO, the YOLO11 ablation family and the YOLOv13
+family (MSLA, LGL, the wavelet HyperACE and the NMS-free E2E quality head)
+are registered; an unknown module name raises.
 """
 
 from __future__ import annotations
@@ -31,10 +33,13 @@ from edgeyolo_tpu_torch.nn.modules.conv import Concat, ConvBN, DSConv, DWConv, U
 from edgeyolo_tpu_torch.nn.modules.edgeline import C2PSA_LinearAttention, DSC3K2, DSC3K2_Wavelet
 from edgeyolo_tpu_torch.nn.modules.extra import (A2C2f, AdaHyperedgeGen, DownsampleConv,
                                                  FullPAD_Tunnel, HyperACE)
-from edgeyolo_tpu_torch.nn.modules.head import Detect, GFLHeadv2_uniH
-from edgeyolo_tpu_torch.nn.modules.msla_lgl import DSC3K2_MSLA
+from edgeyolo_tpu_torch.nn.modules.head import Detect, E2EDetect, GFLHeadv2_uniH
+from edgeyolo_tpu_torch.nn.modules.msla_lgl import (C3AW_MLM, DSC3K2_LGL, DSC3K2_MSLA,
+                                                    HyperACE_Wavelet, Wavelet_SS2D)
 from edgeyolo_tpu_torch.utils import make_divisible, select_device
 
+_HYPERACE_ARGS = ["c2", "n", "num_hyperedges", "dsc3k", "shortcut", "e1", "e2", "context",
+                  "channel_adjust"]
 # name -> (module class, argument names after c1, i.e. as args stand after parsing)
 _REG: dict[str, tuple[type, list[str]]] = {
     "Conv": (ConvBN, ["c2", "k", "s", "p", "g", "d", "act"]),
@@ -53,27 +58,34 @@ _REG: dict[str, tuple[type, list[str]]] = {
     "DSC3K2": (DSC3K2, ["c2", "n", "dsc3k", "e", "g", "shortcut", "k1", "k2", "d2"]),
     "DSC3K2_Wavelet": (DSC3K2_Wavelet, ["c2", "n", "dsc3k", "e", "g", "shortcut", "k1", "k2", "d2"]),
     "DSC3K2_MSLA": (DSC3K2_MSLA, ["c2", "n", "dsc3k", "e", "g", "shortcut", "k1", "k2", "d2"]),
+    "DSC3K2_LGL": (DSC3K2_LGL, ["c2", "n", "dsc3k", "e", "g", "shortcut", "k1", "k2", "d2"]),
+    "C3AW_MLM": (C3AW_MLM, ["c2", "e", "levels"]),
     "A2C2f": (A2C2f, ["c2", "n", "a2", "area", "residual", "mlp_ratio", "e", "g", "shortcut"]),
-    "HyperACE": (HyperACE, ["c2", "n", "num_hyperedges", "dsc3k", "shortcut", "e1", "e2",
-                            "context", "channel_adjust"]),
+    "HyperACE": (HyperACE, _HYPERACE_ARGS),
+    "HyperACE_Wavelet": (HyperACE_Wavelet, _HYPERACE_ARGS),
+    "Wavelet_SS2D": (Wavelet_SS2D, _HYPERACE_ARGS),
     "DownsampleConv": (DownsampleConv, ["c1", "channel_adjust"]),
     "FullPAD_Tunnel": (FullPAD_Tunnel, []),
     "Concat": (Concat, ["dim"]),
     "nn.Upsample": (Upsample, ["size", "scale_factor", "mode"]),
     "Detect": (Detect, ["nc"]),
     "GFLHeadv2_uniH": (GFLHeadv2_uniH, ["nc"]),
+    "GF2Detect": (GFLHeadv2_uniH, ["nc"]),
+    "E2EDetect": (E2EDetect, ["nc"]),
+    "GFLHeadv2_E2E": (E2EDetect, ["nc"]),
 }
 _CONV_LIKE = {"Conv", "ConvBN", "DWConv", "DSConv", "Bottleneck", "C2f", "C3", "C3k", "C3k2",
               "SPPF", "C2PSA", "C2PSA_LinearAttention", "DSC3K2", "DSC3K2_Wavelet",
-              "DSC3K2_MSLA", "A2C2f"}
+              "DSC3K2_MSLA", "DSC3K2_LGL", "C3AW_MLM", "A2C2f"}
 _REPEAT_INSERT = {"C2f", "C3", "C3k2", "C2PSA", "C2PSA_LinearAttention", "DSC3K2",
-                  "DSC3K2_Wavelet", "DSC3K2_MSLA", "A2C2f"}
-_C3K2_FAMILY = {"C3k2", "DSC3K2", "DSC3K2_Wavelet", "DSC3K2_MSLA"}
-_HEADS = {"Detect", "GFLHeadv2_uniH"}
+                  "DSC3K2_Wavelet", "DSC3K2_MSLA", "DSC3K2_LGL", "A2C2f"}
+_C3K2_FAMILY = {"C3k2", "DSC3K2", "DSC3K2_Wavelet", "DSC3K2_MSLA", "DSC3K2_LGL"}
+_HYPERACE = {"HyperACE", "HyperACE_Wavelet", "Wavelet_SS2D"}
+_HEADS = {"Detect", "GFLHeadv2_uniH", "GF2Detect", "E2EDetect", "GFLHeadv2_E2E"}
 _STRIDE_ARG = {"Conv", "ConvBN", "DWConv", "DSConv"}
 _STRIDE_FIXED = {"DownsampleConv": 2.0}
 # built from c1 (the channels of their input, the second one for HyperACE) and the args
-_TAKES_C1 = _CONV_LIKE | {"HyperACE"}
+_TAKES_C1 = _CONV_LIKE | _HYPERACE
 
 
 def _literal(v):
@@ -140,7 +152,7 @@ def parse_spec(d: dict, ch: int = 3) -> tuple[tuple[LayerSpec, ...], tuple[int, 
                         args.append({2: True, 3: 1, 4: False, 5: 2.0}.get(len(args)))
                     args[4] = True
                     args[5] = 1.5
-        elif name == "HyperACE":  # c1 from the second input; hyperedges scaled by size
+        elif name in _HYPERACE:  # c1 from the second input; hyperedges scaled by size
             legacy = False
             c1 = ch_list[f_list[1]]
             c2 = make_divisible(min(args[0], max_channels) * width, 8)
@@ -163,7 +175,7 @@ def parse_spec(d: dict, ch: int = 3) -> tuple[tuple[LayerSpec, ...], tuple[int, 
             c2 = sum(ch_list[x] for x in f_list)
         elif name in _HEADS:
             kwargs["ch"] = tuple(ch_list[x] for x in f_list)
-            kwargs["legacy"] = legacy
+            kwargs["legacy"] = legacy and not _REG[name][0].end2end
             c2 = sum(kwargs["ch"])
         else:  # nn.Upsample, FullPAD_Tunnel
             c2 = c1
@@ -241,11 +253,11 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded initialisation: every trainable conv and linear weight ~
     U(+-1/sqrt(fan_in)) (torch's default, the JAX KERNEL_INIT), their biases
     0; hyperedge prototypes xavier-uniform, as flax initialises them.
-    BatchNorm, the gates, the wavelet and MSLA scale weights and the frozen
-    DFL bins keep their constructor values."""
+    BatchNorm, LayerNorm, the gates, the wavelet and MSLA scale weights and
+    the frozen DFL bins keep their constructor values."""
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, (nn.Conv2d, nn.Linear)) and m.weight.requires_grad:
+            if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.Linear)) and m.weight.requires_grad:
                 _uniform_(m.weight, m.weight[0].numel() ** -0.5, generator)
                 if m.bias is not None:
                     m.bias.zero_()
@@ -282,8 +294,10 @@ def amp_params(model: nn.Module) -> dict[str, torch.Tensor]:
 
 
 def train_forward(model: nn.Module, x: torch.Tensor, amp: bool = True) -> dict:
-    """The training forward: {"feats", "quality"} per level, in f32; "quality"
-    is None for a head without one (Detect).
+    """The training forward: {"feats", "quality", "one2one_feats",
+    "one2one_quality"} per level, in f32; a key the head does not emit
+    (the quality of Detect, the one2one branch of a head that is not end to
+    end) is None.
 
     With `amp`, as JAX's `amp_cast` of the f32 masters: the forward sees
     `amp_params(model)` through `torch.func.functional_call`, so gradients
@@ -298,7 +312,7 @@ def train_forward(model: nn.Module, x: torch.Tensor, amp: bool = True) -> dict:
         with torch.autocast(x.device.type, dtype=torch.bfloat16):
             out = torch.func.functional_call(model, amp_params(model), (x.to(torch.bfloat16),))
     return {k: None if out.get(k) is None else [f.float() for f in out[k]]
-            for k in ("feats", "quality")}
+            for k in ("feats", "quality", "one2one_feats", "one2one_quality")}
 
 
 def for_precision(model: nn.Module, half: bool) -> nn.Module:
@@ -314,9 +328,11 @@ class DetectionModel(GraphNet):
 
     `dtype` is the compute dtype of every convolution and linear layer but
     the quality head's;
-    BatchNorm, the wavelet band weights, the quality head and the box decode
-    stay f32. `nc` replaces the spec's class count (a head for a dataset).
-    The model lands on CUDA unless `device` names another device.
+    BatchNorm, LayerNorm, the wavelet band weights, the quality head and the
+    box decode stay f32. `nc` replaces the spec's class count (a head for a
+    dataset). `end2end` is the head's: an NMS-free head's pred is its
+    (B, max_det, 6) selection. The model lands on CUDA unless `device` names
+    another device.
     """
 
     def __init__(self, cfg: str = "edgeline-yolo.yaml", scale: str | None = None,
@@ -335,6 +351,7 @@ class DetectionModel(GraphNet):
         self.nc = info["nc"]
         self.names = {i: str(i) for i in range(self.nc)}
         self.cfg, self.scale = cfg, info["scale"]
+        self.end2end = bool(getattr(self.model[-1], "end2end", False))
         init_weights(self, torch.Generator().manual_seed(seed))
         self.model[-1].bias_init()
         self.set_dtype(dtype)
@@ -344,9 +361,9 @@ class DetectionModel(GraphNet):
         """Cast every convolution and linear layer but the quality head's to
         `dtype`, in place."""
         for m in self.modules():
-            if isinstance(m, (nn.Conv2d, nn.Linear)):
+            if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.Linear)):
                 m.to(dtype)
-        if hasattr(self.model[-1], "reg_conf"):
-            self.model[-1].reg_conf.float()  # the quality head is an f32 island, as in JAX
+        for q in getattr(self.model[-1], "quality_heads", list)():
+            q.float()  # the quality heads are an f32 island, as in JAX
         self.dtype = dtype
         return self

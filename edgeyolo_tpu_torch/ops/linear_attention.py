@@ -29,7 +29,9 @@ import torch
 from edgeyolo_tpu_torch.ops import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (8, 16, 32, 48, 64, 96)  # MSLA's quarters at scales n to x, and C2PSA's 64
+# MSLA's quarters at scales n to x, C2PSA's 64, and the wavelet mixer's LL band (c / 2:
+# 32 to 192 at scales n to x)
+_HEAD_DIMS = (8, 16, 32, 48, 64, 96, 128, 192)
 TILE_N = 64  # tokens per tile of the kernel; chunks are whole tiles
 
 
@@ -150,7 +152,7 @@ def linear_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -
     """Launch csrc/linear_attention.cu on CUDA tensors q, k, v of shape (B, N, H, D).
 
     q, k and v must share shape, strides, dtype (f32 or bf16) and device;
-    D must be one of 8, 16, 32, 48, 64 and 96. y comes back token-minor
+    D must be one of 8, 16, 32, 48, 64, 96, 128 and 192. y comes back token-minor
     (B, H, D, N) in memory when q is token-minor, else as a contiguous
     (B, N, H, D).
     """

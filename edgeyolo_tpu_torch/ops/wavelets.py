@@ -1,12 +1,13 @@
 """Wavelet filter banks, computed on the host with numpy (no pywt dependency).
 
-The port's own copy of the analysis half of edgeyolo_tpu/ops/wavelets.py:
-Haar in closed form, Daubechies dbN by spectral factorization of the
-Daubechies polynomial (minimum-phase roots), symN for N<=3 equal to dbN.
-Filters follow the pywt convention (`dec_lo` time-reversed relative to the
-scaling coefficients), so plain correlation implements the DWT. The 2D
-kernels are (k, k, 1, 4) in (LL, LH, HL, HH) order; the DWT module turns
-them into a stride-2 depthwise convolution.
+The port's own copy of edgeyolo_tpu/ops/wavelets.py: Haar in closed form,
+Daubechies dbN by spectral factorization of the Daubechies polynomial
+(minimum-phase roots), symN for N<=3 equal to dbN. Filters follow the pywt
+convention (`dec_lo` time-reversed relative to the scaling coefficients), so
+plain correlation implements the DWT. The 2D analysis kernels are
+(k, k, 1, 4) in (LL, LH, HL, HH) order; the DWT module turns them into a
+stride-2 depthwise convolution. The synthesis kernels are (k, k, 4), the
+inverse Haar's 2 x 2 taps of each band.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import math
 
 import numpy as np
 
-__all__ = ["get_filter_bank", "dwt2d_kernel", "dwt_pad_each_side"]
+__all__ = ["get_filter_bank", "dwt2d_kernel", "idwt2d_kernel", "dwt_pad_each_side"]
 
 
 def _daubechies_dec_lo(N: int) -> np.ndarray:
@@ -92,6 +93,15 @@ def dwt2d_kernel(wave: str = "haar", dtype=np.float32) -> np.ndarray:
     kHL = np.outer(h1, h0)
     kHH = np.outer(h1, h1)
     k = np.stack([kLL, kLH, kHL, kHH], axis=-1)[:, :, None, :]  # (k,k,1,4)
+    return k.astype(dtype)
+
+
+def idwt2d_kernel(wave: str = "haar", dtype=np.float32) -> np.ndarray:
+    """2D single-level inverse-DWT synthesis kernels, shape (k, k, 4) in
+    (LL, LH, HL, HH) order, for a stride-2 transposed depthwise convolution."""
+    _, _, rec_lo, rec_hi = get_filter_bank(wave)
+    g0, g1 = rec_lo, rec_hi
+    k = np.stack([np.outer(g0, g0), np.outer(g0, g1), np.outer(g1, g0), np.outer(g1, g1)], axis=-1)
     return k.astype(dtype)
 
 

@@ -1,5 +1,8 @@
-"""The detection criterion (edgeyolo_tpu/train/loss.py): TAL assignment, the
-quality-joint BCE, CIoU and DFL, over fixed-shape padded targets.
+"""The detection criteria (edgeyolo_tpu/train/loss.py): TAL assignment, the
+quality-joint BCE, CIoU and DFL, over fixed-shape padded targets; and
+E2EDetectLoss for the NMS-free heads, the sum of that criterion over the
+one2many branch (TAL top-10) and over the one2one branch (top-1), each
+branch with its own quality.
 
 The head hands in NCHW maps; `DetectionLoss` flattens them to (B, A, no) in
 row-major anchor order per level, the order of JAX's NHWC reshape and of
@@ -126,3 +129,23 @@ class DetectionLoss:
         total = (loss_box + loss_cls + loss_dfl) * n_img
         items = {"box": loss_box.detach(), "cls": loss_cls.detach(), "dfl": loss_dfl.detach()}
         return total, items
+
+
+class E2EDetectLoss:
+    """one2many (TAL topk 10) + one2one (topk 1), each with its own quality;
+    called with the head's whole output dict and a padded target batch."""
+
+    def __init__(self, nc: int = 80, reg_max: int = 16, stride: Sequence[int] = (8, 16, 32),
+                 hyp: dict | None = None):
+        self.one2many = DetectionLoss(nc, reg_max, stride, hyp, tal_topk=10)
+        self.one2one = DetectionLoss(nc, reg_max, stride, hyp, tal_topk=1)
+
+    @classmethod
+    def for_model(cls, model, hyp: dict | None = None) -> "E2EDetectLoss":
+        head = model.model[-1]
+        return cls(nc=head.nc, reg_max=head.reg_max, stride=head.stride, hyp=hyp)
+
+    def __call__(self, out: dict, batch: dict):
+        l1, i1 = self.one2many(out["feats"], batch, out.get("quality"))
+        l2, i2 = self.one2one(out["one2one_feats"], batch, out.get("one2one_quality"))
+        return l1 + l2, {k: i1[k] + i2[k] for k in i1}

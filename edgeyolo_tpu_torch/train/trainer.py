@@ -18,8 +18,9 @@ completed updates only.
 
 The step: uint8 batch -> `augment_batch` -> forward in train mode (with
 `amp`, on the parameters rounded to bf16 under bf16 autocast, as JAX's
-`amp_cast`) -> `DetectionLoss` in f32 -> backward -> accumulate -> update
--> EMA. `DetectionTrainer.train(batches)` runs epochs over a re-iterable of
+`amp_cast`) -> `DetectionLoss` in f32 (`E2EDetectLoss` on the whole output
+dict when the model's head is end to end) -> backward -> accumulate ->
+update -> EMA. `DetectionTrainer.train(batches)` runs epochs over a re-iterable of
 batches in the loader's collate format. `DetectionTrainer.fit()` is JAX's
 dataset-driven `DetectionTrainer.train`: the dataset YAML, a shuffled
 augmenting loader, `close_mosaic`, validation each epoch with the EMA
@@ -51,7 +52,7 @@ from torch import nn
 from edgeyolo_tpu_torch.data.augment_device import augment_batch
 from edgeyolo_tpu_torch.data.dataset import YOLODataset, build_dataloader, check_det_dataset
 from edgeyolo_tpu_torch.nn.tasks import train_forward
-from edgeyolo_tpu_torch.train.loss import DetectionLoss
+from edgeyolo_tpu_torch.train.loss import DetectionLoss, E2EDetectLoss
 from edgeyolo_tpu_torch.utils import LOGGER, select_device
 from edgeyolo_tpu_torch.utils.yamlfile import yaml_save
 
@@ -70,10 +71,10 @@ CLIP_NORM = 10.0
 
 def _decay_mask(model: nn.Module) -> dict[str, bool]:
     """Parameter name -> whether it takes weight decay: conv and linear kernels
-    only (BatchNorm scales and shifts, biases, gates, the wavelet and MSLA
-    weights and the hyperedge prototypes take none)."""
+    only (BatchNorm and LayerNorm scales and shifts, biases, gates, the
+    wavelet and MSLA weights and the hyperedge prototypes take none)."""
     kernels = {name for name, m in model.named_modules()
-               if isinstance(m, (nn.Conv2d, nn.Linear))}
+               if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.Linear))}
     return {name: name.rpartition(".")[0] in kernels and name.endswith(".weight")
             for name, p in model.named_parameters() if p.requires_grad}
 
@@ -298,7 +299,9 @@ class DetectionTrainer:
         self.last_metrics: dict = {}
         self.validator = None
         self.model = model.to(self.device).train()
-        self.criterion = DetectionLoss.for_model(model, self.args)
+        self.end2end = bool(getattr(model, "end2end", False))
+        self.criterion = (E2EDetectLoss if self.end2end else DetectionLoss).for_model(
+            model, self.args)
         self.gen = torch.Generator().manual_seed(int(self.args["seed"]))
         self.epoch_losses: list[list[float]] = []
         self.epoch = 0
@@ -332,7 +335,8 @@ class DetectionTrainer:
         out = train_forward(self.model, img01.permute(0, 3, 1, 2).contiguous(),
                             amp=bool(a["amp"]))
         tgt = {"cls": cls, "bboxes": bboxes, "mask_gt": mask, "img_weight": batch["img_weight"]}
-        loss, items = self.criterion(out["feats"], tgt, out.get("quality"))
+        loss, items = (self.criterion(out, tgt) if self.end2end
+                       else self.criterion(out["feats"], tgt, out.get("quality")))
         self.flat.grad.zero_()
         loss.backward()
         updated = self.optimizer.step(self.flat.data, self.flat.grad)

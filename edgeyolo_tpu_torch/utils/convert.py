@@ -3,11 +3,14 @@
 The port's own copy of the key rule of edgeyolo_tpu/utils/torch_convert.py
 (`flax_path_to_torch_key`): flax scope `l{i}_{Type}` is `model.{i}`, a
 trailing `_{digits}` group is module-list indexing (`cv2_0_1` ->
-`cv2.0.1`), and the quality head's second conv sits at index 2 of its torch
-Sequential (`reg_conf.{i}.2`). Leaves map kernel/scale -> weight,
-mean/var -> running_mean/running_var; conv kernels go HWIO -> OIHW and dense
-kernels (in, out) -> (out, in). Plain parameters (`gate`, `gamma`,
-`scale_weights`, `prototype_base`) keep their name and layout.
+`cv2.0.1`, `mix_1_2` -> `mix.1.2`), and the quality head's second conv, in
+either branch, sits at index 2 of its torch Sequential (`reg_conf.{i}.2`,
+`one2one_reg_conf.{i}.2`). Leaves map kernel/scale -> weight, mean/var ->
+running_mean/running_var (a LayerNorm's scale and bias are its weight and
+bias); 2-D conv kernels go HWIO -> OIHW, 1-D ones (k, in/g, out) ->
+(out, in/g, k), and dense kernels (in, out) -> (out, in). Plain parameters
+(`gate`, `gamma`, `scale_weights`, `prototype_base`) keep their name and
+layout.
 """
 
 from __future__ import annotations
@@ -48,6 +51,8 @@ def from_jax_variables(flat: dict[tuple[str, ...], np.ndarray]) -> dict[str, tor
         arr = np.asarray(arr)
         if path[-1] == "kernel" and arr.ndim == 4:
             arr = arr.transpose(3, 2, 0, 1)
+        elif path[-1] == "kernel" and arr.ndim == 3:
+            arr = arr.transpose(2, 1, 0)
         elif path[-1] == "kernel" and arr.ndim == 2:
             arr = arr.T
         sd[jax_path_to_torch_key(tuple(path))] = torch.tensor(arr)

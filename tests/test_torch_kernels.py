@@ -129,12 +129,18 @@ def cuda_card():
 # N = 1000 and 6400 span several chunks with a ragged last one (16-byte
 # loads); N = 250 in the qkv layout and every bnhd case take one element
 # per load. D = 8, 16, 48 and 96 are MSLA's head dims at scales n to x (FMA
-# products; at D = 8 the context is summed over four token shares).
+# products; at D = 8 the context is summed over four token shares). The
+# wavelet mixer's LL band (yolov13-test) gives N = 100 at 640 px and N = 1 at
+# 64 px, at D = 32 (scale n), 128 (l) and 192 (x; FMA products, two passes
+# of q statistics); (1, 6400, 2, 128) and (2, 999, 2, 192) merge many chunks.
 CARD_CASES = [(4, 400, 2, 64, "qkv"), (2, 999, 3, 32, "bnhd"), (1, 33, 1, 64, "bnhd"),
               (2, 1000, 2, 64, "qkv"), (1, 6400, 4, 64, "qkv"), (3, 250, 2, 32, "qkv"),
               (2, 25600, 2, 8, "qkv"), (2, 1000, 2, 8, "bnhd"), (2, 6400, 2, 16, "qkv"),
               (3, 250, 2, 16, "bnhd"), (2, 999, 2, 48, "qkv"), (2, 400, 2, 96, "qkv"),
-              (1, 33, 3, 96, "bnhd")]
+              (1, 33, 3, 96, "bnhd"),
+              (32, 100, 2, 32, "qkv"), (2, 100, 2, 128, "qkv"), (2, 100, 2, 192, "qkv"),
+              (3, 1, 2, 32, "qkv"), (3, 1, 2, 128, "qkv"), (2, 1, 2, 192, "bnhd"),
+              (1, 6400, 2, 128, "qkv"), (2, 999, 2, 192, "qkv"), (2, 37, 1, 128, "bnhd")]
 
 
 def _card_qkv(b, n, h, d, layout, dtype, device):
@@ -162,7 +168,7 @@ def test_kernel_matches_plain_on_card(cuda_card, case, dtype, rtol):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 8, 96])
+@pytest.mark.parametrize("d", [64, 8, 96, 128, 192])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_kernel_is_bit_identical_across_launches_on_card(cuda_card, dtype, d):
     """The partial contexts are merged in a fixed order, with no float atomics."""
