@@ -1,12 +1,14 @@
 """Model specs: the port's own copies of the JAX package's model YAMLs.
 
 `cfg/models/*.yaml` are byte-identical copies of the files of the same name
-in edgeyolo_tpu/cfg/models/ for the families the port builds (EdgeLine-YOLO,
-the YOLO11 ablation family, YOLOv13 and its MSLA, LGL, wavelet and
-NMS-free variants), read with the
-port's YAML subset reader: [from, repeats, module, args] rows, compound
-scales [depth, width, max_channels]. The reference fork's EdgeLine-YOLO-n
-has 2,678,699 parameters.
+in edgeyolo_tpu/cfg/models/ for the families the port builds (EdgeLine-YOLO
+and its variants, the YOLO11 ablation family, YOLOv13 and its MSLA, LGL,
+wavelet and NMS-free variants, YOLOv10, YOLOv12, and YOLOv3/5/6/8 with their
+P2, P6, SPP, tiny and Ghost variants), read with the port's YAML subset
+reader: [from, repeats, module, args] rows, compound scales [depth, width,
+max_channels]. A per-size file (yolov10s.yaml, yolov12x.yaml) is what its
+own name resolves to. The reference fork's EdgeLine-YOLO-n has 2,678,699
+parameters.
 """
 
 from __future__ import annotations

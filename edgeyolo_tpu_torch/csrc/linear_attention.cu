@@ -65,6 +65,11 @@
 // it once per shape, so a call converts eight arguments. The launches go to
 // `device` (made current for the call) on `stream`.
 // Returns the first non-zero cudaError_t (0 on success).
+//   int edgeyolo_la_forward_marked(q, k, v, y, workspace, counters, stream,
+//                                  const LaShape* shape, void* const* events)
+// is the same call with three cudaEvent_t recorded on the stream: before the
+// context launch, between the two launches and after the output launch, so
+// a caller can time each phase with its own event pair.
 //   int edgeyolo_la_blocks_per_sm(int dtype, int head_dim, device)
 // returns the context blocks one SM holds at once (negative: -cudaError_t).
 //
@@ -706,6 +711,7 @@ struct Args {
   Strides si, so;
   cudaStream_t stream;
   int device;
+  const cudaEvent_t* marks = nullptr;  // start, between the launches, end (optional)
 };
 
 // Tokens are the unit-stride axis and every 16-byte group of them is aligned and whole.
@@ -759,15 +765,19 @@ cudaError_t launch(const Args& a) {
       tiles > 65535)
     return cudaErrorInvalidValue;
   cudaError_t err = allow_smem<T, D>(a.device);
+  if (err == cudaSuccess && a.marks) err = cudaEventRecord(a.marks[0], a.stream);
   if (err != cudaSuccess) return err;
   la_context_kernel<T, D><<<dim3(a.B * a.H, a.S), kThreads, kSmem, a.stream>>>(
       q, static_cast<const T*>(a.k), static_cast<const T*>(a.v), a.ws, a.counters, a.H, a.N,
       a.S, a.chunk, a.si, vec_in);
   err = cudaGetLastError();
+  if (err == cudaSuccess && a.marks) err = cudaEventRecord(a.marks[1], a.stream);
   if (err != cudaSuccess) return err;
   la_output_kernel<T, D><<<dim3(a.B * a.H, tiles), kThreads, kOutputSmem<D>, a.stream>>>(
       q, a.ws, static_cast<T*>(a.y), a.H, a.N, a.S, a.si, a.so, vec_in, vec_out);
-  return cudaGetLastError();
+  err = cudaGetLastError();
+  if (err == cudaSuccess && a.marks) err = cudaEventRecord(a.marks[2], a.stream);
+  return err;
 }
 
 template <typename T>
@@ -830,18 +840,24 @@ extern "C" int edgeyolo_la_blocks_per_sm(int dtype, int head_dim, int device) {
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
-extern "C" int edgeyolo_la_forward(const void* q, const void* k, const void* v, void* y,
-                                   void* workspace, void* counters, void* stream,
-                                   const LaShape* shape) {
+extern "C" int edgeyolo_la_forward_marked(const void* q, const void* k, const void* v, void* y,
+                                          void* workspace, void* counters, void* stream,
+                                          const LaShape* shape, void* const* events) {
   const LaShape& p = *shape;
   if (p.B <= 0 || p.N <= 0 || p.H <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k, v, y, static_cast<float*>(workspace), static_cast<int*>(counters),
                p.B, p.N, p.H, p.S, p.chunk, Strides{p.in[0], p.in[1], p.in[2], p.in[3]},
                Strides{p.out[0], p.out[1], p.out[2], p.out[3]}, static_cast<cudaStream_t>(stream),
-               p.device};
+               p.device, reinterpret_cast<const cudaEvent_t*>(events)};
   return static_cast<int>(on_device(p.device, [&]() -> cudaError_t {
     if (p.dtype == 0) return launch_dim<float>(p.head_dim, a);
     if (p.dtype == 1) return launch_dim<__nv_bfloat16>(p.head_dim, a);
     return cudaErrorInvalidValue;
   }));
+}
+
+extern "C" int edgeyolo_la_forward(const void* q, const void* k, const void* v, void* y,
+                                   void* workspace, void* counters, void* stream,
+                                   const LaShape* shape) {
+  return edgeyolo_la_forward_marked(q, k, v, y, workspace, counters, stream, shape, nullptr);
 }

@@ -1,10 +1,10 @@
-"""CSP blocks, SPPF, the PSA attention and the DFL decode, NCHW
-(edgeyolo_tpu/nn/modules/block.py).
+"""CSP blocks, SPP and SPPF, SCDown, the PSA attention and the DFL decode,
+NCHW (edgeyolo_tpu/nn/modules/block.py).
 
 The C2f and C3 skeletons take a `block` factory for their inner blocks, which
 is how C3k2, DSC3k and the wavelet variants swap the block family.
 
-Attention (in C2PSA, YOLO11's S32 stage) is softmax attention over the H*W
+Attention (in C2PSA, YOLO11's S32 stage, and PSA, YOLOv10's) is softmax attention over the H*W
 tokens in plain PyTorch matmuls, as the JAX package leaves its einsums to
 XLA: no TPU kernel stands behind it.
 """
@@ -34,6 +34,22 @@ class Bottleneck(nn.Module):
     def forward(self, x):
         y = self.cv2(self.cv1(x))
         return x + y if self.add else y
+
+
+class C2(nn.Module):
+    """CSP with 2 convs: split at cv1, a bottleneck stack on the first half."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, g: int = 1,
+                 e: float = 0.5):
+        super().__init__()
+        c = int(c2 * e)
+        self.cv1 = ConvBN(c1, 2 * c, 1)
+        self.cv2 = ConvBN(2 * c, c2, 1)
+        self.m = nn.Sequential(*(Bottleneck(c, c, shortcut, g, (3, 3), 1.0) for _ in range(n)))
+
+    def forward(self, x):
+        a, b = self.cv1(x).chunk(2, dim=1)
+        return self.cv2(torch.cat([self.m(a), b], dim=1))
 
 
 class C2f(nn.Module):
@@ -116,6 +132,35 @@ class SPPF(nn.Module):
         return self.cv2(torch.cat(ys, dim=1))
 
 
+class SPP(nn.Module):
+    """Spatial pyramid pooling: stride-1 max pools of the kernel sizes `k` in
+    parallel."""
+
+    def __init__(self, c1: int, c2: int, k: Sequence[int] = (5, 9, 13)):
+        super().__init__()
+        c_ = c1 // 2
+        self.cv1 = ConvBN(c1, c_, 1)
+        self.cv2 = ConvBN(c_ * (len(k) + 1), c2, 1)
+        self.k = tuple(k)
+
+    def forward(self, x):
+        y = self.cv1(x)
+        return self.cv2(torch.cat([y] + [F.max_pool2d(y, k, 1, k // 2) for k in self.k], dim=1))
+
+
+class SCDown(nn.Module):
+    """Separable downsample (YOLOv10): a 1x1 conv, then a k x k depthwise conv
+    of stride s without activation."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 2):
+        super().__init__()
+        self.cv1 = ConvBN(c1, c2, 1, 1)
+        self.cv2 = ConvBN(c2, c2, k, s, g=c2, act=False)
+
+    def forward(self, x):
+        return self.cv2(self.cv1(x))
+
+
 class Attention(nn.Module):
     """Self-attention over H*W tokens with a depthwise positional encoding.
 
@@ -174,6 +219,34 @@ class C2PSA(nn.Module):
     def forward(self, x):
         a, b = self.cv1(x).chunk(2, dim=1)
         return self.cv2(torch.cat([a, self.m(b)], dim=1))
+
+
+class PSA(nn.Module):
+    """Position-sensitive attention (YOLOv10): a CSP split whose second half
+    takes one attention and one FFN residual; c1 must equal c2."""
+
+    def __init__(self, c1: int, c2: int, e: float = 0.5):
+        super().__init__()
+        if c1 != c2:
+            raise ValueError("PSA requires c1 == c2")
+        c = int(c2 * e)
+        self.cv1 = ConvBN(c1, 2 * c, 1)
+        self.cv2 = ConvBN(2 * c, c2, 1)
+        self.attn = Attention(c, max(1, c // 64), 0.5)
+        self.ffn = nn.Sequential(ConvBN(c, 2 * c, 1), ConvBN(2 * c, c, 1, act=False))
+
+    def forward(self, x):
+        a, b = self.cv1(x).chunk(2, dim=1)
+        b = b + self.attn(b)
+        b = b + self.ffn(b)
+        return self.cv2(torch.cat([a, b], dim=1))
+
+
+class C2fPSA(C2f):
+    """C2f whose inner blocks are PSABlocks."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, e: float = 0.5):
+        super().__init__(c1, c2, n, e=e, block=lambda c: PSABlock(c, 0.5, max(1, c // 64)))
 
 
 def dfl_decode(box_logits: torch.Tensor, bins: torch.Tensor | int = 16) -> torch.Tensor:

@@ -1,4 +1,6 @@
-"""Convolution modules, NCHW (edgeyolo_tpu/nn/modules/conv.py).
+"""Convolution modules, NCHW (edgeyolo_tpu/nn/modules/conv.py): ConvBN and
+its depthwise and separable forms, GhostConv, and the raw torch layers a
+model YAML names (transposed conv, max pool, zero pad).
 
 Parameter names are the reference's torch state_dict keys (`conv`, `bn`,
 `dw`, `pw`), so weights carried over from the JAX package land by name.
@@ -12,6 +14,7 @@ updates its running variance in train mode as flax does (`BatchNorm2d`).
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -60,20 +63,44 @@ def norm_f32(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
     return bn(x.float()).to(x.dtype)
 
 
-def activation(act: bool | None):
-    """SiLU for True, none for False or None."""
+ACTIVATIONS = {"silu": F.silu, "relu": F.relu, "relu6": F.relu6, "sigmoid": torch.sigmoid,
+               "tanh": torch.tanh}
+_DEFAULT_ACT = ["silu"]
+
+
+@contextlib.contextmanager
+def default_act(name: str):
+    """The activation that `act=True` builds to inside the block: a model
+    YAML's `activation:` override (ReLU in yolov6), which reaches every
+    nested conv (SPPF's, the head's towers), as the reference's
+    `Conv.default_act` and JAX's `default_act` scope do."""
+    if name not in ACTIVATIONS:
+        raise ValueError(f"unknown activation {name!r}; known: {sorted(ACTIVATIONS)}")
+    prev, _DEFAULT_ACT[0] = _DEFAULT_ACT[0], name
+    try:
+        yield
+    finally:
+        _DEFAULT_ACT[0] = prev
+
+
+def activation(act: bool | str | None):
+    """The model's default (SiLU unless `default_act` says otherwise) for
+    True, none for False or None, or one of ACTIVATIONS by name."""
     if act is True:
-        return F.silu
+        act = _DEFAULT_ACT[0]
     if act is False or act is None:
         return None
-    raise ValueError(f"act must be True, False or None, got {act!r}")
+    if act not in ACTIVATIONS:
+        raise ValueError(f"act must be True, False, None or one of {sorted(ACTIVATIONS)}, "
+                         f"got {act!r}")
+    return ACTIVATIONS[act]
 
 
 class ConvBN(nn.Module):
     """conv (no bias) -> BatchNorm -> activation."""
 
     def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, p: int | None = None,
-                 g: int = 1, d: int = 1, act: bool = True):
+                 g: int = 1, d: int = 1, act: bool | str = True):
         super().__init__()
         self.conv = nn.Conv2d(c1, c2, k, s, autopad(k, p, d), dilation=d, groups=g, bias=False)
         self.bn = batch_norm(c2)
@@ -88,8 +115,48 @@ class DWConv(ConvBN):
     """Depthwise conv (+BN+act), groups = gcd(c1, c2)."""
 
     def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, d: int = 1,
-                 act: bool = True):
+                 act: bool | str = True):
         super().__init__(c1, c2, k, s, None, math.gcd(c1, c2), d, act)
+
+
+class GhostConv(nn.Module):
+    """Ghost convolution: a primary k x k conv to c2 / 2 channels, then a cheap
+    5 x 5 depthwise conv of it, concatenated."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, g: int = 1,
+                 act: bool | str = True):
+        super().__init__()
+        c_ = c2 // 2
+        self.cv1 = ConvBN(c1, c_, k, s, None, g, 1, act)
+        self.cv2 = ConvBN(c_, c_, 5, 1, None, c_, 1, act)
+
+    def forward(self, x):
+        y = self.cv1(x)
+        return torch.cat([y, self.cv2(y)], dim=1)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """The YAML's raw `nn.ConvTranspose2d` (with bias; no BatchNorm, no
+    activation): weights `model.{i}.weight`, (c1, c2, k, k) as torch keeps
+    them. JAX pads k == s, p == 0 to 'SAME', which is torch's output size
+    in * s: the only case the model YAMLs use."""
+
+    def __init__(self, c1: int, c2: int, k: int = 2, s: int = 2, p: int = 0):
+        super().__init__(c1, c2, k, s, p, bias=True)
+
+
+class MaxPool2d(nn.MaxPool2d):
+    """nn.MaxPool2d(k, s, p) of a model YAML (yolov3-tiny)."""
+
+    def __init__(self, k: int = 2, s: int = 2, p: int = 0):
+        super().__init__(k, s, p)
+
+
+class ZeroPad2d(nn.ZeroPad2d):
+    """nn.ZeroPad2d of a model YAML: (left, right, top, bottom)."""
+
+    def __init__(self, pad=(0, 1, 0, 1)):
+        super().__init__(tuple(pad))
 
 
 class DSConv(nn.Module):

@@ -1,5 +1,5 @@
-"""YOLOv12 area attention and the YOLOv13 hypergraph modules, NCHW
-(edgeyolo_tpu/nn/modules/extra.py).
+"""YOLOv12 area attention, the YOLOv13 hypergraph modules, the YOLOv10
+blocks and the Ghost blocks, NCHW (edgeyolo_tpu/nn/modules/extra.py).
 
 - AAttn / ABlock / A2C2f: attention within `area` bands of the token axis
   (the R-ELAN stack), in plain PyTorch matmuls as the JAX package leaves its
@@ -8,6 +8,10 @@
   HyperACE / DownsampleConv / FullPAD_Tunnel: adaptive hypergraph
   correlation over three fused scales, and the gated tunnels that hand it
   back to the neck.
+- RepVGGDW / CIB / C2fCIB: YOLOv10's large-kernel depthwise pair and its
+  conditional identity block (training form: JAX has no re-parameterised
+  fuse).
+- GhostBottleneck / C3Ghost: the Ghost sandwich and its C3 (yolov8-ghost).
 
 As in JAX: the participation softmax runs over the nodes after the mean over
 heads; GELU is exact; no dropout runs, in training either (the JAX module
@@ -24,8 +28,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from edgeyolo_tpu_torch.nn.modules.block import C3k
-from edgeyolo_tpu_torch.nn.modules.conv import ConvBN
+from edgeyolo_tpu_torch.nn.modules.block import C2f, C3, C3k
+from edgeyolo_tpu_torch.nn.modules.conv import ConvBN, DWConv, GhostConv
 from edgeyolo_tpu_torch.nn.modules.edgeline import DSBottleneck, DSC3k
 
 
@@ -259,3 +263,73 @@ class FullPAD_Tunnel(nn.Module):
 
     def forward(self, xs):
         return xs[0] + self.gate.to(xs[0].dtype) * xs[1]
+
+
+class RepVGGDW(nn.Module):
+    """SiLU of a 7x7 and a 3x3 depthwise conv (+BN) summed."""
+
+    def __init__(self, ed: int):
+        super().__init__()
+        self.conv = ConvBN(ed, ed, 7, 1, 3, g=ed, act=False)
+        self.conv1 = ConvBN(ed, ed, 3, 1, 1, g=ed, act=False)
+
+    def forward(self, x):
+        return F.silu(self.conv(x) + self.conv1(x))
+
+
+class CIB(nn.Module):
+    """Conditional identity block: dw3 -> pw -> (RepVGGDW with `lk`, else dw3)
+    -> pw -> dw3, with a residual when `shortcut` and c1 == c2."""
+
+    def __init__(self, c1: int, c2: int, shortcut: bool = True, e: float = 0.5, lk: bool = False):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = nn.Sequential(
+            ConvBN(c1, c1, 3, g=c1), ConvBN(c1, 2 * c_, 1),
+            RepVGGDW(2 * c_) if lk else ConvBN(2 * c_, 2 * c_, 3, g=2 * c_),
+            ConvBN(2 * c_, c2, 1), ConvBN(c2, c2, 3, g=c2))
+        self.add = shortcut and c1 == c2
+
+    def forward(self, x):
+        y = self.cv1(x)
+        return x + y if self.add else y
+
+
+class C2fCIB(C2f):
+    """C2f whose inner blocks are CIBs (expansion 1)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = False, lk: bool = False,
+                 g: int = 1, e: float = 0.5):
+        super().__init__(c1, c2, n, shortcut, g, e, block=lambda c: CIB(c, c, shortcut, 1.0, lk))
+
+
+class GhostBottleneck(nn.Module):
+    """Ghost sandwich: GhostConv -> (k x k depthwise stride s at s = 2) ->
+    GhostConv without activation, plus the shortcut: at s = 2 a depthwise and
+    a 1x1 conv, else the identity, or a 1x1 conv where c1 != c2 (JAX's
+    `short_pw`, kept at `shortcut.1`)."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 1):
+        super().__init__()
+        c_ = c2 // 2
+        self.conv = nn.Sequential(GhostConv(c1, c_, 1, 1),
+                                  DWConv(c_, c_, k, s, act=False) if s == 2 else nn.Identity(),
+                                  GhostConv(c_, c2, 1, 1, act=False))
+        if s == 2:
+            self.shortcut = nn.Sequential(DWConv(c1, c1, k, s, act=False),
+                                          ConvBN(c1, c2, 1, 1, act=False))
+        elif c1 != c2:
+            self.shortcut = nn.Sequential(nn.Identity(), ConvBN(c1, c2, 1, 1, act=False))
+        else:
+            self.shortcut = nn.Identity()
+
+    def forward(self, x):
+        return self.conv(x) + self.shortcut(x)
+
+
+class C3Ghost(C3):
+    """C3 whose inner blocks are GhostBottlenecks."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, g: int = 1,
+                 e: float = 0.5):
+        super().__init__(c1, c2, n, shortcut, g, e, block=lambda c: GhostBottleneck(c, c))

@@ -10,6 +10,9 @@ GFLHeadv2_uniH is GF2Detect: Detect plus the DGQP quality mini-head
 (reg_conf) over the top-k statistics of each side's DFL distribution,
 whose quality multiplies the class probabilities.
 
+v10Detect is Detect made end to end: the one2one towers and the top-k
+below, with no quality.
+
 End-to-end (NMS-free) heads, E2EDetect and its alias GFLHeadv2_E2E:
 GF2Detect with a second set of towers and quality heads (`one2one_*`) fed
 with detached inputs, as JAX's stop_gradient. They decode their one2one
@@ -159,6 +162,13 @@ class Detect(nn.Module):
         if not self.training:
             out["pred"] = self.decode(out["one2one_feats" if self.end2end else "feats"])
         return out
+
+
+class v10Detect(Detect):
+    """YOLOv10's NMS-free head: Detect with the one2one towers and the top-k
+    selection, without quality (its cls towers are the DWConv pairs)."""
+
+    end2end = True
 
 
 class GFLHeadv2_uniH(Detect):

@@ -12,9 +12,17 @@ cls tower) into a tuple of `LayerSpec`s. `GraphNet` builds one module per
 spec under `model.{i}`, the reference state_dict layout, and walks them in
 order.
 
-The modules of EdgeLine-YOLO, the YOLO11 ablation family and the YOLOv13
-family (MSLA, LGL, the wavelet HyperACE and the NMS-free E2E quality head)
-are registered; an unknown module name raises.
+A module with n > 1 outside the CSP set that takes its repeats as an
+argument is built as n copies in an nn.Sequential (`model.{i}.{j}`), as the
+reference and JAX's `l{i}_{Type}_{j}` do. A YAML's `activation:` (yolov6's
+ReLU) becomes the `act` of its Conv lines and the activation every `act=True`
+conv of the model builds to (`default_act`), as in JAX.
+
+The modules of EdgeLine-YOLO, the YOLO11 ablation family, the YOLOv13
+family (MSLA, LGL, the wavelet HyperACE and the NMS-free E2E quality head),
+YOLOv10 (SCDown, PSA, C2fCIB, v10Detect), YOLOv12, YOLOv3/5/6/8 and their
+P2/P6/Ghost variants (C2, SPP, Ghost blocks, pooling, padding and
+transposed convs) are registered; an unknown module name raises.
 """
 
 from __future__ import annotations
@@ -28,12 +36,16 @@ import torch
 from torch import nn
 
 from edgeyolo_tpu_torch.cfg.models import model_cfg
-from edgeyolo_tpu_torch.nn.modules.block import C2f, C2PSA, C3, C3k, C3k2, SPPF, Bottleneck
-from edgeyolo_tpu_torch.nn.modules.conv import Concat, ConvBN, DSConv, DWConv, Upsample
+from edgeyolo_tpu_torch.nn.modules.block import (C2, C2f, C2fPSA, C2PSA, C3, C3k, C3k2, PSA, SPP,
+                                                 SPPF, Bottleneck, SCDown)
+from edgeyolo_tpu_torch.nn.modules.conv import (Concat, ConvBN, ConvTranspose2d, DSConv, DWConv,
+                                                GhostConv, MaxPool2d, Upsample, ZeroPad2d,
+                                                default_act)
 from edgeyolo_tpu_torch.nn.modules.edgeline import C2PSA_LinearAttention, DSC3K2, DSC3K2_Wavelet
-from edgeyolo_tpu_torch.nn.modules.extra import (A2C2f, AdaHyperedgeGen, DownsampleConv,
-                                                 FullPAD_Tunnel, HyperACE)
-from edgeyolo_tpu_torch.nn.modules.head import Detect, E2EDetect, GFLHeadv2_uniH
+from edgeyolo_tpu_torch.nn.modules.extra import (CIB, A2C2f, AdaHyperedgeGen, C2fCIB, C3Ghost,
+                                                 DownsampleConv, FullPAD_Tunnel, GhostBottleneck,
+                                                 HyperACE, RepVGGDW)
+from edgeyolo_tpu_torch.nn.modules.head import Detect, E2EDetect, GFLHeadv2_uniH, v10Detect
 from edgeyolo_tpu_torch.nn.modules.msla_lgl import (C3AW_MLM, DSC3K2_LGL, DSC3K2_MSLA,
                                                     HyperACE_Wavelet, Wavelet_SS2D)
 from edgeyolo_tpu_torch.utils import make_divisible, select_device
@@ -46,13 +58,25 @@ _REG: dict[str, tuple[type, list[str]]] = {
     "ConvBN": (ConvBN, ["c2", "k", "s", "p", "g", "d", "act"]),
     "DWConv": (DWConv, ["c2", "k", "s", "d", "act"]),
     "DSConv": (DSConv, ["c2", "k", "s", "p", "d"]),
+    "GhostConv": (GhostConv, ["c2", "k", "s", "g", "act"]),
+    "nn.ConvTranspose2d": (ConvTranspose2d, ["c2", "k", "s", "p"]),
     "Bottleneck": (Bottleneck, ["c2", "shortcut", "g", "k", "e"]),
+    "C2": (C2, ["c2", "n", "shortcut", "g", "e"]),
     "C2f": (C2f, ["c2", "n", "shortcut", "g", "e"]),
     "C3": (C3, ["c2", "n", "shortcut", "g", "e"]),
     "C3k": (C3k, ["c2", "n", "shortcut", "g", "e", "k"]),
     "C3k2": (C3k2, ["c2", "n", "c3k", "e", "g", "shortcut"]),
+    "SPP": (SPP, ["c2", "k"]),
     "SPPF": (SPPF, ["c2", "k"]),
     "C2PSA": (C2PSA, ["c2", "n", "e"]),
+    "C2fPSA": (C2fPSA, ["c2", "n", "e"]),
+    "PSA": (PSA, ["c2", "e"]),
+    "SCDown": (SCDown, ["c2", "k", "s"]),
+    "CIB": (CIB, ["c2", "shortcut", "e", "lk"]),
+    "C2fCIB": (C2fCIB, ["c2", "n", "shortcut", "lk", "g", "e"]),
+    "RepVGGDW": (RepVGGDW, ["ed"]),
+    "GhostBottleneck": (GhostBottleneck, ["c2", "k", "s"]),
+    "C3Ghost": (C3Ghost, ["c2", "n", "shortcut", "g", "e"]),
     "C2PSA_LinearAttention": (C2PSA_LinearAttention,
                               ["c2", "n", "e", "attn_ratio", "num_heads", "mlp_ratio"]),
     "DSC3K2": (DSC3K2, ["c2", "n", "dsc3k", "e", "g", "shortcut", "k1", "k2", "d2"]),
@@ -68,24 +92,35 @@ _REG: dict[str, tuple[type, list[str]]] = {
     "FullPAD_Tunnel": (FullPAD_Tunnel, []),
     "Concat": (Concat, ["dim"]),
     "nn.Upsample": (Upsample, ["size", "scale_factor", "mode"]),
+    "nn.MaxPool2d": (MaxPool2d, ["k", "s", "p"]),
+    "nn.ZeroPad2d": (ZeroPad2d, ["pad"]),
     "Detect": (Detect, ["nc"]),
+    "v10Detect": (v10Detect, ["nc"]),
     "GFLHeadv2_uniH": (GFLHeadv2_uniH, ["nc"]),
     "GF2Detect": (GFLHeadv2_uniH, ["nc"]),
     "E2EDetect": (E2EDetect, ["nc"]),
     "GFLHeadv2_E2E": (E2EDetect, ["nc"]),
 }
-_CONV_LIKE = {"Conv", "ConvBN", "DWConv", "DSConv", "Bottleneck", "C2f", "C3", "C3k", "C3k2",
-              "SPPF", "C2PSA", "C2PSA_LinearAttention", "DSC3K2", "DSC3K2_Wavelet",
-              "DSC3K2_MSLA", "DSC3K2_LGL", "C3AW_MLM", "A2C2f"}
-_REPEAT_INSERT = {"C2f", "C3", "C3k2", "C2PSA", "C2PSA_LinearAttention", "DSC3K2",
-                  "DSC3K2_Wavelet", "DSC3K2_MSLA", "DSC3K2_LGL", "A2C2f"}
+_CONV_LIKE = {"Conv", "ConvBN", "DWConv", "DSConv", "GhostConv", "nn.ConvTranspose2d",
+              "Bottleneck", "C2", "C2f", "C3", "C3k", "C3k2", "SPP", "SPPF", "C2PSA", "C2fPSA",
+              "PSA", "SCDown", "CIB", "C2fCIB", "GhostBottleneck", "C3Ghost",
+              "C2PSA_LinearAttention", "DSC3K2", "DSC3K2_Wavelet", "DSC3K2_MSLA", "DSC3K2_LGL",
+              "C3AW_MLM", "A2C2f"}
+# CSP modules that take the repeats as their argument; any other module with n > 1 is
+# built as n copies in sequence
+_REPEAT_INSERT = {"C2", "C2f", "C3", "C3k2", "C2PSA", "C2fPSA", "C2fCIB", "C3Ghost",
+                  "C2PSA_LinearAttention", "DSC3K2", "DSC3K2_Wavelet", "DSC3K2_MSLA",
+                  "DSC3K2_LGL", "A2C2f"}
 _C3K2_FAMILY = {"C3k2", "DSC3K2", "DSC3K2_Wavelet", "DSC3K2_MSLA", "DSC3K2_LGL"}
 _HYPERACE = {"HyperACE", "HyperACE_Wavelet", "Wavelet_SS2D"}
-_HEADS = {"Detect", "GFLHeadv2_uniH", "GF2Detect", "E2EDetect", "GFLHeadv2_E2E"}
-_STRIDE_ARG = {"Conv", "ConvBN", "DWConv", "DSConv"}
+_HEADS = {"Detect", "v10Detect", "GFLHeadv2_uniH", "GF2Detect", "E2EDetect", "GFLHeadv2_E2E"}
+_STRIDE_ARG = {"Conv", "ConvBN", "DWConv", "DSConv", "GhostConv", "SCDown", "nn.MaxPool2d"}
 _STRIDE_FIXED = {"DownsampleConv": 2.0}
 # built from c1 (the channels of their input, the second one for HyperACE) and the args
 _TAKES_C1 = _CONV_LIKE | _HYPERACE
+# convs that a YAML's `activation:` override reaches by argument (JAX tasks.py)
+_ACT_ARG = {"Conv", "ConvBN", "DWConv"}
+_ACT_NAMES = ("relu6", "relu", "silu", "sigmoid", "tanh")
 
 
 def _literal(v):
@@ -100,10 +135,12 @@ def _literal(v):
 
 @dataclass(frozen=True)
 class LayerSpec:
-    """One graph node: inputs f (-1 = previous), input and output channels."""
+    """One graph node: inputs f (-1 = previous), repeats n (n copies in
+    sequence when n > 1), input and output channels."""
 
     i: int
     f: tuple[int, ...]
+    n: int
     name: str
     args: tuple
     kwargs: tuple[tuple[str, Any], ...]
@@ -116,6 +153,8 @@ def parse_spec(d: dict, ch: int = 3) -> tuple[tuple[LayerSpec, ...], tuple[int, 
     nc = d.get("nc", 80)
     scales = d.get("scales")
     scale = d.get("scale") or (next(iter(scales)) if scales else "")
+    act = str(d.get("activation") or "").lower()  # e.g. "nn.ReLU()" in yolov6
+    act_override = next((a for a in _ACT_NAMES if a in act), None)
     depth, width, max_channels = (scales[scale] if scales and scale in scales else (
         d.get("depth_multiple", 1.0), d.get("width_multiple", 1.0), float("inf")))
     legacy = True
@@ -135,6 +174,8 @@ def parse_spec(d: dict, ch: int = 3) -> tuple[tuple[LayerSpec, ...], tuple[int, 
             if c2 != nc:
                 c2 = make_divisible(min(c2, max_channels) * width, 8)
             args = [c2, *args[1:]]
+            if act_override and name in _ACT_ARG and len(args) < 7:
+                kwargs["act"] = act_override
             if name in _REPEAT_INSERT:
                 args.insert(1, n_scaled)
                 n_scaled = 1
@@ -177,18 +218,18 @@ def parse_spec(d: dict, ch: int = 3) -> tuple[tuple[LayerSpec, ...], tuple[int, 
             kwargs["ch"] = tuple(ch_list[x] for x in f_list)
             kwargs["legacy"] = legacy and not _REG[name][0].end2end
             c2 = sum(kwargs["ch"])
-        else:  # nn.Upsample, FullPAD_Tunnel
+        else:  # nn.Upsample, nn.MaxPool2d, nn.ZeroPad2d, RepVGGDW, FullPAD_Tunnel
             c2 = c1
-        if n_scaled != 1:
-            raise NotImplementedError(f"repeated plain module '{name}' (n={n_scaled})")
+        args = tuple(tuple(a) if isinstance(a, list) else a for a in args)
         layers.append(LayerSpec(i=i, f=tuple(x if x == -1 else x % i for x in f_list),
-                                name=name, args=tuple(args),
+                                n=n_scaled, name=name, args=args,
                                 kwargs=tuple(sorted(kwargs.items())), c1=c1, c2=c2))
         save.update(x % i for x in f_list if x != -1)
         if i == 0:
             ch_list = []
         ch_list.append(c2)
-    return tuple(layers), tuple(sorted(save)), {"nc": nc, "scale": scale}
+    return tuple(layers), tuple(sorted(save)), {"nc": nc, "scale": scale,
+                                                "act": act_override or "silu"}
 
 
 def derive_strides(layers: Sequence[LayerSpec]) -> list[float]:
@@ -206,6 +247,9 @@ def derive_strides(layers: Sequence[LayerSpec]) -> list[float]:
         elif sp.name == "nn.Upsample":
             sf = sp.args[1] if len(sp.args) > 1 else 2
             factor = 1.0 / float(sf or 2)
+        elif sp.name == "nn.ConvTranspose2d":
+            factor = 1.0 / float(sp.args[fields.index("s")] if fields.index("s") < len(sp.args)
+                                 else 2)
         strides.append(s_in * factor)
     return strides
 
@@ -215,9 +259,13 @@ def build_module(sp: LayerSpec, head_stride: Sequence[int]) -> nn.Module:
     kw = {**dict(zip(fields, sp.args)), **dict(sp.kwargs)}
     if sp.name in _HEADS:
         return cls(stride=tuple(head_stride), **kw)
-    if sp.name in _TAKES_C1:
-        return cls(sp.c1, **kw)
-    return cls(**kw)
+
+    def one(c1: int) -> nn.Module:
+        return cls(c1, **kw) if sp.name in _TAKES_C1 else cls(**kw)
+
+    if sp.n > 1:  # a repeated plain module: model.{i}.{j}, each copy taking the last's output
+        return nn.Sequential(*(one(sp.c1 if j == 0 else sp.c2) for j in range(sp.n)))
+    return one(sp.c1)
 
 
 class GraphNet(nn.Module):
@@ -250,15 +298,19 @@ def _uniform_(t: torch.Tensor, bound: float, generator: torch.Generator) -> None
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
-    """Seeded initialisation: every trainable conv and linear weight ~
-    U(+-1/sqrt(fan_in)) (torch's default, the JAX KERNEL_INIT), their biases
+    """Seeded initialisation: every trainable conv (transposed too) and linear
+    weight ~ U(+-1/sqrt(fan_in)) (torch's default, the JAX KERNEL_INIT), their biases
     0; hyperedge prototypes xavier-uniform, as flax initialises them.
     BatchNorm, LayerNorm, the gates, the wavelet and MSLA scale weights and
     the frozen DFL bins keep their constructor values."""
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.Linear)) and m.weight.requires_grad:
-                _uniform_(m.weight, m.weight[0].numel() ** -0.5, generator)
+            if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.ConvTranspose2d, nn.Linear)) and \
+                    m.weight.requires_grad:
+                # fan_in: (in, out, kh, kw) for a transposed conv, else (out, in/g, ...)
+                fan_in = (m.weight[:, 0].numel() if isinstance(m, nn.ConvTranspose2d)
+                          else m.weight[0].numel())
+                _uniform_(m.weight, fan_in ** -0.5, generator)
                 if m.bias is not None:
                     m.bias.zero_()
             elif isinstance(m, AdaHyperedgeGen):
@@ -346,7 +398,8 @@ class DetectionModel(GraphNet):
         head = layers[-1]
         stride = tuple(int(strides[j]) for j in head.f)
         device = select_device(device)
-        with torch.random.fork_rng(devices=[]):  # module constructors draw from the global RNG
+        # module constructors draw from the global RNG; act=True builds to the YAML's activation
+        with torch.random.fork_rng(devices=[]), default_act(info["act"]):
             super().__init__(layers, save, stride)
         self.nc = info["nc"]
         self.names = {i: str(i) for i in range(self.nc)}
@@ -361,7 +414,7 @@ class DetectionModel(GraphNet):
         """Cast every convolution and linear layer but the quality head's to
         `dtype`, in place."""
         for m in self.modules():
-            if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.Linear)):
+            if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
                 m.to(dtype)
         for q in getattr(self.model[-1], "quality_heads", list)():
             q.float()  # the quality heads are an f32 island, as in JAX

@@ -72,11 +72,13 @@ class _Shape(ctypes.Structure):
 
 
 @functools.cache
-def _forward_fn():
-    """The bound C entry point, built, loaded and declared once per process."""
-    fn = _build.load("linear_attention").edgeyolo_la_forward
+def _forward_fn(marked: bool = False):
+    """The bound C entry point (with `marked`, the one that also records three
+    events), built, loaded and declared once per process."""
+    lib = _build.load("linear_attention")
+    fn = lib.edgeyolo_la_forward_marked if marked else lib.edgeyolo_la_forward
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 8
+    fn.argtypes = [ctypes.c_void_p] * (9 if marked else 8)
     return fn
 
 
@@ -142,19 +144,22 @@ def _scratch_for(device: torch.device, stream: int, ws_floats: int, pairs: int):
     return ws, counters
 
 
-def _call(fn, q, k, v, y, ws, counters, stream: int, args: _Shape) -> int:
+def _call(fn, q, k, v, y, ws, counters, stream: int, args: _Shape, *extra) -> int:
     """Call fn, the C entry point, on q, k, v, y and the scratch buffers."""
     return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), y.data_ptr(), ws.data_ptr(),
-              counters.data_ptr(), stream, ctypes.addressof(args))
+              counters.data_ptr(), stream, ctypes.addressof(args), *extra)
 
 
-def linear_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def linear_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            marks: tuple | None = None) -> torch.Tensor:
     """Launch csrc/linear_attention.cu on CUDA tensors q, k, v of shape (B, N, H, D).
 
     q, k and v must share shape, strides, dtype (f32 or bf16) and device;
     D must be one of 8, 16, 32, 48, 64, 96, 128 and 192. y comes back token-minor
     (B, H, D, N) in memory when q is token-minor, else as a contiguous
-    (B, N, H, D).
+    (B, N, H, D). `marks`, three recorded torch.cuda.Events (timing only), are
+    recorded on the stream before the context launch, between the launches
+    and after the output launch.
     """
     key = (q.shape, q.stride(), q.dtype, q.device)
     if (k.shape, k.stride(), k.dtype, k.device) != key or (
@@ -168,7 +173,12 @@ def linear_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -
     # the raw handle of the current stream, without building a torch.cuda.Stream
     stream = torch._C._cuda_getCurrentRawStream(args.device)
     ws, counters = _scratch_for(key[3], stream, ws_floats, pairs)
-    err = _call(_forward_fn(), q, k, v, y, ws, counters, stream, args)
+    if marks is None:
+        err = _call(_forward_fn(), q, k, v, y, ws, counters, stream, args)
+    else:
+        events = (ctypes.c_void_p * 3)(*(e.cuda_event for e in marks))
+        err = _call(_forward_fn(True), q, k, v, y, ws, counters, stream, args,
+                    ctypes.addressof(events))
     if err != 0:
         raise RuntimeError(f"linear attention kernel launch failed: cudaError {err}")
     linear_attention_kernel.launches += 1

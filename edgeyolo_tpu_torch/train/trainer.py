@@ -70,11 +70,11 @@ CLIP_NORM = 10.0
 
 
 def _decay_mask(model: nn.Module) -> dict[str, bool]:
-    """Parameter name -> whether it takes weight decay: conv and linear kernels
-    only (BatchNorm and LayerNorm scales and shifts, biases, gates, the
+    """Parameter name -> whether it takes weight decay: conv (transposed too)
+    and linear kernels only (BatchNorm and LayerNorm scales and shifts, biases, gates, the
     wavelet and MSLA weights and the hyperedge prototypes take none)."""
     kernels = {name for name, m in model.named_modules()
-               if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.Linear))}
+               if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.ConvTranspose2d, nn.Linear))}
     return {name: name.rpartition(".")[0] in kernels and name.endswith(".weight")
             for name, p in model.named_parameters() if p.requires_grad}
 
