@@ -5,7 +5,8 @@
 
 Phases, each timed and each fatal when it fails:
   1. device     card name and power limit, torch and CUDA versions, TF32 switches
-  2. build      nvcc builds every CUDA source of edgeyolo_tpu_torch/csrc, all at once
+  2. build      nvcc builds every CUDA source of edgeyolo_tpu_torch/csrc and g++ the
+                host codec (csrc/imageio.cpp), all at once; each source's seconds
   3. kernels    every kernel's wrapper against its plain PyTorch version, on the card,
                 at the shapes the serving paths give it (the flagship's D = 64, MSLA's
                 D = 8, 16 and 32 at 640 px, the x scale's 48 and 96, the wavelet
@@ -69,10 +70,21 @@ Phases, each timed and each fatal when it fails:
                 JAX's does not take either), held to V13_TEST_FIT_MAP_MIN, validated
                 through the E2E passthrough; and yolov10n (E2E, no quality) at 160 px,
                 held to V10_FIT_MAP_MIN
-  9. device     each kernel's device time at the shapes of phase 3: the context and
+  9. jpeg       on the flagship the fit phase trained: (a) the val640 images through
+                the port's q92 encoder and decoder on the card's host, within PIL's own
+                q92 error (JPEG_Q92); the threaded batch decode and letterbox equal to
+                one-by-one; ms per image on one thread and through the batch call;
+                (b) the fit's 8 val images as JPEG with a COCO GT json, validated with
+                save_json: predictions.json, COCO AP50-95 within JAX_COCO_GAP +
+                JPEG_COCO_SLACK of mAP50-95; (c) val640 from JPEG (640 px, batch 32,
+                bf16): img/s and the validator's speed split; (d) a rect validation of
+                wide and tall JPEGs (1024 x 640): its non-square batch shapes; then
+                predict on the JPEG files and save_crop, the crops decoded back; the
+                kernel's launches in each
+ 10. device     each kernel's device time at the shapes of phase 3: the context and
      times      output launches each timed by its own event pair, in DEVICE_SESSIONS
                 sessions (median and spread, the SM clock read around each); after the
-                serve, train and fit phases
+                serve, train, fit and jpeg phases
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside a checkout of
 the repository, the script exits non-zero and prints no result.
@@ -85,6 +97,7 @@ import copy
 import functools
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -157,6 +170,17 @@ FIT_RELOAD_TOL = 1e-6  # best.pt validated again on the card vs the trainer's be
 FIT_CPU_TOL = 2e-3  # the same val on the CPU in f32, each metric
 NMS_TILED_MIN = 8192  # candidates in the tiled-vs-scan check
 VAL640 = {"n_val": 128, "imgsz": 640, "batch": 32}
+# jpeg: the val640 images through the port's q92 encoder and decoder. PIL's q92 files of
+# the same images decode within these of the source, worst image (the encoder writes
+# PIL's bytes; tests/test_torch_jpeg.py::test_chip_smoke_jpeg_bounds_are_pil_s measures them)
+JPEG_Q92 = {"rmse": 14.5961, "max_abs": 127}
+# |COCO AP50-95 - validator mAP50-95| of the JAX package's validator with save_json on the
+# fit protocol's 8 val images as JPEG q92, its own trained flagship (mAP50-95 0.688989,
+# COCO AP50-95 0.691614: tools/fit_protocol.py --coco with '{"nbs": 16, "warmup_epochs":
+# 0.0, "seed": 0}', CPU); the port may differ by this plus JPEG_COCO_SLACK
+JAX_COCO_GAP = 0.0026245359140526503
+JPEG_COCO_SLACK = 0.02
+JPEG_RECT = {"n": 32, "long": 1024}  # wide and tall copies of val640 images, padded
 # the families beside the flagship, at scale n: the reference phase holds each one's card
 # forward against its CPU forward; the serve phase serves those in FAMILY_SERVE
 FAMILIES = ("yolo11n", "yolo11-dsc3k2-wavelet-n", "yolo11-gf2detect-n", "yolo11-lineattention-n",
@@ -1217,16 +1241,51 @@ def check_tiled_nms():
         raise AssertionError("the tiled NMS disagrees with the scan oracle")
 
 
+def jpeg_coco_copy(data_yaml, out: Path, quality: int = 92) -> Path:
+    """The val split of a YOLO dataset re-encoded as JPEG (the port's encoder) under
+    numeric stems 1, 2, ..., its labels beside, a COCO GT json of the labels (category
+    id = class index, no crowds) and a dataset.yaml that names it as `annotations`.
+    Returns the yaml's path."""
+    import numpy as np
+
+    from edgeyolo_tpu_torch.data.dataset import YOLODataset, check_det_dataset, img2label_path
+    from edgeyolo_tpu_torch.data.imageio import load_image_rgb, save_jpeg
+
+    cfg = check_det_dataset(data_yaml)
+    ds = YOLODataset(cfg["val"], imgsz=32)
+    (out / "images" / "val").mkdir(parents=True, exist_ok=True)
+    (out / "labels" / "val").mkdir(parents=True, exist_ok=True)
+    images, anns = [], []
+    for k, (f, lab) in enumerate(zip(ds.im_files, ds.labels), start=1):
+        img = load_image_rgb(f)
+        h, w = img.shape[:2]
+        save_jpeg(out / "images" / "val" / f"{k}.jpg", img, quality=quality)
+        (out / "labels" / "val" / f"{k}.txt").write_text(Path(img2label_path(f)).read_text())
+        images.append({"id": k, "width": w, "height": h, "file_name": f"{k}.jpg"})
+        for c, (cx, cy, bw, bh) in zip(lab["cls"].tolist(), lab["bboxes"].astype(np.float64)):
+            anns.append({"id": len(anns) + 1, "image_id": k, "category_id": int(c),
+                         "bbox": [(cx - bw / 2) * w, (cy - bh / 2) * h, bw * w, bh * h],
+                         "area": bw * w * bh * h, "iscrowd": 0})
+    gt = out / "instances_val.json"
+    gt.write_text(json.dumps({"images": images, "annotations": anns,
+                              "categories": [{"id": i, "name": n}
+                                             for i, n in cfg["names"].items()]}))
+    names = "".join(f"  {i}: {n}\n" for i, n in cfg["names"].items())
+    (out / "dataset.yaml").write_text(f"path: {out}\ntrain: images/val\nval: images/val\n"
+                                      f"annotations: {gt}\nnames:\n{names}")
+    return out / "dataset.yaml"
+
+
 def metrics_gap(a: dict, b: dict) -> float:
     return max(abs(a[k] - b[k]) for k in a)
 
 
 def fit(la, card: str, work: Path, name: str = "edgeline-yolo.yaml",
-        map_min: float = FIT_MAP_MIN, imgsz: int = FIT["imgsz"]) -> dict:
+        map_min: float = FIT_MAP_MIN, imgsz: int = FIT["imgsz"]) -> tuple[dict, Path]:
     """Train, validate and predict model `name` (scale n) from a dataset on
     disk at `imgsz`, held to mAP50-95 >= map_min; the flagship then validates
     at 640 px. Returns the attention kernel's launches in train, val and
-    predict."""
+    predict, and the best checkpoint's path."""
     import csv
 
     import torch
@@ -1319,7 +1378,7 @@ def fit(la, card: str, work: Path, name: str = "edgeline-yolo.yaml",
         raise AssertionError("predict on the val images failed")
     if flagship:
         val640(la, reloaded, card, work)
-    return launches
+    return launches, trainer.save_dir / "best.pt"
 
 
 def val640(la, model, card: str, work: Path) -> None:
@@ -1387,6 +1446,182 @@ def val640(la, model, card: str, work: Path) -> None:
         raise AssertionError("the 640 px validation did not go through the attention kernel")
 
 
+def padded_copies(data_yaml, out: Path, n: int, long: int) -> Path:
+    """n val images of a square dataset pasted onto wide (long x side) and n onto tall
+    (side x long) canvases of the same background noise, as JPEG q92, with their labels
+    moved exactly (the boxes shift by the paste offset). Returns the dataset.yaml."""
+    import numpy as np
+
+    from edgeyolo_tpu_torch.data.dataset import YOLODataset, check_det_dataset, img2label_path
+    from edgeyolo_tpu_torch.data.imageio import load_image_rgb, save_jpeg
+
+    cfg = check_det_dataset(data_yaml)
+    files = YOLODataset(cfg["val"], imgsz=32).im_files[:2 * n]
+    rng = np.random.RandomState(2)
+    for d in ("images", "labels"):
+        (out / d / "val").mkdir(parents=True, exist_ok=True)
+    for k, f in enumerate(files):
+        img = load_image_rgb(f)
+        side = img.shape[0]
+        wide = k < n
+        H, W = (side, long) if wide else (long, side)
+        canvas = (rng.rand(H, W, 3) * 60 + 90).astype(np.uint8)
+        off = (long - side) // 2
+        y0, x0 = (0, off) if wide else (off, 0)
+        canvas[y0:y0 + side, x0:x0 + side] = img
+        save_jpeg(out / "images" / "val" / f"{k}.jpg", canvas, quality=92)
+        lines = []
+        for line in Path(img2label_path(f)).read_text().split("\n"):
+            if line.strip():
+                c, cx, cy, bw, bh = (float(v) for v in line.split())
+                lines.append(f"{int(c)} {(cx * side + x0) / W:.6f} {(cy * side + y0) / H:.6f} "
+                             f"{bw * side / W:.6f} {bh * side / H:.6f}")
+        (out / "labels" / "val" / f"{k}.txt").write_text("\n".join(lines) + "\n")
+    names = "".join(f"  {i}: {v}\n" for i, v in cfg["names"].items())
+    (out / "dataset.yaml").write_text(f"path: {out}\ntrain: images/val\nval: images/val\n"
+                                      f"names:\n{names}")
+    return out / "dataset.yaml"
+
+
+def jpeg(la, card: str, work: Path, best: Path) -> dict:
+    """JPEG in and out on the flagship the fit phase trained: (a) the codec on the
+    card's host, (b) save_json and COCO AP at the fit size, (c) val640 from JPEG
+    through the threaded decode, (d) a rect validation of wide and tall JPEGs, then
+    predict on JPEG files and save_crop. Returns the kernel's launches in each."""
+    import numpy as np
+    import torch
+
+    from edgeyolo_tpu_torch.data import letterbox as lb
+    from edgeyolo_tpu_torch.data.dataset import YOLODataset, check_det_dataset
+    from edgeyolo_tpu_torch.data.imageio import decode_jpeg, load_image_rgb
+    from edgeyolo_tpu_torch.engine.model import YOLO
+
+    launches = {}
+    # (a) the codec on the card's host, on the val640 images
+    t0 = time.perf_counter()
+    v640 = jpeg_coco_copy(work / "val640" / "dataset.yaml", work / "val640_jpeg")
+    src = YOLODataset(check_det_dataset(work / "val640" / "dataset.yaml")["val"], imgsz=32)
+    jfiles = [work / "val640_jpeg" / "images" / "val" / f"{k}.jpg"
+              for k in range(1, len(src.im_files) + 1)]
+    print(f"jpeg: {len(jfiles)} val640 images re-encoded as JPEG q92 in "
+          f"{time.perf_counter() - t0:.3f} s ({sum(f.stat().st_size for f in jfiles) / len(jfiles):.0f}"
+          f" bytes per file)", flush=True)
+    blobs = [f.read_bytes() for f in jfiles]
+    worst = {"rmse": 0.0, "max_abs": 0}
+    for f, blob in zip(src.im_files, blobs):
+        a, b = load_image_rgb(f).astype(np.int32), decode_jpeg(blob).astype(np.int32)
+        worst["rmse"] = max(worst["rmse"], float(np.sqrt(((a - b) ** 2).mean())))
+        worst["max_abs"] = max(worst["max_abs"], int(np.abs(a - b).max()))
+    print(f"jpeg: the port's decode of its q92 files against the source, worst image: RMSE "
+          f"{worst['rmse']:.4f}, max |diff| {worst['max_abs']} (bound {JPEG_Q92})", flush=True)
+    if worst["rmse"] > JPEG_Q92["rmse"] or worst["max_abs"] > JPEG_Q92["max_abs"]:
+        raise AssertionError(f"JPEG round trip beyond PIL's q92 error: {worst}")
+    size = VAL640["imgsz"]
+    batch, metas = lb.letterbox_batch(blobs, size, scaleup=False)
+    for i, blob in enumerate(blobs):
+        one, [meta] = lb.letterbox_batch([blob], size, scaleup=False, threads=1)
+        if not (np.array_equal(one[0], batch[i]) and meta == metas[i]):
+            raise AssertionError(f"the threaded batch differs from one-by-one at image {i}")
+    n = VAL640["batch"]
+    timing = {}
+    for threads in (1, lb.THREADS):
+        lb.letterbox_batch(blobs[:n], size, scaleup=False, threads=threads)
+        t0 = time.perf_counter()
+        lb.letterbox_batch(blobs[:n], size, scaleup=False, threads=threads)
+        timing[threads] = (time.perf_counter() - t0) * 1e3 / n
+    print(f"jpeg: the threaded batch equals one-by-one decoding on all {len(blobs)} images; "
+          f"decode and letterbox {timing[1]:.3f} ms per image on one thread, "
+          f"{timing[lb.THREADS]:.3f} ms per image through the batch call ({lb.THREADS} threads, "
+          f"batch {n}, {len(os.sched_getaffinity(0))} cores); on {card}", flush=True)
+
+    # (b) save_json and COCO AP at the fit size
+    coco_yaml = jpeg_coco_copy(work / "fit" / "dataset.yaml", work / "fit_jpeg")
+    model = YOLO(best, device="cuda")
+    la.linear_attention_kernel.launches = 0
+    m = model.val(data=str(coco_yaml), batch=FIT_TRAIN["batch"], imgsz=FIT["imgsz"],
+                  save_json=True, project=str(work / "runs"), name="val_coco")
+    launches["coco"] = la.linear_attention_kernel.launches
+    v = model.validator
+    rows = json.loads((v.save_dir / "predictions.json").read_text())
+    coco = {k: val for k, val in v.metrics.speed.items() if k.startswith("coco/")}
+    gap = abs(coco.get("coco/AP", float("nan")) - m["metrics/mAP50-95(B)"])
+    print(f"jpeg: fit val from JPEG with save_json: {len(rows)} rows in predictions.json; "
+          f"mAP50-95 {m['metrics/mAP50-95(B)']:.6f}, COCO AP50-95 {coco.get('coco/AP', 'missing')}"
+          f", gap {gap:.6f} (JAX's {JAX_COCO_GAP} + {JPEG_COCO_SLACK}); {json.dumps(coco)}; "
+          f"{launches['coco']} kernel launches", flush=True)
+    if not rows or len(coco) != 6 or not gap <= JAX_COCO_GAP + JPEG_COCO_SLACK \
+            or launches["coco"] <= 0:
+        raise AssertionError("save_json / COCO evaluation on the fit data failed")
+
+    # (c) val640 from JPEG: 640 px, batch 32, bf16, through the threaded decode
+    kw = {"data": str(v640), "imgsz": size, "batch": n, "half": True,
+          "project": str(work / "runs")}
+    model.val(name="val640_jpeg_warm", **kw)
+    torch.cuda.synchronize()
+    la.linear_attention_kernel.launches = 0
+    t0 = time.perf_counter()
+    m = model.val(name="val640_jpeg", **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches["val640"] = la.linear_attention_kernel.launches
+    speed = model.validator.metrics.speed
+    print(f"jpeg: val640 from JPEG: {len(blobs)} images at {size} px, batch {n}, bf16: "
+          f"{wall:.3f} s, {len(blobs) / wall:.1f} img/s end to end; validator speed ms per image "
+          f"{json.dumps({k: round(val, 4) for k, val in speed.items()})}; "
+          f"{launches['val640']} kernel launches; metrics {json.dumps(m)}; on {card}", flush=True)
+    if launches["val640"] <= 0 or not all(math.isfinite(val) for val in m.values()):
+        raise AssertionError("the JPEG val640 did not go through the kernel or is not finite")
+
+    # (d) rect validation of wide and tall JPEGs at 640 px
+    rect_yaml = padded_copies(work / "val640" / "dataset.yaml", work / "rect_jpeg",
+                              JPEG_RECT["n"], JPEG_RECT["long"])
+    shapes = []
+    from edgeyolo_tpu_torch.engine import validator as validator_mod
+    infer = validator_mod.DetectionValidator.infer
+
+    def seen(self, net, img, gt, max_nms):
+        shapes.append(tuple(img.shape))
+        return infer(self, net, img, gt, max_nms)
+
+    la.linear_attention_kernel.launches = 0
+    with mock.patch.object(validator_mod.DetectionValidator, "infer", seen):
+        m = model.val(data=str(rect_yaml), imgsz=size, batch=n, half=True, rect=True,
+                      project=str(work / "runs"), name="rect_jpeg")
+    launches["rect"] = la.linear_attention_kernel.launches
+    print(f"jpeg: rect val of {JPEG_RECT['n']} wide and {JPEG_RECT['n']} tall JPEGs "
+          f"({JPEG_RECT['long']} x {size}): batch shapes {shapes}; metrics {json.dumps(m)}; "
+          f"{launches['rect']} kernel launches", flush=True)
+    if len(set(shapes)) != 2 or any(h == w for _, h, w, _ in shapes) or launches["rect"] <= 0 \
+            or not all(math.isfinite(val) for val in m.values()):
+        raise AssertionError("the rect JPEG validation did not keep its non-square canvases")
+
+    # predict on the JPEG files once; save_crop of one result, decoded back
+    la.linear_attention_kernel.launches = 0
+    results = model.predict(str(work / "fit_jpeg" / "images" / "val"), imgsz=FIT["imgsz"],
+                            project=str(work / "runs"))
+    launches["predict"] = la.linear_attention_kernel.launches
+    r = max(results, key=len)
+    r.save_crop(work / "crops", "shot.jpg")
+    crops = sorted((work / "crops").rglob("*.jpg"))
+    h, w = r.orig_shape
+    sizes = []
+    for b in r.boxes.data:
+        x1, y1, x2, y2 = b[:4]
+        bw, bh = (x2 - x1) * 1.02 + 10, (y2 - y1) * 1.02 + 10
+        xa, xb = int(np.clip((x1 + x2) / 2 - bw / 2, 0, w)), int(np.clip((x1 + x2) / 2 + bw / 2, 0, w))
+        ya, yb = int(np.clip((y1 + y2) / 2 - bh / 2, 0, h)), int(np.clip((y1 + y2) / 2 + bh / 2, 0, h))
+        if xb > xa and yb > ya:
+            sizes.append((yb - ya, xb - xa))
+    got = sorted(load_image_rgb(c).shape[:2] for c in crops)
+    print(f"jpeg: predict on {len(results)} JPEG files: boxes per image {[len(x) for x in results]}"
+          f"; save_crop of {len(r)} boxes wrote {len(crops)} crops of sizes {got}; "
+          f"{launches['predict']} kernel launches", flush=True)
+    if len(results) != FIT["n_val"] or got != sorted(sizes) or not crops \
+            or launches["predict"] <= 0:
+        raise AssertionError("predict or save_crop on the JPEG files failed")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1415,7 +1650,10 @@ def main() -> int:
 
     t0 = phase("build")
     libs = _build.build()
-    print(f"build wall time: {time.perf_counter() - t0:.3f} s for {sorted(libs)}", flush=True)
+    print(f"build wall time: {time.perf_counter() - t0:.3f} s for {sorted(libs)}; each source "
+          f"(all compilers at once): "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in sorted(_build.build_seconds.items())),
+          flush=True)
     done("build", t0)
 
     t0 = phase("kernels")
@@ -1448,12 +1686,16 @@ def main() -> int:
     t0 = phase("fit")
     check_tiled_nms()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_fit_") as work:
-        fit_launches = fit(la, card, Path(work) / "edgeline-yolo")
+        fit_launches, best = fit(la, card, Path(work) / "edgeline-yolo")
         fit(la, card, Path(work) / "yolo11n", "yolo11n.yaml", YOLO11N_FIT_MAP_MIN)
-        v13_fit_launches = fit(la, card, Path(work) / "yolov13-test", "yolov13-test.yaml",
-                               V13_TEST_FIT_MAP_MIN, V13_TEST_FIT_IMGSZ)
+        v13_fit_launches, _ = fit(la, card, Path(work) / "yolov13-test", "yolov13-test.yaml",
+                                  V13_TEST_FIT_MAP_MIN, V13_TEST_FIT_IMGSZ)
         fit(la, card, Path(work) / "yolov10n", "yolov10n.yaml", V10_FIT_MAP_MIN)
-    done("fit", t0)
+        done("fit", t0)
+
+        t0 = phase("jpeg")
+        jpeg_launches = jpeg(la, card, Path(work) / "edgeline-yolo", best)
+        done("jpeg", t0)
 
     t0 = phase("device times")
     device_times(la, la_rows, la_inputs_by_case)
@@ -1464,6 +1706,7 @@ def main() -> int:
                 "replaces": "edgeyolo_tpu/ops/pallas/linear_attention.py:25",
                 "launches": launches, "launches_train": train_launches,
                 **{f"launches_fit_{k}": v for k, v in fit_launches.items()},
+                **{f"launches_jpeg_{k}": v for k, v in jpeg_launches.items()},
                 "launches_yolo11_lineattention": family_launches["yolo11-lineattention-n"],
                 "launches_yolo11n": family_launches["yolo11n"],
                 "launches_msla": family_launches[MSLA],

@@ -6,11 +6,14 @@ either package reads the other's cache), class filtering, `single_cls`, the
 rect-val canvas shapes, letterboxed samples with labels mapped into
 letterbox space, and an optional RAM cache of decoded images.
 
-Batches have fixed shapes: images (B, imgsz, imgsz, 3) uint8, and labels
-padded to the dataset's `max_gt` with a validity mask. The last batch of an
-epoch is padded by repeating its last item, and `n_real` says how many are
-real. The trainer augments on the device (data/augment_device.py); the host
-only decodes and letterboxes, in one prefetch thread.
+Batches have fixed shapes: images (B, imgsz, imgsz, 3) uint8 (or one rect
+canvas per batch), and labels padded to the dataset's `max_gt` with a
+validity mask. The last batch of an epoch is padded by repeating its last
+item, and `n_real` says how many are real. The trainer augments on the
+device (data/augment_device.py); the host only decodes and letterboxes, in
+one prefetch thread that hands each batch to the codec library: JPEG files
+are decoded there, and the batch is letterboxed there over its threads
+(data/letterbox.py).
 """
 
 from __future__ import annotations
@@ -26,8 +29,8 @@ from pathlib import Path
 
 import numpy as np
 
-from edgeyolo_tpu_torch.data.imageio import image_size, load_image_rgb
-from edgeyolo_tpu_torch.data.letterbox import letterbox
+from edgeyolo_tpu_torch.data.imageio import decode_image, image_size, is_jpeg
+from edgeyolo_tpu_torch.data.letterbox import LetterboxError, letterbox_batch
 from edgeyolo_tpu_torch.utils import LOGGER
 from edgeyolo_tpu_torch.utils.yamlfile import yaml_load
 
@@ -219,18 +222,45 @@ class YOLODataset:
                 self._rect_shape[i] = (H, W)
         self.rect = True
 
+    def _target(self, i: int):
+        return self._rect_shape[i] if (self.rect and self._rect_shape) else self.imgsz
+
+    def _letterboxed(self, idx: list[int]) -> dict:
+        """{i: (img, r, (pw, ph), (h0, w0))} for distinct indices, each canvas
+        shape's images decoded and letterboxed in one threaded library call."""
+        out, todo = {}, {}
+        for i in idx:
+            ck = (i, self._target(i))
+            if self.cache_ram and ck in self._im_cache:
+                out[i] = self._im_cache[ck]
+            else:
+                todo.setdefault(ck[1], []).append(i)
+        for target, group in todo.items():
+            sources = []
+            for i in group:
+                data = Path(self.im_files[i]).read_bytes()
+                sources.append(data if is_jpeg(data) else decode_image(data, self.im_files[i]))
+            try:
+                imgs, metas = letterbox_batch(sources, target, scaleup=self.augment)
+            except LetterboxError as e:  # name the file, not only its place in the batch
+                raise ValueError(f"{self.im_files[group[e.index]]}: {e}") from None
+            for i, img, (r, pads, hw) in zip(group, imgs, metas):
+                out[i] = (img, r, pads, hw)
+                if self.cache_ram:
+                    self._im_cache[(i, target)] = out[i]
+        return out
+
+    def get_items(self, idx: list[int]) -> list[dict]:
+        """Samples for `idx` (repeats allowed), decoded and letterboxed together."""
+        decoded = self._letterboxed(list(dict.fromkeys(idx)))
+        return [self._sample(i, *decoded[i]) for i in idx]
+
     def get_item(self, i: int) -> dict:
         """One sample: letterboxed uint8 image and padded normalised-xywh labels."""
-        target = self._rect_shape[i] if (self.rect and self._rect_shape) else self.imgsz
-        ck = (i, target)
-        if self.cache_ram and ck in self._im_cache:
-            img, r, (pw, ph), (h0, w0) = self._im_cache[ck]
-        else:
-            img0 = load_image_rgb(self.im_files[i])
-            h0, w0 = img0.shape[:2]
-            img, r, (pw, ph) = letterbox(img0, target, scaleup=self.augment)
-            if self.cache_ram:
-                self._im_cache[ck] = (img, r, (pw, ph), (h0, w0))
+        return self.get_items([i])[0]
+
+    def _sample(self, i: int, img, r, pads, hw) -> dict:
+        (pw, ph), (h0, w0) = pads, hw
         H, W = img.shape[:2]
         lab = self.labels[i]
         cls = lab["cls"].copy()
@@ -283,7 +313,7 @@ class DataLoader:
         """Stack one batch; a short final batch repeats its last item (n_real says)."""
         n_real = len(chunk)
         chunk = chunk + [chunk[-1]] * (self.bs - len(chunk))
-        items = [self.dataset.get_item(j) for j in chunk]
+        items = self.dataset.get_items(chunk)
         return {"img": np.stack([it["img"] for it in items]),
                 "cls": np.stack([it["cls"] for it in items]),
                 "bboxes": np.stack([it["bboxes"] for it in items]),

@@ -1,32 +1,38 @@
-"""Image files without PIL: PNG decode and encode, 24-bit BMP decode, and
-header-only size reads (the part of PIL that edgeyolo_tpu/data/letterbox.py's
-`load_image_rgb` and dataset.py's verify and `set_rectangle` use).
+"""Image files without PIL: JPEG and PNG decode and encode, 24-bit BMP decode,
+and header-only size reads (the part of PIL that edgeyolo_tpu/data/letterbox.py's
+`load_image_rgb`, dataset.py's verify and `set_rectangle`, and results.py's
+`save_crop` use).
 
+- JPEG decode and encode: the port's own codec, csrc/imageio.cpp, built by the
+  host C++ compiler on first use (ops/_build.py). Decoding gives PIL's pixels
+  byte for byte (libjpeg's accurate integer IDCT, fancy upsampling and
+  YCbCr -> RGB) for baseline and progressive Huffman files, 8-bit, gray or
+  three components, sampling factors 1 or 2, with restart intervals; other
+  modes, and truncated or corrupt streams, raise ValueError. Encoding is
+  baseline, 4:2:0, 4:2:2, 4:4:0 or 4:4:4 (gray: one component), the Annex K
+  tables scaled by `quality` as libjpeg scales them: PIL's file byte for byte.
 - PNG decode: bit depths 1, 2, 4 and 8 for gray and palette, 8 for gray+alpha,
-  RGB and RGBA; non-interlaced; the five row filters; zlib from the standard
-  library. The result is HWC RGB uint8 as PIL's `convert("RGB")` gives it:
-  alpha is dropped, gray is repeated, a palette is looked up.
-  None and Up rows are one numpy operation for the whole row and Sub a cumulative
-  sum, but Average and Paeth rows decode in a per-pixel Python loop, since each
-  byte depends on the one decoded before it. PIL's encoder picks a filter per
-  row, so files written by PIL take that loop on most rows; the port's own
-  encoder writes None or Up rows only.
+  RGB and RGBA; non-interlaced; zlib from the standard library, the five row
+  filters undone in the codec library. The result is HWC RGB uint8 as PIL's
+  `convert("RGB")` gives it: alpha is dropped, gray is repeated, a palette is
+  looked up. `decode_png_plain` undoes the filters in numpy and Python instead
+  (the plain version the tests hold the library against).
 - PNG encode: RGB, filter None or Up, zlib level 1.
 - BMP decode: uncompressed 24-bit, bottom-up or top-down.
-- JPEG: the size is read from the header, but decoding raises (ROADMAP A.9).
 """
 
 from __future__ import annotations
 
+import ctypes
 import struct
 import zlib
 from pathlib import Path
 
 import numpy as np
 
+from edgeyolo_tpu_torch.ops import _build
+
 PNG_SIG = b"\x89PNG\r\n\x1a\n"
-JPEG_TODO = ("JPEG decoding is not ported yet (ROADMAP.md §A.9, 'JPEG decode': nvJPEG "
-             "against a port-owned decoder); use PNG or BMP images")
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # PNG colour type -> samples per pixel
 
 
@@ -66,8 +72,104 @@ def _average_row(cur: bytearray, prev: bytes, bpp: int) -> None:
         cur[i] = (cur[i] + ((a + prev[i]) >> 1)) & 0xFF
 
 
+class EyioSource(ctypes.Structure):
+    """csrc/imageio.cpp's EyioSource: JPEG bytes (kind 0) or (h, w, 3) pixels (kind 1)."""
+    _fields_ = [("data", ctypes.c_void_p), ("len", ctypes.c_uint64), ("kind", ctypes.c_int32),
+                ("h", ctypes.c_int32), ("w", ctypes.c_int32)]
+
+
+class EyioMeta(ctypes.Structure):
+    _fields_ = [("h0", ctypes.c_int32), ("w0", ctypes.c_int32), ("r", ctypes.c_double),
+                ("pw", ctypes.c_int32), ("ph", ctypes.c_int32)]
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int32
+_ERR = (ctypes.c_char_p, ctypes.c_int)
+_SIGNATURES = {
+    "eyio_jpeg_decode": (_P, ctypes.c_uint64, _P, _I, _I, *_ERR),
+    "eyio_jpeg_encode": (_P, _I, _I, _I, _I, _I, _I,
+                         ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8)),
+                         ctypes.POINTER(ctypes.c_uint64), *_ERR),
+    "eyio_free": (_P,),
+    "eyio_png_unfilter": (_P, ctypes.c_uint64, _I, _I, _I, _P, *_ERR),
+    "eyio_letterbox_batch": (_I, ctypes.POINTER(EyioSource), _I, _I, _I, _I, _P,
+                             ctypes.POINTER(EyioMeta), *_ERR),
+}
+
+
+def codec() -> ctypes.CDLL:
+    """The codec library (csrc/imageio.cpp), built on first use, its functions typed."""
+    lib = _build.load("imageio")
+    if not getattr(lib, "_typed", False):
+        for name, args in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(args)
+            fn.restype = None if name == "eyio_free" else ctypes.c_int
+        lib._typed = True
+    return lib
+
+
+def _err_buf():
+    return ctypes.create_string_buffer(512)
+
+
+def _ptr(a) -> int:
+    """Address of a bytes object or contiguous numpy array (the caller keeps it alive)."""
+    return (a if isinstance(a, np.ndarray) else np.frombuffer(a, np.uint8)).ctypes.data
+
+
+def decode_jpeg(data: bytes) -> np.ndarray:
+    """JPEG bytes -> HWC RGB uint8, equal to PIL's decode followed by convert("RGB")."""
+    w, h = _jpeg_size(data)
+    out = np.empty((h, w, 3), np.uint8)
+    err = _err_buf()
+    if codec().eyio_jpeg_decode(_ptr(data), len(data), out.ctypes.data, w, h, err, len(err)):
+        raise ValueError(err.value.decode())
+    return out
+
+
+SUBSAMPLING = {"4:2:0": (2, 2), "4:2:2": (2, 1), "4:4:0": (1, 2), "4:4:4": (1, 1)}
+
+
+def encode_jpeg(img: np.ndarray, quality: int = 92, subsampling: str = "4:2:0") -> bytes:
+    """HWC RGB (or HW gray) uint8 -> baseline JPEG bytes, libjpeg's (PIL's) file at
+    the same quality and subsampling."""
+    img = np.ascontiguousarray(img, np.uint8)
+    if img.ndim == 3 and img.shape[2] == 1:
+        img = img[..., 0]
+    if img.ndim not in (2, 3) or (img.ndim == 3 and img.shape[2] != 3):
+        raise ValueError(f"expected an (H, W, 3) or (H, W) uint8 image, got {img.shape}")
+    lib, err = codec(), _err_buf()
+    out, n = ctypes.POINTER(ctypes.c_uint8)(), ctypes.c_uint64()
+    ch = 1 if img.ndim == 2 else 3
+    sh, sv = SUBSAMPLING[subsampling]
+    if lib.eyio_jpeg_encode(img.ctypes.data, img.shape[1], img.shape[0], ch, int(quality), sh, sv,
+                            ctypes.byref(out), ctypes.byref(n), err, len(err)):
+        raise ValueError(err.value.decode())
+    try:
+        return ctypes.string_at(out, n.value)
+    finally:
+        lib.eyio_free(out)
+
+
+def save_jpeg(path: str | Path, img: np.ndarray, quality: int = 92,
+              subsampling: str = "4:2:0") -> None:
+    Path(path).write_bytes(encode_jpeg(img, quality, subsampling))
+
+
 def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
-    """Undo the PNG row filters: (h, stride) uint8."""
+    """Undo the PNG row filters in the codec library: (h, stride) uint8."""
+    out = np.empty((h, stride), np.uint8)
+    err = _err_buf()
+    if codec().eyio_png_unfilter(_ptr(raw), len(raw), h, stride, bpp, out.ctypes.data, err,
+                                 len(err)):
+        raise ValueError(err.value.decode())
+    return out
+
+
+def _unfilter_plain(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
+    """Undo the PNG row filters in numpy and Python: (h, stride) uint8."""
     if len(raw) < h * (stride + 1):
         raise ValueError("PNG image data is truncated")
     rows = np.frombuffer(raw, np.uint8, h * (stride + 1)).reshape(h, stride + 1)
@@ -93,6 +195,15 @@ def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
 
 def decode_png(data: bytes) -> np.ndarray:
     """PNG bytes -> HWC RGB uint8."""
+    return _decode_png(data, _unfilter)
+
+
+def decode_png_plain(data: bytes) -> np.ndarray:
+    """decode_png with the row filters undone in numpy and Python (the plain version)."""
+    return _decode_png(data, _unfilter_plain)
+
+
+def _decode_png(data: bytes, unfilter) -> np.ndarray:
     header, idat, palette = None, [], None
     for kind, payload in _chunks(data):
         if kind == b"IHDR":
@@ -112,7 +223,7 @@ def decode_png(data: bytes) -> np.ndarray:
         raise NotImplementedError(f"PNG bit depth {depth} with colour type {ctype}")
     ch = _CHANNELS[ctype]
     stride = (w * ch * depth + 7) // 8
-    px = _unfilter(zlib.decompress(b"".join(idat)), h, stride, max(1, ch * depth // 8))
+    px = unfilter(zlib.decompress(b"".join(idat)), h, stride, max(1, ch * depth // 8))
     if depth < 8:  # packed samples, most significant bits first
         bits = np.unpackbits(px, axis=1).reshape(h, -1, depth)[:, :w]
         px = (bits * (1 << np.arange(depth - 1, -1, -1, dtype=np.uint8))).sum(-1, dtype=np.uint8)
@@ -207,16 +318,27 @@ def image_size(path: str | Path) -> tuple[int, int]:
     raise ValueError(f"unknown image format: {path}")
 
 
-def load_image_rgb(path: str | Path) -> np.ndarray:
-    """An image file -> HWC RGB uint8 (PNG or 24-bit BMP)."""
-    data = Path(path).read_bytes()
+def is_jpeg(data: bytes) -> bool:
+    return data[:2] == b"\xff\xd8"
+
+
+def decode_image(data: bytes, name: str | Path = "image") -> np.ndarray:
+    """Image file bytes -> HWC RGB uint8 (JPEG, PNG or 24-bit BMP)."""
+    if is_jpeg(data):
+        try:
+            return decode_jpeg(data)
+        except ValueError as e:
+            raise ValueError(f"{name}: {e}") from None
     if data[:8] == PNG_SIG:
         return decode_png(data)
     if data[:2] == b"BM":
         return decode_bmp(data)
-    if data[:2] == b"\xff\xd8":
-        raise NotImplementedError(f"{path}: {JPEG_TODO}")
-    raise ValueError(f"unknown image format: {path}")
+    raise ValueError(f"unknown image format: {name}")
+
+
+def load_image_rgb(path: str | Path) -> np.ndarray:
+    """An image file -> HWC RGB uint8 (JPEG, PNG or 24-bit BMP)."""
+    return decode_image(Path(path).read_bytes(), path)
 
 
 def save_png(path: str | Path, img: np.ndarray, filter: str = "up") -> None:

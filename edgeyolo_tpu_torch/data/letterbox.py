@@ -1,46 +1,74 @@
-"""Letterbox preprocessing for val and predict (edgeyolo_tpu/data/letterbox.py).
+"""Letterbox preprocessing for train, val and predict (edgeyolo_tpu/data/letterbox.py).
 
-The same ratio, rounding and gray-114 pads as the JAX letterbox, always to
-the static (imgsz, imgsz) canvas. The resize is torch's antialiased bilinear
-(`F.interpolate(mode="bilinear", antialias=True, align_corners=False)`,
-rounded to uint8) in place of PIL's BILINEAR: the two differ by at most one
-grey level, on about a sixth of the pixels of a random image.
+The same ratio, rounding and gray-114 pads as the JAX letterbox, to a square
+(imgsz, imgsz) or a rect (H, W) canvas. Decoding and resizing run in the
+codec library (csrc/imageio.cpp), over worker threads for a batch: JPEG
+sources are decoded there, other images arrive as pixels. The resize is
+edgeyolo_tpu/native/io.cpp's triangle filter with PIL BILINEAR's support
+(antialiased on downscale), which is within one grey level of PIL's.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
-import torch
-import torch.nn.functional as F
+
+from edgeyolo_tpu_torch.data.imageio import EyioMeta, EyioSource, codec
+
+THREADS = 4  # decode threads of a batch, as edgeyolo_tpu/native's default
 
 
-def resize_bilinear(img: np.ndarray, size_wh: tuple[int, int]) -> np.ndarray:
-    """HWC uint8 -> (h, w, C) uint8 by antialiased bilinear resampling."""
-    w, h = size_wh
-    x = torch.from_numpy(np.ascontiguousarray(img)).permute(2, 0, 1)[None].float()
-    y = F.interpolate(x, size=(h, w), mode="bilinear", antialias=True, align_corners=False)
-    return y[0].round_().clamp_(0, 255).to(torch.uint8).permute(1, 2, 0).contiguous().numpy()
+class LetterboxError(ValueError):
+    """A source of a batch failed; `index` is its place in the batch."""
+
+    def __init__(self, index: int, message: str):
+        super().__init__(f"decode and letterbox failed at image {index}: {message}")
+        self.index = index
+
+
+def letterbox_batch(sources: list, new_shape: int | tuple[int, int] = 640, scaleup: bool = True,
+                    threads: int = THREADS):
+    """Decode and letterbox a batch onto one canvas shape.
+
+    sources: JPEG file bytes, or HWC uint8 RGB (or HW gray) arrays. Returns
+    (images (n, H, W, 3) uint8, [(ratio, (pad_w, pad_h), (h0, w0)), ...]).
+    A source that fails raises LetterboxError (a ValueError) naming its index.
+    """
+    H, W = (new_shape, new_shape) if isinstance(new_shape, int) else new_shape
+    n = len(sources)
+    keep, src = [], (EyioSource * max(n, 1))()
+    for i, s in enumerate(sources):
+        if isinstance(s, (bytes, bytearray, memoryview)):
+            a = np.frombuffer(s, np.uint8)
+            src[i] = EyioSource(a.ctypes.data, a.size, 0, 0, 0)
+        else:
+            a = np.asarray(s)
+            if a.ndim == 3 and a.shape[2] == 1:
+                a = a[..., 0]
+            if a.ndim == 2:
+                a = np.repeat(a[..., None], 3, axis=2)
+            if a.ndim != 3 or a.shape[2] != 3:
+                raise ValueError(f"image {i}: expected (H, W, 3) uint8 pixels, got {a.shape}")
+            a = np.ascontiguousarray(a, np.uint8)
+            src[i] = EyioSource(a.ctypes.data, a.size, 1, a.shape[0], a.shape[1])
+        keep.append(a)  # alive until the call returns
+    out = np.empty((n, H, W, 3), np.uint8)
+    meta = (EyioMeta * max(n, 1))()
+    err = ctypes.create_string_buffer(512)
+    rc = codec().eyio_letterbox_batch(n, src, H, W, int(bool(scaleup)), int(threads),
+                                      out.ctypes.data, meta, err, len(err))
+    if rc < 0:
+        raise RuntimeError(f"decode and letterbox failed: {err.value.decode()}")
+    if rc:
+        raise LetterboxError(rc - 1, err.value.decode())
+    return out, [(m.r, (m.pw, m.ph), (m.h0, m.w0)) for m in meta[:n]]
 
 
 def letterbox(img: np.ndarray, new_shape: int | tuple[int, int] = 640, scaleup: bool = True):
     """Resize and pad (gray 114, split evenly) an HWC uint8 image.
 
-    Returns (padded image (nh, nw, C), ratio, (pad_w, pad_h)).
+    Returns (padded image (nh, nw, 3), ratio, (pad_w, pad_h)).
     """
-    if img.ndim == 2:
-        img = img[..., None]
-    shape = img.shape[:2]  # h, w
-    if isinstance(new_shape, int):
-        new_shape = (new_shape, new_shape)
-    r = min(new_shape[0] / shape[0], new_shape[1] / shape[1])
-    if not scaleup:
-        r = min(r, 1.0)
-    new_unpad = (round(shape[1] * r), round(shape[0] * r))  # (w, h)
-    dw, dh = (new_shape[1] - new_unpad[0]) / 2, (new_shape[0] - new_unpad[1]) / 2
-    if shape[::-1] != new_unpad:
-        img = resize_bilinear(img, new_unpad)
-    top = int(round(dh - 0.1))
-    left = int(round(dw - 0.1))
-    out = np.full((new_shape[0], new_shape[1], img.shape[2]), 114, dtype=img.dtype)
-    out[top:top + img.shape[0], left:left + img.shape[1]] = img
-    return out, r, (left, top)
+    out, [(r, pads, _)] = letterbox_batch([img], new_shape, scaleup, threads=1)
+    return out[0], r, pads

@@ -51,6 +51,16 @@ def e2e_detections(pred: torch.Tensor, conf: float, max_det: int, classes=None):
     return det, keep.sum(dim=1, dtype=torch.int32)
 
 
+def unletterbox_boxes(det: np.ndarray, r: float, pw: float, ph: float,
+                      orig_shape: tuple[int, int]) -> np.ndarray:
+    """Letterbox-space detection rows, in place, into the original image's
+    pixels, clipped to it."""
+    h0, w0 = orig_shape
+    det[:, [0, 2]] = ((det[:, [0, 2]] - pw) / r).clip(0, w0)
+    det[:, [1, 3]] = ((det[:, [1, 3]] - ph) / r).clip(0, h0)
+    return det
+
+
 class DetectionPredictor:
     """`predictor(images)` -> (det (B, max_det, 6) [x1, y1, x2, y2, conf, cls], n (B,));
     `predictor.predict(source)` -> [Results]."""
@@ -89,14 +99,6 @@ class DetectionPredictor:
         det[..., 1:4:2] = det[..., 1:4:2].clamp(0, h)
         return det, n
 
-    @staticmethod
-    def _unletterbox_boxes(det: np.ndarray, r: float, pw: float, ph: float,
-                           orig_shape: tuple[int, int]) -> np.ndarray:
-        h0, w0 = orig_shape
-        det[:, [0, 2]] = ((det[:, [0, 2]] - pw) / r).clip(0, w0)
-        det[:, [1, 3]] = ((det[:, [1, 3]] - ph) / r).clip(0, h0)
-        return det
-
     def _run_batch(self, frames, names):
         n_real = len(frames)
         imgs = [f[2] for f in frames] + [frames[-1][2]] * (self.batch - n_real)
@@ -108,7 +110,7 @@ class DetectionPredictor:
             t2 = time.perf_counter()
             det = dets[i, :int(nvalid[i])].copy()
             if len(det):
-                det = self._unletterbox_boxes(det, r, *pads, img0.shape[:2])
+                det = unletterbox_boxes(det, r, *pads, img0.shape[:2])
             res = Results(img0, path, names, boxes=det,
                           speed={"preprocess": pre_ms, "inference": infer_ms, "postprocess": 0.0})
             if self.save_txt:

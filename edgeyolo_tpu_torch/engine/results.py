@@ -2,9 +2,9 @@
 
 `Boxes` holds (N, 6) [x1, y1, x2, y2, conf, cls] rows in pixels of the
 original image, with the xywh and normalised views; `Results` holds one
-image's boxes with `save_txt`, `to_json` and `verbose_str`. Drawing
-(`plot`, `save`, `save_crop`) is not ported yet (ROADMAP A.9). Host numpy:
-the device work ends at the NMS output.
+image's boxes with `save_txt`, `save_crop`, `to_json` and `verbose_str`.
+Drawing (`plot`, `save`) is not ported yet (ROADMAP A.9). Host numpy: the
+device work ends at the NMS output.
 """
 
 from __future__ import annotations
@@ -13,6 +13,8 @@ import json
 from pathlib import Path
 
 import numpy as np
+
+from edgeyolo_tpu_torch.data.imageio import save_jpeg, save_png
 
 
 class Boxes:
@@ -89,6 +91,31 @@ class Results:
             Path(txt_file).parent.mkdir(parents=True, exist_ok=True)
             with open(txt_file, "a") as f:
                 f.write("\n".join(lines) + "\n")
+
+    def save_crop(self, save_dir: str | Path, file_name: str | Path = "im.jpg"):
+        """One crop per detection under save_dir/<class name>/, the box grown by
+        gain 1.02 and 10 px (reference save_one_box), named stem, stem1, stem2, ...
+        A .png name writes PNG; any other a JPEG at PIL's default quality, 75."""
+        if self.boxes is None:
+            return
+        h, w = self.orig_shape
+        stem, suffix = Path(file_name).stem, Path(file_name).suffix or ".jpg"
+        for k, b in enumerate(self.boxes.data):
+            x1, y1, x2, y2 = b[:4]
+            cx, cy = (x1 + x2) / 2, (y1 + y2) / 2
+            bw, bh = (x2 - x1) * 1.02 + 10, (y2 - y1) * 1.02 + 10
+            xa, xb = int(np.clip(cx - bw / 2, 0, w)), int(np.clip(cx + bw / 2, 0, w))
+            ya, yb = int(np.clip(cy - bh / 2, 0, h)), int(np.clip(cy + bh / 2, 0, h))
+            if xb <= xa or yb <= ya:
+                continue
+            d = Path(save_dir) / self.names.get(int(b[-1]), str(int(b[-1])))
+            d.mkdir(parents=True, exist_ok=True)
+            crop = np.ascontiguousarray(self.orig_img[ya:yb, xa:xb], np.uint8)
+            path = d / f"{stem}{'' if k == 0 else k}{suffix}"
+            if suffix.lower() == ".png":
+                save_png(path, crop)
+            else:
+                save_jpeg(path, crop, quality=75)
 
     def to_json(self, normalize: bool = False) -> str:
         out = []

@@ -10,12 +10,17 @@ the ten IoU thresholds. Only (det, n, tp) come back to the host, into
 `DetMetrics` (101-point AP, the fork's mAP75 column). With `half` a model
 whose convolutions are f32 is validated through a bf16 copy (convolutions
 bf16, BatchNorm, quality head and decode f32, as in serving).
-`save_json`, COCO evaluation, plots, DETR, int8 and multi-device validation
-are not ported yet.
+With `save_json` each image's detections, in native pixels as COCO's
+top-left xywh, go to `save_dir/predictions.json` (category ids through the
+COCO 80 -> 91 map when the split is COCO's 80 classes), and when the data
+YAML names `annotations` or `gt_json` the COCO protocol scores them
+(metrics/coco_eval.py) into `metrics.speed["coco/AP"]` and the rest.
+Plots, DETR, int8 and multi-device validation are not ported yet.
 """
 
 from __future__ import annotations
 
+import json
 import time
 from pathlib import Path
 
@@ -24,8 +29,10 @@ import torch
 from torch import nn
 
 from edgeyolo_tpu_torch.cfg import get_cfg
+from edgeyolo_tpu_torch.data.converter import coco80_to_coco91_class
 from edgeyolo_tpu_torch.data.dataset import YOLODataset, build_dataloader, check_det_dataset
-from edgeyolo_tpu_torch.engine.predictor import e2e_detections
+from edgeyolo_tpu_torch.engine.predictor import e2e_detections, unletterbox_boxes
+from edgeyolo_tpu_torch.metrics.coco_eval import evaluate_coco
 from edgeyolo_tpu_torch.metrics.metrics import DetMetrics, match_predictions_device
 from edgeyolo_tpu_torch.nn.tasks import for_precision
 from edgeyolo_tpu_torch.ops.boxes import box_iou
@@ -42,6 +49,8 @@ class DetectionValidator:
         self.save_dir = Path(save_dir)
         self.device = select_device(device if device is not None else self.args.device)
         self.metrics = None
+        self.jdict: list[dict] = []  # this call's predictions.json rows
+        self.class_map = None  # contiguous class -> json category_id, set per call
         self._loader = None  # kept across calls (the trainer validates every epoch)
 
     def _dataloader(self, data_cfg: dict, bs: int):
@@ -86,6 +95,12 @@ class DetectionValidator:
         data_cfg = check_det_dataset(data or args.data)
         names = data_cfg["names"]
         bs = int(batch_size or args.batch or 16)
+        save_json = bool(getattr(args, "save_json", False))
+        split = data_cfg.get(args.split or "val") or data_cfg["val"]
+        # COCO GT jsons use the sparse 1-90 category ids (reference pred_to_json)
+        self.class_map = (coco80_to_coco91_class() if save_json and len(names) == 80
+                          and "coco" in str(split).lower() else None)
+        self.jdict = []
         loader = self._dataloader(data_cfg, bs)
         net = for_precision(model, bool(args.half)) if isinstance(model, nn.Module) else model
         was_training = getattr(net, "training", False)
@@ -105,8 +120,13 @@ class DetectionValidator:
                 for i in range(batch["n_real"]):
                     seen += 1
                     k = int(n[i])
+                    meta = batch["meta"][i]
                     metrics.update_batch(tp[i, :k], det[i, :k, 4], det[i, :k, 5],
-                                         batch["meta"][i]["ori_cls"])
+                                         meta["ori_cls"])
+                    if save_json:
+                        r, pads = meta["ratio_pad"]
+                        native = unletterbox_boxes(det[i, :k].copy(), r, *pads, meta["ori_shape"])
+                        self._to_json(native, meta["im_file"])
                 t_pre += t1 - t0
                 t_inf += t2 - t1
                 t_post += time.perf_counter() - t2
@@ -120,6 +140,14 @@ class DetectionValidator:
         self.metrics = metrics
         self.seen = seen
         LOGGER.info(self.results_line())
+        if save_json and self.jdict:
+            self.save_dir.mkdir(parents=True, exist_ok=True)
+            pred_path = self.save_dir / "predictions.json"
+            pred_path.write_text(json.dumps(self.jdict))
+            gt_json = data_cfg.get("annotations") or data_cfg.get("gt_json")
+            if gt_json and Path(gt_json).exists():
+                for k, v in evaluate_coco(gt_json, pred_path).items():
+                    metrics.speed[f"coco/{k}"] = v
         return metrics.results_dict
 
     def results_line(self) -> str:
@@ -127,6 +155,18 @@ class DetectionValidator:
         mp, mr, map50, map_ = self.metrics.mean_results()
         return (f"{'all':>10}{self.seen:>8}{mp:>11.3g}{mr:>11.3g}{map50:>11.3g}"
                 f"{self.metrics.box.map75:>11.3g}{map_:>11.3g}")
+
+    def _to_json(self, det: np.ndarray, im_file: str):
+        """COCO result rows: image_id from a numeric stem, top-left xywh rounded to 3 places."""
+        stem = Path(im_file).stem
+        image_id = int(stem) if stem.isnumeric() else stem
+        box = det[:, :4].copy()
+        box[:, 2:] -= box[:, :2]
+        for b, d in zip(box.tolist(), det.tolist()):
+            ci = int(d[5])
+            self.jdict.append({"image_id": image_id,
+                               "category_id": self.class_map[ci] if self.class_map else ci,
+                               "bbox": [round(x, 3) for x in b], "score": round(d[4], 5)})
 
     @staticmethod
     def _gt_arrays(batch):

@@ -31,6 +31,7 @@ from edgeyolo_tpu.nn import tasks as jtasks
 from edgeyolo_tpu.train.loss import DetectionLoss as JDetectionLoss
 from edgeyolo_tpu_torch.nn.tasks import amp_params, train_forward
 from edgeyolo_tpu_torch.train.loss import DetectionLoss
+from torch_threads import one_torch_thread  # noqa: F401  (the port on one thread)
 
 
 def _round_bf16(t):

@@ -24,6 +24,7 @@ from edgeyolo_tpu.data import augment_device as jaug
 from edgeyolo_tpu.data import photometric as jphoto
 from edgeyolo_tpu_torch.data import augment_device as aug
 from edgeyolo_tpu_torch.data import photometric as photo
+from torch_threads import one_torch_thread  # noqa: F401  (the port on one thread)
 
 S, B, M = 64, 2, 6
 IMG_ATOL, LABEL_ATOL = 1e-4, 1e-5

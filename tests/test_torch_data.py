@@ -6,7 +6,8 @@
   resolve as YAML 1.1 does.
 - Images: PNG decode bit-equal to PIL on PIL-written files (gray, gray+alpha,
   RGB, RGBA, palette at 8, 4 and 1 bits), 24-bit BMP decode bit-equal, the
-  port's PNG encoder read back by PIL bit-equal, header sizes equal to PIL's.
+  port's PNG encoder read back by PIL bit-equal, header sizes equal to PIL's,
+  a PIL-written JPEG decoded bit-equal (tests/test_torch_jpeg.py has the rest).
 - Letterbox: ratio and pads equal to JAX's, pixels within 1 grey level (the
   antialiased bilinear resize against PIL's BILINEAR).
 - Synthetic data: label files and dataset.yaml byte-identical to JAX's for
@@ -14,7 +15,9 @@
 - Loader: over two shuffled epochs, every batch (img bytes, cls, bboxes,
   mask_gt, n_real and each item's ratio_pad, ori_shape, ori_cls,
   ori_bboxes) equal to JAX's on a PNG dataset whose images are at imgsz;
-  exact apart from the image of a resized case, held to 1 grey level.
+  exact apart from the image of a resized case, held to 1 grey level. The
+  same on a JPEG dataset of ten aspects against JAX's PIL path, square
+  (val and train scaling) and rect batches.
 - Inference sources: file, directory, glob, list, HWC array and (B, H, W, 3)
   array or tensor.
 """
@@ -190,10 +193,10 @@ def test_header_size_matches_pil(tmp_path, fmt):
     assert imageio.image_size(p) == Image.open(p).size == (67, 41)
 
 
-def test_jpeg_decode_names_its_roadmap_item(tmp_path):
+def test_jpeg_decode_matches_pil(tmp_path):
     Image.fromarray(_picture()).save(tmp_path / "a.jpg")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        imageio.load_image_rgb(tmp_path / "a.jpg")
+    np.testing.assert_array_equal(imageio.load_image_rgb(tmp_path / "a.jpg"),
+                                  np.asarray(Image.open(tmp_path / "a.jpg").convert("RGB")))
 
 
 def test_corrupt_png_is_refused(tmp_path):
@@ -332,6 +335,50 @@ def test_dataset_options_match_jax(synth):
     j.set_rectangle(4)
     assert p._rect_shape == j._rect_shape and p.im_files == j.im_files
     assert dataset.img2label_path("/d/images/a/x.png") == jdataset.img2label_path("/d/images/a/x.png")
+
+
+JPEG_SIZES = [(48, 64), (64, 48), (40, 80), (80, 40), (60, 60), (30, 90), (90, 30), (50, 70),
+              (70, 50), (45, 64)]
+
+
+@pytest.fixture(scope="module")
+def jpeg_set(tmp_path_factory):
+    """PIL-written JPEGs (q92, 4:2:0) of ten aspects with one to three boxes each."""
+    root = tmp_path_factory.mktemp("jpeg")
+    rs = np.random.RandomState(11)
+    for split in ("images", "labels"):
+        (root / split / "val").mkdir(parents=True)
+    for i, (h, w) in enumerate(JPEG_SIZES):
+        Image.fromarray(_picture(h, w, i)).save(root / "images" / "val" / f"{i}.jpg", quality=92)
+        boxes = [f"{rs.randint(3)} {rs.uniform(0.3, 0.7):.6f} {rs.uniform(0.3, 0.7):.6f} "
+                 f"{rs.uniform(0.1, 0.5):.6f} {rs.uniform(0.1, 0.5):.6f}"
+                 for _ in range(rs.randint(1, 4))]
+        (root / "labels" / "val" / f"{i}.txt").write_text("\n".join(boxes) + "\n")
+    return str(root / "images" / "val")
+
+
+@pytest.mark.parametrize("rect,augment", [(False, False), (False, True), (True, False)])
+def test_jpeg_loader_matches_jax_pil_path(jpeg_set, monkeypatch, rect, augment):
+    """JPEG files decoded by the port's codec and letterboxed over threads against
+    JAX's PIL decode and letterbox (EDGEYOLO_NATIVE_IO=0): labels, ratio and pads
+    exact, pixels within 1 grey level; rect batches keep JAX's canvas shapes."""
+    monkeypatch.setenv("EDGEYOLO_NATIVE_IO", "0")
+    monkeypatch.setattr(jdataset, "_NATIVE_IO", False)
+    imgsz, bs = (128, 2) if rect else (64, 4)  # rect: canvases of 64 x 128, 128 x 128, 128 x 64
+    names = {0: "a", 1: "b", 2: "c"}
+    pset = dataset.YOLODataset(jpeg_set, imgsz=imgsz, augment=augment, names=names)
+    jset = jdataset.YOLODataset(jpeg_set, imgsz=imgsz, augment=augment, names=names)
+    if rect:
+        pset.set_rectangle(bs)
+        jset.set_rectangle(bs)
+        assert pset._rect_shape == jset._rect_shape and len(set(pset._rect_shape)) == 3
+    assert pset.im_files == jset.im_files and pset.max_gt == jset.max_gt
+    pbs = list(dataset.build_dataloader(pset, bs, shuffle=False))
+    jbs = list(jdataset.build_dataloader(jset, bs, shuffle=False))
+    assert len(pbs) == len(jbs) == (len(JPEG_SIZES) + bs - 1) // bs
+    worst = max(_check_batches(jb, pb, img_tol=1) for jb, pb in zip(jbs, pbs))
+    print(f"rect {rect} augment {augment}: batch shapes {[b['img'].shape for b in pbs]}, "
+          f"max image difference {worst} level(s)")
 
 
 def test_loader_raises_a_decode_error_in_the_consumer(tmp_path, synth):

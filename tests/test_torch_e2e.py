@@ -31,6 +31,7 @@ from edgeyolo_tpu_torch.engine.validator import DetectionValidator
 from edgeyolo_tpu_torch.nn.modules import head
 from edgeyolo_tpu_torch.train.loss import E2EDetectLoss
 from edgeyolo_tpu_torch.utils.convert import from_jax_variables
+from torch_threads import one_torch_thread  # noqa: F401  (the port on one thread)
 
 NC, CH = 5, (16, 32, 64)
 SIDES = (8, 4, 2)  # a 64 px image at strides 8, 16, 32

@@ -41,6 +41,7 @@ from edgeyolo_tpu_torch.data.synthetic import generate_dataset
 from edgeyolo_tpu_torch.engine.model import YOLO
 from edgeyolo_tpu_torch.nn.modules.edgeline import WaveletEnhancer
 from edgeyolo_tpu_torch.nn.tasks import DetectionModel
+from torch_threads import one_torch_thread  # noqa: F401  (the port on one thread)
 
 REPO = Path(__file__).resolve().parents[1]
 DEFAULT_YAML = yaml.safe_load((REPO / "edgeyolo_tpu" / "cfg" / "default.yaml").read_text())

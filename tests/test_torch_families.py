@@ -36,6 +36,7 @@ from edgeyolo_tpu_torch.nn import tasks
 from edgeyolo_tpu_torch.nn.modules.edgeline import LinearAttention
 from edgeyolo_tpu_torch.nn.tasks import DetectionModel, num_params
 from edgeyolo_tpu_torch.utils.convert import from_jax_variables
+from torch_threads import one_torch_thread  # noqa: F401  (the port on one thread)
 
 REPO = Path(__file__).resolve().parents[1]
 S = 64

@@ -22,6 +22,7 @@ from edgeyolo_tpu_torch.nn.modules.block import dfl_decode
 from edgeyolo_tpu_torch.ops import boxes
 from edgeyolo_tpu_torch.train import loss
 from edgeyolo_tpu_torch.train.tal import task_aligned_assign
+from torch_threads import one_torch_thread  # noqa: F401  (the port on one thread)
 
 NC, REG_MAX, STRIDES, SHAPES = 80, 16, (8, 16, 32), ((8, 8), (4, 4), (2, 2))
 HYP = {"box": 7.5, "cls": 0.5, "dfl": 1.5}

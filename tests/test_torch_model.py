@@ -38,6 +38,7 @@ from edgeyolo_tpu_torch.nn import tasks
 from edgeyolo_tpu_torch.nn.tasks import DetectionModel, num_params
 from edgeyolo_tpu_torch.ops.nms import non_max_suppression
 from edgeyolo_tpu_torch.utils.convert import from_jax_variables
+from torch_threads import one_torch_thread  # noqa: F401  (the port on one thread)
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "edgeyolo_tpu_torch"

@@ -30,6 +30,7 @@ from edgeyolo_tpu_torch.nn.modules import block, conv, edgeline, head
 from edgeyolo_tpu_torch.ops import boxes
 from edgeyolo_tpu_torch.ops.nms import non_max_suppression
 from edgeyolo_tpu_torch.utils.convert import from_jax_variables
+from torch_threads import one_torch_thread  # noqa: F401  (the port on one thread)
 
 OP_ATOL = 1e-5
 STACK_ATOL = 1e-4

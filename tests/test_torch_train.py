@@ -37,6 +37,7 @@ from edgeyolo_tpu_torch.nn.modules import conv
 from edgeyolo_tpu_torch.nn.tasks import DetectionModel, num_trainable
 from edgeyolo_tpu_torch.train import trainer
 from edgeyolo_tpu_torch.utils.convert import from_jax_variables, jax_path_to_torch_key
+from torch_threads import one_torch_thread  # noqa: F401  (the port on one thread)
 
 S, B, M = 64, 2, 8
 build_optimizer = jtrainer.build_optimizer  # the chain itself, before any test patches it

@@ -41,6 +41,7 @@ from edgeyolo_tpu.train.loss import E2EDetectLoss as JE2EDetectLoss
 from edgeyolo_tpu_torch.nn.tasks import DetectionModel
 from edgeyolo_tpu_torch.train import trainer
 from edgeyolo_tpu_torch.utils.convert import from_jax_variables
+from torch_threads import one_torch_thread  # noqa: F401  (the port on one thread)
 
 STEPS, B = 3, 4
 build_optimizer = jtrainer.build_optimizer  # the chain itself, before the capture patches it

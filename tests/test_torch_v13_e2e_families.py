@@ -47,6 +47,7 @@ from edgeyolo_tpu_torch.nn.modules.edgeline import LinearAttention
 from edgeyolo_tpu_torch.nn.tasks import DetectionModel, num_params
 from edgeyolo_tpu_torch.train import trainer
 from edgeyolo_tpu_torch.utils.convert import from_jax_variables
+from torch_threads import one_torch_thread  # noqa: F401  (the port on one thread)
 
 # port name at scale n: (JAX YAML, weight SCALE, end to end)
 CONFIGS = {

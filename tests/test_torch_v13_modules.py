@@ -33,6 +33,7 @@ from edgeyolo_tpu.nn.modules import head as jhead
 from edgeyolo_tpu.nn.modules import msla_lgl as jmsla
 from edgeyolo_tpu_torch.nn.modules import block, edgeline, extra, head, msla_lgl
 from edgeyolo_tpu_torch.utils.convert import from_jax_variables
+from torch_threads import one_torch_thread  # noqa: F401  (the port on one thread)
 
 ATOL = 1e-4
 

@@ -29,6 +29,7 @@ from edgeyolo_tpu_torch.nn.tasks import DetectionModel, train_forward
 from edgeyolo_tpu_torch.train import trainer
 from edgeyolo_tpu_torch.train.loss import DetectionLoss
 from edgeyolo_tpu_torch.utils.convert import from_jax_variables, jax_path_to_torch_key
+from torch_threads import one_torch_thread  # noqa: F401  (the port on one thread)
 
 S = 64
 

@@ -43,6 +43,7 @@ from edgeyolo_tpu_torch.engine.results import Results
 from edgeyolo_tpu_torch.engine.validator import DetectionValidator
 from edgeyolo_tpu_torch.metrics import metrics
 from edgeyolo_tpu_torch.ops.nms import NMS_TILE, non_max_suppression
+from torch_threads import one_torch_thread  # noqa: F401  (the port on one thread)
 
 NC = 3
 

@@ -27,6 +27,7 @@ from edgeyolo_tpu_torch.nn.modules import edgeline, msla_lgl
 from edgeyolo_tpu_torch.ops import linear_attention as la
 from edgeyolo_tpu_torch.ops.wavelets import idwt2d_kernel
 from edgeyolo_tpu_torch.utils.convert import from_jax_variables
+from torch_threads import one_torch_thread  # noqa: F401  (the port on one thread)
 
 # (id, JAX module, port module, input shape(s), layout), as test_torch_v13_modules.CASES.
 # The mixer's sides: 8 x 8 runs both levels down to a 2 x 2 LL band; 4 x 2 and

@@ -42,6 +42,7 @@ from test_parse_and_parity import PARITY
 from test_torch_e2e import assert_e2e_close
 from test_torch_families import _imgs, _jax_template
 from test_torch_v13_e2e_families import _perturbed
+from torch_threads import one_torch_thread  # noqa: F401  (its importers' fixture)
 
 from edgeyolo_tpu.nn import tasks as jtasks
 from edgeyolo_tpu.utils.torch_convert import convert_state_dict
@@ -53,17 +54,6 @@ from edgeyolo_tpu_torch.utils.convert import from_jax_variables
 
 REPO = Path(__file__).resolve().parents[1]
 S = 64
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The port's side runs on one CPU thread while a file of these checks
-    runs: they build and run many models of small ops, which thread pools
-    slow down when the test workers share the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def scales_of(yaml: str) -> str:

@@ -2,7 +2,7 @@
 """The JAX package's trainer on chip_smoke.py's `fit` protocol, for the mAP
 the PyTorch port's `fit` phase is held against.
 
-    JAX_PLATFORMS=cpu python tools/fit_protocol.py OUT_DIR [JSON_OVERRIDES]
+    JAX_PLATFORMS=cpu python tools/fit_protocol.py [--coco] OUT_DIR [JSON_OVERRIDES]
 
 Writes the port's synthetic dataset (16 train / 8 val PNG images, 160 px,
 3 classes, seed 0: edgeyolo_tpu_torch/data/synthetic.py, which the JAX
@@ -12,6 +12,12 @@ with the overrides given as JSON (e.g. '{"nbs": 16, "warmup_epochs": 0}';
 "model" names another model YAML, e.g. '{"model": "yolov13-test.yaml",
 "imgsz": 192}'), and prints the best mAP50-95 and every 15th row of
 results.csv. About 7 minutes on a CPU for EdgeLine-YOLO-n.
+
+With --coco, the trained model is then validated by the JAX validator with
+save_json on the val images re-encoded as JPEG q92 (chip_smoke.py's
+`jpeg_coco_copy`, which writes a COCO GT json of the labels): it prints the
+validator's mAP50-95 beside COCO AP50-95 of the same call and their gap, the
+gap chip_smoke.py's `jpeg` phase allows the port (plus 0.02).
 """
 
 import csv
@@ -25,8 +31,11 @@ sys.path.insert(0, str(REPO))
 
 
 def main():
-    out = Path(sys.argv[1]).resolve()
-    overrides = json.loads(sys.argv[2]) if len(sys.argv) > 2 else {}
+    argv = sys.argv[1:]
+    coco = argv[:1] == ["--coco"]
+    argv = argv[1:] if coco else argv
+    out = Path(argv[0]).resolve()
+    overrides = json.loads(argv[1]) if len(argv) > 1 else {}
     from edgeyolo_tpu import YOLO
     from edgeyolo_tpu_torch.data.synthetic import generate_dataset
 
@@ -35,8 +44,8 @@ def main():
             "val": True, "plots": False, **overrides}
     model = args.pop("model", "edgeline-yolo.yaml")
     t0 = time.time()
-    best = YOLO(model).train(data=str(data), project=str(out), name="train", exist_ok=True,
-                             **args)
+    yolo = YOLO(model)
+    best = yolo.train(data=str(data), project=str(out), name="train", exist_ok=True, **args)
     with open(out / "train" / "results.csv") as f:
         rows = list(csv.DictReader(f))
     for r in rows[14::15]:
@@ -44,6 +53,20 @@ def main():
                                               "metrics/mAP50(B)", "metrics/mAP50-95(B)", "lr/pg0")))
     print(json.dumps({"overrides": overrides, "best_mAP50-95": best,
                       "seconds": round(time.time() - t0, 1)}))
+    if coco:
+        import chip_smoke
+        from edgeyolo_tpu.cfg import get_cfg
+        from edgeyolo_tpu.engine.validator import DetectionValidator
+
+        jpeg = chip_smoke.jpeg_coco_copy(data, out / "jpeg")
+        v = DetectionValidator(get_cfg(overrides={
+            "mode": "val", "data": str(jpeg), "imgsz": args["imgsz"], "batch": args["batch"],
+            "save_json": True, "plots": False}), save_dir=out / "val_jpeg")
+        m = v(yolo.model)
+        ap = v.metrics.speed["coco/AP"]
+        print(json.dumps({"jpeg_val_mAP50-95": m["metrics/mAP50-95(B)"], "coco_AP50-95": ap,
+                          "gap": abs(ap - m["metrics/mAP50-95(B)"]),
+                          "coco": {k: v for k, v in v.metrics.speed.items() if "coco" in k}}))
 
 
 if __name__ == "__main__":
