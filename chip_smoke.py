@@ -8,7 +8,8 @@ Phases, each timed and each fatal when it fails:
   2. build      nvcc builds every CUDA source of edgeyolo_tpu_torch/csrc and g++ the
                 host codec (csrc/imageio.cpp), all at once; each source's seconds
   3. kernels    every kernel's wrapper against its plain PyTorch version, on the card,
-                at the shapes the serving paths give it (the flagship's D = 64, MSLA's
+                at the shapes the serving paths give it (the flagship's D = 64, with
+                TTA's N = 289 and 196 and frame-by-frame N = 400 at batch 1, MSLA's
                 D = 8, 16 and 32 at 640 px, the x scale's 48 and 96, the wavelet
                 mixer's LL band: N = 100 at 640 px and 1 at 64 px, D = 32 at scale n,
                 128 at l and 192 at x), with times and the bound; the attention
@@ -81,7 +82,20 @@ Phases, each timed and each fatal when it fails:
                 wide and tall JPEGs (1024 x 640): its non-square batch shapes; then
                 predict on the JPEG files and save_crop, the crops decoded back; the
                 kernel's launches in each
- 10. device     each kernel's device time at the shapes of phase 3: the context and
+ 10. video      (a) a 1280 x 720 MJPEG AVI (64 frames of moving shapes, the port's
+                encoder) served by EdgeLine-YOLO-n at 640 px, batch 32, bf16, from the
+                file and from an MJPEG-over-HTTP camera on 127.0.0.1 (a thread): frames/s
+                and the decode's share; (b) test-time augmentation on the first batch:
+                3 kernel launches at N = 400, 289, 196, and at 64 px in f32 against the
+                CPU; (c) ByteTrack and BoT-SORT with the fit phase's model over a 160 px
+                AVI of shapes moving 2 px a frame, each in its own column, batch 1,
+                f32: each shape's id kept over >= 90% of the frames it is detected in,
+                ids and boxes equal to the CPU's; GMC's ms per 1280 x 720 frame; frame-by-frame tracking at 640 px
+                in bf16 and f32 (N = 400 at batch 1); (d) save=True (one JPEG per frame,
+                one decoded against the CPU's plot outside the label bands) and
+                visualize=True (one PNG per layer with a 4-D output); (e) one train
+                step at batch 32 x 640 px with multi_scale; every part's kernel launches
+ 11. device     each kernel's device time at the shapes of phase 3: the context and
      times      output launches each timed by its own event pair, in DEVICE_SESSIONS
                 sessions (median and spread, the SM clock read around each); after the
                 serve, train, fit and jpeg phases
@@ -126,6 +140,10 @@ WITNESS_FLOOR = {"loss": 1e-6, "grad_all": 1e-6, "param": 1e-7}
 LA_CASES = [
     (32, 400, 2, 64, "float32", "qkv"),
     (32, 400, 2, 64, "bfloat16", "qkv"),  # the serving path: batch 32 at 640 px
+    (32, 289, 2, 64, "bfloat16", "qkv"),  # TTA's 544 and 448 px canvases of a 640 px batch
+    (32, 196, 2, 64, "bfloat16", "qkv"),
+    (1, 400, 2, 64, "bfloat16", "qkv"),  # frame-by-frame predict and track at 640 px
+    (1, 400, 2, 64, "float32", "qkv"),
     (128, 400, 2, 64, "bfloat16", "qkv"),
     (128, 1600, 2, 64, "bfloat16", "qkv"),
     (16, 6400, 4, 64, "bfloat16", "qkv"),
@@ -233,6 +251,11 @@ V10_JAX_MAP = 0.6282  # 0.6281913969265872, 321 s on a CPU
 V10_FIT_MAP_MIN = round(V10_JAX_MAP - 0.1, 4)
 # device times: sessions of event pairs per kernel shape, each with the SM clock read around it
 DEVICE_SESSIONS = 3
+# video: a 1280 x 720 MJPEG AVI served at SERVE_IMGSZ, batch SERVE_BATCH; tracking over a
+# 160 px AVI of shapes moving `speed` px a frame, each up and down its own column, each shape
+# to keep one id over `id_share` of the frames it is detected in (a track of its class)
+VIDEO = {"frames": 64, "hw": (720, 1280)}
+TRACK = {"frames": 48, "imgsz": 160, "speed": 2.0, "id_share": 0.9}
 
 
 def phase(name: str):
@@ -1622,6 +1645,275 @@ def jpeg(la, card: str, work: Path, best: Path) -> dict:
     return launches
 
 
+def mjpeg_server(blobs):
+    """An MJPEG-over-HTTP camera on 127.0.0.1 (a thread): each GET streams
+    `blobs` as multipart/x-mixed-replace parts. Returns (server, url)."""
+    import http.server
+    import threading
+
+    class Camera(http.server.BaseHTTPRequestHandler):
+        def do_GET(self):
+            self.send_response(200)
+            self.send_header("Content-Type", "multipart/x-mixed-replace; boundary=frame")
+            self.end_headers()
+            for blob in blobs:
+                self.wfile.write(b"--frame\r\nContent-Type: image/jpeg\r\n"
+                                 + f"Content-Length: {len(blob)}\r\n\r\n".encode() + blob + b"\r\n")
+
+        def log_message(self, *a):
+            pass
+
+    srv = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Camera)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    return srv, f"http://127.0.0.1:{srv.server_address[1]}/line.mjpg"
+
+
+def track_ids_kept(results, truth) -> list[tuple[float, int]]:
+    """For each shape of `truth` (frames, shapes, [cls, x1, y1, x2, y2]): the
+    share of the frames in which it is detected (a track of its class over
+    it at IoU >= 0.5, the best one) that carry its most frequent id, and the
+    number of those frames."""
+    import numpy as np
+
+    from edgeyolo_tpu_torch.metrics.metrics import _box_iou_np
+
+    shares = []
+    for k in range(truth.shape[1]):
+        ids = []
+        for r, gt in zip(results, truth):
+            if len(r.track_ids):
+                iou = _box_iou_np(gt[k:k + 1, 1:5], r.boxes.xyxy)[0]
+                iou = np.where(r.boxes.cls == gt[k, 0], iou, 0.0)
+                j = int(iou.argmax())
+                if iou[j] >= 0.5:
+                    ids.append(int(r.track_ids[j]))
+        top = max(set(ids), key=ids.count) if ids else None
+        shares.append((ids.count(top) / len(ids) if ids else 0.0, len(ids)))
+    return shares
+
+
+def video(la, card: str, work: Path, best: Path) -> dict:
+    """Video in, tracks out: (a) a 1280 x 720 MJPEG AVI and the same frames
+    from an MJPEG camera on 127.0.0.1 served by the flagship at 640 px,
+    batch 32, bf16; (b) test-time augmentation on (a)'s first batch, and on
+    64 px frames in f32 against the CPU; (c) ByteTrack and BoT-SORT over a
+    160 px AVI of moving shapes with the fit phase's model at batch 1, ids
+    held per shape and against the CPU, then frame-by-frame tracking at 640 px
+    in bf16 and f32; (d) `save` and `visualize`; (e) one train step at batch
+    32 x 640 px with `multi_scale`. Returns the kernel's launches by part."""
+    import numpy as np
+    import torch
+
+    from edgeyolo_tpu_torch.data.imageio import decode_jpeg, encode_jpeg, load_image_rgb
+    from edgeyolo_tpu_torch.data.letterbox import letterbox
+    from edgeyolo_tpu_torch.data.loaders import open_video
+    from edgeyolo_tpu_torch.data.synthetic import moving_shapes, write_mjpeg_avi
+    from edgeyolo_tpu_torch.engine.model import YOLO
+    from edgeyolo_tpu_torch.engine.predictor import DetectionPredictor
+    from edgeyolo_tpu_torch.nn.modules import edgeline
+    from edgeyolo_tpu_torch.nn.tasks import DetectionModel
+    from edgeyolo_tpu_torch.trackers.gmc import GMC
+    from edgeyolo_tpu_torch.train.trainer import DetectionTrainer, batch_to_device
+    from edgeyolo_tpu_torch.utils.plotting import BitmapFont
+
+    work.mkdir(parents=True, exist_ok=True)
+    runs = str(work / "runs")
+    shapes = []
+
+    def recording(q, k, v):
+        shapes.append((tuple(q.shape), str(q.dtype).removeprefix("torch.")))
+        return la.linear_attention(q, k, v)
+
+    def counted(fn):
+        """fn() with the kernel's launches counted and their (B, N, H, D) recorded."""
+        shapes.clear()
+        la.linear_attention_kernel.launches = 0
+        with mock.patch.object(edgeline, "linear_attention", recording):
+            out = fn()
+        torch.cuda.synchronize()
+        return out, la.linear_attention_kernel.launches, list(shapes)
+
+    launches = {}
+    # (a) serving from video: the AVI, then the same JPEGs from an MJPEG camera
+    t0 = time.perf_counter()
+    frames, _ = moving_shapes(VIDEO["frames"], *VIDEO["hw"], n_objs=6, speed=8.0, seed=11)
+    avi = write_mjpeg_avi(work / "line.avi", frames, quality=90)
+    blobs = [encode_jpeg(f, quality=90) for f in frames]
+    print(f"video (a): {len(frames)} frames of {VIDEO['hw'][1]} x {VIDEO['hw'][0]}, MJPEG AVI "
+          f"of {avi.stat().st_size} bytes written in {time.perf_counter() - t0:.3f} s", flush=True)
+    t0 = time.perf_counter()
+    decoded = list(open_video(avi))
+    decode_s = time.perf_counter() - t0
+    server = YOLO("edgeline-yolo.yaml", device="cuda")  # seeded weights: an empty line
+    kw = {"imgsz": SERVE_IMGSZ, "batch": SERVE_BATCH, "half": True, "save": False,
+          "project": runs, "conf": 0.25}
+    list(server.predict(avi, stream=True, **kw))  # warm-up: cuDNN plans of both batch shapes
+    torch.cuda.synchronize()
+    for what, src in (("AVI", str(avi)), ("MJPEG camera", None)):
+        srv = None
+        if src is None:
+            srv, src = mjpeg_server(blobs)
+        t0 = time.perf_counter()
+        try:
+            res, n, seen = counted(lambda: list(server.predict(src, stream=True, **kw)))
+        finally:
+            if srv is not None:
+                srv.shutdown()
+                srv.server_close()
+        wall = time.perf_counter() - t0
+        launches[f"video_{'avi' if what == 'AVI' else 'http'}"] = n
+        print(f"video (a) {what}: {len(res)} frames in {wall:.3f} s end to end, "
+              f"{len(res) / wall:.1f} frames/s at {SERVE_IMGSZ} px, batch {SERVE_BATCH}, bf16; "
+              f"decode of the {len(decoded)} frames alone {decode_s:.3f} s on one thread "
+              f"({decode_s / wall:.1%} of the wall time); {n} kernel launches at {set(seen)}; "
+              f"detections per frame {[len(r) for r in res[:8]]}...; on {card}", flush=True)
+        if len(res) != len(frames) or n != -(-len(frames) // SERVE_BATCH) or \
+                any(r.orig_shape != tuple(VIDEO["hw"]) for r in res):
+            raise AssertionError(f"video (a): serving the {what} failed")
+        if what == "AVI" and not all(np.array_equal(a, b) for a, b in
+                                     zip(decoded, (decode_jpeg(b) for b in blobs))):
+            raise AssertionError("video (a): the AVI's frames are not its JPEGs")
+
+    # (b) TTA: the first batch at 640 px, three launches at N = 400, 289, 196
+    tta = DetectionPredictor(server.predictor.model, conf=0.25, device="cuda", imgsz=SERVE_IMGSZ,
+                             augment=True)
+    first = np.stack([letterbox(f, SERVE_IMGSZ)[0] for f in decoded[:SERVE_BATCH]])
+    tta(first)  # warm-up
+    t0 = time.perf_counter()
+    (det, n_det), n, seen = counted(lambda: tta(first))
+    tta_ms = (time.perf_counter() - t0) * 1e3
+    launches["tta"] = n
+    want = [((SERVE_BATCH, math.ceil(SERVE_IMGSZ * s / 32) ** 2, 2, 64), "bfloat16")
+            for s in (1, 0.83, 0.67)]  # 400, 289 and 196 tokens at 640 px
+    print(f"video (b) TTA: batch {SERVE_BATCH} at scales 1, 0.83, 0.67 in {tta_ms:.3f} ms, "
+          f"{n} kernel launches at {seen}; detections per frame {n_det.tolist()[:8]}...",
+          flush=True)
+    if n != 3 or seen != want:
+        raise AssertionError(f"video (b): TTA launched the kernel {n} times at {seen}, not {want}")
+    m32 = perturbed(DetectionModel("edgeline-yolo.yaml", device="cpu", seed=0),
+                    REF_SCALE["edgeline-yolo-n"])
+    small = torch.randint(0, 256, (4, 64, 64, 3), dtype=torch.uint8,
+                          generator=torch.Generator().manual_seed(3)).numpy()
+    got = DetectionPredictor(copy.deepcopy(m32), conf=0.25, device="cuda", imgsz=64,
+                             augment=True)(small)
+    ref = DetectionPredictor(m32, conf=0.25, device="cpu", imgsz=64, augment=True)(small)
+    bad = unmatched_rows(got[0].cpu(), ref[0], 5e-3, 1e-4)
+    print(f"video (b) TTA f32 at 64 px, card against CPU: detections {got[1].tolist()} and "
+          f"{ref[1].tolist()}, {bad} rows unmatched (boxes 5e-3 px, scores 1e-4)", flush=True)
+    if bad or not torch.equal(got[1].cpu(), ref[1]) or int(ref[1].sum()) == 0:
+        raise AssertionError("video (b): TTA on the card disagrees with the CPU")
+
+    # (c) tracking with the fit model (160 px) at batch 1, then frame by frame at 640 px
+    truth_frames, truth = moving_shapes(TRACK["frames"], TRACK["imgsz"], TRACK["imgsz"],
+                                        n_objs=3, size=(0.2, 0.28), speed=TRACK["speed"], seed=5)
+    clip = write_mjpeg_avi(work / "track.avi", truth_frames, quality=95)
+    fitted = {dev: YOLO(best, device=dev) for dev in ("cuda", "cpu")}
+    tkw = {"imgsz": TRACK["imgsz"], "batch": 1, "project": runs}
+    for tracker in ("bytetrack", "botsort"):
+        t0 = time.perf_counter()
+        res, n, seen = counted(lambda: list(fitted["cuda"].track(
+            str(clip), tracker=tracker, name=f"track_{tracker}", exist_ok=True, **tkw)))
+        wall = time.perf_counter() - t0
+        launches[f"track_{tracker}"] = n
+        cpu = list(fitted["cpu"].track(str(clip), tracker=tracker, save=False, **tkw))
+        shares = track_ids_kept(res, truth)
+        ids_equal = all(np.array_equal(a.track_ids, b.track_ids) for a, b in zip(res, cpu))
+        pairs = [(a.boxes.data, b.boxes.data) for a, b in zip(res, cpu) if len(a) and len(a) == len(b)]
+        gap = max((np.abs(a[:, :4] - b[:, :4]).max() for a, b in pairs), default=0.0)
+        score_gap = max((np.abs(a[:, 5] - b[:, 5]).max() for a, b in pairs), default=0.0)
+        print(f"video (c) {tracker}: {len(res)} frames at {TRACK['imgsz']} px, batch 1, f32, "
+              f"{wall:.3f} s ({len(res) / wall:.1f} frames/s with save); {n} kernel launches at "
+              f"{set(seen)}; per shape (share of its frames under its most frequent id, frames "
+              f"found) {shares}; card against CPU: ids equal {ids_equal}, boxes within "
+              f"{gap:.3e} px (tol 5e-3), scores within {score_gap:.3e} (tol 1e-4)", flush=True)
+        if len(res) != TRACK["frames"] or n != len(res):
+            raise AssertionError(f"video (c) {tracker}: {n} launches over {len(res)} frames")
+        if any(s < TRACK["id_share"] or found < TRACK["frames"] // 2 for s, found in shares):
+            raise AssertionError(f"video (c) {tracker}: a shape did not keep its id: {shares}")
+        if not ids_equal or len(res) != len(cpu) or gap > 5e-3 or score_gap > 1e-4 or \
+                any(len(a) != len(b) or not np.array_equal(a.boxes.cls, b.boxes.cls)
+                    for a, b in zip(res, cpu)):
+            raise AssertionError(f"video (c) {tracker}: the card's tracks differ from the CPU's")
+    gmc = GMC("sparseOptFlow")
+    gmc.apply(frames[0])
+    t0 = time.perf_counter()
+    for f in frames[1:6]:
+        gmc.apply(f)
+    print(f"video (c) GMC (sparseOptFlow, numpy) {(time.perf_counter() - t0) / 5 * 1e3:.3f} ms "
+          f"per {VIDEO['hw'][1]} x {VIDEO['hw'][0]} frame on the card machine's host", flush=True)
+    for half in (True, False):
+        dtype = "bfloat16" if half else "float32"
+        t0 = time.perf_counter()
+        res, n, seen = counted(lambda: list(server.track(
+            str(avi), imgsz=SERVE_IMGSZ, batch=1, half=half, vid_stride=8, save=False,
+            project=runs, tracker="botsort")))
+        wall = time.perf_counter() - t0
+        launches[f"track_640_{dtype}"] = n
+        print(f"video (c) frame by frame at {SERVE_IMGSZ} px, {dtype}, BoT-SORT, vid_stride 8: "
+              f"{len(res)} frames in {wall:.3f} s, {n} kernel launches at {set(seen)}",
+              flush=True)
+        if n != len(res) or len(res) != len(frames) // 8 or \
+                set(seen) != {((1, (SERVE_IMGSZ // 32) ** 2, 2, 64), dtype)}:
+            raise AssertionError(f"video (c): frame-by-frame tracking at {SERVE_IMGSZ} px, "
+                                 f"{dtype}, launched {n} times at {set(seen)}")
+
+    # (d) save (the BoT-SORT run above) and visualize
+    saved = sorted((work / "runs" / "track_botsort").glob("track_*.jpg"))
+    k = TRACK["frames"] // 2
+    frame_k = list(open_video(clip))[k]
+    (r_cpu,) = fitted["cpu"].predict(frame_k, imgsz=TRACK["imgsz"], save=False, conf=0.1,
+                                     project=runs)
+    plot = r_cpu.plot()
+    img = load_image_rgb(work / "runs" / "track_botsort" / f"track_{k}.jpg")
+    h, w = plot.shape[:2]
+    font = BitmapFont(max(12, max(round((w + h) / 2 * 0.003), 2) * 4))
+    mask = np.ones((h, w), bool)
+    for b in r_cpu.boxes.data:
+        x0, y0, x1, y1 = font.getbbox(f"{r_cpu.names[int(b[-1])]} {b[-2]:.2f}")
+        mask[max(int(b[1] + y0 - 2), 0):max(int(b[1] + y1) + 1, 0),
+             max(int(b[0] + x0), 0):max(int(b[0] + x1 + 2) + 1, 0)] = False
+    err = np.abs(img.astype(int) - plot)[mask].max()
+    own = np.abs(decode_jpeg(encode_jpeg(plot, quality=75)).astype(int) - plot)[mask].max()
+    print(f"video (d) save: {len(saved)} annotated JPEGs for {TRACK['frames']} frames; frame {k} "
+          f"decoded against the CPU's plot outside the label bands: max |diff| {err} (the "
+          f"encoder's own error on that plot {own})", flush=True)
+    if len(saved) != TRACK["frames"] or err > own:
+        raise AssertionError("video (d): the saved frames are not the CPU's plots")
+    vis_dir = work / "runs" / "vis"
+    fitted["cuda"].predict(truth_frames[0], imgsz=TRACK["imgsz"], visualize=True, save=False,
+                           project=str(vis_dir.parent), name="vis", exist_ok=True)
+    with torch.inference_mode():
+        m = fitted["cuda"].model
+        _, caps = m(torch.zeros(1, 3, TRACK["imgsz"], TRACK["imgsz"], device="cuda"),
+                    capture=[sp.i for sp in m.layers[:-1]])
+    want = sum(isinstance(t, torch.Tensor) and t.ndim == 4 and 1 not in t.shape[2:]
+               for t in caps.values())
+    pngs = sorted(p.name for p in (vis_dir / "image0").glob("*.png"))
+    print(f"video (d) visualize: {len(pngs)} feature-map PNGs (layers with 4-D output: {want}), "
+          f"e.g. {pngs[:3]}", flush=True)
+    if len(pngs) != want or want == 0:
+        raise AssertionError("video (d): visualize did not write one PNG per layer")
+
+    # (e) multi_scale: one train step at batch 32 x 640 px
+    trainer = DetectionTrainer(DetectionModel("edgeline-yolo.yaml", device="cuda", seed=0),
+                               {"batch": TRAIN_BATCH, "nbs": 64, "optimizer": "SGD", "amp": True,
+                                "seed": 0, "multi_scale": True}, device="cuda")
+    trainer.setup(nb=2)
+    batch = batch_to_device(train_batch(TRAIN_BATCH, TRAIN_IMGSZ, TRAIN_M, TRAIN_REAL, seed=5),
+                            torch.device("cuda"))
+    trainer.train_step(batch)  # warm-up
+    t0 = time.perf_counter()
+    (loss, items, _), n, seen = counted(lambda: trainer.train_step(batch))
+    step_ms = (time.perf_counter() - t0) * 1e3
+    launches["multi_scale_train_step"] = n
+    print(f"video (e) multi_scale train step, batch {TRAIN_BATCH} x {TRAIN_IMGSZ} px, bf16 "
+          f"autocast: {step_ms:.3f} ms, loss {float(loss):.5f}, {n} kernel launch(es) at "
+          f"{set(seen)}", flush=True)
+    if n != 1 or not math.isfinite(float(loss)):
+        raise AssertionError("video (e): the multi_scale train step failed")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1697,6 +1989,10 @@ def main() -> int:
         jpeg_launches = jpeg(la, card, Path(work) / "edgeline-yolo", best)
         done("jpeg", t0)
 
+        t0 = phase("video")
+        video_launches = video(la, card, Path(work) / "video", best)
+        done("video", t0)
+
     t0 = phase("device times")
     device_times(la, la_rows, la_inputs_by_case)
     done("device times", t0)
@@ -1721,6 +2017,9 @@ def main() -> int:
                 "launches_yolo11_tune": family_launches["yolo11-tune-n"],
                 "launches_lgl_train": lgl_train_launches // TRAIN_STEPS,
                 "launches_reference_64px": ref_launches,
+                "launches_tta": video_launches["tta"],
+                "launches_track": video_launches["track_bytetrack"],
+                **{f"launches_video_{k}": v for k, v in video_launches.items()},
                 **la_rows[LA_MAIN_CASE], "library_ms": None,
                 "wavelet_rows": [{"shape": list(case[:4]), "dtype": case[4], **row}
                                  for case, row in zip(LA_CASES, la_rows)

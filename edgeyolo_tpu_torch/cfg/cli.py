@@ -3,11 +3,12 @@
     edgeyolo-torch detect train data=dataset.yaml model=edgeline-yolo.yaml epochs=10
     edgeyolo-torch detect val model=runs/detect/train/best.pt data=dataset.yaml device=cpu
     edgeyolo-torch detect predict model=runs/detect/train/best.pt source=images/
+    edgeyolo-torch detect track model=runs/detect/train/best.pt source=line.avi tracker=botsort.yaml
 
 Also `help`, `version` and `cfg` (the defaults as JSON). Values are parsed
 as Python literals where they are one (`epochs=10`, `half=True`), else kept
-as strings; unknown keys raise with suggestions. Modes past train, val and
-predict are not ported yet.
+as strings; unknown keys raise with suggestions. The export, benchmark and
+tune modes are not ported yet.
 """
 
 from __future__ import annotations
@@ -23,13 +24,14 @@ CLI_HELP = f"""
     Usage: edgeyolo-torch TASK MODE ARGS
 
         TASK (optional): one of {sorted(TASKS)} (only detect is ported)
-        MODE (required): one of ['predict', 'train', 'val']
+        MODE (required): one of ['predict', 'track', 'train', 'val']
         ARGS (optional): any number of 'arg=value' pairs overriding defaults.
 
     Examples:
         edgeyolo-torch detect train data=dataset.yaml model=edgeline-yolo.yaml epochs=10
         edgeyolo-torch detect val model=runs/detect/train/best.pt data=dataset.yaml
         edgeyolo-torch detect predict model=runs/detect/train/best.pt source=images/
+        edgeyolo-torch detect track model=runs/detect/train/best.pt source=line.avi
 """
 
 
@@ -78,8 +80,8 @@ def entrypoint(argv: list[str] | None = None) -> int:
         else:
             raise SyntaxError(f"'{a}' is not a valid task, mode or k=v pair.\n{CLI_HELP}")
     if mode is None:
-        raise SyntaxError(f"a MODE is required: ['predict', 'train', 'val']\n{CLI_HELP}")
-    if mode not in ("train", "val", "predict"):
+        raise SyntaxError(f"a MODE is required: ['predict', 'track', 'train', 'val']\n{CLI_HELP}")
+    if mode not in ("train", "val", "predict", "track"):
         raise NotImplementedError(f"mode '{mode}' is not ported yet")
 
     from edgeyolo_tpu_torch.engine.model import YOLO
@@ -94,7 +96,7 @@ def entrypoint(argv: list[str] | None = None) -> int:
         _say(f"{'':>10}{'images':>8}{'P':>11}{'R':>11}{'mAP50':>11}{'mAP75':>11}{'mAP50-95':>11}")
         _say(model.validator.results_line())
         LOGGER.info(json.dumps(metrics))
-    else:
+    elif mode == "predict":
         source = overrides.pop("source", None)
         if source is None:
             raise SyntaxError("predict requires source=<path>")
@@ -102,6 +104,15 @@ def entrypoint(argv: list[str] | None = None) -> int:
         for r in results:
             _say(f"{r.path}: {r.verbose_str}")
         _say(f"{len(results)} images processed")
+    else:
+        source = overrides.pop("source", None)
+        if source is None:
+            raise SyntaxError("track requires source=<path>")
+        n = 0
+        for r in model.track(source, **overrides):
+            _say(f"{r.path}: ids {r.track_ids.tolist()}")
+            n += 1
+        _say(f"{n} frames tracked")
     return 0
 
 

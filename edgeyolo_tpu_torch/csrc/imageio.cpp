@@ -668,10 +668,89 @@ void idct_islow(const int16_t* in, const uint16_t* q, u8* out, int stride) {
 }
 
 // ---------------------------------------------------------------------------
+// Reduced-size IDCTs (libjpeg jidctred.c: jpeg_idct_4x4, _2x2, _1x1), which
+// decode a block at 1/2, 1/4 or 1/8 scale in the DCT domain. Their all-zero
+// shortcuts give the full path's values, so only the full path is written.
+// ---------------------------------------------------------------------------
+constexpr long R0_211 = 1730, R0_509 = 4176, R0_601 = 4926, R0_720 = 5906, R0_850 = 6967,
+               R1_061 = 8697, R1_272 = 10426, R1_451 = 11893, R2_172 = 17799, R3_624 = 29692;
+
+void idct_4x4(const int16_t* in, const uint16_t* q, u8* out, int stride) {
+  int ws[32];  // 4 rows of 8 columns (column 4 unused)
+  for (int c = 0; c < 8; ++c) {
+    if (c == 4) continue;
+    const int16_t* ip = in + c;
+    const uint16_t* qp = q + c;
+    long tmp0 = static_cast<long>(ip[0] * qp[0]) * (1L << (CONST_BITS + 1));
+    long z2 = ip[16] * qp[16], z3 = ip[48] * qp[48];
+    long tmp2 = z2 * F1_847 + z3 * -F0_765;
+    long tmp10 = tmp0 + tmp2, tmp12 = tmp0 - tmp2;
+    long z1 = ip[56] * qp[56];
+    z2 = ip[40] * qp[40];
+    z3 = ip[24] * qp[24];
+    long z4 = ip[8] * qp[8];
+    tmp0 = z1 * -R0_211 + z2 * R1_451 + z3 * -R2_172 + z4 * R1_061;
+    tmp2 = z1 * -R0_509 + z2 * -R0_601 + z3 * F0_899 + z4 * F2_562;
+    constexpr int S = CONST_BITS - PASS1_BITS + 1;
+    ws[c] = static_cast<int>(descale(tmp10 + tmp2, S));
+    ws[24 + c] = static_cast<int>(descale(tmp10 - tmp2, S));
+    ws[8 + c] = static_cast<int>(descale(tmp12 + tmp0, S));
+    ws[16 + c] = static_cast<int>(descale(tmp12 - tmp0, S));
+  }
+  constexpr int S2 = CONST_BITS + PASS1_BITS + 3 + 1;
+  for (int r = 0; r < 4; ++r) {
+    const int* wp = ws + 8 * r;
+    u8* op = out + static_cast<size_t>(r) * stride;
+    long tmp0 = static_cast<long>(wp[0]) * (1L << (CONST_BITS + 1));
+    long tmp2 = wp[2] * F1_847 + wp[6] * -F0_765;
+    long tmp10 = tmp0 + tmp2, tmp12 = tmp0 - tmp2;
+    long z1 = wp[7], z2 = wp[5], z3 = wp[3], z4 = wp[1];
+    tmp0 = z1 * -R0_211 + z2 * R1_451 + z3 * -R2_172 + z4 * R1_061;
+    tmp2 = z1 * -R0_509 + z2 * -R0_601 + z3 * F0_899 + z4 * F2_562;
+    op[0] = kRange.t[static_cast<int>(descale(tmp10 + tmp2, S2)) & 1023];
+    op[3] = kRange.t[static_cast<int>(descale(tmp10 - tmp2, S2)) & 1023];
+    op[1] = kRange.t[static_cast<int>(descale(tmp12 + tmp0, S2)) & 1023];
+    op[2] = kRange.t[static_cast<int>(descale(tmp12 - tmp0, S2)) & 1023];
+  }
+}
+
+void idct_2x2(const int16_t* in, const uint16_t* q, u8* out, int stride) {
+  int ws[16];  // 2 rows of 8 columns (columns 2, 4 and 6 unused)
+  for (int c = 0; c < 8; ++c) {
+    if (c == 2 || c == 4 || c == 6) continue;
+    const int16_t* ip = in + c;
+    const uint16_t* qp = q + c;
+    long tmp10 = static_cast<long>(ip[0] * qp[0]) * (1L << (CONST_BITS + 2));
+    long tmp0 = static_cast<long>(ip[56] * qp[56]) * -R0_720 +
+                static_cast<long>(ip[40] * qp[40]) * R0_850 +
+                static_cast<long>(ip[24] * qp[24]) * -R1_272 +
+                static_cast<long>(ip[8] * qp[8]) * R3_624;
+    constexpr int S = CONST_BITS - PASS1_BITS + 2;
+    ws[c] = static_cast<int>(descale(tmp10 + tmp0, S));
+    ws[8 + c] = static_cast<int>(descale(tmp10 - tmp0, S));
+  }
+  constexpr int S2 = CONST_BITS + PASS1_BITS + 3 + 2;
+  for (int r = 0; r < 2; ++r) {
+    const int* wp = ws + 8 * r;
+    u8* op = out + static_cast<size_t>(r) * stride;
+    long tmp10 = static_cast<long>(wp[0]) * (1L << (CONST_BITS + 2));
+    long tmp0 = wp[7] * -R0_720 + wp[5] * R0_850 + wp[3] * -R1_272 + wp[1] * R3_624;
+    op[0] = kRange.t[static_cast<int>(descale(tmp10 + tmp0, S2)) & 1023];
+    op[1] = kRange.t[static_cast<int>(descale(tmp10 - tmp0, S2)) & 1023];
+  }
+}
+
+void idct_1x1(const int16_t* in, const uint16_t* q, u8* out, int) {
+  out[0] = kRange.t[static_cast<int>(descale(in[0] * q[0], 3)) & 1023];
+}
+
+// ---------------------------------------------------------------------------
 // Upsampling (jdsample.c, fancy) into a full-resolution plane of W x H
 // ---------------------------------------------------------------------------
 // src: the component's samples, dw x dh valid in a plane of `sstride` columns.
-void upsample(const u8* src, int sstride, int dw, int dh, int fh, int fv, u8* dst, int W, int H) {
+// `fancy` is libjpeg's do_fancy: off when the luma blocks decode to 1 x 1.
+void upsample(const u8* src, int sstride, int dw, int dh, int fh, int fv, bool fancy, u8* dst,
+              int W, int H) {
   std::vector<u8> row(static_cast<size_t>(2 * dw + 2));
   std::vector<int> cs(static_cast<size_t>(dw));
   auto srow = [&](int y) { return src + static_cast<size_t>(std::clamp(y, 0, dh - 1)) * sstride; };
@@ -681,7 +760,7 @@ void upsample(const u8* src, int sstride, int dw, int dh, int fh, int fv, u8* ds
       std::memcpy(out, srow(y), static_cast<size_t>(W));
       continue;
     }
-    if (fv == 2 && (fh == 1 || dw > 2)) {  // vertical triangle: 3/4 nearer row, 1/4 further
+    if (fancy && fv == 2 && (fh == 1 || dw > 2)) {  // vertical triangle: 3/4 nearer row, 1/4 further
       const u8* near = srow(y / 2);
       const u8* far = srow(y % 2 == 0 ? y / 2 - 1 : y / 2 + 1);
       if (fh == 1) {
@@ -706,7 +785,7 @@ void upsample(const u8* src, int sstride, int dw, int dh, int fh, int fv, u8* ds
     const u8* in = srow(fv == 2 ? y / 2 : y);  // no vertical filter: replicate rows
     if (fh == 1) {
       std::memcpy(out, in, static_cast<size_t>(W));
-    } else if (dw > 2 && fv == 1) {  // h2v1 fancy: biases 1 and 2
+    } else if (fancy && dw > 2 && fv == 1) {  // h2v1 fancy: biases 1 and 2
       u8* o = row.data();
       o[0] = in[0];
       o[1] = static_cast<u8>((in[0] * 3 + in[1] + 2) >> 2);
@@ -717,7 +796,7 @@ void upsample(const u8* src, int sstride, int dw, int dh, int fh, int fv, u8* ds
       o[2 * dw - 2] = static_cast<u8>((in[dw - 1] * 3 + in[dw - 2] + 1) >> 2);
       o[2 * dw - 1] = in[dw - 1];
       std::memcpy(out, o, static_cast<size_t>(W));
-    } else {  // plain replication (libjpeg's h2v1/h2v2_upsample for narrow images)
+    } else {  // plain replication (libjpeg's h2v1/h2v2_upsample: narrow images, 1/8 scale)
       for (int x = 0; x < W; ++x) out[x] = in[x / 2];
     }
   }
@@ -745,28 +824,58 @@ const YccTables kYcc;
 inline u8 clamp255(int v) { return static_cast<u8>(v < 0 ? 0 : (v > 255 ? 255 : v)); }
 
 struct Image {
-  int w = 0, h = 0;
+  int w = 0, h = 0;    // decoded size (after any DCT-domain scale)
+  int w0 = 0, h0 = 0;  // the frame's size
   std::vector<u8> rgb;
 };
 
-Image decode_jpeg(const u8* buf, size_t len) {
+// edgeyolo_tpu/native/io.cpp's choice of scale for a letterbox to `target`:
+// halve while the decoded long side keeps at least twice the target, to 1/8.
+int prescale_denom(int w0, int h0, int target) {
+  int long_side = std::max(w0, h0), denom = 1;
+  while (target > 0 && denom < 8 && long_side / (denom * 2) >= 2 * target) denom *= 2;
+  return denom;
+}
+
+inline int div_up(long a, long b) { return static_cast<int>((a + b - 1) / b); }
+
+// Decodes at 1/denom scale (denom 1, 2, 4 or 8) as libjpeg does with
+// scale_num 1 (jdmaster.c jpeg_calc_output_dimensions): the luma blocks
+// decode to m = 8/denom samples a side; a chroma component takes the
+// largest size up to 8 that leaves it at the luma's resolution (so 4:2:0
+// chroma needs no upsampling once scaled); what remains is upsampled, with
+// the triangle filters only while m > 1. A `target` > 0 picks the denom
+// from the frame's size (prescale_denom) instead.
+Image decode_jpeg(const u8* buf, size_t len, int denom = 1, int target = 0) {
   Decoder d(buf, len);
   d.parse();
+  if (target > 0) denom = prescale_denom(d.W, d.H, target);
+  if (denom != 1 && denom != 2 && denom != 4 && denom != 8) fail("JPEG scale must be 1/1, 1/2, 1/4 or 1/8");
+  const int m = 8 / denom;
   Image img;
-  img.w = d.W;
-  img.h = d.H;
-  const int W = d.W, H = d.H;
+  img.w0 = d.W;
+  img.h0 = d.H;
+  img.w = div_up(static_cast<long>(d.W) * m, 8);
+  img.h = div_up(static_cast<long>(d.H) * m, 8);
+  const int W = img.w, H = img.h;
   std::vector<std::vector<u8>> planes(static_cast<size_t>(d.ncomp));
   for (int c = 0; c < d.ncomp; ++c) {
     Component& k = d.comp[c];
-    int stride = k.bw * 8;
-    std::vector<u8> samples(static_cast<size_t>(stride) * k.bh * 8);
+    int ss = m;
+    while (ss < 8 && (d.hmax * m) % (k.h * ss * 2) == 0 && (d.vmax * m) % (k.v * ss * 2) == 0) ss *= 2;
+    void (*idct)(const int16_t*, const uint16_t*, u8*, int) =
+        ss == 8 ? idct_islow : ss == 4 ? idct_4x4 : ss == 2 ? idct_2x2 : idct_1x1;
+    int stride = k.bw * ss;
+    std::vector<u8> samples(static_cast<size_t>(stride) * k.bh * ss);
     for (int by = 0; by < k.bh; ++by)
       for (int bx = 0; bx < k.bw; ++bx)
-        idct_islow(d.block(k, bx, by), k.q,
-                   samples.data() + static_cast<size_t>(by) * 8 * stride + bx * 8, stride);
+        idct(d.block(k, bx, by), k.q,
+             samples.data() + static_cast<size_t>(by) * ss * stride + bx * ss, stride);
+    int dw = div_up(static_cast<long>(d.W) * k.h * ss, d.hmax * 8L);
+    int dh = div_up(static_cast<long>(d.H) * k.v * ss, d.vmax * 8L);
     planes[c].resize(static_cast<size_t>(W) * H);
-    upsample(samples.data(), stride, k.dw, k.dh, d.hmax / k.h, d.vmax / k.v, planes[c].data(), W, H);
+    upsample(samples.data(), stride, dw, dh, d.hmax * m / (k.h * ss), d.vmax * m / (k.v * ss),
+             m > 1, planes[c].data(), W, H);
   }
   img.rgb.resize(static_cast<size_t>(W) * H * 3);
   u8* o = img.rgb.data();
@@ -1198,12 +1307,12 @@ struct EyioMeta {
   int32_t pw, ph;
 };
 
-// Decodes into `out` (h x w x 3), whose size the caller read from the frame
-// header; a frame of another size is an error.
-int eyio_jpeg_decode(const uint8_t* buf, uint64_t len, uint8_t* out, int32_t w, int32_t h,
-                     char* err, int errlen) {
+// Decodes at 1/denom scale (1, 2, 4 or 8) into `out` (h x w x 3), whose size
+// the caller computed from the frame header; a frame of another size is an error.
+int eyio_jpeg_decode(const uint8_t* buf, uint64_t len, int32_t denom, uint8_t* out, int32_t w,
+                     int32_t h, char* err, int errlen) {
   try {
-    Image img = decode_jpeg(buf, len);
+    Image img = decode_jpeg(buf, len, denom);
     if (img.w != w || img.h != h) fail("JPEG frame size differs from its first header");
     std::memcpy(out, img.rgb.data(), img.rgb.size());
     return 0;
@@ -1279,8 +1388,11 @@ int eyio_png_unfilter(const uint8_t* raw, uint64_t len, int32_t h, int32_t strid
 }
 
 // Decode (JPEG sources) and letterbox n images onto (H, W) canvases of `out`
-// (n x H x W x 3), over `threads` threads, each writing its own images. Returns
-// 0, or 1 + the index of the first image that failed, with its message.
+// (n x H x W x 3), over `threads` threads, each writing its own images. Onto a
+// square canvas a JPEG decodes at the DCT-domain scale of native/io.cpp
+// (prescale_denom); a rect canvas takes the full-size decode, as JAX's PIL
+// path does there. Returns 0, or 1 + the index of the first image that
+// failed, with its message.
 int eyio_letterbox_batch(int32_t n, const EyioSource* src, int32_t H, int32_t W, int32_t scaleup,
                          int32_t threads, uint8_t* out, EyioMeta* meta, char* err, int errlen) {
   std::vector<std::string> errors(static_cast<size_t>(n));
@@ -1290,15 +1402,18 @@ int eyio_letterbox_batch(int32_t n, const EyioSource* src, int32_t H, int32_t W,
       Image dec;
       const u8* px;
       int h0, w0;
+      int hd, wd;  // the decoded size
       if (src[i].kind == 0) {
-        dec = decode_jpeg(src[i].data, src[i].len);
+        dec = decode_jpeg(src[i].data, src[i].len, 1, H == W ? H : 0);
         px = dec.rgb.data();
-        h0 = dec.h;
-        w0 = dec.w;
+        h0 = dec.h0;
+        w0 = dec.w0;
+        hd = dec.h;
+        wd = dec.w;
       } else {
         px = src[i].data;
-        h0 = src[i].h;
-        w0 = src[i].w;
+        h0 = hd = src[i].h;
+        w0 = wd = src[i].w;
         if (src[i].len != static_cast<uint64_t>(h0) * w0 * 3) fail("pixel buffer size mismatch");
       }
       double r = std::min(static_cast<double>(H) / h0, static_cast<double>(W) / w0);
@@ -1311,12 +1426,12 @@ int eyio_letterbox_batch(int32_t n, const EyioSource* src, int32_t H, int32_t W,
       u8* o = out + frame * i;
       std::memset(o, 114, frame);
       u8* dst = o + (static_cast<size_t>(top) * W + left) * 3;
-      if (nw == w0 && nh == h0) {
-        for (int y = 0; y < h0; ++y)
-          std::memcpy(dst + static_cast<size_t>(y) * W * 3, px + static_cast<size_t>(y) * w0 * 3,
-                      static_cast<size_t>(w0) * 3);
+      if (nw == wd && nh == hd) {
+        for (int y = 0; y < hd; ++y)
+          std::memcpy(dst + static_cast<size_t>(y) * W * 3, px + static_cast<size_t>(y) * wd * 3,
+                      static_cast<size_t>(wd) * 3);
       } else {
-        resize_bilinear(px, h0, w0, dst, nh, nw, W * 3);
+        resize_bilinear(px, hd, wd, dst, nh, nw, W * 3);
       }
       meta[i] = EyioMeta{h0, w0, r, left, top};
     } catch (const std::exception& e) {

@@ -94,9 +94,12 @@ def affine_matrix(angle_deg: torch.Tensor, scale: torch.Tensor, shear_deg: torch
 
 def sample_params(b: int, s: int, hyp: dict, mosaic: bool,
                   gen: torch.Generator) -> AugParams:
-    """Draw one step's augmentation parameters for b images of s x s pixels."""
-    if _hyp(hyp, "multi_scale", 0.0):
-        raise NotImplementedError("multi_scale is not ported yet")
+    """Draw one step's augmentation parameters for b images of s x s pixels.
+
+    `multi_scale` draws one more content scale per image in [0.5, 1.5], after
+    the affine's own draws, and folds it into the homography's scale (JAX's
+    static-canvas form of the reference's random image size per batch);
+    without it the draws are those of a run that never had the option."""
     n_src = 4 if mosaic else 1
     # partners: n_src - 1 other images, by random offsets in [1, b)
     part = (torch.randint(1, b, (b, n_src - 1), generator=gen) if b > 1
@@ -107,10 +110,13 @@ def sample_params(b: int, s: int, hyp: dict, mosaic: bool,
 
     deg, tra, scl = _hyp(hyp, "degrees", 0.0), _hyp(hyp, "translate", 0.1), _hyp(hyp, "scale", 0.5)
     shr, per = _hyp(hyp, "shear", 0.0), _hyp(hyp, "perspective", 0.0)
-    affine = affine_matrix(_uniform(gen, (b,), -deg, deg), _uniform(gen, (b,), 1 - scl, 1 + scl),
-                           _uniform(gen, (b, 2), -shr, shr),
-                           _uniform(gen, (b, 2), 0.5 - tra, 0.5 + tra) * s,
-                           _uniform(gen, (b, 2), -per, per) if per > 0 else torch.zeros(b, 2))
+    angle, scale = _uniform(gen, (b,), -deg, deg), _uniform(gen, (b,), 1 - scl, 1 + scl)
+    shear = _uniform(gen, (b, 2), -shr, shr)
+    translate = _uniform(gen, (b, 2), 0.5 - tra, 0.5 + tra) * s
+    persp = _uniform(gen, (b, 2), -per, per) if per > 0 else torch.zeros(b, 2)
+    if _hyp(hyp, "multi_scale", 0.0):
+        scale = scale * _uniform(gen, (b,), 0.5, 1.5)
+    affine = affine_matrix(angle, scale, shear, translate, persp)
 
     photometric = (sample_photometric(b, s, gen) if _hyp(hyp, "photometric", 1.0) else None)
     gains = torch.tensor([_hyp(hyp, "hsv_h", 0.015), _hyp(hyp, "hsv_s", 0.7),

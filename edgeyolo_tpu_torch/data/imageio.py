@@ -87,7 +87,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int32
 _ERR = (ctypes.c_char_p, ctypes.c_int)
 _SIGNATURES = {
-    "eyio_jpeg_decode": (_P, ctypes.c_uint64, _P, _I, _I, *_ERR),
+    "eyio_jpeg_decode": (_P, ctypes.c_uint64, _I, _P, _I, _I, *_ERR),
     "eyio_jpeg_encode": (_P, _I, _I, _I, _I, _I, _I,
                          ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8)),
                          ctypes.POINTER(ctypes.c_uint64), *_ERR),
@@ -119,12 +119,18 @@ def _ptr(a) -> int:
     return (a if isinstance(a, np.ndarray) else np.frombuffer(a, np.uint8)).ctypes.data
 
 
-def decode_jpeg(data: bytes) -> np.ndarray:
-    """JPEG bytes -> HWC RGB uint8, equal to PIL's decode followed by convert("RGB")."""
+def decode_jpeg(data: bytes, denom: int = 1) -> np.ndarray:
+    """JPEG bytes -> HWC RGB uint8, equal to PIL's decode followed by convert("RGB").
+    `denom` 2, 4 or 8 decodes at that fraction of the size in the DCT domain
+    (libjpeg's scale_denom, PIL's `draft`): ceil(w / denom) x ceil(h / denom)."""
+    if denom not in (1, 2, 4, 8):
+        raise ValueError(f"JPEG scale must be 1/1, 1/2, 1/4 or 1/8, got 1/{denom}")
     w, h = _jpeg_size(data)
+    w, h = -(-w // denom), -(-h // denom)
     out = np.empty((h, w, 3), np.uint8)
     err = _err_buf()
-    if codec().eyio_jpeg_decode(_ptr(data), len(data), out.ctypes.data, w, h, err, len(err)):
+    if codec().eyio_jpeg_decode(_ptr(data), len(data), denom, out.ctypes.data, w, h, err,
+                                len(err)):
         raise ValueError(err.value.decode())
     return out
 

@@ -5,7 +5,10 @@ The same ratio, rounding and gray-114 pads as the JAX letterbox, to a square
 codec library (csrc/imageio.cpp), over worker threads for a batch: JPEG
 sources are decoded there, other images arrive as pixels. The resize is
 edgeyolo_tpu/native/io.cpp's triangle filter with PIL BILINEAR's support
-(antialiased on downscale), which is within one grey level of PIL's.
+(antialiased on downscale), which is within one grey level of PIL's. Onto a
+square canvas a JPEG whose long side is at least 4x the canvas decodes at
+1/2, 1/4 or 1/8 scale in the DCT domain first, as native/io.cpp's does
+(`decode_letterbox` is its single-image call).
 """
 
 from __future__ import annotations
@@ -72,3 +75,12 @@ def letterbox(img: np.ndarray, new_shape: int | tuple[int, int] = 640, scaleup: 
     """
     out, [(r, pads, _)] = letterbox_batch([img], new_shape, scaleup, threads=1)
     return out[0], r, pads
+
+
+def decode_letterbox(data: bytes, imgsz: int, scaleup: bool = True):
+    """One JPEG's bytes onto an (imgsz, imgsz) canvas (edgeyolo_tpu.native.decode_letterbox).
+
+    Returns (image (imgsz, imgsz, 3) uint8, ratio, (pad_w, pad_h), (h0, w0)).
+    """
+    out, [(r, pads, hw)] = letterbox_batch([data], imgsz, scaleup, threads=1)
+    return out[0], r, pads, hw

@@ -10,15 +10,20 @@ For a seed the draws are the JAX generator's: the same
 and `dataset.yaml` are byte-identical to what the JAX package writes. The
 shapes are rasterised here in numpy (PIL's ImageDraw is not on the card's
 machine) and the images are written as PNG, where JAX writes JPEG.
+
+`moving_shapes` draws the same shapes moving across a video's frames, and
+`write_mjpeg_avi` writes frames as an MJPEG AVI on the port's JPEG encoder:
+the video and tracking inputs of the tests and of chip_smoke.py.
 """
 
 from __future__ import annotations
 
+import struct
 from pathlib import Path
 
 import numpy as np
 
-from edgeyolo_tpu_torch.data.imageio import save_png
+from edgeyolo_tpu_torch.data.imageio import encode_jpeg, save_png
 
 PALETTE = [(220, 40, 40), (40, 180, 60), (50, 80, 220), (230, 200, 40), (160, 60, 200)]
 _SHAPES = ("rectangle", "ellipse", "cross")
@@ -38,15 +43,15 @@ def _span(lo: float, hi: float, n: int) -> slice:
 
 
 def draw_rectangle(img, x1, y1, x2, y2, fill, outline=WHITE):
-    n = img.shape[0]
-    ys, xs = _span(y1, y2, n), _span(x1, x2, n)
+    h, w = img.shape[:2]
+    ys, xs = _span(y1, y2, h), _span(x1, x2, w)
     img[ys, xs] = outline
-    img[_span(y1 + 1, y2 - 1, n), _span(x1 + 1, x2 - 1, n)] = fill
+    img[_span(y1 + 1, y2 - 1, h), _span(x1 + 1, x2 - 1, w)] = fill
 
 
 def draw_ellipse(img, x1, y1, x2, y2, fill, outline=WHITE):
-    n = img.shape[0]
-    ys, xs = _span(y1, y2, n), _span(x1, x2, n)
+    h, w = img.shape[:2]
+    ys, xs = _span(y1, y2, h), _span(x1, x2, w)
     yy, xx = np.mgrid[ys, xs]
     cx, cy, rx, ry = (x1 + x2) / 2, (y1 + y2) / 2, (x2 - x1) / 2, (y2 - y1) / 2
     d = ((xx - cx) / rx) ** 2 + ((yy - cy) / ry) ** 2
@@ -59,10 +64,92 @@ def draw_ellipse(img, x1, y1, x2, y2, fill, outline=WHITE):
 def draw_cross(img, x1, y1, x2, y2, fill, w_h: int, w_v: int):
     """A horizontal bar of thickness w_h through the centre and a vertical one
     of thickness w_v, each clipped to the box."""
-    n = img.shape[0]
+    h, w = img.shape[:2]
     cx, cy = (x1 + x2) / 2, (y1 + y2) / 2
-    img[_span(max(cy - w_h / 2, y1), min(cy + w_h / 2, y2), n), _span(x1, x2, n)] = fill
-    img[_span(y1, y2, n), _span(max(cx - w_v / 2, x1), min(cx + w_v / 2, x2), n)] = fill
+    img[_span(max(cy - w_h / 2, y1), min(cy + w_h / 2, y2), h), _span(x1, x2, w)] = fill
+    img[_span(y1, y2, h), _span(max(cx - w_v / 2, x1), min(cx + w_v / 2, x2), w)] = fill
+
+
+def draw_shape(img, c: int, x1, y1, x2, y2):
+    """Class c's shape in its palette colour (the dataset's drawing)."""
+    color = PALETTE[c % len(PALETTE)]
+    if c % 3 == 0:
+        draw_rectangle(img, x1, y1, x2, y2, color)
+    elif c % 3 == 1:
+        draw_ellipse(img, x1, y1, x2, y2, color)
+    else:
+        draw_cross(img, x1, y1, x2, y2, color, max(3, int((y2 - y1) / 5)),
+                   max(3, int((x2 - x1) / 5)))
+
+
+def moving_shapes(n_frames: int, height: int, width: int, n_objs: int = 3, nc: int = 3,
+                  size: tuple[float, float] = (0.2, 0.3), speed: float = 2.0, seed: int = 0):
+    """Frames of shapes over one noise background, each moving `speed` px a
+    frame up and down its own column of the frame (width / n_objs wide, its
+    width capped to fit) and bouncing off the borders, so no two overlap.
+
+    Returns (frames (n_frames, H, W, 3) uint8, boxes (n_frames, n_objs, 5)
+    [cls, x1, y1, x2, y2] in pixels). `size` is the range of a side as a
+    fraction of the short side.
+    """
+    rng = np.random.RandomState(seed)
+    bg = (rng.rand(height, width, 3) * 60 + 90).astype(np.uint8)
+    short, lane = min(height, width), width / n_objs
+    objs = []
+    for k in range(n_objs):
+        w, h = (rng.uniform(*size) * short for _ in range(2))
+        w = min(w, lane - 6)
+        x = lane * k + 3 + rng.uniform(0, lane - 6 - w)
+        y = rng.uniform(2, height - h - 2)
+        objs.append([k % nc, x, y, w, h, speed * rng.choice([-1.0, 1.0])])
+    frames = np.empty((n_frames, height, width, 3), np.uint8)
+    boxes = np.zeros((n_frames, n_objs, 5), np.float32)
+    for t in range(n_frames):
+        img = bg.copy()
+        for k, o in enumerate(objs):
+            c, x, y, w, h, v = o
+            draw_shape(img, c, x, y, x + w, y + h)
+            boxes[t, k] = (c, x, y, x + w, y + h)
+            if not 1 <= y + v <= height - 1 - h:
+                o[5] = v = -v
+            o[2] = y + v
+        frames[t] = img
+    return frames, boxes
+
+
+def write_mjpeg_avi(path: str | Path, frames, fps: int = 30, quality: int = 90) -> Path:
+    """Write frames (each (H, W, 3) uint8, one size) as an MJPEG AVI: RIFF
+    'AVI ' with one 'MJPG' video stream, each frame a '00dc' chunk holding a
+    baseline 4:2:0 JPEG of the port's encoder, and an idx1 index."""
+    frames = list(frames)
+    if not frames:
+        raise ValueError("write_mjpeg_avi needs at least one frame")
+    h, w = frames[0].shape[:2]
+    jpegs = [encode_jpeg(np.ascontiguousarray(f, np.uint8), quality=quality) for f in frames]
+
+    def chunk(fourcc: bytes, payload: bytes) -> bytes:
+        return fourcc + struct.pack("<I", len(payload)) + payload + b"\0" * (len(payload) % 2)
+
+    def lst(kind: bytes, payload: bytes) -> bytes:
+        return chunk(b"LIST", kind + payload)
+
+    n, big = len(jpegs), max(len(j) for j in jpegs)
+    avih = struct.pack("<14I", 1_000_000 // fps, big * fps, 0, 0x10, n, 0, 1, big, w, h, 0, 0, 0, 0)
+    strh = b"vidsMJPG" + struct.pack("<IHHIIIIIIIIhhhh", 0, 0, 0, 0, 1, fps, 0, n, big,
+                                     0xFFFFFFFF, 0, 0, 0, w, h)
+    strf = struct.pack("<IiiHH4sIiiII", 40, w, h, 1, 24, b"MJPG", w * h * 3, 0, 0, 0, 0)
+    hdrl = lst(b"hdrl", chunk(b"avih", avih) + lst(b"strl", chunk(b"strh", strh)
+                                                  + chunk(b"strf", strf)))
+    movi, index, off = b"", b"", 4
+    for j in jpegs:
+        c = chunk(b"00dc", j)
+        index += b"00dc" + struct.pack("<III", 0x10, off, len(j))
+        movi += c
+        off += len(c)
+    body = b"AVI " + hdrl + lst(b"movi", movi) + chunk(b"idx1", index)
+    path = Path(path)
+    path.write_bytes(b"RIFF" + struct.pack("<I", len(body)) + body)
+    return path
 
 
 def generate_dataset(root: str | Path, n_train: int = 16, n_val: int = 8, imgsz: int = 320,

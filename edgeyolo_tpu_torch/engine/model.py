@@ -3,10 +3,13 @@
     YOLO("edgeline-yolo.yaml")        # a model name (cfg/models.py), seeded weights
     YOLO("runs/detect/train/best.pt") # a port checkpoint (train/trainer.py)
 
-`train`, `val` and `predict` take the keys of cfg/__init__.py's defaults
-(method kwargs > the handle's overrides > defaults). `train` on a model with
-no trained weights rebuilds its head for the dataset's class count. Every
-mode runs on CUDA unless `device` names another device ("cpu").
+`train`, `val`, `predict` and `track` take the keys of cfg/__init__.py's
+defaults (method kwargs > the handle's overrides > defaults). `train` on a
+model with no trained weights rebuilds its head for the dataset's class
+count. `predict` keeps its predictor (and so its save directory) while the
+arguments stay the same, as JAX's facade does; `track` runs it with a
+ByteTrack or BoT-SORT tracker over the frames. Every mode runs on CUDA
+unless `device` names another device ("cpu").
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ class YOLO:
         self.device = select_device(device)
         self.ckpt_path = None
         self.trained = False  # weights from training or a checkpoint, not a seeded init
+        self.predictor, self._predictor_key, self._tracker = None, None, None
         model = str(model)
         if model.endswith(".pt"):
             self._load_checkpoint(model)
@@ -99,6 +103,7 @@ class YOLO:
         best = self.trainer.fit()
         self.model.eval()
         self.trained = True
+        self.predictor = None  # its model may be a bf16 copy of the old weights
         self.overrides["imgsz"] = args.imgsz
         return best
 
@@ -114,19 +119,42 @@ class YOLO:
         return self.validator(self.model)
 
     def predict(self, source, stream: bool = False, **kwargs):
-        """Results for each image of `source` (a generator with `stream`)."""
+        """Results for each frame of `source` (a generator with `stream`)."""
         from edgeyolo_tpu_torch.engine.predictor import DetectionPredictor
 
         args = self._args("predict", kwargs)
-        model = for_precision(self.model.eval(), bool(args.half))
-        predictor = DetectionPredictor(
-            model, conf=args.conf if args.conf is not None else 0.25, iou=float(args.iou),
-            max_det=int(args.max_det), device=self.device, imgsz=int(args.imgsz),
-            batch=int(args.batch), classes=args.classes,
-            agnostic=bool(args.agnostic_nms), save_txt=bool(args.save_txt),
-            save_conf=bool(args.save_conf), verbose=bool(args.verbose),
-            save_dir=get_save_dir(args, name=args.name or "predict"))
+        key = (repr(sorted(vars(args).items())), id(self.model), str(self.device))
+        if self.predictor is None or key != self._predictor_key:
+            model = for_precision(self.model.eval(), bool(args.half))
+            self.predictor = DetectionPredictor(
+                model, conf=args.conf if args.conf is not None else 0.25, iou=float(args.iou),
+                max_det=int(args.max_det), device=self.device, imgsz=int(args.imgsz),
+                batch=int(args.batch), classes=args.classes,
+                agnostic=bool(args.agnostic_nms), save_txt=bool(args.save_txt),
+                save_conf=bool(args.save_conf), verbose=bool(args.verbose),
+                save_dir=get_save_dir(args, name=args.name or "predict"), save=bool(args.save),
+                augment=bool(args.augment), visualize=bool(args.visualize),
+                vid_stride=int(args.vid_stride), stream_buffer=bool(args.stream_buffer),
+                line_width=args.line_width, show_labels=bool(args.show_labels),
+                show_conf=bool(args.show_conf), show=bool(args.show))
+            self._predictor_key = key
+        predictor = self.predictor
         return predictor.stream(source) if stream else predictor.predict(source)
+
+    def track(self, source, persist: bool = False, **kwargs):
+        """Tracked Results for each frame of `source` (a generator): `predict`
+        with conf 0.1 unless given, through a tracker from `tracker`
+        ("bytetrack", "botsort" or a tracker YAML; default "bytetrack").
+        persist=True keeps the tracker, and its ids, across calls (the
+        frame-by-frame `for f in frames: model.track(f, persist=True)`)."""
+        from edgeyolo_tpu_torch.trackers.track import make_tracker, track_stream
+
+        kwargs.setdefault("conf", 0.1)
+        cfg = kwargs.pop("tracker", "bytetrack")
+        if not persist or self._tracker is None:
+            self._tracker = make_tracker(cfg)
+        results = self.predict(source, stream=True, **kwargs)
+        return track_stream(results, tracker=self._tracker)
 
     def __call__(self, source, **kwargs):
         return self.predict(source, **kwargs)
@@ -153,4 +181,5 @@ class YOLO:
         self.model.load_state_dict(keep, strict=False)
         LOGGER.info(f"load: transferred {len(keep)} tensors, kept {len(cur) - len(keep)}")
         self.trained = True
+        self.predictor = None
         return self

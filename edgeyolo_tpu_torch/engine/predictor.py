@@ -10,27 +10,86 @@ its pred is already the score-sorted (B, max_det, 6) top-k, and
 `e2e_detections` keeps the rows past `conf` (and of `classes`), valid rows
 first, up to `max_det`.
 
-`stream(source)` is JAX's `DetectionPredictor.stream`: each frame of a file,
-directory, glob, list or array source is letterboxed (scaleup) to `imgsz`,
-`batch` frames ride one serving step (a short last batch repeats its last
-frame, whose outputs are not read), and each frame's boxes are taken back
-out of the letterbox into a `Results`, with the `speed` dict and, with
-`save_txt`, a label file per frame. `predict(source)` is its list.
+`stream(source)` is JAX's `DetectionPredictor.stream`: each frame of a
+source of data/loaders.py (images, directories, globs, arrays, video files,
+MJPEG streams, frame iterables) is letterboxed (scaleup) to `imgsz`, `batch`
+frames ride one serving step (a short last batch repeats its last frame,
+whose outputs are not read), and each frame's boxes are taken back out of
+the letterbox into a `Results` carrying the frame's path and the `speed`
+dict. `predict(source)` is its list. Per frame, as JAX's predictor does:
+- `augment`: test-time augmentation (JAX `_build_infer_tta`, reference
+  `_predict_augment`): the batch at scales 1, 0.83 and 0.67, the second
+  flipped left-right, each resized as `jax.image.resize` (bilinear, a
+  triangle filter widened by the downscale, weights in the compute dtype)
+  and padded to the stride with 0.447; the predictions de-scaled and
+  de-flipped, the full scale's P5 and the smallest scale's P3 anchors
+  dropped, then one NMS. An NMS-free head serves single-scale with a
+  warning: its pred is already a selection (ROADMAP C.13).
+- `visualize`: a second forward capturing every layer but the head, each
+  4-D output saved as a feature-map grid (utils/plotting.py) under
+  save_dir/<frame name>/.
+- `save`: the annotated frame (`Results.plot`) as save_dir/<frame name>.jpg;
+  `save_txt`: save_dir/labels/<frame name>.txt. A still image's name is its
+  file's stem, as in JAX; a video or stream frame `path:i` is
+  `<stem>_<i>`, one file per frame (JAX names every frame of a video
+  `<stem>`, so each overwrites the last; ROADMAP C.13).
+- `show`: `Results.show`, which displays nothing on the port (no viewer).
 """
 
 from __future__ import annotations
 
+import math
+import re
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from edgeyolo_tpu_torch.data.letterbox import letterbox
 from edgeyolo_tpu_torch.data.loaders import load_inference_source
 from edgeyolo_tpu_torch.engine.results import Results
 from edgeyolo_tpu_torch.ops.nms import non_max_suppression
 from edgeyolo_tpu_torch.utils import LOGGER, select_device
+from edgeyolo_tpu_torch.utils.plotting import feature_visualization
+
+TTA = ((1.0, False), (0.83, True), (0.67, False))  # (scale, flipped left-right)
+TTA_PAD = 0.447  # the pad of a down-scaled canvas (ImageNet mean)
+
+
+def resize_weights(n_in: int, n_out: int) -> torch.Tensor:
+    """(n_in, n_out) weights of `jax.image.resize(method="bilinear")` along
+    one axis (jax.image.compute_weight_mat, antialias on): a triangle
+    filter widened by the downscale, each output's weights summing to 1."""
+    scale = n_out / n_in
+    inv = 1.0 / scale
+    kernel_scale = max(inv, 1.0)
+    sample = (torch.arange(n_out, dtype=torch.float32) + 0.5) * inv - 0.5
+    x = (sample[None, :] - torch.arange(n_in, dtype=torch.float32)[:, None]).abs() / kernel_scale
+    w = (1.0 - x).clamp_min(0.0)
+    total = w.sum(0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * torch.finfo(torch.float32).eps,
+                    w / torch.where(total != 0, total, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[None, :], w, 0.0)
+
+
+def resize_bilinear(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
+    """jax.image.resize(x, ..., "bilinear") of an NCHW batch to (h, w): the
+    two axes' weights in x's dtype, contracted one axis after the other."""
+    wh = resize_weights(x.shape[2], size[0]).to(x.device, x.dtype)
+    ww = resize_weights(x.shape[3], size[1]).to(x.device, x.dtype)
+    return torch.matmul(wh.t(), torch.matmul(x, ww))
+
+
+def frame_name(path: str) -> str:
+    """The file name (no suffix) a frame's outputs are saved under: a still
+    image's stem, or `<stem>_<i>` for frame i of a video or stream (`path:i`)."""
+    m = re.fullmatch(r"(.*):(\d+)", str(path))
+    if m:
+        return f"{Path(m.group(1)).stem or 'stream'}_{m.group(2)}"
+    return Path(str(path)).stem
 
 
 def e2e_detections(pred: torch.Tensor, conf: float, max_det: int, classes=None):
@@ -69,7 +128,10 @@ class DetectionPredictor:
                  max_nms: int = 8192, device=None, imgsz: int = 640, batch: int = 1,
                  classes=None, agnostic: bool = False, save_txt: bool = False,
                  save_conf: bool = False, save_dir: str | Path = "runs/predict",
-                 verbose: bool = False):
+                 verbose: bool = False, save: bool = False, augment: bool = False,
+                 visualize: bool = False, vid_stride: int = 1, stream_buffer: bool = False,
+                 line_width: int | None = None, show_labels: bool = True,
+                 show_conf: bool = True, show: bool = False):
         self.device = select_device(device)
         self.model = model.to(self.device).eval()
         self.conf, self.iou, self.max_det, self.max_nms = conf, iou, max_det, max_nms
@@ -79,25 +141,79 @@ class DetectionPredictor:
         self.agnostic = agnostic
         self.save_txt, self.save_conf, self.verbose = save_txt, save_conf, verbose
         self.save_dir = Path(save_dir)
+        self.save, self.visualize, self.show = save, visualize, show
+        self.vid_stride, self.stream_buffer = max(1, int(vid_stride or 1)), stream_buffer
+        self.plot_args = {"line_width": line_width, "labels": show_labels, "conf": show_conf}
+        self.augment = augment
+        if augment and getattr(self.model, "end2end", False):
+            LOGGER.warning("augment=True needs a head with NMS; this NMS-free head's pred is "
+                           "already a selection, so prediction stays single-scale")
+            self.augment = False
 
-    @torch.inference_mode()
-    def __call__(self, images_u8_nhwc: np.ndarray | torch.Tensor):
+    def _nms(self, pred: torch.Tensor):
+        return non_max_suppression(pred, conf_thres=self.conf, iou_thres=self.iou,
+                                   max_det=self.max_det, max_nms=self.max_nms,
+                                   agnostic=self.agnostic, classes=self.classes)
+
+    def _tta_pred(self, x: torch.Tensor) -> torch.Tensor:
+        """JAX `_build_infer_tta` before its NMS: the three scales' de-scaled,
+        de-flipped predictions with the tails clipped, concatenated."""
+        _, _, h, w = x.shape
+        stride = self.model.model[-1].stride
+        gs = int(max(stride))
+        nl = len(stride)
+        g = sum(4 ** i for i in range(nl))
+        preds = []
+        for si, flip in TTA:
+            xi = x.flip(-1) if flip else x
+            if si != 1.0:
+                nh, nw = int(h * si), int(w * si)
+                xi = resize_bilinear(xi, (nh, nw))
+                ph, pw = math.ceil(h * si / gs) * gs, math.ceil(w * si / gs) * gs
+                xi = F.pad(xi, (0, pw - nw, 0, ph - nh), value=TTA_PAD)
+            p = self.model(xi)["pred"]
+            box = p[..., :4] / si
+            cx = (w - box[..., 0:1]) if flip else box[..., 0:1]
+            preds.append(torch.cat([cx, box[..., 1:4], p[..., 4:]], dim=-1))
+        preds[0] = preds[0][:, :-(preds[0].shape[1] // g)]
+        preds[-1] = preds[-1][:, (preds[-1].shape[1] // g) * 4 ** (nl - 1):]
+        return torch.cat(preds, dim=1)
+
+    def _input(self, images_u8_nhwc) -> torch.Tensor:
         x = torch.as_tensor(images_u8_nhwc)
         if x.dtype != torch.uint8 or x.ndim != 4 or x.shape[-1] != 3:
             raise ValueError(f"expected uint8 (B, H, W, 3) images, got {x.dtype} {tuple(x.shape)}")
-        h, w = x.shape[1:3]
         x = x.to(self.device).permute(0, 3, 1, 2).contiguous()
-        x = x.to(self.model.dtype) / 255
-        pred = self.model(x)["pred"]
-        if getattr(self.model, "end2end", False):
-            det, n = e2e_detections(pred, self.conf, self.max_det, self.classes)
+        return x.to(self.model.dtype) / 255
+
+    @torch.inference_mode()
+    def __call__(self, images_u8_nhwc: np.ndarray | torch.Tensor):
+        x = self._input(images_u8_nhwc)
+        h, w = x.shape[2:]
+        if self.augment:
+            det, n = self._nms(self._tta_pred(x))
         else:
-            det, n = non_max_suppression(pred, conf_thres=self.conf, iou_thres=self.iou,
-                                         max_det=self.max_det, max_nms=self.max_nms,
-                                         agnostic=self.agnostic, classes=self.classes)
+            pred = self.model(x)["pred"]
+            if getattr(self.model, "end2end", False):
+                det, n = e2e_detections(pred, self.conf, self.max_det, self.classes)
+            else:
+                det, n = self._nms(pred)
         det[..., 0:4:2] = det[..., 0:4:2].clamp(0, w)
         det[..., 1:4:2] = det[..., 1:4:2].clamp(0, h)
         return det, n
+
+    @torch.inference_mode()
+    def _visualize(self, img_u8: np.ndarray, name: str) -> None:
+        """Feature maps of every layer but the head (JAX `_visualize`): list
+        outputs are skipped."""
+        layers = self.model.layers[:-1]
+        _, feats = self.model(self._input(img_u8[None]), capture=[sp.i for sp in layers])
+        out_dir = self.save_dir / name
+        for sp in layers:
+            f = feats.get(sp.i)
+            if isinstance(f, torch.Tensor):
+                feature_visualization(f, sp.name, sp.i, out_dir)
+        LOGGER.info(f"saved feature maps to {out_dir}")
 
     def _run_batch(self, frames, names):
         n_real = len(frames)
@@ -106,17 +222,24 @@ class DetectionPredictor:
         dets, nvalid = self(np.stack(imgs))
         dets, nvalid = dets.cpu().numpy(), nvalid.cpu().numpy()
         infer_ms = (time.perf_counter() - t1) * 1e3 / n_real
-        for i, (path, img0, _img, r, pads, pre_ms) in enumerate(frames):
+        for i, (path, img0, img, r, pads, pre_ms) in enumerate(frames):
+            name = frame_name(path)
+            if self.visualize:
+                self._visualize(img, name)
             t2 = time.perf_counter()
             det = dets[i, :int(nvalid[i])].copy()
             if len(det):
                 det = unletterbox_boxes(det, r, *pads, img0.shape[:2])
             res = Results(img0, path, names, boxes=det,
                           speed={"preprocess": pre_ms, "inference": infer_ms, "postprocess": 0.0})
-            if self.save_txt:
-                res.save_txt(self.save_dir / "labels" / (Path(path).stem + ".txt"),
-                             save_conf=self.save_conf)
             res.speed["postprocess"] = (time.perf_counter() - t2) * 1e3
+            if self.save:
+                self.save_dir.mkdir(parents=True, exist_ok=True)
+                res.save(self.save_dir / f"{name}.jpg", **self.plot_args)
+            if self.save_txt:
+                res.save_txt(self.save_dir / "labels" / f"{name}.txt", save_conf=self.save_conf)
+            if self.show:
+                res.show(**self.plot_args)
             if self.verbose:
                 LOGGER.info(f"{path}: {res.verbose_str} ({infer_ms:.1f}ms inference)")
             yield res
@@ -124,7 +247,8 @@ class DetectionPredictor:
     def stream(self, source):
         """Results, one per frame of `source`."""
         names = getattr(self.model, "names", None) or {i: str(i) for i in range(self.model.nc)}
-        loader = load_inference_source(source)
+        loader, _ = load_inference_source(source, vid_stride=self.vid_stride,
+                                          stream_buffer=self.stream_buffer)
         buf = []
         for path, img0 in loader:
             t0 = time.perf_counter()

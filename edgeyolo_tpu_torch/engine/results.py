@@ -1,10 +1,12 @@
 """Prediction containers (edgeyolo_tpu/engine/results.py), detection parts.
 
 `Boxes` holds (N, 6) [x1, y1, x2, y2, conf, cls] rows in pixels of the
-original image, with the xywh and normalised views; `Results` holds one
-image's boxes with `save_txt`, `save_crop`, `to_json` and `verbose_str`.
-Drawing (`plot`, `save`) is not ported yet (ROADMAP A.9). Host numpy: the
-device work ends at the NMS output.
+original image, or (N, 7) with a track id after the box, with the xywh and
+normalised views; `Results` holds one image's boxes with `plot`, `save`,
+`show`, `save_txt`, `save_crop`, `to_json` and `verbose_str`. `plot` draws
+as JAX's does with PIL (utils/plotting.py: the same rectangles pixel for
+pixel, the label text in the port's bitmap font). Host numpy: the device
+work ends at the NMS output.
 """
 
 from __future__ import annotations
@@ -15,14 +17,30 @@ from pathlib import Path
 import numpy as np
 
 from edgeyolo_tpu_torch.data.imageio import save_jpeg, save_png
+from edgeyolo_tpu_torch.utils import LOGGER
+from edgeyolo_tpu_torch.utils.plotting import BitmapFont, rectangle, text
+
+PALETTE = [
+    (255, 56, 56), (255, 157, 151), (255, 112, 31), (255, 178, 29), (207, 210, 49),
+    (72, 249, 10), (146, 204, 23), (61, 219, 134), (26, 147, 52), (0, 212, 187),
+    (44, 153, 168), (0, 194, 255), (52, 69, 147), (100, 115, 255), (0, 24, 236),
+    (132, 56, 255), (82, 0, 133), (203, 56, 255), (255, 149, 200), (255, 55, 199),
+]
+
+
+def _colors(i) -> tuple[int, int, int]:
+    return PALETTE[int(i) % len(PALETTE)]
 
 
 class Boxes:
-    """Detection boxes: data (N, 6) = [x1, y1, x2, y2, conf, cls], orig_shape = (h, w)."""
+    """Detection boxes: data (N, 6) = [x1, y1, x2, y2, conf, cls], or (N, 7)
+    = [x1, y1, x2, y2, id, conf, cls] for tracks; orig_shape = (h, w)."""
 
     def __init__(self, data: np.ndarray, orig_shape: tuple[int, int]):
         data = np.asarray(data, dtype=np.float32)
-        self.data = data.reshape(-1, 6)
+        ncol = data.shape[-1] if data.ndim > 1 and data.size else 6
+        self.data = data.reshape(-1, ncol)
+        self.is_track = ncol == 7
         self.orig_shape = orig_shape
 
     def __len__(self):
@@ -36,12 +54,16 @@ class Boxes:
         return self.data[:, :4]
 
     @property
+    def id(self):
+        return self.data[:, 4] if self.is_track else None
+
+    @property
     def conf(self):
-        return self.data[:, 4]
+        return self.data[:, -2]
 
     @property
     def cls(self):
-        return self.data[:, 5]
+        return self.data[:, -1]
 
     @property
     def xywh(self):
@@ -75,17 +97,68 @@ class Results:
         return len(self.boxes) if self.boxes is not None else 0
 
     def __getitem__(self, i):
-        r = Results(self.orig_img, self.path, self.names)
+        r = Results(self.orig_img, self.path, self.names, speed=self.speed)
         if self.boxes is not None:
             r.boxes = self.boxes[i]
         return r
+
+    def update(self, boxes: np.ndarray | None = None):
+        if boxes is not None:
+            self.boxes = Boxes(boxes, self.orig_shape)
+        return self
+
+    def plot(self, line_width: int | None = None, font_size: int | None = None,
+             labels: bool = True, conf: bool = True) -> np.ndarray:
+        """The original image with each box, its class name (and track id)
+        and confidence drawn on a copy: HWC RGB uint8. Line width
+        max(round((w + h) / 2 * 0.003), 2), font size max(12, 4 x line width),
+        a filled band in the box's colour behind white text at its top left."""
+        im = np.array(self.orig_img, dtype=np.uint8, copy=True)
+        if im.ndim == 2:
+            im = np.repeat(im[..., None], 3, axis=2)
+        h, w = im.shape[:2]
+        lw = line_width or max(round((w + h) / 2 * 0.003), 2)
+        font = BitmapFont(font_size or max(12, lw * 4))
+        if self.boxes is not None:
+            ids = self.boxes.id
+            for k, b in enumerate(self.boxes.data):
+                x1, y1, x2, y2 = b[:4].tolist()
+                cf, c = float(b[-2]), float(b[-1])
+                color = _colors(c)
+                rectangle(im, [x1, y1, x2, y2], color, lw)
+                if labels:
+                    name = self.names.get(int(c), str(int(c)))
+                    if ids is not None:
+                        name = f"id:{int(ids[k])} {name}"
+                    label = f"{name} {cf:.2f}" if conf else name
+                    bx0, by0, bx1, by1 = font.getbbox(label)
+                    rectangle(im, [x1 + bx0, y1 + by0 - 2, x1 + bx1 + 2, y1 + by1], color,
+                              fill=True)
+                    text(im, (x1 + 1, y1 - 1), label, (255, 255, 255), font)
+        return im
+
+    def save(self, filename: str | Path, **plot_kwargs) -> str:
+        """`plot` written to `filename`: PNG for a .png name, else a JPEG at
+        PIL's default quality, 75."""
+        img = self.plot(**plot_kwargs)
+        if str(filename).lower().endswith(".png"):
+            save_png(filename, img)
+        else:
+            save_jpeg(filename, img, quality=75)
+        return str(filename)
+
+    def show(self, *a, **kw):
+        """Display `plot`: the port has no image viewer, so, as PIL does on a
+        machine with none, nothing is shown."""
+        self.plot(*a, **kw)
+        LOGGER.info(f"{self.path}: no image viewer; use save() to write the annotated image")
 
     def save_txt(self, txt_file: str | Path, save_conf: bool = False):
         """Append one `cls xywhn [conf]` line per box (6 significant digits)."""
         lines = []
         if self.boxes is not None:
             for b, xywhn in zip(self.boxes.data, self.boxes.xywhn):
-                vals = [int(b[5]), *xywhn.tolist()] + ([float(b[4])] if save_conf else [])
+                vals = [int(b[-1]), *xywhn.tolist()] + ([float(b[-2])] if save_conf else [])
                 lines.append(" ".join(f"{v:.6g}" if j else str(v) for j, v in enumerate(vals)))
         if lines:
             Path(txt_file).parent.mkdir(parents=True, exist_ok=True)
@@ -126,8 +199,8 @@ class Results:
                 if normalize:
                     x1, y1, x2, y2 = x1 / w, y1 / h, x2 / w, y2 / h
                 out.append({
-                    "name": self.names.get(int(b[5]), str(int(b[5]))),
-                    "class": int(b[5]), "confidence": round(float(b[4]), 5),
+                    "name": self.names.get(int(b[-1]), str(int(b[-1]))),
+                    "class": int(b[-1]), "confidence": round(float(b[-2]), 5),
                     "box": {"x1": round(float(x1), 5), "y1": round(float(y1), 5),
                             "x2": round(float(x2), 5), "y2": round(float(y2), 5)},
                 })

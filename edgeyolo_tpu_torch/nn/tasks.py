@@ -278,8 +278,12 @@ class GraphNet(nn.Module):
         self.save = frozenset(save)
         self.model = nn.ModuleList(build_module(sp, head_stride) for sp in layers)
 
-    def forward(self, x):
+    def forward(self, x, capture: Sequence[int] | None = None):
+        """The head's output; with `capture`, (output, {i: layer i's raw
+        output}) for the listed layers (JAX's `capture`, feature maps)."""
         y: dict[int, torch.Tensor] = {}
+        want = frozenset(capture or ())
+        captured: dict[int, torch.Tensor] = {}
         out = x
         for sp, m in zip(self.layers, self.model):
             if len(sp.f) == 1:
@@ -289,7 +293,9 @@ class GraphNet(nn.Module):
             out = m(inp)
             if sp.i in self.save:
                 y[sp.i] = out
-        return out
+            if sp.i in want:
+                captured[sp.i] = out
+        return (out, captured) if capture else out
 
 
 def _uniform_(t: torch.Tensor, bound: float, generator: torch.Generator) -> None:

@@ -398,13 +398,16 @@ def test_inference_sources(synth):
     files = sorted(vdir.glob("*.png"))
     for src, n in ((vdir, 3), (str(files[0]), 1), (str(vdir / "*.png"), 3),
                    ([str(f) for f in files[:2]], 2)):
-        got = list(load_inference_source(src))
+        got = list(load_inference_source(src)[0])
         assert len(got) == n
         assert all(im.shape == (64, 64, 3) and im.dtype == np.uint8 for _, im in got)
     arr = np.zeros((5, 7, 3), np.uint8)
-    assert [(n, im.shape) for n, im in load_inference_source(arr)] == [("image0", (5, 7, 3))]
-    assert [n for n, _ in load_inference_source([arr, arr])] == ["image0", "image1"]
+    assert [(n, im.shape) for n, im in load_inference_source(arr)[0]] == [("image0", (5, 7, 3))]
+    assert [n for n, _ in load_inference_source([arr, arr])[0]] == ["image0", "image1"]
     for batch in (np.zeros((2, 5, 7, 3), np.uint8), torch.zeros(2, 5, 7, 3, dtype=torch.uint8)):
-        assert [n for n, _ in load_inference_source(batch)] == ["tensor0", "tensor1"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_inference_source("clip.mp4")
+        loader, kinds = load_inference_source(batch)
+        assert [n for n, _ in loader] == ["tensor0", "tensor1"] and kinds.tensor
+    mp4 = py.parent / "clip.mp4"  # a video file no built-in decoder reads
+    mp4.write_bytes(b"\0" * 64)
+    with pytest.raises(NotImplementedError, match="register_video_decoder"):
+        list(load_inference_source(str(mp4))[0])
