@@ -95,7 +95,27 @@ Phases, each timed and each fatal when it fails:
                 one decoded against the CPU's plot outside the label bands) and
                 visualize=True (one PNG per layer with a 4-D output); (e) one train
                 step at batch 32 x 640 px with multi_scale; every part's kernel launches
- 11. device     each kernel's device time at the shapes of phase 3: the context and
+ 11. segment    the segment task and the YOLOv9 family: (a) reference: yolov9t/s/m/c/e/x
+     and v9     and yolov8n-seg, yolov8n-seg-p6, yolo11n-seg, yolov9c-seg, yolov9e-seg and
+                fastsam at 64 px in f32, card against CPU, at seeded and at test weights
+                (SEG_REF_SCALE): boxes 5e-3 px, scores 1e-4, and for the seg models the
+                mask coefficients and prototypes at 1e-4 of their largest magnitude and
+                the cropped sigmoid masks of the 20 best anchors (cropped to the CPU's
+                boxes on both sides) at 1e-4 as probabilities, equal at the 0.5 cut but
+                within 1e-4 of it; (b) serve: yolo11n-seg and yolov9c-seg at batch 32 x
+                640 px in bf16 through SegmentationPredictor (uint8 in, masks out): img/s,
+                median request ms, device-busy ms of a profiled request, peak memory;
+                (c) train reference: one f32 yolo11n-seg step at 64 px on 4 images (box
+                masks), card against CPU per tensor at TRAIN_REF_TOL, and the f64
+                witness; (d) train: yolo11n-seg at batch 32 x 640 px, bf16, default hyps,
+                4 instances per image, then with copy_paste 0.5: step ms and peak memory,
+                held under SEG_TRAIN_PEAK_GIB (one dense (32, 8400, 160, 160) f32 tensor
+                would be 27.5 GB); (e) fit: yolo11n-seg on the synthetic segment set
+                (the fit protocol), box and mask mAP50-95 held to the JAX trainer's less
+                0.1 (SEG_FIT_BOX_MIN, SEG_FIT_MASK_MIN), best.pt reloaded, on the CPU,
+                and predict with masks at the images' size. No kernel runs in these
+                models; the linear-attention launches stay 0 there (printed)
+ 12. device     each kernel's device time at the shapes of phase 3: the context and
      times      output launches each timed by its own event pair, in DEVICE_SESSIONS
                 sessions (median and spread, the SM clock read around each); after the
                 serve, train, fit and jpeg phases
@@ -256,6 +276,23 @@ DEVICE_SESSIONS = 3
 # to keep one id over `id_share` of the frames it is detected in (a track of its class)
 VIDEO = {"frames": 64, "hw": (720, 1280)}
 TRACK = {"frames": 48, "imgsz": 160, "speed": 2.0, "id_share": 0.9}
+# segment and YOLOv9: the models of that slice with the weight scales of their tests
+# (tests/test_torch_v9.py, tests/test_torch_segment.py)
+V9_REF_SCALE = {"yolov9t": 2.13, "yolov9s": 2.13, "yolov9m": 2.13, "yolov9c": 2.13,
+                "yolov9e": 2.13, "yolov9x": 2.13}
+SEG_REF_SCALE = {"yolov8n-seg": 2.0, "yolov8n-seg-p6": 2.0, "yolo11n-seg": 2.0,
+                 "yolov9c-seg": 2.1, "yolov9e-seg": 2.1, "fastsam": 2.0}
+SEG_SERVE = ("yolo11n-seg", "yolov9c-seg")
+SEG = "yolo11n-seg"
+SEG_TRAIN_PEAK_GIB = 20.0
+# fit: yolo11n-seg on the fit protocol's segment form; the JAX package's trainer reached box
+# mAP50-95 SEG_JAX_BOX_MAP and mask mAP50-95 SEG_JAX_MASK_MAP at its best epoch (135) there
+# (JAX_PLATFORMS=cpu python tools/fit_protocol.py OUT '{"task": "segment", "nbs": 16,
+# "warmup_epochs": 0.0, "seed": 0}', 351 s on a CPU), and the port is held to each less 0.1
+SEG_JAX_BOX_MAP = 0.6774  # 0.67742
+SEG_JAX_MASK_MAP = 0.4857  # 0.48569
+SEG_FIT_BOX_MIN = round(SEG_JAX_BOX_MAP - 0.1, 4)
+SEG_FIT_MASK_MIN = round(SEG_JAX_MASK_MAP - 0.1, 4)
 
 
 def phase(name: str):
@@ -1120,9 +1157,164 @@ def stage_times(trainer, batch, name: str) -> None:
           + f"; step {sum(d for d, _ in spans):.3f} / {sum(h for _, h in spans):.3f}", flush=True)
 
 
-def train(la, card: str, name: str = "edgeline-yolo-n"):
-    """Training steps of model `name` (scale n) at full width and depth;
-    returns the kernel's launches in the timed steps."""
+def box_masks(batch: dict, ratio: int = 4):
+    """Instance masks (B, M, S / ratio, S / ratio) for a train batch: each
+    real box filled at the mask grid, less its top-left quarter (an L, so a
+    mask is not its box)."""
+    import torch
+
+    sm = batch["img"].shape[1] // ratio
+    bx = batch["bboxes"]
+    xyxy = torch.cat([bx[..., :2] - bx[..., 2:] / 2, bx[..., :2] + bx[..., 2:] / 2], -1) * sm
+    x1, y1, x2, y2 = xyxy[..., 0].floor(), xyxy[..., 1].floor(), xyxy[..., 2].ceil(), \
+        xyxy[..., 3].ceil()
+    ar = torch.arange(sm, dtype=torch.float32)
+    inx = (ar >= x1[..., None]) & (ar < x2[..., None])
+    iny = (ar >= y1[..., None]) & (ar < y2[..., None])
+    nx, ny = ar < ((x1 + x2) / 2)[..., None], ar < ((y1 + y2) / 2)[..., None]
+    masks = (iny[..., :, None] & inx[..., None, :]) & ~(ny[..., :, None] & nx[..., None, :])
+    return masks.float() * batch["mask_gt"][..., None, None]
+
+
+def seg_dense(model, out: dict, k: int = 20):
+    """A segment model's 64 px outputs to compare: pred, coefficients,
+    prototypes, and the k best anchors' indices and xyxy boxes."""
+    import torch
+
+    nc = model.nc
+    pred = out["pred"].float()
+    top = pred[..., 4:4 + nc].amax(-1).argsort(dim=1, descending=True, stable=True)[:, :k]
+    box = pred[..., :4].gather(1, top[..., None].expand(-1, -1, 4))
+    xyxy = torch.cat([box[..., :2] - box[..., 2:] / 2, box[..., :2] + box[..., 2:] / 2], -1)
+    return pred, out["proto"].float(), top, xyxy
+
+
+def seg_reference(la) -> dict:
+    """The YOLOv9 detect models and the seg models at 64 px in f32, card
+    against CPU, at seeded weights and at the weights of their tests; for a
+    seg model also its coefficients, prototypes and cropped masks. Returns
+    the attention kernel's launches per model (0: none has attention)."""
+    import torch
+
+    from edgeyolo_tpu_torch.nn.tasks import DetectionModel
+    from edgeyolo_tpu_torch.ops.segments import proto_masks
+
+    x = torch.rand(2, 3, 64, 64, generator=torch.Generator().manual_seed(1))
+    launches = {}
+    for name, ref_scale in (*V9_REF_SCALE.items(), *SEG_REF_SCALE.items()):
+        for scale in (None, ref_scale):
+            t0 = time.perf_counter()
+            m = DetectionModel(name, device="cpu", seed=0)
+            m = exercise_branches(m) if scale is None else perturbed(m, scale)
+            outs = {}
+            la.linear_attention_kernel.launches = 0
+            for dev, model in (("cpu", m), ("cuda", copy.deepcopy(m).to("cuda"))):
+                with torch.inference_mode():
+                    outs[dev] = model(x.to(dev))
+            launches[name] = la.linear_attention_kernel.launches
+            pc, pg = outs["cpu"]["pred"].float(), outs["cuda"]["pred"].float().cpu()
+            nc = m.nc
+            d = (pg - pc).abs()
+            box, cls = d[..., :4].max().item(), d[..., 4:4 + nc].max().item()
+            spread = (pc[0] - pc[1])[..., :4].abs().max().item()
+            ok = bool(torch.isfinite(pg).all()) and box < 5e-3 and cls < 1e-4
+            line = (f"{name}: f32 64px card vs CPU, "
+                    f"{'seeded weights' if scale is None else f'test weights x{scale}'} (boxes of "
+                    f"the two images apart by up to {spread:.3e} px): box {box:.3e} px (tol "
+                    f"5e-3), score {cls:.3e} (tol 1e-4)")
+            if m.task == "segment":
+                coef_scale = pc[..., 4 + nc:].abs().max().item()
+                coef = d[..., 4 + nc:].max().item()
+                prc, prg = outs["cpu"]["proto"].float(), outs["cuda"]["proto"].float().cpu()
+                proto_scale = prc.abs().max().item()
+                proto = (prg - prc).abs().max().item()
+                _, _, top, xyxy = seg_dense(m, outs["cpu"])
+                nm = pc.shape[-1] - 4 - nc
+                idx = top[..., None].expand(-1, -1, nm)
+                mc = proto_masks(prc, pc[..., 4 + nc:].gather(1, idx), xyxy, 64)
+                mg = proto_masks(prg, pg[..., 4 + nc:].gather(1, idx), xyxy, 64)
+                mdiff = (mg - mc).abs().max().item()
+                off = (mg > 0.5) != (mc > 0.5)
+                near = (mc[off] - 0.5).abs().max().item() if off.any() else 0.0
+                line += (f"; coefficients {coef:.3e} of scale {coef_scale:.3e}, prototypes "
+                         f"{proto:.3e} of scale {proto_scale:.3e} (tol 1e-4 of the scale); "
+                         f"cropped sigmoid masks of the 20 best anchors {mdiff:.3e} (tol 1e-4), "
+                         f"{int(off.sum())} pixels apart at the 0.5 cut, within {near:.3e} of it "
+                         f"(tol 1e-4)")
+                ok = ok and coef < 1e-4 * coef_scale and proto < 1e-4 * proto_scale \
+                    and mdiff < 1e-4 and near < 1e-4
+            print(line + f"; {time.perf_counter() - t0:.1f} s", flush=True)
+            if not ok:
+                raise AssertionError(f"{name} on the card disagrees with the CPU reference")
+            if launches[name]:
+                raise AssertionError(f"{name}: {launches[name]} attention launches")
+            del m, outs
+    return launches
+
+
+def serve_segment(la, card: str, name: str) -> dict:
+    """A seg model served in bf16 at SERVE_BATCH x SERVE_IMGSZ px through
+    SegmentationPredictor, uint8 in and masks out: a warm-up request,
+    SERVE_REQUESTS timed requests, peak memory and one profiled request."""
+    import torch
+
+    from edgeyolo_tpu_torch.engine.predictor import SegmentationPredictor
+    from edgeyolo_tpu_torch.nn.tasks import DetectionModel, num_params
+
+    model = exercise_branches(DetectionModel(name, device="cuda", dtype=torch.bfloat16, seed=0))
+    predictor = SegmentationPredictor(model, conf=0.25, iou=0.7, max_det=300, max_nms=1024,
+                                      device="cuda")
+    imgs = torch.randint(0, 256, (SERVE_BATCH, SERVE_IMGSZ, SERVE_IMGSZ, 3), dtype=torch.uint8,
+                         generator=torch.Generator().manual_seed(2))
+    t0 = time.perf_counter()
+    predictor(imgs)
+    torch.cuda.synchronize()
+    print(f"serve {name}: {num_params(model)} params, bf16, warm-up request "
+          f"{(time.perf_counter() - t0) * 1e3:.3f} ms", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    la.linear_attention_kernel.launches = 0
+    times = []
+    for _ in range(SERVE_REQUESTS):
+        t0 = time.perf_counter()
+        det, n, masks = predictor(imgs)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    ms = statistics.median(times) * 1e3
+    det, n, masks = det.cpu(), n.cpu(), masks.cpu()
+    sm = SERVE_IMGSZ // 4
+    if not (det.shape == (SERVE_BATCH, 300, 6) and masks.shape == (SERVE_BATCH, 300, sm, sm)
+            and bool(torch.isfinite(det).all()) and bool(torch.isfinite(masks).all())
+            and float(masks.min()) >= 0 and float(masks.max()) <= 1):
+        raise AssertionError(f"{name}: served detections or masks are malformed")
+    kept = [int(k) for k in n]
+    on = [float((masks[i, :k] > 0.5).float().mean()) for i, k in enumerate(kept) if k]
+    print(f"serve {name}: batch {SERVE_BATCH} x {SERVE_IMGSZ} px bf16, uint8 in, masks "
+          f"({sm} x {sm} per detection) out; request times {[round(t * 1e3, 3) for t in times]} "
+          f"ms, median {ms:.3f} ms, {SERVE_BATCH / ms * 1e3:.1f} img/s, peak memory "
+          f"{peak / 2**30:.3f} GiB; detections per image {min(kept)}..{max(kept)}, mask pixels "
+          f"on {statistics.mean(on) if on else 0:.3f}; attention launches "
+          f"{la.linear_attention_kernel.launches}; on {card}", flush=True)
+    busy = profile_request(predictor, imgs, ms)
+    return {"ms": ms, "img_s": SERVE_BATCH / ms * 1e3, "peak_gib": peak / 2**30,
+            "busy_ms": busy}
+
+
+def check_seg_train_reference(la) -> None:
+    """One f32 yolo11n-seg step at 64 px on 4 images with box masks, card
+    against CPU from class logits spread around 0, every gradient per tensor
+    at TRAIN_REF_TOL, and the f64 witness."""
+    batch4 = train_batch(4, TRAIN_REF_IMGSZ, TRAIN_REF_M, 4, seed=3)
+    batch4["masks"] = box_masks(batch4)
+    cpu, card = card_vs_cpu(la, "class logits spread around 0", spread_logits, batch4,
+                            per_tensor=True, name=SEG)
+    witness(la, spread_logits, batch4, cpu, card, SEG)
+
+
+def train(la, card: str, name: str = "edgeline-yolo-n", copy_paste: float = 0.0):
+    """Training steps of model `name` (scale n) at full width and depth (a
+    segment model with box masks, and `copy_paste`); returns the kernel's
+    launches in the timed steps."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1135,14 +1327,18 @@ def train(la, card: str, name: str = "edgeline-yolo-n"):
     model = DetectionModel(name, device="cuda", seed=0)
     n_attn = n_attention(model)
     hyp = {"batch": TRAIN_BATCH, "nbs": 64, "optimizer": "SGD", "lr0": 0.01, "momentum": 0.937,
-           "amp": True, "seed": 0}
+           "amp": True, "seed": 0, "copy_paste": copy_paste}
     trainer = DetectionTrainer(model, hyp, device="cuda")
     trainer.setup(nb=TRAIN_STEPS + 2)
     print(f"train: {name}, {num_trainable(model)} trained params (f32 masters), "
           f"batch {TRAIN_BATCH} x {TRAIN_IMGSZ} px, bf16 autocast, SGD nesterov, accumulate "
           f"{trainer.accumulate}, mosaic {hyp.get('mosaic', 1.0)}, photometric 1.0", flush=True)
-    batch = batch_to_device(train_batch(TRAIN_BATCH, TRAIN_IMGSZ, TRAIN_M, TRAIN_REAL, seed=5),
-                       torch.device("cuda"))
+    host = train_batch(TRAIN_BATCH, TRAIN_IMGSZ, TRAIN_M, TRAIN_REAL, seed=5)
+    if model.task == "segment":
+        host["masks"] = box_masks(host)
+        print(f"train {name}: {TRAIN_REAL} instance masks per image at "
+              f"{TRAIN_IMGSZ // 4} x {TRAIN_IMGSZ // 4}, copy_paste {copy_paste}", flush=True)
+    batch = batch_to_device(host, torch.device("cuda"))
     bn = next(m for m in model.modules() if isinstance(m, BatchNorm2d))
 
     # warm-up, with what reaches the kernel recorded
@@ -1210,6 +1406,9 @@ def train(la, card: str, name: str = "edgeline-yolo-n"):
           f"{[round(t * 1e3, 3) for t in times]} ms, median {ms:.3f} ms, "
           f"{TRAIN_BATCH / ms * 1e3:.1f} img/s, peak memory {peak / 2**30:.3f} GiB "
           f"(max_memory_allocated) on {card}", flush=True)
+    if model.task == "segment" and peak / 2**30 > SEG_TRAIN_PEAK_GIB:
+        raise AssertionError(f"{name}: peak memory {peak / 2**30:.3f} GiB over "
+                             f"{SEG_TRAIN_PEAK_GIB}: a dense mask tensor was formed")
 
     stage_times(trainer, batch, name)
 
@@ -1304,11 +1503,13 @@ def metrics_gap(a: dict, b: dict) -> float:
 
 
 def fit(la, card: str, work: Path, name: str = "edgeline-yolo.yaml",
-        map_min: float = FIT_MAP_MIN, imgsz: int = FIT["imgsz"]) -> tuple[dict, Path]:
+        map_min: float = FIT_MAP_MIN, imgsz: int = FIT["imgsz"],
+        mask_map_min: float | None = None) -> tuple[dict, Path]:
     """Train, validate and predict model `name` (scale n) from a dataset on
-    disk at `imgsz`, held to mAP50-95 >= map_min; the flagship then validates
-    at 640 px. Returns the attention kernel's launches in train, val and
-    predict, and the best checkpoint's path."""
+    disk at `imgsz`, held to mAP50-95 >= map_min (a segment model on the
+    segment form of the dataset, its mask mAP50-95 also to mask_map_min);
+    the flagship then validates at 640 px. Returns the attention kernel's
+    launches in train, val and predict, and the best checkpoint's path."""
     import csv
 
     import torch
@@ -1318,9 +1519,10 @@ def fit(la, card: str, work: Path, name: str = "edgeline-yolo.yaml",
     from edgeyolo_tpu_torch.train.trainer import DetectionTrainer
 
     t0 = time.perf_counter()
-    data = generate_dataset(work / "fit", **FIT)
-    print(f"fit dataset: {FIT}, PNG, written in {time.perf_counter() - t0:.3f} s", flush=True)
     model = YOLO(name, device="cuda")
+    data = generate_dataset(work / "fit", **FIT, task=model.task)
+    print(f"fit dataset: {FIT}, {model.task}, PNG, written in {time.perf_counter() - t0:.3f} s",
+          flush=True)
     flagship = name == "edgeline-yolo.yaml"
     val_launches = []
     validate = DetectionTrainer._validate
@@ -1348,7 +1550,8 @@ def fit(la, card: str, work: Path, name: str = "edgeline-yolo.yaml",
           f"{trainer.epoch_times[0] * 1e3:.3f} ms; val median "
           f"{statistics.median(trainer.val_times) * 1e3:.3f} ms, first "
           f"{trainer.val_times[0] * 1e3:.3f} ms; {trainer.accumulate} micro-steps per update, "
-          f"{trainer.ema.updates} updates; on {card}", flush=True)
+          f"{trainer.ema.updates} updates; deterministic algorithms "
+          f"{trainer.args['deterministic']}; on {card}", flush=True)
     with open(trainer.save_dir / "results.csv") as f:
         rows = list(csv.DictReader(f))
     print(f"fit {name}: results.csv last row: " + json.dumps(rows[-1]), flush=True)
@@ -1367,6 +1570,13 @@ def fit(la, card: str, work: Path, name: str = "edgeline-yolo.yaml",
                              f"{launches}, {n_attn} LinearAttention modules")
     if not best.get("metrics/mAP50-95(B)", 0.0) >= map_min:
         raise AssertionError(f"{name}: mAP50-95 {best.get('metrics/mAP50-95(B)')} < {map_min}")
+    if mask_map_min is not None:
+        print(f"fit {name}: box mAP50-95 {best['metrics/mAP50-95(B)']:.6f} (limit {map_min}, "
+              f"JAX {SEG_JAX_BOX_MAP}), mask mAP50-95 {best['metrics/mAP50-95(M)']:.6f} "
+              f"(limit {mask_map_min}, JAX {SEG_JAX_MASK_MAP}) on {card}", flush=True)
+        if not best["metrics/mAP50-95(M)"] >= mask_map_min:
+            raise AssertionError(f"{name}: mask mAP50-95 {best['metrics/mAP50-95(M)']} < "
+                                 f"{mask_map_min}")
 
     # reload best.pt: the same metrics on the card, and within FIT_CPU_TOL on the CPU (f32)
     val_kw = {"data": str(data), "batch": FIT_TRAIN["batch"], "imgsz": imgsz,
@@ -1399,6 +1609,16 @@ def fit(la, card: str, work: Path, name: str = "edgeline-yolo.yaml",
           flush=True)
     if len(results) != FIT["n_val"] or not inside or not ran(launches["predict"]):
         raise AssertionError("predict on the val images failed")
+    if mask_map_min is not None:
+        shaped = all(r.masks is not None and r.masks.data.shape == (len(r), *r.orig_shape)
+                     for r in results if len(r))
+        per_image = [0 if r.masks is None else len(r.masks) for r in results]
+        print(f"fit {name}: masks per image {per_image}, each at its image's size: {shaped}; "
+              f"first outline "
+              f"{len(results[0].masks.xy[0]) if results[0].masks is not None else 0} points",
+              flush=True)
+        if not shaped or not any(r.masks is not None for r in results):
+            raise AssertionError(f"{name}: predict gave no masks at the images' size")
     if flagship:
         val640(la, reloaded, card, work)
     return launches, trainer.save_dir / "best.pt"
@@ -1993,6 +2213,29 @@ def main() -> int:
         video_launches = video(la, card, Path(work) / "video", best)
         done("video", t0)
 
+        t0 = phase("segment reference")
+        seg_ref_launches = seg_reference(la)
+        done("segment reference", t0)
+
+        t0 = phase("segment serve")
+        for name in SEG_SERVE:
+            serve_segment(la, card, name)
+        done("segment serve", t0)
+
+        t0 = phase("segment train reference")
+        check_seg_train_reference(la)
+        done("segment train reference", t0)
+
+        t0 = phase("segment train")
+        seg_train_launches = train(la, card, SEG)
+        train(la, card, SEG, copy_paste=0.5)
+        done("segment train", t0)
+
+        t0 = phase("segment fit")
+        seg_fit_launches, _ = fit(la, card, Path(work) / SEG, f"{SEG}.yaml", SEG_FIT_BOX_MIN,
+                                  mask_map_min=SEG_FIT_MASK_MIN)
+        done("segment fit", t0)
+
     t0 = phase("device times")
     device_times(la, la_rows, la_inputs_by_case)
     done("device times", t0)
@@ -2020,6 +2263,9 @@ def main() -> int:
                 "launches_tta": video_launches["tta"],
                 "launches_track": video_launches["track_bytetrack"],
                 **{f"launches_video_{k}": v for k, v in video_launches.items()},
+                "launches_segment_v9_reference": sum(seg_ref_launches.values()),
+                "launches_segment_train": seg_train_launches,
+                **{f"launches_fit_segment_{k}": v for k, v in seg_fit_launches.items()},
                 **la_rows[LA_MAIN_CASE], "library_ms": None,
                 "wavelet_rows": [{"shape": list(case[:4]), "dtype": case[4], **row}
                                  for case, row in zip(LA_CASES, la_rows)

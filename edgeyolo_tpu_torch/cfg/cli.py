@@ -23,7 +23,7 @@ from edgeyolo_tpu_torch.utils import LOGGER
 CLI_HELP = f"""
     Usage: edgeyolo-torch TASK MODE ARGS
 
-        TASK (optional): one of {sorted(TASKS)} (only detect is ported)
+        TASK (optional): one of {sorted(TASKS)} (detect and segment are ported)
         MODE (required): one of ['predict', 'track', 'train', 'val']
         ARGS (optional): any number of 'arg=value' pairs overriding defaults.
 
@@ -95,6 +95,9 @@ def entrypoint(argv: list[str] | None = None) -> int:
         metrics = model.val(**overrides)
         _say(f"{'':>10}{'images':>8}{'P':>11}{'R':>11}{'mAP50':>11}{'mAP75':>11}{'mAP50-95':>11}")
         _say(model.validator.results_line())
+        if "metrics/mAP50-95(M)" in metrics:
+            _say(f"{'masks':>10}{'':>30}{metrics['metrics/mAP50(M)']:>11.3g}{'':>11}"
+                 f"{metrics['metrics/mAP50-95(M)']:>11.3g}")
         LOGGER.info(json.dumps(metrics))
     elif mode == "predict":
         source = overrides.pop("source", None)

@@ -33,7 +33,9 @@ def model_cfg(name: str | Path, scale: str | None = None) -> dict:
     """The spec for a model name or a model YAML file, with its scale resolved.
 
     Names resolve against the bundled copies: "yolo11n", "yolo11n.yaml",
-    "yolov13-dsc3k2-msla-n" or "yolo11.yaml" with scale="n" all give scale n;
+    "yolov13-dsc3k2-msla-n" or "yolo11.yaml" with scale="n" all give scale n,
+    "yolo11n-seg" is yolo11-seg.yaml at scale n, and a file without a scales
+    table takes the scale its name carries (yolov9s: s), as JAX names it;
     with no scale anywhere the first entry of the scales table is used, as
     the JAX package does. An existing file is read as it is, its scale from
     `scale`, its own `scale` key or its name.
@@ -46,11 +48,17 @@ def model_cfg(name: str | Path, scale: str | None = None) -> dict:
     else:
         base, named = stem, ""
         if stem not in MODELS:
-            m = re.match(r"^(.*?)-?([nslmx])$", stem)
-            if not m or m.group(1) not in MODELS:
-                raise KeyError(f"unknown model '{name}'; known: {list(MODELS)}")
-            base, named = m.groups()
+            m = re.match(r"^(.*yolov?\d+)([nslmx])([-_].+)?$", stem)  # yolo11n-seg: yolo11-seg, n
+            if m and m.group(1) + (m.group(3) or "") in MODELS:
+                base, named = m.group(1) + (m.group(3) or ""), m.group(2)
+            else:
+                m = re.match(r"^(.*?)-?([nslmx])$", stem)
+                if not m or m.group(1) not in MODELS:
+                    raise KeyError(f"unknown model '{name}'; known: {list(MODELS)}")
+                base, named = m.groups()
         d = yaml_load(MODELS_DIR / f"{base}.yaml")
+        if not d.get("scales"):  # a file of one size (yolov9s): the scale its name carries
+            named = named or _file_scale(base)
     if scale and named and scale != named:
         raise ValueError(f"model '{name}' names scale {named}, but scale={scale!r} was passed")
     d["scale"] = scale or named or next(iter(d.get("scales") or {""}))

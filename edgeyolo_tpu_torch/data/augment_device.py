@@ -1,7 +1,8 @@
 """Training augmentation on the device (edgeyolo_tpu/data/augment_device.py),
-detect labels: mosaic4 or single-source placement with a random affine as one
-inverse-map bilinear sample per output pixel, the photometric stage, HSV,
-flips, mixup and the BGR swap, over a uint8 NHWC batch.
+detect and segment labels: mosaic4 or single-source placement with a random
+affine as one inverse-map bilinear sample per output pixel, the photometric
+stage, HSV, copy-paste, flips, mixup and the BGR swap, over a uint8 NHWC
+batch.
 
 Sampling is apart from application. `sample_params` draws every random
 number of a step (partners, mosaic centre, homography, photometric picks
@@ -18,8 +19,17 @@ taps.
 Boxes ride the forward transform (4 corners, min/max, candidate filter),
 fixed-shape: each image carries n_src * M padded slots.
 
-Not ported yet: keypoints, masks, rotated boxes, copy-paste, mosaic3/9 and
-multi_scale.
+Instance masks (B, M, Sm, Sm) at S / Sm of the image ride the same inverse
+map, whichever image sampler ran: the map at every (S / Sm)-th pixel, its
+source position divided by S / Sm and rounded, read nearest, zero out of
+the tile (JAX's _warp_masks). Copy-paste (masks only) takes each image's
+instances mirrored left-right ("flip") or the previous image's ("mixup"),
+keeps those whose box covers no existing box by ioa 0.30 or more (the
+intersection over the existing box's area) and that the draw selects,
+pastes their pixels through their masks nearest-upsampled to S, and appends
+their labels and masks (M doubles); mixup is off when masks ride along.
+
+Not ported yet: keypoints, rotated boxes, mosaic3/9.
 """
 
 from __future__ import annotations
@@ -36,6 +46,8 @@ from edgeyolo_tpu_torch.data.photometric import (
     photometric_apply,
     sample_photometric,
 )
+from edgeyolo_tpu_torch.ops.boxes import xywh2xyxy
+from edgeyolo_tpu_torch.ops.resize import nearest_resize
 
 GRAY = 114.0
 
@@ -54,6 +66,8 @@ class AugParams:
     mixup: torch.Tensor | None  # (B,) bool
     mixup_lam: torch.Tensor | None  # (B,)
     bgr: torch.Tensor | None  # (B,) bool
+    copy_paste: torch.Tensor | None = None  # (B, n_src * M) bool: instances drawn to paste
+    copy_paste_mode: str = "flip"  # "flip": this image's, mirrored; "mixup": the previous image's
 
     def to(self, device) -> "AugParams":
         """The tensors the application indexes or multiplies with, on `device`;
@@ -64,7 +78,7 @@ class AugParams:
 
         return replace(self, sel=move(self.sel), center=move(self.center),
                        hsv_gain=move(self.hsv_gain), mixup=move(self.mixup),
-                       mixup_lam=move(self.mixup_lam))
+                       mixup_lam=move(self.mixup_lam), copy_paste=move(self.copy_paste))
 
 
 def _hyp(hyp: dict, key: str, default: float) -> float:
@@ -92,9 +106,13 @@ def affine_matrix(angle_deg: torch.Tensor, scale: torch.Tensor, shear_deg: torch
     return t @ sh @ r @ p
 
 
-def sample_params(b: int, s: int, hyp: dict, mosaic: bool,
-                  gen: torch.Generator) -> AugParams:
+def sample_params(b: int, s: int, hyp: dict, mosaic: bool, gen: torch.Generator,
+                  m: int = 0) -> AugParams:
     """Draw one step's augmentation parameters for b images of s x s pixels.
+
+    With m (the label slots of an image whose instance masks ride along) and
+    `copy_paste`, each of the n_src * m warped instances is drawn for pasting
+    last, after every other draw.
 
     `multi_scale` draws one more content scale per image in [0.5, 1.5], after
     the affine's own draws, and folds it into the homography's scale (JAX's
@@ -130,7 +148,10 @@ def sample_params(b: int, s: int, hyp: dict, mosaic: bool,
     lam = sample_beta(32.0, 32.0, b, gen) if pmix > 0 else None
     pbgr = _hyp(hyp, "bgr", 0.0)
     bgr = torch.rand(b, generator=gen) < pbgr if pbgr > 0 else None
-    return AugParams(sel, center, affine, photometric, hsv_gain, fliplr, flipud, mixup, lam, bgr)
+    pcp = _hyp(hyp, "copy_paste", 0.0)
+    copy_paste = torch.rand(b, n_src * m, generator=gen) < pcp if pcp > 0 and m else None
+    return AugParams(sel, center, affine, photometric, hsv_gain, fliplr, flipud, mixup, lam, bgr,
+                     copy_paste, str(hyp.get("copy_paste_mode", "flip")))
 
 
 def _sample_gamma(alpha: float, gen: torch.Generator) -> float:
@@ -246,27 +267,78 @@ def _sample_separable(images: torch.Tensor, sel: torch.Tensor, center: torch.Ten
     return _separable_sample(images, src, y_loc, x_loc, rgt)
 
 
+def _inverse_map(sel: torch.Tensor, center: torch.Tensor, a_inv: torch.Tensor, s: int,
+                 step: int = 1):
+    """The inverse map at every step-th output row and column: each pixel's
+    mosaic tile (B, S/step, S/step) and its tile-local source row and column."""
+    b, mosaic = sel.shape[0], sel.shape[1] == 4
+    offs = _canvas_offset(s, mosaic)
+    ar = torch.arange(0, s, step, dtype=torch.float32, device=a_inv.device)
+    gy, gx = torch.meshgrid(ar, ar, indexing="ij")
+    pts = torch.stack([gx, gy, torch.ones_like(gx)], dim=-1)  # (S', S', 3)
+    src = pts[None] @ a_inv.transpose(1, 2)[:, None]  # (B, S', S', 3)
+    u = src[..., 1] / src[..., 2] + offs
+    v = src[..., 0] / src[..., 2] + offs
+    if not mosaic:
+        return torch.zeros_like(u, dtype=torch.long), u, v
+    yc4, xc4 = center[:, 0, None, None], center[:, 1, None, None]
+    right, bottom = (v >= xc4).long(), (u >= yc4).long()
+    y_loc = u - torch.where(bottom == 1, yc4, yc4 - s)
+    x_loc = v - torch.where(right == 1, xc4, xc4 - s)
+    return right + 2 * bottom, y_loc, x_loc
+
+
 def _sample_gather(images: torch.Tensor, sel: torch.Tensor, center: torch.Tensor,
                    a_inv: torch.Tensor, s: int) -> torch.Tensor:
     """The warped images of any inverse maps a_inv (B, 3, 3), four taps per pixel."""
-    b, mosaic = sel.shape[0], sel.shape[1] == 4
-    offs = _canvas_offset(s, mosaic)
-    ar = torch.arange(s, dtype=torch.float32, device=images.device)
-    gy, gx = torch.meshgrid(ar, ar, indexing="ij")
-    pts = torch.stack([gx, gy, torch.ones_like(gx)], dim=-1)  # (S, S, 3)
-    src = pts[None] @ a_inv.transpose(1, 2)[:, None]  # (B, S, S, 3)
-    u = src[..., 1] / src[..., 2] + offs
-    v = src[..., 0] / src[..., 2] + offs
-    if mosaic:
-        yc4, xc4 = center[:, 0, None, None], center[:, 1, None, None]
-        right, bottom = (v >= xc4).long(), (u >= yc4).long()
-        tile = right + 2 * bottom
-        y_loc = u - torch.where(bottom == 1, yc4, yc4 - s)
-        x_loc = v - torch.where(right == 1, xc4, xc4 - s)
-    else:
-        tile, y_loc, x_loc = torch.zeros_like(u, dtype=torch.long), u, v
+    b = sel.shape[0]
+    tile, y_loc, x_loc = _inverse_map(sel, center, a_inv, s)
     img_idx = sel.gather(1, tile.flatten(1)).view(b, s, s)
     return _bilinear_gather(images, img_idx, y_loc, x_loc)
+
+
+def warp_masks(masks4: torch.Tensor, sel: torch.Tensor, center: torch.Tensor,
+               a_inv: torch.Tensor, s: int) -> torch.Tensor:
+    """Instance masks (B, n_src, M, Sm, Sm) of the selected sources through
+    the image's inverse map, nearest -> (B, n_src * M, Sm, Sm): a pixel of
+    slot q * M + m reads instance m of source q where the map lands in tile q."""
+    b, n_src, m, sm = masks4.shape[:4]
+    r = s // sm
+    tile, y_loc, x_loc = _inverse_map(sel, center, a_inv, s, step=r)
+    ys, xs = torch.round(y_loc / r).long(), torch.round(x_loc / r).long()
+    inb = (ys >= 0) & (ys < sm) & (xs >= 0) & (xs < sm)
+    bi = torch.arange(b, device=masks4.device)[:, None, None]
+    sampled = masks4.permute(0, 1, 3, 4, 2)[bi, tile, ys.clamp(0, sm - 1), xs.clamp(0, sm - 1)]
+    sampled = sampled * inb[..., None]  # (B, Sm, Sm, M)
+    quad = torch.nn.functional.one_hot(tile, n_src).to(sampled.dtype)  # (B, Sm, Sm, n_src)
+    out = quad[..., :, None] * sampled[..., None, :]  # (B, Sm, Sm, n_src, M)
+    return out.permute(0, 3, 4, 1, 2).reshape(b, n_src * m, sm, sm)
+
+
+def copy_paste(img01: torch.Tensor, cls: torch.Tensor, boxes: torch.Tensor, valid: torch.Tensor,
+               masks: torch.Tensor, drawn: torch.Tensor, mode: str):
+    """Paste the drawn instances that cover no existing box by ioa 0.30 or
+    more: this image's mirrored ("flip") or the previous image's ("mixup").
+    Returns img01, cls, boxes, valid and masks with the candidates appended."""
+    b, s = img01.shape[:2]
+    if mode == "mixup" and b > 1:
+        fboxes, fmasks, fcls, fvalid, src = (t.roll(1, 0) for t in (boxes, masks, cls, valid,
+                                                                    img01))
+    else:
+        fboxes = boxes.clone()
+        fboxes[..., 0] = 1.0 - boxes[..., 0]
+        fmasks, fcls, fvalid, src = masks.flip(-1), cls, valid, img01.flip(2)
+    a, e = xywh2xyxy(fboxes)[:, :, None], xywh2xyxy(boxes)[:, None]
+    iw = (torch.minimum(a[..., 2], e[..., 2]) - torch.maximum(a[..., 0], e[..., 0])).clamp(min=0)
+    ih = (torch.minimum(a[..., 3], e[..., 3]) - torch.maximum(a[..., 1], e[..., 1])).clamp(min=0)
+    ioa = iw * ih / (boxes[..., 2] * boxes[..., 3]).clamp(min=1e-9)[:, None, :]  # [cand, existing]
+    ioa = torch.where(valid[:, None, :], ioa, 0.0)
+    sel = fvalid & (ioa.amax(-1) < 0.30) & drawn
+    paste = (fmasks * sel[..., None, None]).amax(1)  # (B, Sm, Sm)
+    paste = nearest_resize(paste[:, None], (s, s))[:, 0]
+    img01 = torch.where((paste > 0.5)[..., None], src, img01)
+    return (img01, torch.cat([cls, fcls], 1), torch.cat([boxes, fboxes], 1),
+            torch.cat([valid, sel], 1), torch.cat([masks, fmasks], 1))
 
 
 def warp(images: torch.Tensor, boxes: torch.Tensor, valid: torch.Tensor, prm: AugParams,
@@ -353,14 +425,17 @@ def hsv_aug(img01: torch.Tensor, gains: torch.Tensor) -> torch.Tensor:
 
 
 def augment_apply(images: torch.Tensor, cls: torch.Tensor, bboxes: torch.Tensor,
-                  mask: torch.Tensor, prm: AugParams, imgsz: int):
-    """Apply drawn parameters (JAX's _augment_impl, detect labels); what runs
-    follows from them alone: mosaic4 for four sources per image, each stage
-    whose parameters were drawn.
+                  mask: torch.Tensor, prm: AugParams, imgsz: int,
+                  masks: torch.Tensor | None = None):
+    """Apply drawn parameters (JAX's _augment_impl, detect and segment
+    labels); what runs follows from them alone: mosaic4 for four sources per
+    image, each stage whose parameters were drawn.
 
     images (B, S, S, 3) uint8; cls (B, M); bboxes (B, M, 4) normalised xywh;
-    mask (B, M). Returns (img01 (B, S, S, 3) f32 in [0, 1], cls (B, M'),
-    bboxes (B, M', 4), mask (B, M') f32), M' = n_src * M, twice that with mixup.
+    mask (B, M); masks (B, M, Sm, Sm) 0/1 instance masks or None. Returns
+    (img01 (B, S, S, 3) f32 in [0, 1], cls (B, M'), bboxes (B, M', 4), mask
+    (B, M') f32), M' = n_src * M, twice that with mixup or copy-paste, and
+    with masks the warped masks (B, M', Sm, Sm) last.
     """
     b, m = cls.shape
     sel = prm.sel
@@ -368,11 +443,18 @@ def augment_apply(images: torch.Tensor, cls: torch.Tensor, bboxes: torch.Tensor,
     boxes4, valid4 = bboxes[sel], mask[sel] > 0  # (B, n, M, 4), (B, n, M)
     cls4 = cls[sel].reshape(b, n_src * m)
     img, boxes_out, valid = warp(images, boxes4, valid4, prm, imgsz)
+    masks_out = None
+    if masks is not None:
+        a_inv = torch.linalg.inv(prm.affine.float()).to(images.device)
+        masks_out = warp_masks(masks[sel].float(), sel, prm.center, a_inv, imgsz)
     img01 = img / 255.0
     if prm.photometric is not None:
         img01 = photometric_apply(img01, prm.photometric)
     if prm.hsv_gain is not None:  # all-zero gains are the identity, and skipped
         img01 = hsv_aug(img01, prm.hsv_gain)
+    if prm.copy_paste is not None and masks_out is not None:
+        img01, cls4, boxes_out, valid, masks_out = copy_paste(
+            img01, cls4, boxes_out, valid, masks_out, prm.copy_paste, prm.copy_paste_mode)
 
     for gate, dim, coord in ((prm.fliplr, 2, 0), (prm.flipud, 1, 1)):  # x on fliplr, y on flipud
         if gate is not None and bool(gate.any()):
@@ -381,8 +463,10 @@ def augment_apply(images: torch.Tensor, cls: torch.Tensor, bboxes: torch.Tensor,
             boxes_out = boxes_out.clone()
             boxes_out[..., coord] = torch.where(g, 1.0 - boxes_out[..., coord],
                                                 boxes_out[..., coord])
+            if masks_out is not None:
+                masks_out = torch.where(g[..., None, None], masks_out.flip(dim + 1), masks_out)
 
-    if prm.mixup is not None:  # mix each image with the next one
+    if prm.mixup is not None and masks_out is None:  # mix each image with the next one
         other = torch.roll(torch.arange(b, device=img01.device), -1)
         lam = prm.mixup_lam.to(img01.dtype)[:, None, None, None]
         mixed = lam * img01 + (1 - lam) * img01[other]
@@ -394,12 +478,15 @@ def augment_apply(images: torch.Tensor, cls: torch.Tensor, bboxes: torch.Tensor,
     if prm.bgr is not None:
         img01 = bgr_swap_batch(img01, prm.bgr)
     boxes_out = boxes_out * valid[..., None]
+    if masks_out is not None:
+        return img01, cls4, boxes_out, valid.float(), masks_out * valid[:, :, None, None]
     return img01, cls4, boxes_out, valid.float()
 
 
 def augment_batch(images: torch.Tensor, cls: torch.Tensor, bboxes: torch.Tensor,
                   mask: torch.Tensor, gen: torch.Generator, imgsz: int, hyp: dict,
-                  mosaic: bool = True):
+                  mosaic: bool = True, masks: torch.Tensor | None = None):
     """Draw one step's parameters from `gen` and apply them on images' device."""
-    prm = sample_params(images.shape[0], imgsz, hyp, mosaic, gen)
-    return augment_apply(images, cls, bboxes, mask, prm.to(images.device), imgsz)
+    prm = sample_params(images.shape[0], imgsz, hyp, mosaic, gen,
+                        m=cls.shape[1] if masks is not None else 0)
+    return augment_apply(images, cls, bboxes, mask, prm.to(images.device), imgsz, masks)

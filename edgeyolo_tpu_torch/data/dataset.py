@@ -1,10 +1,19 @@
-"""YOLO-format detection dataset and loader (edgeyolo_tpu/data/dataset.py), detect task.
+"""YOLO-format dataset and loader (edgeyolo_tpu/data/dataset.py), detect and
+segment tasks.
 
 File scanning with `fraction`, a header check of every image, label parsing
 with the JSON label cache (the JAX package's file name, format and `sig`, so
 either package reads the other's cache), class filtering, `single_cls`, the
 rect-val canvas shapes, letterboxed samples with labels mapped into
 letterbox space, and an optional RAM cache of decoded images.
+
+With task="segment" each label line may be a polygon (x1 y1 ... xn yn,
+normalised), whose box is its extent; a box-only line becomes its
+box-corner polygon, so segments stay index-aligned with the classes (the
+class filter keeps them aligned), and the cache records the task. Each
+sample then carries `masks` (max_gt, H / mask_ratio, W / mask_ratio), the
+polygons rasterised as JAX's cv2 path does (data/rasterize.py) and made
+exclusive where they overlap.
 
 Batches have fixed shapes: images (B, imgsz, imgsz, 3) uint8 (or one rect
 canvas per batch), and labels padded to the dataset's `max_gt` with a
@@ -31,6 +40,7 @@ import numpy as np
 
 from edgeyolo_tpu_torch.data.imageio import decode_image, image_size, is_jpeg
 from edgeyolo_tpu_torch.data.letterbox import LetterboxError, letterbox_batch
+from edgeyolo_tpu_torch.data.rasterize import polygon_masks
 from edgeyolo_tpu_torch.utils import LOGGER
 from edgeyolo_tpu_torch.utils.yamlfile import yaml_load
 
@@ -66,11 +76,15 @@ def check_det_dataset(data: str | Path | dict) -> dict:
 
 
 class YOLODataset:
-    """Detection dataset over YOLO-format .txt labels."""
+    """Detection or segment dataset over YOLO-format .txt labels."""
 
     def __init__(self, img_path: str, imgsz: int = 640, augment: bool = False, rect: bool = False,
                  single_cls: bool = False, classes=None, fraction: float = 1.0,
-                 names: dict | None = None, cache: bool | str = False):
+                 names: dict | None = None, cache: bool | str = False, task: str = "detect",
+                 mask_ratio: int = 4):
+        if task not in ("detect", "segment"):
+            raise NotImplementedError(f"dataset task '{task}' is not ported yet (ROADMAP A.10.3)")
+        self.task, self.mask_ratio = task, int(mask_ratio)
         self.img_path = img_path
         self.imgsz = imgsz
         self.augment = augment
@@ -142,17 +156,20 @@ class YOLODataset:
         if cache.exists():
             try:
                 d = json.loads(cache.read_text())
-                if d.get("sig") == sig and d.get("task") == "detect":
+                if d.get("sig") == sig and d.get("task") == self.task:
                     return [{"cls": np.asarray(lab["cls"], np.float32),
-                             "bboxes": np.asarray(lab["bboxes"], np.float32).reshape(-1, 4)}
+                             "bboxes": np.asarray(lab["bboxes"], np.float32).reshape(-1, 4),
+                             "segments": [np.asarray(sg, np.float32).reshape(-1, 2)
+                                          for sg in lab.get("segments", [])]}
                             for lab in d["labels"]]
             except (ValueError, KeyError, TypeError) as e:
                 LOGGER.warning(f"ignoring unreadable label cache {cache}: {e}")
         labels = []
         nm = nf = ne = nch = 0
+        seg_task = self.task == "segment"
         for f in self.im_files:
             lp = img2label_path(f)
-            cls, boxes = [], []
+            cls, boxes, segments = [], [], []
             if os.path.exists(lp):
                 for line in Path(lp).read_text().splitlines():
                     parts = line.split()
@@ -160,16 +177,25 @@ class YOLODataset:
                         continue
                     c = float(parts[0])
                     vals = [float(x) for x in parts[1:]]
+                    seg = None
                     if len(vals) > 5 and len(vals) % 2 == 0:  # a polygon: its box
-                        poly = np.asarray(vals, np.float32).reshape(-1, 2)
-                        x1, y1 = poly[:, 0].min(), poly[:, 1].min()
-                        x2, y2 = poly[:, 0].max(), poly[:, 1].max()
+                        seg = np.asarray(vals, np.float32).reshape(-1, 2)
+                        x1, y1 = seg[:, 0].min(), seg[:, 1].min()
+                        x2, y2 = seg[:, 0].max(), seg[:, 1].max()
                         b = [(x1 + x2) / 2, (y1 + y2) / 2, x2 - x1, y2 - y1]
                     else:
                         b = vals[:4]
                     if all(0 <= v <= 1.001 for v in b) and b[2] > 0 and b[3] > 0:
                         cls.append(c)
                         boxes.append(b)
+                        if seg_task:  # a box-only line: its corners, so segments align
+                            segments.append(seg if seg is not None else np.asarray(
+                                [[b[0] - b[2] / 2, b[1] - b[3] / 2],
+                                 [b[0] + b[2] / 2, b[1] - b[3] / 2],
+                                 [b[0] + b[2] / 2, b[1] + b[3] / 2],
+                                 [b[0] - b[2] / 2, b[1] + b[3] / 2]], np.float32))
+                        elif seg is not None:
+                            segments.append(seg)
                     else:
                         nch += 1
                 nf += 1 if cls else 0
@@ -177,14 +203,16 @@ class YOLODataset:
             else:
                 nm += 1
             labels.append({"cls": np.asarray(cls, np.float32),
-                           "bboxes": np.asarray(boxes, np.float32).reshape(-1, 4)})
+                           "bboxes": np.asarray(boxes, np.float32).reshape(-1, 4),
+                           "segments": segments})
         LOGGER.info(f"dataset {self.img_path}: {len(self.im_files)} images, {nf} labelled, "
                     f"{ne} empty, {nm} missing labels, {nch} corrupt boxes dropped")
         try:
             cache.write_text(json.dumps({
-                "sig": sig, "task": "detect",
+                "sig": sig, "task": self.task,
                 "labels": [{"cls": lab["cls"].tolist(), "bboxes": lab["bboxes"].tolist(),
-                            "segments": [], "keypoints": []} for lab in labels]}))
+                            "segments": [sg.tolist() for sg in lab["segments"]],
+                            "keypoints": []} for lab in labels]}))
         except OSError as e:
             LOGGER.warning(f"label cache not written ({e})")
         return labels
@@ -193,6 +221,8 @@ class YOLODataset:
         keep = list(set(classes))
         for lab in self.labels:
             m = np.isin(lab["cls"], keep)
+            if len(lab["segments"]) == len(lab["cls"]):  # keep them aligned with cls
+                lab["segments"] = [sg for sg, k in zip(lab["segments"], m) if k]
             lab["cls"], lab["bboxes"] = lab["cls"][m], lab["bboxes"][m]
 
     def set_rectangle(self, batch_size: int):
@@ -278,9 +308,13 @@ class YOLODataset:
         pc[:n], pm[:n] = cls[:n], 1.0
         if n:
             pb[:n] = boxes[:n]
-        return {"img": img, "cls": pc, "bboxes": pb, "mask_gt": pm, "ori_shape": (h0, w0),
+        item = {"img": img, "cls": pc, "bboxes": pb, "mask_gt": pm, "ori_shape": (h0, w0),
                 "ratio_pad": (r, (pw, ph)), "im_file": self.im_files[i],
                 "ori_cls": cls, "ori_bboxes": lab["bboxes"]}
+        if self.task == "segment":
+            item["masks"] = polygon_masks(lab["segments"], n, w0, h0, r, pw, ph, H, W,
+                                          self.mask_ratio, self.max_gt)
+        return item
 
 
 class DataLoader:
@@ -314,11 +348,14 @@ class DataLoader:
         n_real = len(chunk)
         chunk = chunk + [chunk[-1]] * (self.bs - len(chunk))
         items = self.dataset.get_items(chunk)
-        return {"img": np.stack([it["img"] for it in items]),
-                "cls": np.stack([it["cls"] for it in items]),
-                "bboxes": np.stack([it["bboxes"] for it in items]),
-                "mask_gt": np.stack([it["mask_gt"] for it in items]),
-                "n_real": n_real, "meta": items}
+        batch = {"img": np.stack([it["img"] for it in items]),
+                 "cls": np.stack([it["cls"] for it in items]),
+                 "bboxes": np.stack([it["bboxes"] for it in items]),
+                 "mask_gt": np.stack([it["mask_gt"] for it in items]),
+                 "n_real": n_real, "meta": items}
+        if "masks" in items[0]:
+            batch["masks"] = np.stack([it["masks"] for it in items])
+        return batch
 
     def first_batch(self) -> dict:
         """Batch 0, made in the caller's thread, without advancing the epoch."""

@@ -1,4 +1,4 @@
-"""Synthetic detection dataset generator (edgeyolo_tpu/data/synthetic.py), detect task.
+"""Synthetic dataset generator (edgeyolo_tpu/data/synthetic.py), detect and segment tasks.
 
 Coloured shapes on noise backgrounds with exact YOLO-format labels, so the
 train, val and predict paths run with no download. Class mapping:
@@ -155,9 +155,12 @@ def write_mjpeg_avi(path: str | Path, frames, fps: int = 30, quality: int = 90) 
 def generate_dataset(root: str | Path, n_train: int = 16, n_val: int = 8, imgsz: int = 320,
                      nc: int = 3, max_objs: int = 4, min_objs: int = 1, min_size: float = 0.15,
                      max_size: float = 0.4, seed: int = 0, task: str = "detect") -> Path:
-    """Create {root}/{images,labels}/{train,val} and dataset.yaml; returns the yaml path."""
-    if task != "detect":
-        raise NotImplementedError(f"synthetic task '{task}' is not ported yet (ROADMAP A.10)")
+    """Create {root}/{images,labels}/{train,val} and dataset.yaml; returns the yaml path.
+
+    task "detect" writes xywh labels, "segment" each shape's box-corner
+    polygon (JAX's segment labels)."""
+    if task not in ("detect", "segment"):
+        raise NotImplementedError(f"synthetic task '{task}' is not ported yet (ROADMAP A.10.3)")
     root = Path(root)
     rng = np.random.RandomState(seed)
     for split, n in (("train", n_train), ("val", n_val)):
@@ -181,7 +184,11 @@ def generate_dataset(root: str | Path, n_train: int = 16, n_val: int = 8, imgsz:
                 else:
                     draw_cross(img, x1, y1, x2, y2, color, max(3, int(h / 5)), max(3, int(w / 5)))
                 S = imgsz
-                lines.append(f"{c} {cx/S:.6f} {cy/S:.6f} {w/S:.6f} {h/S:.6f}")
+                if task == "segment":
+                    pts = " ".join(f"{v/S:.6f}" for v in (x1, y1, x2, y1, x2, y2, x1, y2))
+                    lines.append(f"{c} {pts}")
+                else:
+                    lines.append(f"{c} {cx/S:.6f} {cy/S:.6f} {w/S:.6f} {h/S:.6f}")
             save_png(root / "images" / split / f"{split}_{i:04d}.png", img)
             (root / "labels" / split / f"{split}_{i:04d}.txt").write_text("\n".join(lines) + "\n")
     yaml_path = root / "dataset.yaml"

@@ -1,7 +1,12 @@
-"""The YOLO facade (edgeyolo_tpu/engine/model.py), detection task.
+"""The YOLO facade (edgeyolo_tpu/engine/model.py), detect and segment tasks.
 
     YOLO("edgeline-yolo.yaml")        # a model name (cfg/models.py), seeded weights
+    YOLO("yolo11n-seg.yaml")          # a segment model (its head names the task)
     YOLO("runs/detect/train/best.pt") # a port checkpoint (train/trainer.py)
+
+The task is the model's (a Segment head makes "segment"); `task=` may name
+it, and must agree. Each task has its trainer loss, validator and predictor
+(`TASK_MAP`); pose, obb and classify are not ported (ROADMAP A.10.3).
 
 `train`, `val`, `predict` and `track` take the keys of cfg/__init__.py's
 defaults (method kwargs > the handle's overrides > defaults). `train` on a
@@ -24,15 +29,19 @@ from edgeyolo_tpu_torch.data.dataset import check_det_dataset
 from edgeyolo_tpu_torch.nn.tasks import DetectionModel, for_precision, num_params, num_trainable
 from edgeyolo_tpu_torch.utils import LOGGER, select_device
 
+# task -> (validator, predictor) class names in engine/validator.py and engine/predictor.py
+TASK_MAP = {"detect": ("DetectionValidator", "DetectionPredictor"),
+            "segment": ("SegmentationValidator", "SegmentationPredictor")}
+
 
 class YOLO:
     """User-facing handle over a DetectionModel (f32 parameters)."""
 
     def __init__(self, model: str | Path = "edgeline-yolo.yaml", task: str | None = None,
                  device: str | torch.device | None = None):
-        if task not in (None, "detect"):
-            raise NotImplementedError(f"task '{task}' is not ported yet (ROADMAP A.10)")
-        self.task = "detect"
+        if task not in (None, *TASK_MAP):
+            raise NotImplementedError(f"task '{task}' is not ported yet (ROADMAP A.10.3: pose, "
+                                      "obb and classify)")
         self.overrides: dict = {}
         self.device = select_device(device)
         self.ckpt_path = None
@@ -44,6 +53,12 @@ class YOLO:
         else:
             self.model = DetectionModel(model, device=self.device)
             self.model_name = model
+        self.task = self.model.task
+        if self.task not in TASK_MAP:
+            raise NotImplementedError(f"{model} is a {self.task} model, not ported yet "
+                                      "(ROADMAP A.10.3)")
+        if task not in (None, self.task):
+            raise ValueError(f"{model} is a {self.task} model, not a {task} one")
 
     def _load_checkpoint(self, path: str):
         from edgeyolo_tpu_torch.train.trainer import load_checkpoint
@@ -109,24 +124,25 @@ class YOLO:
 
     def val(self, **kwargs) -> dict:
         """Validate on `data`'s val split; returns the metrics dict."""
-        from edgeyolo_tpu_torch.engine.validator import DetectionValidator
+        from edgeyolo_tpu_torch.engine import validator
 
         args = self._args("val", kwargs)
         if not args.data:
             raise ValueError("val() requires data=<dataset.yaml>")
-        self.validator = DetectionValidator(args, save_dir=get_save_dir(args, name=args.name or "val"),
-                                            device=self.device)
+        vcls = getattr(validator, TASK_MAP[self.task][0])
+        self.validator = vcls(args, save_dir=get_save_dir(args, name=args.name or "val"),
+                              device=self.device)
         return self.validator(self.model)
 
     def predict(self, source, stream: bool = False, **kwargs):
         """Results for each frame of `source` (a generator with `stream`)."""
-        from edgeyolo_tpu_torch.engine.predictor import DetectionPredictor
+        from edgeyolo_tpu_torch.engine import predictor as pred_mod
 
         args = self._args("predict", kwargs)
         key = (repr(sorted(vars(args).items())), id(self.model), str(self.device))
         if self.predictor is None or key != self._predictor_key:
             model = for_precision(self.model.eval(), bool(args.half))
-            self.predictor = DetectionPredictor(
+            self.predictor = getattr(pred_mod, TASK_MAP[self.task][1])(
                 model, conf=args.conf if args.conf is not None else 0.25, iou=float(args.iou),
                 max_det=int(args.max_det), device=self.device, imgsz=int(args.imgsz),
                 batch=int(args.batch), classes=args.classes,

@@ -34,6 +34,14 @@ dict. `predict(source)` is its list. Per frame, as JAX's predictor does:
   `<stem>_<i>`, one file per frame (JAX names every frame of a video
   `<stem>`, so each overwrites the last; ROADMAP C.13).
 - `show`: `Results.show`, which displays nothing on the port (no viewer).
+
+SegmentationPredictor (JAX's): the serving step adds the masks, (B,
+max_det, h, w) at the prototype grid: the kept anchors' coefficients
+against the prototypes, sigmoid, cropped to the boxes (ops/segments.py);
+each frame's masks are taken out of the letterbox by the pad scaled to the
+grid and resized bilinearly to the frame, then cut at 0.5, into
+`Results.masks`. Test-time augmentation is single-scale for it, with a
+warning: JAX's segment predictor has no augmented path (ROADMAP C.14).
 """
 
 from __future__ import annotations
@@ -51,36 +59,13 @@ from edgeyolo_tpu_torch.data.letterbox import letterbox
 from edgeyolo_tpu_torch.data.loaders import load_inference_source
 from edgeyolo_tpu_torch.engine.results import Results
 from edgeyolo_tpu_torch.ops.nms import non_max_suppression
+from edgeyolo_tpu_torch.ops.resize import resize_bilinear, resize_weights  # noqa: F401
+from edgeyolo_tpu_torch.ops.segments import proto_masks, unletterbox_masks
 from edgeyolo_tpu_torch.utils import LOGGER, select_device
 from edgeyolo_tpu_torch.utils.plotting import feature_visualization
 
 TTA = ((1.0, False), (0.83, True), (0.67, False))  # (scale, flipped left-right)
 TTA_PAD = 0.447  # the pad of a down-scaled canvas (ImageNet mean)
-
-
-def resize_weights(n_in: int, n_out: int) -> torch.Tensor:
-    """(n_in, n_out) weights of `jax.image.resize(method="bilinear")` along
-    one axis (jax.image.compute_weight_mat, antialias on): a triangle
-    filter widened by the downscale, each output's weights summing to 1."""
-    scale = n_out / n_in
-    inv = 1.0 / scale
-    kernel_scale = max(inv, 1.0)
-    sample = (torch.arange(n_out, dtype=torch.float32) + 0.5) * inv - 0.5
-    x = (sample[None, :] - torch.arange(n_in, dtype=torch.float32)[:, None]).abs() / kernel_scale
-    w = (1.0 - x).clamp_min(0.0)
-    total = w.sum(0, keepdim=True)
-    w = torch.where(total.abs() > 1000.0 * torch.finfo(torch.float32).eps,
-                    w / torch.where(total != 0, total, 1.0), 0.0)
-    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
-    return torch.where(inside[None, :], w, 0.0)
-
-
-def resize_bilinear(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
-    """jax.image.resize(x, ..., "bilinear") of an NCHW batch to (h, w): the
-    two axes' weights in x's dtype, contracted one axis after the other."""
-    wh = resize_weights(x.shape[2], size[0]).to(x.device, x.dtype)
-    ww = resize_weights(x.shape[3], size[1]).to(x.device, x.dtype)
-    return torch.matmul(wh.t(), torch.matmul(x, ww))
 
 
 def frame_name(path: str) -> str:
@@ -219,8 +204,8 @@ class DetectionPredictor:
         n_real = len(frames)
         imgs = [f[2] for f in frames] + [frames[-1][2]] * (self.batch - n_real)
         t1 = time.perf_counter()
-        dets, nvalid = self(np.stack(imgs))
-        dets, nvalid = dets.cpu().numpy(), nvalid.cpu().numpy()
+        outs = self(np.stack(imgs))
+        dets, nvalid = outs[0].cpu().numpy(), outs[1].cpu().numpy()
         infer_ms = (time.perf_counter() - t1) * 1e3 / n_real
         for i, (path, img0, img, r, pads, pre_ms) in enumerate(frames):
             name = frame_name(path)
@@ -230,7 +215,8 @@ class DetectionPredictor:
             det = dets[i, :int(nvalid[i])].copy()
             if len(det):
                 det = unletterbox_boxes(det, r, *pads, img0.shape[:2])
-            res = Results(img0, path, names, boxes=det,
+            res = Results(img0, path, names, boxes=det, masks=self._frame_masks(outs, i, img0, r,
+                                                                                pads, len(det)),
                           speed={"preprocess": pre_ms, "inference": infer_ms, "postprocess": 0.0})
             res.speed["postprocess"] = (time.perf_counter() - t2) * 1e3
             if self.save:
@@ -243,6 +229,10 @@ class DetectionPredictor:
             if self.verbose:
                 LOGGER.info(f"{path}: {res.verbose_str} ({infer_ms:.1f}ms inference)")
             yield res
+
+    def _frame_masks(self, outs, i: int, img0: np.ndarray, r: float, pads, n: int):
+        """Frame i's masks over the original frame (the segment predictor's)."""
+        return None
 
     def stream(self, source):
         """Results, one per frame of `source`."""
@@ -262,3 +252,40 @@ class DetectionPredictor:
 
     def predict(self, source) -> list[Results]:
         return list(self.stream(source))
+
+
+class SegmentationPredictor(DetectionPredictor):
+    """`predictor(images)` -> (det, n, masks (B, max_det, h, w) in [0, 1] at
+    the prototype grid); `predict(source)` -> [Results] with `masks`."""
+
+    def __init__(self, model, **kwargs):
+        super().__init__(model, **kwargs)
+        if self.augment:
+            LOGGER.warning("augment=True is not available for a segment model; predicting "
+                           "single-scale")
+            self.augment = False
+
+    @torch.inference_mode()
+    def __call__(self, images_u8_nhwc: np.ndarray | torch.Tensor):
+        x = self._input(images_u8_nhwc)
+        h, w = x.shape[2:]
+        out = self.model(x)
+        pred, nc = out["pred"], self.model.nc
+        det, n, aidx = non_max_suppression(
+            pred[..., :4 + nc], conf_thres=self.conf, iou_thres=self.iou, max_det=self.max_det,
+            max_nms=self.max_nms, agnostic=self.agnostic, classes=self.classes, nc=nc,
+            return_idx=True)
+        nm = pred.shape[-1] - 4 - nc
+        coefs = pred[..., 4 + nc:].gather(1, aidx.long()[..., None].expand(-1, -1, nm))
+        masks = proto_masks(out["proto"], coefs, det[..., :4], h)
+        det[..., 0:4:2] = det[..., 0:4:2].clamp(0, w)
+        det[..., 1:4:2] = det[..., 1:4:2].clamp(0, h)
+        return det, n, masks
+
+    def _frame_masks(self, outs, i: int, img0: np.ndarray, r: float, pads, n: int):
+        if not n:
+            return None
+        pw, ph = pads
+        pm = outs[2][i, :n]
+        s = pm.shape[1] / (img0.shape[0] * r + 2 * ph)  # the grid's share of the canvas
+        return (unletterbox_masks(pm, (pw * s, ph * s), img0.shape[:2]) > 0.5).cpu().numpy()

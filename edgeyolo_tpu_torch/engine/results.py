@@ -1,9 +1,15 @@
-"""Prediction containers (edgeyolo_tpu/engine/results.py), detection parts.
+"""Prediction containers (edgeyolo_tpu/engine/results.py), detection and
+segment parts.
 
 `Boxes` holds (N, 6) [x1, y1, x2, y2, conf, cls] rows in pixels of the
 original image, or (N, 7) with a track id after the box, with the xywh and
-normalised views; `Results` holds one image's boxes with `plot`, `save`,
-`show`, `save_txt`, `save_crop`, `to_json` and `verbose_str`. `plot` draws
+normalised views; `Masks` holds (N, h0, w0) instance masks over the
+original image, with their outlines as polygons (`xy`, `xyn`: the numpy
+trace of ops/segments.py); `Results` holds one image's boxes (and masks)
+with `plot` (each mask blended 0.6 image + 0.4 its colour, by instance
+index, under the boxes), `save`,
+`show`, `save_txt` (a segment model's polygons), `save_crop`, `to_json`
+(with segments) and `verbose_str`. `plot` draws
 as JAX's does with PIL (utils/plotting.py: the same rectangles pixel for
 pixel, the label text in the port's bitmap font). Host numpy: the device
 work ends at the NMS output.
@@ -17,6 +23,7 @@ from pathlib import Path
 import numpy as np
 
 from edgeyolo_tpu_torch.data.imageio import save_jpeg, save_png
+from edgeyolo_tpu_torch.ops.segments import masks2segments
 from edgeyolo_tpu_torch.utils import LOGGER
 from edgeyolo_tpu_torch.utils.plotting import BitmapFont, rectangle, text
 
@@ -81,16 +88,42 @@ class Boxes:
         return self.xywh / np.asarray([w, h, w, h], np.float32)
 
 
+class Masks:
+    """Instance masks (N, h0, w0), bool or 0/1, over the original image;
+    `xy` and `xyn` their outlines as (K, 2) polygons in pixels and normalised."""
+
+    def __init__(self, data: np.ndarray, orig_shape: tuple[int, int]):
+        self.data = np.asarray(data)
+        self.orig_shape = orig_shape
+
+    def __len__(self):
+        return len(self.data)
+
+    def __getitem__(self, i):
+        return Masks(self.data[i].reshape((-1, *self.data.shape[1:])), self.orig_shape)
+
+    @property
+    def xy(self) -> list[np.ndarray]:
+        return masks2segments(self.data)
+
+    @property
+    def xyn(self) -> list[np.ndarray]:
+        h, w = self.orig_shape
+        return [sg / np.asarray([w, h], np.float32) for sg in self.xy]
+
+
 class Results:
-    """One image's detections."""
+    """One image's detections (and instance masks)."""
 
     def __init__(self, orig_img: np.ndarray, path: str, names: dict,
-                 boxes: np.ndarray | None = None, speed: dict | None = None):
+                 boxes: np.ndarray | None = None, speed: dict | None = None,
+                 masks: np.ndarray | None = None):
         self.orig_img = orig_img
         self.orig_shape = orig_img.shape[:2]
         self.path = path
         self.names = names
         self.boxes = Boxes(boxes, self.orig_shape) if boxes is not None else None
+        self.masks = Masks(masks, self.orig_shape) if masks is not None else None
         self.speed = speed or {}
 
     def __len__(self):
@@ -100,11 +133,15 @@ class Results:
         r = Results(self.orig_img, self.path, self.names, speed=self.speed)
         if self.boxes is not None:
             r.boxes = self.boxes[i]
+        if self.masks is not None:
+            r.masks = self.masks[i]
         return r
 
-    def update(self, boxes: np.ndarray | None = None):
+    def update(self, boxes: np.ndarray | None = None, masks: np.ndarray | None = None):
         if boxes is not None:
             self.boxes = Boxes(boxes, self.orig_shape)
+        if masks is not None:
+            self.masks = Masks(masks, self.orig_shape)
         return self
 
     def plot(self, line_width: int | None = None, font_size: int | None = None,
@@ -116,6 +153,11 @@ class Results:
         im = np.array(self.orig_img, dtype=np.uint8, copy=True)
         if im.ndim == 2:
             im = np.repeat(im[..., None], 3, axis=2)
+        if self.masks is not None:
+            for i, m in enumerate(self.masks.data):
+                c = np.asarray(_colors(i), np.float32)
+                sel = np.asarray(m) > 0.5
+                im[sel] = (0.6 * im[sel] + 0.4 * c).astype(np.uint8)
         h, w = im.shape[:2]
         lw = line_width or max(round((w + h) / 2 * 0.003), 2)
         font = BitmapFont(font_size or max(12, lw * 4))
@@ -154,9 +196,18 @@ class Results:
         LOGGER.info(f"{self.path}: no image viewer; use save() to write the annotated image")
 
     def save_txt(self, txt_file: str | Path, save_conf: bool = False):
-        """Append one `cls xywhn [conf]` line per box (6 significant digits)."""
+        """Append one line per detection (6 significant digits): `cls xywhn
+        [conf]`, or with masks `cls x1 y1 ... xn yn [conf]` of its normalised
+        outline (none for a mask of fewer than 3 outline points)."""
         lines = []
-        if self.boxes is not None:
+        if self.masks is not None and self.boxes is not None:
+            for b, seg in zip(self.boxes.data, self.masks.xyn):
+                if len(seg) < 3:
+                    continue
+                vals = [int(b[-1]), *seg.reshape(-1).tolist()] + ([float(b[-2])] if save_conf
+                                                                  else [])
+                lines.append(" ".join(f"{v:.6g}" if j else str(v) for j, v in enumerate(vals)))
+        elif self.boxes is not None:
             for b, xywhn in zip(self.boxes.data, self.boxes.xywhn):
                 vals = [int(b[-1]), *xywhn.tolist()] + ([float(b[-2])] if save_conf else [])
                 lines.append(" ".join(f"{v:.6g}" if j else str(v) for j, v in enumerate(vals)))
@@ -194,16 +245,22 @@ class Results:
         out = []
         h, w = self.orig_shape
         if self.boxes is not None:
-            for b in self.boxes.data:
+            segs = None if self.masks is None else (self.masks.xyn if normalize
+                                                    else self.masks.xy)
+            for i, b in enumerate(self.boxes.data):
                 x1, y1, x2, y2 = b[:4]
                 if normalize:
                     x1, y1, x2, y2 = x1 / w, y1 / h, x2 / w, y2 / h
-                out.append({
+                row = {
                     "name": self.names.get(int(b[-1]), str(int(b[-1]))),
                     "class": int(b[-1]), "confidence": round(float(b[-2]), 5),
                     "box": {"x1": round(float(x1), 5), "y1": round(float(y1), 5),
                             "x2": round(float(x2), 5), "y2": round(float(y2), 5)},
-                })
+                }
+                if segs is not None:
+                    row["segments"] = {"x": np.round(segs[i][:, 0], 5).tolist(),
+                                       "y": np.round(segs[i][:, 1], 5).tolist()}
+                out.append(row)
         return json.dumps(out, indent=2)
 
     @property

@@ -16,6 +16,20 @@ COCO 80 -> 91 map when the split is COCO's 80 classes), and when the data
 YAML names `annotations` or `gt_json` the COCO protocol scores them
 (metrics/coco_eval.py) into `metrics.speed["coco/AP"]` and the rest.
 Plots, DETR, int8 and multi-device validation are not ported yet.
+
+SegmentationValidator (JAX's): box metrics on the shared matching, plus the
+mask table `metrics/mAP50(M)` and `metrics/mAP50-95(M)`. On the device, per
+batch: multi-label NMS with the kept anchors' indices, their mask
+coefficients against the prototypes, sigmoid, cropped to the boxes on the
+prototype grid; per image the gt masks made exclusive (a pixel shared by
+instances stays with the smallest, as the dataset's overlap merge draws
+them) when `overlap_mask`, then with `mask_iou_res="native"` (the default)
+both sides resized bilinearly to the input size (the predictions 64 slots
+at a time, so the (D, S, S) temporary stays bounded) before the 0.5
+threshold, or compared at the prototype grid with "proto"; only the (gt,
+det) mask IoU matrix comes back, and the host's `match_predictions` turns
+it and the box IoUs (boxes back in native pixels, unclipped, as JAX's
+segment path leaves them) into TP rows.
 """
 
 from __future__ import annotations
@@ -33,10 +47,13 @@ from edgeyolo_tpu_torch.data.converter import coco80_to_coco91_class
 from edgeyolo_tpu_torch.data.dataset import YOLODataset, build_dataloader, check_det_dataset
 from edgeyolo_tpu_torch.engine.predictor import e2e_detections, unletterbox_boxes
 from edgeyolo_tpu_torch.metrics.coco_eval import evaluate_coco
-from edgeyolo_tpu_torch.metrics.metrics import DetMetrics, match_predictions_device
+from edgeyolo_tpu_torch.metrics.metrics import (DetMetrics, _box_iou_np, match_predictions,
+                                                match_predictions_device)
 from edgeyolo_tpu_torch.nn.tasks import for_precision
 from edgeyolo_tpu_torch.ops.boxes import box_iou
 from edgeyolo_tpu_torch.ops.nms import non_max_suppression
+from edgeyolo_tpu_torch.ops.resize import resize_bilinear
+from edgeyolo_tpu_torch.ops.segments import proto_masks
 from edgeyolo_tpu_torch.utils import LOGGER, select_device
 
 
@@ -193,3 +210,125 @@ class DetectionValidator:
                 gtc[i, :n] = cls
                 gtv[i, :n] = 1.0
         return gtb, gtc, gtv, geom
+
+
+def mask_iou_matrix(pm: torch.Tensor, gm: torch.Tensor, size: int | None, overlap: bool,
+                    chunk: int = 64) -> torch.Tensor:
+    """(G, D) IoU of one image's gt masks gm (G, h, w) and predicted masks pm
+    (D, h', w') in [0, 1]: gt made exclusive with `overlap`; with `size` both
+    sides resized bilinearly to (size, size) first; cut at 0.5."""
+    gm = gm.float()
+    if overlap:  # a shared pixel stays with the smallest instance
+        areas = gm.sum((1, 2))
+        a = torch.where(gm > 0.5, areas[:, None, None], torch.inf)
+        gm = gm * (a <= a.amin(0, keepdim=True))
+    if size:
+        gm = resize_bilinear(gm[None], (size, size))[0]
+    gmb = (gm > 0.5).float()
+    inter, psum = [], []
+    for start in range(0, pm.shape[0], chunk):
+        pc = pm[start:start + chunk].float()
+        if size:
+            pc = resize_bilinear(pc[None], (size, size))[0]
+        pcb = (pc > 0.5).float()
+        inter.append(torch.einsum("ghw,dhw->gd", gmb, pcb))
+        psum.append(pcb.sum((1, 2)))
+    inter, psum = torch.cat(inter, 1), torch.cat(psum)
+    return inter / (gmb.sum((1, 2))[:, None] + psum[None, :] - inter + 1e-7)
+
+
+class SegmentationValidator(DetectionValidator):
+    """Box and mask metrics of a segment model; `validator(model)` returns
+    the box `results_dict` plus the mask mAP50 and mAP50-95."""
+
+    def __init__(self, args=None, save_dir: str | Path = "runs/val", device=None,
+                 mask_iou_res: str = "native"):
+        super().__init__(args, save_dir, device)
+        if mask_iou_res not in ("native", "proto"):
+            raise ValueError(f"mask_iou_res must be 'native' or 'proto', got {mask_iou_res!r}")
+        self.mask_iou_res = mask_iou_res
+
+    def _dataloader(self, data_cfg: dict, bs: int):
+        if self._loader is None:
+            split = data_cfg.get(self.args.split or "val") or data_cfg["val"]
+            dataset = YOLODataset(split, imgsz=int(self.args.imgsz), augment=False,
+                                  names=data_cfg["names"], task="segment", mask_ratio=4,
+                                  single_cls=bool(getattr(self.args, "single_cls", False)))
+            self._loader = build_dataloader(dataset, bs, shuffle=False)
+        return self._loader
+
+    @torch.inference_mode()
+    def infer_masks(self, model, img: torch.Tensor, gt_masks: torch.Tensor, max_nms: int):
+        """One batch on the device: det (B, max_det, 6) in letterbox pixels,
+        n (B,) and the (B, G, max_det) mask IoUs against the gt masks."""
+        args = self.args
+        x = img.permute(0, 3, 1, 2).contiguous().to(getattr(model, "dtype", torch.float32)) / 255
+        out = model(x)
+        pred, nc = out["pred"], model.nc
+        det, n, aidx = non_max_suppression(
+            pred[..., :4 + nc], conf_thres=self.conf, iou_thres=float(args.iou),
+            max_det=int(args.max_det), max_nms=max_nms, multi_label=True, nc=nc,
+            return_idx=True, method="tiled")
+        coefs = pred[..., 4 + nc:].gather(1, aidx.long()[..., None].expand(-1, -1, pred.shape[-1]
+                                                                           - 4 - nc))
+        size = x.shape[2]
+        masks = proto_masks(out["proto"], coefs, det[..., :4], size)
+        native = size if self.mask_iou_res == "native" else None
+        overlap = bool(getattr(args, "overlap_mask", True))
+        iou = torch.stack([mask_iou_matrix(pm, gm, native, overlap)
+                           for pm, gm in zip(masks, gt_masks)])
+        return det, n, iou
+
+    def __call__(self, model, data=None, batch_size: int | None = None, max_nms: int = 30000):
+        args = self.args
+        self.conf = args.conf if args.conf is not None else 0.001
+        data_cfg = check_det_dataset(data or args.data)
+        names = data_cfg["names"]
+        bs = int(batch_size or args.batch or 16)
+        loader = self._dataloader(data_cfg, bs)
+        net = for_precision(model, bool(args.half)) if isinstance(model, nn.Module) else model
+        was_training = getattr(net, "training", False)
+        if hasattr(net, "eval"):
+            net.eval()
+        box_m, mask_m = DetMetrics(names), DetMetrics(names)
+        seen = 0
+        try:
+            for batch in loader:
+                img = torch.from_numpy(batch["img"]).to(self.device, non_blocking=True)
+                gtm = torch.from_numpy(batch["masks"]).to(self.device)
+                det_b, n_b, iou_b = (t.cpu().numpy() for t in self.infer_masks(net, img, gtm,
+                                                                               max_nms))
+                for i in range(batch["n_real"]):
+                    meta = batch["meta"][i]
+                    seen += 1
+                    n = int(n_b[i])
+                    det = det_b[i, :n].copy()
+                    h0, w0 = meta["ori_shape"]
+                    r, (pw, ph) = meta["ratio_pad"]
+                    if n:
+                        det[:, [0, 2]] = (det[:, [0, 2]] - pw) / r
+                        det[:, [1, 3]] = (det[:, [1, 3]] - ph) / r
+                    gt_cls = meta["ori_cls"]
+                    gtb = meta["ori_bboxes"] * np.array([w0, h0, w0, h0], np.float32)
+                    gtb = np.concatenate([gtb[:, :2] - gtb[:, 2:] / 2,
+                                          gtb[:, :2] + gtb[:, 2:] / 2], 1)
+                    iou_box = (_box_iou_np(gtb, det[:, :4]) if (n and len(gtb))
+                               else np.zeros((len(gtb), n)))
+                    box_m.update_batch(match_predictions(det[:, 5], gt_cls, iou_box), det[:, 4],
+                                       det[:, 5], gt_cls)
+                    ngt = int(meta["mask_gt"].sum())
+                    if ngt:
+                        mask_m.update_batch(
+                            match_predictions(det[:, 5], gt_cls[:ngt], iou_b[i, :ngt, :n]),
+                            det[:, 4], det[:, 5], gt_cls[:ngt])
+        finally:
+            if was_training:
+                net.train()
+        box_m.process()
+        mask_m.process()
+        self.metrics, self.mask_metrics, self.seen = box_m, mask_m, seen
+        res = box_m.results_dict
+        res.update({"metrics/mAP50(M)": mask_m.box.map50, "metrics/mAP50-95(M)": mask_m.box.map})
+        LOGGER.info(f"seg val: box mAP50-95 {box_m.box.map:.4f}  mask mAP50-95 "
+                    f"{mask_m.box.map:.4f}")
+        return res

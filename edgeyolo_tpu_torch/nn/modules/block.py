@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from edgeyolo_tpu_torch.nn.modules.conv import ConvBN
+from edgeyolo_tpu_torch.nn.modules.conv import ConvBN, ConvTranspose2d
 
 
 class Bottleneck(nn.Module):
@@ -247,6 +247,22 @@ class C2fPSA(C2f):
 
     def __init__(self, c1: int, c2: int, n: int = 1, e: float = 0.5):
         super().__init__(c1, c2, n, e=e, block=lambda c: PSABlock(c, 0.5, max(1, c // 64)))
+
+
+class Proto(nn.Module):
+    """The segment head's mask prototypes: a 3x3 conv, a 2 x 2 stride-2
+    transposed conv (the reference's raw ConvTranspose2d: bias, no BatchNorm,
+    no activation), a 3x3 conv and a 1x1 conv to the c2 prototypes."""
+
+    def __init__(self, c1: int, c_: int = 256, c2: int = 32):
+        super().__init__()
+        self.cv1 = ConvBN(c1, c_, 3)
+        self.upsample = ConvTranspose2d(c_, c_, 2, 2, 0)
+        self.cv2 = ConvBN(c_, c_, 3)
+        self.cv3 = ConvBN(c_, c2, 1)
+
+    def forward(self, x):
+        return self.cv3(self.cv2(self.upsample(self.cv1(x))))
 
 
 def dfl_decode(box_logits: torch.Tensor, bins: torch.Tensor | int = 16) -> torch.Tensor:

@@ -13,6 +13,12 @@ whose quality multiplies the class probabilities.
 v10Detect is Detect made end to end: the one2one towers and the top-k
 below, with no quality.
 
+Segment is Detect plus the mask prototypes (Proto on the first level, NCHW
+(B, nm, 4H, 4W) at a quarter of the input size) and per-level towers (cv4)
+of nm mask coefficients per anchor, (B, A, nm); in eval its pred carries
+the coefficients after the classes, (B, A, 4 + nc + nm), so NMS keeps them
+with their boxes.
+
 End-to-end (NMS-free) heads, E2EDetect and its alias GFLHeadv2_E2E:
 GF2Detect with a second set of towers and quality heads (`one2one_*`) fed
 with detached inputs, as JAX's stop_gradient. They decode their one2one
@@ -30,7 +36,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from edgeyolo_tpu_torch.nn.modules.block import DFL
+from edgeyolo_tpu_torch.nn.modules.block import DFL, Proto
 from edgeyolo_tpu_torch.nn.modules.conv import ConvBN, DWConv
 from edgeyolo_tpu_torch.ops.boxes import dist2bbox, make_anchors
 
@@ -230,3 +236,25 @@ class E2EDetect(GFLHeadv2_uniH):
 
 
 GFLHeadv2_E2E = E2EDetect  # the thesis's name for the GFLv2 head in its NMS-free form
+
+
+class Segment(Detect):
+    """Detect + the Proto bank and the per-anchor mask coefficients."""
+
+    def __init__(self, nc: int = 80, nm: int = 32, npr: int = 256, ch: Sequence[int] = (),
+                 stride: Sequence[int] = (8, 16, 32), reg_max: int = 16, legacy: bool = False,
+                 max_det: int = 300):
+        super().__init__(nc, ch, stride, reg_max, legacy, max_det)
+        self.nm, self.npr = nm, npr
+        self.proto = Proto(ch[0], npr, nm)
+        c4 = max(ch[0] // 4, nm)
+        self.cv4 = nn.ModuleList(
+            nn.Sequential(ConvBN(x, c4, 3), ConvBN(c4, c4, 3), nn.Conv2d(c4, nm, 1)) for x in ch)
+
+    def forward(self, xs):
+        out = {"feats": self.towers(xs)[1], "proto": self.proto(xs[0]),
+               "mask_coefs": torch.cat([m(x).flatten(2) for m, x in zip(self.cv4, xs)],
+                                       dim=2).transpose(1, 2)}
+        if not self.training:
+            out["pred"] = torch.cat([self.decode(out["feats"]), out["mask_coefs"].float()], dim=-1)
+        return out

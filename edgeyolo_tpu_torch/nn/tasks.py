@@ -22,7 +22,12 @@ The modules of EdgeLine-YOLO, the YOLO11 ablation family, the YOLOv13
 family (MSLA, LGL, the wavelet HyperACE and the NMS-free E2E quality head),
 YOLOv10 (SCDown, PSA, C2fCIB, v10Detect), YOLOv12, YOLOv3/5/6/8 and their
 P2/P6/Ghost variants (C2, SPP, Ghost blocks, pooling, padding and
-transposed convs) are registered; an unknown module name raises.
+transposed convs), YOLOv9's GELAN blocks (CBLinear's output is a tuple of
+channel groups in the channel list, which CBFuse indexes) and the Segment
+head (its prototype width npr scaled as a channel count) are registered; an
+unknown module name raises. `guess_model_task` names a spec's task by its
+head, as JAX does; SegmentationModel is the DetectionModel of the segment
+task.
 """
 
 from __future__ import annotations
@@ -45,7 +50,10 @@ from edgeyolo_tpu_torch.nn.modules.edgeline import C2PSA_LinearAttention, DSC3K2
 from edgeyolo_tpu_torch.nn.modules.extra import (CIB, A2C2f, AdaHyperedgeGen, C2fCIB, C3Ghost,
                                                  DownsampleConv, FullPAD_Tunnel, GhostBottleneck,
                                                  HyperACE, RepVGGDW)
-from edgeyolo_tpu_torch.nn.modules.head import Detect, E2EDetect, GFLHeadv2_uniH, v10Detect
+from edgeyolo_tpu_torch.nn.modules.gelan import (ADown, AConv, CBFuse, CBLinear, ELAN1, SPPELAN,
+                                                 RepConv, RepNCSPELAN4)
+from edgeyolo_tpu_torch.nn.modules.head import (Detect, E2EDetect, GFLHeadv2_uniH, Segment,
+                                                v10Detect)
 from edgeyolo_tpu_torch.nn.modules.msla_lgl import (C3AW_MLM, DSC3K2_LGL, DSC3K2_MSLA,
                                                     HyperACE_Wavelet, Wavelet_SS2D)
 from edgeyolo_tpu_torch.utils import make_divisible, select_device
@@ -90,6 +98,15 @@ _REG: dict[str, tuple[type, list[str]]] = {
     "Wavelet_SS2D": (Wavelet_SS2D, _HYPERACE_ARGS),
     "DownsampleConv": (DownsampleConv, ["c1", "channel_adjust"]),
     "FullPAD_Tunnel": (FullPAD_Tunnel, []),
+    "RepConv": (RepConv, ["c2", "k", "s"]),
+    "RepNCSPELAN4": (RepNCSPELAN4, ["c2", "c3", "c4", "n"]),
+    "ELAN1": (ELAN1, ["c2", "c3", "c4"]),
+    "AConv": (AConv, ["c2"]),
+    "ADown": (ADown, ["c2"]),
+    "SPPELAN": (SPPELAN, ["c2", "c3", "k"]),
+    "CBLinear": (CBLinear, ["c2s", "k", "s"]),
+    "CBFuse": (CBFuse, ["idx"]),
+    "nn.Identity": (nn.Identity, []),
     "Concat": (Concat, ["dim"]),
     "nn.Upsample": (Upsample, ["size", "scale_factor", "mode"]),
     "nn.MaxPool2d": (MaxPool2d, ["k", "s", "p"]),
@@ -100,12 +117,14 @@ _REG: dict[str, tuple[type, list[str]]] = {
     "GF2Detect": (GFLHeadv2_uniH, ["nc"]),
     "E2EDetect": (E2EDetect, ["nc"]),
     "GFLHeadv2_E2E": (E2EDetect, ["nc"]),
+    "Segment": (Segment, ["nc", "nm", "npr"]),
 }
 _CONV_LIKE = {"Conv", "ConvBN", "DWConv", "DSConv", "GhostConv", "nn.ConvTranspose2d",
               "Bottleneck", "C2", "C2f", "C3", "C3k", "C3k2", "SPP", "SPPF", "C2PSA", "C2fPSA",
               "PSA", "SCDown", "CIB", "C2fCIB", "GhostBottleneck", "C3Ghost",
               "C2PSA_LinearAttention", "DSC3K2", "DSC3K2_Wavelet", "DSC3K2_MSLA", "DSC3K2_LGL",
-              "C3AW_MLM", "A2C2f"}
+              "C3AW_MLM", "A2C2f", "RepConv", "RepNCSPELAN4", "ELAN1", "AConv", "ADown",
+              "SPPELAN"}
 # CSP modules that take the repeats as their argument; any other module with n > 1 is
 # built as n copies in sequence
 _REPEAT_INSERT = {"C2", "C2f", "C3", "C3k2", "C2PSA", "C2fPSA", "C2fCIB", "C3Ghost",
@@ -113,11 +132,13 @@ _REPEAT_INSERT = {"C2", "C2f", "C3", "C3k2", "C2PSA", "C2fPSA", "C2fCIB", "C3Gho
                   "DSC3K2_LGL", "A2C2f"}
 _C3K2_FAMILY = {"C3k2", "DSC3K2", "DSC3K2_Wavelet", "DSC3K2_MSLA", "DSC3K2_LGL"}
 _HYPERACE = {"HyperACE", "HyperACE_Wavelet", "Wavelet_SS2D"}
-_HEADS = {"Detect", "v10Detect", "GFLHeadv2_uniH", "GF2Detect", "E2EDetect", "GFLHeadv2_E2E"}
-_STRIDE_ARG = {"Conv", "ConvBN", "DWConv", "DSConv", "GhostConv", "SCDown", "nn.MaxPool2d"}
-_STRIDE_FIXED = {"DownsampleConv": 2.0}
+_HEADS = {"Detect", "v10Detect", "GFLHeadv2_uniH", "GF2Detect", "E2EDetect", "GFLHeadv2_E2E",
+          "Segment"}
+_STRIDE_ARG = {"Conv", "ConvBN", "DWConv", "DSConv", "GhostConv", "SCDown", "RepConv",
+               "nn.MaxPool2d"}
+_STRIDE_FIXED = {"AConv": 2.0, "ADown": 2.0, "DownsampleConv": 2.0}
 # built from c1 (the channels of their input, the second one for HyperACE) and the args
-_TAKES_C1 = _CONV_LIKE | _HYPERACE
+_TAKES_C1 = _CONV_LIKE | _HYPERACE | {"CBLinear"}
 # convs that a YAML's `activation:` override reaches by argument (JAX tasks.py)
 _ACT_ARG = {"Conv", "ConvBN", "DWConv"}
 _ACT_NAMES = ("relu6", "relu", "silu", "sigmoid", "tanh")
@@ -145,7 +166,19 @@ class LayerSpec:
     args: tuple
     kwargs: tuple[tuple[str, Any], ...]
     c1: int
-    c2: int
+    c2: int | tuple[int, ...]
+
+
+def guess_model_task(spec: dict) -> str:
+    """The task a spec's head serves (JAX guess_model_task): "segment" for a
+    Segment head, "detect" for a detect head; the heads of the pose, obb and
+    classify tasks, which the port does not build, name theirs."""
+    head = spec["head"][-1][2] if "head" in spec else ""
+    for word, task in (("Classify", "classify"), ("Segment", "segment"), ("Pose", "pose"),
+                       ("OBB", "obb")):
+        if word in head:
+            return task
+    return "detect"
 
 
 def parse_spec(d: dict, ch: int = 3) -> tuple[tuple[LayerSpec, ...], tuple[int, ...], dict]:
@@ -212,13 +245,21 @@ def parse_spec(d: dict, ch: int = 3) -> tuple[tuple[LayerSpec, ...], tuple[int, 
             if scale and scale in "lx":
                 args.append(False)
                 c2 = c1
+        elif name == "CBLinear":  # a tuple of channel groups
+            c2 = tuple(args[0])
+            args = [c2, *args[1:]]
+        elif name == "CBFuse":
+            c2 = ch_list[f_list[-1]]
+            args = [tuple(args[0])] if args else [()]
         elif name == "Concat":
             c2 = sum(ch_list[x] for x in f_list)
         elif name in _HEADS:
             kwargs["ch"] = tuple(ch_list[x] for x in f_list)
             kwargs["legacy"] = legacy and not _REG[name][0].end2end
+            if name == "Segment" and len(args) > 2:  # npr
+                args[2] = make_divisible(min(args[2], max_channels) * width, 8)
             c2 = sum(kwargs["ch"])
-        else:  # nn.Upsample, nn.MaxPool2d, nn.ZeroPad2d, RepVGGDW, FullPAD_Tunnel
+        else:  # nn.Upsample, nn.MaxPool2d, nn.ZeroPad2d, nn.Identity, RepVGGDW, FullPAD_Tunnel
             c2 = c1
         args = tuple(tuple(a) if isinstance(a, list) else a for a in args)
         layers.append(LayerSpec(i=i, f=tuple(x if x == -1 else x % i for x in f_list),
@@ -355,7 +396,7 @@ def train_forward(model: nn.Module, x: torch.Tensor, amp: bool = True) -> dict:
     """The training forward: {"feats", "quality", "one2one_feats",
     "one2one_quality"} per level, in f32; a key the head does not emit
     (the quality of Detect, the one2one branch of a head that is not end to
-    end) is None.
+    end) is None. A segment head adds "mask_coefs" and "proto", in f32.
 
     With `amp`, as JAX's `amp_cast` of the f32 masters: the forward sees
     `amp_params(model)` through `torch.func.functional_call`, so gradients
@@ -369,8 +410,12 @@ def train_forward(model: nn.Module, x: torch.Tensor, amp: bool = True) -> dict:
     else:
         with torch.autocast(x.device.type, dtype=torch.bfloat16):
             out = torch.func.functional_call(model, amp_params(model), (x.to(torch.bfloat16),))
-    return {k: None if out.get(k) is None else [f.float() for f in out[k]]
-            for k in ("feats", "quality", "one2one_feats", "one2one_quality")}
+    res = {k: None if out.get(k) is None else [f.float() for f in out[k]]
+           for k in ("feats", "quality", "one2one_feats", "one2one_quality")}
+    for k in ("mask_coefs", "proto"):  # the segment head's
+        if k in out:
+            res[k] = out[k].float()
+    return res
 
 
 def for_precision(model: nn.Module, half: bool) -> nn.Module:
@@ -389,8 +434,9 @@ class DetectionModel(GraphNet):
     BatchNorm, LayerNorm, the wavelet band weights, the quality head and the
     box decode stay f32. `nc` replaces the spec's class count (a head for a
     dataset). `end2end` is the head's: an NMS-free head's pred is its
-    (B, max_det, 6) selection. The model lands on CUDA unless `device` names
-    another device.
+    (B, max_det, 6) selection. `task` is the spec's (`guess_model_task`):
+    a Segment head makes a segment model. The model lands on CUDA unless
+    `device` names another device.
     """
 
     def __init__(self, cfg: str = "edgeline-yolo.yaml", scale: str | None = None,
@@ -399,6 +445,7 @@ class DetectionModel(GraphNet):
         spec = model_cfg(cfg, scale)
         if nc:
             spec["nc"] = int(nc)
+        self.task = guess_model_task(spec)
         layers, save, info = parse_spec(spec)
         strides = derive_strides(layers)
         head = layers[-1]
@@ -426,3 +473,12 @@ class DetectionModel(GraphNet):
             q.float()  # the quality heads are an f32 island, as in JAX
         self.dtype = dtype
         return self
+
+
+class SegmentationModel(DetectionModel):
+    """The segment task's model: a spec whose head is Segment."""
+
+    def __init__(self, cfg: str = "yolo11n-seg.yaml", *args, **kwargs):
+        super().__init__(cfg, *args, **kwargs)
+        if self.task != "segment":
+            raise ValueError(f"{cfg} has no Segment head (its task is {self.task})")

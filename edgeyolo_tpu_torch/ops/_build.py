@@ -3,7 +3,8 @@
 Two routes, one naming scheme:
 - CUDA: each `csrc/<name>.cu` exposes a plain C interface and includes no
   PyTorch header, so one `nvcc ... -shared` per source takes seconds.
-- Host C++: each `csrc/<name>.cpp` (the image codec) is compiled by `g++`.
+- Host C++: each `csrc/<name>.cpp` (the image codec, the polygon fill) is
+  compiled by `g++`.
   It needs no card, so it builds on a CPU-only machine too and the CPU tests
   run the real code.
 
@@ -30,7 +31,7 @@ PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 SOURCES = ("linear_attention",)  # CUDA
-HOST_SOURCES = ("imageio",)  # host C++
+HOST_SOURCES = ("imageio", "rasterize")  # host C++
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC")
 HOST_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC", "-pthread")

@@ -26,7 +26,10 @@ class per anchor, as the JAX validator does: top-k over the flattened
 scores, anchor = ix // nc, cls = ix % nc.
 
 Output: (B, max_det, 6) [x1, y1, x2, y2, conf, cls], zero rows past the
-count, and the count (B,) int32. Rankings use a stable descending sort, so
+count, and the count (B,) int32; with `return_idx` also the anchor index
+(B, max_det) int32 of each kept row (0 past the count, as in JAX), which
+gathers per-anchor extras such as the segment head's mask coefficients.
+`nc` names the class columns when pred carries such extras after them. Rankings use a stable descending sort, so
 ties go to the lower index as in jax.lax.top_k.
 """
 
@@ -119,12 +122,12 @@ def greedy_nms_tiled(boxes: torch.Tensor, scores: torch.Tensor, iou_thres: float
 
 
 def _candidates(pred: torch.Tensor, conf_thres: float, max_nms: int, multi_label: bool,
-                classes: Sequence[int] | None):
-    """The top max_nms (box, score, class) candidates of each image, by score;
-    scores at or under conf_thres zeroed."""
-    a, nc = pred.shape[1], pred.shape[2] - 4
+                classes: Sequence[int] | None, nc: int):
+    """The top max_nms (box, score, class, anchor) candidates of each image,
+    by score; scores at or under conf_thres zeroed."""
+    a = pred.shape[1]
     boxes = xywh2xyxy(pred[..., :4])
-    scores = pred[..., 4:]
+    scores = pred[..., 4:4 + nc]
     if classes is not None:
         keep = torch.zeros(nc, dtype=scores.dtype, device=scores.device)
         keep[list(classes)] = 1.0
@@ -137,21 +140,25 @@ def _candidates(pred: torch.Tensor, conf_thres: float, max_nms: int, multi_label
         top_sc, anchor_ix = _top_k(best, min(max_nms, a))
         cls_ix = cls_all.gather(1, anchor_ix).to(pred.dtype)
     cand_sc = torch.where(top_sc > conf_thres, top_sc, 0.0)
-    return _gather(boxes, anchor_ix), cand_sc, cls_ix
+    return _gather(boxes, anchor_ix), cand_sc, cls_ix, anchor_ix
 
 
 def non_max_suppression(pred: torch.Tensor, conf_thres: float = 0.25, iou_thres: float = 0.45,
                         max_det: int = 300, max_nms: int = 4096, agnostic: bool = False,
                         method: str = "matrix", classes: Sequence[int] | None = None,
-                        multi_label: bool = False):
-    """pred (B, A, 4 + nc): xywh pixels and class scores -> (dets, n_valid).
+                        multi_label: bool = False, nc: int | None = None,
+                        return_idx: bool = False):
+    """pred (B, A, 4 + nc [+ extras]): xywh pixels and class scores ->
+    (dets, n_valid), and with `return_idx` the kept anchors' indices.
 
     One label per anchor (its best class) unless `multi_label`. `classes`
     keeps only those class ids (the others' scores are zeroed before the gate).
     """
     if method not in ("matrix", "scan", "tiled"):
         raise ValueError(f"unknown NMS method '{method}'")
-    cand_boxes, cand_sc, cls_ix = _candidates(pred, conf_thres, max_nms, multi_label, classes)
+    nc = nc or pred.shape[2] - 4
+    cand_boxes, cand_sc, cls_ix, anchor_ix = _candidates(pred, conf_thres, max_nms, multi_label,
+                                                         classes, nc)
     offset = torch.zeros_like(cls_ix) if agnostic else cls_ix * MAX_WH
     shifted = cand_boxes + offset[..., None]
     if method == "tiled":
@@ -169,4 +176,7 @@ def non_max_suppression(pred: torch.Tensor, conf_thres: float = 0.25, iou_thres:
                      (cand_sc.gather(1, keep_idx) * keep_valid)[..., None],
                      cls_ix.gather(1, keep_idx)[..., None]], dim=-1)
     det = torch.where(keep_valid[..., None], det, 0.0)
-    return det, keep_valid.sum(dim=1).to(torch.int32)
+    n = keep_valid.sum(dim=1).to(torch.int32)
+    if return_idx:
+        return det, n, torch.where(keep_valid, anchor_ix.gather(1, keep_idx), 0).to(torch.int32)
+    return det, n

@@ -4,6 +4,17 @@ E2EDetectLoss for the NMS-free heads, the sum of that criterion over the
 one2many branch (TAL top-10) and over the one2one branch (top-1), each
 branch with its own quality.
 
+SegmentationLoss adds the mask term: each foreground anchor's mask logits
+(its coefficients against its image's prototypes), BCE against the mask of
+the gt it was assigned, cropped to that gt's box on the prototype grid,
+averaged over the grid and divided by the box's normalised area (clipped at
+1e-3); summed with the per-image weights, divided by their sum over the
+foreground (the positive count, not target_scores_sum) and scaled by the box
+gain. JAX forms the logits and the BCE densely over every anchor, (B, A, ph,
+pw), and weighs the background by 0; the port computes the same sum over the
+foreground anchors alone, image by image, so no (B, A, ph, pw) tensor exists
+(at batch 32 x 640 px that one would hold 6.9e9 elements).
+
 The head hands in NCHW maps; `DetectionLoss` flattens them to (B, A, no) in
 row-major anchor order per level, the order of JAX's NHWC reshape and of
 `make_anchors`.
@@ -17,6 +28,7 @@ import torch
 
 from edgeyolo_tpu_torch.nn.modules.block import dfl_decode
 from edgeyolo_tpu_torch.ops.boxes import bbox2dist, bbox_iou, dist2bbox, make_anchors, xywh2xyxy
+from edgeyolo_tpu_torch.ops.segments import crop_mask
 from edgeyolo_tpu_torch.train.tal import task_aligned_assign
 
 
@@ -65,6 +77,12 @@ class DetectionLoss:
 
     def __call__(self, feats: Sequence[torch.Tensor], batch: dict,
                  quality: Sequence[torch.Tensor] | None = None):
+        return self._terms(feats, batch, quality)[:2]
+
+    def _terms(self, feats: Sequence[torch.Tensor], batch: dict,
+               quality: Sequence[torch.Tensor] | None = None):
+        """(total, items, the assignment: target boxes in pixels, foreground,
+        assigned gt index, per-image weight, input size)."""
         nc, reg_max = self.nc, self.reg_max
         b = feats[0].shape[0]
         device = feats[0].device
@@ -85,7 +103,7 @@ class DetectionLoss:
             mask_gt = (batch["bboxes"].sum(dim=-1) > 0).float()
 
         pred_bboxes = dist2bbox(dfl_decode(pred_dist, reg_max), anchor_points[None], xywh=False)
-        _, target_bboxes, target_scores, fg_mask, _ = task_aligned_assign(
+        _, target_bboxes, target_scores, fg_mask, target_gt_idx = task_aligned_assign(
             pred_scores.detach().sigmoid(), pred_bboxes.detach() * stride_tensor[None],
             anchor_points * stride_tensor, gt_cls, gt_bboxes, mask_gt,
             topk=self.tal_topk, num_classes=nc, alpha=0.5, beta=6.0)
@@ -128,7 +146,50 @@ class DetectionLoss:
         n_img = wimg.sum() if wimg is not None else b
         total = (loss_box + loss_cls + loss_dfl) * n_img
         items = {"box": loss_box.detach(), "cls": loss_cls.detach(), "dfl": loss_dfl.detach()}
-        return total, items
+        assign = {"target_bboxes": target_bboxes, "fg_mask": fg_mask,
+                  "target_gt_idx": target_gt_idx, "img_weight": wimg, "imgsz": (img_h, img_w)}
+        return total, items, assign
+
+
+class SegmentationLoss(DetectionLoss):
+    """The detection criterion plus the mask term; called with the Segment
+    head's training dict {"feats", "mask_coefs" (B, A, nm), "proto" (B, nm,
+    ph, pw)} and a batch whose "masks" (B, M, ph, pw) are 0/1 instance masks
+    at the prototype resolution. Returns (total, {"box", "cls", "dfl", "seg"})."""
+
+    def __call__(self, out: dict, batch: dict):
+        total, items, assign = self._terms(out["feats"], batch, out.get("quality"))
+        masks = batch.get("masks")
+        if masks is None:
+            return total, items
+        loss_seg = self.mask_term(out, masks, assign)
+        items = {**items, "seg": loss_seg.detach()}
+        wimg = assign["img_weight"]
+        n_img = wimg.sum() if wimg is not None else masks.shape[0]
+        return total + loss_seg * n_img, items
+
+    def mask_term(self, out: dict, masks: torch.Tensor, assign: dict) -> torch.Tensor:
+        """The mask loss (before the image count) over the foreground anchors."""
+        mc, proto = out["mask_coefs"].float(), out["proto"].float()
+        b, nm, ph, pw = proto.shape
+        img_h, img_w = assign["imgsz"]
+        fg, wimg = assign["fg_mask"], assign["img_weight"]
+        norm = torch.tensor([img_w, img_h, img_w, img_h], dtype=torch.float32, device=mc.device)
+        grid = torch.tensor([pw, ph, pw, ph], dtype=torch.float32, device=mc.device)
+        seg_sum = mc.new_zeros(())
+        for i in range(b):  # the foreground anchors of one image at a time
+            ai = fg[i].nonzero()[:, 0]
+            if not len(ai):
+                continue
+            xyxyn = assign["target_bboxes"][i, ai] / norm
+            area = ((xyxyn[:, 2] - xyxyn[:, 0]) * (xyxyn[:, 3] - xyxyn[:, 1])).clamp(min=1e-3)
+            logits = (mc[i, ai] @ proto[i].reshape(nm, ph * pw)).view(-1, ph, pw)
+            tgt = masks[i][assign["target_gt_idx"][i, ai]].to(logits.dtype)
+            bce = crop_mask(bce_logits(logits, tgt), xyxyn * grid)
+            per_anchor = bce.flatten(1).mean(-1) / area
+            seg_sum = seg_sum + per_anchor.sum() * (wimg[i] if wimg is not None else 1.0)
+        w_sum = (fg.float() * (wimg[:, None] if wimg is not None else 1.0)).sum()
+        return seg_sum / w_sum.clamp(min=1.0) * self.box_gain
 
 
 class E2EDetectLoss:

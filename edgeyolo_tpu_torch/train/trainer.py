@@ -1,4 +1,4 @@
-"""Detection training (edgeyolo_tpu/train/trainer.py): the optimizer chain,
+"""Detection and segment training (edgeyolo_tpu/train/trainer.py): the optimizer chain,
 gradient accumulation, the warmup and LR schedule, EMA, early stopping and
 the step and epoch loop, on one device.
 
@@ -19,7 +19,8 @@ completed updates only.
 The step: uint8 batch -> `augment_batch` -> forward in train mode (with
 `amp`, on the parameters rounded to bf16 under bf16 autocast, as JAX's
 `amp_cast`) -> `DetectionLoss` in f32 (`E2EDetectLoss` on the whole output
-dict when the model's head is end to end) -> backward -> accumulate ->
+dict when the model's head is end to end, `SegmentationLoss` for a segment
+model, whose instance masks ride `augment_batch` with the images) -> backward -> accumulate ->
 update -> EMA. `DetectionTrainer.train(batches)` runs epochs over a re-iterable of
 batches in the loader's collate format. `DetectionTrainer.fit()` is JAX's
 dataset-driven `DetectionTrainer.train`: the dataset YAML, a shuffled
@@ -37,6 +38,7 @@ Freeze and multi-host training are not ported yet.
 
 from __future__ import annotations
 
+import contextlib
 import csv
 import json
 import math
@@ -52,7 +54,7 @@ from torch import nn
 from edgeyolo_tpu_torch.data.augment_device import augment_batch
 from edgeyolo_tpu_torch.data.dataset import YOLODataset, build_dataloader, check_det_dataset
 from edgeyolo_tpu_torch.nn.tasks import train_forward
-from edgeyolo_tpu_torch.train.loss import DetectionLoss, E2EDetectLoss
+from edgeyolo_tpu_torch.train.loss import DetectionLoss, E2EDetectLoss, SegmentationLoss
 from edgeyolo_tpu_torch.utils import LOGGER, select_device
 from edgeyolo_tpu_torch.utils.yamlfile import yaml_save
 
@@ -64,9 +66,31 @@ TRAIN_DEFAULTS = {
     "warmup_epochs": 3.0, "warmup_momentum": 0.8, "box": 7.5, "cls": 0.5, "dfl": 1.5,
     "hsv_h": 0.015, "hsv_s": 0.7, "hsv_v": 0.4, "degrees": 0.0, "translate": 0.1,
     "scale": 0.5, "shear": 0.0, "perspective": 0.0, "flipud": 0.0, "fliplr": 0.5,
-    "bgr": 0.0, "photometric": 1.0, "mosaic": 1.0, "mixup": 0.0,
+    "bgr": 0.0, "photometric": 1.0, "mosaic": 1.0, "mixup": 0.0, "copy_paste": 0.0,
+    "copy_paste_mode": "flip", "mask_ratio": 4, "overlap_mask": True, "deterministic": True,
 }
 CLIP_NORM = 10.0
+
+
+@contextlib.contextmanager
+def deterministic_algorithms(on: bool):
+    """While on, PyTorch's and cuDNN's deterministic algorithms only, so that a
+    fit on the card repeats to the bit from its seed, as JAX's does on the
+    TPU (the default atomics and cuDNN's fastest kernels make two fits differ
+    in mAP50-95 by a few hundredths); the process's settings come back on
+    exit. An op with no deterministic form warns and runs."""
+    if not on:
+        yield
+        return
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled(), torch.backends.cudnn.deterministic)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+        torch.backends.cudnn.deterministic = was[2]
 
 
 def _decay_mask(model: nn.Module) -> dict[str, bool]:
@@ -269,7 +293,9 @@ def batch_to_device(batch: dict, device: torch.device) -> dict:
     """A collated batch (numpy or torch) on `device`, with its per-image
     weight: 1 for the n_real real images, 0 for the padded repeats."""
     out = {}
-    for k in ("img", "cls", "bboxes", "mask_gt"):
+    for k in ("img", "cls", "bboxes", "mask_gt", "masks"):
+        if k not in batch:
+            continue
         v = torch.as_tensor(batch[k])
         out[k] = v.to(device, non_blocking=True) if k == "img" else v.float().to(device)
     b = out["img"].shape[0]
@@ -300,8 +326,11 @@ class DetectionTrainer:
         self.validator = None
         self.model = model.to(self.device).train()
         self.end2end = bool(getattr(model, "end2end", False))
-        self.criterion = (E2EDetectLoss if self.end2end else DetectionLoss).for_model(
-            model, self.args)
+        self.task = getattr(model, "task", "detect")
+        self.dict_loss = self.end2end or self.task == "segment"  # called with the output dict
+        loss_cls = (SegmentationLoss if self.task == "segment"
+                    else E2EDetectLoss if self.end2end else DetectionLoss)
+        self.criterion = loss_cls.for_model(model, self.args)
         self.gen = torch.Generator().manual_seed(int(self.args["seed"]))
         self.epoch_losses: list[list[float]] = []
         self.epoch = 0
@@ -327,15 +356,18 @@ class DetectionTrainer:
 
     def train_step(self, batch: dict, mosaic: bool = True):
         """One micro-step on a device batch (see `batch_to_device`). Returns
-        (loss, {"box", "cls", "dfl"}, whether the parameters were updated)."""
+        (loss, {"box", "cls", "dfl"[, "seg"]}, whether the parameters were updated)."""
         a = self.args
         imgsz = batch["img"].shape[1]
-        img01, cls, bboxes, mask = augment_batch(batch["img"], batch["cls"], batch["bboxes"],
-                                                 batch["mask_gt"], self.gen, imgsz, a, mosaic)
+        aug = augment_batch(batch["img"], batch["cls"], batch["bboxes"], batch["mask_gt"],
+                            self.gen, imgsz, a, mosaic, masks=batch.get("masks"))
+        img01, cls, bboxes, mask = aug[:4]
         out = train_forward(self.model, img01.permute(0, 3, 1, 2).contiguous(),
                             amp=bool(a["amp"]))
         tgt = {"cls": cls, "bboxes": bboxes, "mask_gt": mask, "img_weight": batch["img_weight"]}
-        loss, items = (self.criterion(out, tgt) if self.end2end
+        if len(aug) == 5:
+            tgt["masks"] = aug[4]
+        loss, items = (self.criterion(out, tgt) if self.dict_loss
                        else self.criterion(out["feats"], tgt, out.get("quality")))
         self.flat.grad.zero_()
         loss.backward()
@@ -372,7 +404,13 @@ class DetectionTrainer:
     def fit(self) -> float:
         """JAX's DetectionTrainer.train: epochs over args["data"]'s train split,
         validation with the EMA, results.csv and checkpoints under `save_dir`.
-        Returns the best fitness; the model ends holding the EMA weights."""
+        Returns the best fitness; the model ends holding the EMA weights.
+        With args["deterministic"] (the default) the run uses deterministic
+        algorithms only (`deterministic_algorithms`)."""
+        with deterministic_algorithms(bool(self.args["deterministic"])):
+            return self._fit()
+
+    def _fit(self) -> float:
         a = self.args
         data_cfg = check_det_dataset(a["data"])
         if data_cfg["nc"] != self.model.nc:
@@ -385,7 +423,8 @@ class DetectionTrainer:
         train_set = YOLODataset(data_cfg["train"], imgsz=imgsz, augment=True,
                                 single_cls=bool(a.get("single_cls", False)),
                                 fraction=float(a.get("fraction", 1.0)), names=data_cfg["names"],
-                                cache=a.get("cache", False))
+                                cache=a.get("cache", False), task=self.task,
+                                mask_ratio=int(a["mask_ratio"]))
         loader = build_dataloader(train_set, bs, shuffle=True, seed=int(a["seed"]))
         self.setup(len(loader))
         start_epoch = 0
@@ -453,16 +492,17 @@ class DetectionTrainer:
         """The val split through the EMA weights and the current BatchNorm
         statistics, at max_nms 4096; the trained weights are put back after."""
         from edgeyolo_tpu_torch.cfg import get_cfg
-        from edgeyolo_tpu_torch.engine.validator import DetectionValidator
+        from edgeyolo_tpu_torch.engine.validator import DetectionValidator, SegmentationValidator
 
         if self.validator is None:
             a = self.args
             vargs = get_cfg(overrides={
                 "mode": "val", "data": a["data"], "imgsz": int(a["imgsz"]),
                 "batch": int(a["batch"]), "conf": 0.001, "iou": 0.7, "max_det": 300,
-                "plots": False, "single_cls": bool(a.get("single_cls", False))})
-            self.validator = DetectionValidator(vargs, save_dir=self.save_dir / "val",
-                                                device=self.device)
+                "plots": False, "single_cls": bool(a.get("single_cls", False)),
+                "task": self.task, "overlap_mask": bool(a["overlap_mask"])})
+            vcls = SegmentationValidator if self.task == "segment" else DetectionValidator
+            self.validator = vcls(vargs, save_dir=self.save_dir / "val", device=self.device)
         raw = self.flat.data.clone()
         try:
             with torch.no_grad():
@@ -496,7 +536,7 @@ class DetectionTrainer:
     def meta(self, epoch: int) -> dict:
         m = self.model
         return {"epoch": epoch, "best_fitness": float(self.best_fitness),
-                "model_yaml": getattr(m, "cfg", ""), "task": "detect",
+                "model_yaml": getattr(m, "cfg", ""), "task": getattr(m, "task", "detect"),
                 "scale": getattr(m, "scale", ""), "nc": m.nc, "names": dict(m.names),
                 "train_args": {k: v for k, v in self.args.items()
                                if isinstance(v, (int, float, str, bool, type(None)))}}

@@ -7,11 +7,13 @@ trailing `_{digits}` group is module-list indexing (`cv2_0_1` ->
 either branch, sits at index 2 of its torch Sequential (`reg_conf.{i}.2`,
 `one2one_reg_conf.{i}.2`), GhostBottleneck's `short_dw`/`short_pw` are
 `shortcut.0`/`shortcut.1`, and a YAML's raw `nn.ConvTranspose2d` keeps its
-weights on the layer (`model.{i}.weight`, no `conv_transpose` scope). Leaves
+weights on the layer (`model.{i}.weight`, no `conv_transpose` scope), as
+Proto's raw upsample does (`proto.upsample.weight`). Leaves
 map kernel/scale -> weight, mean/var -> running_mean/running_var (a
 LayerNorm's scale and bias are its weight and bias); 2-D conv kernels go
 HWIO -> OIHW, transposed-conv kernels (kh, kw, in, out) -> torch's
-(in, out, kh, kw) flipped in space (JAX's torch_convert rule, inverted),
+(in, out, kh, kw) flipped in space (JAX's torch_convert rule, inverted; keyed on the `conv_transpose` scope,
+never on the shape: Proto's square 256 -> 256 kernel has a conv's shape),
 1-D ones (k, in/g, out) -> (out, in/g, k), and dense kernels (in, out) ->
 (out, in). Plain parameters
 (`gate`, `gamma`, `scale_weights`, `prototype_base`) keep their name and
@@ -44,6 +46,7 @@ def jax_path_to_torch_key(path: tuple[str, ...]) -> str:
     parts = [_SCOPE.get(p, p) for p in parts]
     scopes = [re.sub(r"_(?=\d+(?:_\d+)*$)", ".", p) for p in parts[:-1]]
     key = ".".join(scopes + [_LEAF.get(parts[-1], parts[-1])])
+    key = key.replace("upsample.conv_transpose.", "upsample.")  # Proto's raw ConvTranspose2d
     return re.sub(r"reg_conf\.(\d+)\.1\.", r"reg_conf.\1.2.", key)
 
 

@@ -174,6 +174,29 @@ def test_training_writes_results_and_checkpoints(run):
     assert best == model.trainer.best_fitness > 0.05
 
 
+def test_fit_is_deterministic_for_its_duration_only(monkeypatch):
+    """`deterministic` (on by default, as in the JAX package's cfg) holds
+    PyTorch and cuDNN to deterministic algorithms while `fit` runs and gives
+    the process its own settings back after; off, it changes nothing."""
+    from edgeyolo_tpu_torch.train.trainer import TRAIN_DEFAULTS, DetectionTrainer
+
+    def flags():
+        return (torch.are_deterministic_algorithms_enabled(),
+                torch.is_deterministic_algorithms_warn_only_enabled(),
+                torch.backends.cudnn.deterministic)
+
+    seen = []
+    monkeypatch.setattr(DetectionTrainer, "_fit", lambda self: seen.append(flags()) or 0.0)
+    before = flags()
+    trainer = DetectionTrainer.__new__(DetectionTrainer)
+    for det in (True, False):
+        trainer.args = {**TRAIN_DEFAULTS, "deterministic": det}
+        trainer.fit()
+    assert TRAIN_DEFAULTS["deterministic"] is DEFAULT_CFG_DICT["deterministic"] is True
+    assert seen == [(True, True, True), before]
+    assert flags() == before
+
+
 def test_best_checkpoint_reloads_to_the_best_epoch_metrics(run):
     root, data, model, _ = run
     again = YOLO(model.trainer.save_dir / "best.pt", device="cpu")

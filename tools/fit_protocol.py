@@ -13,6 +13,12 @@ with the overrides given as JSON (e.g. '{"nbs": 16, "warmup_epochs": 0}';
 "imgsz": 192}'), and prints the best mAP50-95 and every 15th row of
 results.csv. About 7 minutes on a CPU for EdgeLine-YOLO-n.
 
+'{"task": "segment"}' writes the segment form of the same dataset (each
+shape's box-corner polygon) and trains yolo11n-seg unless "model" names
+another segment YAML; it then also prints the box and mask mAP50-95 of the
+best epoch (the row of highest fitness), the figures chip_smoke.py's segment
+`fit` is held against (less 0.1).
+
 With --coco, the trained model is then validated by the JAX validator with
 save_json on the val images re-encoded as JPEG q92 (chip_smoke.py's
 `jpeg_coco_copy`, which writes a COCO GT json of the labels): it prints the
@@ -39,10 +45,11 @@ def main():
     from edgeyolo_tpu import YOLO
     from edgeyolo_tpu_torch.data.synthetic import generate_dataset
 
-    data = generate_dataset(out / "data", n_train=16, n_val=8, imgsz=160, nc=3, seed=0)
+    task = overrides.pop("task", "detect")
+    data = generate_dataset(out / "data", n_train=16, n_val=8, imgsz=160, nc=3, seed=0, task=task)
     args = {"epochs": 150, "batch": 16, "imgsz": 160, "optimizer": "SGD", "lr0": 0.01,
             "val": True, "plots": False, **overrides}
-    model = args.pop("model", "edgeline-yolo.yaml")
+    model = args.pop("model", "yolo11n-seg.yaml" if task == "segment" else "edgeline-yolo.yaml")
     t0 = time.time()
     yolo = YOLO(model)
     best = yolo.train(data=str(data), project=str(out), name="train", exist_ok=True, **args)
@@ -53,6 +60,11 @@ def main():
                                               "metrics/mAP50(B)", "metrics/mAP50-95(B)", "lr/pg0")))
     print(json.dumps({"overrides": overrides, "best_mAP50-95": best,
                       "seconds": round(time.time() - t0, 1)}))
+    if task == "segment":
+        top = max(rows, key=lambda r: float(r.get("fitness") or r["metrics/mAP50-95(B)"]))
+        print(json.dumps({"task": task, "model": model, "best_epoch": int(top["epoch"]),
+                          "box_mAP50-95": float(top["metrics/mAP50-95(B)"]),
+                          "mask_mAP50-95": float(top["metrics/mAP50-95(M)"])}))
     if coco:
         import chip_smoke
         from edgeyolo_tpu.cfg import get_cfg
