@@ -115,7 +115,26 @@ Phases, each timed and each fatal when it fails:
                 0.1 (SEG_FIT_BOX_MIN, SEG_FIT_MASK_MIN), best.pt reloaded, on the CPU,
                 and predict with masks at the images' size. No kernel runs in these
                 models; the linear-attention launches stay 0 there (printed)
- 12. device     each kernel's device time at the shapes of phase 3: the context and
+ 12. pose and  the pose and obb tasks: (a) reference: yolov8n-pose, yolov8n-pose-p6,
+     obb        yolo11n-pose, yolov8n-obb and yolo11n-obb at 64 px in f32, card against
+                CPU, at seeded and test weights (POSE_OBB_REF_SCALE): boxes 5e-3 px,
+                scores 1e-4, keypoints 5e-3 px and visibilities 1e-4, angles 1e-4; the
+                rotated NMS blocked against its dense plain version on the card (equal
+                selections), and blocked at batch 32 x max_nms 8192 (its peak memory);
+                (b) serve: yolo11n-pose at batch 32 x 640 px (nc 1, kpt_shape [17, 3],
+                coco-pose's) and yolo11n-obb at batch 16 x 1024 px (nc 15, DOTAv1's),
+                bf16, class logits at 0 (every image fills its candidates): img/s,
+                median request ms, device-busy ms, peak memory; (c) train reference:
+                one f32 step of each at 64 px on 4 images (keypoints, rotated boxes),
+                card against CPU per tensor at TRAIN_REF_TOL, and the f64 witness;
+                (d) train: yolo11n-pose at batch 32 x 640 px with 4 keypointed boxes
+                per image, yolo11n-obb at batch 16 x 1024 px with 16 rotated boxes per
+                image: step ms, peak memory; (e) fit: both on the synthetic pose and obb
+                sets (the fit protocol at 100 epochs), held to the JAX trainer's box and
+                pose, and probiou, mAP50-95 less 0.1 on that protocol; best.pt reloaded,
+                on the CPU, and predict
+                (keypoints, rotated boxes). No kernel runs in these models
+ 13. device     each kernel's device time at the shapes of phase 3: the context and
      times      output launches each timed by its own event pair, in DEVICE_SESSIONS
                 sessions (median and spread, the SM clock read around each); after the
                 serve, train, fit and jpeg phases
@@ -293,6 +312,26 @@ SEG_JAX_BOX_MAP = 0.6774  # 0.67742
 SEG_JAX_MASK_MAP = 0.4857  # 0.48569
 SEG_FIT_BOX_MIN = round(SEG_JAX_BOX_MAP - 0.1, 4)
 SEG_FIT_MASK_MIN = round(SEG_JAX_MASK_MAP - 0.1, 4)
+# pose and obb: the five YAMLs' test weights (tests/test_torch_pose_obb.py's SCALE), the
+# served and trained shapes (coco-pose: 1 class, 17 x 3 keypoints; DOTAv1: 15 classes at
+# 1024 px), and the fits' limits: the JAX trainer's best-epoch figures on the same protocol
+# (tools/fit_protocol.py '{"task": "pose" | "obb", "epochs": 100, "nbs": 16, "warmup_epochs": 0.0,
+# "seed": 0}', a CPU; PERF.md section 2) less 0.1, at 100 epochs (POSE_OBB_FIT_EPOCHS): the
+# script's time limit leaves no room for two more 150-epoch fits
+POSE_OBB_REF_SCALE = {"yolov8n-pose": 2.0, "yolov8n-pose-p6": 2.0, "yolo11n-pose": 2.0,
+                      "yolov8n-obb": 2.0, "yolo11n-obb": 2.0}
+POSE, OBB = "yolo11n-pose", "yolo11n-obb"
+POSE_OBB_SERVE = {POSE: (32, 640, {"nc": 1, "kpt_shape": (17, 3)}), OBB: (16, 1024, {"nc": 15})}
+POSE_OBB_TRAIN = {POSE: (32, 640, 4), OBB: (16, 1024, 16)}  # batch, px, real boxes per image
+ROT_NMS_SHAPE = (32, 8192)  # batch, max_nms of the blocked rotated NMS check
+POSE_OBB_FIT_EPOCHS = 100
+FIT_TASK_PREDICT_CONF = 0.01
+POSE_JAX_BOX_MAP = 0.4811  # 0.48106
+POSE_JAX_POSE_MAP = 0.6632  # 0.66321
+OBB_JAX_MAP = 0.6337  # 0.63369
+POSE_FIT_BOX_MIN = round(POSE_JAX_BOX_MAP - 0.1, 4)
+POSE_FIT_POSE_MIN = round(POSE_JAX_POSE_MAP - 0.1, 4)
+OBB_FIT_MIN = round(OBB_JAX_MAP - 0.1, 4)
 
 
 def phase(name: str):
@@ -1311,10 +1350,209 @@ def check_seg_train_reference(la) -> None:
     witness(la, spread_logits, batch4, cpu, card, SEG)
 
 
-def train(la, card: str, name: str = "edgeline-yolo-n", copy_paste: float = 0.0):
+def pose_obb_reference(la) -> None:
+    """The pose and obb YAMLs at 64 px in f32, card against CPU, at seeded
+    weights (class logits at 0) and at their tests' weights
+    (POSE_OBB_REF_SCALE): boxes 5e-3 px, scores 1e-4, keypoints 5e-3 px and
+    visibilities 1e-4, angles 1e-4; no attention launches."""
+    import torch
+
+    from edgeyolo_tpu_torch.nn.tasks import DetectionModel
+
+    x = torch.rand(2, 3, 64, 64, generator=torch.Generator().manual_seed(1))
+    for name, ref_scale in POSE_OBB_REF_SCALE.items():
+        for scale in (None, ref_scale):
+            t0 = time.perf_counter()
+            m = DetectionModel(name, device="cpu", seed=0)
+            m = exercise_branches(m) if scale is None else perturbed(m, scale)
+            outs = {}
+            la.linear_attention_kernel.launches = 0
+            for dev, model in (("cpu", m), ("cuda", copy.deepcopy(m).to("cuda"))):
+                with torch.inference_mode():
+                    outs[dev] = model(x.to(dev))["pred"].float().cpu()
+            launches = la.linear_attention_kernel.launches
+            pc, pg = outs["cpu"], outs["cuda"]
+            nc = m.nc
+            d = (pg - pc).abs()
+            box, cls = d[..., :4].max().item(), d[..., 4:4 + nc].max().item()
+            spread = (pc[0] - pc[1])[..., :4].abs().max().item()
+            ok = bool(torch.isfinite(pg).all()) and box < 5e-3 and cls < 1e-4
+            line = (f"{name}: f32 64px card vs CPU, "
+                    f"{'seeded weights' if scale is None else f'test weights x{scale}'} (boxes of "
+                    f"the two images apart by up to {spread:.3e} px): box {box:.3e} px (tol "
+                    f"5e-3), score {cls:.3e} (tol 1e-4)")
+            if m.task == "pose":
+                k = d[..., 4 + nc:].reshape(*d.shape[:2], *m.kpt_shape)
+                kxy, kv = k[..., :2].max().item(), k[..., 2].max().item()
+                line += f", keypoints {kxy:.3e} px (tol 5e-3), visibility {kv:.3e} (tol 1e-4)"
+                ok = ok and kxy < 5e-3 and kv < 1e-4
+            else:
+                ang = d[..., -1].max().item()
+                line += f", angle {ang:.3e} (tol 1e-4)"
+                ok = ok and ang < 1e-4
+            print(line + f"; {time.perf_counter() - t0:.1f} s", flush=True)
+            if not ok:
+                raise AssertionError(f"{name} on the card disagrees with the CPU reference")
+            if launches:
+                raise AssertionError(f"{name}: {launches} attention launches")
+
+
+def rotated_pred(b: int, a: int, nc: int, seed: int):
+    """Crowded rotated predictions (B, A, 4 + nc + 1) at 1024 px: boxes around
+    a few centres at random angles, scores spread over the classes."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    centres = torch.rand(b, 12, 2, generator=g) * 900 + 60
+    pick = torch.randint(0, 12, (b, a), generator=g)
+    xy = centres.gather(1, pick[..., None].expand(-1, -1, 2)) + torch.randn(b, a, 2, generator=g) * 12
+    wh = 10 + torch.rand(b, a, 2, generator=g) * 80
+    ang = (torch.rand(b, a, 1, generator=g) - 0.25) * math.pi
+    return torch.cat([xy, wh, torch.rand(b, a, nc, generator=g) ** 2, ang], -1)
+
+
+def check_rotated_nms() -> None:
+    """The rotated NMS on the card: the blocked suppression against the dense
+    plain version where both fit (argmax and multi-label candidates, equal
+    selections), then blocked at ROT_NMS_SHAPE (batch 32 x max_nms 8192: a
+    dense (32, 8192, 8192) probiou would hold 2.1e9 pairs per temporary):
+    its time and peak memory."""
+    import torch
+
+    from edgeyolo_tpu_torch.ops import nms
+
+    def dense(cand, cls_ix, iou_thres, n_live):  # the plain version in the blocked one's place
+        return nms.rotated_suppressed_dense(cand, cls_ix, iou_thres)
+
+    pred = rotated_pred(8, 4096, 15, seed=6).cuda()
+    for ml in (False, True):
+        kw = dict(conf_thres=0.05, iou_thres=0.5, max_det=2048, max_nms=2048, multi_label=ml)
+        db, nb = nms.nms_rotated(pred, **kw)
+        with mock.patch.object(nms, "rotated_suppressed_blocked", dense):
+            dd, nd = nms.nms_rotated(pred, **kw)
+        err = (db - dd).abs().max().item()
+        print(f"rotated NMS on the card, {'multi-label' if ml else 'argmax'}, 8 x 2048 "
+              f"candidates: blocked kept {nb.tolist()}, dense {nd.tolist()}, max abs diff "
+              f"{err:.3e} (tol 0)", flush=True)
+        if not torch.equal(nb, nd) or err != 0:
+            raise AssertionError("the blocked rotated NMS disagrees with the dense one")
+    b, n = ROT_NMS_SHAPE
+    big = rotated_pred(b, 21504, 15, seed=7).cuda()  # 1024 px: 128^2 + 64^2 + 32^2 anchors
+    kw = dict(conf_thres=0.0, iou_thres=0.7, max_det=300, max_nms=n)
+    nms.nms_rotated(big, **kw)  # warm-up
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(lambda: nms.nms_rotated(big, **kw), samples=3, warmup=0)
+    peak = torch.cuda.max_memory_allocated() - base
+    det, kept = nms.nms_rotated(big, **kw)
+    print(f"rotated NMS blocked on the card at batch {b} x max_nms {n} (each image's {n - 1} "
+          f"rows against the columns after them, at most {nms.ROT_NMS_ELEMS} (image, row, "
+          f"column) triples a block): {ms:.3f} ms, "
+          f"peak memory over its input {peak / 2**30:.3f} GiB, kept {int(kept.min())}.."
+          f"{int(kept.max())} per image (a dense version would need {b * n * n * 4 / 2**30:.1f} "
+          f"GiB per temporary)", flush=True)
+    if not bool(torch.isfinite(det).all()) or int(kept.min()) <= 0:
+        raise AssertionError("the blocked rotated NMS at full size failed")
+
+
+def serve_pose_obb(la, card: str, name: str) -> dict:
+    """A pose or obb model served in bf16 at its POSE_OBB_SERVE shape, class
+    logits at 0 so every image fills its NMS candidates: a warm-up request,
+    SERVE_REQUESTS timed requests, peak memory and one profiled request."""
+    import torch
+
+    from edgeyolo_tpu_torch.engine.predictor import OBBPredictor, PosePredictor
+    from edgeyolo_tpu_torch.nn.tasks import DetectionModel, num_params
+
+    bs, imgsz, extra = POSE_OBB_SERVE[name]
+    model = exercise_branches(DetectionModel(name, device="cuda", dtype=torch.bfloat16, seed=0,
+                                             **extra))
+    if model.task == "pose":  # the axis-aligned NMS's matrix, as the other served models
+        predictor = PosePredictor(model, conf=0.25, iou=0.7, max_det=300, max_nms=1024,
+                                  device="cuda")
+    else:  # the blocked rotated NMS at the predictor's default 8192 candidates
+        predictor = OBBPredictor(model, conf=0.25, iou=0.7, max_det=300, device="cuda")
+    imgs = torch.randint(0, 256, (bs, imgsz, imgsz, 3), dtype=torch.uint8,
+                         generator=torch.Generator().manual_seed(2))
+    t0 = time.perf_counter()
+    predictor(imgs)
+    torch.cuda.synchronize()
+    print(f"serve {name}: {num_params(model)} params, nc {model.nc}"
+          + (f", kpt_shape {list(model.kpt_shape)}" if model.kpt_shape else "")
+          + f", bf16, max_nms {predictor.max_nms}, warm-up request "
+          f"{(time.perf_counter() - t0) * 1e3:.3f} ms", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    la.linear_attention_kernel.launches = 0
+    times = []
+    for _ in range(SERVE_REQUESTS):
+        t0 = time.perf_counter()
+        out = predictor(imgs)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    ms = statistics.median(times) * 1e3
+    det, n = out[0].float().cpu(), out[1].cpu()
+    cols = 6 if model.task == "pose" else 7
+    ok = det.shape == (bs, 300, cols) and bool(torch.isfinite(det).all()) and int(n.min()) > 0
+    if model.task == "pose":
+        kp = out[2].float().cpu()
+        ok = ok and kp.shape == (bs, 300, 51) and bool(torch.isfinite(kp).all())
+    if not ok or la.linear_attention_kernel.launches:
+        raise AssertionError(f"{name}: served detections are malformed")
+    kept = [int(k) for k in n]
+    print(f"serve {name}: batch {bs} x {imgsz} px bf16, uint8 in, "
+          f"{'keypoints' if model.task == 'pose' else 'rotated boxes'} out; request times "
+          f"{[round(t * 1e3, 3) for t in times]} ms, median {ms:.3f} ms, {bs / ms * 1e3:.1f} "
+          f"img/s, peak memory {peak / 2**30:.3f} GiB; detections per image "
+          f"{min(kept)}..{max(kept)}; attention launches 0; on {card}", flush=True)
+    busy = profile_request(predictor, imgs, ms)
+    return {"ms": ms, "img_s": bs / ms * 1e3, "peak_gib": peak / 2**30, "busy_ms": busy}
+
+
+def check_pose_obb_train_reference(la) -> None:
+    """One f32 step of yolo11n-pose (17 keypoints per box) and of
+    yolo11n-obb (rotated boxes) at 64 px on 4 images, card against CPU from
+    class logits spread around 0, every gradient per tensor at
+    TRAIN_REF_TOL, and the f64 witness."""
+    for name, task in ((POSE, "pose"), (OBB, "obb")):
+        batch4 = task_targets(train_batch(4, TRAIN_REF_IMGSZ, TRAIN_REF_M, 4, seed=3), task)
+        cpu, card = card_vs_cpu(la, "class logits spread around 0", spread_logits, batch4,
+                                per_tensor=True, name=name)
+        witness(la, spread_logits, batch4, cpu, card, name)
+
+
+def task_targets(batch: dict, task: str, seed: int = 0) -> dict:
+    """`batch` with a task's extra targets: a segment model's box masks, a
+    pose model's 17 keypoints per box (in pixels, inside the box, visibility
+    2 or 0), an obb model's rotated boxes (the boxes turned by an angle in
+    [0, pi/2))."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    bx, mask = batch["bboxes"], batch["mask_gt"]
+    b, m = mask.shape
+    if task == "segment":
+        batch["masks"] = box_masks(batch)
+    elif task == "pose":
+        s = batch["img"].shape[1]
+        xy = (bx[..., None, :2] + (torch.rand(b, m, 17, 2, generator=gen) - 0.5)
+              * bx[..., None, 2:]) * s
+        vis = torch.where(torch.rand(b, m, 17, 1, generator=gen) < 0.8, 2.0, 0.0)
+        batch["keypoints"] = torch.cat([xy, vis], -1) * mask[..., None, None]
+    elif task == "obb":
+        ang = torch.rand(b, m, 1, generator=gen) * math.pi / 2
+        batch["rboxes"] = torch.cat([bx, ang], -1) * mask[..., None]
+    return batch
+
+
+def train(la, card: str, name: str = "edgeline-yolo-n", copy_paste: float = 0.0,
+          shape: tuple | None = None):
     """Training steps of model `name` (scale n) at full width and depth (a
-    segment model with box masks, and `copy_paste`); returns the kernel's
-    launches in the timed steps."""
+    segment model with box masks, and `copy_paste`; a pose model with
+    keypoints, an obb model with rotated boxes), at `shape` (batch, px, real
+    boxes per image; TRAIN_BATCH, TRAIN_IMGSZ and TRAIN_REAL by default);
+    returns the kernel's launches in the timed steps."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1324,20 +1562,21 @@ def train(la, card: str, name: str = "edgeline-yolo-n", copy_paste: float = 0.0)
     from edgeyolo_tpu_torch.nn.tasks import DetectionModel, num_trainable
     from edgeyolo_tpu_torch.train.trainer import DetectionTrainer, ModelEMA, batch_to_device
 
+    bs, imgsz, real = shape or (TRAIN_BATCH, TRAIN_IMGSZ, TRAIN_REAL)
     model = DetectionModel(name, device="cuda", seed=0)
     n_attn = n_attention(model)
-    hyp = {"batch": TRAIN_BATCH, "nbs": 64, "optimizer": "SGD", "lr0": 0.01, "momentum": 0.937,
+    hyp = {"batch": bs, "nbs": 64, "optimizer": "SGD", "lr0": 0.01, "momentum": 0.937,
            "amp": True, "seed": 0, "copy_paste": copy_paste}
     trainer = DetectionTrainer(model, hyp, device="cuda")
     trainer.setup(nb=TRAIN_STEPS + 2)
     print(f"train: {name}, {num_trainable(model)} trained params (f32 masters), "
-          f"batch {TRAIN_BATCH} x {TRAIN_IMGSZ} px, bf16 autocast, SGD nesterov, accumulate "
+          f"batch {bs} x {imgsz} px, bf16 autocast, SGD nesterov, accumulate "
           f"{trainer.accumulate}, mosaic {hyp.get('mosaic', 1.0)}, photometric 1.0", flush=True)
-    host = train_batch(TRAIN_BATCH, TRAIN_IMGSZ, TRAIN_M, TRAIN_REAL, seed=5)
-    if model.task == "segment":
-        host["masks"] = box_masks(host)
-        print(f"train {name}: {TRAIN_REAL} instance masks per image at "
-              f"{TRAIN_IMGSZ // 4} x {TRAIN_IMGSZ // 4}, copy_paste {copy_paste}", flush=True)
+    host = task_targets(train_batch(bs, imgsz, max(TRAIN_M, real), real, seed=5), model.task)
+    if model.task != "detect":
+        print(f"train {name}: {real} {model.task} targets per image "
+              f"({', '.join(k for k in ('masks', 'keypoints', 'rboxes') if k in host)}), "
+              f"copy_paste {copy_paste}", flush=True)
     batch = batch_to_device(host, torch.device("cuda"))
     bn = next(m for m in model.modules() if isinstance(m, BatchNorm2d))
 
@@ -1402,9 +1641,9 @@ def train(la, card: str, name: str = "edgeline-yolo-n", copy_paste: float = 0.0)
           f"EMA and BatchNorm statistics checked; kernel launches {launches} in {TRAIN_STEPS} "
           f"steps",
           flush=True)
-    print(f"train {name}: batch {TRAIN_BATCH} x {TRAIN_IMGSZ} px bf16, step times "
+    print(f"train {name}: batch {bs} x {imgsz} px bf16, step times "
           f"{[round(t * 1e3, 3) for t in times]} ms, median {ms:.3f} ms, "
-          f"{TRAIN_BATCH / ms * 1e3:.1f} img/s, peak memory {peak / 2**30:.3f} GiB "
+          f"{bs / ms * 1e3:.1f} img/s, peak memory {peak / 2**30:.3f} GiB "
           f"(max_memory_allocated) on {card}", flush=True)
     if model.task == "segment" and peak / 2**30 > SEG_TRAIN_PEAK_GIB:
         raise AssertionError(f"{name}: peak memory {peak / 2**30:.3f} GiB over "
@@ -1504,14 +1743,18 @@ def metrics_gap(a: dict, b: dict) -> float:
 
 def fit(la, card: str, work: Path, name: str = "edgeline-yolo.yaml",
         map_min: float = FIT_MAP_MIN, imgsz: int = FIT["imgsz"],
-        mask_map_min: float | None = None) -> tuple[dict, Path]:
+        extra_mins: dict | None = None, jax_maps: dict | None = None,
+        epochs: int = FIT_TRAIN["epochs"]) -> tuple[dict, Path]:
     """Train, validate and predict model `name` (scale n) from a dataset on
-    disk at `imgsz`, held to mAP50-95 >= map_min (a segment model on the
-    segment form of the dataset, its mask mAP50-95 also to mask_map_min);
-    the flagship then validates at 640 px. Returns the attention kernel's
-    launches in train, val and predict, and the best checkpoint's path."""
+    disk at `imgsz` for `epochs`, held to mAP50-95 >= map_min (a segment, pose or obb
+    model on its task's form of the dataset; `extra_mins` holds more of the
+    best epoch's metrics, e.g. the mask or pose mAP50-95, each to its
+    limit, printed beside `jax_maps`); the flagship then validates at 640
+    px. Returns the attention kernel's launches in train, val and predict,
+    and the best checkpoint's path."""
     import csv
 
+    import numpy as np
     import torch
 
     from edgeyolo_tpu_torch.data.synthetic import generate_dataset
@@ -1537,7 +1780,7 @@ def fit(la, card: str, work: Path, name: str = "edgeline-yolo.yaml",
     t0 = time.perf_counter()
     with mock.patch.object(DetectionTrainer, "_validate", counted):
         model.train(data=str(data), project=str(work / "runs"), name="fit",
-                    **{**FIT_TRAIN, "imgsz": imgsz})
+                    **{**FIT_TRAIN, "imgsz": imgsz, "epochs": epochs})
     wall = time.perf_counter() - t0
     trainer = model.trainer
     n_attn = n_attention(model.model)
@@ -1570,13 +1813,14 @@ def fit(la, card: str, work: Path, name: str = "edgeline-yolo.yaml",
                              f"{launches}, {n_attn} LinearAttention modules")
     if not best.get("metrics/mAP50-95(B)", 0.0) >= map_min:
         raise AssertionError(f"{name}: mAP50-95 {best.get('metrics/mAP50-95(B)')} < {map_min}")
-    if mask_map_min is not None:
-        print(f"fit {name}: box mAP50-95 {best['metrics/mAP50-95(B)']:.6f} (limit {map_min}, "
-              f"JAX {SEG_JAX_BOX_MAP}), mask mAP50-95 {best['metrics/mAP50-95(M)']:.6f} "
-              f"(limit {mask_map_min}, JAX {SEG_JAX_MASK_MAP}) on {card}", flush=True)
-        if not best["metrics/mAP50-95(M)"] >= mask_map_min:
-            raise AssertionError(f"{name}: mask mAP50-95 {best['metrics/mAP50-95(M)']} < "
-                                 f"{mask_map_min}")
+    if extra_mins is not None:
+        limits = {"metrics/mAP50-95(B)": map_min, **extra_mins}
+        print(f"fit {name}: " + ", ".join(
+            f"{k} {best[k]:.6f} (limit {v}, JAX {(jax_maps or {}).get(k)})"
+            for k, v in limits.items()) + f" on {card}", flush=True)
+        for k, v in extra_mins.items():
+            if not best[k] >= v:
+                raise AssertionError(f"{name}: {k} {best[k]} < {v}")
 
     # reload best.pt: the same metrics on the card, and within FIT_CPU_TOL on the CPU (f32)
     val_kw = {"data": str(data), "batch": FIT_TRAIN["batch"], "imgsz": imgsz,
@@ -1598,18 +1842,34 @@ def fit(la, card: str, work: Path, name: str = "edgeline-yolo.yaml",
                              "and the CPU")
 
     la.linear_attention_kernel.launches = 0
+    # a pose or obb model predicts at FIT_TASK_PREDICT_CONF: after its 100 epochs few scores
+    # pass the default 0.25, and the check is of the keypoints and rotated boxes it returns
+    conf = FIT_TASK_PREDICT_CONF if model.task in ("pose", "obb") else None
     results = reloaded.predict(str(data.parent / "images" / "val"), imgsz=imgsz,
-                               project=str(work / "runs"))
+                               project=str(work / "runs"), conf=conf)
     launches["predict"] = la.linear_attention_kernel.launches
-    inside = all(((b[:, :2] >= 0) & (b[:, 2:] <= [w, h]) & (b[:, :2] <= b[:, 2:])).all()
-                 for b, (h, w) in ((r.boxes.xyxy, r.orig_shape) for r in results))
+    if model.task == "obb":  # rotated boxes: finite, their centres inside their images
+        inside = all(np.isfinite(r.obb.data).all() and ((r.obb.xywhr[:, :2] >= 0)
+                                                         & (r.obb.xywhr[:, :2] <= [w, h])).all()
+                     for r, (h, w) in ((r, r.orig_shape) for r in results))
+    else:
+        inside = all(((b[:, :2] >= 0) & (b[:, 2:] <= [w, h]) & (b[:, :2] <= b[:, 2:])).all()
+                     for b, (h, w) in ((r.boxes.xyxy, r.orig_shape) for r in results))
     print(f"fit {name}: predict on the val images: {len(results)} Results, boxes per image "
           f"{[len(r) for r in results]}, all inside their images: {inside}; first: "
           f"{results[0].verbose_str if results else None}; {launches['predict']} kernel launches",
           flush=True)
-    if len(results) != FIT["n_val"] or not inside or not ran(launches["predict"]):
+    if len(results) != FIT["n_val"] or not inside or not ran(launches["predict"]) or (
+            model.task == "obb" and not any(len(r) for r in results)):
         raise AssertionError("predict on the val images failed")
-    if mask_map_min is not None:
+    if model.task == "pose":
+        k_shape = tuple(reloaded.model.kpt_shape)
+        shaped = all(r.keypoints is not None and r.keypoints.data.shape == (len(r), *k_shape)
+                     and np.isfinite(r.keypoints.data).all() for r in results if len(r))
+        print(f"fit {name}: keypoints {k_shape} per detection, finite: {shaped}", flush=True)
+        if not shaped or not any(len(r) for r in results):
+            raise AssertionError(f"{name}: predict gave no keypoints")
+    if model.task == "segment":
         shaped = all(r.masks is not None and r.masks.data.shape == (len(r), *r.orig_shape)
                      for r in results if len(r))
         per_image = [0 if r.masks is None else len(r.masks) for r in results]
@@ -2233,8 +2493,39 @@ def main() -> int:
 
         t0 = phase("segment fit")
         seg_fit_launches, _ = fit(la, card, Path(work) / SEG, f"{SEG}.yaml", SEG_FIT_BOX_MIN,
-                                  mask_map_min=SEG_FIT_MASK_MIN)
+                                  extra_mins={"metrics/mAP50-95(M)": SEG_FIT_MASK_MIN},
+                                  jax_maps={"metrics/mAP50-95(B)": SEG_JAX_BOX_MAP,
+                                            "metrics/mAP50-95(M)": SEG_JAX_MASK_MAP})
         done("segment fit", t0)
+
+        t0 = phase("pose/obb reference")
+        pose_obb_reference(la)
+        check_rotated_nms()
+        done("pose/obb reference", t0)
+
+        t0 = phase("pose/obb serve")
+        for name in POSE_OBB_SERVE:
+            serve_pose_obb(la, card, name)
+        done("pose/obb serve", t0)
+
+        t0 = phase("pose/obb train reference")
+        check_pose_obb_train_reference(la)
+        done("pose/obb train reference", t0)
+
+        t0 = phase("pose/obb train")
+        for name, shape in POSE_OBB_TRAIN.items():
+            if train(la, card, name, shape=shape):
+                raise AssertionError(f"{name}: attention kernel launches in a model without one")
+        done("pose/obb train", t0)
+
+        t0 = phase("pose/obb fit")
+        fit(la, card, Path(work) / POSE, f"{POSE}.yaml", POSE_FIT_BOX_MIN,
+            extra_mins={"metrics/mAP50-95(P)": POSE_FIT_POSE_MIN},
+            jax_maps={"metrics/mAP50-95(B)": POSE_JAX_BOX_MAP,
+                      "metrics/mAP50-95(P)": POSE_JAX_POSE_MAP}, epochs=POSE_OBB_FIT_EPOCHS)
+        fit(la, card, Path(work) / OBB, f"{OBB}.yaml", OBB_FIT_MIN, extra_mins={},
+            jax_maps={"metrics/mAP50-95(B)": OBB_JAX_MAP}, epochs=POSE_OBB_FIT_EPOCHS)
+        done("pose/obb fit", t0)
 
     t0 = phase("device times")
     device_times(la, la_rows, la_inputs_by_case)

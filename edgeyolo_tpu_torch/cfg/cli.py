@@ -4,6 +4,8 @@
     edgeyolo-torch detect val model=runs/detect/train/best.pt data=dataset.yaml device=cpu
     edgeyolo-torch detect predict model=runs/detect/train/best.pt source=images/
     edgeyolo-torch detect track model=runs/detect/train/best.pt source=line.avi tracker=botsort.yaml
+    edgeyolo-torch pose train data=pose.yaml model=yolo11n-pose.yaml epochs=10
+    edgeyolo-torch obb val model=runs/obb/train/best.pt data=dota.yaml
 
 Also `help`, `version` and `cfg` (the defaults as JSON). Values are parsed
 as Python literals where they are one (`epochs=10`, `half=True`), else kept
@@ -23,7 +25,7 @@ from edgeyolo_tpu_torch.utils import LOGGER
 CLI_HELP = f"""
     Usage: edgeyolo-torch TASK MODE ARGS
 
-        TASK (optional): one of {sorted(TASKS)} (detect and segment are ported)
+        TASK (optional): one of {sorted(TASKS)} (detect, segment, pose and obb are ported)
         MODE (required): one of ['predict', 'track', 'train', 'val']
         ARGS (optional): any number of 'arg=value' pairs overriding defaults.
 
@@ -95,9 +97,10 @@ def entrypoint(argv: list[str] | None = None) -> int:
         metrics = model.val(**overrides)
         _say(f"{'':>10}{'images':>8}{'P':>11}{'R':>11}{'mAP50':>11}{'mAP75':>11}{'mAP50-95':>11}")
         _say(model.validator.results_line())
-        if "metrics/mAP50-95(M)" in metrics:
-            _say(f"{'masks':>10}{'':>30}{metrics['metrics/mAP50(M)']:>11.3g}{'':>11}"
-                 f"{metrics['metrics/mAP50-95(M)']:>11.3g}")
+        for tag, row in (("M", "masks"), ("P", "pose")):  # a segment or a pose model's table
+            if f"metrics/mAP50-95({tag})" in metrics:
+                _say(f"{row:>10}{'':>30}{metrics[f'metrics/mAP50({tag})']:>11.3g}{'':>11}"
+                     f"{metrics[f'metrics/mAP50-95({tag})']:>11.3g}")
         LOGGER.info(json.dumps(metrics))
     elif mode == "predict":
         source = overrides.pop("source", None)

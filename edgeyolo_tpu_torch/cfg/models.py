@@ -3,8 +3,9 @@
 `cfg/models/*.yaml` are byte-identical copies of the files of the same name
 in edgeyolo_tpu/cfg/models/ for the families the port builds (EdgeLine-YOLO
 and its variants, the YOLO11 ablation family, YOLOv13 and its MSLA, LGL,
-wavelet and NMS-free variants, YOLOv10, YOLOv12, and YOLOv3/5/6/8 with their
-P2, P6, SPP, tiny and Ghost variants), read with the port's YAML subset
+wavelet and NMS-free variants, YOLOv10, YOLOv12, YOLOv3/5/6/8 with their
+P2, P6, SPP, tiny and Ghost variants, YOLOv9, and the segment, pose and obb
+YAMLs), read with the port's YAML subset
 reader: [from, repeats, module, args] rows, compound scales [depth, width,
 max_channels]. A per-size file (yolov10s.yaml, yolov12x.yaml) is what its
 own name resolves to. The reference fork's EdgeLine-YOLO-n has 2,678,699

@@ -11,9 +11,12 @@
 //   toward zero;
 // - the interior: an edge list scan over rows y0 <= y < y1 of each
 //   non-horizontal edge, x in 16.16 fixed point stepping by the truncated
-//   slope (an edge that leaves the image starts from its clipped endpoints,
-//   projected back along that slope), edges kept in an active list sorted by x (merge-insert at their
-//   first row, a bubble pass after every row), consecutive pairs filled
+//   slope; an edge that leaves the image takes the slope of its clipped
+//   segment and starts from the clipped end projected back to its vertex
+//   row (a segment that clips to one row keeps its vertex rows, with the
+//   clipped x at both ends: a vertical edge); edges kept in an active list
+//   sorted by x (merge-insert at their first row, then bubble passes after
+//   every row until a pass exchanges nothing), consecutive pairs filled
 //   from ceil(left) to floor(right) inclusive, clipped to the image.
 //
 // C interface (ctypes, data/rasterize.py):
@@ -200,7 +203,7 @@ void fill_edges(uint8_t* img, int h, int w, std::vector<Edge>& edges, uint8_t co
                     last->next = te->next;
                     te->next = last;
                     prelast = te;
-                    if (!last_exchange) last_exchange = prelast;
+                    last_exchange = prelast;
                 } else {
                     prelast = last;
                     last = te;
@@ -223,19 +226,21 @@ extern "C" void eyr_fill_poly(uint8_t* img, int h, int w, const int32_t* xy, int
         const int64_t cx = xy[2 * i], cy = xy[2 * i + 1];
         line8(img, h, w, px, py, cx, cy, (uint8_t)color);
         if (py != cy) {
-            // an edge that leaves the image starts from its clipped endpoints,
-            // projected back to the vertex rows along the unclipped slope
+            // an edge that leaves the image runs along its clipped segment:
+            // that segment's slope, from its clipped end projected back to
+            // the vertex row
             int64_t ax = px, ay = py, bx = cx, by = cy;
             if ((uint64_t)px >= (uint64_t)w || (uint64_t)cx >= (uint64_t)w ||
                 (uint64_t)py >= (uint64_t)h || (uint64_t)cy >= (uint64_t)h) {
                 int64_t tx0 = px, ty0 = py, tx1 = cx, ty1 = cy;
                 clip_line(w, h, tx0, ty0, tx1, ty1);
+                ax = tx0, bx = tx1;
                 if (ty0 != ty1) {
-                    ax = tx0, ay = ty0, bx = tx1, by = ty1;
+                    ay = ty0, by = ty1;
                 }
             }
             Edge ed;
-            ed.dx = ((cx - px) << kShift) / (cy - py);
+            ed.dx = ((bx - ax) << kShift) / (by - ay);
             if (py < cy) {
                 ed.y0 = (int)py;
                 ed.y1 = (int)cy;

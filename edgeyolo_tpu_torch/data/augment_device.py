@@ -1,5 +1,5 @@
 """Training augmentation on the device (edgeyolo_tpu/data/augment_device.py),
-detect and segment labels: mosaic4 or single-source placement with a random
+detect, segment, pose and obb labels: mosaic4 or single-source placement with a random
 affine as one inverse-map bilinear sample per output pixel, the photometric
 stage, HSV, copy-paste, flips, mixup and the BGR swap, over a uint8 NHWC
 batch.
@@ -29,7 +29,18 @@ intersection over the existing box's area) and that the draw selects,
 pastes their pixels through their masks nearest-upsampled to S, and appends
 their labels and masks (M doubles); mixup is off when masks ride along.
 
-Not ported yet: keypoints, rotated boxes, mosaic3/9.
+Keypoints (B, M, K, 3) in letterbox pixels ride the forward transform;
+one that lands off the canvas, or whose box the candidate filter drops,
+becomes invisible. With keypoints both flips and mixup are off, as in JAX
+(which has no flip_idx remap). Rotated boxes (B, M, 5), normalised cx, cy,
+w, h and the angle, ride it as their four corners, refitted from the
+transformed edges (exact under translate, scale and rotation) with the
+angle brought into [0, pi/2) by swapping w and h; their own filter (sides
+over 2 px, centre on the canvas) replaces the box filter, and a flip
+mirrors the angle, swapping w and h when it crosses the pi/2 seam
+(`flip_rbox_angle`). Mixup is off with rotated boxes too.
+
+Not ported yet: mosaic3/9.
 """
 
 from __future__ import annotations
@@ -107,12 +118,13 @@ def affine_matrix(angle_deg: torch.Tensor, scale: torch.Tensor, shear_deg: torch
 
 
 def sample_params(b: int, s: int, hyp: dict, mosaic: bool, gen: torch.Generator,
-                  m: int = 0) -> AugParams:
+                  m: int = 0, keypoints: bool = False) -> AugParams:
     """Draw one step's augmentation parameters for b images of s x s pixels.
 
     With m (the label slots of an image whose instance masks ride along) and
     `copy_paste`, each of the n_src * m warped instances is drawn for pasting
-    last, after every other draw.
+    last, after every other draw. With `keypoints` no flip is drawn (JAX
+    draws the left-right flip at probability 0, and no up-down flip).
 
     `multi_scale` draws one more content scale per image in [0.5, 1.5], after
     the affine's own draws, and folds it into the homography's scale (JAX's
@@ -140,8 +152,8 @@ def sample_params(b: int, s: int, hyp: dict, mosaic: bool, gen: torch.Generator,
     gains = torch.tensor([_hyp(hyp, "hsv_h", 0.015), _hyp(hyp, "hsv_s", 0.7),
                           _hyp(hyp, "hsv_v", 0.4)])
     hsv_gain = _uniform(gen, (b, 3), -1.0, 1.0) * gains + 1.0 if bool(gains.any()) else None
-    fliplr = torch.rand(b, generator=gen) < _hyp(hyp, "fliplr", 0.5)
-    pud = _hyp(hyp, "flipud", 0.0)
+    fliplr = torch.rand(b, generator=gen) < (0.0 if keypoints else _hyp(hyp, "fliplr", 0.5))
+    pud = 0.0 if keypoints else _hyp(hyp, "flipud", 0.0)
     flipud = torch.rand(b, generator=gen) < pud if pud > 0 else None
     pmix = _hyp(hyp, "mixup", 0.0)
     mixup = torch.rand(b, generator=gen) < pmix if pmix > 0 else None
@@ -341,14 +353,78 @@ def copy_paste(img01: torch.Tensor, cls: torch.Tensor, boxes: torch.Tensor, vali
             torch.cat([valid, sel], 1), torch.cat([masks, fmasks], 1))
 
 
+def warp_kpts(kpts4: torch.Tensor, oy: torch.Tensor, ox: torch.Tensor, a: torch.Tensor,
+              offs: float, s: int, valid: torch.Tensor) -> torch.Tensor:
+    """Keypoints (B, n_src, M, K, 3) in their sources' letterbox pixels through
+    the forward map -> (B, n_src * M, K, 3); off the canvas, or of a box the
+    filter dropped (valid (B, n_src, M) False), a keypoint turns invisible."""
+    b, n_src, m, k, _ = kpts4.shape
+    px = kpts4[..., 0] + ox[..., None, None] - offs
+    py = kpts4[..., 1] + oy[..., None, None] - offs
+    out = torch.stack([px, py, torch.ones_like(px)], dim=-1) @ a.transpose(1, 2)[:, None, None]
+    x, y = out[..., 0] / out[..., 2], out[..., 1] / out[..., 2]
+    inb = (x >= 0) & (x < s) & (y >= 0) & (y < s)
+    vis = kpts4[..., 2] * inb.to(kpts4.dtype) * valid[..., None].to(kpts4.dtype)
+    return torch.stack([x, y, vis], dim=-1).reshape(b, n_src * m, k, 3)
+
+
+def warp_rboxes(rboxes4: torch.Tensor, oy: torch.Tensor, ox: torch.Tensor, a: torch.Tensor,
+                offs: float, s: int):
+    """Rotated boxes (B, n_src, M, 5) (normalised cx, cy, w, h, angle) through
+    the forward map as corners, refitted: the first edge's length and angle
+    are w and the angle, the second's h; an angle past pi/2 (mod pi) swaps w
+    and h and drops by pi/2. Returns ((B, n_src * M, 5), keep (B, n_src, M):
+    both sides over 2 px and the centre inside the canvas)."""
+    b, n_src, m, _ = rboxes4.shape
+    cx = rboxes4[..., 0] * s + ox[..., None]
+    cy = rboxes4[..., 1] * s + oy[..., None]
+    w, h, ang = rboxes4[..., 2] * s, rboxes4[..., 3] * s, rboxes4[..., 4]
+    ca, sa = torch.cos(ang), torch.sin(ang)
+    ex = torch.stack([ca, sa], dim=-1) * w[..., None] * 0.5
+    ey = torch.stack([-sa, ca], dim=-1) * h[..., None] * 0.5
+    ctr = torch.stack([cx, cy], dim=-1)
+    corners = torch.stack([ctr - ex - ey, ctr + ex - ey, ctr + ex + ey, ctr - ex + ey], dim=-2)
+    ph = torch.cat([corners - offs, torch.ones_like(corners[..., :1])], dim=-1)
+    out = ph @ a.transpose(1, 2)[:, None, None]
+    p = out[..., :2] / out[..., 2:3]  # (B, n, M, 4, 2)
+    e1, e2 = p[..., 1, :] - p[..., 0, :], p[..., 3, :] - p[..., 0, :]
+    w_new, h_new = torch.linalg.vector_norm(e1, dim=-1), torch.linalg.vector_norm(e2, dim=-1)
+    ang_mod = torch.remainder(torch.atan2(e1[..., 1], e1[..., 0]), math.pi)
+    swap = ang_mod >= math.pi / 2
+    w_c, h_c = torch.where(swap, h_new, w_new), torch.where(swap, w_new, h_new)
+    ang_c = torch.where(swap, ang_mod - math.pi / 2, ang_mod)
+    ctr_new = p.mean(dim=-2)
+    keep = ((w_new > 2) & (h_new > 2) & (ctr_new[..., 0] > 0) & (ctr_new[..., 0] < s)
+            & (ctr_new[..., 1] > 0) & (ctr_new[..., 1] < s))
+    rb = torch.stack([ctr_new[..., 0] / s, ctr_new[..., 1] / s, w_c / s, h_c / s, ang_c], dim=-1)
+    return rb.reshape(b, n_src * m, 5), keep
+
+
+def flip_rbox_angle(rboxes: torch.Tensor, do_flip: torch.Tensor) -> torch.Tensor:
+    """Mirror rotated boxes (B, M, 5) with angles in [0, pi/2) where do_flip
+    (B,): the angle a becomes (-a) mod pi/2, and for a > 0, which crosses the
+    seam, w and h swap (the mirrored width axis is the old height axis)."""
+    a = rboxes[..., 4]
+    f = do_flip[:, None]
+    recanon = f & (a > 1e-7)
+    out = rboxes.clone()
+    out[..., 2] = torch.where(recanon, rboxes[..., 3], rboxes[..., 2])
+    out[..., 3] = torch.where(recanon, rboxes[..., 2], rboxes[..., 3])
+    out[..., 4] = torch.where(f, torch.remainder(-a, math.pi / 2), a)
+    return out
+
+
 def warp(images: torch.Tensor, boxes: torch.Tensor, valid: torch.Tensor, prm: AugParams,
-         s: int):
+         s: int, keypoints: torch.Tensor | None = None, rboxes: torch.Tensor | None = None):
     """Place and warp each output image from its n_src sources (JAX's _warp_one,
     batched): mosaic4 when prm.sel holds four sources, else single-source.
     images (N, S, S, 3) uint8; boxes (B, n_src, M, 4) normalised xywh and
-    valid (B, n_src, M) of the selected sources. The separable sampler runs
-    when every drawn homography is axis-aligned, the gather otherwise.
-    Returns (img (B, S, S, 3) in 0..255, boxes (B, n_src*M, 4), valid (B, n_src*M))."""
+    valid (B, n_src, M) of the selected sources, and their keypoints
+    (B, n_src, M, K, 3) or rotated boxes (B, n_src, M, 5) when given. The
+    separable sampler runs when every drawn homography is axis-aligned, the
+    gather otherwise. Returns (img (B, S, S, 3) in 0..255, boxes (B, n_src*M,
+    4), valid (B, n_src*M), the warped keypoints or rotated boxes or None);
+    with rotated boxes, valid is theirs."""
     b, n_src, m = valid.shape
     dev = images.device
     mosaic = n_src == 4
@@ -384,7 +460,13 @@ def warp(images: torch.Tensor, boxes: torch.Tensor, valid: torch.Tensor, prm: Au
     keep = (w_new > 2) & (h_new > 2) & (area_ratio > 0.10) & (aspect < 100)
     boxes_out = torch.stack([(nx1 + nx2) / 2 / s, (ny1 + ny2) / 2 / s, w_new / s, h_new / s],
                             dim=-1).reshape(b, n_src * m, 4)
-    return img, boxes_out, (valid & keep).reshape(b, n_src * m)
+    valid_out, extra = valid & keep, None
+    if keypoints is not None:
+        extra = warp_kpts(keypoints, oy, ox, a, offs, s, valid_out)
+    if rboxes is not None:
+        extra, rkeep = warp_rboxes(rboxes, oy, ox, a, offs, s)
+        valid_out = valid & rkeep
+    return img, boxes_out, valid_out.reshape(b, n_src * m), extra
 
 
 def rgb_to_hsv(rgb: torch.Tensor) -> torch.Tensor:
@@ -426,23 +508,30 @@ def hsv_aug(img01: torch.Tensor, gains: torch.Tensor) -> torch.Tensor:
 
 def augment_apply(images: torch.Tensor, cls: torch.Tensor, bboxes: torch.Tensor,
                   mask: torch.Tensor, prm: AugParams, imgsz: int,
-                  masks: torch.Tensor | None = None):
-    """Apply drawn parameters (JAX's _augment_impl, detect and segment
-    labels); what runs follows from them alone: mosaic4 for four sources per
-    image, each stage whose parameters were drawn.
+                  masks: torch.Tensor | None = None, keypoints: torch.Tensor | None = None,
+                  rboxes: torch.Tensor | None = None):
+    """Apply drawn parameters (JAX's _augment_impl); what runs follows from
+    them alone: mosaic4 for four sources per image, each stage whose
+    parameters were drawn.
 
     images (B, S, S, 3) uint8; cls (B, M); bboxes (B, M, 4) normalised xywh;
-    mask (B, M); masks (B, M, Sm, Sm) 0/1 instance masks or None. Returns
+    mask (B, M); at most one of masks (B, M, Sm, Sm) 0/1 instance masks,
+    keypoints (B, M, K, 3) in letterbox pixels and rboxes (B, M, 5). Returns
     (img01 (B, S, S, 3) f32 in [0, 1], cls (B, M'), bboxes (B, M', 4), mask
     (B, M') f32), M' = n_src * M, twice that with mixup or copy-paste, and
-    with masks the warped masks (B, M', Sm, Sm) last.
+    the warped masks (B, M', Sm, Sm), keypoints (B, M', K, 3) or rotated
+    boxes (B, M', 5) last when given.
     """
     b, m = cls.shape
     sel = prm.sel
     n_src = sel.shape[1]
     boxes4, valid4 = bboxes[sel], mask[sel] > 0  # (B, n, M, 4), (B, n, M)
     cls4 = cls[sel].reshape(b, n_src * m)
-    img, boxes_out, valid = warp(images, boxes4, valid4, prm, imgsz)
+    img, boxes_out, valid, extra = warp(
+        images, boxes4, valid4, prm, imgsz, None if keypoints is None else keypoints[sel].float(),
+        None if rboxes is None else rboxes[sel].float())
+    kpts_out = extra if keypoints is not None else None
+    rboxes_out = extra if rboxes is not None else None
     masks_out = None
     if masks is not None:
         a_inv = torch.linalg.inv(prm.affine.float()).to(images.device)
@@ -465,8 +554,13 @@ def augment_apply(images: torch.Tensor, cls: torch.Tensor, bboxes: torch.Tensor,
                                                 boxes_out[..., coord])
             if masks_out is not None:
                 masks_out = torch.where(g[..., None, None], masks_out.flip(dim + 1), masks_out)
+            if rboxes_out is not None:
+                rboxes_out = rboxes_out.clone()
+                rboxes_out[..., coord] = torch.where(g, 1.0 - rboxes_out[..., coord],
+                                                     rboxes_out[..., coord])
+                rboxes_out = flip_rbox_angle(rboxes_out, gate.to(rboxes_out.device))
 
-    if prm.mixup is not None and masks_out is None:  # mix each image with the next one
+    if prm.mixup is not None and extra is None and masks_out is None:  # each with the next
         other = torch.roll(torch.arange(b, device=img01.device), -1)
         lam = prm.mixup_lam.to(img01.dtype)[:, None, None, None]
         mixed = lam * img01 + (1 - lam) * img01[other]
@@ -480,13 +574,20 @@ def augment_apply(images: torch.Tensor, cls: torch.Tensor, bboxes: torch.Tensor,
     boxes_out = boxes_out * valid[..., None]
     if masks_out is not None:
         return img01, cls4, boxes_out, valid.float(), masks_out * valid[:, :, None, None]
+    if kpts_out is not None:
+        return img01, cls4, boxes_out, valid.float(), kpts_out
+    if rboxes_out is not None:
+        return img01, cls4, boxes_out, valid.float(), rboxes_out * valid[..., None]
     return img01, cls4, boxes_out, valid.float()
 
 
 def augment_batch(images: torch.Tensor, cls: torch.Tensor, bboxes: torch.Tensor,
                   mask: torch.Tensor, gen: torch.Generator, imgsz: int, hyp: dict,
-                  mosaic: bool = True, masks: torch.Tensor | None = None):
+                  mosaic: bool = True, masks: torch.Tensor | None = None,
+                  keypoints: torch.Tensor | None = None, rboxes: torch.Tensor | None = None):
     """Draw one step's parameters from `gen` and apply them on images' device."""
     prm = sample_params(images.shape[0], imgsz, hyp, mosaic, gen,
-                        m=cls.shape[1] if masks is not None else 0)
-    return augment_apply(images, cls, bboxes, mask, prm.to(images.device), imgsz, masks)
+                        m=cls.shape[1] if masks is not None else 0,
+                        keypoints=keypoints is not None)
+    return augment_apply(images, cls, bboxes, mask, prm.to(images.device), imgsz, masks,
+                         keypoints, rboxes)

@@ -1,6 +1,6 @@
 """Dataset converters (edgeyolo_tpu/data/converter.py): COCO JSON -> YOLO txt,
 VOC XML -> YOLO txt, the COCO 80 <-> 91 class maps, and train/val splitting.
-Host tooling, no device. The DOTA tiler waits for the OBB task (ROADMAP A.10.3).
+Host tooling, no device; and the DOTA sliding-window tiler of the obb task.
 """
 
 from __future__ import annotations
@@ -121,3 +121,39 @@ def split_train_val(dataset_root: str | Path, val_fraction: float = 0.2, seed: i
             if lbl.exists():
                 shutil.move(str(lbl), root / "labels" / split / lbl.name)
     LOGGER.info(f"split_train_val: {len(imgs) - n_val} train / {n_val} val")
+
+
+def _poly_area(p: np.ndarray) -> float:
+    x, y = p[:, 0], p[:, 1]
+    return 0.5 * abs(np.dot(x, np.roll(y, 1)) - np.dot(y, np.roll(x, 1)))
+
+
+def split_dota_image(img: np.ndarray, labels: np.ndarray, crop: int = 1024, gap: int = 200,
+                     area_thr: float = 0.7):
+    """DOTA's sliding-window tiling of one large image and its 8-coordinate
+    obb labels (N, 9) [cls, x1, y1, ..., x4, y4] in pixels: windows of
+    `crop` px every crop - gap px, the last flush with the far border. A
+    label is kept in a window when its corners clipped to the window keep
+    area_thr of its area. Yields (window image, its labels (n, 9) normalised
+    to the window, (x0, y0)); the validator's merged DOTA pass moves tile
+    predictions back by that origin."""
+    h, w = img.shape[:2]
+    step = crop - gap
+    xs = list(range(0, max(w - crop, 0) + 1, step)) or [0]
+    ys = list(range(0, max(h - crop, 0) + 1, step)) or [0]
+    if xs[-1] + crop < w:
+        xs.append(w - crop)
+    if ys[-1] + crop < h:
+        ys.append(h - crop)
+    for y0 in ys:
+        for x0 in xs:
+            x1, y1 = min(x0 + crop, w), min(y0 + crop, h)
+            keep = []
+            for lab in labels:
+                pts = lab[1:9].reshape(4, 2)
+                clipped = np.clip(pts, [x0, y0], [x1 - 1, y1 - 1])
+                a0 = _poly_area(pts)
+                if a0 > 0 and _poly_area(clipped) / a0 >= area_thr:
+                    loc = (clipped - [x0, y0]) / np.array([x1 - x0, y1 - y0], np.float64)
+                    keep.append(np.concatenate([[lab[0]], loc.reshape(-1)]))
+            yield img[y0:y1, x0:x1], np.asarray(keep, np.float32).reshape(-1, 9), (x0, y0)

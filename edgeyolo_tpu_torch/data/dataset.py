@@ -1,5 +1,5 @@
-"""YOLO-format dataset and loader (edgeyolo_tpu/data/dataset.py), detect and
-segment tasks.
+"""YOLO-format dataset and loader (edgeyolo_tpu/data/dataset.py): the detect,
+segment, pose and obb tasks.
 
 File scanning with `fraction`, a header check of every image, label parsing
 with the JSON label cache (the JAX package's file name, format and `sig`, so
@@ -14,6 +14,17 @@ class filter keeps them aligned), and the cache records the task. Each
 sample then carries `masks` (max_gt, H / mask_ratio, W / mask_ratio), the
 polygons rasterised as JAX's cv2 path does (data/rasterize.py) and made
 exclusive where they overlap.
+
+With task="pose" a line `cls x y w h` + K x D keypoint values (kpt_shape
+(K, D), D = 2 lines getting visibility 2) carries each instance's
+keypoints (zeros for a box-only line, so they stay aligned with the
+classes); a sample's `keypoints` (max_gt, K, 3) are in letterbox pixels.
+With task="obb" each line is a polygon (a box-only line its corners), and
+a sample carries `rboxes` (max_gt, 5): the minimum-area rectangle of the
+polygon fitted in the original image's pixels (`poly2rbox`, rotating
+calipers over the convex hull, angle in [-pi/4, 3pi/4) with w >= h), then
+mapped through the letterbox and normalised by the canvas, and
+`rboxes_ori` (max_gt, 5), the same rectangles in original pixels.
 
 Batches have fixed shapes: images (B, imgsz, imgsz, 3) uint8 (or one rect
 canvas per batch), and labels padded to the dataset's `max_gt` with a
@@ -81,10 +92,11 @@ class YOLODataset:
     def __init__(self, img_path: str, imgsz: int = 640, augment: bool = False, rect: bool = False,
                  single_cls: bool = False, classes=None, fraction: float = 1.0,
                  names: dict | None = None, cache: bool | str = False, task: str = "detect",
-                 mask_ratio: int = 4):
-        if task not in ("detect", "segment"):
+                 mask_ratio: int = 4, kpt_shape=(17, 3)):
+        if task not in ("detect", "segment", "pose", "obb"):
             raise NotImplementedError(f"dataset task '{task}' is not ported yet (ROADMAP A.10.3)")
         self.task, self.mask_ratio = task, int(mask_ratio)
+        self.kpt_shape = tuple(int(k) for k in kpt_shape)
         self.img_path = img_path
         self.imgsz = imgsz
         self.augment = augment
@@ -157,19 +169,23 @@ class YOLODataset:
             try:
                 d = json.loads(cache.read_text())
                 if d.get("sig") == sig and d.get("task") == self.task:
+                    k = self.kpt_shape[0]
                     return [{"cls": np.asarray(lab["cls"], np.float32),
                              "bboxes": np.asarray(lab["bboxes"], np.float32).reshape(-1, 4),
                              "segments": [np.asarray(sg, np.float32).reshape(-1, 2)
-                                          for sg in lab.get("segments", [])]}
+                                          for sg in lab.get("segments", [])],
+                             "keypoints": np.asarray(lab.get("keypoints") or [],
+                                                     np.float32).reshape(-1, k, 3)}
                             for lab in d["labels"]]
             except (ValueError, KeyError, TypeError) as e:
                 LOGGER.warning(f"ignoring unreadable label cache {cache}: {e}")
         labels = []
         nm = nf = ne = nch = 0
-        seg_task = self.task == "segment"
+        poly_task = self.task in ("segment", "obb")
+        k, dims = self.kpt_shape
         for f in self.im_files:
             lp = img2label_path(f)
-            cls, boxes, segments = [], [], []
+            cls, boxes, segments, kpts = [], [], [], []
             if os.path.exists(lp):
                 for line in Path(lp).read_text().splitlines():
                     parts = line.split()
@@ -177,8 +193,13 @@ class YOLODataset:
                         continue
                     c = float(parts[0])
                     vals = [float(x) for x in parts[1:]]
-                    seg = None
-                    if len(vals) > 5 and len(vals) % 2 == 0:  # a polygon: its box
+                    seg = kp = None
+                    if self.task == "pose" and len(vals) == 4 + k * dims:
+                        b = vals[:4]
+                        kp = np.asarray(vals[4:], np.float32).reshape(k, dims)
+                        if dims == 2:
+                            kp = np.concatenate([kp, np.full((k, 1), 2, np.float32)], 1)
+                    elif len(vals) > 5 and len(vals) % 2 == 0:  # a polygon: its box
                         seg = np.asarray(vals, np.float32).reshape(-1, 2)
                         x1, y1 = seg[:, 0].min(), seg[:, 1].min()
                         x2, y2 = seg[:, 0].max(), seg[:, 1].max()
@@ -188,7 +209,9 @@ class YOLODataset:
                     if all(0 <= v <= 1.001 for v in b) and b[2] > 0 and b[3] > 0:
                         cls.append(c)
                         boxes.append(b)
-                        if seg_task:  # a box-only line: its corners, so segments align
+                        if self.task == "pose":  # zeros for a box-only line, so they align
+                            kpts.append(kp if kp is not None else np.zeros((k, 3), np.float32))
+                        if poly_task:  # a box-only line: its corners, so segments align
                             segments.append(seg if seg is not None else np.asarray(
                                 [[b[0] - b[2] / 2, b[1] - b[3] / 2],
                                  [b[0] + b[2] / 2, b[1] - b[3] / 2],
@@ -204,7 +227,8 @@ class YOLODataset:
                 nm += 1
             labels.append({"cls": np.asarray(cls, np.float32),
                            "bboxes": np.asarray(boxes, np.float32).reshape(-1, 4),
-                           "segments": segments})
+                           "segments": segments,
+                           "keypoints": np.asarray(kpts, np.float32).reshape(-1, k, 3)})
         LOGGER.info(f"dataset {self.img_path}: {len(self.im_files)} images, {nf} labelled, "
                     f"{ne} empty, {nm} missing labels, {nch} corrupt boxes dropped")
         try:
@@ -212,7 +236,7 @@ class YOLODataset:
                 "sig": sig, "task": self.task,
                 "labels": [{"cls": lab["cls"].tolist(), "bboxes": lab["bboxes"].tolist(),
                             "segments": [sg.tolist() for sg in lab["segments"]],
-                            "keypoints": []} for lab in labels]}))
+                            "keypoints": lab["keypoints"].tolist()} for lab in labels]}))
         except OSError as e:
             LOGGER.warning(f"label cache not written ({e})")
         return labels
@@ -223,6 +247,8 @@ class YOLODataset:
             m = np.isin(lab["cls"], keep)
             if len(lab["segments"]) == len(lab["cls"]):  # keep them aligned with cls
                 lab["segments"] = [sg for sg, k in zip(lab["segments"], m) if k]
+            if len(lab["keypoints"]) == len(lab["cls"]):
+                lab["keypoints"] = lab["keypoints"][m]
             lab["cls"], lab["bboxes"] = lab["cls"][m], lab["bboxes"][m]
 
     def set_rectangle(self, batch_size: int):
@@ -314,6 +340,22 @@ class YOLODataset:
         if self.task == "segment":
             item["masks"] = polygon_masks(lab["segments"], n, w0, h0, r, pw, ph, H, W,
                                           self.mask_ratio, self.max_gt)
+        elif self.task == "pose":
+            pk = np.zeros((self.max_gt, self.kpt_shape[0], 3), np.float32)
+            kp = lab["keypoints"][:n].copy()
+            kp[..., 0] = kp[..., 0] * w0 * r + pw  # into letterbox pixels
+            kp[..., 1] = kp[..., 1] * h0 * r + ph
+            pk[:len(kp)] = kp
+            item["keypoints"] = pk
+        elif self.task == "obb":
+            pr = np.zeros((self.max_gt, 5), np.float32)  # letterbox, normalised by the canvas
+            pr_ori = np.zeros((self.max_gt, 5), np.float32)  # original pixels
+            for j, poly in enumerate(lab["segments"][:n]):
+                rb = poly2rbox(poly * np.asarray([w0, h0], np.float32))
+                pr_ori[j] = rb
+                pr[j] = [(rb[0] * r + pw) / W, (rb[1] * r + ph) / H, rb[2] * r / W, rb[3] * r / H,
+                         rb[4]]
+            item["rboxes"], item["rboxes_ori"] = pr, pr_ori
         return item
 
 
@@ -353,8 +395,9 @@ class DataLoader:
                  "bboxes": np.stack([it["bboxes"] for it in items]),
                  "mask_gt": np.stack([it["mask_gt"] for it in items]),
                  "n_real": n_real, "meta": items}
-        if "masks" in items[0]:
-            batch["masks"] = np.stack([it["masks"] for it in items])
+        for extra in ("masks", "keypoints", "rboxes"):
+            if extra in items[0]:
+                batch[extra] = np.stack([it[extra] for it in items])
         return batch
 
     def first_batch(self) -> dict:
@@ -402,3 +445,58 @@ class DataLoader:
 
 def build_dataloader(dataset, batch_size, shuffle=True, seed=0):
     return DataLoader(dataset, batch_size, shuffle=shuffle, seed=seed)
+
+
+def convex_hull(pts: np.ndarray) -> np.ndarray:
+    """Andrew's monotone chain: points (N, 2) -> hull (M, 2), counter-clockwise."""
+    pts = np.unique(pts, axis=0)
+    if len(pts) <= 2:
+        return pts
+    pts = pts[np.lexsort((pts[:, 1], pts[:, 0]))]
+
+    def cross(a, b):
+        return a[0] * b[1] - a[1] * b[0]
+
+    def half(seq):
+        out = []
+        for p in seq:
+            while len(out) >= 2 and cross(out[-1] - out[-2], p - out[-2]) <= 0:
+                out.pop()
+            out.append(p)
+        return out
+
+    return np.asarray(half(pts)[:-1] + half(pts[::-1])[:-1])
+
+
+def poly2rbox(poly: np.ndarray) -> np.ndarray:
+    """A polygon in pixels -> its minimum-area rectangle (cx, cy, w, h, r),
+    by rotating calipers over the convex hull (JAX's `_poly2rbox`, the numpy
+    form of cv2.minAreaRect); w >= h and r in [-pi/4, 3pi/4)."""
+    p = poly.reshape(-1, 2).astype(np.float64)
+    hull = convex_hull(p)
+    if len(hull) < 3:  # a line or a point
+        c, d = p.mean(0), p.max(0) - p.min(0)
+        return np.asarray([c[0], c[1], max(d[0], 1e-6), max(d[1], 1e-6), 0.0], np.float32)
+    best = None
+    n = len(hull)
+    for i in range(n):
+        e = hull[(i + 1) % n] - hull[i]
+        norm = np.hypot(e[0], e[1])
+        if norm < 1e-12:
+            continue
+        ux, uy = e / norm  # the edge's direction
+        rot = np.asarray([[ux, uy], [-uy, ux]])  # turns the edge onto +x
+        q = hull @ rot.T
+        mn, mx = q.min(0), q.max(0)
+        w, h = mx - mn
+        if best is None or w * h < best[0]:
+            cx, cy = (mn + mx) / 2 @ rot
+            best = (w * h, cx, cy, w, h, np.arctan2(uy, ux))
+    _, cx, cy, w, h, r = best
+    if w < h:
+        w, h, r = h, w, r + np.pi / 2
+    while r >= 3 * np.pi / 4:
+        r -= np.pi
+    while r < -np.pi / 4:
+        r += np.pi
+    return np.asarray([cx, cy, w, h, r], np.float32)

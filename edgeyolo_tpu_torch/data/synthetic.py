@@ -1,4 +1,5 @@
-"""Synthetic dataset generator (edgeyolo_tpu/data/synthetic.py), detect and segment tasks.
+"""Synthetic dataset generator (edgeyolo_tpu/data/synthetic.py): the detect,
+segment, pose and obb tasks.
 
 Coloured shapes on noise backgrounds with exact YOLO-format labels, so the
 train, val and predict paths run with no download. Class mapping:
@@ -9,7 +10,8 @@ For a seed the draws are the JAX generator's: the same
 `np.random.RandomState(seed)` calls in the same order, so the label files
 and `dataset.yaml` are byte-identical to what the JAX package writes. The
 shapes are rasterised here in numpy (PIL's ImageDraw is not on the card's
-machine) and the images are written as PNG, where JAX writes JPEG.
+machine; the obb task's rotated shapes through `fill_poly`) and the images
+are written as PNG, where JAX writes JPEG.
 
 `moving_shapes` draws the same shapes moving across a video's frames, and
 `write_mjpeg_avi` writes frames as an MJPEG AVI on the port's JPEG encoder:
@@ -24,6 +26,7 @@ from pathlib import Path
 import numpy as np
 
 from edgeyolo_tpu_torch.data.imageio import encode_jpeg, save_png
+from edgeyolo_tpu_torch.data.rasterize import fill_poly
 
 PALETTE = [(220, 40, 40), (40, 180, 60), (50, 80, 220), (230, 200, 40), (160, 60, 200)]
 _SHAPES = ("rectangle", "ellipse", "cross")
@@ -80,6 +83,41 @@ def draw_shape(img, c: int, x1, y1, x2, y2):
     else:
         draw_cross(img, x1, y1, x2, y2, color, max(3, int((y2 - y1) / 5)),
                    max(3, int((x2 - x1) / 5)))
+
+
+def polygon_mask(shape, pts) -> np.ndarray:
+    """(H, W) bool: the polygon of (x, y) vertices pts, rounded to pixels, filled."""
+    pts = np.round(np.asarray(pts)).astype(np.int32)
+    return fill_poly(np.zeros(shape[:2], np.uint8), pts) > 0
+
+
+def draw_rotated(img, c: int, cx, cy, w, h, theta):
+    """Class c's shape rotated by theta about (cx, cy): a filled rectangle with
+    a white rim, a diamond in a white frame, or a cross of two bars. Returns
+    its four corners (going along the width first)."""
+    ct, st = np.cos(theta), np.sin(theta)
+
+    def rot(pts):
+        return [(cx + dx * ct - dy * st, cy + dx * st + dy * ct) for dx, dy in pts]
+
+    def rect(hw, hh):
+        return rot([(-hw, -hh), (hw, -hh), (hw, hh), (-hw, hh)])
+
+    color = PALETTE[c % len(PALETTE)]
+    if c % 3 < 2:
+        outer = polygon_mask(img.shape, rect(w / 2, h / 2))
+        inner = polygon_mask(img.shape, rect(w / 2 - 1, h / 2 - 1))
+        img[outer & ~inner] = WHITE
+        if c % 3 == 0:
+            img[inner] = color
+        else:
+            img[polygon_mask(img.shape, rot([(0, -h / 2), (w / 2, 0), (0, h / 2),
+                                              (-w / 2, 0)]))] = color
+    else:
+        t_h, t_v = max(3, int(h / 5)), max(3, int(w / 5))
+        img[polygon_mask(img.shape, rect(w / 2, t_h / 2))
+            | polygon_mask(img.shape, rect(t_v / 2, h / 2))] = color
+    return rect(w / 2, h / 2)
 
 
 def moving_shapes(n_frames: int, height: int, width: int, n_objs: int = 3, nc: int = 3,
@@ -158,8 +196,10 @@ def generate_dataset(root: str | Path, n_train: int = 16, n_val: int = 8, imgsz:
     """Create {root}/{images,labels}/{train,val} and dataset.yaml; returns the yaml path.
 
     task "detect" writes xywh labels, "segment" each shape's box-corner
-    polygon (JAX's segment labels)."""
-    if task not in ("detect", "segment"):
+    polygon, "pose" xywh and 5 keypoints (the corners, then the centre; the
+    yaml names kpt_shape [5, 3] and flip_idx), "obb" the 4 corners of a
+    shape rotated by up to pi/3 either way: JAX's labels, draw for draw."""
+    if task not in ("detect", "segment", "pose", "obb"):
         raise NotImplementedError(f"synthetic task '{task}' is not ported yet (ROADMAP A.10.3)")
     root = Path(root)
     rng = np.random.RandomState(seed)
@@ -174,6 +214,15 @@ def generate_dataset(root: str | Path, n_train: int = 16, n_val: int = 8, imgsz:
                 w = rng.uniform(min_size, max_size) * imgsz
                 h = rng.uniform(min_size, max_size) * imgsz
                 color = PALETTE[c % len(PALETTE)]
+                S = imgsz
+                if task == "obb":
+                    theta = rng.uniform(-np.pi / 3, np.pi / 3)
+                    r = float(np.hypot(w, h)) / 2
+                    cx = rng.uniform(r + 2, imgsz - r - 2)
+                    cy = rng.uniform(r + 2, imgsz - r - 2)
+                    corners = draw_rotated(img, c, cx, cy, w, h, theta)
+                    lines.append(f"{c} " + " ".join(f"{v/S:.6f}" for xy in corners for v in xy))
+                    continue
                 cx = rng.uniform(w / 2 + 2, imgsz - w / 2 - 2)
                 cy = rng.uniform(h / 2 + 2, imgsz - h / 2 - 2)
                 x1, y1, x2, y2 = cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2
@@ -183,16 +232,21 @@ def generate_dataset(root: str | Path, n_train: int = 16, n_val: int = 8, imgsz:
                     draw_ellipse(img, x1, y1, x2, y2, color)
                 else:
                     draw_cross(img, x1, y1, x2, y2, color, max(3, int(h / 5)), max(3, int(w / 5)))
-                S = imgsz
                 if task == "segment":
                     pts = " ".join(f"{v/S:.6f}" for v in (x1, y1, x2, y1, x2, y2, x1, y2))
                     lines.append(f"{c} {pts}")
+                elif task == "pose":
+                    kpts = [(x1, y1), (x2, y1), (x2, y2), (x1, y2), (cx, cy)]
+                    ks = " ".join(f"{px/S:.6f} {py/S:.6f} 2" for px, py in kpts)
+                    lines.append(f"{c} {cx/S:.6f} {cy/S:.6f} {w/S:.6f} {h/S:.6f} {ks}")
                 else:
                     lines.append(f"{c} {cx/S:.6f} {cy/S:.6f} {w/S:.6f} {h/S:.6f}")
             save_png(root / "images" / split / f"{split}_{i:04d}.png", img)
             (root / "labels" / split / f"{split}_{i:04d}.txt").write_text("\n".join(lines) + "\n")
     yaml_path = root / "dataset.yaml"
     names = "\n".join(f"  {i}: {n}" for i, n in enumerate(class_names(nc)))
-    yaml_path.write_text(
-        f"path: {root.resolve()}\ntrain: images/train\nval: images/val\nnc: {nc}\nnames:\n{names}\n")
+    # the corners (TL, TR, BR, BL) and the centre; a left-right flip swaps TL-TR and BL-BR
+    extra = "kpt_shape: [5, 3]\nflip_idx: [1, 0, 3, 2, 4]\n" if task == "pose" else ""
+    yaml_path.write_text(f"path: {root.resolve()}\ntrain: images/train\nval: images/val\n"
+                         f"nc: {nc}\nnames:\n{names}\n{extra}")
     return yaml_path

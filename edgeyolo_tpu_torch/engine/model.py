@@ -1,17 +1,20 @@
-"""The YOLO facade (edgeyolo_tpu/engine/model.py), detect and segment tasks.
+"""The YOLO facade (edgeyolo_tpu/engine/model.py): the detect, segment, pose
+and obb tasks.
 
     YOLO("edgeline-yolo.yaml")        # a model name (cfg/models.py), seeded weights
     YOLO("yolo11n-seg.yaml")          # a segment model (its head names the task)
+    YOLO("yolo11n-pose.yaml")         # a pose model; "yolo11n-obb.yaml" an obb one
     YOLO("runs/detect/train/best.pt") # a port checkpoint (train/trainer.py)
 
-The task is the model's (a Segment head makes "segment"); `task=` may name
-it, and must agree. Each task has its trainer loss, validator and predictor
-(`TASK_MAP`); pose, obb and classify are not ported (ROADMAP A.10.3).
+The task is the model's (a Segment, Pose or OBB head makes "segment",
+"pose" or "obb"); `task=` may name it, and must agree. Each task has its
+trainer loss, validator and predictor (`TASK_MAP`); classify is not ported
+(ROADMAP A.10.3).
 
 `train`, `val`, `predict` and `track` take the keys of cfg/__init__.py's
 defaults (method kwargs > the handle's overrides > defaults). `train` on a
 model with no trained weights rebuilds its head for the dataset's class
-count. `predict` keeps its predictor (and so its save directory) while the
+count, and a pose head for the dataset's `kpt_shape`. `predict` keeps its predictor (and so its save directory) while the
 arguments stay the same, as JAX's facade does; `track` runs it with a
 ByteTrack or BoT-SORT tracker over the frames. Every mode runs on CUDA
 unless `device` names another device ("cpu").
@@ -31,7 +34,9 @@ from edgeyolo_tpu_torch.utils import LOGGER, select_device
 
 # task -> (validator, predictor) class names in engine/validator.py and engine/predictor.py
 TASK_MAP = {"detect": ("DetectionValidator", "DetectionPredictor"),
-            "segment": ("SegmentationValidator", "SegmentationPredictor")}
+            "segment": ("SegmentationValidator", "SegmentationPredictor"),
+            "pose": ("PoseValidator", "PosePredictor"),
+            "obb": ("OBBValidator", "OBBPredictor")}
 
 
 class YOLO:
@@ -40,8 +45,8 @@ class YOLO:
     def __init__(self, model: str | Path = "edgeline-yolo.yaml", task: str | None = None,
                  device: str | torch.device | None = None):
         if task not in (None, *TASK_MAP):
-            raise NotImplementedError(f"task '{task}' is not ported yet (ROADMAP A.10.3: pose, "
-                                      "obb and classify)")
+            raise NotImplementedError(f"task '{task}' is not ported yet (ROADMAP A.10.3: "
+                                      "classify)")
         self.overrides: dict = {}
         self.device = select_device(device)
         self.ckpt_path = None
@@ -70,7 +75,8 @@ class YOLO:
             meta = json.loads(side.read_text())
         self.model_name = meta.get("model_yaml") or "edgeline-yolo.yaml"
         self.model = DetectionModel(self.model_name, scale=meta.get("scale") or None,
-                                    nc=meta.get("nc"), device="cpu")
+                                    nc=meta.get("nc"), kpt_shape=meta.get("kpt_shape"),
+                                    device="cpu")
         load_checkpoint(self.model, path)
         self.model.to(self.device)
         self.ckpt_path, self.trained = path, True
@@ -105,11 +111,17 @@ class YOLO:
         args = self._args("train", kwargs)
         if not args.data:
             raise ValueError("train() requires data=<dataset.yaml>")
-        nc = int(check_det_dataset(args.data)["nc"])
-        if not self.trained and nc != self.model.nc:
-            LOGGER.info(f"rebuilding the model head for dataset nc={nc} (was {self.model.nc})")
+        data_cfg = check_det_dataset(args.data)
+        nc = int(data_cfg["nc"])
+        # a pose dataset's kpt_shape replaces the spec's (the reference PoseTrainer's)
+        kpt = data_cfg.get("kpt_shape") if self.task == "pose" else None
+        kpt = tuple(int(k) for k in kpt) if kpt else self.model.kpt_shape
+        if not self.trained and (nc != self.model.nc or kpt != self.model.kpt_shape):
+            LOGGER.info(f"rebuilding the model head for dataset nc={nc} (was {self.model.nc})"
+                        + (f", kpt_shape={list(kpt)} (was {list(self.model.kpt_shape)})"
+                           if kpt != self.model.kpt_shape else ""))
             self.model = DetectionModel(self.model_name, scale=self.model.scale, nc=nc,
-                                        seed=int(args.seed), device=self.device)
+                                        kpt_shape=kpt, seed=int(args.seed), device=self.device)
         if args.resume is True:  # continue in the run's own directory, from its last.pt
             save_dir = Path(args.project or Path("runs") / args.task) / (args.name or "train")
         else:
@@ -180,9 +192,10 @@ class YOLO:
         dst = Path(filename)
         dst.parent.mkdir(parents=True, exist_ok=True)
         sd = {k: v.detach().cpu().clone() for k, v in self.model.state_dict().items()}
+        kpt = self.model.kpt_shape
         meta = {"epoch": -1, "best_fitness": 0.0, "model_yaml": self.model_name, "task": self.task,
                 "scale": self.model.scale, "nc": self.model.nc, "names": dict(self.model.names),
-                "train_args": {}}
+                "kpt_shape": list(kpt) if kpt else None, "train_args": {}}
         torch.save({"model": sd, "ema": sd, "meta": meta}, dst)
         dst.with_suffix(".json").write_text(json.dumps(meta, default=str))
         return dst

@@ -40,8 +40,17 @@ max_det, h, w) at the prototype grid: the kept anchors' coefficients
 against the prototypes, sigmoid, cropped to the boxes (ops/segments.py);
 each frame's masks are taken out of the letterbox by the pad scaled to the
 grid and resized bilinearly to the frame, then cut at 0.5, into
-`Results.masks`. Test-time augmentation is single-scale for it, with a
-warning: JAX's segment predictor has no augmented path (ROADMAP C.14).
+`Results.masks`.
+
+PosePredictor (JAX's): the kept anchors' keypoints, gathered after the NMS,
+(B, max_det, K * D) in input pixels; each frame's taken back out of the
+letterbox into `Results.keypoints`. OBBPredictor (JAX's): the blocked
+rotated NMS (ops/nms.py::nms_rotated) over the argmax class, (B, max_det,
+7) [cx, cy, w, h, angle, conf, cls]; each frame's centres and sizes taken
+back out of the letterbox (not clipped) into `Results.obb`.
+
+Test-time augmentation is for a detect model only: the segment, pose and
+obb predictors warn and serve single-scale, as JAX's do.
 """
 
 from __future__ import annotations
@@ -57,8 +66,8 @@ import torch.nn.functional as F
 
 from edgeyolo_tpu_torch.data.letterbox import letterbox
 from edgeyolo_tpu_torch.data.loaders import load_inference_source
-from edgeyolo_tpu_torch.engine.results import Results
-from edgeyolo_tpu_torch.ops.nms import non_max_suppression
+from edgeyolo_tpu_torch.engine.results import Keypoints, Masks, Results
+from edgeyolo_tpu_torch.ops.nms import nms_rotated, non_max_suppression
 from edgeyolo_tpu_torch.ops.resize import resize_bilinear, resize_weights  # noqa: F401
 from edgeyolo_tpu_torch.ops.segments import proto_masks, unletterbox_masks
 from edgeyolo_tpu_torch.utils import LOGGER, select_device
@@ -133,6 +142,11 @@ class DetectionPredictor:
         if augment and getattr(self.model, "end2end", False):
             LOGGER.warning("augment=True needs a head with NMS; this NMS-free head's pred is "
                            "already a selection, so prediction stays single-scale")
+            self.augment = False
+        if augment and type(self) is not DetectionPredictor:
+            LOGGER.warning(f"augment=True is available for a detect model only, not for a "
+                           f"{getattr(self.model, 'task', 'detect')} one; predicting "
+                           f"single-scale")
             self.augment = False
 
     def _nms(self, pred: torch.Tensor):
@@ -213,12 +227,9 @@ class DetectionPredictor:
                 self._visualize(img, name)
             t2 = time.perf_counter()
             det = dets[i, :int(nvalid[i])].copy()
-            if len(det):
-                det = unletterbox_boxes(det, r, *pads, img0.shape[:2])
-            res = Results(img0, path, names, boxes=det, masks=self._frame_masks(outs, i, img0, r,
-                                                                                pads, len(det)),
-                          speed={"preprocess": pre_ms, "inference": infer_ms, "postprocess": 0.0})
-            res.speed["postprocess"] = (time.perf_counter() - t2) * 1e3
+            res = self._to_results(outs, i, det, img0, path, names, r, pads)
+            res.speed = {"preprocess": pre_ms, "inference": infer_ms,
+                         "postprocess": (time.perf_counter() - t2) * 1e3}
             if self.save:
                 self.save_dir.mkdir(parents=True, exist_ok=True)
                 res.save(self.save_dir / f"{name}.jpg", **self.plot_args)
@@ -230,9 +241,13 @@ class DetectionPredictor:
                 LOGGER.info(f"{path}: {res.verbose_str} ({infer_ms:.1f}ms inference)")
             yield res
 
-    def _frame_masks(self, outs, i: int, img0: np.ndarray, r: float, pads, n: int):
-        """Frame i's masks over the original frame (the segment predictor's)."""
-        return None
+    def _to_results(self, outs, i: int, det: np.ndarray, img0: np.ndarray, path: str,
+                    names: dict, r: float, pads) -> Results:
+        """Frame i's Results from the batch's outputs and its kept rows det,
+        taken back out of the letterbox."""
+        if len(det):
+            det = unletterbox_boxes(det, r, *pads, img0.shape[:2])
+        return Results(img0, path, names, boxes=det)
 
     def stream(self, source):
         """Results, one per frame of `source`."""
@@ -258,13 +273,6 @@ class SegmentationPredictor(DetectionPredictor):
     """`predictor(images)` -> (det, n, masks (B, max_det, h, w) in [0, 1] at
     the prototype grid); `predict(source)` -> [Results] with `masks`."""
 
-    def __init__(self, model, **kwargs):
-        super().__init__(model, **kwargs)
-        if self.augment:
-            LOGGER.warning("augment=True is not available for a segment model; predicting "
-                           "single-scale")
-            self.augment = False
-
     @torch.inference_mode()
     def __call__(self, images_u8_nhwc: np.ndarray | torch.Tensor):
         x = self._input(images_u8_nhwc)
@@ -282,10 +290,66 @@ class SegmentationPredictor(DetectionPredictor):
         det[..., 1:4:2] = det[..., 1:4:2].clamp(0, h)
         return det, n, masks
 
-    def _frame_masks(self, outs, i: int, img0: np.ndarray, r: float, pads, n: int):
-        if not n:
-            return None
-        pw, ph = pads
-        pm = outs[2][i, :n]
-        s = pm.shape[1] / (img0.shape[0] * r + 2 * ph)  # the grid's share of the canvas
-        return (unletterbox_masks(pm, (pw * s, ph * s), img0.shape[:2]) > 0.5).cpu().numpy()
+    def _to_results(self, outs, i: int, det: np.ndarray, img0: np.ndarray, path: str,
+                    names: dict, r: float, pads) -> Results:
+        res = super()._to_results(outs, i, det, img0, path, names, r, pads)
+        n = len(det)
+        if n:
+            pw, ph = pads
+            pm = outs[2][i, :n]
+            s = pm.shape[1] / (img0.shape[0] * r + 2 * ph)  # the grid's share of the canvas
+            res.masks = Masks((unletterbox_masks(pm, (pw * s, ph * s), img0.shape[:2]) > 0.5)
+                              .cpu().numpy(), res.orig_shape)
+        return res
+
+
+class PosePredictor(DetectionPredictor):
+    """`predictor(images)` -> (det, n, keypoints (B, max_det, K * D) in input
+    pixels); `predict(source)` -> [Results] with `keypoints`."""
+
+    @torch.inference_mode()
+    def __call__(self, images_u8_nhwc: np.ndarray | torch.Tensor):
+        x = self._input(images_u8_nhwc)
+        h, w = x.shape[2:]
+        pred, nc = self.model(x)["pred"], self.model.nc
+        det, n, aidx = non_max_suppression(
+            pred[..., :4 + nc], conf_thres=self.conf, iou_thres=self.iou, max_det=self.max_det,
+            max_nms=self.max_nms, agnostic=self.agnostic, classes=self.classes, nc=nc,
+            return_idx=True)
+        nk = pred.shape[-1] - 4 - nc
+        kpts = pred[..., 4 + nc:].gather(1, aidx.long()[..., None].expand(-1, -1, nk))
+        det[..., 0:4:2] = det[..., 0:4:2].clamp(0, w)
+        det[..., 1:4:2] = det[..., 1:4:2].clamp(0, h)
+        return det, n, kpts
+
+    def _to_results(self, outs, i: int, det: np.ndarray, img0: np.ndarray, path: str,
+                    names: dict, r: float, pads) -> Results:
+        res = super()._to_results(outs, i, det, img0, path, names, r, pads)
+        n = len(det)
+        if n:
+            pw, ph = pads
+            pk = outs[2][i, :n].cpu().numpy().reshape(n, *self.model.kpt_shape).copy()
+            pk[..., 0] = (pk[..., 0] - pw) / r
+            pk[..., 1] = (pk[..., 1] - ph) / r
+            res.keypoints = Keypoints(pk, res.orig_shape)
+        return res
+
+
+class OBBPredictor(DetectionPredictor):
+    """`predictor(images)` -> (det (B, max_det, 7) [cx, cy, w, h, angle, conf,
+    cls], n (B,)); `predict(source)` -> [Results] with `obb`."""
+
+    @torch.inference_mode()
+    def __call__(self, images_u8_nhwc: np.ndarray | torch.Tensor):
+        return nms_rotated(self.model(self._input(images_u8_nhwc))["pred"], conf_thres=self.conf,
+                           iou_thres=self.iou, max_det=self.max_det, max_nms=self.max_nms,
+                           classes=self.classes)
+
+    def _to_results(self, outs, i: int, det: np.ndarray, img0: np.ndarray, path: str,
+                    names: dict, r: float, pads) -> Results:
+        if len(det):
+            pw, ph = pads
+            det[:, 0] = (det[:, 0] - pw) / r
+            det[:, 1] = (det[:, 1] - ph) / r
+            det[:, 2:4] = det[:, 2:4] / r
+        return Results(img0, path, names, obb=det)

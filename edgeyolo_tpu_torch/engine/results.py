@@ -1,5 +1,5 @@
-"""Prediction containers (edgeyolo_tpu/engine/results.py), detection and
-segment parts.
+"""Prediction containers (edgeyolo_tpu/engine/results.py): detection,
+segment, pose and obb parts.
 
 `Boxes` holds (N, 6) [x1, y1, x2, y2, conf, cls] rows in pixels of the
 original image, or (N, 7) with a track id after the box, with the xywh and
@@ -8,11 +8,15 @@ original image, with their outlines as polygons (`xy`, `xyn`: the numpy
 trace of ops/segments.py); `Results` holds one image's boxes (and masks)
 with `plot` (each mask blended 0.6 image + 0.4 its colour, by instance
 index, under the boxes), `save`,
-`show`, `save_txt` (a segment model's polygons), `save_crop`, `to_json`
-(with segments) and `verbose_str`. `plot` draws
-as JAX's does with PIL (utils/plotting.py: the same rectangles pixel for
-pixel, the label text in the port's bitmap font). Host numpy: the device
-work ends at the NMS output.
+`show`, `save_txt` (a segment model's polygons, a pose model's
+keypoints, an obb model's corners), `save_crop` (which warns and writes
+nothing for obb results, as JAX's), `to_json` (with segments, keypoints or
+corner points) and `verbose_str`. `Keypoints` holds (N, K, 2 | 3) pixel
+keypoints (and their visibility) and `OBB` (N, 7) [cx, cy, w, h, angle,
+conf, cls] rotated boxes with their corner views. `plot` draws as JAX's
+does with PIL (utils/plotting.py: the same rectangles, keypoint discs and
+wide-line OBB rings pixel for pixel, the label text in the port's bitmap
+font). Host numpy: the device work ends at the NMS output.
 """
 
 from __future__ import annotations
@@ -25,7 +29,8 @@ import numpy as np
 from edgeyolo_tpu_torch.data.imageio import save_jpeg, save_png
 from edgeyolo_tpu_torch.ops.segments import masks2segments
 from edgeyolo_tpu_torch.utils import LOGGER
-from edgeyolo_tpu_torch.utils.plotting import BitmapFont, rectangle, text
+from edgeyolo_tpu_torch.ops.boxes import xywhr2xyxyxyxy
+from edgeyolo_tpu_torch.utils.plotting import BitmapFont, ellipse, line, rectangle, text
 
 PALETTE = [
     (255, 56, 56), (255, 157, 151), (255, 112, 31), (255, 178, 29), (207, 210, 49),
@@ -112,29 +117,103 @@ class Masks:
         return [sg / np.asarray([w, h], np.float32) for sg in self.xy]
 
 
+class Keypoints:
+    """Pose keypoints (N, K, 2 | 3): pixel xy and, with 3, the visibility."""
+
+    def __init__(self, data: np.ndarray, orig_shape: tuple[int, int]):
+        self.data = np.asarray(data)
+        self.orig_shape = orig_shape
+
+    def __len__(self):
+        return len(self.data)
+
+    def __getitem__(self, i):
+        return Keypoints(self.data[i].reshape((-1, *self.data.shape[1:])), self.orig_shape)
+
+    @property
+    def xy(self):
+        return self.data[..., :2]
+
+    @property
+    def xyn(self):
+        h, w = self.orig_shape
+        return self.data[..., :2] / np.asarray([w, h], np.float32)
+
+    @property
+    def conf(self):
+        return self.data[..., 2] if self.data.shape[-1] == 3 else None
+
+
+class OBB:
+    """Rotated boxes (N, 7) = [cx, cy, w, h, angle (rad), conf, cls] in pixels."""
+
+    def __init__(self, data: np.ndarray, orig_shape: tuple[int, int]):
+        self.data = np.asarray(data).reshape(-1, 7)
+        self.orig_shape = orig_shape
+
+    def __len__(self):
+        return len(self.data)
+
+    def __getitem__(self, i):
+        return OBB(self.data[i], self.orig_shape)
+
+    @property
+    def xywhr(self):
+        return self.data[:, :5]
+
+    @property
+    def conf(self):
+        return self.data[:, 5]
+
+    @property
+    def cls(self):
+        return self.data[:, 6]
+
+    @property
+    def xyxyxyxy(self) -> np.ndarray:
+        """(N, 4, 2) corners, along the width first."""
+        return xywhr2xyxyxyxy(self.data[:, :5])
+
+    @property
+    def xyxyxyxyn(self) -> np.ndarray:
+        h, w = self.orig_shape
+        return self.xyxyxyxy / np.asarray([w, h], np.float32)
+
+    @property
+    def xyxy(self) -> np.ndarray:
+        """(N, 4): the corners' axis-aligned envelope."""
+        pts = self.xyxyxyxy
+        return np.concatenate([pts.min(1), pts.max(1)], -1)
+
+
 class Results:
-    """One image's detections (and instance masks)."""
+    """One image's detections (and instance masks, keypoints or rotated boxes)."""
 
     def __init__(self, orig_img: np.ndarray, path: str, names: dict,
                  boxes: np.ndarray | None = None, speed: dict | None = None,
-                 masks: np.ndarray | None = None):
+                 masks: np.ndarray | None = None, keypoints: np.ndarray | None = None,
+                 obb: np.ndarray | None = None):
         self.orig_img = orig_img
         self.orig_shape = orig_img.shape[:2]
         self.path = path
         self.names = names
         self.boxes = Boxes(boxes, self.orig_shape) if boxes is not None else None
         self.masks = Masks(masks, self.orig_shape) if masks is not None else None
+        self.keypoints = Keypoints(keypoints, self.orig_shape) if keypoints is not None else None
+        self.obb = OBB(obb, self.orig_shape) if obb is not None else None
         self.speed = speed or {}
 
     def __len__(self):
+        if self.obb is not None:
+            return len(self.obb)
         return len(self.boxes) if self.boxes is not None else 0
 
     def __getitem__(self, i):
         r = Results(self.orig_img, self.path, self.names, speed=self.speed)
-        if self.boxes is not None:
-            r.boxes = self.boxes[i]
-        if self.masks is not None:
-            r.masks = self.masks[i]
+        for attr in ("boxes", "masks", "keypoints", "obb"):
+            v = getattr(self, attr)
+            if v is not None:
+                setattr(r, attr, v[i])
         return r
 
     def update(self, boxes: np.ndarray | None = None, masks: np.ndarray | None = None):
@@ -149,7 +228,10 @@ class Results:
         """The original image with each box, its class name (and track id)
         and confidence drawn on a copy: HWC RGB uint8. Line width
         max(round((w + h) / 2 * 0.003), 2), font size max(12, 4 x line width),
-        a filled band in the box's colour behind white text at its top left."""
+        a filled band in the box's colour behind white text at its top left.
+        Keypoints (visibility over 0.25, or all of them without one) are
+        green discs of the line width's radius; a rotated box is the ring of
+        its corners, its label in its colour at its first corner, with no band."""
         im = np.array(self.orig_img, dtype=np.uint8, copy=True)
         if im.ndim == 2:
             im = np.repeat(im[..., None], 3, axis=2)
@@ -161,6 +243,19 @@ class Results:
         h, w = im.shape[:2]
         lw = line_width or max(round((w + h) / 2 * 0.003), 2)
         font = BitmapFont(font_size or max(12, lw * 4))
+        if self.keypoints is not None:
+            for kp in self.keypoints.data:
+                for k in kp:
+                    if kp.shape[-1] < 3 or k[2] > 0.25:
+                        ellipse(im, [k[0] - lw, k[1] - lw, k[0] + lw, k[1] + lw], (0, 255, 0))
+        if self.obb is not None:
+            for pts, cf, c in zip(self.obb.xyxyxyxy, self.obb.conf, self.obb.cls):
+                color = _colors(c)
+                line(im, [tuple(p) for p in pts] + [tuple(pts[0])], color, lw)
+                if labels:
+                    name = self.names.get(int(c), str(int(c)))
+                    text(im, (float(pts[0][0]), float(pts[0][1])),
+                         f"{name} {cf:.2f}" if conf else name, color, font)
         if self.boxes is not None:
             ids = self.boxes.id
             for k, b in enumerate(self.boxes.data):
@@ -197,10 +292,16 @@ class Results:
 
     def save_txt(self, txt_file: str | Path, save_conf: bool = False):
         """Append one line per detection (6 significant digits): `cls xywhn
-        [conf]`, or with masks `cls x1 y1 ... xn yn [conf]` of its normalised
-        outline (none for a mask of fewer than 3 outline points)."""
+        [conf]`, with keypoints `cls xywhn` and each keypoint's normalised xy
+        (and visibility) `[conf]`, with masks `cls x1 y1 ... xn yn [conf]`
+        of its normalised outline (none for a mask of fewer than 3 outline
+        points), and for rotated boxes `cls` and the 4 normalised corners `[conf]`."""
         lines = []
-        if self.masks is not None and self.boxes is not None:
+        if self.obb is not None:
+            for pts, cf, c in zip(self.obb.xyxyxyxyn, self.obb.conf, self.obb.cls):
+                vals = [int(c), *pts.reshape(-1).tolist()] + ([float(cf)] if save_conf else [])
+                lines.append(" ".join(f"{v:.6g}" if i else str(v) for i, v in enumerate(vals)))
+        elif self.masks is not None and self.boxes is not None:
             for b, seg in zip(self.boxes.data, self.masks.xyn):
                 if len(seg) < 3:
                     continue
@@ -208,8 +309,16 @@ class Results:
                                                                   else [])
                 lines.append(" ".join(f"{v:.6g}" if j else str(v) for j, v in enumerate(vals)))
         elif self.boxes is not None:
-            for b, xywhn in zip(self.boxes.data, self.boxes.xywhn):
-                vals = [int(b[-1]), *xywhn.tolist()] + ([float(b[-2])] if save_conf else [])
+            kpn = self.keypoints.data if self.keypoints is not None else None
+            h, w = self.orig_shape
+            for i, (b, xywhn) in enumerate(zip(self.boxes.data, self.boxes.xywhn)):
+                vals = [int(b[-1]), *xywhn.tolist()]
+                if kpn is not None:
+                    k = kpn[i].astype(np.float64)
+                    k[..., 0] /= w
+                    k[..., 1] /= h
+                    vals += k.reshape(-1).tolist()
+                vals += [float(b[-2])] if save_conf else []
                 lines.append(" ".join(f"{v:.6g}" if j else str(v) for j, v in enumerate(vals)))
         if lines:
             Path(txt_file).parent.mkdir(parents=True, exist_ok=True)
@@ -219,7 +328,11 @@ class Results:
     def save_crop(self, save_dir: str | Path, file_name: str | Path = "im.jpg"):
         """One crop per detection under save_dir/<class name>/, the box grown by
         gain 1.02 and 10 px (reference save_one_box), named stem, stem1, stem2, ...
-        A .png name writes PNG; any other a JPEG at PIL's default quality, 75."""
+        A .png name writes PNG; any other a JPEG at PIL's default quality, 75.
+        Rotated boxes have no crop: a warning, and nothing is written."""
+        if self.obb is not None:
+            LOGGER.warning("save_crop is not supported for obb results")
+            return
         if self.boxes is None:
             return
         h, w = self.orig_shape
@@ -260,15 +373,30 @@ class Results:
                 if segs is not None:
                     row["segments"] = {"x": np.round(segs[i][:, 0], 5).tolist(),
                                        "y": np.round(segs[i][:, 1], 5).tolist()}
+                if self.keypoints is not None:
+                    k = self.keypoints.data[i]
+                    kx, ky = (k[:, 0] / w, k[:, 1] / h) if normalize else (k[:, 0], k[:, 1])
+                    row["keypoints"] = {"x": np.round(kx, 5).tolist(),
+                                        "y": np.round(ky, 5).tolist()}
+                    if k.shape[-1] == 3:
+                        row["keypoints"]["visible"] = np.round(k[:, 2], 5).tolist()
                 out.append(row)
+        if self.obb is not None:
+            pts_all = self.obb.xyxyxyxyn if normalize else self.obb.xyxyxyxy
+            for pts, cf, c in zip(pts_all, self.obb.conf, self.obb.cls):
+                out.append({"name": self.names.get(int(c), str(int(c))), "class": int(c),
+                            "confidence": round(float(cf), 5),
+                            "points": [{"x": round(float(p[0]), 5), "y": round(float(p[1]), 5)}
+                                       for p in pts]})
         return json.dumps(out, indent=2)
 
     @property
     def verbose_str(self) -> str:
-        if self.boxes is None or len(self.boxes) == 0:
+        src = self.obb if self.obb is not None else self.boxes
+        if src is None or len(src) == 0:
             return "(no detections)"
         counts: dict[int, int] = {}
-        for c in self.boxes.cls:
+        for c in src.cls:
             counts[int(c)] = counts.get(int(c), 0) + 1
         return ", ".join(f"{n} {self.names.get(c, c)}{'s' if n > 1 else ''}"
                          for c, n in sorted(counts.items()))

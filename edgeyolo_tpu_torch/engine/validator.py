@@ -30,12 +30,30 @@ threshold, or compared at the prototype grid with "proto"; only the (gt,
 det) mask IoU matrix comes back, and the host's `match_predictions` turns
 it and the box IoUs (boxes back in native pixels, unclipped, as JAX's
 segment path leaves them) into TP rows.
+
+PoseValidator (JAX's): box metrics as the segment validator's, plus the
+pose table `metrics/mAP50(P)` and `metrics/mAP50-95(P)` matched by OKS: the
+kept anchors' keypoints (gathered on the device after the multi-label NMS)
+and the gt's taken back out of the letterbox, the area 0.53 x the gt box's
+in original pixels, COCO's sigmas for 17 keypoints, else 1/K.
+
+OBBValidator (JAX's): the multi-label blocked rotated NMS
+(ops/nms.py::nms_rotated), each kept box's centre and size taken back out
+of the letterbox, matched to `rboxes_ori` (the dataset's rectangles in
+original pixels) by probiou. With `save_json` it writes predictions.json
+(rbox and 8-value polygon per detection, 1-based category ids) and DOTA's
+Task1 files per class; for images named as DOTA's split tiles
+(`name__scale__x___y`) also the merged files: each tile's boxes moved by
+its window origin, then greedy class-offset rotated NMS at IoU 0.3 per
+source image.
 """
 
 from __future__ import annotations
 
 import json
+import re
 import time
+from collections import defaultdict
 from pathlib import Path
 
 import numpy as np
@@ -50,8 +68,8 @@ from edgeyolo_tpu_torch.metrics.coco_eval import evaluate_coco
 from edgeyolo_tpu_torch.metrics.metrics import (DetMetrics, _box_iou_np, match_predictions,
                                                 match_predictions_device)
 from edgeyolo_tpu_torch.nn.tasks import for_precision
-from edgeyolo_tpu_torch.ops.boxes import box_iou
-from edgeyolo_tpu_torch.ops.nms import non_max_suppression
+from edgeyolo_tpu_torch.ops.boxes import box_iou, probiou, xywhr2xyxyxyxy
+from edgeyolo_tpu_torch.ops.nms import nms_rotated, non_max_suppression
 from edgeyolo_tpu_torch.ops.resize import resize_bilinear
 from edgeyolo_tpu_torch.ops.segments import proto_masks
 from edgeyolo_tpu_torch.utils import LOGGER, select_device
@@ -332,3 +350,224 @@ class SegmentationValidator(DetectionValidator):
         LOGGER.info(f"seg val: box mAP50-95 {box_m.box.map:.4f}  mask mAP50-95 "
                     f"{mask_m.box.map:.4f}")
         return res
+
+
+# COCO's 17 keypoint sigmas, as the validators use them
+OKS_SIGMAS = np.array([.26, .25, .25, .35, .35, .79, .79, .72, .72, .62, .62, 1.07, 1.07, .87, .87,
+                       .89, .89]) / 10.0
+
+
+def _native_xyxy(meta) -> np.ndarray:
+    """An image's gt boxes (all of them) as native-pixel xyxy."""
+    h0, w0 = meta["ori_shape"]
+    gtb = meta["ori_bboxes"] * np.array([w0, h0, w0, h0], np.float32)
+    return np.concatenate([gtb[:, :2] - gtb[:, 2:] / 2, gtb[:, :2] + gtb[:, 2:] / 2], 1)
+
+
+class _TaskValidator(DetectionValidator):
+    """The shared loop of the pose and obb validators: `begin(names)`, then
+    per batch one device call (`infer_batch`) and per real image `update`
+    on the host."""
+
+    task = "detect"
+
+    def _dataloader(self, data_cfg: dict, bs: int, **kw):
+        if self._loader is None:
+            split = data_cfg.get(self.args.split or "val") or data_cfg["val"]
+            dataset = YOLODataset(split, imgsz=int(self.args.imgsz), augment=False,
+                                  names=data_cfg["names"], task=self.task,
+                                  single_cls=bool(getattr(self.args, "single_cls", False)), **kw)
+            self._loader = build_dataloader(dataset, bs, shuffle=False)
+        return self._loader
+
+    def _images(self, model, img: torch.Tensor) -> torch.Tensor:
+        return img.permute(0, 3, 1, 2).contiguous().to(getattr(model, "dtype", torch.float32)) / 255
+
+    def _run(self, model, data, batch_size, max_nms, **loader_kw):
+        args = self.args
+        self.conf = args.conf if args.conf is not None else 0.001
+        data_cfg = check_det_dataset(data or args.data)
+        self.names = data_cfg["names"]
+        self.begin(self.names)
+        bs = int(batch_size or args.batch or 16)
+        loader = self._dataloader(data_cfg, bs, **loader_kw)
+        net = for_precision(model, bool(args.half)) if isinstance(model, nn.Module) else model
+        was_training = getattr(net, "training", False)
+        if hasattr(net, "eval"):
+            net.eval()
+        self.jdict, self.seen = [], 0
+        try:
+            for batch in loader:
+                img = torch.from_numpy(batch["img"]).to(self.device, non_blocking=True)
+                outs = [t.cpu().numpy() for t in self.infer_batch(net, img, max_nms)]
+                for i in range(batch["n_real"]):
+                    self.seen += 1
+                    self.update(batch["meta"][i], *(o[i] for o in outs))
+        finally:
+            if was_training:
+                net.train()
+
+
+class PoseValidator(_TaskValidator):
+    """Box and pose (OKS) metrics of a pose model; `validator(model)` returns
+    the box `results_dict` plus the pose mAP50 and mAP50-95."""
+
+    task = "pose"
+
+    @torch.inference_mode()
+    def infer_batch(self, model, img: torch.Tensor, max_nms: int):
+        """det (B, max_det, 6) and keypoints (B, max_det, K * D) in letterbox
+        pixels, n (B,)."""
+        args = self.args
+        pred, nc = model(self._images(model, img))["pred"], model.nc
+        det, n, aidx = non_max_suppression(
+            pred[..., :4 + nc], conf_thres=self.conf, iou_thres=float(args.iou),
+            max_det=int(args.max_det), max_nms=max_nms, multi_label=True, nc=nc,
+            return_idx=True, method="tiled")
+        nk = pred.shape[-1] - 4 - nc
+        return det, n, pred[..., 4 + nc:].gather(1, aidx.long()[..., None].expand(-1, -1, nk))
+
+    def update(self, meta: dict, det_b, n, kpts_b):
+        n = int(n)
+        k, d = self.kpt_shape
+        det, pk = det_b[:n].copy(), kpts_b[:n].reshape(n, k, d).copy()
+        r, (pw, ph) = meta["ratio_pad"]
+        if n:
+            det[:, [0, 2]] = (det[:, [0, 2]] - pw) / r
+            det[:, [1, 3]] = (det[:, [1, 3]] - ph) / r
+            pk[..., 0] = (pk[..., 0] - pw) / r
+            pk[..., 1] = (pk[..., 1] - ph) / r
+        gt_cls, gtb = meta["ori_cls"], _native_xyxy(meta)
+        iou_box = _box_iou_np(gtb, det[:, :4]) if (n and len(gtb)) else np.zeros((len(gtb), n))
+        self.box_m.update_batch(match_predictions(det[:, 5], gt_cls, iou_box), det[:, 4],
+                                det[:, 5], gt_cls)
+        ngt = int(meta["mask_gt"].sum())
+        if ngt and n:  # OKS against the gt keypoints in original pixels
+            gk = meta["keypoints"][:ngt].copy()
+            gk[..., 0] = (gk[..., 0] - pw) / r
+            gk[..., 1] = (gk[..., 1] - ph) / r
+            area = (gtb[:ngt, 2] - gtb[:ngt, 0]) * (gtb[:ngt, 3] - gtb[:ngt, 1]) * 0.53
+            sigmas = OKS_SIGMAS if k == 17 else np.full(k, 1.0 / k)
+            d2 = ((gk[:, None, :, 0] - pk[None, :, :, 0]) ** 2
+                  + (gk[:, None, :, 1] - pk[None, :, :, 1]) ** 2)
+            vis = gk[..., 2] > 0
+            e = d2 / (2 * sigmas[None, None]) ** 2 / (area[:, None, None] + 1e-7) / 2
+            oks = (np.exp(-e) * vis[:, None]).sum(-1) / (vis.sum(-1)[:, None] + 1e-7)
+            self.pose_m.update_batch(match_predictions(det[:, 5], gt_cls[:ngt], oks), det[:, 4],
+                                     det[:, 5], gt_cls[:ngt])
+
+    def begin(self, names: dict) -> None:
+        self.box_m, self.pose_m = DetMetrics(names), DetMetrics(names)
+
+    def __call__(self, model, data=None, batch_size: int | None = None, max_nms: int = 30000):
+        self.kpt_shape = tuple(getattr(model, "kpt_shape", None) or (17, 3))
+        self._run(model, data, batch_size, max_nms, kpt_shape=self.kpt_shape)
+        self.box_m.process()
+        self.pose_m.process()
+        self.metrics, self.pose_metrics = self.box_m, self.pose_m
+        res = self.box_m.results_dict
+        res.update({"metrics/mAP50(P)": self.pose_m.box.map50,
+                    "metrics/mAP50-95(P)": self.pose_m.box.map})
+        LOGGER.info(f"pose val: box mAP50-95 {self.box_m.box.map:.4f}  pose mAP50-95 "
+                    f"{self.pose_m.box.map:.4f}")
+        return res
+
+
+class OBBValidator(_TaskValidator):
+    """Rotated-box metrics (probiou matching) of an obb model; `validator(model)`
+    returns its `results_dict`."""
+
+    task = "obb"
+
+    @torch.inference_mode()
+    def infer_batch(self, model, img: torch.Tensor, max_nms: int):
+        """det (B, max_det, 7) [cx, cy, w, h, angle, conf, cls] in letterbox
+        pixels, n (B,)."""
+        args = self.args
+        return nms_rotated(model(self._images(model, img))["pred"], conf_thres=self.conf,
+                           iou_thres=float(args.iou), max_det=int(args.max_det),
+                           max_nms=max_nms, multi_label=True)
+
+    def update(self, meta: dict, det_b, n):
+        n = int(n)
+        det = det_b[:n].copy()
+        r, (pw, ph) = meta["ratio_pad"]
+        pred_r = (np.stack([(det[:, 0] - pw) / r, (det[:, 1] - ph) / r, det[:, 2] / r,
+                            det[:, 3] / r, det[:, 4]], 1) if n else np.zeros((0, 5), np.float32))
+        if self.save_json and n:
+            self.pred_to_json(self.jdict, pred_r, det[:, 5], det[:, 6], meta["im_file"])
+        gt_cls, ngt = meta["ori_cls"], int(meta["mask_gt"].sum())
+        gr = meta["rboxes_ori"][:ngt]
+        iou = (probiou(torch.from_numpy(gr)[:, None], torch.from_numpy(pred_r)[None])[..., 0].numpy()
+               if n and ngt else np.zeros((ngt, n)))
+        self.obb_m.update_batch(match_predictions(det[:, 6], gt_cls[:ngt], iou), det[:, 5],
+                                det[:, 6], gt_cls[:ngt])
+
+    def begin(self, names: dict) -> None:
+        self.obb_m = DetMetrics(names)
+
+    def __call__(self, model, data=None, batch_size: int | None = None, max_nms: int = 30000):
+        self.save_json = bool(getattr(self.args, "save_json", False))
+        self._run(model, data, batch_size, max_nms)
+        self.obb_m.process()
+        self.metrics = self.obb_m
+        LOGGER.info(f"obb val: probiou mAP50-95 {self.obb_m.box.map:.4f}")
+        if self.save_json and self.jdict:
+            self.eval_json_dota(self.jdict, self.names)
+        return self.obb_m.results_dict
+
+    @staticmethod
+    def pred_to_json(jdict: list, rboxes: np.ndarray, conf, cls, im_file: str) -> None:
+        """Rotated rows in original pixels: image_id from the file's stem (a
+        number where it is one), 1-based category_id, score to 5 places, rbox
+        and its 8-value polygon to 3."""
+        stem = Path(im_file).stem
+        image_id = int(stem) if stem.isnumeric() else stem
+        polys = xywhr2xyxyxyxy(rboxes).reshape(-1, 8)
+        for rb, p, sc, c in zip(rboxes, polys, conf, cls):
+            jdict.append({"image_id": image_id, "category_id": int(c) + 1,
+                          "score": round(float(sc), 5),
+                          "rbox": [round(float(x), 3) for x in rb],
+                          "poly": [round(float(x), 3) for x in p]})
+
+    def eval_json_dota(self, jdict: list, names: dict) -> None:
+        """predictions.json, DOTA Task1 files per class, and for split tiles
+        the merged Task1 files."""
+        self.save_dir.mkdir(parents=True, exist_ok=True)
+        (self.save_dir / "predictions.json").write_text(json.dumps(jdict))
+        pred_txt = self.save_dir / "predictions_txt"
+        pred_txt.mkdir(parents=True, exist_ok=True)
+        LOGGER.info(f"saving DOTA-format predictions to {pred_txt}")
+        for d in jdict:
+            cname = str(names[d["category_id"] - 1]).replace(" ", "-")
+            with open(pred_txt / f"Task1_{cname}.txt", "a") as f:
+                f.write(f"{d['image_id']} {d['score']} " + " ".join(str(x) for x in d["poly"][:8])
+                        + "\n")
+        tile = re.compile(r"\d+___\d+")  # a DOTA split tile: name__scale__x___y
+        if not any(tile.search(str(d["image_id"])) for d in jdict):
+            return
+        merged = defaultdict(list)
+        for d in jdict:
+            x, y = (int(c) for c in tile.findall(str(d["image_id"]))[0].split("___"))
+            rb = list(d["rbox"])
+            rb[0] += x
+            rb[1] += y
+            merged[str(d["image_id"]).split("__")[0]].append(rb + [d["score"],
+                                                                   d["category_id"] - 1])
+        out_dir = self.save_dir / "predictions_merged_txt"
+        out_dir.mkdir(parents=True, exist_ok=True)
+        for image_id, rows in merged.items():
+            arr = np.asarray(rows, np.float32)  # (n, 7)
+            shifted = arr[:, :5].copy()
+            shifted[:, :2] += arr[:, 6:7] * float(arr[:, :2].max()) * 2  # the class offset
+            boxes = torch.from_numpy(shifted)
+            keep: list[int] = []
+            for j in np.argsort(-arr[:, 5]):  # greedy rotated NMS at IoU 0.3
+                if not keep or bool((probiou(boxes[j][None], boxes[keep])[:, 0] < 0.3).all()):
+                    keep.append(int(j))
+            kept = arr[keep]
+            for row, p in zip(kept, xywhr2xyxyxyxy(kept[:, :5]).reshape(-1, 8)):
+                cname = str(names[int(row[6])]).replace(" ", "-")
+                with open(out_dir / f"Task1_{cname}.txt", "a") as f:
+                    f.write(f"{image_id} {round(float(row[5]), 3)} "
+                            + " ".join(str(round(float(x), 3)) for x in p) + "\n")

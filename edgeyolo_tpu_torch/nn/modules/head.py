@@ -19,6 +19,12 @@ of nm mask coefficients per anchor, (B, A, nm); in eval its pred carries
 the coefficients after the classes, (B, A, 4 + nc + nm), so NMS keeps them
 with their boxes.
 
+OBB is Detect plus per-level towers (cv4) of one angle per anchor,
+(sigmoid - 0.25) * pi, with the boxes decoded by the rotated dist2rbox;
+Pose is Detect plus per-level towers (cv4) of K x D keypoint values per
+anchor, decoded to input pixels (and a visibility probability). Their
+towers are Segment's cv4 form.
+
 End-to-end (NMS-free) heads, E2EDetect and its alias GFLHeadv2_E2E:
 GF2Detect with a second set of towers and quality heads (`one2one_*`) fed
 with detached inputs, as JAX's stop_gradient. They decode their one2one
@@ -38,7 +44,7 @@ from torch import nn
 
 from edgeyolo_tpu_torch.nn.modules.block import DFL, Proto
 from edgeyolo_tpu_torch.nn.modules.conv import ConvBN, DWConv
-from edgeyolo_tpu_torch.ops.boxes import dist2bbox, make_anchors
+from edgeyolo_tpu_torch.ops.boxes import dist2bbox, dist2rbox, make_anchors
 
 
 def topk_small(x: torch.Tensor, k: int, dim: int = -1) -> torch.Tensor:
@@ -238,6 +244,18 @@ class E2EDetect(GFLHeadv2_uniH):
 GFLHeadv2_E2E = E2EDetect  # the thesis's name for the GFLv2 head in its NMS-free form
 
 
+def _cv4(ch: Sequence[int], c4: int, n_out: int) -> nn.ModuleList:
+    """Per-level towers of n_out extra channels per anchor (mask coefficients,
+    angles, keypoints): two 3x3 ConvBN and a 1x1 conv."""
+    return nn.ModuleList(
+        nn.Sequential(ConvBN(x, c4, 3), ConvBN(c4, c4, 3), nn.Conv2d(c4, n_out, 1)) for x in ch)
+
+
+def _per_anchor(towers: nn.ModuleList, xs) -> torch.Tensor:
+    """The towers' outputs over the levels as (B, A, C), anchors row-major per level."""
+    return torch.cat([m(x).flatten(2) for m, x in zip(towers, xs)], dim=2).transpose(1, 2)
+
+
 class Segment(Detect):
     """Detect + the Proto bank and the per-anchor mask coefficients."""
 
@@ -247,14 +265,74 @@ class Segment(Detect):
         super().__init__(nc, ch, stride, reg_max, legacy, max_det)
         self.nm, self.npr = nm, npr
         self.proto = Proto(ch[0], npr, nm)
-        c4 = max(ch[0] // 4, nm)
-        self.cv4 = nn.ModuleList(
-            nn.Sequential(ConvBN(x, c4, 3), ConvBN(c4, c4, 3), nn.Conv2d(c4, nm, 1)) for x in ch)
+        self.cv4 = _cv4(ch, max(ch[0] // 4, nm), nm)
 
     def forward(self, xs):
         out = {"feats": self.towers(xs)[1], "proto": self.proto(xs[0]),
-               "mask_coefs": torch.cat([m(x).flatten(2) for m, x in zip(self.cv4, xs)],
-                                       dim=2).transpose(1, 2)}
+               "mask_coefs": _per_anchor(self.cv4, xs)}
         if not self.training:
             out["pred"] = torch.cat([self.decode(out["feats"]), out["mask_coefs"].float()], dim=-1)
+        return out
+
+
+class OBB(Detect):
+    """Detect + a per-anchor angle in [-pi/4, 3pi/4): (sigmoid(t) - 0.25) * pi.
+    Boxes decode by the rotated dist2rbox, in f32 whatever the tower dtype
+    (the angle too); in eval pred is (B, A, 4 + nc + 1), xywh of the
+    rotated extent, class probabilities, angle. The training dict carries
+    `angle` (B, A, 1)."""
+
+    def __init__(self, nc: int = 80, ne: int = 1, ch: Sequence[int] = (),
+                 stride: Sequence[int] = (8, 16, 32), reg_max: int = 16, legacy: bool = False,
+                 max_det: int = 300):
+        super().__init__(nc, ch, stride, reg_max, legacy, max_det)
+        self.ne = ne
+        self.cv4 = _cv4(ch, max(ch[0] // 4, ne), ne)
+
+    def decode_rotated(self, feats, angle: torch.Tensor) -> torch.Tensor:
+        flat = torch.cat([f.flatten(2) for f in feats], dim=2).float().transpose(1, 2)
+        box_logits, cls_logits = flat.split((4 * self.reg_max, self.nc), dim=-1)
+        anchors, strides = make_anchors([f.shape[-2:] for f in feats], self.stride,
+                                        device=flat.device)
+        rbox = dist2rbox(self.dfl(box_logits), angle, anchors[None]) * strides[None]
+        return torch.cat([rbox, torch.sigmoid(cls_logits)], dim=-1)
+
+    def forward(self, xs):
+        angle = (torch.sigmoid(_per_anchor(self.cv4, xs).float()) - 0.25) * math.pi
+        out = {"feats": self.towers(xs)[1], "angle": angle}
+        if not self.training:
+            out["pred"] = torch.cat([self.decode_rotated(out["feats"], angle), angle], dim=-1)
+        return out
+
+
+class Pose(Detect):
+    """Detect + K x D keypoint regressions per anchor (kpt_shape (K, D)):
+    xy decoded as (raw * 2 + anchor - 0.5) * stride, the visibility (D = 3)
+    by a sigmoid, in f32; in eval pred is (B, A, 4 + nc + K * D). The
+    training dict carries the raw `kpts_raw` (B, A, K * D)."""
+
+    def __init__(self, nc: int = 80, kpt_shape: Sequence[int] = (17, 3), ch: Sequence[int] = (),
+                 stride: Sequence[int] = (8, 16, 32), reg_max: int = 16, legacy: bool = False,
+                 max_det: int = 300):
+        super().__init__(nc, ch, stride, reg_max, legacy, max_det)
+        self.kpt_shape = tuple(int(k) for k in kpt_shape)
+        self.nk = self.kpt_shape[0] * self.kpt_shape[1]
+        self.cv4 = _cv4(ch, max(ch[0] // 4, self.nk), self.nk)
+
+    def kpts_decode(self, kpts: torch.Tensor, shapes) -> torch.Tensor:
+        b, a, _ = kpts.shape
+        k, d = self.kpt_shape
+        anchors, strides = make_anchors(shapes, self.stride, device=kpts.device)
+        y = kpts.float().view(b, a, k, d)
+        xy = (y[..., :2] * 2.0 + (anchors[None, :, None, :] - 0.5)) * strides[None, :, None, :]
+        if d == 3:
+            xy = torch.cat([xy, torch.sigmoid(y[..., 2:3])], dim=-1)
+        return xy.reshape(b, a, self.nk)
+
+    def forward(self, xs):
+        out = {"feats": self.towers(xs)[1], "kpts_raw": _per_anchor(self.cv4, xs)}
+        if not self.training:
+            shapes = [f.shape[-2:] for f in out["feats"]]
+            out["pred"] = torch.cat([self.decode(out["feats"]),
+                                     self.kpts_decode(out["kpts_raw"], shapes)], dim=-1)
         return out

@@ -24,10 +24,11 @@ YOLOv10 (SCDown, PSA, C2fCIB, v10Detect), YOLOv12, YOLOv3/5/6/8 and their
 P2/P6/Ghost variants (C2, SPP, Ghost blocks, pooling, padding and
 transposed convs), YOLOv9's GELAN blocks (CBLinear's output is a tuple of
 channel groups in the channel list, which CBFuse indexes) and the Segment
-head (its prototype width npr scaled as a channel count) are registered; an
-unknown module name raises. `guess_model_task` names a spec's task by its
-head, as JAX does; SegmentationModel is the DetectionModel of the segment
-task.
+head (its prototype width npr scaled as a channel count), the Pose head
+(its kpt_shape the spec's, which a dataset's kpt_shape replaces) and the
+OBB head are registered; an unknown module name raises. `guess_model_task`
+names a spec's task by its head, as JAX does; SegmentationModel, PoseModel
+and OBBModel are the DetectionModel of their tasks.
 """
 
 from __future__ import annotations
@@ -52,8 +53,8 @@ from edgeyolo_tpu_torch.nn.modules.extra import (CIB, A2C2f, AdaHyperedgeGen, C2
                                                  HyperACE, RepVGGDW)
 from edgeyolo_tpu_torch.nn.modules.gelan import (ADown, AConv, CBFuse, CBLinear, ELAN1, SPPELAN,
                                                  RepConv, RepNCSPELAN4)
-from edgeyolo_tpu_torch.nn.modules.head import (Detect, E2EDetect, GFLHeadv2_uniH, Segment,
-                                                v10Detect)
+from edgeyolo_tpu_torch.nn.modules.head import (OBB, Detect, E2EDetect, GFLHeadv2_uniH, Pose,
+                                                Segment, v10Detect)
 from edgeyolo_tpu_torch.nn.modules.msla_lgl import (C3AW_MLM, DSC3K2_LGL, DSC3K2_MSLA,
                                                     HyperACE_Wavelet, Wavelet_SS2D)
 from edgeyolo_tpu_torch.utils import make_divisible, select_device
@@ -118,6 +119,8 @@ _REG: dict[str, tuple[type, list[str]]] = {
     "E2EDetect": (E2EDetect, ["nc"]),
     "GFLHeadv2_E2E": (E2EDetect, ["nc"]),
     "Segment": (Segment, ["nc", "nm", "npr"]),
+    "Pose": (Pose, ["nc", "kpt_shape"]),
+    "OBB": (OBB, ["nc", "ne"]),
 }
 _CONV_LIKE = {"Conv", "ConvBN", "DWConv", "DSConv", "GhostConv", "nn.ConvTranspose2d",
               "Bottleneck", "C2", "C2f", "C3", "C3k", "C3k2", "SPP", "SPPF", "C2PSA", "C2fPSA",
@@ -133,7 +136,7 @@ _REPEAT_INSERT = {"C2", "C2f", "C3", "C3k2", "C2PSA", "C2fPSA", "C2fCIB", "C3Gho
 _C3K2_FAMILY = {"C3k2", "DSC3K2", "DSC3K2_Wavelet", "DSC3K2_MSLA", "DSC3K2_LGL"}
 _HYPERACE = {"HyperACE", "HyperACE_Wavelet", "Wavelet_SS2D"}
 _HEADS = {"Detect", "v10Detect", "GFLHeadv2_uniH", "GF2Detect", "E2EDetect", "GFLHeadv2_E2E",
-          "Segment"}
+          "Segment", "Pose", "OBB"}
 _STRIDE_ARG = {"Conv", "ConvBN", "DWConv", "DSConv", "GhostConv", "SCDown", "RepConv",
                "nn.MaxPool2d"}
 _STRIDE_FIXED = {"AConv": 2.0, "ADown": 2.0, "DownsampleConv": 2.0}
@@ -170,9 +173,9 @@ class LayerSpec:
 
 
 def guess_model_task(spec: dict) -> str:
-    """The task a spec's head serves (JAX guess_model_task): "segment" for a
-    Segment head, "detect" for a detect head; the heads of the pose, obb and
-    classify tasks, which the port does not build, name theirs."""
+    """The task a spec's head serves (JAX guess_model_task): "segment",
+    "pose" or "obb" for a Segment, Pose or OBB head, "detect" for a detect
+    head; a Classify head, which the port does not build, names its task."""
     head = spec["head"][-1][2] if "head" in spec else ""
     for word, task in (("Classify", "classify"), ("Segment", "segment"), ("Pose", "pose"),
                        ("OBB", "obb")):
@@ -197,7 +200,9 @@ def parse_spec(d: dict, ch: int = 3) -> tuple[tuple[LayerSpec, ...], tuple[int, 
     for i, (f, n, name, args) in enumerate(d["backbone"] + d["head"]):
         if name not in _REG:
             raise KeyError(f"module '{name}' is not ported yet")
-        args = [nc if a == "nc" else _literal(a) for a in args]
+        # yaml-level names resolve as the reference parse_model's: "nc" and "kpt_shape"
+        args = [nc if a == "nc" else list(d.get("kpt_shape", [17, 3])) if a == "kpt_shape"
+                else _literal(a) for a in args]
         n_scaled = max(round(n * depth), 1) if n > 1 else n
         kwargs: dict[str, Any] = {}
         f_list = [f] if isinstance(f, int) else list(f)
@@ -258,6 +263,8 @@ def parse_spec(d: dict, ch: int = 3) -> tuple[tuple[LayerSpec, ...], tuple[int, 
             kwargs["legacy"] = legacy and not _REG[name][0].end2end
             if name == "Segment" and len(args) > 2:  # npr
                 args[2] = make_divisible(min(args[2], max_channels) * width, 8)
+            if name == "Pose" and len(args) > 1 and isinstance(args[1], (list, tuple)):
+                args[1] = tuple(d.get("kpt_shape", args[1]))  # a data-level kpt_shape wins
             c2 = sum(kwargs["ch"])
         else:  # nn.Upsample, nn.MaxPool2d, nn.ZeroPad2d, nn.Identity, RepVGGDW, FullPAD_Tunnel
             c2 = c1
@@ -412,7 +419,7 @@ def train_forward(model: nn.Module, x: torch.Tensor, amp: bool = True) -> dict:
             out = torch.func.functional_call(model, amp_params(model), (x.to(torch.bfloat16),))
     res = {k: None if out.get(k) is None else [f.float() for f in out[k]]
            for k in ("feats", "quality", "one2one_feats", "one2one_quality")}
-    for k in ("mask_coefs", "proto"):  # the segment head's
+    for k in ("mask_coefs", "proto", "kpts_raw", "angle"):  # the task heads' extras
         if k in out:
             res[k] = out[k].float()
     return res
@@ -435,16 +442,19 @@ class DetectionModel(GraphNet):
     box decode stay f32. `nc` replaces the spec's class count (a head for a
     dataset). `end2end` is the head's: an NMS-free head's pred is its
     (B, max_det, 6) selection. `task` is the spec's (`guess_model_task`):
-    a Segment head makes a segment model. The model lands on CUDA unless
-    `device` names another device.
+    a Segment, Pose or OBB head makes a segment, pose or obb model.
+    `kpt_shape` replaces the spec's (a pose head for a dataset's keypoints).
+    The model lands on CUDA unless `device` names another device.
     """
 
     def __init__(self, cfg: str = "edgeline-yolo.yaml", scale: str | None = None,
                  device: str | torch.device | None = None, dtype: torch.dtype = torch.float32,
-                 seed: int = 0, nc: int | None = None):
+                 seed: int = 0, nc: int | None = None, kpt_shape: Sequence[int] | None = None):
         spec = model_cfg(cfg, scale)
         if nc:
             spec["nc"] = int(nc)
+        if kpt_shape:
+            spec["kpt_shape"] = [int(k) for k in kpt_shape]
         self.task = guess_model_task(spec)
         layers, save, info = parse_spec(spec)
         strides = derive_strides(layers)
@@ -458,6 +468,7 @@ class DetectionModel(GraphNet):
         self.names = {i: str(i) for i in range(self.nc)}
         self.cfg, self.scale = cfg, info["scale"]
         self.end2end = bool(getattr(self.model[-1], "end2end", False))
+        self.kpt_shape = getattr(self.model[-1], "kpt_shape", None)
         init_weights(self, torch.Generator().manual_seed(seed))
         self.model[-1].bias_init()
         self.set_dtype(dtype)
@@ -482,3 +493,21 @@ class SegmentationModel(DetectionModel):
         super().__init__(cfg, *args, **kwargs)
         if self.task != "segment":
             raise ValueError(f"{cfg} has no Segment head (its task is {self.task})")
+
+
+class PoseModel(DetectionModel):
+    """The pose task's model: a spec whose head is Pose."""
+
+    def __init__(self, cfg: str = "yolo11n-pose.yaml", *args, **kwargs):
+        super().__init__(cfg, *args, **kwargs)
+        if self.task != "pose":
+            raise ValueError(f"{cfg} has no Pose head (its task is {self.task})")
+
+
+class OBBModel(DetectionModel):
+    """The obb task's model: a spec whose head is OBB."""
+
+    def __init__(self, cfg: str = "yolo11n-obb.yaml", *args, **kwargs):
+        super().__init__(cfg, *args, **kwargs)
+        if self.task != "obb":
+            raise ValueError(f"{cfg} has no OBB head (its task is {self.task})")

@@ -1,10 +1,13 @@
-"""Box math the detection head, NMS and the loss need (edgeyolo_tpu/ops/boxes.py)."""
+"""Box math the heads, NMS, the losses and the validators need
+(edgeyolo_tpu/ops/boxes.py): axis-aligned boxes, and the rotated (xywhr,
+angle in radians) and keypoint ones of the obb and pose tasks."""
 
 from __future__ import annotations
 
 import math
 from typing import Sequence
 
+import numpy as np
 import torch
 
 EPS = 1e-7
@@ -83,3 +86,79 @@ def box_iou(box1: torch.Tensor, box2: torch.Tensor) -> torch.Tensor:
     area1 = (box1[..., 2] - box1[..., 0]) * (box1[..., 3] - box1[..., 1])
     area2 = (box2[..., 2] - box2[..., 0]) * (box2[..., 3] - box2[..., 1])
     return inter / (area1[..., :, None] + area2[..., None, :] - inter + EPS)
+
+
+def dist2rbox(distance: torch.Tensor, angle: torch.Tensor, anchor_points: torch.Tensor
+              ) -> torch.Tensor:
+    """Rotated decode: (l, t, r, b) distances and angle (..., 1) around the
+    anchors -> (cx, cy, w, h), the centre offset rotated by the angle."""
+    lt, rb = distance.chunk(2, dim=-1)
+    cos, sin = torch.cos(angle), torch.sin(angle)
+    xf, yf = ((rb - lt) / 2).chunk(2, dim=-1)
+    xy = torch.cat([xf * cos - yf * sin, xf * sin + yf * cos], dim=-1) + anchor_points
+    return torch.cat([xy, lt + rb], dim=-1)
+
+
+def _covariance(boxes: torch.Tensor):
+    """Gaussian covariance terms (a, b, c) of xywhr boxes, each (..., 1)."""
+    a = boxes[..., 2:3] ** 2 / 12.0
+    b = boxes[..., 3:4] ** 2 / 12.0
+    r = boxes[..., 4:5]
+    cos, sin = torch.cos(r), torch.sin(r)
+    cos2, sin2 = cos ** 2, sin ** 2
+    return a * cos2 + b * sin2, a * sin2 + b * cos2, (a - b) * cos * sin
+
+
+def probiou(obb1: torch.Tensor, obb2: torch.Tensor, CIoU: bool = False,
+            eps: float = EPS) -> torch.Tensor:
+    """Probabilistic IoU (1 - Hellinger distance of the boxes' Gaussians) of
+    broadcastable xywhr box tensors -> (..., 1). The clips and eps sit where
+    JAX's do: sqrt(det1 * det2) has an infinite derivative at 0."""
+    x1, y1 = obb1[..., 0:1], obb1[..., 1:2]
+    x2, y2 = obb2[..., 0:1], obb2[..., 1:2]
+    a1, b1, c1 = _covariance(obb1)
+    a2, b2, c2 = _covariance(obb2)
+    denom = (a1 + a2) * (b1 + b2) - (c1 + c2) ** 2 + eps
+    t1 = ((a1 + a2) * (y1 - y2) ** 2 + (b1 + b2) * (x1 - x2) ** 2) / denom * 0.25
+    t2 = ((c1 + c2) * (x2 - x1) * (y1 - y2)) / denom * 0.5
+    det1 = (a1 * b1 - c1 ** 2).clamp(min=0)
+    det2 = (a2 * b2 - c2 ** 2).clamp(min=0)
+    t3 = torch.log(((a1 + a2) * (b1 + b2) - (c1 + c2) ** 2)
+                   / (4 * torch.sqrt(det1 * det2) + eps) + eps) * 0.5
+    bd = (t1 + t2 + t3).clamp(eps, 100.0)
+    iou = 1.0 - torch.sqrt(1.0 - torch.exp(-bd) + eps)
+    if not CIoU:
+        return iou
+    w1, h1 = obb1[..., 2:3], obb1[..., 3:4]
+    w2, h2 = obb2[..., 2:3], obb2[..., 3:4]
+    v = (4 / math.pi ** 2) * (torch.atan(w2 / h2) - torch.atan(w1 / h1)) ** 2
+    alpha = (v / (v - iou + (1 + eps))).detach()
+    return iou - v * alpha
+
+
+def kpt_iou(kpt1: torch.Tensor, kpt2: torch.Tensor, area: torch.Tensor, sigma,
+            eps: float = EPS) -> torch.Tensor:
+    """OKS of gt keypoints kpt1 (N, K, 3) against predictions kpt2 (M, K, 2+),
+    with area (N,) the gt boxes' areas -> (N, M)."""
+    d = ((kpt1[:, None, :, 0] - kpt2[None, :, :, 0]) ** 2
+         + (kpt1[:, None, :, 1] - kpt2[None, :, :, 1]) ** 2)
+    sigma = torch.as_tensor(sigma, dtype=kpt1.dtype, device=kpt1.device)
+    kpt_mask = kpt1[..., 2] != 0
+    e = d / ((2 * sigma) ** 2) / (area[:, None, None] + eps) / 2
+    return (torch.exp(-e) * kpt_mask[:, None]).sum(-1) / (kpt_mask.sum(-1)[:, None] + eps)
+
+
+def xywhr2xyxyxyxy(rbox):
+    """(..., 5) [cx, cy, w, h, angle (rad)] -> (..., 4, 2) corners, going
+    along the width first: a torch tensor for a tensor, else numpy f32."""
+    if isinstance(rbox, torch.Tensor):
+        cx, cy, w, h, r = rbox.unbind(-1)
+        cos, sin, stack = torch.cos(r), torch.sin(r), torch.stack
+    else:
+        rbox = np.asarray(rbox, np.float32)
+        cx, cy, w, h, r = (rbox[..., i] for i in range(5))
+        cos, sin, stack = np.cos(r), np.sin(r), np.stack
+    dx = stack([w / 2 * cos, w / 2 * sin], -1)
+    dy = stack([-h / 2 * sin, h / 2 * cos], -1)
+    c = stack([cx, cy], -1)
+    return stack([c - dx - dy, c + dx - dy, c + dx + dy, c - dx + dy], -2)

@@ -28,9 +28,23 @@ scores, anchor = ix // nc, cls = ix % nc.
 Output: (B, max_det, 6) [x1, y1, x2, y2, conf, cls], zero rows past the
 count, and the count (B,) int32; with `return_idx` also the anchor index
 (B, max_det) int32 of each kept row (0 past the count, as in JAX), which
-gathers per-anchor extras such as the segment head's mask coefficients.
-`nc` names the class columns when pred carries such extras after them. Rankings use a stable descending sort, so
+gathers per-anchor extras such as the segment head's mask coefficients
+or the pose head's keypoints. `nc` names the class columns when pred
+carries such extras after them. Rankings use a stable descending sort, so
 ties go to the lower index as in jax.lax.top_k.
+
+`nms_rotated` (the obb task's) is JAX's single-pass matrix rule over
+probiou, not greedy: a candidate is dropped when any higher-ranked
+candidate of its class overlaps it above iou_thres, even one that was
+itself dropped. Such a rule is a column-wise `any` over the rows of the
+upper triangle, so it is computed exactly in blocks of rows, each against
+the columns after it: the memory of a block is bounded by ROT_NMS_ELEMS
+(image, row, column) triples whatever max_nms is (a dense (n, n) probiou at
+n = 8192 for batch 32 would hold 2.1e9 pairs per temporary). Only the
+candidates past the gate take part: a candidate at score 0 ranks after
+every positive one and is never kept, so it suppresses nothing that
+counts. `rotated_suppressed_dense` is the plain (B, n, n) version the
+tests hold the blocks against.
 """
 
 from __future__ import annotations
@@ -39,10 +53,11 @@ from typing import Sequence
 
 import torch
 
-from edgeyolo_tpu_torch.ops.boxes import box_iou, xywh2xyxy
+from edgeyolo_tpu_torch.ops.boxes import box_iou, probiou, xywh2xyxy
 
 MAX_WH = 7680.0  # class offset: boxes of different classes never overlap
 NMS_TILE = 1024  # candidates per block of the tiled method
+ROT_NMS_ELEMS = 1 << 24  # (image, row, column) triples per block of the rotated NMS
 
 
 def _top_k(x: torch.Tensor, k: int):
@@ -128,10 +143,7 @@ def _candidates(pred: torch.Tensor, conf_thres: float, max_nms: int, multi_label
     a = pred.shape[1]
     boxes = xywh2xyxy(pred[..., :4])
     scores = pred[..., 4:4 + nc]
-    if classes is not None:
-        keep = torch.zeros(nc, dtype=scores.dtype, device=scores.device)
-        keep[list(classes)] = 1.0
-        scores = scores * keep
+    scores = _class_filter(scores, classes)
     if multi_label and nc > 1:
         top_sc, top_ix = _top_k(scores.reshape(scores.shape[0], -1), min(max_nms, a * nc))
         anchor_ix, cls_ix = top_ix // nc, (top_ix % nc).to(pred.dtype)
@@ -180,3 +192,74 @@ def non_max_suppression(pred: torch.Tensor, conf_thres: float = 0.25, iou_thres:
     if return_idx:
         return det, n, torch.where(keep_valid, anchor_ix.gather(1, keep_idx), 0).to(torch.int32)
     return det, n
+
+
+def _class_filter(scores: torch.Tensor, classes: Sequence[int] | None) -> torch.Tensor:
+    if classes is None:
+        return scores
+    keep = torch.zeros(scores.shape[-1], dtype=scores.dtype, device=scores.device)
+    keep[list(classes)] = 1.0
+    return scores * keep
+
+
+def rotated_suppressed_dense(cand: torch.Tensor, cls_ix: torch.Tensor,
+                             iou_thres: float) -> torch.Tensor:
+    """(B, n) bool: candidates (B, n, 5) xywhr, score-sorted, that a
+    higher-ranked candidate of the same class overlaps above iou_thres."""
+    n = cand.shape[1]
+    iou = probiou(cand[:, :, None], cand[:, None, :])[..., 0]
+    same = cls_ix[:, :, None] == cls_ix[:, None, :]
+    higher = torch.ones(n, n, dtype=torch.bool, device=cand.device).triu(1)
+    return (higher & (iou > iou_thres) & same).any(dim=1)
+
+
+def rotated_suppressed_blocked(cand: torch.Tensor, cls_ix: torch.Tensor, iou_thres: float,
+                               n_live: int | None = None) -> torch.Tensor:
+    """`rotated_suppressed_dense` of the first n_live candidates (the rest
+    left False), computed in blocks of rows against the columns after each
+    block, at most ROT_NMS_ELEMS triples at a time."""
+    b, n = cand.shape[:2]
+    n_live = n if n_live is None else n_live
+    sup = torch.zeros(b, n, dtype=torch.bool, device=cand.device)
+    rows = max(1, ROT_NMS_ELEMS // max(b * n_live, 1))
+    for s in range(0, max(n_live - 1, 0), rows):
+        e = min(s + rows, n_live - 1)
+        iou = probiou(cand[:, s:e, None], cand[:, None, s + 1:n_live])[..., 0]  # (B, r, cols)
+        same = cls_ix[:, s:e, None] == cls_ix[:, None, s + 1:n_live]
+        higher = (torch.arange(s, e, device=cand.device)[:, None]
+                  < torch.arange(s + 1, n_live, device=cand.device)[None])
+        sup[:, s + 1:n_live] |= (higher & (iou > iou_thres) & same).any(dim=1)
+    return sup
+
+
+def nms_rotated(pred: torch.Tensor, conf_thres: float = 0.25, iou_thres: float = 0.45,
+                max_det: int = 300, max_nms: int = 2048, classes: Sequence[int] | None = None,
+                multi_label: bool = False):
+    """pred (B, A, 4 + nc + 1): xywh of the rotated extents in pixels, class
+    scores, angle (rad) -> (dets (B, max_det, 7) [cx, cy, w, h, angle, conf,
+    cls], n_valid (B,) int32).
+
+    `multi_label` ranks every (anchor, class) pair by its own score (the
+    validator's candidates), else each anchor's best class (the
+    predictor's). The suppression runs in blocks of rows
+    (`rotated_suppressed_blocked`); `rotated_suppressed_dense` is its plain
+    version."""
+    b, a, no = pred.shape
+    nc = no - 5
+    scores = _class_filter(pred[..., 4:4 + nc], classes)
+    if multi_label:
+        top_sc, top_fi = _top_k(scores.reshape(b, -1), min(max_nms, a * nc))
+        top_ix, cls_ix = top_fi // nc, (top_fi % nc).to(pred.dtype)
+    else:
+        best, cls_all = scores.max(dim=-1)
+        top_sc, top_ix = _top_k(best, min(max_nms, a))
+        cls_ix = cls_all.gather(1, top_ix).to(pred.dtype)
+    cand = torch.cat([_gather(pred[..., :4], top_ix), _gather(pred[..., -1:], top_ix)], dim=-1)
+    cand_sc = torch.where(top_sc > conf_thres, top_sc, 0.0)
+    sup = rotated_suppressed_blocked(cand, cls_ix, iou_thres, int((cand_sc > 0).sum(dim=1).max()))
+    kept = torch.where((cand_sc > 0.0) & ~sup, cand_sc, 0.0)
+    ksc, kidx = _top_k(kept, min(max_det, cand.shape[1]))
+    det = torch.cat([_gather(cand, kidx), ksc[..., None], cls_ix.gather(1, kidx)[..., None]],
+                    dim=-1)
+    det = torch.where((ksc > 0)[..., None], det, 0.0)
+    return det, (ksc > 0).sum(dim=1).to(torch.int32)

@@ -15,6 +15,17 @@ pw), and weighs the background by 0; the port computes the same sum over the
 foreground anchors alone, image by image, so no (B, A, ph, pw) tensor exists
 (at batch 32 x 640 px that one would hold 6.9e9 elements).
 
+PoseLoss adds the keypoint terms: each foreground anchor's keypoints,
+decoded to pixels as (raw * 2 + anchor - 0.5) * stride, against those of
+the gt it was assigned, by OKS (1 - exp(-d^2 / (2 sigma)^2 / area / 2) on the
+visible keypoints; COCO's sigmas for 17 keypoints, else 1/K; the area the
+assigned box's, clipped at 1e-3), and a BCE of the visibility logit against
+the gt's visibility; the `pose` and `kobj` gains. OBBLoss is the rotated
+criterion: the rotated assigner over probiou, 1 - probiou for the box term
+(a dummy unit box on the background anchors, masked by a where, keeps
+probiou's infinite derivative at a degenerate box out of the gradient) and
+DFL on the axis-aligned ltrb of the unrotated target.
+
 The head hands in NCHW maps; `DetectionLoss` flattens them to (B, A, no) in
 row-major anchor order per level, the order of JAX's NHWC reshape and of
 `make_anchors`.
@@ -27,9 +38,10 @@ from typing import Sequence
 import torch
 
 from edgeyolo_tpu_torch.nn.modules.block import dfl_decode
-from edgeyolo_tpu_torch.ops.boxes import bbox2dist, bbox_iou, dist2bbox, make_anchors, xywh2xyxy
+from edgeyolo_tpu_torch.ops.boxes import (bbox2dist, bbox_iou, dist2bbox, dist2rbox, make_anchors,
+                                          probiou, xywh2xyxy)
 from edgeyolo_tpu_torch.ops.segments import crop_mask
-from edgeyolo_tpu_torch.train.tal import task_aligned_assign
+from edgeyolo_tpu_torch.train.tal import rotated_task_aligned_assign, task_aligned_assign
 
 
 def bce_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -147,7 +159,8 @@ class DetectionLoss:
         total = (loss_box + loss_cls + loss_dfl) * n_img
         items = {"box": loss_box.detach(), "cls": loss_cls.detach(), "dfl": loss_dfl.detach()}
         assign = {"target_bboxes": target_bboxes, "fg_mask": fg_mask,
-                  "target_gt_idx": target_gt_idx, "img_weight": wimg, "imgsz": (img_h, img_w)}
+                  "target_gt_idx": target_gt_idx, "img_weight": wimg, "imgsz": (img_h, img_w),
+                  "anchors": anchor_points, "strides": stride_tensor}
         return total, items, assign
 
 
@@ -210,3 +223,123 @@ class E2EDetectLoss:
         l1, i1 = self.one2many(out["feats"], batch, out.get("quality"))
         l2, i2 = self.one2one(out["one2one_feats"], batch, out.get("one2one_quality"))
         return l1 + l2, {k: i1[k] + i2[k] for k in i1}
+
+
+# COCO's 17 keypoint sigmas
+COCO_SIGMAS = (0.026, 0.025, 0.025, 0.035, 0.035, 0.079, 0.079, 0.072, 0.072, 0.062, 0.062,
+               0.107, 0.107, 0.087, 0.087, 0.089, 0.089)
+
+
+class PoseLoss(DetectionLoss):
+    """The detection criterion plus the keypoint location and visibility
+    terms; called with the Pose head's training dict {"feats", "kpts_raw"
+    (B, A, K * D)} and a batch whose "keypoints" (B, M, K, 3) are in input
+    pixels. Returns (total, {"box", "cls", "dfl", "kpt"})."""
+
+    def __init__(self, nc: int = 80, reg_max: int = 16, stride: Sequence[int] = (8, 16, 32),
+                 hyp: dict | None = None, tal_topk: int = 10,
+                 kpt_shape: Sequence[int] = (17, 3)):
+        super().__init__(nc, reg_max, stride, hyp, tal_topk)
+        hyp = hyp or {}
+        self.kpt_shape = tuple(int(k) for k in kpt_shape)
+        self.pose_gain = float(hyp.get("pose", 12.0))
+        self.kobj_gain = float(hyp.get("kobj", 1.0))
+
+    @classmethod
+    def for_model(cls, model, hyp: dict | None = None) -> "PoseLoss":
+        head = model.model[-1]
+        return cls(nc=head.nc, reg_max=head.reg_max, stride=head.stride, hyp=hyp,
+                   kpt_shape=head.kpt_shape)
+
+    def __call__(self, out: dict, batch: dict):
+        total, items, assign = self._terms(out["feats"], batch, out.get("quality"))
+        gt_kpts = batch.get("keypoints")
+        if gt_kpts is None:
+            return total, items
+        k, d = self.kpt_shape
+        fg, wimg = assign["fg_mask"], assign["img_weight"]
+        b, a = fg.shape
+        anchors, strides = assign["anchors"], assign["strides"]
+        y = out["kpts_raw"].float().view(b, a, k, d)
+        pk_xy = (y[..., :2] * 2.0 + (anchors[None, :, None, :] - 0.5)) * strides[None, :, None, :]
+        idx = assign["target_gt_idx"][:, :, None, None].expand(b, a, k, gt_kpts.shape[-1])
+        tgt = gt_kpts.gather(1, idx)  # (B, A, K, 3)
+        vis = (tgt[..., 2] > 0).float()
+        tb = assign["target_bboxes"]
+        area = ((tb[..., 2] - tb[..., 0]) * (tb[..., 3] - tb[..., 1])).clamp(min=1e-3)[..., None]
+        d2 = (pk_xy - tgt[..., :2]).square().sum(dim=-1)  # (B, A, K)
+        sigmas = (torch.tensor(COCO_SIGMAS, device=y.device) if k == 17
+                  else torch.full((k,), 1.0 / k, device=y.device))
+        e = d2 / (2 * sigmas) ** 2 / (area + 1e-9) / 2
+        w = fg.float()[..., None]
+        if wimg is not None:
+            w = w * wimg[:, None, None]
+        loss_kpt = ((1 - torch.exp(-e)) * vis * w).sum() / (vis * w).sum().clamp(min=1.0) \
+            * self.pose_gain
+        loss_kobj = 0.0
+        if d == 3:
+            loss_kobj = (bce_logits(y[..., 2], vis) * w).sum() / (w.sum() * k).clamp(min=1.0) \
+                * self.kobj_gain
+        n_img = wimg.sum() if wimg is not None else b
+        return total + (loss_kpt + loss_kobj) * n_img, {**items, "kpt": loss_kpt.detach()}
+
+
+class OBBLoss(DetectionLoss):
+    """The rotated criterion; called with the OBB head's training dict
+    {"feats", "angle" (B, A, 1)} and a batch whose "bboxes" (B, M, 5) are
+    normalised cx, cy, w, h and the angle. Returns (total, {"box", "cls", "dfl"})."""
+
+    def __call__(self, out: dict, batch: dict):
+        feats, angle = out["feats"], out["angle"].float()
+        nc, reg_max = self.nc, self.reg_max
+        device = feats[0].device
+        flat = torch.cat([f.flatten(2) for f in feats], dim=2).transpose(1, 2)
+        pred_dist, pred_scores = flat.split((4 * reg_max, nc), dim=-1)
+        b, a = flat.shape[:2]
+        anchors, strides = make_anchors([f.shape[-2:] for f in feats], self.stride, device=device)
+        img_h = feats[0].shape[2] * self.stride[0]
+        img_w = feats[0].shape[3] * self.stride[0]
+
+        gtb = batch["bboxes"]
+        scale = torch.tensor([img_w, img_h, img_w, img_h], dtype=torch.float32, device=device)
+        gt_rboxes = torch.cat([gtb[..., :4] * scale, gtb[..., 4:5]], dim=-1)
+        mask_gt = batch.get("mask_gt")
+        if mask_gt is None:
+            mask_gt = (gtb[..., :4].sum(dim=-1) > 0).float()
+        pred_g = torch.cat([dist2rbox(dfl_decode(pred_dist, reg_max), angle, anchors[None]),
+                            angle], dim=-1)  # grid units and the angle
+        pred_px = torch.cat([pred_g[..., :4] * strides[None], angle], dim=-1)
+        _, target_rboxes, target_scores, fg_mask, _ = rotated_task_aligned_assign(
+            pred_scores.detach().sigmoid(), pred_px.detach(), anchors * strides,
+            batch["cls"].long(), gt_rboxes, mask_gt, topk=self.tal_topk, num_classes=nc)
+        wimg = batch.get("img_weight")
+        if wimg is not None:
+            target_scores = target_scores * wimg[:, None, None]
+        target_scores_sum = target_scores.sum().clamp(min=1.0)
+        wb = wimg[:, None, None] if wimg is not None else 1.0
+        loss_cls = (bce_logits(pred_scores, target_scores) * wb).sum() / target_scores_sum
+
+        fg = fg_mask.float()
+        weight = target_scores.sum(dim=-1) * fg
+        tb_grid = torch.cat([target_rboxes[..., :4] / strides[None], target_rboxes[..., 4:5]],
+                            dim=-1)
+        # a background anchor's target is a padded (0, 0, 0, 0, 0) box, where
+        # probiou's derivative is infinite; a unit box under the where keeps it out
+        dummy = torch.tensor([0.0, 0.0, 1.0, 1.0, 0.0], device=device)
+        safe_tb = torch.where(fg[..., None] > 0, tb_grid, dummy)
+        iou = probiou(pred_g, safe_tb)[..., 0]
+        loss_iou = torch.where(fg > 0, (1.0 - iou) * weight, 0.0).sum() / target_scores_sum
+
+        txy, twh = tb_grid[..., :2], tb_grid[..., 2:4]
+        target_ltrb = bbox2dist(anchors[None], torch.cat([txy - twh / 2, txy + twh / 2], -1),
+                                reg_max - 1)
+        dl = df_loss(pred_dist.reshape(b, a, 4, reg_max), target_ltrb, reg_max)
+        loss_dfl = (dl * weight).sum() / target_scores_sum
+
+        loss_box = loss_iou * self.box_gain
+        loss_cls = loss_cls * self.cls_gain
+        loss_dfl = loss_dfl * self.dfl_gain
+        n_img = wimg.sum() if wimg is not None else b
+        total = (loss_box + loss_cls + loss_dfl) * n_img
+        return total, {"box": loss_box.detach(), "cls": loss_cls.detach(),
+                       "dfl": loss_dfl.detach()}

@@ -5,6 +5,10 @@ Dense masked algebra over the (B, M, A) lattice, as the JAX package does:
   the top-k anchors per gt, lowest index first among ties;
   an anchor claimed by several gts goes to the gt it overlaps most;
   target scores = one-hot x (align / max align) x max IoU of the gt.
+
+`rotated_task_aligned_assign` (the obb task's) is the same over xywhr boxes:
+probiou for the overlap, and an anchor is a candidate when its centre lies
+strictly inside the gt's rotated rectangle.
 """
 
 from __future__ import annotations
@@ -12,7 +16,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from edgeyolo_tpu_torch.ops.boxes import bbox_iou
+from edgeyolo_tpu_torch.ops.boxes import bbox_iou, probiou
 
 
 def _topk_mask(align: torch.Tensor, k: int) -> torch.Tensor:
@@ -42,22 +46,31 @@ def task_aligned_assign(pd_scores: torch.Tensor, pd_bboxes: torch.Tensor,
     Returns (target_labels (B, A), target_bboxes (B, A, 4), target_scores
     (B, A, nc), fg_mask (B, A) bool, target_gt_idx (B, A)).
     """
-    b, a, nc = pd_scores.shape
-    m = gt_bboxes.shape[1]
     mask_gt_f = mask_gt.float()[..., None]  # (B, M, 1)
 
     # candidates: anchor centres strictly inside each gt box
     lt, rb = gt_bboxes[:, :, None, :2], gt_bboxes[:, :, None, 2:]
     deltas = torch.cat([anc_points[None, None] - lt, rb - anc_points[None, None]], dim=-1)
     mask_in_gts = (deltas.amin(dim=-1) > eps).float()  # (B, M, A)
+
+    ious = bbox_iou(gt_bboxes[:, :, None, :], pd_bboxes[:, None, :, :], xywh=False, CIoU=True)
+    return _assign(pd_scores, gt_labels, gt_bboxes, mask_in_gts, mask_gt_f,
+                   ious.squeeze(-1), topk, alpha, beta, eps)
+
+
+def _assign(pd_scores, gt_labels, gt_boxes, mask_in_gts, mask_gt_f, ious, topk, alpha, beta,
+            eps):
+    """The assignment from the candidates mask_in_gts (B, M, A) and the
+    overlaps ious (B, M, A) of every gt with every predicted box."""
+    b, a, nc = pd_scores.shape
+    m, nb = gt_boxes.shape[1], gt_boxes.shape[-1]
     gate = mask_in_gts * mask_gt_f
 
     # alignment metric
     labels = gt_labels.clamp(0, nc - 1).long()
     bbox_scores = pd_scores.transpose(1, 2).gather(
         1, labels[:, :, None].expand(b, m, a)) * gate  # (B, M, A)
-    ious = bbox_iou(gt_bboxes[:, :, None, :], pd_bboxes[:, None, :, :], xywh=False, CIoU=True)
-    overlaps = ious.squeeze(-1).clamp(min=0.0) * gate
+    overlaps = ious.clamp(min=0.0) * gate
     align = bbox_scores.pow(alpha) * overlaps.pow(beta)
 
     # top-k anchors per gt
@@ -74,7 +87,7 @@ def task_aligned_assign(pd_scores: torch.Tensor, pd_bboxes: torch.Tensor,
 
     # gather targets
     target_labels = labels.gather(1, target_gt_idx)
-    target_bboxes = gt_bboxes.gather(1, target_gt_idx[..., None].expand(b, a, 4))
+    target_bboxes = gt_boxes.gather(1, target_gt_idx[..., None].expand(b, a, nb))
     target_scores = F.one_hot(target_labels, nc).float() * fg_mask[..., None]
 
     # per-gt normalisation
@@ -84,3 +97,25 @@ def task_aligned_assign(pd_scores: torch.Tensor, pd_bboxes: torch.Tensor,
     norm = (align_pos * pos_overlap / (pos_align + eps)).amax(dim=1)  # (B, A)
     target_scores = target_scores * norm[..., None]
     return target_labels, target_bboxes, target_scores, fg_mask, target_gt_idx
+
+
+@torch.no_grad()
+def rotated_task_aligned_assign(pd_scores: torch.Tensor, pd_rboxes: torch.Tensor,
+                                anc_points: torch.Tensor, gt_labels: torch.Tensor,
+                                gt_rboxes: torch.Tensor, mask_gt: torch.Tensor, topk: int = 10,
+                                num_classes: int = 80, alpha: float = 0.5, beta: float = 6.0,
+                                eps: float = 1e-9):
+    """`task_aligned_assign` over xywhr boxes (B, A, 5) and (B, M, 5) in image
+    units: probiou overlaps, candidates the anchors strictly inside the
+    rotated gt. Returns the same five tensors, target boxes (B, A, 5)."""
+    mask_gt_f = mask_gt.float()[..., None]
+    cx, cy = gt_rboxes[..., 0:1], gt_rboxes[..., 1:2]  # (B, M, 1)
+    w, h, r = gt_rboxes[..., 2:3], gt_rboxes[..., 3:4], gt_rboxes[..., 4:5]
+    dx = anc_points[None, None, :, 0] - cx  # (B, M, A)
+    dy = anc_points[None, None, :, 1] - cy
+    cos, sin = torch.cos(r), torch.sin(r)
+    lx, ly = dx * cos + dy * sin, -dx * sin + dy * cos  # into the box's frame
+    mask_in = ((lx.abs() < w / 2) & (ly.abs() < h / 2)).float()
+    ious = probiou(gt_rboxes[:, :, None, :], pd_rboxes[:, None, :, :])[..., 0]
+    return _assign(pd_scores, gt_labels, gt_rboxes, mask_in, mask_gt_f, ious, topk, alpha, beta,
+                   eps)

@@ -1,4 +1,4 @@
-"""Detection and segment training (edgeyolo_tpu/train/trainer.py): the optimizer chain,
+"""Detection, segment, pose and obb training (edgeyolo_tpu/train/trainer.py): the optimizer chain,
 gradient accumulation, the warmup and LR schedule, EMA, early stopping and
 the step and epoch loop, on one device.
 
@@ -20,7 +20,9 @@ The step: uint8 batch -> `augment_batch` -> forward in train mode (with
 `amp`, on the parameters rounded to bf16 under bf16 autocast, as JAX's
 `amp_cast`) -> `DetectionLoss` in f32 (`E2EDetectLoss` on the whole output
 dict when the model's head is end to end, `SegmentationLoss` for a segment
-model, whose instance masks ride `augment_batch` with the images) -> backward -> accumulate ->
+model, whose instance masks ride `augment_batch` with the images,
+`PoseLoss` for a pose model, with its keypoints, and `OBBLoss` for an obb
+model, whose rotated boxes, warped, are the criterion's boxes) -> backward -> accumulate ->
 update -> EMA. `DetectionTrainer.train(batches)` runs epochs over a re-iterable of
 batches in the loader's collate format. `DetectionTrainer.fit()` is JAX's
 dataset-driven `DetectionTrainer.train`: the dataset YAML, a shuffled
@@ -54,7 +56,8 @@ from torch import nn
 from edgeyolo_tpu_torch.data.augment_device import augment_batch
 from edgeyolo_tpu_torch.data.dataset import YOLODataset, build_dataloader, check_det_dataset
 from edgeyolo_tpu_torch.nn.tasks import train_forward
-from edgeyolo_tpu_torch.train.loss import DetectionLoss, E2EDetectLoss, SegmentationLoss
+from edgeyolo_tpu_torch.train.loss import (DetectionLoss, E2EDetectLoss, OBBLoss, PoseLoss,
+                                           SegmentationLoss)
 from edgeyolo_tpu_torch.utils import LOGGER, select_device
 from edgeyolo_tpu_torch.utils.yamlfile import yaml_save
 
@@ -293,7 +296,7 @@ def batch_to_device(batch: dict, device: torch.device) -> dict:
     """A collated batch (numpy or torch) on `device`, with its per-image
     weight: 1 for the n_real real images, 0 for the padded repeats."""
     out = {}
-    for k in ("img", "cls", "bboxes", "mask_gt", "masks"):
+    for k in ("img", "cls", "bboxes", "mask_gt", "masks", "keypoints", "rboxes"):
         if k not in batch:
             continue
         v = torch.as_tensor(batch[k])
@@ -327,9 +330,10 @@ class DetectionTrainer:
         self.model = model.to(self.device).train()
         self.end2end = bool(getattr(model, "end2end", False))
         self.task = getattr(model, "task", "detect")
-        self.dict_loss = self.end2end or self.task == "segment"  # called with the output dict
-        loss_cls = (SegmentationLoss if self.task == "segment"
-                    else E2EDetectLoss if self.end2end else DetectionLoss)
+        # criteria called with the whole output dict
+        self.dict_loss = self.end2end or self.task in ("segment", "pose", "obb")
+        loss_cls = {"segment": SegmentationLoss, "pose": PoseLoss, "obb": OBBLoss}.get(
+            self.task, E2EDetectLoss if self.end2end else DetectionLoss)
         self.criterion = loss_cls.for_model(model, self.args)
         self.gen = torch.Generator().manual_seed(int(self.args["seed"]))
         self.epoch_losses: list[list[float]] = []
@@ -356,17 +360,19 @@ class DetectionTrainer:
 
     def train_step(self, batch: dict, mosaic: bool = True):
         """One micro-step on a device batch (see `batch_to_device`). Returns
-        (loss, {"box", "cls", "dfl"[, "seg"]}, whether the parameters were updated)."""
+        (loss, {"box", "cls", "dfl"[, "seg" | "kpt"]}, whether the parameters were updated)."""
         a = self.args
         imgsz = batch["img"].shape[1]
+        extra = {"segment": "masks", "pose": "keypoints", "obb": "rboxes"}.get(self.task)
         aug = augment_batch(batch["img"], batch["cls"], batch["bboxes"], batch["mask_gt"],
-                            self.gen, imgsz, a, mosaic, masks=batch.get("masks"))
+                            self.gen, imgsz, a, mosaic,
+                            **({extra: batch.get(extra)} if extra else {}))
         img01, cls, bboxes, mask = aug[:4]
         out = train_forward(self.model, img01.permute(0, 3, 1, 2).contiguous(),
                             amp=bool(a["amp"]))
         tgt = {"cls": cls, "bboxes": bboxes, "mask_gt": mask, "img_weight": batch["img_weight"]}
-        if len(aug) == 5:
-            tgt["masks"] = aug[4]
+        if len(aug) == 5:  # the obb criterion's boxes are the rotated ones
+            tgt["bboxes" if extra == "rboxes" else extra] = aug[4]
         loss, items = (self.criterion(out, tgt) if self.dict_loss
                        else self.criterion(out["feats"], tgt, out.get("quality")))
         self.flat.grad.zero_()
@@ -424,7 +430,8 @@ class DetectionTrainer:
                                 single_cls=bool(a.get("single_cls", False)),
                                 fraction=float(a.get("fraction", 1.0)), names=data_cfg["names"],
                                 cache=a.get("cache", False), task=self.task,
-                                mask_ratio=int(a["mask_ratio"]))
+                                mask_ratio=int(a["mask_ratio"]),
+                                kpt_shape=getattr(self.model, "kpt_shape", None) or (17, 3))
         loader = build_dataloader(train_set, bs, shuffle=True, seed=int(a["seed"]))
         self.setup(len(loader))
         start_epoch = 0
@@ -492,7 +499,8 @@ class DetectionTrainer:
         """The val split through the EMA weights and the current BatchNorm
         statistics, at max_nms 4096; the trained weights are put back after."""
         from edgeyolo_tpu_torch.cfg import get_cfg
-        from edgeyolo_tpu_torch.engine.validator import DetectionValidator, SegmentationValidator
+        from edgeyolo_tpu_torch.engine import validator
+        from edgeyolo_tpu_torch.engine.model import TASK_MAP
 
         if self.validator is None:
             a = self.args
@@ -501,7 +509,7 @@ class DetectionTrainer:
                 "batch": int(a["batch"]), "conf": 0.001, "iou": 0.7, "max_det": 300,
                 "plots": False, "single_cls": bool(a.get("single_cls", False)),
                 "task": self.task, "overlap_mask": bool(a["overlap_mask"])})
-            vcls = SegmentationValidator if self.task == "segment" else DetectionValidator
+            vcls = getattr(validator, TASK_MAP[self.task][0])
             self.validator = vcls(vargs, save_dir=self.save_dir / "val", device=self.device)
         raw = self.flat.data.clone()
         try:
@@ -538,6 +546,7 @@ class DetectionTrainer:
         return {"epoch": epoch, "best_fitness": float(self.best_fitness),
                 "model_yaml": getattr(m, "cfg", ""), "task": getattr(m, "task", "detect"),
                 "scale": getattr(m, "scale", ""), "nc": m.nc, "names": dict(m.names),
+                "kpt_shape": list(m.kpt_shape) if getattr(m, "kpt_shape", None) else None,
                 "train_args": {k: v for k, v in self.args.items()
                                if isinstance(v, (int, float, str, bool, type(None)))}}
 

@@ -3,7 +3,8 @@
 The port's own copy of the key rule of edgeyolo_tpu/utils/torch_convert.py
 (`flax_path_to_torch_key`): flax scope `l{i}_{Type}` is `model.{i}`, a
 trailing `_{digits}` group is module-list indexing (`cv2_0_1` ->
-`cv2.0.1`, `mix_1_2` -> `mix.1.2`), and the quality head's second conv, in
+`cv2.0.1`, `mix_1_2` -> `mix.1.2`; the Segment, Pose and OBB heads'
+`cv4_{level}_{j}` towers are `cv4.{level}.{j}`), and the quality head's second conv, in
 either branch, sits at index 2 of its torch Sequential (`reg_conf.{i}.2`,
 `one2one_reg_conf.{i}.2`), GhostBottleneck's `short_dw`/`short_pw` are
 `shortcut.0`/`shortcut.1`, and a YAML's raw `nn.ConvTranspose2d` keeps its

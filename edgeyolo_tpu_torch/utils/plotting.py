@@ -3,7 +3,11 @@ and the PIL ImageDraw calls of edgeyolo_tpu/engine/results.py).
 
 `rectangle` follows PIL's ImageDraw.rectangle pixel for pixel (coordinates
 truncated to int, both corners inclusive, an outline of `width` drawn
-inward; Pillow's draw.c ImagingDrawRectangle). Text is a 5 x 9 bitmap font
+inward; Pillow's draw.c ImagingDrawRectangle); `ellipse` follows PIL's
+filled ImageDraw.ellipse (Pillow's integer quarter-ellipse scan) and
+`line` PIL's ImageDraw.line with a width over 1 (each segment's integer
+end points widened into a quadrilateral, filled by Pillow's polygon scan
+with its corner rules). Text is a 5 x 9 bitmap font
 drawn by hand for this module (no third-party font data), scaled by
 nearest neighbour so that at a font size S
 its capitals stand 0.75 S above the baseline and its descenders 2/7 of that
@@ -168,6 +172,162 @@ def rectangle(img: np.ndarray, xy, color, width: int = 1, fill: bool = False) ->
         _hline(img, x0, y1 - i, x1, color)
         _vline(img, x1 - i, y0 + width, y1 - width + 1, color)
         _vline(img, x0 + i, y0 + width, y1 - width + 1, color)
+
+
+def _round_up(f: float) -> int:
+    """Pillow's ROUND_UP: half away from zero."""
+    return int(math.floor(f + 0.5)) if f >= 0 else -int(math.floor(abs(f) + 0.5))
+
+
+def _round_down(f: float) -> int:
+    """Pillow's ROUND_DOWN: half toward zero."""
+    return int(math.ceil(f - 0.5)) if f >= 0 else -int(math.ceil(abs(f) - 0.5))
+
+
+class _Quarter:
+    """Pillow's quarter_state: one quarter of an ellipse on a grid of step 2."""
+
+    def __init__(self, a: int, b: int):
+        self.finished = a < 0 or b < 0
+        if not self.finished:
+            self.cx, self.cy, self.ex, self.ey = a, b % 2, a % 2, b
+            self.a2, self.b2 = a * a, b * b
+            self.a2b2 = self.a2 * self.b2
+
+    def _delta(self, x: int, y: int) -> int:
+        return abs(self.a2 * y * y + self.b2 * x * x - self.a2b2)
+
+    def next(self):
+        if self.finished:
+            return None
+        ret = (self.cx, self.cy)
+        if self.cx == self.ex and self.cy == self.ey:
+            self.finished = True
+        else:
+            nx, ny = self.cx, self.cy + 2
+            nd = self._delta(nx, ny)
+            if nx > 1:
+                d = self._delta(self.cx - 2, self.cy + 2)
+                if nd > d:
+                    nx, ny, nd = self.cx - 2, self.cy + 2, d
+                d = self._delta(self.cx - 2, self.cy)
+                if nd > d:
+                    nx, ny = self.cx - 2, self.cy
+            self.cx, self.cy = nx, ny
+        return ret
+
+
+def _ellipse_spans(a: int, b: int, w: int):
+    """Pillow's ellipse_state: the (x0, y, x1) spans, on the step-2 grid, of
+    an a x b ellipse ring of width w."""
+    leftmost = a % 2
+    outer = _Quarter(a, b)
+    first = outer.next()
+    if w < 1 or first is None:
+        return
+    pr, py = first
+    inner, pl, finished = _Quarter(a - 2 * (w - 1), b - 2 * (w - 1)), leftmost, False
+    while not finished:
+        y, l, r = py, pl, pr
+        nxt = outer.next()
+        while nxt is not None and nxt[1] <= y:
+            nxt = outer.next()
+        if nxt is None:
+            finished = True
+        else:
+            pr, py = nxt
+        nxt = inner.next()
+        while nxt is not None and nxt[1] <= y:
+            l = nxt[0]
+            nxt = inner.next()
+        pl = leftmost if nxt is None else nxt[0]
+        if (l > 0 or l < r) and y > 0:
+            yield (2 if l == 0 else l), y, r
+        if y > 0:
+            yield -r, y, -l
+        if l > 0 or l < r:
+            yield (2 if l == 0 else l), -y, r
+        yield -r, -y, -l
+
+
+def ellipse(img: np.ndarray, xy, color) -> None:
+    """PIL's ImageDraw.ellipse(xy, fill=color) on an HWC uint8 image in place."""
+    x0, y0, x1, y1 = (int(v) for v in xy)
+    a, b = x1 - x0, y1 - y0
+    if a < 0 or b < 0:
+        return
+    for sx0, sy, sx1 in _ellipse_spans(a, b, a + b):
+        _hline(img, x0 + int((sx0 + a) / 2), y0 + int((sy + b) / 2), x0 + int((sx1 + a) / 2),
+               color)
+
+
+def _polygon(img: np.ndarray, verts, color) -> None:
+    """Pillow's polygon_generic over the closed polygon of integer vertices:
+    per scan line, the f32 crossings of its edges (an edge's lower end
+    counted twice, joined corners nudged as Pillow does), sorted, filled
+    pairwise from ROUND_UP of the left to ROUND_DOWN of the right."""
+    f32 = np.float32
+    edges, ymin, ymax = [], img.shape[0] - 1, 0
+    for (xa, ya), (xb, yb) in zip(verts, verts[1:] + verts[:1]):
+        e = {"x0": xa, "y0": ya, "xmin": min(xa, xb), "xmax": max(xa, xb),
+             "ymin": min(ya, yb), "ymax": max(ya, yb),
+             "dx": f32(0.0) if ya == yb else f32(xb - xa) / f32(yb - ya)}
+        ymin, ymax = min(ymin, e["ymin"]), max(ymax, e["ymax"])
+        if e["ymin"] == e["ymax"]:
+            _hline(img, e["xmin"], e["ymin"], e["xmax"], color)
+            continue
+        edges.append(e)
+
+    def at(e, y):
+        return f32(f32(y - e["y0"]) * e["dx"] + f32(e["x0"]))
+
+    ymin, ymax = max(ymin, 0), min(ymax, img.shape[0])
+    for y in range(ymin, ymax + 1):
+        xx = []
+        for i, cur in enumerate(edges):
+            if not cur["ymin"] <= y <= cur["ymax"]:
+                continue
+            xx.append(at(cur, y))
+            if y == cur["ymax"] and y < ymax:
+                xx.append(xx[-1])
+            elif cur["dx"] != 0 and len(xx) % 2 == 1 and np.round(xx[-1]) == xx[-1]:
+                for other in edges[:i]:  # connect discontiguous corners
+                    if (cur["dx"] > 0 and other["dx"] <= 0) or (cur["dx"] < 0
+                                                                and other["dx"] >= 0):
+                        continue
+                    if np.round(xx[-1]) == np.round(at(other, y)):
+                        off = -1 if y == cur["ymax"] else 1
+                        adj = at(cur, y + off)
+                        if other["ymin"] <= y + off <= other["ymax"]:
+                            adj_o = at(other, y + off)
+                            if xx[-1] > adj + 1 and xx[-1] > adj_o + 1:
+                                xx[-1] = f32(np.round(max(adj, adj_o)) + 0.5)
+                            elif xx[-1] < adj - 1 and xx[-1] < adj_o - 1:
+                                xx[-1] = f32(np.round(min(adj, adj_o)) - 0.5)
+                            break
+        xx.sort()
+        for i in range(1, len(xx), 2):
+            x_end = _round_down(float(xx[i]))
+            if x_end < xx[i - 1]:
+                continue
+            _hline(img, _round_up(float(xx[i - 1])), y, x_end, color)
+
+
+def line(img: np.ndarray, xy, color, width: int = 1) -> None:
+    """PIL's ImageDraw.line(xy, fill=color, width=width), width > 1, on an HWC
+    uint8 image in place: xy a sequence of (x, y) points."""
+    pts = [(int(x), int(y)) for x, y in xy]
+    for (x0, y0), (x1, y1) in zip(pts, pts[1:]):
+        dx, dy = x1 - x0, y1 - y0
+        if dx == 0 and dy == 0:
+            _hline(img, x0, y0, x0, color)
+            continue
+        big, small = math.hypot(dx, dy), (width - 1) / 2.0
+        r_max, r_min = _round_up(small) / big, _round_down(small) / big
+        dxmin, dxmax = _round_down(r_min * dy), _round_down(r_max * dy)
+        dymin, dymax = _round_down(r_min * dx), _round_down(r_max * dx)
+        _polygon(img, [(x0 - dxmin, y0 + dymax), (x1 - dxmin, y1 + dymax),
+                       (x1 + dxmax, y1 - dymin), (x0 + dxmax, y0 - dymin)], color)
 
 
 def text(img: np.ndarray, xy, s: str, color, font: BitmapFont) -> None:

@@ -1,0 +1,479 @@
+"""The pose and obb tasks' augmentation, assignment, losses and training in
+the PyTorch port against the JAX package, on the CPU in f32.
+
+- Augmentation with JAX's own draws (`jax_drawn_params`), mosaic and
+  single-source, the separable and the gather image samplers:
+  keypoints through the warp (xy 1e-4 px, visibility exact: off the canvas
+  or of a dropped box it turns 0; no flip and no mixup with keypoints);
+  rotated boxes through the warp and both flips (the same boxes by corners
+  at 1e-4 px, and where an angle is away from the pi/2 seam cx, cy, w, h at
+  1e-4 px and the angle at 1e-5; validity exact), and flip_rbox_angle itself.
+- rotated_task_aligned_assign: foreground masks and target gt indices exact,
+  target scores and boxes 1e-5.
+- PoseLoss (17 keypoints with COCO's sigmas, 5 with 1/K; all images real and
+  a padded duplicate) and OBBLoss: the value and items rel 1e-5, the
+  gradients with respect to the feats, keypoints and angles 1e-5 of their
+  largest magnitude; OBBLoss's gradient stays finite with padded targets.
+- Three train steps of yolo11n-pose (5 x 3 keypoints) and yolo11n-obb at
+  64 px, batch 2, from the same JAX weights, augmentation off, as
+  tests/test_torch_segment_train.py runs them: losses rel 1e-4, params and
+  EMA abs 1e-5 plus rel 1e-4, against JAX's train_step math with its
+  PoseLoss and OBBLoss. The BatchNorm statistics are held there too, all
+  but the four P5 stem running means of the box and class towers (2 x 2
+  maps), which may part from JAX's by up to 1e-4 (measured 4.4e-5) and must
+  also lie no farther from the port's own f64 step (the f32 step's
+  augmented batch replayed) than twice JAX's f32 statistics do. JAX's f32
+  pose step is the farther one (its step-1 loss 1e-4 off the f64 loss, the
+  port's 2e-5; the worst running mean 6.1e-5 off, the port's 1.1e-5)
+  (ROADMAP C.15).
+"""
+
+from unittest import mock
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+from flax import traverse_util
+from jax.flatten_util import ravel_pytree
+from test_torch_augment import S as AUG_S
+from test_torch_augment import _batch as aug_batch
+from test_torch_augment import jax_drawn_params
+from test_torch_train import AUG_OFF, _jax_trainer_build, build_optimizer
+from torch_threads import one_torch_thread  # noqa: F401  (the port on one thread)
+
+from edgeyolo_tpu.data import augment_device as jaug
+from edgeyolo_tpu.nn import tasks as jtasks
+from edgeyolo_tpu.ops import boxes as jboxes
+from edgeyolo_tpu.train import trainer as jtrainer
+from edgeyolo_tpu.train.loss import OBBLoss as JOBBLoss
+from edgeyolo_tpu.train.loss import PoseLoss as JPoseLoss
+from edgeyolo_tpu.train.tal import rotated_task_aligned_assign as jax_rtal
+from edgeyolo_tpu_torch.data import augment_device as aug
+from edgeyolo_tpu_torch.nn.tasks import DetectionModel
+from edgeyolo_tpu_torch.train import trainer
+from edgeyolo_tpu_torch.train.loss import OBBLoss, PoseLoss
+from edgeyolo_tpu_torch.train.tal import rotated_task_aligned_assign
+from edgeyolo_tpu_torch.utils.convert import from_jax_variables
+
+
+# -- augmentation -------------------------------------------------------------------------------
+def _kpts(boxes, mask, seed=0):
+    """Per box its corners and centre in letterbox pixels, visibility 2 or 0,
+    and one point near the canvas border (so warps push some off it)."""
+    rs = np.random.RandomState(seed)
+    b, m = mask.shape
+    xyxy = np.concatenate([boxes[..., :2] - boxes[..., 2:] / 2,
+                           boxes[..., :2] + boxes[..., 2:] / 2], -1) * AUG_S
+    x1, y1, x2, y2 = (xyxy[..., i] for i in range(4))
+    pts = np.stack([np.stack(p, -1) for p in ((x1, y1), (x2, y1), (x2, y2), (x1, y2),
+                                              ((x1 + x2) / 2, (y1 + y2) / 2))], 2)
+    pts[:, :, 0] = rs.uniform(0, 3, (b, m, 2))  # at the top-left border
+    vis = np.where(rs.rand(b, m, 5, 1) < 0.8, 2.0, 0.0)
+    return (np.concatenate([pts, vis], -1) * mask[..., None, None]).astype(np.float32)
+
+
+def _rboxes(boxes, mask, seed=0):
+    rs = np.random.RandomState(seed)
+    ang = rs.uniform(-np.pi / 4, 3 * np.pi / 4, mask.shape + (1,))
+    ang[:, 0] = 0.0  # exactly on the seam's other side
+    return (np.concatenate([boxes, ang], -1) * mask[..., None]).astype(np.float32)
+
+
+# the pixel-only stages (photometric, HSV) are off: these cases hold the labels, and
+# tests/test_torch_augment.py holds those stages (HSV's sextant select turns an ulp of
+# difference in a pixel into up to 3e-3 where a pixel sits on a sextant edge, ROADMAP C.15)
+PIXELS_OFF = {"photometric": 0.0, "hsv_h": 0.0, "hsv_s": 0.0, "hsv_v": 0.0}
+AUG_CASES = {
+    "mosaic_separable": (True, PIXELS_OFF),
+    "mosaic_rotated": (True, {"degrees": 20.0, "shear": 2.0, "flipud": 0.5, "mixup": 0.5,
+                              **PIXELS_OFF}),
+    "single_rotated": (False, {"degrees": 30.0, "scale": 0.3, "flipud": 0.5, **PIXELS_OFF}),
+}
+
+
+@pytest.mark.parametrize("case", list(AUG_CASES))
+def test_keypoints_ride_the_warp_as_jax(case):
+    mosaic, hyp = AUG_CASES[case]
+    b = 4
+    imgs, cls, boxes, mask = aug_batch(b=b, seed=3)
+    kp = _kpts(boxes, mask)
+    key = jax.random.PRNGKey(5)
+    j_img, j_cls, j_box, j_val, j_kp = (np.asarray(a) for a in jaug.augment_batch(
+        jnp.asarray(imgs), jnp.asarray(cls), jnp.asarray(boxes), jnp.asarray(mask), key, AUG_S,
+        hyp, mosaic=mosaic, keypoints=jnp.asarray(kp)))
+    prm = jax_drawn_params(key, b, AUG_S, hyp, mosaic)
+    prm.fliplr, prm.flipud = torch.zeros(b, dtype=torch.bool), None  # JAX's draws with keypoints
+    out = aug.augment_apply(torch.from_numpy(imgs), torch.from_numpy(cls),
+                            torch.from_numpy(boxes), torch.from_numpy(mask), prm, AUG_S,
+                            keypoints=torch.from_numpy(kp))
+    p_img, p_cls, p_box, p_val, p_kp = (t.numpy() for t in out)
+    assert p_kp.shape == j_kp.shape == (b, (4 if mosaic else 1) * mask.shape[1], 5, 3)
+    np.testing.assert_array_equal(p_val, j_val)
+    np.testing.assert_array_equal(p_cls, j_cls)  # no mixup: M' = n_src * M
+    np.testing.assert_allclose(p_box, j_box, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(p_img, j_img, atol=1e-4, rtol=0)
+    np.testing.assert_allclose(p_kp[..., :2], j_kp[..., :2], atol=1e-4, rtol=0)
+    np.testing.assert_array_equal(p_kp[..., 2], j_kp[..., 2])
+    visible = p_kp[..., 2] > 0
+    assert visible.any() and (visible < (kp[prm.sel.numpy()].reshape(p_kp.shape)[..., 2] > 0)).any()
+
+
+def test_sample_params_draws_no_flip_with_keypoints():
+    hyp = {"fliplr": 1.0, "flipud": 1.0}
+    prm = aug.sample_params(4, AUG_S, hyp, True, torch.Generator().manual_seed(0), keypoints=True)
+    assert not prm.fliplr.any() and prm.flipud is None
+    prm = aug.sample_params(4, AUG_S, hyp, True, torch.Generator().manual_seed(0))
+    assert prm.fliplr.all() and prm.flipud.all()
+
+
+def _same_rboxes(p, j, valid):
+    """Rotated boxes (B, M, 5) normalised by AUG_S, the valid ones: the same
+    rectangles by corners; away from the seam the same parameters."""
+    pp, jj = p[valid] * [AUG_S] * 4 + [0], j[valid] * [AUG_S] * 4 + [0]
+    pp[:, 4], jj[:, 4] = p[valid][:, 4], j[valid][:, 4]
+    pc, jc = jboxes.xywhr2xyxyxyxy(pp), jboxes.xywhr2xyxyxyxy(jj)
+    d = np.abs(pc[:, :, None] - jc[:, None]).max(-1).min(-1)  # each corner to the nearest
+    assert d.max() < 1e-4, d.max()
+    away = (np.abs(jj[:, 4] - np.pi / 2) > 1e-4) & (jj[:, 4] > 1e-4)
+    np.testing.assert_allclose(pp[away, :4], jj[away, :4], atol=1e-4, rtol=0)
+    np.testing.assert_allclose(pp[away, 4], jj[away, 4], atol=1e-5, rtol=0)
+    return away.sum()
+
+
+@pytest.mark.parametrize("case", list(AUG_CASES))
+@pytest.mark.parametrize("fliplr", [0.0, 0.5])
+def test_rotated_boxes_ride_the_warp_and_flips_as_jax(case, fliplr):
+    mosaic, hyp = AUG_CASES[case]
+    hyp = {**hyp, "fliplr": fliplr}
+    b = 4
+    imgs, cls, boxes, mask = aug_batch(b=b, seed=4)
+    rb = _rboxes(boxes, mask)
+    key = jax.random.PRNGKey(9)
+    j_img, j_cls, j_box, j_val, j_ex = jaug.augment_batch(
+        jnp.asarray(imgs), jnp.asarray(cls), jnp.asarray(boxes), jnp.asarray(mask), key, AUG_S,
+        hyp, mosaic=mosaic, rboxes=jnp.asarray(rb))
+    prm = jax_drawn_params(key, b, AUG_S, hyp, mosaic)
+    out = aug.augment_apply(torch.from_numpy(imgs), torch.from_numpy(cls),
+                            torch.from_numpy(boxes), torch.from_numpy(mask), prm, AUG_S,
+                            rboxes=torch.from_numpy(rb))
+    p_img, p_cls, p_box, p_val, p_rb = (t.numpy() for t in out)
+    j_rb, j_val = np.asarray(j_ex["rboxes"]), np.asarray(j_val)
+    assert p_rb.shape == j_rb.shape == (b, (4 if mosaic else 1) * mask.shape[1], 5)
+    np.testing.assert_array_equal(p_val, j_val)
+    np.testing.assert_array_equal(p_cls, np.asarray(j_cls))
+    np.testing.assert_allclose(p_box, np.asarray(j_box), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(p_img, np.asarray(j_img), atol=1e-4, rtol=0)
+    valid = p_val > 0
+    assert valid.sum() > 4 and _same_rboxes(p_rb, j_rb, valid) > 2
+    assert (p_rb[~valid] == 0).all()
+    a = p_rb[valid][:, 4]
+    assert (a >= 0).all() and (a < np.pi / 2 + 1e-6).all()
+    if fliplr and case != "mosaic_separable":
+        assert prm.fliplr.any()
+
+
+def test_flip_rbox_angle_matches_jax():
+    rs = np.random.RandomState(6)
+    rb = np.concatenate([rs.rand(3, 10, 4), rs.uniform(0, np.pi / 2, (3, 10, 1))], -1)
+    rb[:, :3, 4] = 0.0  # on the seam: no swap
+    rb = rb.astype(np.float32)
+    flip = np.array([True, False, True])
+    got = aug.flip_rbox_angle(torch.from_numpy(rb), torch.from_numpy(flip)).numpy()
+    want = np.asarray(jaug._flip_rbox_angle(jnp.asarray(rb), jnp.asarray(flip)))
+    np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
+    np.testing.assert_array_equal(got[1], rb[1])
+    assert (got[0, 3:, 2] == rb[0, 3:, 3]).all()  # w and h swapped across the seam
+
+
+# -- the rotated assigner -----------------------------------------------------------------------
+def test_rotated_assigner_matches_jax():
+    rs = np.random.RandomState(7)
+    b, a, m, nc = 2, 256, 6, 4
+    g = np.arange(16) * 8 + 4.0
+    anc = np.stack(np.meshgrid(g, g), -1).reshape(-1, 2).astype(np.float32)
+    gt = np.concatenate([rs.uniform(30, 100, (b, m, 2)), rs.uniform(20, 50, (b, m, 2)),
+                         rs.uniform(-np.pi / 4, 3 * np.pi / 4, (b, m, 1))], -1)
+    mask = (np.arange(m)[None] < np.array([[4], [6]])).astype(np.float32)
+    gt = (gt * mask[..., None]).astype(np.float32)
+    pick = rs.randint(0, m, (b, a))
+    pd = np.take_along_axis(gt, pick[..., None].repeat(5, -1), 1) + rs.randn(b, a, 5) * [4, 4, 3,
+                                                                                        3, 0.1]
+    pd[..., 2:4] = np.abs(pd[..., 2:4]) + 1
+    scores = rs.rand(b, a, nc).astype(np.float32)
+    labels = rs.randint(0, nc, (b, m)).astype(np.float32)
+    args = [scores, pd.astype(np.float32), anc, labels, gt, mask]
+    got = rotated_task_aligned_assign(*(torch.from_numpy(x) for x in args), num_classes=nc)
+    want = [np.asarray(x) for x in jax_rtal(*(jnp.asarray(x) for x in args), num_classes=nc)]
+    lab, box, sc, fg, idx = (t.numpy() for t in got)
+    np.testing.assert_array_equal(fg, want[3])
+    np.testing.assert_array_equal(idx[fg], want[4][fg])
+    np.testing.assert_array_equal(lab, want[0])
+    np.testing.assert_allclose(sc, want[2], atol=1e-5, rtol=0)
+    np.testing.assert_allclose(box, want[1], atol=1e-5, rtol=0)
+    assert 10 < fg.sum() < b * a
+
+
+# -- the losses ------------------------------------------------------------------------------------
+NC, LEVELS = 3, (8, 4, 2)
+A = sum(s * s for s in LEVELS)
+
+
+def _feats(rs, b):
+    return [rs.randn(b, s, s, 64 + NC).astype(np.float32) for s in LEVELS]
+
+
+def _targets(rs, b, m, n_real):
+    cls = rs.randint(0, NC, (b, m)).astype(np.float32)
+    xy, wh = rs.uniform(0.3, 0.7, (b, m, 2)), rs.uniform(0.2, 0.5, (b, m, 2))
+    mask = (np.arange(m)[None] < np.asarray(n_real)[:, None]).astype(np.float32)
+    return cls, (np.concatenate([xy, wh], -1) * mask[..., None]).astype(np.float32), mask
+
+
+def _grads_close(got, want):
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g, w, atol=1e-5 * np.abs(w).max())
+
+
+@pytest.mark.parametrize("kpt_shape", [(17, 3), (5, 3)], ids=["coco17", "k5"])
+@pytest.mark.parametrize("wimg", [[1.0, 1.0], [1.0, 0.0]], ids=["real", "padded_duplicate"])
+def test_pose_loss_and_grads_match_jax(kpt_shape, wimg):
+    rs = np.random.RandomState(1)
+    b, m, (k, d) = 2, 6, kpt_shape
+    feats = _feats(rs, b)
+    kraw = (rs.randn(b, A, k * d) * 0.5).astype(np.float32)
+    cls, boxes, mask = _targets(rs, b, m, [3, 5])
+    ctr = boxes[..., None, :2] * 64 + rs.randn(b, m, k, 2) * 4
+    kp = np.concatenate([ctr, np.where(rs.rand(b, m, k, 1) < 0.7, 2.0, 0.0)], -1)
+    batch = {"cls": cls, "bboxes": boxes, "mask_gt": mask,
+             "keypoints": (kp * mask[..., None, None]).astype(np.float32)}
+    crit = JPoseLoss(None, nc=NC, hyp={}, kpt_shape=kpt_shape, pose_gain=12.0, kobj_gain=1.0)
+    jb = {k_: jnp.asarray(v) for k_, v in batch.items()}
+    jb["img_weight"] = jnp.asarray(wimg, jnp.float32)
+    (lj, ij), gj = jax.value_and_grad(
+        lambda fs, kr: crit({"feats": fs, "kpts_raw": kr}, jb), argnums=(0, 1), has_aux=True)(
+        [jnp.asarray(f) for f in feats], jnp.asarray(kraw))
+    ft = [torch.from_numpy(f).permute(0, 3, 1, 2).contiguous().requires_grad_() for f in feats]
+    kt = torch.from_numpy(kraw).requires_grad_()
+    tgt = {k_: torch.from_numpy(v) for k_, v in batch.items()}
+    tgt["img_weight"] = torch.tensor(wimg)
+    lt, it = PoseLoss(nc=NC, hyp={}, kpt_shape=kpt_shape)({"feats": ft, "kpts_raw": kt}, tgt)
+    lt.backward()
+    assert float(ij["kpt"]) > 0
+    np.testing.assert_allclose(lt.item(), float(lj), rtol=1e-5)
+    for key in ("box", "cls", "dfl", "kpt"):
+        np.testing.assert_allclose(float(it[key]), float(ij[key]), rtol=1e-5, err_msg=key)
+    _grads_close([kt.grad.numpy()] + [f.grad.permute(0, 2, 3, 1).numpy() for f in ft],
+                 [gj[1], *gj[0]])
+    if wimg[1] == 0:
+        assert np.abs(kt.grad[1].numpy()).max() == 0
+
+
+@pytest.mark.parametrize("wimg", [[1.0, 1.0], [1.0, 0.0]], ids=["real", "padded_duplicate"])
+def test_obb_loss_and_grads_match_jax(wimg):
+    rs = np.random.RandomState(2)
+    b, m = 2, 6
+    feats = _feats(rs, b)
+    ang = rs.uniform(-np.pi / 4, 3 * np.pi / 4, (b, A, 1)).astype(np.float32)
+    cls, boxes, mask = _targets(rs, b, m, [2, 6])
+    rb = np.concatenate([boxes, rs.uniform(0, np.pi / 2, (b, m, 1)) * mask[..., None]], -1)
+    batch = {"cls": cls, "bboxes": rb.astype(np.float32), "mask_gt": mask}
+    crit = JOBBLoss(None, nc=NC, hyp={})
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    jb["img_weight"] = jnp.asarray(wimg, jnp.float32)
+    (lj, ij), gj = jax.value_and_grad(
+        lambda fs, an: crit({"feats": fs, "angle": an}, jb), argnums=(0, 1), has_aux=True)(
+        [jnp.asarray(f) for f in feats], jnp.asarray(ang))
+    ft = [torch.from_numpy(f).permute(0, 3, 1, 2).contiguous().requires_grad_() for f in feats]
+    at = torch.from_numpy(ang).requires_grad_()
+    tgt = {k: torch.from_numpy(v) for k, v in batch.items()}
+    tgt["img_weight"] = torch.tensor(wimg)
+    lt, it = OBBLoss(nc=NC, hyp={})({"feats": ft, "angle": at}, tgt)
+    lt.backward()
+    assert float(ij["box"]) > 0
+    np.testing.assert_allclose(lt.item(), float(lj), rtol=1e-5)
+    for key in ("box", "cls", "dfl"):
+        np.testing.assert_allclose(float(it[key]), float(ij[key]), rtol=1e-5, err_msg=key)
+    grads = [at.grad.numpy()] + [f.grad.permute(0, 2, 3, 1).numpy() for f in ft]
+    assert all(np.isfinite(g).all() for g in grads)  # padded (0, 0, 0, 0, 0) targets stay safe
+    _grads_close(grads, [gj[1], *gj[0]])
+
+
+# -- the steps ---------------------------------------------------------------------------------------
+S, B, M = 64, 2, 6
+HYP = {**AUG_OFF, "optimizer": "SGD", "lr0": 0.01, "momentum": 0.937, "weight_decay": 5e-4,
+       "batch": B, "nbs": 4, "epochs": 3, "warmup_epochs": 3.0, "amp": False, "pose": 12.0,
+       "kobj": 1.0}
+STEPS = 3
+TASKS = {"pose": ("yolo11n-pose.yaml", {"kpt_shape": [5, 3]}), "obb": ("yolo11n-obb.yaml", {})}
+
+
+@pytest.fixture(scope="module", params=list(TASKS))
+def task_model(request):
+    yaml, extra = TASKS[request.param]
+    d = jtasks.yaml_model_load(yaml)
+    d.update(nc=NC, **extra)
+    jm = jtasks.DetectionModel(d)
+    jm.init(0, imgsz=S)
+    rs = np.random.RandomState(0)
+    flat = {}
+    for k, a in traverse_util.flatten_dict(jax.device_get(jm.variables)).items():
+        a = np.asarray(a)
+        if k[-1] == "mean":
+            a = (rs.randn(*a.shape) * 0.1).astype(np.float32)
+        elif k[-1] == "var":
+            a = rs.uniform(0.5, 1.5, a.shape).astype(np.float32)
+        flat[k] = a
+    return request.param, jm, flat
+
+
+def _step_batch(task):
+    rs = np.random.RandomState(3)
+    img = rs.randint(0, 256, (B, S, S, 3)).astype(np.uint8)
+    cls, boxes, mask = _targets(rs, B, M, [4, 6])
+    out = {"img": img, "cls": cls, "bboxes": boxes, "mask_gt": mask, "n_real": B}
+    if task == "pose":
+        kp = boxes[..., None, :2] * S + rs.randn(B, M, 5, 2) * 3
+        out["keypoints"] = (np.concatenate([kp, np.full((B, M, 5, 1), 2.0)], -1)
+                            * mask[..., None, None]).astype(np.float32)
+    else:
+        out["rboxes"] = (np.concatenate([boxes, rs.uniform(0, np.pi / 2, (B, M, 1))], -1)
+                         * mask[..., None]).astype(np.float32)
+    return out
+
+
+def _jax_steps(task, jm, flat, batch, sched):
+    """JAX's DetectionTrainer.train_step math for a pose or obb model, f32."""
+    variables = traverse_util.unflatten_dict({k: jnp.asarray(v) for k, v in flat.items()})
+    params, bstats = variables["params"], variables["batch_stats"]
+    p_flat, unravel = ravel_pytree(params)
+    mask_flat, _ = ravel_pytree(jax.tree.map(lambda p, mb: jnp.full_like(p, 1.0 if mb else 0.0),
+                                             params, jtrainer._decay_mask(params)))
+    accumulate = max(round(HYP["nbs"] / B), 1)
+    decay = HYP["weight_decay"] * B * accumulate / HYP["nbs"]
+    tx = optax.MultiSteps(build_optimizer(
+        p_flat, "SGD", HYP["lr0"], HYP["momentum"], decay, sched["lr_at"],
+        momentum_schedule=sched["momentum_at"], flat_mask=mask_flat), every_k_schedule=accumulate)
+    crit = (JPoseLoss(jm, hyp=HYP, kpt_shape=(5, 3), pose_gain=12.0, kobj_gain=1.0)
+            if task == "pose" else JOBBLoss(jm, hyp=HYP))
+    hyp = {k: float(v) for k, v in HYP.items() if isinstance(v, (int, float))}
+    b = {k: jnp.asarray(v) for k, v in batch.items() if k != "n_real"}
+
+    @jax.jit
+    def step(state, key):
+        p_flat, bstats, opt_state, ema, upd_count = state
+        if task == "pose":
+            img01, acls, aboxes, amask, kp = jaug.augment_batch(
+                b["img"], b["cls"], b["bboxes"], b["mask_gt"], key, S, hyp, mosaic=False,
+                keypoints=b["keypoints"])
+            tgt = {"cls": acls, "bboxes": aboxes, "mask_gt": amask, "keypoints": kp}
+        else:
+            img01, acls, aboxes, amask, ex = jaug.augment_batch(
+                b["img"], b["cls"], b["bboxes"], b["mask_gt"], key, S, hyp, mosaic=False,
+                rboxes=b["rboxes"])
+            tgt = {"cls": acls, "bboxes": ex["rboxes"], "mask_gt": amask}
+        tgt["img_weight"] = jnp.ones(B)
+
+        def loss_fn(pf):
+            out, mut = jm.apply({"params": unravel(pf), "batch_stats": bstats}, img01, train=True,
+                                mutable=["batch_stats"])
+            loss, items = crit(out, tgt)
+            return loss, mut["batch_stats"]
+
+        (loss, new_bs), grads = jax.value_and_grad(loss_fn, has_aux=True)(p_flat)
+        updates, new_opt = tx.update(grads, opt_state, p_flat)
+        new_p = p_flat + updates
+        did = (new_opt.mini_step == 0).astype(jnp.int32)
+        upd = upd_count + did
+        d = jnp.where(did == 1, 0.9999 * (1 - jnp.exp(-upd / 2000.0)), 1.0)
+        return (new_p, new_bs, new_opt, ema * d + (1 - d) * new_p, upd), loss
+
+    state = (p_flat, bstats, tx.init(p_flat), jnp.copy(p_flat), jnp.int32(0))
+    losses = []
+    for i in range(STEPS):
+        state, loss = step(state, jax.random.PRNGKey(i))
+        losses.append(float(loss))
+    p_flat, bstats, _, ema, upd = state
+
+    def as_port(tree, coll):
+        return from_jax_variables({(coll, *k): np.asarray(v) for k, v in
+                                   traverse_util.flatten_dict(tree).items()})
+
+    return (losses, as_port(unravel(p_flat), "params"), as_port(bstats, "batch_stats"),
+            as_port(unravel(ema), "params"), int(upd))
+
+
+# The running means of the P5 box and class tower stems, fed by 2 x 2 maps at
+# 64 px: the only statistics that f32 rounding parts from JAX's by more than
+# 1e-5 + 1e-4 rel (up to 4.4e-5); every other one is held to that directly.
+P5_STEM_MEANS = {"model.23.cv2.2.0.bn.running_mean", "model.23.cv2.2.1.bn.running_mean",
+                 "model.23.cv3.2.0.0.bn.running_mean", "model.23.cv3.2.1.0.bn.running_mean"}
+
+
+def _port_steps(task, flat, batch, f64=False, replay=None):
+    """The port's trainer over STEPS micro-steps; in f64 with `replay`, the
+    augmented batches of an f32 run in place of its own augmentation."""
+    yaml, extra = TASKS[task]
+    pm = DetectionModel(yaml, device="cpu", nc=NC, kpt_shape=extra.get("kpt_shape"))
+    pm.load_state_dict(from_jax_variables(flat), strict=False)
+    t = trainer.DetectionTrainer(pm.double() if f64 else pm, HYP, device="cpu")
+    assert isinstance(t.criterion, PoseLoss if task == "pose" else OBBLoss)
+    t.setup(nb=1)
+    dev_batch = trainer.batch_to_device(batch, torch.device("cpu"))
+    augmented, augment = [], trainer.augment_batch
+
+    def record(*args, **kwargs):
+        out = tuple(x.double() for x in replay.pop(0)) if f64 else augment(*args, **kwargs)
+        augmented.append(tuple(x.detach().clone() for x in out))
+        return out
+
+    # f64 throughout: the port's f32 casts (BatchNorm's island, the loss) become f64 ones
+    f64_casts = (mock.patch.object(torch.Tensor, "float", torch.Tensor.double) if f64
+                 else mock.patch.object(trainer, "LOGGER", trainer.LOGGER))
+    losses, updated = [], []
+    with mock.patch.object(trainer, "augment_batch", record), f64_casts:
+        for _ in range(STEPS):
+            loss, items, did = t.train_step(dev_batch, mosaic=False)
+            losses.append(float(loss))
+            updated.append(did)
+            assert task == "obb" or float(items["kpt"]) > 0
+    return t, losses, updated, augmented
+
+
+def test_three_train_steps_match_jax(task_model, tmp_path, monkeypatch):
+    task, jm, flat = task_model
+    batch = _step_batch(task)
+    sched = _jax_trainer_build(tmp_path, monkeypatch, 1, **{k: HYP[k] for k in (
+        "optimizer", "lr0", "momentum", "weight_decay", "epochs", "batch", "nbs", "warmup_epochs")})
+    j_losses, j_params, j_stats, j_ema, j_updates = _jax_steps(task, jm, flat, batch, sched)
+    t, losses, updated, augmented = _port_steps(task, flat, batch)
+    pm = t.model
+    assert updated == [False, True, False] and j_updates == t.ema.updates == 1
+    print(f"{task} losses {losses} vs JAX {j_losses}")
+    np.testing.assert_allclose(losses, j_losses, rtol=1e-4)
+    sd, ema = pm.state_dict(), t.ema_state_dict()
+    for name, ref in j_params.items():
+        np.testing.assert_allclose(sd[name].numpy(), ref.numpy(), atol=1e-5, rtol=1e-4,
+                                   err_msg=name)
+    outside = [n for n, ref in j_stats.items()
+               if not np.allclose(sd[n].numpy(), ref.numpy(), atol=1e-5, rtol=1e-4)]
+    assert set(outside) <= P5_STEM_MEANS, outside
+    for name in outside:  # within 1e-4 of JAX, and nearer the f64 step than JAX's f32 is
+        np.testing.assert_allclose(sd[name].numpy(), j_stats[name].numpy(), atol=1e-4, rtol=0,
+                                   err_msg=name)
+    if outside:
+        exact = _port_steps(task, flat, batch, f64=True, replay=augmented)[0].model.state_dict()
+        for name in outside:
+            port_gap = (sd[name].double() - exact[name]).abs().max().item()
+            jax_gap = (j_stats[name].double() - exact[name]).abs().max().item()
+            print(f"{name}: port f32 {port_gap:.3e}, JAX f32 {jax_gap:.3e} from the f64 step")
+            assert port_gap <= 2 * jax_gap + 1e-7, name
+    for name, ref in j_ema.items():
+        np.testing.assert_allclose(ema[name].numpy(), ref.numpy(), atol=1e-5, rtol=1e-4,
+                                   err_msg=name)
+    start = from_jax_variables(flat)
+    assert not torch.equal(j_params["model.23.cv4.0.2.weight"],
+                           start["model.23.cv4.0.2.weight"])  # the task's towers trained

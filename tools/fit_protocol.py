@@ -19,6 +19,15 @@ another segment YAML; it then also prints the box and mask mAP50-95 of the
 best epoch (the row of highest fitness), the figures chip_smoke.py's segment
 `fit` is held against (less 0.1).
 
+'{"task": "pose"}' and '{"task": "obb"}' do the same for the pose form
+(5 keypoints per shape, kpt_shape [5, 3] in the dataset YAML) with
+yolo11n-pose, printing the best epoch's box and pose mAP50-95, and for the
+obb form (rotated shapes) with yolo11n-obb, printing its probiou mAP50-95:
+the figures of chip_smoke.py's pose and obb fits (less 0.1), e.g.
+
+    JAX_PLATFORMS=cpu python tools/fit_protocol.py OUT '{"task": "pose", "epochs": 100,
+        "nbs": 16, "warmup_epochs": 0.0, "seed": 0}'
+
 With --coco, the trained model is then validated by the JAX validator with
 save_json on the val images re-encoded as JPEG q92 (chip_smoke.py's
 `jpeg_coco_copy`, which writes a COCO GT json of the labels): it prints the
@@ -49,7 +58,8 @@ def main():
     data = generate_dataset(out / "data", n_train=16, n_val=8, imgsz=160, nc=3, seed=0, task=task)
     args = {"epochs": 150, "batch": 16, "imgsz": 160, "optimizer": "SGD", "lr0": 0.01,
             "val": True, "plots": False, **overrides}
-    model = args.pop("model", "yolo11n-seg.yaml" if task == "segment" else "edgeline-yolo.yaml")
+    model = args.pop("model", {"segment": "yolo11n-seg.yaml", "pose": "yolo11n-pose.yaml",
+                               "obb": "yolo11n-obb.yaml"}.get(task, "edgeline-yolo.yaml"))
     t0 = time.time()
     yolo = YOLO(model)
     best = yolo.train(data=str(data), project=str(out), name="train", exist_ok=True, **args)
@@ -60,11 +70,16 @@ def main():
                                               "metrics/mAP50(B)", "metrics/mAP50-95(B)", "lr/pg0")))
     print(json.dumps({"overrides": overrides, "best_mAP50-95": best,
                       "seconds": round(time.time() - t0, 1)}))
-    if task == "segment":
+    if task != "detect":
         top = max(rows, key=lambda r: float(r.get("fitness") or r["metrics/mAP50-95(B)"]))
-        print(json.dumps({"task": task, "model": model, "best_epoch": int(top["epoch"]),
-                          "box_mAP50-95": float(top["metrics/mAP50-95(B)"]),
-                          "mask_mAP50-95": float(top["metrics/mAP50-95(M)"])}))
+        extra = {"segment": ("mask_mAP50-95", "metrics/mAP50-95(M)"),
+                 "pose": ("pose_mAP50-95", "metrics/mAP50-95(P)")}.get(task)
+        line = {"task": task, "model": model, "best_epoch": int(top["epoch"]),
+                ("probiou_mAP50-95" if task == "obb" else "box_mAP50-95"):
+                    float(top["metrics/mAP50-95(B)"])}
+        if extra:
+            line[extra[0]] = float(top[extra[1]])
+        print(json.dumps(line))
     if coco:
         import chip_smoke
         from edgeyolo_tpu.cfg import get_cfg
