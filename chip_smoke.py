@@ -54,7 +54,11 @@ Phases, each timed and each fatal when it fails:
                 params moving on update steps only, the EMA formula, BatchNorm
                 statistics moving; step ms, img/s, peak memory, and one profiled
                 step (the kernel's share of device time, the top device operations)
-  8. fit        the dataset path end to end: the port's synthetic dataset (16 train, 8 val
+  8. fit        every fit of the script, this phase's four and those of 11, 12 and 13 (e),
+                each in a process of its own (`chip_smoke.py --fit NAME WORK CARD`),
+                FIT_PROCS at once, longest first, each one's output printed whole when it
+                ends, and each fit's process seconds. The dataset path end to end: the
+                port's synthetic dataset (16 train, 8 val
                 PNG images, 160 px, 3 classes, seed 0) written to a temporary directory;
                 YOLO("edgeline-yolo.yaml").train(150 epochs, batch 16, SGD lr0 0.01, nbs 16,
                 no warmup, val each epoch) at full width; epoch and val times, the last results.csv row,
@@ -62,7 +66,8 @@ Phases, each timed and each fatal when it fails:
                 epoch's metrics), the same val on the CPU in f32 (within FIT_CPU_TOL),
                 predict on the val images; the attention kernel's launches in train, val
                 and predict; the tiled NMS against the scan oracle at >= 8192 candidates;
-                then the trained model validated at 640 px on 128 synthetic images at
+                when every fit has ended, the trained flagship alone on the card,
+                validated at 640 px on 128 synthetic images at
                 batch 32 in bf16: img/s, decode and letterbox ms per image, device ms and
                 NMS ms per batch, the candidates past conf 0.001, peak memory; then
                 yolo11n (plain Detect, BCE) on the same protocol, held to
@@ -113,8 +118,9 @@ Phases, each timed and each fatal when it fails:
                 would be 27.5 GB); (e) fit: yolo11n-seg on the synthetic segment set
                 (the fit protocol), box and mask mAP50-95 held to the JAX trainer's less
                 0.1 (SEG_FIT_BOX_MIN, SEG_FIT_MASK_MIN), best.pt reloaded, on the CPU,
-                and predict with masks at the images' size. No kernel runs in these
-                models; the linear-attention launches stay 0 there (printed)
+                and predict with masks at the images' size (run in phase 8). No kernel
+                runs in these models; the linear-attention launches stay 0 there
+                (printed)
  12. pose and  the pose and obb tasks: (a) reference: yolov8n-pose, yolov8n-pose-p6,
      obb        yolo11n-pose, yolov8n-obb and yolo11n-obb at 64 px in f32, card against
                 CPU, at seeded and test weights (POSE_OBB_REF_SCALE): boxes 5e-3 px,
@@ -133,8 +139,28 @@ Phases, each timed and each fatal when it fails:
                 sets (the fit protocol at 100 epochs), held to the JAX trainer's box and
                 pose, and probiou, mAP50-95 less 0.1 on that protocol; best.pt reloaded,
                 on the CPU, and predict
-                (keypoints, rotated boxes). No kernel runs in these models
- 13. device     each kernel's device time at the shapes of phase 3: the context and
+                (keypoints, rotated boxes) (run in phase 8). No kernel runs in these
+                models
+ 13. classify   the classify task: (a) reference: yolov8n-cls, yolov8-cls-resnet50,
+                yolov8-cls-resnet101, yolo11n-cls and yolo11-cls-resnet18 at 64 px in f32,
+                card against CPU, at seeded and test weights (CLS_REF_SCALE): logits 1e-4 of
+                their scale, probabilities 1e-5, top-5 indices equal; (b) serve: yolo11n-cls
+                and yolov8-cls-resnet50 (a full ResNet-50: ResNet rows take no width scale),
+                nc 1000, batch 32 x 224 px, bf16, through ClassificationPredictor (uint8 in,
+                probs out): img/s, median request ms, device-busy ms of a profiled request,
+                peak memory, bf16 conv and linear outputs; then one request of 32 JPEGs of
+                500 x 375 px through the host transform (decode, PIL's bilinear resize,
+                centre crop) and its share of the wall time; (c) train reference: one f32
+                yolo11n-cls step at 64 px on 4 images, card against CPU per tensor at
+                TRAIN_REF_TOL, and the f64 witness; (d) train: yolo11n-cls at batch 64 x 224
+                px, bf16 autocast, the default classify hyps (RandAugment, erasing 0.4, HSV,
+                fliplr): step ms, img/s, peak memory, a profiled step's top device ops;
+                (e) fit: the classify protocol (CLS_FIT_DATA, CLS_FIT_TRAIN) held to JAX's
+                top-1 less 0.1, best.pt reloaded (equal to the best epoch's row), the same
+                val on the CPU in f32 (top-1 and top-5 equal), predict on the val images
+                (run in phase 8).
+                No cls model has a LinearAttention: the kernel's launches stay 0 (printed)
+ 14. device     each kernel's device time at the shapes of phase 3: the context and
      times      output launches each timed by its own event pair, in DEVICE_SESSIONS
                 sessions (median and spread, the SM clock read around each); after the
                 serve, train, fit and jpeg phases
@@ -151,6 +177,7 @@ import functools
 import json
 import math
 import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -332,6 +359,32 @@ OBB_JAX_MAP = 0.6337  # 0.63369
 POSE_FIT_BOX_MIN = round(POSE_JAX_BOX_MAP - 0.1, 4)
 POSE_FIT_POSE_MIN = round(POSE_JAX_POSE_MAP - 0.1, 4)
 OBB_FIT_MIN = round(OBB_JAX_MAP - 0.1, 4)
+# the classify phase: the five cls YAMLs at 64 px (seeded and test weights: conv and linear
+# weights x CLS_REF_SCALE, BatchNorm moved), served and trained at ImageNet's shapes, and the
+# fit protocol (PARITY.md's yolo11n-cls run: 8 grating classes, 128 train / 64 val images at
+# 128 px; tools/fit_protocol.py '{"task": "classify", ...}' gives JAX's top-1 on it)
+CLS_YAMLS = ("yolov8n-cls", "yolov8-cls-resnet50", "yolov8-cls-resnet101", "yolo11n-cls",
+             "yolo11-cls-resnet18")
+CLS_REF_SCALE = 1.5
+CLS = "yolo11n-cls"
+CLS_SERVE = ("yolo11n-cls", "yolov8-cls-resnet50")
+CLS_SERVE_SHAPE = (32, 224)  # batch, px
+CLS_JPEG = (32, 500, 375)  # one request of JPEGs at ImageNet's common size: n, width, height
+CLS_TRAIN_SHAPE = (64, 224)
+CLS_FIT_DATA = {"nc": 8, "n_train_per_class": 16, "n_val_per_class": 8, "seed": 0}
+# the protocol's training, its decoded images kept in RAM (cache): a fit repeats to the bit
+# either way, and the loader's decode and resize no longer hold the steps up
+CLS_FIT_TRAIN = {"epochs": 100, "batch": 16, "imgsz": 128, "optimizer": "SGD", "lr0": 0.01,
+                 "nbs": 16, "warmup_epochs": 0.0, "seed": 0, "cache": True}
+CLS_JAX_TOP1 = 0.7031  # 0.70312, JAX's trainer on the protocol at 100 epochs (best epoch 79)
+CLS_FIT_TOP1_MIN = round(CLS_JAX_TOP1 - 0.1, 4)
+# the fit phase: every fit above (detect, segment, pose, obb, classify) runs in a process of
+# its own, FIT_PROCS at once, longest first. Each is host-bound (one Python thread launching
+# small kernels, the card idle most of the time): one after another they took 640 s of the
+# script's 1,200 s on an H100, all eight at once 240 s, four at once 302 s (PERF.md section 6)
+FIT_PROCS = 8
+FIT_THREADS = 2  # torch's CPU threads in a fit's process (its validation on the CPU)
+FIT_TIMEOUT = 600  # s, each fit's process
 
 
 def phase(name: str):
@@ -960,28 +1013,34 @@ def ref_step(la, dev: str, start, batch: dict, replay: tuple | None = None,
     import torch
 
     from edgeyolo_tpu_torch.nn.tasks import DetectionModel
+    from edgeyolo_tpu_torch.train import classify as classify_mod
     from edgeyolo_tpu_torch.train import trainer as trainer_mod
 
     model = start(open_gates(DetectionModel(name, device=dev, seed=0)))
     if replay is not None:
         model.double()
     images = batch["img"].shape[0]  # one update over the batch: nbs = batch
-    trainer = trainer_mod.DetectionTrainer(model, {**TRAIN_REF_HYP, "batch": images,
-                                                   "nbs": images}, device=dev)
+    # a classify model's step augments through classify_augment_batch, one image tensor
+    mod, aug_name, trainer_cls = (
+        (classify_mod, "classify_augment_batch", classify_mod.ClassificationTrainer)
+        if model.task == "classify" else (trainer_mod, "augment_batch",
+                                          trainer_mod.DetectionTrainer))
+    trainer = trainer_cls(model, {**TRAIN_REF_HYP, "batch": images, "nbs": images}, device=dev)
     trainer.setup(nb=1)
-    augmented, augment_batch = [], trainer_mod.augment_batch
+    augmented, augment_batch = [], getattr(mod, aug_name)
 
     def augment(*args, **kwargs):
         out = (tuple(t.double() for t in replay) if replay is not None
                else augment_batch(*args, **kwargs))
-        augmented.append(tuple(t.detach().cpu() for t in out))
-        return out
+        parts = (out,) if isinstance(out, torch.Tensor) else out
+        augmented.append(tuple(t.detach().cpu() for t in parts))
+        return parts[0] if model.task == "classify" else out
 
     # f64 throughout: the port's f32 casts (BatchNorm's island, the loss) become f64 ones
     f64 = (mock.patch.object(torch.Tensor, "float", torch.Tensor.double) if replay is not None
            else contextlib.nullcontext())
     la.linear_attention_kernel.launches = 0
-    with mock.patch.object(trainer_mod, "augment_batch", augment), f64, within():
+    with mock.patch.object(mod, aug_name, augment), f64, within():
         loss, _, updated = trainer.train_step(
             trainer_mod.batch_to_device(batch, torch.device(dev)), mosaic=True)
     if not updated:
@@ -1677,6 +1736,331 @@ def train(la, card: str, name: str = "edgeline-yolo-n", copy_paste: float = 0.0,
     return launches
 
 
+def cls_perturbed(model, scale: float, seed: int = 0):
+    """A classify model's test weights: BatchNorm statistics, scales and shifts
+    moved, conv and linear weights times `scale`, biases moved."""
+    import numpy as np
+    import torch
+
+    rs = np.random.RandomState(seed)
+    out = {}
+    for k, v in model.state_dict().items():
+        a, leaf = v.cpu().numpy().copy(), k.rsplit(".", 1)[-1]
+        if leaf == "running_mean":
+            a = rs.randn(*a.shape) * 0.1
+        elif leaf == "running_var":
+            a = rs.uniform(0.5, 1.5, a.shape)
+        elif leaf == "bias" or (leaf == "weight" and a.ndim == 1):
+            a = a + rs.randn(*a.shape) * 0.1
+        elif leaf == "weight":
+            a = a * scale
+        out[k] = torch.from_numpy(np.asarray(a, v.cpu().numpy().dtype))
+    model.load_state_dict(out)
+    return model
+
+
+def classify_reference(la) -> int:
+    """The five cls YAMLs at 64 px in f32, card against CPU, at seeded and at
+    test weights: logits within 1e-4 of their largest magnitude,
+    probabilities 1e-5, the top-5 indices equal. Returns the attention
+    kernel's launches (none: no cls model has a LinearAttention)."""
+    import torch
+
+    from edgeyolo_tpu_torch.nn.modules.head import topk_stable
+    from edgeyolo_tpu_torch.nn.tasks import ClassificationModel, num_params
+
+    x = torch.rand(2, 3, 64, 64, generator=torch.Generator().manual_seed(1))
+    la.linear_attention_kernel.launches = 0
+    for name in CLS_YAMLS:
+        for scale in (None, CLS_REF_SCALE):
+            t0 = time.perf_counter()
+            m = ClassificationModel(name, device="cpu", seed=0)
+            if scale is not None:
+                m = cls_perturbed(m, scale)
+            with torch.inference_mode():
+                lc = m(x).float()
+                lg = copy.deepcopy(m).to("cuda")(x.cuda()).float().cpu()
+            d = (lg - lc).abs().max().item() / lc.abs().max().item()
+            dp = (lg.softmax(-1) - lc.softmax(-1)).abs().max().item()
+            tc, tg = topk_stable(lc, 5)[1], topk_stable(lg, 5)[1]
+            srt = lc.sort(-1, descending=True).values
+            gap = (srt[:, :5] - srt[:, 1:6]).min().item()
+            print(f"classify reference {name}: {num_params(m)} params, nc {m.nc}, f32 64px card "
+                  f"vs CPU, {'seeded weights' if scale is None else f'test weights x{scale}'}: "
+                  f"logits {d:.3e} of their scale {lc.abs().max().item():.3e} (tol 1e-4), "
+                  f"probabilities {dp:.3e} (tol 1e-5), top-5 equal {torch.equal(tc, tg)} "
+                  f"(smallest gap among the CPU's first six logits {gap:.3e}); "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+            if not (bool(torch.isfinite(lg).all()) and d < 1e-4 and dp < 1e-5
+                    and torch.equal(tc, tg)):
+                raise AssertionError(f"{name} on the card disagrees with the CPU reference")
+            del m
+    return la.linear_attention_kernel.launches
+
+
+def serve_classify(la, card: str, name: str) -> dict:
+    """A cls model (nc 1000) served in bf16 at CLS_SERVE_SHAPE through
+    ClassificationPredictor: a warm-up request with every conv and linear
+    output's dtype recorded, SERVE_REQUESTS timed requests (uint8 in, probs
+    out), peak memory and a profiled request."""
+    import torch
+    from torch import nn
+
+    from edgeyolo_tpu_torch.engine.classify import ClassificationPredictor
+    from edgeyolo_tpu_torch.nn.tasks import ClassificationModel, num_params
+
+    bs, imgsz = CLS_SERVE_SHAPE
+    model = ClassificationModel(name, device="cuda", dtype=torch.bfloat16, seed=0)
+    predictor = ClassificationPredictor(model, device="cuda", imgsz=imgsz, batch=bs)
+    imgs = torch.randint(0, 256, (bs, imgsz, imgsz, 3), dtype=torch.uint8,
+                         generator=torch.Generator().manual_seed(2))
+    out_dtypes = []
+    hooks = [m.register_forward_hook(lambda _m, _i, o: out_dtypes.append(o.dtype))
+             for m in model.modules() if isinstance(m, (nn.Conv2d, nn.Linear))]
+    t0 = time.perf_counter()
+    predictor(imgs)
+    torch.cuda.synchronize()
+    for hk in hooks:
+        hk.remove()
+    if not out_dtypes or any(dt != torch.bfloat16 for dt in out_dtypes):
+        raise AssertionError(f"{name}: conv and linear outputs are not all bf16: "
+                             f"{set(out_dtypes)}")
+    print(f"serve {name}: {num_params(model)} params, nc {model.nc}, bf16 ({len(out_dtypes)} conv "
+          f"and linear outputs, all bf16), warm-up request "
+          f"{(time.perf_counter() - t0) * 1e3:.3f} ms", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    la.linear_attention_kernel.launches = 0
+    times = []
+    for _ in range(SERVE_REQUESTS):
+        t0 = time.perf_counter()
+        probs = predictor(imgs)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    ms = statistics.median(times) * 1e3
+    probs = probs.cpu()
+    ok = (probs.shape == (bs, model.nc) and probs.dtype == torch.float32
+          and bool(torch.isfinite(probs).all()) and (probs.sum(-1) - 1).abs().max().item() < 1e-5)
+    if not ok or la.linear_attention_kernel.launches:
+        raise AssertionError(f"{name}: served probabilities are malformed")
+    print(f"serve {name}: batch {bs} x {imgsz} px bf16, uint8 in, probs (f32, rows summing to 1) "
+          f"out; request times {[round(t * 1e3, 3) for t in times]} ms, median {ms:.3f} ms, "
+          f"{bs / ms * 1e3:.1f} img/s, peak memory {peak / 2**30:.3f} GiB; attention launches 0; "
+          f"on {card}", flush=True)
+    busy = profile_request(predictor, imgs, ms)
+    return {"ms": ms, "img_s": bs / ms * 1e3, "peak_gib": peak / 2**30, "busy_ms": busy,
+            "predictor": predictor}
+
+
+def classify_jpeg_request(la, card: str, predictor, work: Path) -> None:
+    """One request of CLS_JPEG JPEG files (q92, the port's encoder) through
+    the predictor's host transform (decode, PIL's bilinear resize of the short
+    side to 224, centre crop) and its serving step: wall time and the
+    transform's share of it."""
+    import numpy as np
+
+    from edgeyolo_tpu_torch.data.imageio import save_jpeg
+
+    n, w, h = CLS_JPEG
+    d = work / "cls_jpeg"
+    d.mkdir(parents=True, exist_ok=True)
+    rs = np.random.RandomState(4)
+    for i in range(n):
+        yy, xx = np.mgrid[0:h, 0:w]
+        g = 127 + 90 * np.sin((xx * np.cos(i) + yy * np.sin(i)) / (4 + i % 5))
+        save_jpeg(d / f"im_{i:02d}.jpg", np.clip(g[..., None] + rs.normal(0, 20, (h, w, 3)), 0,
+                                                 255).astype(np.uint8))
+    predictor.predict(str(d))  # warm-up: the host paths once
+    la.linear_attention_kernel.launches = 0
+    t0 = time.perf_counter()
+    results = predictor.predict(str(d))
+    wall = (time.perf_counter() - t0) * 1e3
+    pre = sum(r.speed["preprocess"] for r in results)
+    infer = results[0].speed["inference"] * len(results)
+    ok = len(results) == n and all(r.probs is not None and r.orig_shape == (h, w)
+                                   and np.isfinite(r.probs.data).all() for r in results)
+    print(f"serve {predictor.model.cfg}: one request of {n} JPEGs of {w} x {h} px from disk: "
+          f"{wall:.3f} ms wall, {n / wall * 1e3:.1f} img/s; resize and centre crop "
+          f"{pre:.3f} ms ({100 * pre / wall:.1f}% of the wall), serving step {infer:.3f} ms, "
+          f"decode and the rest {wall - pre - infer:.3f} ms; top-1 of the first "
+          f"{results[0].probs.top1} at {results[0].probs.top1conf:.4f}; on {card}", flush=True)
+    if not ok or la.linear_attention_kernel.launches:
+        raise AssertionError("the JPEG request gave malformed results")
+
+
+def check_classify_train_reference(la) -> None:
+    """One f32 yolo11n-cls step at 64 px on 4 images from its seeded weights
+    with the same draws on both sides (nc 1000), card against CPU per tensor
+    at TRAIN_REF_TOL, and the f64 witness."""
+    import torch
+
+    gen = torch.Generator().manual_seed(3)
+    batch = {"img": torch.randint(0, 256, (4, TRAIN_REF_IMGSZ, TRAIN_REF_IMGSZ, 3),
+                                  dtype=torch.uint8, generator=gen),
+             "cls": torch.randint(0, 1000, (4,), generator=gen), "n_real": 4}
+    cpu, card = card_vs_cpu(la, "seeded weights", lambda m: m, batch, per_tensor=True, name=CLS)
+    witness(la, lambda m: m, batch, cpu, card, CLS)
+
+
+def train_classify(la, card: str) -> int:
+    """yolo11n-cls (nc 1000) training at CLS_TRAIN_SHAPE, bf16 autocast, the
+    default classify hyps (random-resized crop, fliplr, HSV, RandAugment,
+    erasing 0.4): a warm-up step, TRAIN_STEPS timed steps, the EMA and
+    BatchNorm checks, peak memory and a profiled step's top device ops.
+    Returns the attention launches (none)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from edgeyolo_tpu_torch.nn.modules.conv import BatchNorm2d
+    from edgeyolo_tpu_torch.nn.tasks import ClassificationModel, num_trainable
+    from edgeyolo_tpu_torch.train.classify import ClassificationTrainer
+    from edgeyolo_tpu_torch.train.trainer import ModelEMA, batch_to_device
+
+    bs, imgsz = CLS_TRAIN_SHAPE
+    model = ClassificationModel(CLS, device="cuda", seed=0)
+    trainer = ClassificationTrainer(model, {"batch": bs, "nbs": 64, "optimizer": "SGD",
+                                            "amp": True, "seed": 0}, device="cuda")
+    trainer.setup(nb=TRAIN_STEPS + 2)
+    a = trainer.args
+    print(f"train: {CLS}, {num_trainable(model)} trained params (f32 masters), batch {bs} x "
+          f"{imgsz} px, bf16 autocast, SGD nesterov, accumulate {trainer.accumulate}, "
+          f"auto_augment {a['auto_augment']}, erasing {a['erasing']}, fliplr {a['fliplr']}, "
+          f"hsv {a['hsv_h']}/{a['hsv_s']}/{a['hsv_v']}, scale {a['scale']}", flush=True)
+    gen = torch.Generator().manual_seed(5)
+    host = {"img": torch.randint(0, 256, (bs, imgsz, imgsz, 3), dtype=torch.uint8,
+                                 generator=gen),
+            "cls": torch.randint(0, model.nc, (bs,), generator=gen), "n_real": bs}
+    batch = batch_to_device(host, torch.device("cuda"))
+    bn = next(m for m in model.modules() if isinstance(m, BatchNorm2d))
+    t0 = time.perf_counter()
+    trainer.train_step(batch)
+    torch.cuda.synchronize()
+    print(f"warm-up step: {(time.perf_counter() - t0) * 1e3:.3f} ms", flush=True)
+    la.linear_attention_kernel.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        p0, ema0, rv0 = trainer.flat.data.clone(), trainer.ema.ema.clone(), bn.running_var.clone()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _, updated = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+        if (not torch.equal(trainer.flat.data, p0)) != updated:
+            raise AssertionError("the params moved on a step without an update, or not on one")
+        if updated:
+            d = ModelEMA.decay(trainer.ema.updates)
+            if (trainer.ema.ema - (ema0 * d + (1 - d) * trainer.flat.data)).abs().max() > 1e-6:
+                raise AssertionError("the EMA departs from its formula")
+        elif not torch.equal(trainer.ema.ema, ema0):
+            raise AssertionError("the EMA moved on a step without an update")
+        if torch.equal(bn.running_var, rv0):
+            raise AssertionError("BatchNorm running statistics did not move")
+    launches = la.linear_attention_kernel.launches
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(x) for x in losses) or launches:
+        raise AssertionError(f"train {CLS}: losses {losses}, attention launches {launches}")
+    ms = statistics.median(times) * 1e3
+    print(f"train {CLS}: losses {[round(x, 4) for x in losses]}, {trainer.ema.updates} updates, "
+          f"EMA and BatchNorm statistics checked; batch {bs} x {imgsz} px bf16, step times "
+          f"{[round(t * 1e3, 3) for t in times]} ms, median {ms:.3f} ms, {bs / ms * 1e3:.1f} "
+          f"img/s, peak memory {peak / 2**30:.3f} GiB; attention launches 0; on {card}",
+          flush=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = sorted(((e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                  key=lambda r: -r[1])
+    if not rows:
+        print(f"train profile {CLS}: no device events in the trace; not measured", flush=True)
+        return launches
+    busy_us = sum(r[1] for r in rows)
+    print(f"train profile {CLS}: device busy {busy_us / 1e3:.3f} ms in "
+          f"{sum(r[2] for r in rows)} device ops, {100 * busy_us / (ms * 1e3):.1f}% of the "
+          f"unprofiled median step, {100 * busy_us / wall_us:.1f}% of the profiled step "
+          f"({wall_us / 1e3:.3f} ms) on {card}", flush=True)
+    for key, us, count in rows[:12]:
+        print(f"  {us / 1e3:9.3f} ms {count:5d}x  {key[:110]}", flush=True)
+    return launches
+
+
+def fit_classify(la, card: str, work: Path) -> dict:
+    """The classify fit protocol on the card: yolo11n-cls trained through the
+    facade (CLS_FIT_TRAIN, amp, default classify hyps), top-1 held to
+    CLS_FIT_TOP1_MIN (JAX's less 0.1); best.pt reloaded and validated (equal
+    to the best epoch's row), the same validation on the CPU in f32 (top-1
+    and top-5 equal), then predict on the val images. Returns the attention
+    launches in train, val and predict (none)."""
+    import csv
+
+    import numpy as np
+
+    from edgeyolo_tpu_torch.data.synthetic import generate_classify_dataset
+    from edgeyolo_tpu_torch.engine.model import YOLO
+
+    t0 = time.perf_counter()
+    data = generate_classify_dataset(work / "data", **CLS_FIT_DATA)
+    print(f"classify fit dataset: {CLS_FIT_DATA}, JPEG q92, sides 60-140 px, written in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    model = YOLO(f"{CLS}.yaml", device="cuda")
+    la.linear_attention_kernel.launches = 0
+    t0 = time.perf_counter()
+    model.train(data=str(data), project=str(work / "runs"), name="fit", **CLS_FIT_TRAIN)
+    wall = time.perf_counter() - t0
+    trainer = model.trainer
+    launches = {"train": la.linear_attention_kernel.launches}
+    n_ep = len(trainer.epoch_times)
+    overhead = (wall - sum(trainer.epoch_times) - sum(trainer.val_times)) / n_ep
+    with open(trainer.save_dir / "results.csv") as f:
+        rows = list(csv.DictReader(f))
+    best = trainer.best_metrics
+    top1 = best.get("metrics/accuracy_top1", 0.0)
+    print(f"fit {CLS}: {n_ep} epochs in {wall:.3f} s; epoch (train steps) median "
+          f"{statistics.median(trainer.epoch_times) * 1e3:.3f} ms, val median "
+          f"{statistics.median(trainer.val_times) * 1e3:.3f} ms, the rest {overhead * 1e3:.3f} ms "
+          f"an epoch; nc {model.model.nc}; every 10th epoch (epoch, loss, top1, top5): "
+          + "; ".join(" ".join(r[k] for k in ("epoch", "train/loss", "metrics/accuracy_top1",
+                                             "metrics/accuracy_top5")) for r in rows[9::10])
+          + f"; best {json.dumps(best)}, top-1 {top1:.6f} (limit {CLS_FIT_TOP1_MIN}, JAX "
+          f"{CLS_JAX_TOP1}) on {card}", flush=True)
+    if not top1 >= CLS_FIT_TOP1_MIN or launches["train"]:
+        raise AssertionError(f"{CLS}: top-1 {top1} < {CLS_FIT_TOP1_MIN}")
+    val_kw = {"data": str(data), "batch": CLS_FIT_TRAIN["batch"], "imgsz": CLS_FIT_TRAIN["imgsz"],
+              "project": str(work / "runs")}
+    reloaded = YOLO(trainer.save_dir / "best.pt", device="cuda")
+    m_card = reloaded.val(name="val_card", **val_kw)
+    launches["val"] = la.linear_attention_kernel.launches - launches["train"]
+    m_cpu = YOLO(trainer.save_dir / "best.pt", device="cpu").val(name="val_cpu", **val_kw)
+    gap = metrics_gap(best, m_card)
+    same_cpu = all(m_cpu[k] == m_card[k] for k in ("metrics/accuracy_top1",
+                                                   "metrics/accuracy_top5"))
+    print(f"fit {CLS}: best.pt reloaded on the card: {json.dumps(m_card)}, largest gap to the "
+          f"best epoch {gap:.3e} (tol {FIT_RELOAD_TOL}); on the CPU in f32: {json.dumps(m_cpu)}, "
+          f"top-1 and top-5 equal to the card's: {same_cpu}", flush=True)
+    if gap > FIT_RELOAD_TOL or not same_cpu:
+        raise AssertionError("best.pt does not validate to the trainer's metrics on the card "
+                             "and the CPU")
+    n0 = la.linear_attention_kernel.launches
+    results = reloaded.predict(str(data / "val"), imgsz=CLS_FIT_TRAIN["imgsz"],
+                               project=str(work / "runs"))
+    launches["predict"] = la.linear_attention_kernel.launches - n0
+    top1s = [r.probs.top1 for r in results]
+    ok = (len(results) == CLS_FIT_DATA["nc"] * CLS_FIT_DATA["n_val_per_class"] and all(
+        np.isfinite(r.probs.data).all() and abs(float(r.probs.data.sum()) - 1) < 1e-4
+        and len(r.probs.top5) == min(5, CLS_FIT_DATA["nc"]) for r in results))
+    print(f"fit {CLS}: predict on the val images: {len(results)} Results with probs, top-1 "
+          f"classes {np.bincount(top1s, minlength=CLS_FIT_DATA['nc']).tolist()} by class; "
+          f"attention launches {launches}", flush=True)
+    if not ok or any(launches.values()):
+        raise AssertionError("classify predict on the val images failed")
+    return launches
+
+
 def check_tiled_nms():
     """The validator's per-image tiled NMS on the card against the scan oracle,
     multi-label, at conf 0.001 and max_nms 30000 with >= NMS_TILED_MIN
@@ -1749,9 +2133,8 @@ def fit(la, card: str, work: Path, name: str = "edgeline-yolo.yaml",
     disk at `imgsz` for `epochs`, held to mAP50-95 >= map_min (a segment, pose or obb
     model on its task's form of the dataset; `extra_mins` holds more of the
     best epoch's metrics, e.g. the mask or pose mAP50-95, each to its
-    limit, printed beside `jax_maps`); the flagship then validates at 640
-    px. Returns the attention kernel's launches in train, val and predict,
-    and the best checkpoint's path."""
+    limit, printed beside `jax_maps`). Returns the attention kernel's
+    launches in train, val and predict, and the best checkpoint's path."""
     import csv
 
     import numpy as np
@@ -1766,7 +2149,6 @@ def fit(la, card: str, work: Path, name: str = "edgeline-yolo.yaml",
     data = generate_dataset(work / "fit", **FIT, task=model.task)
     print(f"fit dataset: {FIT}, {model.task}, PNG, written in {time.perf_counter() - t0:.3f} s",
           flush=True)
-    flagship = name == "edgeline-yolo.yaml"
     val_launches = []
     validate = DetectionTrainer._validate
 
@@ -1788,11 +2170,14 @@ def fit(la, card: str, work: Path, name: str = "edgeline-yolo.yaml",
     launches = {"train": la.linear_attention_kernel.launches - sum(val_launches),
                 "train_val": sum(val_launches)}
     epochs = len(trainer.epoch_times)
+    # the rest of an epoch: results.csv and the checkpoints, plus the set-up spread over it
+    rest = (wall - sum(trainer.epoch_times) - sum(trainer.val_times)) / epochs
     print(f"fit {name}: {epochs} epochs in {wall:.3f} s; epoch (train steps) median "
           f"{statistics.median(trainer.epoch_times) * 1e3:.3f} ms, first "
           f"{trainer.epoch_times[0] * 1e3:.3f} ms; val median "
           f"{statistics.median(trainer.val_times) * 1e3:.3f} ms, first "
-          f"{trainer.val_times[0] * 1e3:.3f} ms; {trainer.accumulate} micro-steps per update, "
+          f"{trainer.val_times[0] * 1e3:.3f} ms; outside both {rest * 1e3:.3f} ms an epoch; "
+          f"{trainer.accumulate} micro-steps per update, "
           f"{trainer.ema.updates} updates; deterministic algorithms "
           f"{trainer.args['deterministic']}; on {card}", flush=True)
     with open(trainer.save_dir / "results.csv") as f:
@@ -1879,8 +2264,6 @@ def fit(la, card: str, work: Path, name: str = "edgeline-yolo.yaml",
               flush=True)
         if not shaped or not any(r.masks is not None for r in results):
             raise AssertionError(f"{name}: predict gave no masks at the images' size")
-    if flagship:
-        val640(la, reloaded, card, work)
     return launches, trainer.save_dir / "best.pt"
 
 
@@ -2394,6 +2777,89 @@ def video(la, card: str, work: Path, best: Path) -> dict:
     return launches
 
 
+FIT_JOBS = {  # name: the fit, longest first (their seconds alone on an H100)
+    "yolov13-test": lambda la, card, work: fit(la, card, work, "yolov13-test.yaml",
+                                               V13_TEST_FIT_MAP_MIN, V13_TEST_FIT_IMGSZ),
+    "edgeline-yolo": lambda la, card, work: fit(la, card, work),
+    SEG: lambda la, card, work: fit(
+        la, card, work, f"{SEG}.yaml", SEG_FIT_BOX_MIN,
+        extra_mins={"metrics/mAP50-95(M)": SEG_FIT_MASK_MIN},
+        jax_maps={"metrics/mAP50-95(B)": SEG_JAX_BOX_MAP, "metrics/mAP50-95(M)": SEG_JAX_MASK_MAP}),
+    "yolov10n": lambda la, card, work: fit(la, card, work, "yolov10n.yaml", V10_FIT_MAP_MIN),
+    "yolo11n": lambda la, card, work: fit(la, card, work, "yolo11n.yaml", YOLO11N_FIT_MAP_MIN),
+    CLS: lambda la, card, work: (fit_classify(la, card, work), None),
+    POSE: lambda la, card, work: fit(
+        la, card, work, f"{POSE}.yaml", POSE_FIT_BOX_MIN,
+        extra_mins={"metrics/mAP50-95(P)": POSE_FIT_POSE_MIN},
+        jax_maps={"metrics/mAP50-95(B)": POSE_JAX_BOX_MAP,
+                  "metrics/mAP50-95(P)": POSE_JAX_POSE_MAP}, epochs=POSE_OBB_FIT_EPOCHS),
+    OBB: lambda la, card, work: fit(la, card, work, f"{OBB}.yaml", OBB_FIT_MIN, extra_mins={},
+                                    jax_maps={"metrics/mAP50-95(B)": OBB_JAX_MAP},
+                                    epochs=POSE_OBB_FIT_EPOCHS),
+}
+
+
+def fit_worker(name: str, work: str, card: str) -> int:
+    """One fit of FIT_JOBS in this process (`chip_smoke.py --fit NAME WORK CARD`),
+    its data and runs under WORK/NAME; writes its launches and best.pt to
+    WORK/NAME.json."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(FIT_THREADS)
+    from edgeyolo_tpu_torch.ops import linear_attention as la  # the parent's build, loaded
+
+    launches, best = FIT_JOBS[name](la, card, Path(work) / name)
+    (Path(work) / f"{name}.json").write_text(json.dumps(
+        {"launches": launches, "best": None if best is None else str(best)}))
+    return 0
+
+
+def run_fits(card: str, work: Path) -> dict:
+    """Every fit of FIT_JOBS, FIT_PROCS at once, each in a process of its own
+    (fit_worker). A fit's output is printed whole when it ends; a fit that fails
+    or outlasts FIT_TIMEOUT fails the phase, and every fit still running is
+    killed. Returns each fit's launches and best.pt."""
+    pending, running, results = list(FIT_JOBS), {}, {}
+    t_start = time.perf_counter()
+    try:
+        while pending or running:
+            while pending and len(running) < FIT_PROCS:
+                name = pending.pop(0)
+                log = open(work / f"{name}.log", "w+")
+                proc = subprocess.Popen(
+                    [sys.executable, str(Path(__file__).resolve()), "--fit", name, str(work), card],
+                    stdout=log, stderr=subprocess.STDOUT, start_new_session=True)
+                running[name] = (proc, log, time.perf_counter())
+            time.sleep(0.2)
+            for name, (proc, log, t0) in list(running.items()):
+                if proc.poll() is None:
+                    if time.perf_counter() - t0 > FIT_TIMEOUT:
+                        raise TimeoutError(f"fit {name}: still running after {FIT_TIMEOUT} s")
+                    continue
+                del running[name]
+                log.seek(0)
+                print(log.read(), end="", flush=True)
+                log.close()
+                print(f"fit {name}: its process took {time.perf_counter() - t0:.3f} s, started "
+                      f"at +{t0 - t_start:.3f} s of the phase, exit code {proc.returncode}",
+                      flush=True)
+                if proc.returncode:
+                    raise AssertionError(f"fit {name} failed (exit code {proc.returncode})")
+                results[name] = json.loads((work / f"{name}.json").read_text())
+    finally:
+        for proc, log, _ in running.values():
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            log.close()
+    print(f"fits: {len(results)} in {time.perf_counter() - t_start:.3f} s, {FIT_PROCS} at once",
+          flush=True)
+    return results
+
+
 def main() -> int:
     import torch
 
@@ -2455,14 +2921,19 @@ def main() -> int:
     train(la, card, V12)
     done("train", t0)
 
+    from edgeyolo_tpu_torch.engine.model import YOLO
+
     t0 = phase("fit")
     check_tiled_nms()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_fit_") as work:
-        fit_launches, best = fit(la, card, Path(work) / "edgeline-yolo")
-        fit(la, card, Path(work) / "yolo11n", "yolo11n.yaml", YOLO11N_FIT_MAP_MIN)
-        v13_fit_launches, _ = fit(la, card, Path(work) / "yolov13-test", "yolov13-test.yaml",
-                                  V13_TEST_FIT_MAP_MIN, V13_TEST_FIT_IMGSZ)
-        fit(la, card, Path(work) / "yolov10n", "yolov10n.yaml", V10_FIT_MAP_MIN)
+        fits = run_fits(card, Path(work))
+        fit_launches = fits["edgeline-yolo"]["launches"]
+        best = Path(fits["edgeline-yolo"]["best"])
+        v13_fit_launches = fits["yolov13-test"]["launches"]
+        seg_fit_launches = fits[SEG]["launches"]
+        cls_fit_launches = fits[CLS]["launches"]
+        # the flagship at full width, alone on the card
+        val640(la, YOLO(best, device="cuda"), card, Path(work) / "edgeline-yolo")
         done("fit", t0)
 
         t0 = phase("jpeg")
@@ -2491,13 +2962,6 @@ def main() -> int:
         train(la, card, SEG, copy_paste=0.5)
         done("segment train", t0)
 
-        t0 = phase("segment fit")
-        seg_fit_launches, _ = fit(la, card, Path(work) / SEG, f"{SEG}.yaml", SEG_FIT_BOX_MIN,
-                                  extra_mins={"metrics/mAP50-95(M)": SEG_FIT_MASK_MIN},
-                                  jax_maps={"metrics/mAP50-95(B)": SEG_JAX_BOX_MAP,
-                                            "metrics/mAP50-95(M)": SEG_JAX_MASK_MAP})
-        done("segment fit", t0)
-
         t0 = phase("pose/obb reference")
         pose_obb_reference(la)
         check_rotated_nms()
@@ -2518,14 +2982,27 @@ def main() -> int:
                 raise AssertionError(f"{name}: attention kernel launches in a model without one")
         done("pose/obb train", t0)
 
-        t0 = phase("pose/obb fit")
-        fit(la, card, Path(work) / POSE, f"{POSE}.yaml", POSE_FIT_BOX_MIN,
-            extra_mins={"metrics/mAP50-95(P)": POSE_FIT_POSE_MIN},
-            jax_maps={"metrics/mAP50-95(B)": POSE_JAX_BOX_MAP,
-                      "metrics/mAP50-95(P)": POSE_JAX_POSE_MAP}, epochs=POSE_OBB_FIT_EPOCHS)
-        fit(la, card, Path(work) / OBB, f"{OBB}.yaml", OBB_FIT_MIN, extra_mins={},
-            jax_maps={"metrics/mAP50-95(B)": OBB_JAX_MAP}, epochs=POSE_OBB_FIT_EPOCHS)
-        done("pose/obb fit", t0)
+        t0 = phase("classify reference")
+        cls_launches = {"reference": classify_reference(la)}
+        done("classify reference", t0)
+
+        t0 = phase("classify serve")
+        for name in CLS_SERVE:
+            served = serve_classify(la, card, name)
+        classify_jpeg_request(la, card, served["predictor"], Path(work))
+        cls_launches["serve"] = la.linear_attention_kernel.launches
+        done("classify serve", t0)
+
+        t0 = phase("classify train reference")
+        check_classify_train_reference(la)
+        done("classify train reference", t0)
+
+        t0 = phase("classify train")
+        cls_launches["train"] = train_classify(la, card)
+        cls_launches.update({f"fit_{k}": v for k, v in cls_fit_launches.items()})
+        print(f"classify: attention kernel launches {cls_launches} (no cls model has one)",
+              flush=True)
+        done("classify train", t0)
 
     t0 = phase("device times")
     device_times(la, la_rows, la_inputs_by_case)
@@ -2557,6 +3034,7 @@ def main() -> int:
                 "launches_segment_v9_reference": sum(seg_ref_launches.values()),
                 "launches_segment_train": seg_train_launches,
                 **{f"launches_fit_segment_{k}": v for k, v in seg_fit_launches.items()},
+                **{f"launches_classify_{k}": v for k, v in cls_launches.items()},
                 **la_rows[LA_MAIN_CASE], "library_ms": None,
                 "wavelet_rows": [{"shape": list(case[:4]), "dtype": case[4], **row}
                                  for case, row in zip(LA_CASES, la_rows)
@@ -2569,4 +3047,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--fit"]:
+        sys.exit(fit_worker(*sys.argv[2:5]))
     sys.exit(main())

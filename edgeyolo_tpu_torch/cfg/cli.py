@@ -6,6 +6,7 @@
     edgeyolo-torch detect track model=runs/detect/train/best.pt source=line.avi tracker=botsort.yaml
     edgeyolo-torch pose train data=pose.yaml model=yolo11n-pose.yaml epochs=10
     edgeyolo-torch obb val model=runs/obb/train/best.pt data=dota.yaml
+    edgeyolo-torch classify train data=path/to/class_folders model=yolo11n-cls.yaml imgsz=224
 
 Also `help`, `version` and `cfg` (the defaults as JSON). Values are parsed
 as Python literals where they are one (`epochs=10`, `half=True`), else kept
@@ -25,7 +26,7 @@ from edgeyolo_tpu_torch.utils import LOGGER
 CLI_HELP = f"""
     Usage: edgeyolo-torch TASK MODE ARGS
 
-        TASK (optional): one of {sorted(TASKS)} (detect, segment, pose and obb are ported)
+        TASK (optional): one of {sorted(TASKS)}
         MODE (required): one of ['predict', 'track', 'train', 'val']
         ARGS (optional): any number of 'arg=value' pairs overriding defaults.
 
@@ -95,7 +96,11 @@ def entrypoint(argv: list[str] | None = None) -> int:
         _say(f"best fitness {model.trainer.best_fitness:.5g}, results in {model.trainer.save_dir}")
     elif mode == "val":
         metrics = model.val(**overrides)
-        _say(f"{'':>10}{'images':>8}{'P':>11}{'R':>11}{'mAP50':>11}{'mAP75':>11}{'mAP50-95':>11}")
+        if model.task == "classify":
+            _say(f"{'':>10}{'images':>8}{'top1':>11}{'top5':>11}")
+        else:
+            _say(f"{'':>10}{'images':>8}{'P':>11}{'R':>11}{'mAP50':>11}{'mAP75':>11}"
+                 f"{'mAP50-95':>11}")
         _say(model.validator.results_line())
         for tag, row in (("M", "masks"), ("P", "pose")):  # a segment or a pose model's table
             if f"metrics/mAP50-95({tag})" in metrics:
@@ -108,7 +113,11 @@ def entrypoint(argv: list[str] | None = None) -> int:
             raise SyntaxError("predict requires source=<path>")
         results = model.predict(source, **overrides)
         for r in results:
-            _say(f"{r.path}: {r.verbose_str}")
+            if r.probs is not None:  # a classify result: its top-1 class and probability
+                _say(f"{r.path}: {r.names.get(r.probs.top1, r.probs.top1)} "
+                     f"{r.probs.top1conf:.3f}")
+            else:
+                _say(f"{r.path}: {r.verbose_str}")
         _say(f"{len(results)} images processed")
     else:
         source = overrides.pop("source", None)

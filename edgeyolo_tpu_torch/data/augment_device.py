@@ -40,6 +40,16 @@ over 2 px, centre on the canvas) replaces the box filter, and a flip
 mirrors the angle, swapping w and h when it crosses the pi/2 seam
 (`flip_rbox_angle`). Mixup is off with rotated boxes too.
 
+Classification (`classify_apply`, JAX's classify_augment_batch): per image
+a random-resized crop through the bilinear gather (area in (max(1 - scale,
+0.05), 1), log aspect in (log 3/4, log 4/3), the sample grid at pixel
+centres; a tap before the first or past the last row or column reads
+GRAY, 114, on the [0, 1] image, as JAX's does), the flips, HSV,
+RandAugment (data/randaugment.py) when `auto_augment` is "randaugment", and
+random erasing at `erasing` (area 0.02-0.33 of the image, log aspect
+log 0.3-log 3.3, clamped to fit, filled with 0). `sample_classify_params`
+draws them on the host, as `sample_params` does for detection.
+
 Not ported yet: mosaic3/9.
 """
 
@@ -50,6 +60,7 @@ from dataclasses import dataclass, replace
 
 import torch
 
+from edgeyolo_tpu_torch.data.randaugment import rand_augment_apply, sample_rand_augment, to_device
 from edgeyolo_tpu_torch.data.photometric import (
     PhotometricParams,
     apply_where,
@@ -591,3 +602,91 @@ def augment_batch(images: torch.Tensor, cls: torch.Tensor, bboxes: torch.Tensor,
                         keypoints=keypoints is not None)
     return augment_apply(images, cls, bboxes, mask, prm.to(images.device), imgsz, masks,
                          keypoints, rboxes)
+
+
+@dataclass
+class ClassifyParams:
+    """One classify step's random draws; the batch is the first dim."""
+
+    crop: torch.Tensor  # (B, 4) oy, ox, ch, cw of the random-resized crop, in pixels
+    fliplr: torch.Tensor | None  # (B,) bool
+    flipud: torch.Tensor | None  # (B,) bool
+    hsv_gain: torch.Tensor | None  # (B, 3)
+    ra_ops: torch.Tensor | None  # (B, num_ops) long: RandAugment op indices
+    ra_signs: torch.Tensor | None  # (B, num_ops) +-1
+    erase: torch.Tensor | None  # (B,) bool
+    erase_box: torch.Tensor | None  # (B, 4) oy, ox, eh, ew
+
+
+def place(off: torch.Tensor, h: torch.Tensor, w: torch.Tensor, s: int) -> torch.Tensor:
+    """(oy, ox, h, w): an h x w box at `off` (B, 2) of the free space of s x s."""
+    return torch.stack([off[:, 0] * (s - h), off[:, 1] * (s - w), h, w], dim=1)
+
+
+def sample_classify_params(b: int, s: int, hyp: dict, gen: torch.Generator) -> ClassifyParams:
+    """Draw one classify step's parameters for b images of s x s pixels."""
+    smin = max(1.0 - _hyp(hyp, "scale", 0.5), 0.05)
+    area = _uniform(gen, (b,), smin, 1.0)
+    ratio = torch.exp(_uniform(gen, (b,), math.log(3 / 4), math.log(4 / 3)))
+    cw = torch.clamp(s * torch.sqrt(area * ratio), max=float(s))
+    ch = torch.clamp(s * torch.sqrt(area / ratio), max=float(s))
+    crop = place(torch.rand(b, 2, generator=gen), ch, cw, s)
+    plr, pud = _hyp(hyp, "fliplr", 0.5), _hyp(hyp, "flipud", 0.0)
+    fliplr = torch.rand(b, generator=gen) < plr if plr > 0 else None
+    flipud = torch.rand(b, generator=gen) < pud if pud > 0 else None
+    gains = torch.tensor([_hyp(hyp, "hsv_h", 0.015), _hyp(hyp, "hsv_s", 0.7),
+                          _hyp(hyp, "hsv_v", 0.4)])
+    hsv_gain = _uniform(gen, (b, 3), -1.0, 1.0) * gains + 1.0 if bool(gains.any()) else None
+    ra_ops = ra_signs = None
+    if str(hyp.get("auto_augment", "") or "") == "randaugment":
+        ra_ops, ra_signs = sample_rand_augment(b, gen)
+    per = _hyp(hyp, "erasing", 0.0)
+    erase = erase_box = None
+    if per > 0:
+        erase = torch.rand(b, generator=gen) < per
+        area = _uniform(gen, (b,), 0.02, 0.33) * s * s
+        r = torch.exp(_uniform(gen, (b,), math.log(0.3), math.log(3.3)))
+        eh = torch.clamp(torch.sqrt(area * r), max=float(s))
+        ew = torch.clamp(torch.sqrt(area / r), max=float(s))
+        erase_box = place(torch.rand(b, 2, generator=gen), eh, ew, s)
+    return ClassifyParams(crop, fliplr, flipud, hsv_gain, ra_ops, ra_signs, erase, erase_box)
+
+
+def classify_apply(images: torch.Tensor, prm: ClassifyParams) -> torch.Tensor:
+    """Apply drawn parameters to uint8 (B, S, S, 3) images: float (B, S, S, 3)
+    in [0, 1] (JAX's classify_augment_batch). The draws reach the device in
+    one copy; the stages drawn as off are skipped on the host."""
+    b, s = images.shape[:2]
+    dev = images.device
+    zeros = torch.zeros(b)
+    host = torch.cat([prm.crop.float(), torch.stack([
+        zeros if g is None else g.float() for g in (prm.fliplr, prm.flipud, prm.erase)], 1),
+        zeros[:, None].expand(b, 3) if prm.hsv_gain is None else prm.hsv_gain.float(),
+        zeros[:, None].expand(b, 4) if prm.erase_box is None else prm.erase_box.float()], 1)
+    d = to_device(host, dev)  # (B, 14): crop 4, fliplr, flipud, erase, hsv 3, erase box 4
+    img01 = images.float() / 255.0
+    oy, ox, ch, cw = (d[:, i, None] for i in range(4))
+    t = (torch.arange(s, device=dev) + 0.5) / s
+    ys, xs = oy + t * ch - 0.5, ox + t * cw - 0.5  # (B, S) source rows and columns
+    img01 = _bilinear_gather(img01, torch.arange(b, device=dev)[:, None, None].expand(b, s, s),
+                             ys[:, :, None].expand(b, s, s), xs[:, None, :].expand(b, s, s))
+    for gate, col, dim in ((prm.fliplr, 4, 2), (prm.flipud, 5, 1)):
+        if gate is not None and bool(gate.any()):
+            img01 = torch.where(d[:, col, None, None, None] > 0, img01.flip(dim), img01)
+    if prm.hsv_gain is not None:
+        img01 = hsv_aug(img01, d[:, 7:10])
+    if prm.ra_ops is not None:
+        img01 = rand_augment_apply(img01, prm.ra_ops, prm.ra_signs)
+    if prm.erase is not None:
+        eoy, eox, eh, ew = (d[:, i, None, None] for i in range(10, 14))
+        yy = torch.arange(s, dtype=torch.float32, device=dev)[None, :, None]
+        xx = torch.arange(s, dtype=torch.float32, device=dev)[None, None, :]
+        inside = (yy >= eoy) & (yy < eoy + eh) & (xx >= eox) & (xx < eox + ew)
+        img01 = torch.where((inside & (d[:, 6, None, None] > 0))[..., None], 0.0, img01)
+    return img01
+
+
+def classify_augment_batch(images: torch.Tensor, gen: torch.Generator, hyp: dict) -> torch.Tensor:
+    """Draw one classify step's parameters from `gen` and apply them on images' device."""
+    return classify_apply(images, sample_classify_params(images.shape[0], images.shape[1], hyp,
+                                                         gen))

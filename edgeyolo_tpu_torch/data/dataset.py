@@ -94,7 +94,8 @@ class YOLODataset:
                  names: dict | None = None, cache: bool | str = False, task: str = "detect",
                  mask_ratio: int = 4, kpt_shape=(17, 3)):
         if task not in ("detect", "segment", "pose", "obb"):
-            raise NotImplementedError(f"dataset task '{task}' is not ported yet (ROADMAP A.10.3)")
+            raise ValueError(f"unknown dataset task '{task}' (classify: "
+                             "data/classify.py::ClassificationDataset)")
         self.task, self.mask_ratio = task, int(mask_ratio)
         self.kpt_shape = tuple(int(k) for k in kpt_shape)
         self.img_path = img_path
@@ -385,6 +386,10 @@ class DataLoader:
             random.Random(self.seed + self.epoch).shuffle(idx)
         return idx
 
+    def _chunks(self, idx: list[int]):
+        """The epoch's batches of dataset indices, the last one short."""
+        return (idx[start:start + self.bs] for start in range(0, len(idx), self.bs))
+
     def _collate(self, chunk: list[int]) -> dict:
         """Stack one batch; a short final batch repeats its last item (n_real says)."""
         n_real = len(chunk)
@@ -421,8 +426,8 @@ class DataLoader:
 
         def produce():
             try:
-                for start in range(0, len(idx), self.bs):
-                    if not put(self._collate(idx[start:start + self.bs])):
+                for chunk in self._chunks(idx):
+                    if not put(self._collate(chunk)):
                         return
                 put(None)
             except Exception as e:  # noqa: BLE001 - handed to the consumer, raised there

@@ -1,5 +1,5 @@
 """Synthetic dataset generator (edgeyolo_tpu/data/synthetic.py): the detect,
-segment, pose and obb tasks.
+segment, pose, obb and classify tasks.
 
 Coloured shapes on noise backgrounds with exact YOLO-format labels, so the
 train, val and predict paths run with no download. Class mapping:
@@ -13,6 +13,10 @@ shapes are rasterised here in numpy (PIL's ImageDraw is not on the card's
 machine; the obb task's rotated shapes through `fill_poly`) and the images
 are written as PNG, where JAX writes JPEG.
 
+`generate_classify_dataset` writes JAX's folder-per-class set of oriented
+gratings under noise, from the same draws, as JPEG q92 on the port's
+encoder (PIL's file for the same pixels).
+
 `moving_shapes` draws the same shapes moving across a video's frames, and
 `write_mjpeg_avi` writes frames as an MJPEG AVI on the port's JPEG encoder:
 the video and tracking inputs of the tests and of chip_smoke.py.
@@ -25,7 +29,7 @@ from pathlib import Path
 
 import numpy as np
 
-from edgeyolo_tpu_torch.data.imageio import encode_jpeg, save_png
+from edgeyolo_tpu_torch.data.imageio import encode_jpeg, save_jpeg, save_png
 from edgeyolo_tpu_torch.data.rasterize import fill_poly
 
 PALETTE = [(220, 40, 40), (40, 180, 60), (50, 80, 220), (230, 200, 40), (160, 60, 200)]
@@ -200,7 +204,8 @@ def generate_dataset(root: str | Path, n_train: int = 16, n_val: int = 8, imgsz:
     yaml names kpt_shape [5, 3] and flip_idx), "obb" the 4 corners of a
     shape rotated by up to pi/3 either way: JAX's labels, draw for draw."""
     if task not in ("detect", "segment", "pose", "obb"):
-        raise NotImplementedError(f"synthetic task '{task}' is not ported yet (ROADMAP A.10.3)")
+        raise ValueError(f"unknown synthetic task '{task}' (classify: "
+                         "generate_classify_dataset)")
     root = Path(root)
     rng = np.random.RandomState(seed)
     for split, n in (("train", n_train), ("val", n_val)):
@@ -250,3 +255,33 @@ def generate_dataset(root: str | Path, n_train: int = 16, n_val: int = 8, imgsz:
     yaml_path.write_text(f"path: {root.resolve()}\ntrain: images/train\nval: images/val\n"
                          f"nc: {nc}\nnames:\n{names}\n{extra}")
     return yaml_path
+
+
+def generate_classify_dataset(root: str | Path, nc: int = 4, n_train_per_class: int = 8,
+                              n_val_per_class: int = 4, size_range: tuple[int, int] = (60, 140),
+                              noise: float = 60.0, seed: int = 0) -> Path:
+    """{root}/{train,val}/grating_{c}/*.jpg: class c is a grating at angle
+    c * pi / nc under Gaussian pixel noise, each image non-square with sides
+    in size_range (so the resize and centre crop of the eval transform do
+    work). Returns the root."""
+    root = Path(root)
+    rng = np.random.RandomState(seed)
+    for split, n in (("train", n_train_per_class), ("val", n_val_per_class)):
+        for c in range(nc):
+            d = root / split / f"grating_{c}"
+            d.mkdir(parents=True, exist_ok=True)
+            theta = c * np.pi / nc
+            for i in range(n):
+                h = int(rng.randint(size_range[0], size_range[1] + 1))
+                w = int(rng.randint(size_range[0], size_range[1] + 1))
+                if h == w:
+                    w += 3
+                yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+                period = rng.uniform(8, 16)
+                phase = rng.uniform(0, 2 * np.pi)
+                g = np.sin((xx * np.cos(theta) + yy * np.sin(theta)) * (2 * np.pi / period)
+                           + phase)
+                im = (127 + 70 * g)[..., None] + rng.normal(0, noise, (h, w, 3))
+                save_jpeg(d / f"{split}_{c}_{i:04d}.jpg", np.clip(im, 0, 255).astype(np.uint8),
+                          quality=92)
+    return root

@@ -1,20 +1,24 @@
-"""The YOLO facade (edgeyolo_tpu/engine/model.py): the detect, segment, pose
-and obb tasks.
+"""The YOLO facade (edgeyolo_tpu/engine/model.py): the detect, segment, pose,
+obb and classify tasks.
 
     YOLO("edgeline-yolo.yaml")        # a model name (cfg/models.py), seeded weights
     YOLO("yolo11n-seg.yaml")          # a segment model (its head names the task)
     YOLO("yolo11n-pose.yaml")         # a pose model; "yolo11n-obb.yaml" an obb one
+    YOLO("yolo11n-cls.yaml")          # a classify model (data: a folder-per-class root)
     YOLO("runs/detect/train/best.pt") # a port checkpoint (train/trainer.py)
 
-The task is the model's (a Segment, Pose or OBB head makes "segment",
-"pose" or "obb"); `task=` may name it, and must agree. Each task has its
-trainer loss, validator and predictor (`TASK_MAP`); classify is not ported
-(ROADMAP A.10.3).
+The task is the model's (a Segment, Pose, OBB or Classify head makes
+"segment", "pose", "obb" or "classify"); `task=` may name it, and must
+agree. Each task has its trainer, validator and predictor (`TASK_MAP`;
+classify's are train/classify.py and engine/classify.py).
 
 `train`, `val`, `predict` and `track` take the keys of cfg/__init__.py's
 defaults (method kwargs > the handle's overrides > defaults). `train` on a
 model with no trained weights rebuilds its head for the dataset's class
-count, and a pose head for the dataset's `kpt_shape`. `predict` keeps its predictor (and so its save directory) while the
+count (a classify dataset's class folders), and a pose head for the
+dataset's `kpt_shape`. `add_callback` registers a hook for a trainer event
+(utils/callbacks.py), which the next `train` runs; `reset_callbacks`
+clears them. `predict` keeps its predictor (and so its save directory) while the
 arguments stay the same, as JAX's facade does; `track` runs it with a
 ByteTrack or BoT-SORT tracker over the frames. Every mode runs on CUDA
 unless `device` names another device ("cpu").
@@ -31,12 +35,26 @@ from edgeyolo_tpu_torch.cfg import get_cfg, get_save_dir
 from edgeyolo_tpu_torch.data.dataset import check_det_dataset
 from edgeyolo_tpu_torch.nn.tasks import DetectionModel, for_precision, num_params, num_trainable
 from edgeyolo_tpu_torch.utils import LOGGER, select_device
+from edgeyolo_tpu_torch.utils.callbacks import EVENTS, get_default_callbacks
 
-# task -> (validator, predictor) class names in engine/validator.py and engine/predictor.py
+# task -> (validator, predictor) class names in engine/validator.py and engine/predictor.py,
+# or in engine/classify.py for classify
 TASK_MAP = {"detect": ("DetectionValidator", "DetectionPredictor"),
             "segment": ("SegmentationValidator", "SegmentationPredictor"),
             "pose": ("PoseValidator", "PosePredictor"),
-            "obb": ("OBBValidator", "OBBPredictor")}
+            "obb": ("OBBValidator", "OBBPredictor"),
+            "classify": ("ClassificationValidator", "ClassificationPredictor")}
+
+
+def task_class(task: str, role: int):
+    """TASK_MAP[task][role] (0: validator, 1: predictor) as a class."""
+    if task == "classify":
+        from edgeyolo_tpu_torch.engine import classify as module
+    elif role == 0:
+        from edgeyolo_tpu_torch.engine import validator as module
+    else:
+        from edgeyolo_tpu_torch.engine import predictor as module
+    return getattr(module, TASK_MAP[task][role])
 
 
 class YOLO:
@@ -45,9 +63,9 @@ class YOLO:
     def __init__(self, model: str | Path = "edgeline-yolo.yaml", task: str | None = None,
                  device: str | torch.device | None = None):
         if task not in (None, *TASK_MAP):
-            raise NotImplementedError(f"task '{task}' is not ported yet (ROADMAP A.10.3: "
-                                      "classify)")
+            raise ValueError(f"unknown task '{task}'; known: {sorted(TASK_MAP)}")
         self.overrides: dict = {}
+        self.callbacks = get_default_callbacks()
         self.device = select_device(device)
         self.ckpt_path = None
         self.trained = False  # weights from training or a checkpoint, not a seeded init
@@ -59,9 +77,6 @@ class YOLO:
             self.model = DetectionModel(model, device=self.device)
             self.model_name = model
         self.task = self.model.task
-        if self.task not in TASK_MAP:
-            raise NotImplementedError(f"{model} is a {self.task} model, not ported yet "
-                                      "(ROADMAP A.10.3)")
         if task not in (None, self.task):
             raise ValueError(f"{model} is a {self.task} model, not a {task} one")
 
@@ -104,14 +119,30 @@ class YOLO:
         LOGGER.info(", ".join(f"{k} {v}" for k, v in d.items()))
         return d
 
+    def add_callback(self, event: str, fn) -> None:
+        """Run fn(trainer) at `event` (one of utils/callbacks.py's EVENTS) in `train`."""
+        if event not in EVENTS:
+            raise KeyError(f"unknown callback event '{event}'; valid: {EVENTS}")
+        self.callbacks[event].append(fn)
+
+    def reset_callbacks(self) -> None:
+        self.callbacks = get_default_callbacks()
+
     def train(self, **kwargs) -> float:
-        """Train on `data` (a dataset YAML); the handle then holds the EMA weights."""
+        """Train on `data` (a dataset YAML, or a classify dataset's root); the
+        handle then holds the EMA weights."""
+        from edgeyolo_tpu_torch.train.classify import ClassificationTrainer
         from edgeyolo_tpu_torch.train.trainer import DetectionTrainer
 
         args = self._args("train", kwargs)
         if not args.data:
             raise ValueError("train() requires data=<dataset.yaml>")
-        data_cfg = check_det_dataset(args.data)
+        if self.task == "classify":
+            from edgeyolo_tpu_torch.data.classify import check_cls_dataset
+
+            data_cfg = check_cls_dataset(args.data)
+        else:
+            data_cfg = check_det_dataset(args.data)
         nc = int(data_cfg["nc"])
         # a pose dataset's kpt_shape replaces the spec's (the reference PoseTrainer's)
         kpt = data_cfg.get("kpt_shape") if self.task == "pose" else None
@@ -126,7 +157,9 @@ class YOLO:
             save_dir = Path(args.project or Path("runs") / args.task) / (args.name or "train")
         else:
             save_dir = get_save_dir(args, name=args.name or "train")
-        self.trainer = DetectionTrainer(self.model, args, device=self.device, save_dir=save_dir)
+        trainer_cls = ClassificationTrainer if self.task == "classify" else DetectionTrainer
+        self.trainer = trainer_cls(self.model, args, device=self.device, save_dir=save_dir,
+                                   callbacks=self.callbacks)
         best = self.trainer.fit()
         self.model.eval()
         self.trained = True
@@ -136,35 +169,35 @@ class YOLO:
 
     def val(self, **kwargs) -> dict:
         """Validate on `data`'s val split; returns the metrics dict."""
-        from edgeyolo_tpu_torch.engine import validator
-
         args = self._args("val", kwargs)
         if not args.data:
             raise ValueError("val() requires data=<dataset.yaml>")
-        vcls = getattr(validator, TASK_MAP[self.task][0])
-        self.validator = vcls(args, save_dir=get_save_dir(args, name=args.name or "val"),
+        self.validator = task_class(self.task, 0)(args, save_dir=get_save_dir(args, name=args.name or "val"),
                               device=self.device)
         return self.validator(self.model)
 
     def predict(self, source, stream: bool = False, **kwargs):
         """Results for each frame of `source` (a generator with `stream`)."""
-        from edgeyolo_tpu_torch.engine import predictor as pred_mod
-
         args = self._args("predict", kwargs)
         key = (repr(sorted(vars(args).items())), id(self.model), str(self.device))
         if self.predictor is None or key != self._predictor_key:
             model = for_precision(self.model.eval(), bool(args.half))
-            self.predictor = getattr(pred_mod, TASK_MAP[self.task][1])(
-                model, conf=args.conf if args.conf is not None else 0.25, iou=float(args.iou),
-                max_det=int(args.max_det), device=self.device, imgsz=int(args.imgsz),
-                batch=int(args.batch), classes=args.classes,
-                agnostic=bool(args.agnostic_nms), save_txt=bool(args.save_txt),
-                save_conf=bool(args.save_conf), verbose=bool(args.verbose),
-                save_dir=get_save_dir(args, name=args.name or "predict"), save=bool(args.save),
-                augment=bool(args.augment), visualize=bool(args.visualize),
-                vid_stride=int(args.vid_stride), stream_buffer=bool(args.stream_buffer),
-                line_width=args.line_width, show_labels=bool(args.show_labels),
-                show_conf=bool(args.show_conf), show=bool(args.show))
+            common = {"device": self.device, "imgsz": int(args.imgsz), "batch": int(args.batch),
+                      "verbose": bool(args.verbose), "vid_stride": int(args.vid_stride),
+                      "stream_buffer": bool(args.stream_buffer)}
+            if self.task == "classify":  # probabilities: no NMS, boxes or drawings
+                self.predictor = task_class(self.task, 1)(model, **common)
+            else:
+                self.predictor = task_class(self.task, 1)(
+                    model, conf=args.conf if args.conf is not None else 0.25,
+                    iou=float(args.iou), max_det=int(args.max_det), classes=args.classes,
+                    agnostic=bool(args.agnostic_nms), save_txt=bool(args.save_txt),
+                    save_conf=bool(args.save_conf),
+                    save_dir=get_save_dir(args, name=args.name or "predict"),
+                    save=bool(args.save), augment=bool(args.augment),
+                    visualize=bool(args.visualize), line_width=args.line_width,
+                    show_labels=bool(args.show_labels), show_conf=bool(args.show_conf),
+                    show=bool(args.show), **common)
             self._predictor_key = key
         predictor = self.predictor
         return predictor.stream(source) if stream else predictor.predict(source)

@@ -1,5 +1,5 @@
 """Prediction containers (edgeyolo_tpu/engine/results.py): detection,
-segment, pose and obb parts.
+segment, pose, obb and classify parts.
 
 `Boxes` holds (N, 6) [x1, y1, x2, y2, conf, cls] rows in pixels of the
 original image, or (N, 7) with a track id after the box, with the xywh and
@@ -13,7 +13,11 @@ keypoints, an obb model's corners), `save_crop` (which warns and writes
 nothing for obb results, as JAX's), `to_json` (with segments, keypoints or
 corner points) and `verbose_str`. `Keypoints` holds (N, K, 2 | 3) pixel
 keypoints (and their visibility) and `OBB` (N, 7) [cx, cy, w, h, angle,
-conf, cls] rotated boxes with their corner views. `plot` draws as JAX's
+conf, cls] rotated boxes with their corner views. `Probs` holds a classify
+result's (nc,) probabilities with `top1`, `top5` (the five largest, largest
+first), `top1conf` and `top5conf`; as in JAX, a probs result plots as the
+image itself, writes no text lines, has no crops (a warning) and an empty
+JSON list. `plot` draws as JAX's
 does with PIL (utils/plotting.py: the same rectangles, keypoint discs and
 wide-line OBB rings pixel for pixel, the label text in the port's bitmap
 font). Host numpy: the device work ends at the NMS output.
@@ -186,13 +190,37 @@ class OBB:
         return np.concatenate([pts.min(1), pts.max(1)], -1)
 
 
+class Probs:
+    """A classify result's class probabilities (nc,)."""
+
+    def __init__(self, data: np.ndarray):
+        self.data = np.asarray(data, np.float32)
+
+    @property
+    def top1(self) -> int:
+        return int(self.data.argmax())
+
+    @property
+    def top5(self) -> list[int]:
+        return self.data.argsort()[-5:][::-1].tolist()
+
+    @property
+    def top1conf(self) -> float:
+        return float(self.data.max())
+
+    @property
+    def top5conf(self) -> np.ndarray:
+        return self.data[self.top5]
+
+
 class Results:
-    """One image's detections (and instance masks, keypoints or rotated boxes)."""
+    """One image's detections (and instance masks, keypoints or rotated boxes),
+    or its class probabilities."""
 
     def __init__(self, orig_img: np.ndarray, path: str, names: dict,
                  boxes: np.ndarray | None = None, speed: dict | None = None,
                  masks: np.ndarray | None = None, keypoints: np.ndarray | None = None,
-                 obb: np.ndarray | None = None):
+                 obb: np.ndarray | None = None, probs: np.ndarray | None = None):
         self.orig_img = orig_img
         self.orig_shape = orig_img.shape[:2]
         self.path = path
@@ -201,6 +229,7 @@ class Results:
         self.masks = Masks(masks, self.orig_shape) if masks is not None else None
         self.keypoints = Keypoints(keypoints, self.orig_shape) if keypoints is not None else None
         self.obb = OBB(obb, self.orig_shape) if obb is not None else None
+        self.probs = Probs(probs) if probs is not None else None
         self.speed = speed or {}
 
     def __len__(self):
@@ -329,9 +358,11 @@ class Results:
         """One crop per detection under save_dir/<class name>/, the box grown by
         gain 1.02 and 10 px (reference save_one_box), named stem, stem1, stem2, ...
         A .png name writes PNG; any other a JPEG at PIL's default quality, 75.
-        Rotated boxes have no crop: a warning, and nothing is written."""
-        if self.obb is not None:
-            LOGGER.warning("save_crop is not supported for obb results")
+        Rotated boxes and class probabilities have no crop: a warning, and
+        nothing is written."""
+        if self.obb is not None or self.probs is not None:
+            LOGGER.warning("save_crop is not supported for "
+                           f"{'obb' if self.obb is not None else 'classify'} results")
             return
         if self.boxes is None:
             return

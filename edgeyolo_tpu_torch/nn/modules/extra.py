@@ -12,6 +12,10 @@ blocks and the Ghost blocks, NCHW (edgeyolo_tpu/nn/modules/extra.py).
   conditional identity block (training form: JAX has no re-parameterised
   fuse).
 - GhostBottleneck / C3Ghost: the Ghost sandwich and its C3 (yolov8-ghost).
+- ResNetBlock / ResNetLayer: the bottleneck block (1x1, 3x3 at the stride,
+  1x1 to e x c2 without activation, plus the input or its 1x1 projection,
+  then ReLU) and a stage of them, or the stem (7x7/2 ConvBN with ReLU, then
+  a 3x3/2 max pool padded 1): the cls-resnet YAMLs.
 
 As in JAX: the participation softmax runs over the nodes after the mean over
 heads; GELU is exact; no dropout runs, in training either (the JAX module
@@ -333,3 +337,42 @@ class C3Ghost(C3):
     def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, g: int = 1,
                  e: float = 0.5):
         super().__init__(c1, c2, n, shortcut, g, e, block=lambda c: GhostBottleneck(c, c))
+
+
+class ResNetBlock(nn.Module):
+    """ResNet bottleneck: cv1 1x1 -> cv2 3x3 at stride s -> cv3 1x1 to e * c2
+    (no activation), plus the input, projected by a 1x1 ConvBN at stride s
+    (no activation) where the stride or the width changes; then ReLU."""
+
+    def __init__(self, c1: int, c2: int, s: int = 1, e: int = 4):
+        super().__init__()
+        c3 = e * c2
+        self.cv1 = ConvBN(c1, c2, 1, 1)
+        self.cv2 = ConvBN(c2, c2, 3, s, 1)
+        self.cv3 = ConvBN(c2, c3, 1, act=False)
+        self.shortcut = ConvBN(c1, c3, 1, s, act=False) if s != 1 or c1 != c3 else None
+
+    def forward(self, x):
+        y = self.cv3(self.cv2(self.cv1(x)))
+        return F.relu(y + (x if self.shortcut is None else self.shortcut(x)))
+
+
+class ResNetLayer(nn.Module):
+    """A ResNet stage: with `is_first` the stem (7x7/2 ConvBN with ReLU, then a
+    3x3/2 max pool padded 1) to c2 channels, else n ResNetBlocks (the first
+    at stride s) to e * c2."""
+
+    def __init__(self, c1: int, c2: int, s: int = 1, is_first: bool = False, n: int = 1,
+                 e: int = 4):
+        super().__init__()
+        self.is_first = is_first
+        if is_first:
+            self.stem = ConvBN(c1, c2, 7, 2, 3, act="relu")
+        else:
+            self.block = nn.Sequential(ResNetBlock(c1, c2, s, e),
+                                       *(ResNetBlock(e * c2, c2, 1, e) for _ in range(n - 1)))
+
+    def forward(self, x):
+        if self.is_first:
+            return F.max_pool2d(self.stem(x), 3, 2, 1)
+        return self.block(x)

@@ -1,4 +1,4 @@
-"""Detection heads, NCHW (edgeyolo_tpu/nn/modules/head.py).
+"""Detection and classification heads, NCHW (edgeyolo_tpu/nn/modules/head.py).
 
 Detect is the anchor-free head: per level a reg tower (cv2) of DFL logits
 and a cls tower (cv3), the legacy 3x3 pair or the DWConv + 1x1 pairs. The
@@ -32,6 +32,10 @@ branch straight to xyxy and keep the `max_det` best (anchor, class) pairs
 by `e2e_postprocess`: pred is (B, max_det, 6) [x1, y1, x2, y2, score, cls].
 In eval mode the one2many towers, which only the training loss reads, are
 not run (under jit XLA drops them from JAX's inference too).
+
+Classify is the classification head: a ConvBN to 1280 channels (of the
+inputs concatenated on channels when it is given several), the global mean,
+dropout in training only, and a Linear to nc: logits, (B, nc).
 """
 
 from __future__ import annotations
@@ -336,3 +340,21 @@ class Pose(Detect):
             out["pred"] = torch.cat([self.decode(out["feats"]),
                                      self.kpts_decode(out["kpts_raw"], shapes)], dim=-1)
         return out
+
+
+class Classify(nn.Module):
+    """conv (ConvBN to 1280) -> global mean -> dropout (training only) ->
+    linear: class logits (B, c2)."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, p: int | None = None,
+                 g: int = 1, dropout: float = 0.0):
+        super().__init__()
+        c_ = 1280
+        self.conv = ConvBN(c1, c_, k, s, p, g)
+        self.drop = nn.Dropout(dropout)
+        self.linear = nn.Linear(c_, c2)
+
+    def forward(self, x):
+        if isinstance(x, (list, tuple)):
+            x = torch.cat(x, 1)
+        return self.linear(self.drop(self.conv(x).mean((2, 3))))

@@ -25,10 +25,16 @@ P2/P6/Ghost variants (C2, SPP, Ghost blocks, pooling, padding and
 transposed convs), YOLOv9's GELAN blocks (CBLinear's output is a tuple of
 channel groups in the channel list, which CBFuse indexes) and the Segment
 head (its prototype width npr scaled as a channel count), the Pose head
-(its kpt_shape the spec's, which a dataset's kpt_shape replaces) and the
-OBB head are registered; an unknown module name raises. `guess_model_task`
-names a spec's task by its head, as JAX does; SegmentationModel, PoseModel
-and OBBModel are the DetectionModel of their tasks.
+(its kpt_shape the spec's, which a dataset's kpt_shape replaces), the
+OBB head, and the Classify head and ResNetLayer of the cls YAMLs (a
+ResNetLayer row takes no width scale: c2 is its base width for the stem,
+else base x e; the reference's [c1, c2, s, is_first, n, e] layout is told
+by the bool at index 3) are registered; an unknown module name raises.
+`guess_model_task` names a spec's task by its head, as JAX does;
+SegmentationModel, PoseModel, OBBModel and ClassificationModel are the
+DetectionModel of their tasks. A classify model's BatchNorms keep torch's
+constructor defaults (eps 1e-5, momentum 0.1), as JAX's ClassificationModel
+does; every other task takes the model-level 1e-3 and 0.03.
 """
 
 from __future__ import annotations
@@ -44,17 +50,17 @@ from torch import nn
 from edgeyolo_tpu_torch.cfg.models import model_cfg
 from edgeyolo_tpu_torch.nn.modules.block import (C2, C2f, C2fPSA, C2PSA, C3, C3k, C3k2, PSA, SPP,
                                                  SPPF, Bottleneck, SCDown)
-from edgeyolo_tpu_torch.nn.modules.conv import (Concat, ConvBN, ConvTranspose2d, DSConv, DWConv,
-                                                GhostConv, MaxPool2d, Upsample, ZeroPad2d,
-                                                default_act)
+from edgeyolo_tpu_torch.nn.modules.conv import (BatchNorm2d, Concat, ConvBN, ConvTranspose2d,
+                                                DSConv, DWConv, GhostConv, MaxPool2d, Upsample,
+                                                ZeroPad2d, default_act)
 from edgeyolo_tpu_torch.nn.modules.edgeline import C2PSA_LinearAttention, DSC3K2, DSC3K2_Wavelet
 from edgeyolo_tpu_torch.nn.modules.extra import (CIB, A2C2f, AdaHyperedgeGen, C2fCIB, C3Ghost,
                                                  DownsampleConv, FullPAD_Tunnel, GhostBottleneck,
-                                                 HyperACE, RepVGGDW)
+                                                 HyperACE, RepVGGDW, ResNetLayer)
 from edgeyolo_tpu_torch.nn.modules.gelan import (ADown, AConv, CBFuse, CBLinear, ELAN1, SPPELAN,
                                                  RepConv, RepNCSPELAN4)
-from edgeyolo_tpu_torch.nn.modules.head import (OBB, Detect, E2EDetect, GFLHeadv2_uniH, Pose,
-                                                Segment, v10Detect)
+from edgeyolo_tpu_torch.nn.modules.head import (OBB, Classify, Detect, E2EDetect, GFLHeadv2_uniH,
+                                                Pose, Segment, v10Detect)
 from edgeyolo_tpu_torch.nn.modules.msla_lgl import (C3AW_MLM, DSC3K2_LGL, DSC3K2_MSLA,
                                                     HyperACE_Wavelet, Wavelet_SS2D)
 from edgeyolo_tpu_torch.utils import make_divisible, select_device
@@ -107,6 +113,8 @@ _REG: dict[str, tuple[type, list[str]]] = {
     "SPPELAN": (SPPELAN, ["c2", "c3", "k"]),
     "CBLinear": (CBLinear, ["c2s", "k", "s"]),
     "CBFuse": (CBFuse, ["idx"]),
+    "ResNetLayer": (ResNetLayer, ["c2", "s", "is_first", "n", "e"]),
+    "Classify": (Classify, ["c2", "k", "s", "p", "g"]),
     "nn.Identity": (nn.Identity, []),
     "Concat": (Concat, ["dim"]),
     "nn.Upsample": (Upsample, ["size", "scale_factor", "mode"]),
@@ -127,7 +135,7 @@ _CONV_LIKE = {"Conv", "ConvBN", "DWConv", "DSConv", "GhostConv", "nn.ConvTranspo
               "PSA", "SCDown", "CIB", "C2fCIB", "GhostBottleneck", "C3Ghost",
               "C2PSA_LinearAttention", "DSC3K2", "DSC3K2_Wavelet", "DSC3K2_MSLA", "DSC3K2_LGL",
               "C3AW_MLM", "A2C2f", "RepConv", "RepNCSPELAN4", "ELAN1", "AConv", "ADown",
-              "SPPELAN"}
+              "SPPELAN", "Classify"}
 # CSP modules that take the repeats as their argument; any other module with n > 1 is
 # built as n copies in sequence
 _REPEAT_INSERT = {"C2", "C2f", "C3", "C3k2", "C2PSA", "C2fPSA", "C2fCIB", "C3Ghost",
@@ -141,7 +149,7 @@ _STRIDE_ARG = {"Conv", "ConvBN", "DWConv", "DSConv", "GhostConv", "SCDown", "Rep
                "nn.MaxPool2d"}
 _STRIDE_FIXED = {"AConv": 2.0, "ADown": 2.0, "DownsampleConv": 2.0}
 # built from c1 (the channels of their input, the second one for HyperACE) and the args
-_TAKES_C1 = _CONV_LIKE | _HYPERACE | {"CBLinear"}
+_TAKES_C1 = _CONV_LIKE | _HYPERACE | {"CBLinear", "ResNetLayer"}
 # convs that a YAML's `activation:` override reaches by argument (JAX tasks.py)
 _ACT_ARG = {"Conv", "ConvBN", "DWConv"}
 _ACT_NAMES = ("relu6", "relu", "silu", "sigmoid", "tanh")
@@ -173,9 +181,9 @@ class LayerSpec:
 
 
 def guess_model_task(spec: dict) -> str:
-    """The task a spec's head serves (JAX guess_model_task): "segment",
-    "pose" or "obb" for a Segment, Pose or OBB head, "detect" for a detect
-    head; a Classify head, which the port does not build, names its task."""
+    """The task a spec's head serves (JAX guess_model_task): "classify",
+    "segment", "pose" or "obb" for a Classify, Segment, Pose or OBB head,
+    "detect" for a detect head."""
     head = spec["head"][-1][2] if "head" in spec else ""
     for word, task in (("Classify", "classify"), ("Segment", "segment"), ("Pose", "pose"),
                        ("OBB", "obb")):
@@ -207,6 +215,8 @@ def parse_spec(d: dict, ch: int = 3) -> tuple[tuple[LayerSpec, ...], tuple[int, 
         kwargs: dict[str, Any] = {}
         f_list = [f] if isinstance(f, int) else list(f)
         c1 = ch_list[f_list[0]]
+        if name == "Classify":  # several inputs are concatenated on channels
+            c1 = sum(ch_list[x] for x in f_list)
         if name in _CONV_LIKE:
             c2 = args[0]
             if c2 != nc:
@@ -256,6 +266,11 @@ def parse_spec(d: dict, ch: int = 3) -> tuple[tuple[LayerSpec, ...], tuple[int, 
         elif name == "CBFuse":
             c2 = ch_list[f_list[-1]]
             args = [tuple(args[0])] if args else [()]
+        elif name == "ResNetLayer":  # no width scale; [c1, c2, s, is_first, n, e] drops c1
+            if len(args) >= 4 and isinstance(args[3], bool):
+                args = args[1:]
+            c2 = args[0] if len(args) > 2 and args[2] else args[0] * (args[4] if len(args) > 4
+                                                                       else 4)
         elif name == "Concat":
             c2 = sum(ch_list[x] for x in f_list)
         elif name in _HEADS:
@@ -292,6 +307,9 @@ def derive_strides(layers: Sequence[LayerSpec]) -> list[float]:
             factor = float(sp.args[fields.index("s")])
         elif sp.name in _STRIDE_FIXED:
             factor = _STRIDE_FIXED[sp.name]
+        elif sp.name == "ResNetLayer":  # the stem: conv /2 and pool /2
+            factor = 4.0 if len(sp.args) > 2 and sp.args[2] else float(
+                sp.args[1] if len(sp.args) > 1 else 1)
         elif sp.name == "nn.Upsample":
             sf = sp.args[1] if len(sp.args) > 1 else 2
             factor = 1.0 / float(sf or 2)
@@ -444,6 +462,9 @@ class DetectionModel(GraphNet):
     (B, max_det, 6) selection. `task` is the spec's (`guess_model_task`):
     a Segment, Pose or OBB head makes a segment, pose or obb model.
     `kpt_shape` replaces the spec's (a pose head for a dataset's keypoints).
+    A Classify head makes a classify model: its forward returns the
+    (B, nc) logits, and its BatchNorms take torch's defaults (eps 1e-5,
+    momentum 0.1), not the detection models' 1e-3 and 0.03.
     The model lands on CUDA unless `device` names another device.
     """
 
@@ -470,7 +491,12 @@ class DetectionModel(GraphNet):
         self.end2end = bool(getattr(self.model[-1], "end2end", False))
         self.kpt_shape = getattr(self.model[-1], "kpt_shape", None)
         init_weights(self, torch.Generator().manual_seed(seed))
-        self.model[-1].bias_init()
+        if self.task == "classify":
+            for m in self.modules():
+                if isinstance(m, BatchNorm2d):
+                    m.eps, m.momentum = 1e-5, 0.1
+        else:
+            self.model[-1].bias_init()
         self.set_dtype(dtype)
         self.to(device).eval()
 
@@ -511,3 +537,13 @@ class OBBModel(DetectionModel):
         super().__init__(cfg, *args, **kwargs)
         if self.task != "obb":
             raise ValueError(f"{cfg} has no OBB head (its task is {self.task})")
+
+
+class ClassificationModel(DetectionModel):
+    """The classify task's model: a spec whose head is Classify; its forward
+    returns the (B, nc) logits."""
+
+    def __init__(self, cfg: str = "yolo11n-cls.yaml", *args, **kwargs):
+        super().__init__(cfg, *args, **kwargs)
+        if self.task != "classify":
+            raise ValueError(f"{cfg} has no Classify head (its task is {self.task})")

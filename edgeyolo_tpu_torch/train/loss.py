@@ -26,6 +26,9 @@ criterion: the rotated assigner over probiou, 1 - probiou for the box term
 probiou's infinite derivative at a degenerate box out of the gradient) and
 DFL on the axis-aligned ltrb of the unrotated target.
 
+ClassificationLoss is softmax cross-entropy over the (B, nc) logits, the
+per-image weights leaving padded duplicates out of the mean.
+
 The head hands in NCHW maps; `DetectionLoss` flattens them to (B, A, no) in
 row-major anchor order per level, the order of JAX's NHWC reshape and of
 `make_anchors`.
@@ -343,3 +346,15 @@ class OBBLoss(DetectionLoss):
         total = (loss_box + loss_cls + loss_dfl) * n_img
         return total, {"box": loss_box.detach(), "cls": loss_cls.detach(),
                        "dfl": loss_dfl.detach()}
+
+
+class ClassificationLoss:
+    """Softmax cross-entropy; with batch["img_weight"] the weighted mean, so a
+    padded duplicate (weight 0) counts nowhere. Returns (loss, {"cls": loss})."""
+
+    def __call__(self, logits: torch.Tensor, batch: dict):
+        labels = batch["cls"].long().reshape(-1)
+        nll = -logits.float().log_softmax(-1).gather(1, labels[:, None])[:, 0]
+        w = batch.get("img_weight")
+        loss = nll.mean() if w is None else (nll * w).sum() / w.sum().clamp(min=1.0)
+        return loss, {"cls": loss.detach()}

@@ -29,7 +29,10 @@ dataset-driven `DetectionTrainer.train`: the dataset YAML, a shuffled
 augmenting loader, `close_mosaic`, validation each epoch with the EMA
 weights and the current BatchNorm statistics, results.csv, the `best`,
 `last` and `epoch{n}` checkpoints, early stopping on fitness, the `time`
-budget and `resume`. Checkpoints are `torch.save` files that load with
+budget and `resume`; it fires the callback events (utils/callbacks.py) where
+JAX's trainer does. An epoch that improves the fitness builds its checkpoint
+once and writes the same bytes to `best.pt` and `last.pt`. Checkpoints are
+`torch.save` files that load with
 `weights_only=True`: the state_dicts (reference keys, so
 edgeyolo_tpu/utils/torch_convert.py::convert_state_dict maps them onto the
 flax tree) of the trained and the EMA weights, the optimizer's flat
@@ -42,6 +45,7 @@ from __future__ import annotations
 
 import contextlib
 import csv
+import io
 import json
 import math
 import time
@@ -54,11 +58,13 @@ import torch
 from torch import nn
 
 from edgeyolo_tpu_torch.data.augment_device import augment_batch
-from edgeyolo_tpu_torch.data.dataset import YOLODataset, build_dataloader, check_det_dataset
+from edgeyolo_tpu_torch.data.dataset import (DataLoader, YOLODataset, build_dataloader,
+                                             check_det_dataset)
 from edgeyolo_tpu_torch.nn.tasks import train_forward
 from edgeyolo_tpu_torch.train.loss import (DetectionLoss, E2EDetectLoss, OBBLoss, PoseLoss,
                                            SegmentationLoss)
 from edgeyolo_tpu_torch.utils import LOGGER, select_device
+from edgeyolo_tpu_torch.utils.callbacks import CallbackMixin
 from edgeyolo_tpu_torch.utils.yamlfile import yaml_save
 
 # the training keys of the JAX package's cfg/default.yaml
@@ -71,6 +77,7 @@ TRAIN_DEFAULTS = {
     "scale": 0.5, "shear": 0.0, "perspective": 0.0, "flipud": 0.0, "fliplr": 0.5,
     "bgr": 0.0, "photometric": 1.0, "mosaic": 1.0, "mixup": 0.0, "copy_paste": 0.0,
     "copy_paste_mode": "flip", "mask_ratio": 4, "overlap_mask": True, "deterministic": True,
+    "auto_augment": "randaugment", "erasing": 0.4,
 }
 CLIP_NORM = 10.0
 
@@ -307,9 +314,10 @@ def batch_to_device(batch: dict, device: torch.device) -> dict:
     return out
 
 
-class DetectionTrainer:
+class DetectionTrainer(CallbackMixin):
     """Trains a DetectionModel on one device; `hyp` (a dict or a get_cfg
-    namespace) overrides TRAIN_DEFAULTS.
+    namespace) overrides TRAIN_DEFAULTS; `callbacks` is an event -> hooks
+    table (the facade's), else an empty one.
 
     `setup(nb)` builds the optimizer for nb batches per epoch; `train_step`
     takes one micro-step; `train(batches)` runs the epochs over given batches
@@ -317,9 +325,13 @@ class DetectionTrainer:
     hyp["amp"] its forward sees them rounded to bf16 (`train_forward`).
     """
 
+    LOSS_ITEMS = ("box", "cls", "dfl")  # the loss items an epoch averages, results.csv's
+
     def __init__(self, model: nn.Module, hyp: dict | SimpleNamespace | None = None,
-                 device: str | torch.device | None = None, save_dir: str | Path = "runs/train"):
+                 device: str | torch.device | None = None, save_dir: str | Path = "runs/train",
+                 callbacks: dict | None = None):
         hyp = vars(hyp) if isinstance(hyp, SimpleNamespace) else (hyp or {})
+        self.init_callbacks(callbacks)
         self.args = {**TRAIN_DEFAULTS, **hyp}
         self.device = select_device(device)
         self.save_dir = Path(save_dir)
@@ -334,10 +346,14 @@ class DetectionTrainer:
         self.dict_loss = self.end2end or self.task in ("segment", "pose", "obb")
         loss_cls = {"segment": SegmentationLoss, "pose": PoseLoss, "obb": OBBLoss}.get(
             self.task, E2EDetectLoss if self.end2end else DetectionLoss)
-        self.criterion = loss_cls.for_model(model, self.args)
+
+        self.criterion = self.build_criterion(loss_cls)
         self.gen = torch.Generator().manual_seed(int(self.args["seed"]))
         self.epoch_losses: list[list[float]] = []
         self.epoch = 0
+
+    def build_criterion(self, loss_cls):
+        return loss_cls.for_model(self.model, self.args)
 
     def setup(self, nb: int) -> None:
         a = self.args
@@ -383,12 +399,12 @@ class DetectionTrainer:
         return loss.detach(), items, updated
 
     def _epoch(self, batches: Iterable[dict], epoch: int) -> list[float]:
-        """One epoch of micro-steps; the mean (box, cls, dfl) loss items."""
+        """One epoch of micro-steps; the mean of each of LOSS_ITEMS."""
         a = self.args
         self.epoch = epoch
         mosaic = float(a["mosaic"]) > 0 and epoch < int(a["epochs"]) - int(a["close_mosaic"])
         items = [self.train_step(batch_to_device(b, self.device), mosaic)[1] for b in batches]
-        means = torch.stack([torch.stack([it["box"], it["cls"], it["dfl"]]) for it in items])
+        means = torch.stack([torch.stack([it[k] for k in self.LOSS_ITEMS]) for it in items])
         self.epoch_losses.append(means.mean(0).tolist())
         return self.epoch_losses[-1]
 
@@ -416,23 +432,32 @@ class DetectionTrainer:
         with deterministic_algorithms(bool(self.args["deterministic"])):
             return self._fit()
 
-    def _fit(self) -> float:
+    def _train_data(self) -> tuple[dict, DataLoader]:
+        """The dataset config and the shuffled, augmenting train loader."""
         a = self.args
         data_cfg = check_det_dataset(a["data"])
         if data_cfg["nc"] != self.model.nc:
             raise ValueError(f"dataset nc={data_cfg['nc']} != model nc={self.model.nc}")
-        self.model.names = data_cfg["names"]
-        imgsz, epochs, bs = int(a["imgsz"]), int(a["epochs"]), int(a["batch"])
-        self.save_dir.mkdir(parents=True, exist_ok=True)
-        yaml_save(self.save_dir / "args.yaml", {k: v for k, v in a.items()
-                                                 if isinstance(v, (int, float, str, bool, type(None), list))})
-        train_set = YOLODataset(data_cfg["train"], imgsz=imgsz, augment=True,
+        train_set = YOLODataset(data_cfg["train"], imgsz=int(a["imgsz"]), augment=True,
                                 single_cls=bool(a.get("single_cls", False)),
                                 fraction=float(a.get("fraction", 1.0)), names=data_cfg["names"],
                                 cache=a.get("cache", False), task=self.task,
                                 mask_ratio=int(a["mask_ratio"]),
                                 kpt_shape=getattr(self.model, "kpt_shape", None) or (17, 3))
-        loader = build_dataloader(train_set, bs, shuffle=True, seed=int(a["seed"]))
+        return data_cfg, build_dataloader(train_set, int(a["batch"]), shuffle=True,
+                                          seed=int(a["seed"]))
+
+    def _loss_row(self, mloss: list[float]) -> dict:
+        return {f"train/{k}_loss": round(float(v), 5) for k, v in zip(self.LOSS_ITEMS, mloss)}
+
+    def _fit(self) -> float:
+        a = self.args
+        data_cfg, loader = self._train_data()
+        self.model.names = data_cfg["names"]
+        epochs = int(a["epochs"])
+        self.save_dir.mkdir(parents=True, exist_ok=True)
+        yaml_save(self.save_dir / "args.yaml", {k: v for k, v in a.items()
+                                                 if isinstance(v, (int, float, str, bool, type(None), list))})
         self.setup(len(loader))
         start_epoch = 0
         if a.get("resume"):
@@ -448,22 +473,25 @@ class DetectionTrainer:
         t_start = time.time()
         self.epoch_times: list[float] = []
         self.val_times: list[float] = []
+        self.save_times: list[float] = []  # results.csv, checkpoints and the epoch's callbacks
+        self.run_callbacks("on_train_start")
         for epoch in range(start_epoch, epochs):
+            self.epoch = epoch
+            self.run_callbacks("on_train_epoch_start")
             t0 = time.perf_counter()
             mloss = self._epoch(loader, epoch)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             t1 = time.perf_counter()
+            self.run_callbacks("on_train_epoch_end")
             metrics_row = self._validate(data_cfg) if a.get("val", True) else {}
             t2 = time.perf_counter()
             self.epoch_times.append(t1 - t0)
             self.val_times.append(t2 - t1)
             fitness_val = metrics_row.get("fitness")
             self.last_metrics = dict(metrics_row)
-            row = {"epoch": epoch, "time": round(time.time() - t_start, 2),
-                   "train/box_loss": round(float(mloss[0]), 5),
-                   "train/cls_loss": round(float(mloss[1]), 5),
-                   "train/dfl_loss": round(float(mloss[2]), 5),
+            self.run_callbacks("on_fit_epoch_end")
+            row = {"epoch": epoch, "time": round(time.time() - t_start, 2), **self._loss_row(mloss),
                    **{k: round(float(v), 5) for k, v in metrics_row.items()},
                    "lr/pg0": round(self.schedule.lr_at(self.optimizer.opt.count), 6)}
             write_header = not csv_path.exists()
@@ -472,17 +500,20 @@ class DetectionTrainer:
                 if write_header:
                     w.writeheader()
                 w.writerow(row)
-            LOGGER.info(f"epoch {epoch + 1}/{epochs} box {mloss[0]:.4f} cls {mloss[1]:.4f} "
-                        f"dfl {mloss[2]:.4f}"
+            LOGGER.info(f"epoch {epoch + 1}/{epochs} "
+                        + " ".join(f"{k} {v:.4f}" for k, v in zip(self.LOSS_ITEMS, mloss))
                         + (f" fitness {fitness_val:.4f}" if fitness_val is not None else ""))
+            names = ("last",)
             if fitness_val is not None and fitness_val >= self.best_fitness:
                 self.best_fitness = fitness_val
                 self.best_metrics = dict(metrics_row)
-                self.save_checkpoint("best", epoch)
-            self.save_checkpoint("last", epoch)
+                names = ("best", "last")
+            self.save_checkpoint(names, epoch)
+            self.run_callbacks("on_model_save")
             sp = int(a.get("save_period", -1))
             if sp > 0 and (epoch + 1) % sp == 0:
                 self.save_checkpoint(f"epoch{epoch}", epoch)
+            self.save_times.append(time.perf_counter() - t2)
             stop = stopper(epoch, fitness_val)
             if a.get("time") and (time.time() - t_start) > float(a["time"]) * 3600:
                 LOGGER.info("time budget reached, stopping")
@@ -491,6 +522,8 @@ class DetectionTrainer:
                 break
         with torch.no_grad():
             self.flat.data.copy_(self.ema.ema)  # the model handle keeps the EMA weights
+        self.run_callbacks("on_train_end")
+        self.run_callbacks("teardown")
         LOGGER.info(f"training done in {(time.time() - t_start) / 3600:.3f}h, best fitness "
                     f"{self.best_fitness:.4f}, results in {self.save_dir}")
         return self.best_fitness
@@ -499,8 +532,7 @@ class DetectionTrainer:
         """The val split through the EMA weights and the current BatchNorm
         statistics, at max_nms 4096; the trained weights are put back after."""
         from edgeyolo_tpu_torch.cfg import get_cfg
-        from edgeyolo_tpu_torch.engine import validator
-        from edgeyolo_tpu_torch.engine.model import TASK_MAP
+        from edgeyolo_tpu_torch.engine.model import task_class
 
         if self.validator is None:
             a = self.args
@@ -509,8 +541,8 @@ class DetectionTrainer:
                 "batch": int(a["batch"]), "conf": 0.001, "iou": 0.7, "max_det": 300,
                 "plots": False, "single_cls": bool(a.get("single_cls", False)),
                 "task": self.task, "overlap_mask": bool(a["overlap_mask"])})
-            vcls = getattr(validator, TASK_MAP[self.task][0])
-            self.validator = vcls(vargs, save_dir=self.save_dir / "val", device=self.device)
+            self.validator = task_class(self.task, 0)(vargs, save_dir=self.save_dir / "val",
+                                                      device=self.device)
         raw = self.flat.data.clone()
         try:
             with torch.no_grad():
@@ -550,12 +582,18 @@ class DetectionTrainer:
                 "train_args": {k: v for k, v in self.args.items()
                                if isinstance(v, (int, float, str, bool, type(None)))}}
 
-    def save_checkpoint(self, name: str, epoch: int) -> Path:
-        """{save_dir}/{name}.pt and its {name}.json metadata."""
+    def save_checkpoint(self, names: str | tuple[str, ...], epoch: int) -> Path:
+        """{save_dir}/{name}.pt and its {name}.json metadata for each of
+        `names`: the checkpoint built and serialised once, its bytes written
+        to every file. Returns the last path."""
         self.save_dir.mkdir(parents=True, exist_ok=True)
-        path = self.save_dir / f"{name}.pt"
-        torch.save(self.checkpoint(epoch), path)
-        path.with_suffix(".json").write_text(json.dumps(self.meta(epoch), default=str))
+        buf = io.BytesIO()
+        torch.save(self.checkpoint(epoch), buf)
+        meta = json.dumps(self.meta(epoch), default=str)
+        for name in (names,) if isinstance(names, str) else names:
+            path = self.save_dir / f"{name}.pt"
+            path.write_bytes(buf.getbuffer())
+            path.with_suffix(".json").write_text(meta)
         return path
 
     def load_state(self, path: str | Path) -> int:

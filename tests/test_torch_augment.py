@@ -115,6 +115,32 @@ def jax_drawn_params(key, b, s, hyp, mosaic):
         bgr=gate(47, pbgr) if pbgr > 0 else None)
 
 
+NO_HSV = {"hsv_h": 0.0, "hsv_s": 0.0, "hsv_v": 0.0}
+
+
+def assert_hsv_image_as_jax(p_img, j_img, j_pre, key, hyp, atol=IMG_ATOL) -> int:
+    """The port's augmented images `p_img` with HSV on, held by ROADMAP
+    §C.16's rule: at `atol` everywhere against JAX's `_hsv_aug`, run op by op,
+    of JAX's own warped images `j_pre` (its augment_batch on the same key with
+    HSV off; the flips after HSV commute with it); and at `atol` against JAX's
+    fused augment_batch `j_img` outside the values where that fused program
+    differs from the same composition (XLA's CPU fusion of the gather warp
+    into HSV recomputes a channel with another rounding, so `max == g` can
+    fail for the max channel and pick another sextant). Those values must
+    stay under 0.1%; returns their count."""
+    b = j_img.shape[0]
+    keys = jax.random.split(key, b * 4).reshape(b, 4, 2)
+    comp = np.stack([np.asarray(jaug._hsv_aug(jnp.asarray(j_pre[i]), keys[i, 1], hyp))
+                     for i in range(b)])
+    np.testing.assert_allclose(p_img, comp, atol=atol, rtol=0)
+    fused_fault = np.abs(j_img - comp) > atol
+    print(f"HSV: port vs JAX's composition {np.abs(p_img - comp).max():.3e}; fused-program "
+          f"values off that composition {int(fused_fault.sum())} of {fused_fault.size}")
+    assert fused_fault.mean() <= 1e-3, int(fused_fault.sum())
+    np.testing.assert_allclose(np.where(fused_fault, j_img, p_img), j_img, atol=atol, rtol=0)
+    return int(fused_fault.sum())
+
+
 def _run_both(hyp, mosaic, b=B, seed=0):
     imgs, cls, boxes, mask = _batch(b, seed=seed)
     key = jax.random.PRNGKey(seed + 7)
@@ -186,6 +212,19 @@ def test_detect_augmentation_matches_jax(photometric, seed):
     _assert_same(j, p, IMG_ATOL if not photometric else 2 / 255)
     assert p[1].shape == (4, 2 * 4 * M)  # mixup doubles the label slots
     assert bool(prm.mixup.any()) and bool(prm.fliplr.any()) and bool(prm.bgr.any())
+
+
+@pytest.mark.parametrize("seed", [1, 6])
+def test_hsv_after_the_gather_warp_matches_jax(seed):
+    """HSV on the gather path (rotation, shear, perspective) at seeds where
+    JAX's fused augment_batch meets §C.16 (its HSV picks another sextant at
+    some values): the image held by `assert_hsv_image_as_jax`, the labels as
+    everywhere."""
+    hyp = {**QUIET, **GATHER, "hsv_h": 0.015, "hsv_s": 0.7, "hsv_v": 0.4, "fliplr": 0.5}
+    j, p, _ = _run_both(hyp, True, b=4, seed=seed)
+    j_pre, _, _ = _run_both({**hyp, **NO_HSV}, True, b=4, seed=seed)
+    _assert_same(j, p, img_atol=1.0)  # the labels; the image below
+    assert_hsv_image_as_jax(p[0], j[0], j_pre[0], jax.random.PRNGKey(seed + 7), hyp)
 
 
 def test_hsv_matches_jax():

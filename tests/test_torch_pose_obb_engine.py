@@ -388,7 +388,7 @@ def test_facade_task_checks():
     assert YOLO("yolov8n-obb.yaml", task="obb", device="cpu").task == "obb"
     with pytest.raises(ValueError):
         YOLO("yolo11n-obb.yaml", task="pose", device="cpu")
-    with pytest.raises(NotImplementedError, match="classify"):
+    with pytest.raises(ValueError, match="not a classify one"):
         YOLO("yolo11n.yaml", task="classify", device="cpu")
 
 

@@ -39,8 +39,9 @@ import torch
 from flax import traverse_util
 from jax.flatten_util import ravel_pytree
 from test_torch_augment import S as AUG_S
+from test_torch_augment import NO_HSV
 from test_torch_augment import _batch as aug_batch
-from test_torch_augment import jax_drawn_params
+from test_torch_augment import assert_hsv_image_as_jax, jax_drawn_params
 from test_torch_train import AUG_OFF, _jax_trainer_build, build_optimizer
 from torch_threads import one_torch_thread  # noqa: F401  (the port on one thread)
 
@@ -82,16 +83,22 @@ def _rboxes(boxes, mask, seed=0):
     return (np.concatenate([boxes, ang], -1) * mask[..., None]).astype(np.float32)
 
 
-# the pixel-only stages (photometric, HSV) are off: these cases hold the labels, and
-# tests/test_torch_augment.py holds those stages (HSV's sextant select turns an ulp of
-# difference in a pixel into up to 3e-3 where a pixel sits on a sextant edge, ROADMAP C.15)
-PIXELS_OFF = {"photometric": 0.0, "hsv_h": 0.0, "hsv_s": 0.0, "hsv_v": 0.0}
+# the photometric stage is off (tests/test_torch_augment.py holds it, at JPEG's 2/255);
+# HSV is on, and the image is held by ROADMAP C.16's rule (`assert_hsv_image_as_jax`)
+PHOTOMETRIC_OFF = {"photometric": 0.0}
 AUG_CASES = {
-    "mosaic_separable": (True, PIXELS_OFF),
+    "mosaic_separable": (True, PHOTOMETRIC_OFF),
     "mosaic_rotated": (True, {"degrees": 20.0, "shear": 2.0, "flipud": 0.5, "mixup": 0.5,
-                              **PIXELS_OFF}),
-    "single_rotated": (False, {"degrees": 30.0, "scale": 0.3, "flipud": 0.5, **PIXELS_OFF}),
+                              **PHOTOMETRIC_OFF}),
+    "single_rotated": (False, {"degrees": 30.0, "scale": 0.3, "flipud": 0.5, **PHOTOMETRIC_OFF}),
 }
+
+
+def _jax_pre_hsv(imgs, cls, boxes, mask, key, hyp, mosaic, **extra):
+    """JAX's augmented images on `key` with HSV off: the warp HSV starts from."""
+    return np.asarray(jaug.augment_batch(
+        jnp.asarray(imgs), jnp.asarray(cls), jnp.asarray(boxes), jnp.asarray(mask), key, AUG_S,
+        {**hyp, **NO_HSV}, mosaic=mosaic, **{k: jnp.asarray(v) for k, v in extra.items()})[0])
 
 
 @pytest.mark.parametrize("case", list(AUG_CASES))
@@ -114,7 +121,8 @@ def test_keypoints_ride_the_warp_as_jax(case):
     np.testing.assert_array_equal(p_val, j_val)
     np.testing.assert_array_equal(p_cls, j_cls)  # no mixup: M' = n_src * M
     np.testing.assert_allclose(p_box, j_box, atol=1e-5, rtol=0)
-    np.testing.assert_allclose(p_img, j_img, atol=1e-4, rtol=0)
+    assert_hsv_image_as_jax(p_img, j_img, _jax_pre_hsv(imgs, cls, boxes, mask, key, hyp, mosaic,
+                                                       keypoints=kp), key, hyp)
     np.testing.assert_allclose(p_kp[..., :2], j_kp[..., :2], atol=1e-4, rtol=0)
     np.testing.assert_array_equal(p_kp[..., 2], j_kp[..., 2])
     visible = p_kp[..., 2] > 0
@@ -165,7 +173,8 @@ def test_rotated_boxes_ride_the_warp_and_flips_as_jax(case, fliplr):
     np.testing.assert_array_equal(p_val, j_val)
     np.testing.assert_array_equal(p_cls, np.asarray(j_cls))
     np.testing.assert_allclose(p_box, np.asarray(j_box), atol=1e-5, rtol=0)
-    np.testing.assert_allclose(p_img, np.asarray(j_img), atol=1e-4, rtol=0)
+    assert_hsv_image_as_jax(p_img, np.asarray(j_img), _jax_pre_hsv(
+        imgs, cls, boxes, mask, key, hyp, mosaic, rboxes=rb), key, hyp)
     valid = p_val > 0
     assert valid.sum() > 4 and _same_rboxes(p_rb, j_rb, valid) > 2
     assert (p_rb[~valid] == 0).all()

@@ -28,6 +28,15 @@ the figures of chip_smoke.py's pose and obb fits (less 0.1), e.g.
     JAX_PLATFORMS=cpu python tools/fit_protocol.py OUT '{"task": "pose", "epochs": 100,
         "nbs": 16, "warmup_epochs": 0.0, "seed": 0}'
 
+'{"task": "classify"}' writes the folder-per-class grating set of
+chip_smoke.py's CLS_FIT_DATA (8 classes, 16 train and 8 val images each,
+sides 60-140 px, JPEG q92, seed 0: generate_classify_dataset) and trains yolo11n-cls at 128 px, printing the
+best epoch's top-1 and top-5: the figures chip_smoke.py's classify fit is
+held against (top-1 less 0.1), e.g.
+
+    JAX_PLATFORMS=cpu python tools/fit_protocol.py OUT '{"task": "classify", "epochs": 60,
+        "nbs": 16, "warmup_epochs": 0.0, "seed": 0}'
+
 With --coco, the trained model is then validated by the JAX validator with
 save_json on the val images re-encoded as JPEG q92 (chip_smoke.py's
 `jpeg_coco_copy`, which writes a COCO GT json of the labels): it prints the
@@ -52,19 +61,37 @@ def main():
     out = Path(argv[0]).resolve()
     overrides = json.loads(argv[1]) if len(argv) > 1 else {}
     from edgeyolo_tpu import YOLO
-    from edgeyolo_tpu_torch.data.synthetic import generate_dataset
+    from edgeyolo_tpu_torch.data.synthetic import generate_classify_dataset, generate_dataset
 
     task = overrides.pop("task", "detect")
-    data = generate_dataset(out / "data", n_train=16, n_val=8, imgsz=160, nc=3, seed=0, task=task)
-    args = {"epochs": 150, "batch": 16, "imgsz": 160, "optimizer": "SGD", "lr0": 0.01,
-            "val": True, "plots": False, **overrides}
+    if task == "classify":
+        from chip_smoke import CLS_FIT_DATA
+
+        data = generate_classify_dataset(out / "data", **CLS_FIT_DATA)
+    else:
+        data = generate_dataset(out / "data", n_train=16, n_val=8, imgsz=160, nc=3, seed=0,
+                                task=task)
+    args = {"epochs": 150, "batch": 16, "imgsz": 128 if task == "classify" else 160,
+            "optimizer": "SGD", "lr0": 0.01, "val": True, "plots": False, **overrides}
     model = args.pop("model", {"segment": "yolo11n-seg.yaml", "pose": "yolo11n-pose.yaml",
-                               "obb": "yolo11n-obb.yaml"}.get(task, "edgeline-yolo.yaml"))
+                               "obb": "yolo11n-obb.yaml", "classify": "yolo11n-cls.yaml"}.get(
+                                   task, "edgeline-yolo.yaml"))
     t0 = time.time()
     yolo = YOLO(model)
     best = yolo.train(data=str(data), project=str(out), name="train", exist_ok=True, **args)
     with open(out / "train" / "results.csv") as f:
         rows = list(csv.DictReader(f))
+    if task == "classify":
+        top = max(rows, key=lambda r: float(r["fitness"]))
+        for r in rows[9::10]:
+            print(" ".join(f"{k} {r[k]}" for k in ("epoch", "train/loss", "metrics/accuracy_top1",
+                                                  "metrics/accuracy_top5", "lr/pg0")))
+        print(json.dumps({"task": task, "model": model, "overrides": overrides,
+                          "best_epoch": int(top["epoch"]),
+                          "top1": float(top["metrics/accuracy_top1"]),
+                          "top5": float(top["metrics/accuracy_top5"]),
+                          "seconds": round(time.time() - t0, 1)}))
+        return
     for r in rows[14::15]:
         print(" ".join(f"{k} {r[k]}" for k in ("epoch", "train/box_loss", "train/cls_loss",
                                               "metrics/mAP50(B)", "metrics/mAP50-95(B)", "lr/pg0")))
