@@ -160,7 +160,26 @@ Phases, each timed and each fatal when it fails:
                 val on the CPU in f32 (top-1 and top-5 equal), predict on the val images
                 (run in phase 8).
                 No cls model has a LinearAttention: the kernel's launches stay 0 (printed)
- 14. device     each kernel's device time at the shapes of phase 3: the context and
+ 14. rtdetr     the RT-DETR family (no kernel: its deformable sampler and matcher are
+                plain PyTorch, as JAX's are plain jnp): (a) reference: rtdetr-l, rtdetr-x,
+                rtdetr-resnet50, rtdetr-resnet101 and yolov8-rtdetr-n at 64 px in f32, card
+                against CPU at `rt_perturbed` weights: boxes 5e-3 px and scores 1e-4 row by
+                row, the encoder's selected query indices equal where a selection score lies
+                more than RTDETR_TIE from its neighbours (near-ties matched within their
+                group), and the sampler alone at 640 px shapes within 1e-5; (b) serve:
+                rtdetr-l and rtdetr-resnet50 at batch 32 x 640 px in bf16 through
+                DetectionPredictor (uint8 in, 300 queries an image out, score biases at 0):
+                img/s, median request ms, device-busy ms, peak memory, the sampler's own
+                device ms and share; (c) train reference: rtdetr-l's f32 step at 64 px on 4
+                images with its denoising group, card against CPU (as built: the loss and the
+                matched tokens; every ReLU as SiLU: per tensor but the sampling offsets, the
+                params, and the f64 witness); (d) train: rtdetr-l at batch 16 x 640 px, bf16,
+                4 boxes an image: step ms, peak memory, device-busy share, the loss's and the
+                matcher's spans; (e) fit: yolov8-rtdetr-n on the fit protocol, held to JAX's
+                best mAP50-95 less 0.1, no op without a deterministic form, and (a fit job
+                of its own) 3 epochs twice under strictly deterministic algorithms equal to
+                the bit (run in phase 8). The linear-attention kernel launches 0 times in all of it
+ 15. device     each kernel's device time at the shapes of phase 3: the context and
      times      output launches each timed by its own event pair, in DEVICE_SESSIONS
                 sessions (median and spread, the SM clock read around each); after the
                 serve, train, fit and jpeg phases
@@ -378,6 +397,19 @@ CLS_FIT_TRAIN = {"epochs": 100, "batch": 16, "imgsz": 128, "optimizer": "SGD", "
                  "nbs": 16, "warmup_epochs": 0.0, "seed": 0, "cache": True}
 CLS_JAX_TOP1 = 0.7031  # 0.70312, JAX's trainer on the protocol at 100 epochs (best epoch 79)
 CLS_FIT_TOP1_MIN = round(CLS_JAX_TOP1 - 0.1, 4)
+# the RT-DETR phases: the five rtdetr YAMLs at 64 px (their own scale, yolov8-rtdetr at n;
+# weights as tests/test_torch_rtdetr.py's `rt_perturbed`), served and trained at full width,
+# and the fit protocol (tools/fit_protocol.py '{"model": "yolov8-rtdetr.yaml", "nbs": 16,
+# "warmup_epochs": 0.0, "seed": 0}' gives JAX's best mAP50-95 on it)
+RTDETR_REF = (("rtdetr-l", None), ("rtdetr-x", None), ("rtdetr-resnet50", None),
+              ("rtdetr-resnet101", None), ("yolov8-rtdetr", "n"))
+RTDETR_TIE = 1e-5  # selection scores closer than this may order either way in f32
+RTDETR_SERVE = ("rtdetr-l", "rtdetr-resnet50")
+RTDETR_TRAIN = ("rtdetr-l", (16, 640, 4))  # JAX's default batch; px; real boxes per image
+RTDETR_FIT = "yolov8-rtdetr"
+RTDETR_JAX_MAP = 0.3934  # 0.39344748437027094 at its last epoch (150), 1,199 s on a CPU
+RTDETR_FIT_MAP_MIN = round(RTDETR_JAX_MAP - 0.1, 4)
+RTDETR_REPEAT_EPOCHS = 3  # the fit again, twice, strictly deterministic: equal to the bit
 # the fit phase: every fit above (detect, segment, pose, obb, classify) runs in a process of
 # its own, FIT_PROCS at once, longest first. Each is host-bound (one Python thread launching
 # small kernels, the card idle most of the time): one after another they took 640 s of the
@@ -704,8 +736,9 @@ def check_reference(la) -> dict:
     x = torch.rand(2, 3, 64, 64, generator=torch.Generator().manual_seed(1))
     launches = {}
     for name in ("edgeline-yolo-n", *FAMILIES, *NEW_REF_SCALE):
+        seeded = DetectionModel(name, device="cpu", seed=0)  # built once, copied per start
         for scale in (None, REF_SCALE[name]):
-            m = DetectionModel(name, device="cpu", seed=0)
+            m = copy.deepcopy(seeded)
             m = exercise_branches(m) if scale is None else perturbed(m, scale)
             preds, sels = {}, {}
             for dev, model in (("cpu", m), ("cuda", copy.deepcopy(m).to("cuda"))):
@@ -1002,18 +1035,25 @@ def train_batch(b: int, imgsz: int, m: int, real: int, seed: int) -> dict:
 
 
 def ref_step(la, dev: str, start, batch: dict, replay: tuple | None = None,
-             name: str = "edgeline-yolo-n", within=contextlib.nullcontext) -> dict:
+             name: str = "edgeline-yolo-n", within=contextlib.nullcontext,
+             match: "torch.Tensor | None" = None, select: "torch.Tensor | None" = None) -> dict:
     """One train step of model `name` (default augmentation, accumulate 1 so
     it updates) on `dev` from seeded weights that `start` prepares (gates
     open), in f32, inside the context `within()` makes; in f64 when
     `replay` gives the augmented batch of an f32 step to take in place of
-    this step's own augmentation. Returns the loss, the gradients, the
-    params after the update, the kernel's launches, the model's attention
-    modules and the augmented batch."""
+    this step's own augmentation, and for an RT-DETR model `select` and
+    `match` the f32 step's selected encoder queries and matched columns in
+    place of its own top-k and auction (near-ties order either way in f64).
+    Returns the loss, the gradients, the params after the update, the
+    kernel's launches, the model's attention modules, the augmented batch,
+    and an RT-DETR step's selected queries (images, queries) and matched
+    columns (layers, images, gt slots)."""
     import torch
 
+    from edgeyolo_tpu_torch.nn.modules import head as head_mod
     from edgeyolo_tpu_torch.nn.tasks import DetectionModel
     from edgeyolo_tpu_torch.train import classify as classify_mod
+    from edgeyolo_tpu_torch.train import detr_loss
     from edgeyolo_tpu_torch.train import trainer as trainer_mod
 
     model = start(open_gates(DetectionModel(name, device=dev, seed=0)))
@@ -1039,8 +1079,19 @@ def ref_step(la, dev: str, start, batch: dict, replay: tuple | None = None,
     # f64 throughout: the port's f32 casts (BatchNorm's island, the loss) become f64 ones
     f64 = (mock.patch.object(torch.Tensor, "float", torch.Tensor.double) if replay is not None
            else contextlib.nullcontext())
+    matched = (mock.patch.object(detr_loss, "auction_assign",
+                                 lambda cost, mask: match.to(cost.device))
+               if match is not None else contextlib.nullcontext())
+    selected, topk = [], head_mod.topk_stable
+
+    def select_queries(scores, k):
+        ix = topk(scores, k)[1] if select is None else select.to(scores.device)
+        selected.append(ix.cpu())
+        return scores.gather(-1, ix), ix
+
     la.linear_attention_kernel.launches = 0
-    with mock.patch.object(mod, aug_name, augment), f64, within():
+    with mock.patch.object(mod, aug_name, augment), f64, matched, within(), \
+            mock.patch.object(head_mod, "topk_stable", select_queries):
         loss, _, updated = trainer.train_step(
             trainer_mod.batch_to_device(batch, torch.device(dev)), mosaic=True)
     if not updated:
@@ -1051,7 +1102,9 @@ def ref_step(la, dev: str, start, batch: dict, replay: tuple | None = None,
                       trainer.flat.unflatten(trainer.flat.grad).items()},
             "params": {n: p.detach().cpu().double() for n, p in
                        trainer.flat.unflatten(trainer.flat.data).items()},
-            "augmented": augmented[0]}
+            "augmented": augmented[0], "select": selected[0] if selected else None,
+            "match": (None if getattr(trainer.criterion, "last_match", None) is None
+                      else trainer.criterion.last_match.cpu())}
 
 
 def step_gap(ref: dict, other: dict) -> dict:
@@ -1113,12 +1166,16 @@ def card_vs_cpu(la, label: str, start, batch: dict, per_tensor: bool,
 
 def witness(la, start, batch: dict, cpu: dict, card: dict, name: str = "edgeline-yolo-n"):
     """Each f32 side of a step against an f64 step on the CPU's augmented
-    batch, the exact step to f32's eyes: the card may be no farther from it
-    than WITNESS_FACTOR times the CPU's f32 step in the loss, the whole
-    gradient and the params, with WITNESS_FLOOR for gaps at f32 resolution."""
+    batch (an RT-DETR step also on the CPU's selected queries and matched
+    pairs: the selection meets near-ties, and the auction's bids round to its
+    eps, 1e6 / (4 nq) with padded gt rows), the exact step to f32's eyes:
+    the card may be no farther from it than WITNESS_FACTOR times the CPU's
+    f32 step in the loss, the whole gradient and the params, with
+    WITNESS_FLOOR for gaps at f32 resolution."""
     import torch
 
-    exact = ref_step(la, "cpu", start, batch, replay=cpu["augmented"], name=name)
+    exact = ref_step(la, "cpu", start, batch, replay=cpu["augmented"], name=name,
+                     match=cpu["match"], select=cpu["select"])
     img_gap = (card["augmented"][0] - cpu["augmented"][0]).abs().max().item()
     on_card, on_cpu = step_gap(exact, card), step_gap(exact, cpu)
     g32 = cpu["flat_grad"]
@@ -1300,9 +1357,10 @@ def seg_reference(la) -> dict:
     x = torch.rand(2, 3, 64, 64, generator=torch.Generator().manual_seed(1))
     launches = {}
     for name, ref_scale in (*V9_REF_SCALE.items(), *SEG_REF_SCALE.items()):
+        seeded = DetectionModel(name, device="cpu", seed=0)  # built once, copied per start
         for scale in (None, ref_scale):
             t0 = time.perf_counter()
-            m = DetectionModel(name, device="cpu", seed=0)
+            m = copy.deepcopy(seeded)
             m = exercise_branches(m) if scale is None else perturbed(m, scale)
             outs = {}
             la.linear_attention_kernel.launches = 0
@@ -1420,9 +1478,10 @@ def pose_obb_reference(la) -> None:
 
     x = torch.rand(2, 3, 64, 64, generator=torch.Generator().manual_seed(1))
     for name, ref_scale in POSE_OBB_REF_SCALE.items():
+        seeded = DetectionModel(name, device="cpu", seed=0)  # built once, copied per start
         for scale in (None, ref_scale):
             t0 = time.perf_counter()
-            m = DetectionModel(name, device="cpu", seed=0)
+            m = copy.deepcopy(seeded)
             m = exercise_branches(m) if scale is None else perturbed(m, scale)
             outs = {}
             la.linear_attention_kernel.launches = 0
@@ -1618,7 +1677,7 @@ def train(la, card: str, name: str = "edgeline-yolo-n", copy_paste: float = 0.0,
 
     from edgeyolo_tpu_torch.nn.modules import edgeline
     from edgeyolo_tpu_torch.nn.modules.conv import BatchNorm2d
-    from edgeyolo_tpu_torch.nn.tasks import DetectionModel, num_trainable
+    from edgeyolo_tpu_torch.nn.tasks import DetectionModel, is_rtdetr, num_trainable
     from edgeyolo_tpu_torch.train.trainer import DetectionTrainer, ModelEMA, batch_to_device
 
     bs, imgsz, real = shape or (TRAIN_BATCH, TRAIN_IMGSZ, TRAIN_REAL)
@@ -1709,6 +1768,8 @@ def train(la, card: str, name: str = "edgeline-yolo-n", copy_paste: float = 0.0,
                              f"{SEG_TRAIN_PEAK_GIB}: a dense mask tensor was formed")
 
     stage_times(trainer, batch, name)
+    if is_rtdetr(model):
+        detr_spans(trainer, batch, name)
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1772,9 +1833,10 @@ def classify_reference(la) -> int:
     x = torch.rand(2, 3, 64, 64, generator=torch.Generator().manual_seed(1))
     la.linear_attention_kernel.launches = 0
     for name in CLS_YAMLS:
+        seeded = ClassificationModel(name, device="cpu", seed=0)  # built once, copied per start
         for scale in (None, CLS_REF_SCALE):
             t0 = time.perf_counter()
-            m = ClassificationModel(name, device="cpu", seed=0)
+            m = copy.deepcopy(seeded)
             if scale is not None:
                 m = cls_perturbed(m, scale)
             with torch.inference_mode():
@@ -2777,7 +2839,410 @@ def video(la, card: str, work: Path, best: Path) -> dict:
     return launches
 
 
+def rt_perturbed(model, seed: int = 0):
+    """tests/test_torch_rtdetr.py's weights: BatchNorm statistics, norm scales
+    and shifts and biases moved, the sampling-offset and attention-weight
+    kernels (0 at init) drawn at 0.02, and every score head's bias spread
+    around 0, so the output depends on the image and scores straddle 0.25."""
+    import re
+
+    import numpy as np
+    import torch
+
+    rs = np.random.RandomState(seed)
+    out = {}
+    for k, v in model.state_dict().items():
+        a, leaf = v.cpu().numpy().copy(), k.rsplit(".", 1)[-1]
+        if k.endswith("num_batches_tracked") or "denoising_class_embed" in k:
+            pass
+        elif re.search(r"(sampling_offsets|attention_weights)\.weight$", k):
+            a = rs.randn(*a.shape) * 0.02
+        elif re.search(r"score_head(\.\d+)?\.bias$", k):
+            a = rs.randn(*a.shape) * 0.5
+        elif leaf == "running_mean":
+            a = rs.randn(*a.shape) * 0.1
+        elif leaf == "running_var":
+            a = rs.uniform(0.5, 1.5, a.shape)
+        elif leaf in ("bias", "in_proj_bias") or (leaf == "weight" and a.ndim == 1):
+            a = a + rs.randn(*a.shape) * 0.1
+        out[k] = torch.from_numpy(np.asarray(a, v.cpu().numpy().dtype))
+    model.load_state_dict(out)
+    return model
+
+
+@contextlib.contextmanager
+def smooth_relus():
+    """Every ReLU built and called in the block as SiLU (the HGNet convs'
+    `act="relu"`, the decoder's FFN and MLPs): a gradient at a ReLU's kink
+    jumps, and f32 rounding moves a pre-activation within 1e-7 of 0 to
+    either side (tools/rtdetr_relu_kinks.py)."""
+    import torch.nn.functional as F
+
+    from edgeyolo_tpu_torch.nn.modules import conv as conv_mod
+
+    with mock.patch.dict(conv_mod.ACTIVATIONS, {"relu": F.silu}), \
+            mock.patch.object(F, "relu", F.silu):
+        yield
+
+
+def rows_unmatched(got, want, selection, box_px: float, score: float, size: int) -> int:
+    """Rows of (B, nq, 4 + nc) `got` whose box (normalised; within box_px at
+    `size` px) and scores (within `score`) are not those of `want`'s row at the
+    same place nor, where the queries' selection scores lie within RTDETR_TIE,
+    of a row of that group (as tests/test_torch_rtdetr.py's
+    assert_queries_close)."""
+    bad = 0
+    for b in range(got.shape[0]):
+        for i in range(got.shape[1]):
+            group = [i, *(j for j in range(got.shape[1]) if j != i and abs(
+                selection[b, j] - selection[b, i]) <= RTDETR_TIE)]
+            bad += not any((got[b, i, :4] - want[b, j, :4]).abs().max() * size < box_px
+                           and (got[b, i, 4:] - want[b, j, 4:]).abs().max() < score
+                           for j in group)
+    return bad
+
+
+def check_deform_sampler() -> None:
+    """The deformable sampler alone (plain PyTorch, four index gathers a level)
+    on the card against the CPU at rtdetr-l's 640 px levels, taps outside the
+    maps included: the output and its gradients within 1e-5 of their scale."""
+    import torch
+
+    from edgeyolo_tpu_torch.nn.modules.transformer import ms_deform_sample
+
+    gen = torch.Generator().manual_seed(0)
+    shapes = ((80, 80), (40, 40), (20, 20))
+    ins = [torch.randn(2, 8400, 8, 32, generator=gen),
+           torch.rand(2, 300, 8, 3, 4, 2, generator=gen) * 1.4 - 0.2,
+           torch.rand(2, 300, 8, 3, 4, generator=gen)]
+    card = [t.cuda().requires_grad_() for t in ins]
+    ins = [t.requires_grad_() for t in ins]
+    want = ms_deform_sample(ins[0], shapes, ins[1], ins[2])
+    got = ms_deform_sample(card[0], shapes, card[1], card[2])
+    (want ** 2).sum().backward()
+    (got ** 2).sum().backward()
+    err = (got.detach().cpu() - want.detach()).abs().max().item() / want.abs().max().item()
+    gerr = max((c.grad.cpu() - t.grad).abs().max().item() / t.grad.abs().max().item()
+               for c, t in zip(card, ins))
+    print(f"rtdetr sampler alone, value {tuple(ins[0].shape)} over levels {shapes}, locations "
+          f"{tuple(ins[1].shape)} (from -0.2 to 1.2: taps outside the maps): card vs CPU "
+          f"{err:.3e} of the output scale, gradients {gerr:.3e} of theirs (tol 1e-5)",
+          flush=True)
+    if not (err <= 1e-5 and gerr <= 1e-5):
+        raise AssertionError("the deformable sampler on the card disagrees with the CPU")
+
+
+def rtdetr_reference(la) -> int:
+    """The five rtdetr YAMLs (RTDETR_REF) in f32 at 64 px, card against CPU, at
+    `rt_perturbed` weights: boxes within 5e-3 px and scores within 1e-4 row by
+    row; the encoder's selected query indices equal where a selection score
+    lies more than RTDETR_TIE from its neighbours (near-ties may order either
+    way, and their rows are matched within the group); then the sampler
+    alone. Returns the attention kernel's launches (no RT-DETR model has a
+    LinearAttention)."""
+    import torch
+
+    from edgeyolo_tpu_torch.nn.modules import head as head_mod
+    from edgeyolo_tpu_torch.nn.tasks import DetectionModel
+
+    x = torch.rand(2, 3, 64, 64, generator=torch.Generator().manual_seed(1))
+    topk = head_mod.topk_stable
+    launches = 0
+    for name, scale in RTDETR_REF:
+        m = rt_perturbed(DetectionModel(name, scale=scale, device="cpu", seed=0))
+        preds, picks = {}, {}
+        for dev, model in (("cpu", m), ("cuda", copy.deepcopy(m).to("cuda"))):
+            seen = []
+
+            def record(v, k, seen=seen):
+                top = topk(v, k)
+                seen.append(tuple(t.cpu() for t in top))
+                return top
+
+            la.linear_attention_kernel.launches = 0
+            with torch.inference_mode(), mock.patch.object(head_mod, "topk_stable", record):
+                preds[dev] = model(x.to(dev))["pred"].float().cpu()
+            launches += la.linear_attention_kernel.launches
+            picks[dev] = seen[0]
+        (sel, ix_cpu), (_, ix_card) = picks["cpu"], picks["cuda"]
+        gaps = (sel[:, 1:] - sel[:, :-1]).abs() > RTDETR_TIE
+        apart = torch.ones_like(ix_cpu, dtype=torch.bool)
+        apart[:, 1:] &= gaps
+        apart[:, :-1] &= gaps
+        ix_bad = int(((ix_cpu != ix_card) & apart).sum())
+        d = (preds["cuda"] - preds["cpu"]).abs()
+        bad = rows_unmatched(preds["cuda"], preds["cpu"], sel, 5e-3, 1e-4, 64)
+        spread = (preds["cpu"][0] - preds["cpu"][1])[..., :4].abs().max().item() * 64
+        label = f"{name}-{scale}" if scale else name
+        print(f"{label}: f32 64px card vs CPU, {preds['cpu'].shape[1]} queries "
+              f"(boxes of the two images apart by up to {spread:.3f} px): in place box "
+              f"{d[..., :4].max().item() * 64:.3e} px, score {d[..., 4:].max().item():.3e}; "
+              f"{int((~apart).sum())} of {apart.numel()} selections within {RTDETR_TIE} of a "
+              f"neighbour, {int((ix_cpu != ix_card).sum())} indices differ, {ix_bad} of them "
+              f"apart (tol 0); rows unmatched within their tie group {bad} (box 5e-3 px, score "
+              f"1e-4)", flush=True)
+        if not (torch.isfinite(preds["cuda"]).all() and ix_bad == 0 and bad == 0):
+            raise AssertionError(f"{name} on the card disagrees with the CPU reference")
+        del m
+    check_deform_sampler()
+    print(f"rtdetr reference: attention kernel launches {launches} (no RT-DETR model has a "
+          f"LinearAttention)", flush=True)
+    return launches
+
+
+def serve_rtdetr(la, card: str, name: str) -> int:
+    """An RT-DETR model served in bf16 at SERVE_BATCH x SERVE_IMGSZ through
+    DetectionPredictor (uint8 in, detections out: no NMS), every score head's
+    bias at 0 so that 300 queries an image pass conf 0.25; conv and linear
+    outputs bf16 and the sampler's locations f32; SERVE_REQUESTS timed
+    requests, peak memory, a profiled request, and the sampler's own device
+    time over the request's six calls (CUDA events, their captured inputs)."""
+    import torch
+    from torch import nn
+
+    from edgeyolo_tpu_torch.engine.predictor import DetectionPredictor
+    from edgeyolo_tpu_torch.nn.modules import transformer
+    from edgeyolo_tpu_torch.nn.tasks import DetectionModel, num_params
+
+    bs, imgsz = SERVE_BATCH, SERVE_IMGSZ
+    model = DetectionModel(name, device="cuda", dtype=torch.bfloat16, seed=0)
+    head = model.model[-1]
+    with torch.no_grad():
+        for lin in (head.enc_score_head, *head.dec_score_head):
+            lin.bias.zero_()
+    predictor = DetectionPredictor(model, device="cuda", imgsz=imgsz, batch=bs)
+    imgs = torch.randint(0, 256, (bs, imgsz, imgsz, 3), dtype=torch.uint8,
+                         generator=torch.Generator().manual_seed(2))
+    out_dtypes, sampled = [], []
+    hooks = [m.register_forward_hook(lambda _m, _i, o: out_dtypes.append(o.dtype))
+             for m in model.modules() if isinstance(m, (nn.Conv2d, nn.Linear))]
+
+    def capture(value, shapes, loc, weights):
+        sampled.append((value, shapes, loc, weights))
+        return sample(value, shapes, loc, weights)
+
+    sample = transformer.ms_deform_sample
+    t0 = time.perf_counter()
+    with mock.patch.object(transformer, "ms_deform_sample", capture):
+        predictor(imgs)
+    torch.cuda.synchronize()
+    for hk in hooks:
+        hk.remove()
+    coords = {(v.dtype, lc.dtype, w.dtype) for v, _, lc, w in sampled}
+    if not out_dtypes or any(dt != torch.bfloat16 for dt in out_dtypes) or coords != {
+            (torch.bfloat16, torch.float32, torch.float32)}:
+        raise AssertionError(f"{name}: conv and linear outputs {set(out_dtypes)}, sampler "
+                             f"value/locations/weights {coords}")
+    print(f"serve {name}: {num_params(model)} params, bf16 ({len(out_dtypes)} conv and linear "
+          f"outputs, all bf16; the sampler's {len(sampled)} calls take bf16 values and f32 "
+          f"locations and weights), score biases at 0, warm-up request "
+          f"{(time.perf_counter() - t0) * 1e3:.3f} ms", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    la.linear_attention_kernel.launches = 0
+    times = []
+    for _ in range(SERVE_REQUESTS):
+        t0 = time.perf_counter()
+        det, n = predictor(imgs)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    launches = la.linear_attention_kernel.launches
+    ms = statistics.median(times) * 1e3
+    det, n = det.float().cpu(), n.cpu()
+    ok = (det.shape == (bs, 300, 6) and bool((n == 300).all()) and bool(torch.isfinite(det).all())
+          and bool(((det[..., :4] >= 0) & (det[..., :4] <= imgsz)).all())
+          and bool((det[..., 4] > 0.25).all()) and bool((det[..., 5] == det[..., 5].round()).all()))
+    if not ok or launches:
+        raise AssertionError(f"{name}: served detections are malformed")
+    print(f"serve {name}: batch {bs} x {imgsz} px bf16, uint8 in, {int(n.sum())} detections out "
+          f"(300 queries an image, no NMS); request times {[round(t * 1e3, 3) for t in times]} "
+          f"ms, median {ms:.3f} ms, {bs / ms * 1e3:.1f} img/s, peak memory "
+          f"{peak / 2**30:.3f} GiB; attention launches {launches}; on {card}", flush=True)
+    busy = profile_request(predictor, imgs, ms)
+    sampler_ms = sum(cuda_ms(lambda a=a: sample(*a), samples=10, warmup=2) for a in sampled)
+    print(f"serve {name}: the sampler's {len(sampled)} calls of a request, each timed alone on "
+          f"its captured inputs (value {tuple(sampled[0][0].shape)}): {sampler_ms:.3f} ms, "
+          + (f"{100 * sampler_ms / busy:.1f}% of the profiled request's device-busy {busy:.3f} "
+             f"ms" if busy else "device-busy time not measured") + f"; on {card}", flush=True)
+    return launches
+
+
+def check_rtdetr_train_reference(la) -> int:
+    """rtdetr-l's f32 train step at TRAIN_REF_IMGSZ on 4 images with its
+    denoising group, card against CPU from `rt_perturbed` weights (score
+    logits spread around 0, sampling offsets off their init), the same
+    draws of one CPU generator on both sides:
+    - as built: the loss within TRAIN_REF_TOL and the matched pairs of every
+      layer equal; its gradients and params printed, not held: HGNet's ReLU
+      convs and the decoder's ReLU FFN put pre-activations within f32
+      rounding of their kinks, where the gradient jumps (the CPU's own step at
+      8 and 1 threads parts by up to a tenth of a tensor's max |grad|:
+      tools/rtdetr_relu_kinks.py);
+    - every ReLU as SiLU (`smooth_relus`): card against CPU at TRAIN_REF_TOL,
+      every gradient per tensor but the sampling offsets', the matched pairs
+      equal, and each side against the f64 step on the CPU's augmented
+      batch, selection and matched pairs (`witness`). The sampling offsets
+      reach the loss only through the sampler's locations, whose gradient
+      jumps where a location crosses a pixel centre (the bilinear taps
+      change); their per-tensor gaps are printed beside the bound the rest
+      are held to.
+    Matched pairs compare as the encoder tokens matched (`matched_queries`).
+    Returns the attention kernel's launches on the card."""
+    name = "rtdetr-l"
+    batch = train_batch(4, TRAIN_REF_IMGSZ, TRAIN_REF_M, 4, seed=3)
+    cpu, card = (ref_step(la, dev, rt_perturbed, batch, name=name) for dev in ("cpu", "cuda"))
+    gap = step_gap(cpu, card)
+    same = bool((matched_queries(cpu) == matched_queries(card)).all())
+    print(f"{name}: train step f32 {TRAIN_REF_IMGSZ} px batch 4 with its denoising group, from "
+          f"rt_perturbed weights, as built (ReLU): card vs CPU loss {card['loss']:.6f} vs "
+          f"{cpu['loss']:.6f}, {gap_text(gap)}; matched tokens ({tuple(cpu['match'].shape)}, "
+          f"{int((cpu['match'] >= 0).sum())} matched) equal: {same} (loss tol "
+          f"{TRAIN_REF_TOL['loss']}; gradients and params a reading at the ReLU kinks)",
+          flush=True)
+    if not (math.isfinite(card["loss"]) and gap["loss"] <= TRAIN_REF_TOL["loss"] and same):
+        raise AssertionError(f"{name}: the train step on the card disagrees with the CPU's")
+    with smooth_relus():
+        cpu, card = (ref_step(la, dev, rt_perturbed, batch, name=name) for dev in ("cpu", "cuda"))
+        gap = step_gap(cpu, card)
+        held = [(e, n) for e, n in gap["grad"] if "sampling_offsets" not in n]
+        located = [(e, n) for e, n in gap["grad"] if "sampling_offsets" in n]
+        same = bool((matched_queries(cpu) == matched_queries(card)).all())
+        print(f"{name}: every ReLU as SiLU, card vs CPU: loss {card['loss']:.6f} vs "
+              f"{cpu['loss']:.6f}, {gap_text(gap)}; the worst gradient held per tensor "
+              f"{held[0][1]} {held[0][0]:.3e} of its max |grad| (tol {TRAIN_REF_TOL['grad']}); "
+              f"the sampling offsets' (through the sampler's locations, not held) "
+              + ", ".join(f"{n} {e:.3e}" for e, n in located[:3])
+              + f"; matched tokens equal: {same}; {card['launches']} kernel launches", flush=True)
+        if not (gap["loss"] <= TRAIN_REF_TOL["loss"] and held[0][0] <= TRAIN_REF_TOL["grad"]
+                and gap["zero_ok"] and gap["param"] <= TRAIN_REF_TOL["param"] and same
+                and card["launches"] == 0):
+            raise AssertionError(f"{name}: the train step on the card disagrees with the CPU's "
+                                 f"with its ReLUs as SiLU")
+        witness(la, rt_perturbed, batch, cpu, card, name)
+    return card["launches"]
+
+
+def matched_queries(step: dict):
+    """An RT-DETR step's matched pairs as the encoder token each gt slot went
+    to, (layers, images, gt slots), -1 where unmatched: the matcher's columns
+    are positions in the selection's order, which near-ties may permute."""
+    import torch
+
+    col, sel = step["match"], step["select"]
+    token = sel[None].expand(col.shape[0], -1, -1).gather(-1, col.clamp(min=0))
+    return torch.where(col >= 0, token, -1)
+
+
+def detr_spans(trainer, batch, name: str) -> None:
+    """One more RT-DETR train step with CUDA events around the criterion and
+    around the matcher inside it: their spans on the device timeline (and the
+    host's time to enqueue them) against the whole step's."""
+    import torch
+
+    from edgeyolo_tpu_torch.train import detr_loss
+
+    spans = {}
+
+    def timed(key, fn):
+        def wrapper(*args, **kwargs):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            spans[key] = (start, end, (time.perf_counter() - t0) * 1e3)
+            return out
+        return wrapper
+
+    torch.cuda.synchronize()
+    matcher = timed("matcher", detr_loss.auction_assign)
+    with mock.patch.object(detr_loss, "auction_assign", matcher), \
+            mock.patch.object(trainer, "criterion", timed("loss", trainer.criterion)):
+        timed("step", trainer.train_step)(batch, mosaic=True)
+    torch.cuda.synchronize()
+    ms = {k: (s.elapsed_time(e), host) for k, (s, e, host) in spans.items()}
+    step = ms["step"][0]
+    print(f"train {name}: RT-DETR spans, device timeline / host enqueue ms (one step, no "
+          f"profiler): step {step:.3f} / {ms['step'][1]:.3f}; loss {ms['loss'][0]:.3f} / "
+          f"{ms['loss'][1]:.3f} = {100 * ms['loss'][0] / step:.1f}% of the step, the matcher "
+          f"within it {ms['matcher'][0]:.3f} / {ms['matcher'][1]:.3f} = "
+          f"{100 * ms['matcher'][0] / step:.1f}% ({detr_loss.AUCTION_ROUNDS} rounds over "
+          f"{tuple(trainer.criterion.last_match.shape)} layers x images x gt slots at once)",
+          flush=True)
+
+
+@contextlib.contextmanager
+def strictly_deterministic(on: bool):
+    """trainer.deterministic_algorithms with warn_only off: an op without a
+    deterministic form raises."""
+    import torch
+
+    was = (torch.are_deterministic_algorithms_enabled(), torch.backends.cudnn.deterministic)
+    torch.use_deterministic_algorithms(on)
+    torch.backends.cudnn.deterministic = on
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was[0])
+        torch.backends.cudnn.deterministic = was[1]
+
+
+def fit_rtdetr(la, card: str, work: Path):
+    """yolov8-rtdetr-n on the fit protocol (`fit`), held to JAX's best
+    mAP50-95 less 0.1, with no op in the run lacking a deterministic form (the
+    trainer warns for one). cuBLAS runs with a fixed workspace
+    (CUBLAS_WORKSPACE_CONFIG) in this process, as cuBLAS needs for it."""
+    import warnings
+
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        launches, best = fit(la, card, work, f"{RTDETR_FIT}.yaml", RTDETR_FIT_MAP_MIN,
+                             extra_mins={}, jax_maps={"metrics/mAP50-95(B)": RTDETR_JAX_MAP})
+    nondet = sorted({str(w.message)[:160] for w in caught if "determinis" in str(w.message)})
+    print(f"fit {RTDETR_FIT}: warnings of ops without a deterministic form in the fit: "
+          f"{nondet or 'none'}", flush=True)
+    if nondet:
+        raise AssertionError(f"{RTDETR_FIT}: the fit ran ops without a deterministic form")
+    return launches, best
+
+
+def repeat_rtdetr(la, card: str, work: Path):
+    """RTDETR_REPEAT_EPOCHS epochs of yolov8-rtdetr-n's fit twice under
+    strictly deterministic algorithms (an op without a deterministic form
+    raises), their last.pt equal to the bit; a FIT_JOBS entry of its own,
+    off the long fit's path. Returns the attention kernel's launches."""
+    import torch
+
+    from edgeyolo_tpu_torch.data.synthetic import generate_dataset
+    from edgeyolo_tpu_torch.engine.model import YOLO
+    from edgeyolo_tpu_torch.train import trainer as trainer_mod
+
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    data = generate_dataset(work / "data", **FIT)
+    la.linear_attention_kernel.launches = 0
+    runs = []
+    for i in range(2):
+        model = YOLO(f"{RTDETR_FIT}.yaml", device="cuda")
+        t0 = time.perf_counter()
+        with mock.patch.object(trainer_mod, "deterministic_algorithms", strictly_deterministic):
+            model.train(data=str(data), project=str(work / "repeat"), name=f"r{i}",
+                        **{**FIT_TRAIN, "epochs": RTDETR_REPEAT_EPOCHS})
+        ck = torch.load(model.trainer.save_dir / "last.pt", map_location="cpu",
+                        weights_only=True)
+        runs.append((ck, time.perf_counter() - t0))
+    same = all(torch.equal(runs[0][0][k][n], runs[1][0][k][n])
+               for k in ("model", "ema") for n in runs[0][0][k])
+    print(f"fit {RTDETR_FIT}: {RTDETR_REPEAT_EPOCHS} epochs twice under strictly deterministic "
+          f"algorithms ({runs[0][1]:.3f} s, {runs[1][1]:.3f} s): last.pt's weights and EMA equal "
+          f"to the bit: {same}; on {card}", flush=True)
+    if not same:
+        raise AssertionError(f"{RTDETR_FIT}: the fit does not repeat")
+    return {"repeat": la.linear_attention_kernel.launches}, None
+
+
 FIT_JOBS = {  # name: the fit, longest first (their seconds alone on an H100)
+    RTDETR_FIT: fit_rtdetr,
     "yolov13-test": lambda la, card, work: fit(la, card, work, "yolov13-test.yaml",
                                                V13_TEST_FIT_MAP_MIN, V13_TEST_FIT_IMGSZ),
     "edgeline-yolo": lambda la, card, work: fit(la, card, work),
@@ -2796,6 +3261,7 @@ FIT_JOBS = {  # name: the fit, longest first (their seconds alone on an H100)
     OBB: lambda la, card, work: fit(la, card, work, f"{OBB}.yaml", OBB_FIT_MIN, extra_mins={},
                                     jax_maps={"metrics/mAP50-95(B)": OBB_JAX_MAP},
                                     epochs=POSE_OBB_FIT_EPOCHS),
+    f"{RTDETR_FIT}-repeat": repeat_rtdetr,
 }
 
 
@@ -3004,6 +3470,28 @@ def main() -> int:
               flush=True)
         done("classify train", t0)
 
+        t0 = phase("rtdetr reference")
+        rt_launches = {"reference": rtdetr_reference(la)}
+        done("rtdetr reference", t0)
+
+        t0 = phase("rtdetr serve")
+        rt_launches["serve"] = sum(serve_rtdetr(la, card, name) for name in RTDETR_SERVE)
+        done("rtdetr serve", t0)
+
+        t0 = phase("rtdetr train reference")
+        rt_launches["train_reference"] = check_rtdetr_train_reference(la)
+        done("rtdetr train reference", t0)
+
+        t0 = phase("rtdetr train")
+        rt_launches["train"] = train(la, card, RTDETR_TRAIN[0], shape=RTDETR_TRAIN[1])
+        rt_launches.update({f"fit_{k}": v for k, v in fits[RTDETR_FIT]["launches"].items()})
+        rt_launches.update(fits[f"{RTDETR_FIT}-repeat"]["launches"])
+        print(f"rtdetr: attention kernel launches {rt_launches} (no RT-DETR model has one)",
+              flush=True)
+        if any(rt_launches.values()):
+            raise AssertionError("the attention kernel launched in an RT-DETR model")
+        done("rtdetr train", t0)
+
     t0 = phase("device times")
     device_times(la, la_rows, la_inputs_by_case)
     done("device times", t0)
@@ -3035,6 +3523,7 @@ def main() -> int:
                 "launches_segment_train": seg_train_launches,
                 **{f"launches_fit_segment_{k}": v for k, v in seg_fit_launches.items()},
                 **{f"launches_classify_{k}": v for k, v in cls_launches.items()},
+                **{f"launches_rtdetr_{k}": v for k, v in rt_launches.items()},
                 **la_rows[LA_MAIN_CASE], "library_ms": None,
                 "wavelet_rows": [{"shape": list(case[:4]), "dtype": case[4], **row}
                                  for case, row in zip(LA_CASES, la_rows)

@@ -6,3 +6,13 @@ the port imports nothing of it and no JAX. Hand-written CUDA kernels live in
 """
 
 __version__ = "0.1.0"
+
+
+def __getattr__(name: str):
+    """The facades, imported on first use: YOLO, and RTDETR (JAX's name for
+    YOLO over an RT-DETR model, rtdetr-l by default)."""
+    if name in ("YOLO", "RTDETR"):
+        from edgeyolo_tpu_torch.engine import model
+
+        return getattr(model, name)
+    raise AttributeError(f"module 'edgeyolo_tpu_torch' has no attribute '{name}'")

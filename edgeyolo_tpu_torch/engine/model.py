@@ -5,6 +5,7 @@ obb and classify tasks.
     YOLO("yolo11n-seg.yaml")          # a segment model (its head names the task)
     YOLO("yolo11n-pose.yaml")         # a pose model; "yolo11n-obb.yaml" an obb one
     YOLO("yolo11n-cls.yaml")          # a classify model (data: a folder-per-class root)
+    RTDETR("rtdetr-l")                # an RT-DETR model (YOLO over it; no NMS)
     YOLO("runs/detect/train/best.pt") # a port checkpoint (train/trainer.py)
 
 The task is the model's (a Segment, Pose, OBB or Classify head makes
@@ -245,3 +246,8 @@ class YOLO:
         self.trained = True
         self.predictor = None
         return self
+
+
+def RTDETR(model: str | Path = "rtdetr-l", **kwargs) -> YOLO:
+    """YOLO over an RT-DETR model (JAX's `edgeyolo_tpu.RTDETR`)."""
+    return YOLO(model, **kwargs)

@@ -8,7 +8,13 @@ decode with the DGQP quality product -> class-aware matrix NMS, boxes
 clipped to the image. An end-to-end model (`model.end2end`) needs no NMS:
 its pred is already the score-sorted (B, max_det, 6) top-k, and
 `e2e_detections` keeps the rows past `conf` (and of `classes`), valid rows
-first, up to `max_det`.
+first, up to `max_det`. An RT-DETR model needs none either: `detr_detections`
+takes its (B, 300, 4 + nc) queries (normalised cxcywh, sigmoid scores) to
+pixel xyxy, each query's best class, the `max_det` best queries by that
+score in jax.lax.top_k's order, then `e2e_detections`' keep. This is the
+JAX validator's query path; JAX's own predictor has no RT-DETR branch and
+puts the normalised pred through NMS, so its boxes come out in normalised
+units (ROADMAP C.18).
 
 `stream(source)` is JAX's `DetectionPredictor.stream`: each frame of a
 source of data/loaders.py (images, directories, globs, arrays, video files,
@@ -23,8 +29,9 @@ dict. `predict(source)` is its list. Per frame, as JAX's predictor does:
   triangle filter widened by the downscale, weights in the compute dtype)
   and padded to the stride with 0.447; the predictions de-scaled and
   de-flipped, the full scale's P5 and the smallest scale's P3 anchors
-  dropped, then one NMS. An NMS-free head serves single-scale with a
-  warning: its pred is already a selection (ROADMAP C.13).
+  dropped, then one NMS. An NMS-free head, and RT-DETR's query head, serve
+  single-scale with a warning: their pred is already a selection (ROADMAP
+  C.13, C.18).
 - `visualize`: a second forward capturing every layer but the head, each
   4-D output saved as a feature-map grid (utils/plotting.py) under
   save_dir/<frame name>/.
@@ -67,6 +74,9 @@ import torch.nn.functional as F
 from edgeyolo_tpu_torch.data.letterbox import letterbox
 from edgeyolo_tpu_torch.data.loaders import load_inference_source
 from edgeyolo_tpu_torch.engine.results import Keypoints, Masks, Results
+from edgeyolo_tpu_torch.nn.modules.head import topk_stable
+from edgeyolo_tpu_torch.nn.tasks import is_rtdetr
+from edgeyolo_tpu_torch.ops.boxes import xywh2xyxy
 from edgeyolo_tpu_torch.ops.nms import nms_rotated, non_max_suppression
 from edgeyolo_tpu_torch.ops.resize import resize_bilinear, resize_weights  # noqa: F401
 from edgeyolo_tpu_torch.ops.segments import proto_masks, unletterbox_masks
@@ -104,6 +114,21 @@ def e2e_detections(pred: torch.Tensor, conf: float, max_det: int, classes=None):
     return det, keep.sum(dim=1, dtype=torch.int32)
 
 
+def detr_detections(pred: torch.Tensor, size: tuple[int, int], conf: float, max_det: int,
+                    classes=None):
+    """RT-DETR's selection (the JAX validator's query path): pred (B, nq, 4 + nc)
+    with normalised cxcywh boxes, an image of `size` (h, w) -> (det (B,
+    min(max_det, nq), 6) [x1, y1, x2, y2, score, cls] by descending best-class
+    score, n (B,)), as `e2e_detections` keeps rows."""
+    h, w = size
+    boxes = xywh2xyxy(pred[..., :4] * pred.new_tensor([w, h, w, h]))
+    best, cls = pred[..., 4:].max(dim=-1)
+    top, ix = topk_stable(best, min(int(max_det), pred.shape[1]))
+    det = torch.cat([boxes.gather(1, ix[..., None].expand(-1, -1, 4)), top[..., None],
+                     cls.gather(1, ix)[..., None].to(pred.dtype)], dim=-1)
+    return e2e_detections(det, conf, max_det, classes)
+
+
 def unletterbox_boxes(det: np.ndarray, r: float, pw: float, ph: float,
                       orig_shape: tuple[int, int]) -> np.ndarray:
     """Letterbox-space detection rows, in place, into the original image's
@@ -139,7 +164,7 @@ class DetectionPredictor:
         self.vid_stride, self.stream_buffer = max(1, int(vid_stride or 1)), stream_buffer
         self.plot_args = {"line_width": line_width, "labels": show_labels, "conf": show_conf}
         self.augment = augment
-        if augment and getattr(self.model, "end2end", False):
+        if augment and (getattr(self.model, "end2end", False) or is_rtdetr(self.model)):
             LOGGER.warning("augment=True needs a head with NMS; this NMS-free head's pred is "
                            "already a selection, so prediction stays single-scale")
             self.augment = False
@@ -195,6 +220,8 @@ class DetectionPredictor:
             pred = self.model(x)["pred"]
             if getattr(self.model, "end2end", False):
                 det, n = e2e_detections(pred, self.conf, self.max_det, self.classes)
+            elif is_rtdetr(self.model):
+                det, n = detr_detections(pred, (h, w), self.conf, self.max_det, self.classes)
             else:
                 det, n = self._nms(pred)
         det[..., 0:4:2] = det[..., 0:4:2].clamp(0, w)

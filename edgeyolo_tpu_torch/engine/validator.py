@@ -4,9 +4,12 @@ Per batch of the val loader: upload the uint8 images, /255 in f32 (or bf16
 with `half`), forward, multi-label NMS at conf 0.001, iou 0.7, max_det 300
 (the per-image tiled path, whose memory does not grow with max_nms = 30000),
 or for an end-to-end model the passthrough of its score-sorted top-k (rows
-past conf, up to max_det); then, still on the device, undo the letterbox and
-clip to the original image, pad the ground truth (`_gt_arrays`) and match detections to it over
-the ten IoU thresholds. Only (det, n, tp) come back to the host, into
+past conf, up to max_det), or for an RT-DETR model its query selection (no
+NMS: `detr_detections`, pixels from normalised cxcywh, each query's best
+class, the max_det best, rows under conf zeroed); then, still on the
+device, undo the letterbox and clip to the original image, pad the ground
+truth (`_gt_arrays`) and match detections to it over the ten IoU
+thresholds. Only (det, n, tp) come back to the host, into
 `DetMetrics` (101-point AP, the fork's mAP75 column). With `half` a model
 whose convolutions are f32 is validated through a bf16 copy (convolutions
 bf16, BatchNorm, quality head and decode f32, as in serving).
@@ -15,7 +18,7 @@ top-left xywh, go to `save_dir/predictions.json` (category ids through the
 COCO 80 -> 91 map when the split is COCO's 80 classes), and when the data
 YAML names `annotations` or `gt_json` the COCO protocol scores them
 (metrics/coco_eval.py) into `metrics.speed["coco/AP"]` and the rest.
-Plots, DETR, int8 and multi-device validation are not ported yet.
+Plots, int8 and multi-device validation are not ported yet.
 
 SegmentationValidator (JAX's): box metrics on the shared matching, plus the
 mask table `metrics/mAP50(M)` and `metrics/mAP50-95(M)`. On the device, per
@@ -63,11 +66,12 @@ from torch import nn
 from edgeyolo_tpu_torch.cfg import get_cfg
 from edgeyolo_tpu_torch.data.converter import coco80_to_coco91_class
 from edgeyolo_tpu_torch.data.dataset import YOLODataset, build_dataloader, check_det_dataset
-from edgeyolo_tpu_torch.engine.predictor import e2e_detections, unletterbox_boxes
+from edgeyolo_tpu_torch.engine.predictor import (detr_detections, e2e_detections,
+                                                 unletterbox_boxes)
 from edgeyolo_tpu_torch.metrics.coco_eval import evaluate_coco
 from edgeyolo_tpu_torch.metrics.metrics import (DetMetrics, _box_iou_np, match_predictions,
                                                 match_predictions_device)
-from edgeyolo_tpu_torch.nn.tasks import for_precision
+from edgeyolo_tpu_torch.nn.tasks import for_precision, is_rtdetr
 from edgeyolo_tpu_torch.ops.boxes import box_iou, probiou, xywhr2xyxyxyxy
 from edgeyolo_tpu_torch.ops.nms import nms_rotated, non_max_suppression
 from edgeyolo_tpu_torch.ops.resize import resize_bilinear
@@ -110,6 +114,8 @@ class DetectionValidator:
         pred = model(x)["pred"]
         if getattr(model, "end2end", False):
             det, n = e2e_detections(pred, self.conf, int(args.max_det))
+        elif is_rtdetr(model):
+            det, n = detr_detections(pred, x.shape[2:], self.conf, int(args.max_det))
         else:
             det, n = non_max_suppression(
                 pred, conf_thres=self.conf, iou_thres=float(args.iou),

@@ -1,6 +1,7 @@
 """Convolution modules, NCHW (edgeyolo_tpu/nn/modules/conv.py): ConvBN and
-its depthwise and separable forms, GhostConv, and the raw torch layers a
-model YAML names (transposed conv, max pool, zero pad).
+its depthwise and separable forms, LightConv (RT-DETR's HGBlock), GhostConv,
+and the raw torch layers a model YAML names (transposed conv, max pool, zero
+pad).
 
 Parameter names are the reference's torch state_dict keys (`conv`, `bn`,
 `dw`, `pw`), so weights carried over from the JAX package land by name.
@@ -117,6 +118,18 @@ class DWConv(ConvBN):
     def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, d: int = 1,
                  act: bool | str = True):
         super().__init__(c1, c2, k, s, None, math.gcd(c1, c2), d, act)
+
+
+class LightConv(nn.Module):
+    """A 1x1 ConvBN without activation, then a k x k depthwise ConvBN with ReLU."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1):
+        super().__init__()
+        self.conv1 = ConvBN(c1, c2, 1, act=False)
+        self.conv2 = DWConv(c2, c2, k, act="relu")
+
+    def forward(self, x):
+        return self.conv2(self.conv1(x))
 
 
 class GhostConv(nn.Module):

@@ -15,7 +15,12 @@ blocks and the Ghost blocks, NCHW (edgeyolo_tpu/nn/modules/extra.py).
 - ResNetBlock / ResNetLayer: the bottleneck block (1x1, 3x3 at the stride,
   1x1 to e x c2 without activation, plus the input or its 1x1 projection,
   then ReLU) and a stage of them, or the stem (7x7/2 ConvBN with ReLU, then
-  a 3x3/2 max pool padded 1): the cls-resnet YAMLs.
+  a 3x3/2 max pool padded 1): the cls-resnet YAMLs and rtdetr-resnet50/101.
+- HGStem / HGBlock: PP-HGNet's stem (2x2 convs padded at the bottom and
+  right only, beside a 2x2 stride-1 max pool padded the same way) and its
+  block (n ConvBNs or LightConvs chained and all concatenated, squeezed by
+  two 1x1 ConvBNs, with a residual when `shortcut` and c1 == c2): the
+  backbones of rtdetr-l and rtdetr-x, ReLU throughout.
 
 As in JAX: the participation softmax runs over the nodes after the mean over
 heads; GELU is exact; no dropout runs, in training either (the JAX module
@@ -33,7 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from edgeyolo_tpu_torch.nn.modules.block import C2f, C3, C3k
-from edgeyolo_tpu_torch.nn.modules.conv import ConvBN, DWConv, GhostConv
+from edgeyolo_tpu_torch.nn.modules.conv import ConvBN, DWConv, GhostConv, LightConv
 from edgeyolo_tpu_torch.nn.modules.edgeline import DSBottleneck, DSC3k
 
 
@@ -376,3 +381,43 @@ class ResNetLayer(nn.Module):
         if self.is_first:
             return F.max_pool2d(self.stem(x), 3, 2, 1)
         return self.block(x)
+
+
+class HGStem(nn.Module):
+    """PP-HGNet stem to c2 channels at a quarter of the input size."""
+
+    def __init__(self, c1: int, cm: int, c2: int):
+        super().__init__()
+        self.stem1 = ConvBN(c1, cm, 3, 2, act="relu")
+        self.stem2a = ConvBN(cm, cm // 2, 2, 1, 0, act="relu")
+        self.stem2b = ConvBN(cm // 2, cm, 2, 1, 0, act="relu")
+        self.stem3 = ConvBN(cm * 2, cm, 3, 2, act="relu")
+        self.stem4 = ConvBN(cm, c2, 1, act="relu")
+
+    def forward(self, x):
+        x = self.stem1(x)
+        x2 = self.stem2b(F.pad(self.stem2a(F.pad(x, (0, 1, 0, 1))), (0, 1, 0, 1)))
+        x1 = F.max_pool2d(F.pad(x, (0, 1, 0, 1), value=-math.inf), 2, 1)
+        return self.stem4(self.stem3(torch.cat([x1, x2], dim=1)))
+
+
+class HGBlock(nn.Module):
+    """PP-HGNet block: n convs (LightConvs with `lightconv`) chained, the
+    input and every output concatenated, then 1x1 ConvBNs to c2 / 2 and c2."""
+
+    def __init__(self, c1: int, cm: int, c2: int, k: int = 3, n: int = 6,
+                 lightconv: bool = False, shortcut: bool = False, act: str = "relu"):
+        super().__init__()
+        self.m = nn.ModuleList(
+            LightConv(c1 if i == 0 else cm, cm, k) if lightconv
+            else ConvBN(c1 if i == 0 else cm, cm, k, act=act) for i in range(n))
+        self.sc = ConvBN(c1 + n * cm, c2 // 2, 1, act=act)
+        self.ec = ConvBN(c2 // 2, c2, 1, act=act)
+        self.add = shortcut and c1 == c2
+
+    def forward(self, x):
+        y = [x]
+        for m in self.m:
+            y.append(m(y[-1]))
+        z = self.ec(self.sc(torch.cat(y, dim=1)))
+        return z + x if self.add else z

@@ -33,6 +33,21 @@ by `e2e_postprocess`: pred is (B, max_det, 6) [x1, y1, x2, y2, score, cls].
 In eval mode the one2many towers, which only the training loss reads, are
 not run (under jit XLA drops them from JAX's inference too).
 
+RTDETRDecoder is RT-DETR's query head: per level a 1x1 conv and BatchNorm
+to the hidden width, the levels' tokens concatenated; anchors over the
+flattened grid (cell centres, a side of 0.05 x 2^level, as logits; those
+within 0.01 of the border at logit 1e6); the encoder's output projection,
+LayerNorm and score head over the tokens (the invalid anchors' tokens at
+0); the top min(300, A) tokens by their best class logit, in
+jax.lax.top_k's order (`topk_stable`), as the decoder's queries (detached
+in training) with the encoder's box head added to their anchors as the
+reference logits; in training the contrastive-denoising queries (`dn`)
+before them, with the attention mask that keeps each dn group to itself
+and the real queries from every dn query; six deformable decoder layers.
+In eval pred is (B, nq, 4 + nc): normalised cxcywh boxes and sigmoid
+scores, in f32; in training the dict carries every layer's boxes and
+logits, the encoder's proposals, and the dn queries' outputs apart.
+
 Classify is the classification head: a ConvBN to 1280 channels (of the
 inputs concatenated on channels when it is given several), the global mean,
 dropout in training only, and a Linear to nc: logits, (B, nc).
@@ -47,8 +62,11 @@ import torch
 from torch import nn
 
 from edgeyolo_tpu_torch.nn.modules.block import DFL, Proto
-from edgeyolo_tpu_torch.nn.modules.conv import ConvBN, DWConv
+from edgeyolo_tpu_torch.nn.modules.conv import ConvBN, DWConv, batch_norm, norm_f32
+from edgeyolo_tpu_torch.nn.modules.transformer import (MLP, DeformableTransformerDecoder,
+                                                       inverse_sigmoid, layer_norm)
 from edgeyolo_tpu_torch.ops.boxes import dist2bbox, dist2rbox, make_anchors
+from edgeyolo_tpu_torch.utils import uniform_
 
 
 def topk_small(x: torch.Tensor, k: int, dim: int = -1) -> torch.Tensor:
@@ -358,3 +376,112 @@ class Classify(nn.Module):
         if isinstance(x, (list, tuple)):
             x = torch.cat(x, 1)
         return self.linear(self.drop(self.conv(x).mean((2, 3))))
+
+
+def cdn_attention_mask(d: int, nq: int, group_size: int, device=None) -> torch.Tensor:
+    """(d + nq, d + nq) bool, True = blocked: the real queries never see the
+    d denoising queries (groups of group_size), and each dn group sees no
+    other dn group."""
+    i = torch.arange(d + nq, device=device)
+    group = torch.where(i < d, i // group_size, -1)
+    return (i[None] < d) & ((i[:, None] >= d) | (group[:, None] != group[None]))
+
+
+class RTDETRDecoder(nn.Module):
+    """RT-DETR query decoder head over the pyramid levels."""
+
+    FOCAL_PRIOR = -math.log((1 - 0.01) / 0.01)  # bias_init_with_prob(0.01), whatever nc
+
+    def __init__(self, nc: int = 80, ch: Sequence[int] = (), stride: Sequence[int] = (8, 16, 32),
+                 hd: int = 256, nq: int = 300, ndp: int = 4, nh: int = 8, ndl: int = 6,
+                 d_ffn: int = 1024, learnt_init_query: bool = False):
+        super().__init__()
+        self.nc, self.hd, self.nq, self.stride = nc, hd, nq, tuple(stride)
+        self.input_proj = nn.ModuleList(
+            nn.Sequential(nn.Conv2d(c, hd, 1, bias=False), batch_norm(hd)) for c in ch)
+        self.decoder = DeformableTransformerDecoder(hd, ndl, nh, d_ffn, len(ch), ndp)
+        self.denoising_class_embed = nn.Embedding(nc, hd)
+        self.learnt_init_query = learnt_init_query
+        if learnt_init_query:
+            self.tgt_embed = nn.Embedding(nq, hd)
+        self.query_pos_head = MLP(4, 2 * hd, hd, 2)
+        self.enc_output = nn.Sequential(nn.Linear(hd, hd), nn.LayerNorm(hd, eps=1e-5))
+        self.enc_score_head = nn.Linear(hd, nc)
+        self.enc_bbox_head = MLP(hd, hd, 4, 3)
+        self.dec_score_head = nn.ModuleList(nn.Linear(hd, nc) for _ in range(ndl))
+        self.dec_bbox_head = nn.ModuleList(MLP(hd, hd, 4, 3) for _ in range(ndl))
+
+    @torch.no_grad()
+    def seeded_init(self, generator: torch.Generator) -> None:
+        """The denoising class embedding ~ N(0, 1), the learnt queries xavier-uniform."""
+        w = self.denoising_class_embed.weight
+        w.copy_(torch.randn(w.shape, generator=generator, dtype=torch.float32))
+        if self.learnt_init_query:
+            uniform_(self.tgt_embed.weight, (6.0 / sum(self.tgt_embed.weight.shape)) ** 0.5,
+                     generator)
+
+    @torch.no_grad()
+    def bias_init(self):
+        """Every score head's bias at the 0.01 focal prior."""
+        for m in (self.enc_score_head, *self.dec_score_head):
+            m.bias.fill_(self.FOCAL_PRIOR)
+
+    @staticmethod
+    def anchors(shapes, device=None, grid_size: float = 0.05, eps: float = 1e-2):
+        """(1, A, 4) anchor logits in f32 and (1, A, 1) their validity."""
+        out = []
+        for i, (h, w) in enumerate(shapes):
+            sy = (torch.arange(h, dtype=torch.float32, device=device) + 0.5) / h
+            sx = (torch.arange(w, dtype=torch.float32, device=device) + 0.5) / w
+            gy, gx = torch.meshgrid(sy, sx, indexing="ij")
+            xy = torch.stack([gx, gy], -1).reshape(-1, 2)
+            out.append(torch.cat([xy, torch.full_like(xy, grid_size * 2.0 ** i)], -1))
+        a = torch.cat(out)[None]
+        valid = ((a > eps) & (a < 1 - eps)).all(dim=-1, keepdim=True)
+        # large-finite, not inf: sigmoid(1e6) is 1 in f32 and the gradient stays finite
+        return torch.where(valid, torch.log(a / (1 - a)), 1e6), valid
+
+    def forward(self, xs, dn: dict | None = None):
+        b = xs[0].shape[0]
+        feats, shapes = [], []
+        for proj, x in zip(self.input_proj, xs):
+            p = norm_f32(proj[1], proj[0](x))
+            shapes.append(tuple(p.shape[2:]))
+            feats.append(p.flatten(2).transpose(1, 2))
+        feats = torch.cat(feats, dim=1)  # (B, A, hd)
+        anchors, valid = self.anchors(shapes, feats.device)
+        features = layer_norm(self.enc_output[1],
+                              self.enc_output[0](torch.where(valid, feats, 0.0)))
+        enc_scores_all = self.enc_score_head(features)
+        nq = min(self.nq, feats.shape[1])
+        _, ix = topk_stable(enc_scores_all.float().amax(dim=-1), nq)
+        top_feats = features.gather(1, ix[..., None].expand(-1, -1, self.hd))
+        refer = (self.enc_bbox_head(top_feats).float()
+                 + anchors.expand(b, -1, -1).gather(1, ix[..., None].expand(-1, -1, 4)))
+        out = {"enc_bboxes": refer.sigmoid(),
+               "enc_scores": enc_scores_all.gather(1, ix[..., None].expand(-1, -1, self.nc))}
+        if self.learnt_init_query:
+            embed = self.tgt_embed.weight[None].expand(b, -1, -1).to(features.dtype)
+        else:
+            embed = top_feats.detach() if self.training else top_feats
+        if self.training:
+            refer = refer.detach()
+        mask, d = None, 0
+        if dn is not None:
+            dn_embed = self.denoising_class_embed.weight[dn["cls"]].to(embed.dtype)
+            d = dn_embed.shape[1]
+            mask = cdn_attention_mask(d, embed.shape[1], int(dn["group_size"]), feats.device)
+            embed = torch.cat([dn_embed, embed], dim=1)
+            refer = torch.cat([inverse_sigmoid(dn["bbox"].float()), refer], dim=1)
+        box, score, boxes, scores = self.decoder(embed, refer, feats, shapes, self.dec_bbox_head,
+                                                 self.dec_score_head, self.query_pos_head, mask)
+        if d:
+            out["dn_feats"] = [box[:, :d], score[:, :d]]
+            out["dn_aux"] = ([t[:, :d] for t in boxes], [t[:, :d] for t in scores])
+            box, score = box[:, d:], score[:, d:]
+            boxes, scores = [t[:, d:] for t in boxes], [t[:, d:] for t in scores]
+        out["feats"] = [box, score]
+        out["aux"] = (boxes, scores)
+        if not self.training:
+            out["pred"] = torch.cat([box, score.float().sigmoid()], dim=-1)
+        return out

@@ -29,7 +29,11 @@ head (its prototype width npr scaled as a channel count), the Pose head
 OBB head, and the Classify head and ResNetLayer of the cls YAMLs (a
 ResNetLayer row takes no width scale: c2 is its base width for the stem,
 else base x e; the reference's [c1, c2, s, is_first, n, e] layout is told
-by the bool at index 3) are registered; an unknown module name raises.
+by the bool at index 3), and RT-DETR's HGStem, HGBlock (its repeats at
+args index 3, no width scale), LightConv, AIFI (c1 first), RepC3 and the
+RTDETRDecoder head are registered; an unknown module name raises.
+An RT-DETR model's forward hands `dn`, the contrastive-denoising queries
+of a training step, to its head.
 `guess_model_task` names a spec's task by its head, as JAX does;
 SegmentationModel, PoseModel, OBBModel and ClassificationModel are the
 DetectionModel of their tasks. A classify model's BatchNorms keep torch's
@@ -51,19 +55,20 @@ from edgeyolo_tpu_torch.cfg.models import model_cfg
 from edgeyolo_tpu_torch.nn.modules.block import (C2, C2f, C2fPSA, C2PSA, C3, C3k, C3k2, PSA, SPP,
                                                  SPPF, Bottleneck, SCDown)
 from edgeyolo_tpu_torch.nn.modules.conv import (BatchNorm2d, Concat, ConvBN, ConvTranspose2d,
-                                                DSConv, DWConv, GhostConv, MaxPool2d, Upsample,
-                                                ZeroPad2d, default_act)
+                                                DSConv, DWConv, GhostConv, LightConv, MaxPool2d,
+                                                Upsample, ZeroPad2d, default_act)
 from edgeyolo_tpu_torch.nn.modules.edgeline import C2PSA_LinearAttention, DSC3K2, DSC3K2_Wavelet
 from edgeyolo_tpu_torch.nn.modules.extra import (CIB, A2C2f, AdaHyperedgeGen, C2fCIB, C3Ghost,
                                                  DownsampleConv, FullPAD_Tunnel, GhostBottleneck,
-                                                 HyperACE, RepVGGDW, ResNetLayer)
+                                                 HGBlock, HGStem, HyperACE, RepVGGDW, ResNetLayer)
 from edgeyolo_tpu_torch.nn.modules.gelan import (ADown, AConv, CBFuse, CBLinear, ELAN1, SPPELAN,
                                                  RepConv, RepNCSPELAN4)
 from edgeyolo_tpu_torch.nn.modules.head import (OBB, Classify, Detect, E2EDetect, GFLHeadv2_uniH,
-                                                Pose, Segment, v10Detect)
+                                                Pose, RTDETRDecoder, Segment, v10Detect)
 from edgeyolo_tpu_torch.nn.modules.msla_lgl import (C3AW_MLM, DSC3K2_LGL, DSC3K2_MSLA,
                                                     HyperACE_Wavelet, Wavelet_SS2D)
-from edgeyolo_tpu_torch.utils import make_divisible, select_device
+from edgeyolo_tpu_torch.nn.modules.transformer import AIFI, MultiheadAttention, RepC3
+from edgeyolo_tpu_torch.utils import make_divisible, select_device, uniform_
 
 _HYPERACE_ARGS = ["c2", "n", "num_hyperedges", "dsc3k", "shortcut", "e1", "e2", "context",
                   "channel_adjust"]
@@ -74,6 +79,7 @@ _REG: dict[str, tuple[type, list[str]]] = {
     "DWConv": (DWConv, ["c2", "k", "s", "d", "act"]),
     "DSConv": (DSConv, ["c2", "k", "s", "p", "d"]),
     "GhostConv": (GhostConv, ["c2", "k", "s", "g", "act"]),
+    "LightConv": (LightConv, ["c2", "k"]),
     "nn.ConvTranspose2d": (ConvTranspose2d, ["c2", "k", "s", "p"]),
     "Bottleneck": (Bottleneck, ["c2", "shortcut", "g", "k", "e"]),
     "C2": (C2, ["c2", "n", "shortcut", "g", "e"]),
@@ -115,6 +121,10 @@ _REG: dict[str, tuple[type, list[str]]] = {
     "CBFuse": (CBFuse, ["idx"]),
     "ResNetLayer": (ResNetLayer, ["c2", "s", "is_first", "n", "e"]),
     "Classify": (Classify, ["c2", "k", "s", "p", "g"]),
+    "HGStem": (HGStem, ["cm", "c2"]),
+    "HGBlock": (HGBlock, ["cm", "c2", "k", "n", "lightconv", "shortcut", "act"]),
+    "AIFI": (AIFI, ["c1", "cm", "num_heads"]),
+    "RepC3": (RepC3, ["c2", "n", "e"]),
     "nn.Identity": (nn.Identity, []),
     "Concat": (Concat, ["dim"]),
     "nn.Upsample": (Upsample, ["size", "scale_factor", "mode"]),
@@ -129,27 +139,28 @@ _REG: dict[str, tuple[type, list[str]]] = {
     "Segment": (Segment, ["nc", "nm", "npr"]),
     "Pose": (Pose, ["nc", "kpt_shape"]),
     "OBB": (OBB, ["nc", "ne"]),
+    "RTDETRDecoder": (RTDETRDecoder, ["nc"]),
 }
 _CONV_LIKE = {"Conv", "ConvBN", "DWConv", "DSConv", "GhostConv", "nn.ConvTranspose2d",
               "Bottleneck", "C2", "C2f", "C3", "C3k", "C3k2", "SPP", "SPPF", "C2PSA", "C2fPSA",
               "PSA", "SCDown", "CIB", "C2fCIB", "GhostBottleneck", "C3Ghost",
               "C2PSA_LinearAttention", "DSC3K2", "DSC3K2_Wavelet", "DSC3K2_MSLA", "DSC3K2_LGL",
               "C3AW_MLM", "A2C2f", "RepConv", "RepNCSPELAN4", "ELAN1", "AConv", "ADown",
-              "SPPELAN", "Classify"}
+              "SPPELAN", "Classify", "LightConv", "RepC3"}
 # CSP modules that take the repeats as their argument; any other module with n > 1 is
 # built as n copies in sequence
 _REPEAT_INSERT = {"C2", "C2f", "C3", "C3k2", "C2PSA", "C2fPSA", "C2fCIB", "C3Ghost",
                   "C2PSA_LinearAttention", "DSC3K2", "DSC3K2_Wavelet", "DSC3K2_MSLA",
-                  "DSC3K2_LGL", "A2C2f"}
+                  "DSC3K2_LGL", "A2C2f", "RepC3"}
 _C3K2_FAMILY = {"C3k2", "DSC3K2", "DSC3K2_Wavelet", "DSC3K2_MSLA", "DSC3K2_LGL"}
 _HYPERACE = {"HyperACE", "HyperACE_Wavelet", "Wavelet_SS2D"}
 _HEADS = {"Detect", "v10Detect", "GFLHeadv2_uniH", "GF2Detect", "E2EDetect", "GFLHeadv2_E2E",
-          "Segment", "Pose", "OBB"}
+          "Segment", "Pose", "OBB", "RTDETRDecoder"}
 _STRIDE_ARG = {"Conv", "ConvBN", "DWConv", "DSConv", "GhostConv", "SCDown", "RepConv",
                "nn.MaxPool2d"}
-_STRIDE_FIXED = {"AConv": 2.0, "ADown": 2.0, "DownsampleConv": 2.0}
+_STRIDE_FIXED = {"AConv": 2.0, "ADown": 2.0, "DownsampleConv": 2.0, "HGStem": 4.0}
 # built from c1 (the channels of their input, the second one for HyperACE) and the args
-_TAKES_C1 = _CONV_LIKE | _HYPERACE | {"CBLinear", "ResNetLayer"}
+_TAKES_C1 = _CONV_LIKE | _HYPERACE | {"CBLinear", "ResNetLayer", "HGStem", "HGBlock"}
 # convs that a YAML's `activation:` override reaches by argument (JAX tasks.py)
 _ACT_ARG = {"Conv", "ConvBN", "DWConv"}
 _ACT_NAMES = ("relu6", "relu", "silu", "sigmoid", "tanh")
@@ -271,6 +282,17 @@ def parse_spec(d: dict, ch: int = 3) -> tuple[tuple[LayerSpec, ...], tuple[int, 
                 args = args[1:]
             c2 = args[0] if len(args) > 2 and args[2] else args[0] * (args[4] if len(args) > 4
                                                                        else 4)
+        elif name in ("HGStem", "HGBlock"):  # no width scale; HGBlock's repeats at index 3
+            c2 = args[1]
+            if name == "HGBlock":
+                args.insert(3, n_scaled)
+                n_scaled = 1
+        elif name == "AIFI":
+            args = [c1, *args]
+            c2 = c1
+        elif name == "RTDETRDecoder":
+            kwargs["ch"] = tuple(ch_list[x] for x in f_list)
+            c2 = sum(kwargs["ch"])
         elif name == "Concat":
             c2 = sum(ch_list[x] for x in f_list)
         elif name in _HEADS:
@@ -344,9 +366,10 @@ class GraphNet(nn.Module):
         self.save = frozenset(save)
         self.model = nn.ModuleList(build_module(sp, head_stride) for sp in layers)
 
-    def forward(self, x, capture: Sequence[int] | None = None):
+    def forward(self, x, capture: Sequence[int] | None = None, dn: dict | None = None):
         """The head's output; with `capture`, (output, {i: layer i's raw
-        output}) for the listed layers (JAX's `capture`, feature maps)."""
+        output}) for the listed layers (JAX's `capture`, feature maps). `dn`
+        goes to an RTDETRDecoder head (training's denoising queries)."""
         y: dict[int, torch.Tensor] = {}
         want = frozenset(capture or ())
         captured: dict[int, torch.Tensor] = {}
@@ -356,7 +379,7 @@ class GraphNet(nn.Module):
                 inp = out if sp.f[0] == -1 else y[sp.f[0]]
             else:
                 inp = [out if j == -1 else y[j] for j in sp.f]
-            out = m(inp)
+            out = m(inp) if dn is None or sp.name != "RTDETRDecoder" else m(inp, dn=dn)
             if sp.i in self.save:
                 y[sp.i] = out
             if sp.i in want:
@@ -364,17 +387,14 @@ class GraphNet(nn.Module):
         return (out, captured) if capture else out
 
 
-def _uniform_(t: torch.Tensor, bound: float, generator: torch.Generator) -> None:
-    w = torch.rand(t.shape, generator=generator, dtype=torch.float32)
-    t.copy_(w * (2 * bound) - bound)
-
-
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded initialisation: every trainable conv (transposed too) and linear
     weight ~ U(+-1/sqrt(fan_in)) (torch's default, the JAX KERNEL_INIT), their biases
     0; hyperedge prototypes xavier-uniform, as flax initialises them.
     BatchNorm, LayerNorm, the gates, the wavelet and MSLA scale weights and
-    the frozen DFL bins keep their constructor values."""
+    the frozen DFL bins keep their constructor values. A module with its own
+    rule (`seeded_init`: RT-DETR's packed attention, deformable attention
+    and denoising embedding) then applies it, drawing from `generator`."""
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.ConvTranspose2d, nn.Linear)) and \
@@ -382,12 +402,15 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
                 # fan_in: (in, out, kh, kw) for a transposed conv, else (out, in/g, ...)
                 fan_in = (m.weight[:, 0].numel() if isinstance(m, nn.ConvTranspose2d)
                           else m.weight[0].numel())
-                _uniform_(m.weight, fan_in ** -0.5, generator)
+                uniform_(m.weight, fan_in ** -0.5, generator)
                 if m.bias is not None:
                     m.bias.zero_()
             elif isinstance(m, AdaHyperedgeGen):
                 e, d = m.prototype_base.shape
-                _uniform_(m.prototype_base, (6.0 / (e + d)) ** 0.5, generator)
+                uniform_(m.prototype_base, (6.0 / (e + d)) ** 0.5, generator)
+        for m in model.modules():
+            if hasattr(m, "seeded_init"):
+                m.seeded_init(generator)
 
 
 def num_params(model: nn.Module) -> int:
@@ -417,11 +440,23 @@ def amp_params(model: nn.Module) -> dict[str, torch.Tensor]:
     return {n: v.view_as(p) for (n, p), v in zip(named, flat.split([p.numel() for _, p in named]))}
 
 
-def train_forward(model: nn.Module, x: torch.Tensor, amp: bool = True) -> dict:
+def _f32(v):
+    """Every tensor of a nested list, tuple or dict in f32."""
+    if isinstance(v, torch.Tensor):
+        return v.float()
+    if isinstance(v, dict):
+        return {k: _f32(t) for k, t in v.items()}
+    return type(v)(_f32(t) for t in v)
+
+
+def train_forward(model: nn.Module, x: torch.Tensor, amp: bool = True,
+                  dn: dict | None = None) -> dict:
     """The training forward: {"feats", "quality", "one2one_feats",
     "one2one_quality"} per level, in f32; a key the head does not emit
     (the quality of Detect, the one2one branch of a head that is not end to
     end) is None. A segment head adds "mask_coefs" and "proto", in f32.
+    An RT-DETR head's whole output dict comes back in f32, its denoising
+    queries built from `dn`.
 
     With `amp`, as JAX's `amp_cast` of the f32 masters: the forward sees
     `amp_params(model)` through `torch.func.functional_call`, so gradients
@@ -430,11 +465,15 @@ def train_forward(model: nn.Module, x: torch.Tensor, amp: bool = True) -> dict:
     wavelet band weights and the quality head compute in f32 on the rounded
     values, as in serving.
     """
+    kw = {} if dn is None else {"dn": dn}
     if not amp:
-        out = model(x)
+        out = model(x, **kw)
     else:
         with torch.autocast(x.device.type, dtype=torch.bfloat16):
-            out = torch.func.functional_call(model, amp_params(model), (x.to(torch.bfloat16),))
+            out = torch.func.functional_call(model, amp_params(model), (x.to(torch.bfloat16),),
+                                             kw)
+    if "enc_scores" in out:
+        return _f32(out)
     res = {k: None if out.get(k) is None else [f.float() for f in out[k]]
            for k in ("feats", "quality", "one2one_feats", "one2one_quality")}
     for k in ("mask_coefs", "proto", "kpts_raw", "angle"):  # the task heads' extras
@@ -506,6 +545,9 @@ class DetectionModel(GraphNet):
         for m in self.modules():
             if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
                 m.to(dtype)
+            elif isinstance(m, MultiheadAttention):  # its packed q, k, v projection
+                m.in_proj_weight.data = m.in_proj_weight.data.to(dtype)
+                m.in_proj_bias.data = m.in_proj_bias.data.to(dtype)
         for q in getattr(self.model[-1], "quality_heads", list)():
             q.float()  # the quality heads are an f32 island, as in JAX
         self.dtype = dtype
@@ -537,6 +579,22 @@ class OBBModel(DetectionModel):
         super().__init__(cfg, *args, **kwargs)
         if self.task != "obb":
             raise ValueError(f"{cfg} has no OBB head (its task is {self.task})")
+
+
+class RTDETRDetectionModel(DetectionModel):
+    """RT-DETR's query-based detector: a spec whose head is RTDETRDecoder
+    (no NMS; trained through train/detr_loss.py's RTDETRDetectionLoss with
+    contrastive denoising)."""
+
+    def __init__(self, cfg: str = "rtdetr-l.yaml", *args, **kwargs):
+        super().__init__(cfg, *args, **kwargs)
+        if not is_rtdetr(self):
+            raise ValueError(f"{cfg} has no RTDETRDecoder head")
+
+
+def is_rtdetr(model) -> bool:
+    """Whether a model's head is RT-DETR's query decoder."""
+    return isinstance(getattr(model, "model", [None])[-1], RTDETRDecoder)
 
 
 class ClassificationModel(DetectionModel):

@@ -18,6 +18,10 @@ def xywh2xyxy(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([xy - wh, xy + wh], dim=-1)
 
 
+def xyxy2xywh(x: torch.Tensor) -> torch.Tensor:
+    return torch.cat([(x[..., :2] + x[..., 2:4]) / 2, x[..., 2:4] - x[..., :2]], dim=-1)
+
+
 def make_anchors(feat_shapes: Sequence[tuple[int, int]], strides: Sequence[int], device=None):
     """Cell-centre anchors in grid units (A, 2) and per-anchor strides (A, 1), row-major per level."""
     points, strds = [], []
@@ -41,8 +45,8 @@ def dist2bbox(distance: torch.Tensor, anchor_points: torch.Tensor, xywh: bool = 
 
 
 def bbox_iou(box1: torch.Tensor, box2: torch.Tensor, xywh: bool = True,
-             CIoU: bool = False) -> torch.Tensor:
-    """Elementwise IoU, or CIoU, of broadcastable box tensors -> (..., 1).
+             CIoU: bool = False, GIoU: bool = False) -> torch.Tensor:
+    """Elementwise IoU, CIoU or GIoU of broadcastable box tensors -> (..., 1).
 
     As JAX's: EPS goes into the heights of the xyxy branch only, and CIoU's
     alpha carries no gradient (stop_gradient there, detach here).
@@ -61,10 +65,13 @@ def bbox_iou(box1: torch.Tensor, box2: torch.Tensor, xywh: bool = True,
              * (torch.minimum(b1y2, b2y2) - torch.maximum(b1y1, b2y1)).clamp(min=0))
     union = w1 * h1 + w2 * h2 - inter + EPS
     iou = inter / union
-    if not CIoU:
+    if not (CIoU or GIoU):
         return iou
     cw = torch.maximum(b1x2, b2x2) - torch.minimum(b1x1, b2x1)
     ch = torch.maximum(b1y2, b2y2) - torch.minimum(b1y1, b2y1)
+    if not CIoU:  # GIoU: less the share of the enclosing box the union leaves empty
+        c_area = cw * ch + EPS
+        return iou - (c_area - union) / c_area
     c2 = cw ** 2 + ch ** 2 + EPS
     rho2 = ((b2x1 + b2x2 - b1x1 - b1x2) ** 2 + (b2y1 + b2y2 - b1y1 - b1y2) ** 2) / 4
     v = (4 / math.pi ** 2) * (torch.atan(w2 / h2) - torch.atan(w1 / h1)) ** 2

@@ -22,7 +22,12 @@ The step: uint8 batch -> `augment_batch` -> forward in train mode (with
 dict when the model's head is end to end, `SegmentationLoss` for a segment
 model, whose instance masks ride `augment_batch` with the images,
 `PoseLoss` for a pose model, with its keypoints, and `OBBLoss` for an obb
-model, whose rotated boxes, warped, are the criterion's boxes) -> backward -> accumulate ->
+model, whose rotated boxes, warped, are the criterion's boxes; for an RT-DETR
+model the contrastive-denoising queries are built from the augmented targets
+(`make_cdn_group`, drawn from the trainer's generator), handed to the head,
+and `RTDETRDetectionLoss` takes the whole output dict; its L1, class and
+GIoU items are the epoch's box, cls and dfl columns, as in JAX's log) ->
+backward -> accumulate ->
 update -> EMA. `DetectionTrainer.train(batches)` runs epochs over a re-iterable of
 batches in the loader's collate format. `DetectionTrainer.fit()` is JAX's
 dataset-driven `DetectionTrainer.train`: the dataset YAML, a shuffled
@@ -36,7 +41,8 @@ once and writes the same bytes to `best.pt` and `last.pt`. Checkpoints are
 `weights_only=True`: the state_dicts (reference keys, so
 edgeyolo_tpu/utils/torch_convert.py::convert_state_dict maps them onto the
 flax tree) of the trained and the EMA weights, the optimizer's flat
-buffers, the MultiSteps state, the augmentation generator, the update
+buffers, the MultiSteps state (its accumulator only between updates: it is
+zero at mini-step 0), the augmentation generator, the update
 count, the epoch and the best fitness, with a JSON sidecar of metadata.
 Freeze and multi-host training are not ported yet.
 """
@@ -60,7 +66,9 @@ from torch import nn
 from edgeyolo_tpu_torch.data.augment_device import augment_batch
 from edgeyolo_tpu_torch.data.dataset import (DataLoader, YOLODataset, build_dataloader,
                                              check_det_dataset)
-from edgeyolo_tpu_torch.nn.tasks import train_forward
+from edgeyolo_tpu_torch.nn.modules.transformer import MultiheadAttention
+from edgeyolo_tpu_torch.nn.tasks import is_rtdetr, train_forward
+from edgeyolo_tpu_torch.train.detr_loss import RTDETRDetectionLoss, make_cdn_group
 from edgeyolo_tpu_torch.train.loss import (DetectionLoss, E2EDetectLoss, OBBLoss, PoseLoss,
                                            SegmentationLoss)
 from edgeyolo_tpu_torch.utils import LOGGER, select_device
@@ -105,12 +113,16 @@ def deterministic_algorithms(on: bool):
 
 def _decay_mask(model: nn.Module) -> dict[str, bool]:
     """Parameter name -> whether it takes weight decay: conv (transposed too)
-    and linear kernels only (BatchNorm and LayerNorm scales and shifts, biases, gates, the
-    wavelet and MSLA weights and the hyperedge prototypes take none)."""
+    and linear kernels only, an attention's packed q, k, v kernel among them
+    (BatchNorm and LayerNorm scales and shifts, biases, gates, the wavelet
+    and MSLA weights, the hyperedge prototypes and RT-DETR's denoising
+    embedding take none)."""
     kernels = {name for name, m in model.named_modules()
                if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.ConvTranspose2d, nn.Linear))}
-    return {name: name.rpartition(".")[0] in kernels and name.endswith(".weight")
-            for name, p in model.named_parameters() if p.requires_grad}
+    packed = {f"{name}.in_proj_weight" for name, m in model.named_modules()
+              if isinstance(m, MultiheadAttention)}
+    return {name: (name.rpartition(".")[0] in kernels and name.endswith(".weight"))
+            or name in packed for name, p in model.named_parameters() if p.requires_grad}
 
 
 class FlatParams:
@@ -342,10 +354,12 @@ class DetectionTrainer(CallbackMixin):
         self.model = model.to(self.device).train()
         self.end2end = bool(getattr(model, "end2end", False))
         self.task = getattr(model, "task", "detect")
+        self.rtdetr = is_rtdetr(model)
         # criteria called with the whole output dict
-        self.dict_loss = self.end2end or self.task in ("segment", "pose", "obb")
+        self.dict_loss = self.end2end or self.rtdetr or self.task in ("segment", "pose", "obb")
         loss_cls = {"segment": SegmentationLoss, "pose": PoseLoss, "obb": OBBLoss}.get(
-            self.task, E2EDetectLoss if self.end2end else DetectionLoss)
+            self.task, RTDETRDetectionLoss if self.rtdetr else
+            E2EDetectLoss if self.end2end else DetectionLoss)
 
         self.criterion = self.build_criterion(loss_cls)
         self.gen = torch.Generator().manual_seed(int(self.args["seed"]))
@@ -384,13 +398,17 @@ class DetectionTrainer(CallbackMixin):
                             self.gen, imgsz, a, mosaic,
                             **({extra: batch.get(extra)} if extra else {}))
         img01, cls, bboxes, mask = aug[:4]
-        out = train_forward(self.model, img01.permute(0, 3, 1, 2).contiguous(),
-                            amp=bool(a["amp"]))
         tgt = {"cls": cls, "bboxes": bboxes, "mask_gt": mask, "img_weight": batch["img_weight"]}
+        if self.rtdetr:
+            tgt["dn"] = make_cdn_group(cls, bboxes, mask, self.model.nc, self.gen)
+        out = train_forward(self.model, img01.permute(0, 3, 1, 2).contiguous(),
+                            amp=bool(a["amp"]), dn=tgt.get("dn"))
         if len(aug) == 5:  # the obb criterion's boxes are the rotated ones
             tgt["bboxes" if extra == "rboxes" else extra] = aug[4]
         loss, items = (self.criterion(out, tgt) if self.dict_loss
                        else self.criterion(out["feats"], tgt, out.get("quality")))
+        if self.rtdetr:  # JAX logs L1, cls and GIoU in the box, cls and dfl columns
+            items = {**items, "box": items["l1"], "dfl": items["giou"]}
         self.flat.grad.zero_()
         loss.backward()
         updated = self.optimizer.step(self.flat.data, self.flat.grad)
@@ -566,7 +584,9 @@ class DetectionTrainer(CallbackMixin):
             "optimizer": {"name": opt.name, "count": opt.count,
                           **{k: getattr(opt, k).detach().cpu().clone()
                              for k in ("trace", "mu", "nu") if getattr(opt, k) is not None},
-                          "acc": self.optimizer.acc.detach().cpu().clone(),
+                          # zero at mini-step 0 (after an update): not stored then
+                          "acc": (self.optimizer.acc.detach().cpu().clone()
+                                  if self.optimizer.mini_step else None),
                           "mini_step": self.optimizer.mini_step},
             "generator": self.gen.get_state(),
             "updates": self.ema.updates, "epoch": epoch, "best_fitness": float(self.best_fitness),
@@ -610,7 +630,8 @@ class DetectionTrainer(CallbackMixin):
         for k in ("trace", "mu", "nu"):
             if k in st:
                 setattr(opt, k, st[k].to(self.device))
-        self.optimizer.acc = st["acc"].to(self.device)
+        self.optimizer.acc = (torch.zeros_like(self.optimizer.acc) if st["acc"] is None
+                              else st["acc"].to(self.device))
         self.optimizer.mini_step = int(st["mini_step"])
         self.gen.set_state(ck["generator"])
         self.best_fitness = float(ck["best_fitness"])

@@ -26,4 +26,11 @@ def select_device(device: str | torch.device | None = None) -> torch.device:
     return torch.device("cuda")
 
 
+def uniform_(t: torch.Tensor, bound: float, generator: torch.Generator) -> None:
+    """t filled in place with U(-bound, bound) drawn from `generator` (in f32,
+    on the CPU, then copied: the same weights on every device)."""
+    w = torch.rand(t.shape, generator=generator, dtype=torch.float32)
+    t.copy_(w * (2 * bound) - bound)
+
+
 LOGGER = logging.getLogger("edgeyolo_tpu_torch")

@@ -19,6 +19,16 @@ never on the shape: Proto's square 256 -> 256 kernel has a conv's shape),
 (out, in). Plain parameters
 (`gate`, `gamma`, `scale_weights`, `prototype_base`) keep their name and
 layout.
+
+An RT-DETR tree (a top scope `l{i}_RTDETRDecoder`) takes the reference's
+torch names on top (the port's copy of JAX's `RTDETR_REWRITE_RULES`): AIFI's
+`enc` scope is dropped, `input_proj_{i}_conv`/`_bn` are `input_proj.{i}.0`/
+`.1`, the decoder's `layer_{i}`, `bbox_head_{i}` and `score_head_{i}` are
+`decoder.layers.{i}`, `dec_bbox_head.{i}` and `dec_score_head.{i}`, an
+MLP's `l{i}` is `layers.{i}`, and `denoising_class_embed` is an embedding's
+`.weight`; each attention's four dense layers (`X_q`, `X_k`, `X_v`, `X_o`)
+are packed into nn.MultiheadAttention's `X.in_proj_weight`,
+`X.in_proj_bias` and `X.out_proj` (JAX's `pack_attention`).
 """
 
 from __future__ import annotations
@@ -33,6 +43,17 @@ _LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias", "mean": "running
 _COLLECTIONS = ("params", "batch_stats")
 # GhostBottleneck's shortcut convs: torch's Sequential indices
 _SCOPE = {"short_dw": "shortcut_0", "short_pw": "shortcut_1"}
+RTDETR_REWRITE_RULES = (
+    (r"\.enc\.(ma|fc1|fc2|norm1|norm2)", r".\1"),
+    (r"\.input_proj_(\d)_conv\.", r".input_proj.\1.0."),
+    (r"\.input_proj_(\d)_bn\.", r".input_proj.\1.1."),
+    (r"\.decoder\.layer\.(\d+)\.", r".decoder.layers.\1."),
+    (r"\.decoder\.bbox_head\.(\d+)\.", r".dec_bbox_head.\1."),
+    (r"\.decoder\.score_head\.(\d+)\.", r".dec_score_head.\1."),
+    (r"\.l(\d)\.(weight|bias)$", r".layers.\1.\2"),
+    (r"\.denoising_class_embed$", ".denoising_class_embed.weight"),
+    (r"\.tgt_embed$", ".tgt_embed.weight"),
+)
 
 
 def jax_path_to_torch_key(path: tuple[str, ...]) -> str:
@@ -49,6 +70,28 @@ def jax_path_to_torch_key(path: tuple[str, ...]) -> str:
     key = ".".join(scopes + [_LEAF.get(parts[-1], parts[-1])])
     key = key.replace("upsample.conv_transpose.", "upsample.")  # Proto's raw ConvTranspose2d
     return re.sub(r"reg_conf\.(\d+)\.1\.", r"reg_conf.\1.2.", key)
+
+
+def rtdetr_key(key: str) -> str:
+    """A state_dict key under the RT-DETR rewrite rules."""
+    for pat, rep in RTDETR_REWRITE_RULES:
+        key = re.sub(pat, rep, key)
+    return key
+
+
+def pack_attention(sd: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """Every complete set of X_q/X_k/X_v/X_o dense keys packed into
+    nn.MultiheadAttention's in_proj_weight, in_proj_bias and out_proj."""
+    sd = dict(sd)
+    for k in [k for k in sd if k.endswith("_q.weight")]:
+        base = k[: -len("_q.weight")]
+        if not all(f"{base}_{n}.{p}" in sd for n in "qkvo" for p in ("weight", "bias")):
+            continue
+        sd[f"{base}.in_proj_weight"] = torch.cat([sd.pop(f"{base}_{n}.weight") for n in "qkv"])
+        sd[f"{base}.in_proj_bias"] = torch.cat([sd.pop(f"{base}_{n}.bias") for n in "qkv"])
+        sd[f"{base}.out_proj.weight"] = sd.pop(f"{base}_o.weight")
+        sd[f"{base}.out_proj.bias"] = sd.pop(f"{base}_o.bias")
+    return sd
 
 
 def from_jax_variables(flat: dict[tuple[str, ...], np.ndarray]) -> dict[str, torch.Tensor]:
@@ -72,4 +115,6 @@ def from_jax_variables(flat: dict[tuple[str, ...], np.ndarray]) -> dict[str, tor
         elif path[-1] == "kernel" and arr.ndim == 2:
             arr = arr.T
         sd[jax_path_to_torch_key(tuple(path))] = torch.tensor(arr.copy())
+    if any(k[1].endswith("_RTDETRDecoder") for k in flat):  # (collection, top scope, ...)
+        sd = pack_attention({rtdetr_key(k): v for k, v in sd.items()})
     return sd

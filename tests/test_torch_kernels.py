@@ -199,3 +199,26 @@ def test_kernel_rejects_what_it_cannot_take(cuda_card):
     q40, k40, v40 = (t[..., :40] for t in (q, k, v))
     with pytest.raises(ValueError, match="D in"):
         la.linear_attention_kernel(q40, k40, v40)
+
+
+@pytest.mark.cuda
+def test_deformable_sampler_on_card_matches_cpu(cuda_card):
+    """RT-DETR's sampler (plain PyTorch: four index gathers a level) on the
+    card against the CPU at rtdetr-l's 640 px shapes, taps outside the maps
+    included: 1e-5 of the output scale, and its gradients likewise."""
+    from edgeyolo_tpu_torch.nn.modules.transformer import ms_deform_sample
+
+    g = torch.Generator().manual_seed(0)
+    shapes = ((80, 80), (40, 40), (20, 20))
+    value = torch.randn(2, 8400, 8, 32, generator=g)
+    loc = torch.rand(2, 300, 8, 3, 4, 2, generator=g) * 1.4 - 0.2
+    aw = torch.rand(2, 300, 8, 3, 4, generator=g)
+    ins = [t.requires_grad_() for t in (value, loc, aw)]
+    card = [t.detach().to(cuda_card).requires_grad_() for t in ins]
+    want = ms_deform_sample(ins[0], shapes, ins[1], ins[2])
+    got = ms_deform_sample(card[0], shapes, card[1], card[2])
+    assert (got.detach().cpu() - want.detach()).abs().max() <= 1e-5 * want.abs().max()
+    (want ** 2).sum().backward()
+    (got ** 2).sum().backward()
+    for c, t in zip(card, ins):
+        assert (c.grad.cpu() - t.grad).abs().max() <= 1e-5 * t.grad.abs().max()
