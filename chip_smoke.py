@@ -179,7 +179,24 @@ Phases, each timed and each fatal when it fails:
                 best mAP50-95 less 0.1, no op without a deterministic form, and (a fit job
                 of its own) 3 epochs twice under strictly deterministic algorithms equal to
                 the bit (run in phase 8). The linear-attention kernel launches 0 times in all of it
- 15. device     each kernel's device time at the shapes of phase 3: the context and
+ 15. registry   the registry rows no bundled YAML uses, in one test graph
+                (tests/torch_registry_spec.py: Focus, C3k2_Wavelet and C3k2_TWavelet,
+                MulGate, C3x, RHJM, MSLA as a row, BottleneckCSP, SPPF_Wavelet, DySample,
+                C1, ConvTranspose, CBAM, WTConv2d, a TeLU conv), and the facade's fuse and
+                embed: (a) reference: the graph at 64 px in f32, card against CPU, at
+                seeded weights with the gates open and at its tests' weights
+                (REGISTRY_REF_SCALE), unfused and fused (5e-3 px, 1e-4), and the fused card
+                model against the unfused one (FUSED_F32_TOL); (b) serve: the graph at
+                batch 32 x 640 px in bf16 through DetectionPredictor (bf16 conv and linear
+                outputs, DySample's coordinates f32, the kernel at (32, 400, 2, 64) and
+                (128, 1600, 2, 16) held against the plain version on its own inputs on the
+                path, 2 launches per request, ms, img/s); then YOLO("edgeline-yolo.yaml")
+                .fuse() against the same model unfused on one batch, requests in turns
+                (a reading: request ms, matched detections' box and score gaps, BatchNorm
+                kernels of a profiled request of each); (c) embed: YOLO.embed of 32 images
+                at 640 px, the flagship at its default tap and at [10, 22] and the graph at
+                [13, 27], card against CPU in f32 on the first 8 (EMBED_TOL)
+ 16. device     each kernel's device time at the shapes of phase 3: the context and
      times      output launches each timed by its own event pair, in DEVICE_SESSIONS
                 sessions (median and spread, the SM clock read around each); after the
                 serve, train, fit and jpeg phases
@@ -251,6 +268,8 @@ LA_CASES = [
     (32, 25600, 2, 8, "float32", "qkv"),  # f32 at D = 8 (FMA products, split context)
     (4, 400, 2, 48, "bfloat16", "qkv"),  # the x scale's head dims
     (4, 400, 2, 96, "bfloat16", "qkv"),
+    # the registry graph's MSLA row (layer 9) in f32 at batch 1: embed at 640 px
+    (4, 1600, 2, 16, "float32", "qkv"),
 ]
 # the wavelet mixer's LL band (yolov13-test): 10 x 10 tokens at 640 px and 1 x 1 at 64 px,
 # head dim c / 2 = 32, 128 and 192 at scales n, l and x; one long case at D = 128
@@ -414,6 +433,16 @@ RTDETR_REPEAT_EPOCHS = 3  # the fit again, twice, strictly deterministic: equal 
 # its own, FIT_PROCS at once, longest first. Each is host-bound (one Python thread launching
 # small kernels, the card idle most of the time): one after another they took 640 s of the
 # script's 1,200 s on an H100, all eight at once 240 s, four at once 302 s (PERF.md section 6)
+# the registry test graph (tests/torch_registry_spec.py) and the facade's fuse and embed
+REGISTRY_REF_SCALE = 2.5  # tests/test_torch_registry_graph.py's weight SCALE
+REGISTRY_LA_SHAPES = {((32, 400, 2, 64), "bfloat16"), ((128, 1600, 2, 16), "bfloat16")}
+FUSED_F32_TOL = 1e-4  # fused against unfused f32 on the card: of the largest box coordinate, score
+EMBED_IMAGES = [(640, 640), (480, 640), (720, 1280), (360, 480)] * 8  # (h, w), letterboxed
+EMBED_IMGSZ = 640
+EMBED_TOL = 1e-4  # card against CPU in f32, of each vector's largest magnitude
+EMBED_CPU_IMAGES = 8  # of them embedded on the CPU too (a CPU forward at 640 px takes 0.1-0.3 s)
+BN_KERNEL_WORDS = ("batch_norm", "batchnorm", "bn_fw")  # device kernels of a BatchNorm
+
 FIT_PROCS = 8
 FIT_THREADS = 2  # torch's CPU threads in a fit's process (its validation on the CPU)
 FIT_TIMEOUT = 600  # s, each fit's process
@@ -597,14 +626,17 @@ def open_gates(model):
     which hides the branch behind it from the output and its gradients): the
     wavelet enhancers', DSC3K2_MSLA's, the wavelet mixers' and the SS2D
     context's gamma (MSLA and the mixer, and so the attention kernel, are
-    multiplied by tanh(gamma)) and the FullPAD tunnels' gate."""
+    multiplied by tanh(gamma)) and the FullPAD tunnels' gate; MulGate's gamma
+    with its BatchNorm scale at 1 and its zero `mix` conv drawn, and
+    DySample's zero offset conv drawn."""
     import torch
 
-    from edgeyolo_tpu_torch.nn.modules.edgeline import WaveletEnhancer
-    from edgeyolo_tpu_torch.nn.modules.extra import FullPAD_Tunnel
+    from edgeyolo_tpu_torch.nn.modules.edgeline import MulGate, WaveletEnhancer
+    from edgeyolo_tpu_torch.nn.modules.extra import DySample, FullPAD_Tunnel
     from edgeyolo_tpu_torch.nn.modules.msla_lgl import (DSC3K2_MSLA, LocalSS2DContext,
                                                         WaveletMixerMultiLevel)
 
+    gen = torch.Generator().manual_seed(0)
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, (WaveletEnhancer, WaveletMixerMultiLevel, LocalSS2DContext)) or (
@@ -612,7 +644,21 @@ def open_gates(model):
                 m.gamma.fill_(0.5)
             elif isinstance(m, FullPAD_Tunnel):
                 m.gate.fill_(0.5)
+            elif isinstance(m, MulGate):  # its branch needs `mix` and the BatchNorm scale too
+                m.gamma.fill_(0.5)
+                m.bn.weight.fill_(1.0)
+                drawn(m.mix.weight, gen)
+            elif isinstance(m, DySample):  # offsets away from the fixed bilinear upsample
+                drawn(m.offset.weight, gen)
     return model
+
+
+def drawn(weight, gen):
+    """weight filled from gen with U(+-1/sqrt(fan_in)), the seeded init's draw."""
+    import torch
+
+    w = torch.rand(weight.shape, generator=gen) * 2 - 1
+    weight.copy_(w * weight[0].numel() ** -0.5)
 
 
 def exercise_branches(model):
@@ -686,9 +732,10 @@ def n_attention(model) -> int:
 def perturbed(model, scale: float, seed: int = 0):
     """The weights tests/test_torch_families.py holds against JAX: BatchNorm
     statistics, scales and shifts moved, every gate opened at random, conv
-    and linear weights times `scale`, class logits spread around 0; under
-    them the output depends on the image (at init it is mostly the head's
-    biases)."""
+    and linear weights times `scale` (a zero-initialised one, MulGate's `mix`
+    and DySample's `offset`, drawn first; WTConv2d's learned scales moved as
+    scales), class logits spread around 0; under them the output depends on
+    the image (at init it is mostly the head's biases)."""
     import numpy as np
     import torch
 
@@ -710,9 +757,12 @@ def perturbed(model, scale: float, seed: int = 0):
             a = rs.uniform(0.5, 1.5, a.shape)
         elif leaf == "bias" and k.startswith(f"{head}.cv3.") and k.endswith(".2.bias"):
             a = rs.randn(*a.shape) * 0.5
-        elif leaf == "bias" or (leaf == "weight" and a.ndim == 1):
+        elif leaf == "bias" or (leaf == "weight" and a.ndim == 1) or ".base_scale." in k \
+                or ".wavelet_scale." in k:
             a = a + rs.randn(*a.shape) * 0.1
         elif leaf == "weight":
+            if not a.any():  # MulGate's mix, DySample's offset
+                a = rs.uniform(-1, 1, a.shape) * a[0].size ** -0.5
             a = a * scale
         out[k] = torch.from_numpy(np.asarray(a, v.cpu().numpy().dtype))
     # an E2E head's one2one class logits spread around 0 too (tests/test_torch_v13_e2e_families.py)
@@ -876,12 +926,13 @@ def serve(la, card: str):
     return launches, ms
 
 
-def profile_request(predictor, imgs, unprofiled_ms: float):
+def profile_request(predictor, imgs, unprofiled_ms: float, rows_out: list | None = None):
     """One more request under torch.profiler: device time by kernel, and the
     device's busy share both of the unprofiled median request time (the share
     to read: the profiler's own host overhead stretches the traced request)
     and of the traced request's wall time. A measurement only: a trace
-    without device events is reported as not measured."""
+    without device events is reported as not measured. `rows_out` receives
+    every (device kernel, us, count) row."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -894,6 +945,8 @@ def profile_request(predictor, imgs, unprofiled_ms: float):
     rows = sorted(((e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
                   key=lambda r: -r[1])
+    if rows_out is not None:
+        rows_out.extend(rows)
     if not rows:
         print("profile: no device events in the trace; device time not measured", flush=True)
         return None
@@ -3241,6 +3294,335 @@ def repeat_rtdetr(la, card: str, work: Path):
     return {"repeat": la.linear_attention_kernel.launches}, None
 
 
+def registry_spec() -> dict:
+    """The registry test graph's spec (tests/torch_registry_spec.py)."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_registry_spec import SPEC
+
+    return SPEC
+
+
+def registry_reference(la) -> int:
+    """The registry test graph's f32 forward at 64 px on the card (kernel)
+    against the CPU (plain version), at its seeded weights with the gates open
+    and at the weights of its tests (REGISTRY_REF_SCALE), unfused and fused
+    (DetectionModel.fuse on each side); then the fused card model against the
+    unfused one within FUSED_F32_TOL. Returns the kernel's launches per forward."""
+    import torch
+
+    from edgeyolo_tpu_torch.nn.tasks import DetectionModel
+
+    x = torch.rand(2, 3, 64, 64, generator=torch.Generator().manual_seed(1))
+    seeded = DetectionModel(registry_spec(), device="cpu", seed=0)
+    n_attn = n_attention(seeded)
+    for scale in (None, REGISTRY_REF_SCALE):
+        m = copy.deepcopy(seeded)
+        m = exercise_branches(m) if scale is None else perturbed(m, scale)
+        preds = {}
+        for fused in (False, True):
+            base = copy.deepcopy(m).fuse() if fused else m
+            for dev, model in (("cpu", base), ("cuda", copy.deepcopy(base).to("cuda"))):
+                la.linear_attention_kernel.launches = 0
+                with torch.inference_mode():
+                    preds[fused, dev] = model(x.to(dev))["pred"].float().cpu()
+            launches = la.linear_attention_kernel.launches
+            d = (preds[fused, "cuda"] - preds[fused, "cpu"]).abs()
+            box, cls = d[..., :4].max().item(), d[..., 4:].max().item()
+            spread = (preds[fused, "cpu"][0] - preds[fused, "cpu"][1])[..., :4].abs().max().item()
+            print(f"registry graph{' fused' if fused else ''}: f32 64px card (kernel, {launches} "
+                  f"launches) vs CPU (plain), "
+                  f"{'seeded weights' if scale is None else f'test weights x{scale}'} (boxes of "
+                  f"the two images apart by up to {spread:.3e} px): box {box:.3e} px (tol 5e-3), "
+                  f"score {cls:.3e} (tol 1e-4)", flush=True)
+            if not (torch.isfinite(preds[fused, "cuda"]).all() and box < 5e-3 and cls < 1e-4):
+                raise AssertionError("the registry graph on the card disagrees with the CPU")
+            if launches != n_attn:
+                raise AssertionError(f"registry graph: {launches} kernel launches in one forward, "
+                                     f"{n_attn} LinearAttention modules")
+        d = (preds[True, "cuda"] - preds[False, "cuda"]).abs()
+        scale_px = preds[False, "cuda"][..., :4].abs().max().item()
+        box, cls = d[..., :4].max().item(), d[..., 4:].max().item()
+        print(f"registry graph: fused vs unfused f32 on the card: box {box:.3e} px (tol "
+              f"{FUSED_F32_TOL} x {scale_px:.3f}), score {cls:.3e} (tol {FUSED_F32_TOL})",
+              flush=True)
+        if not (box <= FUSED_F32_TOL * scale_px and cls <= FUSED_F32_TOL):
+            raise AssertionError("the fused f32 registry graph moved from the unfused one")
+    return n_attn
+
+
+def serve_registry(la, card: str) -> int:
+    """The registry test graph served at SERVE_BATCH x SERVE_IMGSZ in bf16
+    through DetectionPredictor, gates open, class biases at 0 and BatchNorm
+    statistics of 8 of the images: a warm-up
+    request that records every conv and linear output's dtype and DySample's
+    sampling coordinates' dtype and holds each attention launch's output
+    against the plain version on its own inputs (REGISTRY_LA_SHAPES), then
+    SERVE_REQUESTS timed requests (ms, img/s, launches per request, peak
+    memory) and a profiled one. Returns the launches per request."""
+    import torch
+    from torch import nn
+
+    from edgeyolo_tpu_torch.engine.predictor import DetectionPredictor
+    from edgeyolo_tpu_torch.nn.modules import edgeline
+    from edgeyolo_tpu_torch.nn.modules.extra import DySample
+    from edgeyolo_tpu_torch.nn.tasks import DetectionModel, num_params
+
+    t0 = time.perf_counter()
+    model = exercise_branches(DetectionModel(registry_spec(), device="cuda",
+                                             dtype=torch.bfloat16, seed=0))
+    n_attn = n_attention(model)
+    print(f"serve registry graph: {num_params(model)} params, bf16, {n_attn} LinearAttention "
+          f"module(s), built in {time.perf_counter() - t0:.3f} s", flush=True)
+    imgs = torch.randint(0, 256, (SERVE_BATCH, SERVE_IMGSZ, SERVE_IMGSZ, 3), dtype=torch.uint8,
+                         generator=torch.Generator().manual_seed(2))
+    # BatchNorm statistics of 8 of the images: at init the deep activations, and so the
+    # attention's inputs, are near 0 and the output hardly depends on the image
+    bn_statistics_of(model, imgs[:8].cuda().permute(0, 3, 1, 2).to(torch.bfloat16) / 255)
+    predictor = DetectionPredictor(model, conf=0.25, iou=0.7, max_det=300, max_nms=1024,
+                                   device="cuda")
+    out_dtypes, coord_dtypes, la_checks = [], [], {}
+    hooks = [m.register_forward_hook(lambda _m, _i, o: out_dtypes.append(o.dtype))
+             for m in model.modules()
+             if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.ConvTranspose2d, nn.Linear, DySample))
+             and next(m.parameters()).dtype == torch.bfloat16]
+    sample_points, kernel = DySample.sample_points, edgeline.linear_attention
+
+    def recorded_points(self, x):
+        sy, sx = sample_points(self, x)
+        coord_dtypes.extend((sy.dtype, sx.dtype))
+        return sy, sx
+
+    def checked_attention(q, k, v):
+        y = kernel(q, k, v)
+        ref = la.linear_attention_reference(q, k, v)
+        la_checks[tuple(q.shape), str(q.dtype).removeprefix("torch.")] = (
+            (y.float() - ref.float()).abs().max().item(),
+            LA_RTOL[str(q.dtype).removeprefix("torch.")] * ref.float().abs().max().item())
+        return y
+
+    la.linear_attention_kernel.launches = 0
+    t0 = time.perf_counter()
+    with mock.patch.object(DySample, "sample_points", recorded_points), \
+            mock.patch.object(edgeline, "linear_attention", checked_attention):
+        predictor(imgs)
+        torch.cuda.synchronize()
+    for hk in hooks:
+        hk.remove()
+    print(f"serve registry graph: warm-up request {(time.perf_counter() - t0) * 1e3:.3f} ms, "
+          f"{la.linear_attention_kernel.launches} kernel launches", flush=True)
+    if not out_dtypes or any(dt != torch.bfloat16 for dt in out_dtypes):
+        raise AssertionError(f"registry graph: conv and linear activations are not all bf16: "
+                             f"{set(out_dtypes)}")
+    if not coord_dtypes or any(dt != torch.float32 for dt in coord_dtypes):
+        raise AssertionError(f"registry graph: DySample's coordinates are not f32: "
+                             f"{set(coord_dtypes)}")
+    print(f"serve registry graph: bf16 check: {len(out_dtypes)} conv, linear and DySample "
+          f"outputs, all bf16; DySample's sampling coordinates f32 ({len(coord_dtypes)} "
+          f"tensors)", flush=True)
+    for (shape, dt), (err, tol) in sorted(la_checks.items()):
+        print(f"serve registry graph: linear_attention {shape} {dt} on the path: max_abs_err "
+              f"{err:.3e} against the plain version on the same inputs (tol {tol:.3e})",
+              flush=True)
+    if set(la_checks) != REGISTRY_LA_SHAPES or any(e > t for e, t in la_checks.values()):
+        raise AssertionError(f"registry graph: kernel shapes {sorted(la_checks)} (want "
+                             f"{sorted(REGISTRY_LA_SHAPES)}) or a shape disagrees with the plain "
+                             f"version")
+
+    torch.cuda.reset_peak_memory_stats()
+    la.linear_attention_kernel.launches = 0
+    times = []
+    for _ in range(SERVE_REQUESTS):
+        t0 = time.perf_counter()
+        det, n = predictor(imgs)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = la.linear_attention_kernel.launches
+    peak = torch.cuda.max_memory_allocated()
+    if launches != SERVE_REQUESTS * n_attn:
+        raise AssertionError(f"registry graph: {launches} kernel launches in {SERVE_REQUESTS} "
+                             f"requests, {n_attn} LinearAttention modules")
+    ms = statistics.median(times) * 1e3
+    print(f"serve registry graph: batch {SERVE_BATCH} x {SERVE_IMGSZ} px bf16, request times "
+          f"{[round(t * 1e3, 3) for t in times]} ms, median {ms:.3f} ms, "
+          f"{SERVE_BATCH / ms * 1e3:.1f} img/s, {launches // SERVE_REQUESTS} kernel launches per "
+          f"request, peak memory {peak / 2**30:.3f} GiB (max_memory_allocated), on {card}",
+          flush=True)
+    det, n = det.cpu(), n.cpu()
+    if not (det.shape == (SERVE_BATCH, 300, 6) and bool(torch.isfinite(det).all())
+            and bool(((n >= 0) & (n <= 300)).all()) and int(n.sum()) > 0):
+        raise AssertionError("registry graph: served detections are malformed or empty")
+    print(f"serve registry graph: detections per image min {int(n.min())}, max {int(n.max())}; "
+          f"attention outputs on the path up to "
+          f"{max(t for _, t in la_checks.values()) / LA_RTOL['bfloat16']:.3e} in magnitude",
+          flush=True)
+    profile_request(predictor, imgs, ms)
+    return launches // SERVE_REQUESTS
+
+
+def matched_gaps(det_a, n_a, det_b, n_b) -> dict:
+    """Detections of a matched to b's of the same class and image at IoU >= 0.5
+    (each a row's best): the share matched, and the box and score gaps."""
+    import torch
+
+    from edgeyolo_tpu_torch.ops.boxes import box_iou
+
+    box, score, matched, total = [], [], 0, 0
+    for i in range(det_a.shape[0]):
+        a, b = det_a[i, :int(n_a[i])], det_b[i, :int(n_b[i])]
+        total += len(a)
+        if not len(a) or not len(b):
+            continue
+        iou = box_iou(a[:, :4], b[:, :4]) * (a[:, None, 5] == b[None, :, 5])
+        best, j = iou.max(dim=1)
+        ok = best >= 0.5
+        matched += int(ok.sum())
+        box.append((a[ok, :4] - b[j[ok], :4]).abs().amax(dim=1))
+        score.append((a[ok, 4] - b[j[ok], 4]).abs())
+    box = torch.cat(box) if box else torch.zeros(0)
+    score = torch.cat(score) if score else torch.zeros(0)
+    return {"total": total, "matched": matched,
+            "box_max": box.max().item() if len(box) else float("nan"),
+            "box_mean": box.mean().item() if len(box) else float("nan"),
+            "score_max": score.max().item() if len(score) else float("nan"),
+            "score_mean": score.mean().item() if len(score) else float("nan")}
+
+
+def serve_fused(la, card: str) -> dict:
+    """YOLO("edgeline-yolo.yaml").fuse() served at SERVE_BATCH x SERVE_IMGSZ in
+    bf16 against the same model unfused, on the same batch, requests in turns:
+    gates open, class biases at 0 and BatchNorm statistics of 8 of the images
+    (so the fold moves real statistics). A reading: each side's request ms,
+    the matched detections' box and score gaps, the dense pred's gaps beside
+    the unfused bf16 model's own gaps to f32, and the BatchNorm kernels of one
+    profiled request of each."""
+    import torch
+
+    from edgeyolo_tpu_torch.engine.model import YOLO
+    from edgeyolo_tpu_torch.engine.predictor import DetectionPredictor
+    from edgeyolo_tpu_torch.nn.tasks import for_precision
+
+    imgs = torch.randint(0, 256, (SERVE_BATCH, SERVE_IMGSZ, SERVE_IMGSZ, 3), dtype=torch.uint8,
+                         generator=torch.Generator().manual_seed(2))
+    x8 = imgs[:8].cuda().permute(0, 3, 1, 2).contiguous().float() / 255
+    y = YOLO("edgeline-yolo.yaml", device="cuda")
+    bn_statistics_of(exercise_branches(y.model), x8)
+    sides = {"unfused": for_precision(y.model, True)}
+    with torch.inference_mode():
+        dense32 = y.model(x8)["pred"].float()
+    y.fuse()
+    sides["fused"] = for_precision(y.model, True)
+    print(f"fused flagship: {len(y.model.fused_bns)} BatchNorms folded into their convs in f32, "
+          f"then the bf16 copy", flush=True)
+    predictors = {k: DetectionPredictor(m, conf=0.25, iou=0.7, max_det=300, max_nms=1024,
+                                        device="cuda") for k, m in sides.items()}
+    out, times = {}, {k: [] for k in sides}
+    for p in predictors.values():  # warm-up
+        p(imgs)
+    torch.cuda.synchronize()
+    la.linear_attention_kernel.launches = 0
+    for r in range(SERVE_REQUESTS):
+        for k in (("unfused", "fused") if r % 2 == 0 else ("fused", "unfused")):
+            t0 = time.perf_counter()
+            out[k] = predictors[k](imgs)
+            torch.cuda.synchronize()
+            times[k].append((time.perf_counter() - t0) * 1e3)
+    launches = la.linear_attention_kernel.launches
+    if launches != 2 * SERVE_REQUESTS:
+        raise AssertionError(f"fused flagship: {launches} kernel launches in "
+                             f"{2 * SERVE_REQUESTS} requests")
+    gaps = matched_gaps(*(t.cpu() for t in out["fused"]), *(t.cpu() for t in out["unfused"]))
+    with torch.inference_mode():
+        dense = {k: m(x8.to(torch.bfloat16))["pred"].float() for k, m in sides.items()}
+    d = (dense["fused"] - dense["unfused"]).abs()
+    d16 = (dense["unfused"] - dense32).abs()  # the yardstick: bf16 serving's own departure
+    bn = {}
+    for k, p in predictors.items():
+        rows = []
+        profile_request(p, imgs, statistics.median(times[k]), rows_out=rows)
+        bn[k] = sum(c for key, _, c in rows if any(w in key.lower() for w in BN_KERNEL_WORDS))
+    ms = {k: statistics.median(v) for k, v in times.items()}
+    print(f"fused flagship: batch {SERVE_BATCH} x {SERVE_IMGSZ} px bf16, request ms in turns: "
+          f"unfused {[round(t, 3) for t in times['unfused']]} (median {ms['unfused']:.3f}), "
+          f"fused {[round(t, 3) for t in times['fused']]} (median {ms['fused']:.3f}), on {card}",
+          flush=True)
+    print(f"fused flagship: detections fused {gaps['total']}, matched to the unfused ones "
+          f"(same class, IoU >= 0.5) {gaps['matched']}; matched gaps box max "
+          f"{gaps['box_max']:.3e} px (mean {gaps['box_mean']:.3e}), score max "
+          f"{gaps['score_max']:.3e} (mean {gaps['score_mean']:.3e}); dense pred of 8 images: "
+          f"box max {d[..., :4].max().item():.3e} px (mean {d[..., :4].mean().item():.3e}), "
+          f"score max {d[..., 4:].max().item():.3e} (mean {d[..., 4:].mean().item():.3e}); "
+          f"beside unfused bf16 against f32: box max {d16[..., :4].max().item():.3e} px (mean "
+          f"{d16[..., :4].mean().item():.3e}), score max {d16[..., 4:].max().item():.3e} (mean "
+          f"{d16[..., 4:].mean().item():.3e})", flush=True)
+    print(f"fused flagship: BatchNorm device kernels in one profiled request: unfused "
+          f"{bn['unfused']}, fused {bn['fused']}", flush=True)
+    if not (gaps["total"] > 0 and bool(torch.isfinite(d).all())):
+        raise AssertionError("fused flagship: no detections or a non-finite prediction")
+    return {"launches": launches // (2 * SERVE_REQUESTS), "ms": ms, "bn_kernels": bn,
+            "gaps": gaps}
+
+
+def embed_check(la, card: str) -> dict:
+    """YOLO.embed of len(EMBED_IMAGES) images (random pixels of mixed sizes,
+    letterboxed to EMBED_IMGSZ) on the card in f32, the first EMBED_CPU_IMAGES
+    of them against the CPU: the flagship at
+    its default tap and at [10, 22] (layer 10 carries the kernel), the registry
+    graph at [13, 27]; gates open. Each vector within EMBED_TOL of its largest
+    magnitude. Gates open and BatchNorm statistics of 8 of the images.
+    Returns the kernel's launches per image of each."""
+    import numpy as np
+    import torch
+
+    from edgeyolo_tpu_torch.engine.model import YOLO
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_registry_spec import write_yaml
+
+    from edgeyolo_tpu_torch.data.letterbox import letterbox_batch
+
+    rs = np.random.RandomState(4)
+    images = [rs.randint(0, 256, (h, w, 3)).astype(np.uint8) for h, w in EMBED_IMAGES]
+    # BatchNorm statistics of 8 of them (at init deep features hardly depend on the image)
+    calib = torch.from_numpy(letterbox_batch(images[:8], EMBED_IMGSZ)[0]).cuda()
+    calib = calib.permute(0, 3, 1, 2).float() / 255
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_embed_") as tmp:
+        graph = str(write_yaml(Path(tmp) / "registry-graph.yaml"))
+        for label, source, taps in (("flagship default tap", "edgeline-yolo.yaml", None),
+                                    ("flagship [10, 22]", "edgeline-yolo.yaml", [10, 22]),
+                                    ("registry graph [13, 27]", graph, [13, 27])):
+            on_card = YOLO(source, device="cuda")
+            bn_statistics_of(exercise_branches(on_card.model), calib)
+            on_cpu = YOLO(source, device="cpu")
+            on_cpu.model.load_state_dict(on_card.model.state_dict())
+            kw = {"imgsz": EMBED_IMGSZ} if taps is None else {"imgsz": EMBED_IMGSZ, "embed": taps}
+            la.linear_attention_kernel.launches = 0
+            t0 = time.perf_counter()
+            got = on_card.embed(images, **kw)
+            torch.cuda.synchronize()
+            t_card = time.perf_counter() - t0
+            launches[label] = la.linear_attention_kernel.launches / len(images)
+            t0 = time.perf_counter()
+            want = on_cpu.embed(images[:EMBED_CPU_IMAGES], **kw)
+            t_cpu = time.perf_counter() - t0
+            rel = max(((g.cpu() - w).abs().max() / w.abs().max()).item()
+                      for g, w in zip(got, want))
+            spread = (want[0] - want[1]).abs().max().item()
+            print(f"embed {label}: {len(images)} images at {EMBED_IMGSZ} px, vectors of "
+                  f"{got[0].numel()} f32; card {t_card:.3f} s ({launches[label]:g} kernel "
+                  f"launches an image), CPU {t_cpu:.3f} s for the first {len(want)}; card vs CPU "
+                  f"max {rel:.3e} of each vector's largest magnitude (tol {EMBED_TOL}); two "
+                  f"images' vectors apart by "
+                  f"up to {spread:.3e}", flush=True)
+            if not (len(got) == len(images) and all(g.dtype == torch.float32 and g.is_cuda
+                                                    for g in got) and rel <= EMBED_TOL):
+                raise AssertionError(f"embed {label}: the card disagrees with the CPU")
+            del on_card, on_cpu
+    if not (launches["flagship [10, 22]"] == 1 and launches["registry graph [13, 27]"] == 2):
+        raise AssertionError(f"embed: kernel launches an image {launches}")
+    return launches
+
+
 FIT_JOBS = {  # name: the fit, longest first (their seconds alone on an H100)
     RTDETR_FIT: fit_rtdetr,
     "yolov13-test": lambda la, card, work: fit(la, card, work, "yolov13-test.yaml",
@@ -3492,6 +3874,22 @@ def main() -> int:
             raise AssertionError("the attention kernel launched in an RT-DETR model")
         done("rtdetr train", t0)
 
+    t0 = phase("registry reference")
+    registry_launches = {"reference": registry_reference(la)}
+    done("registry reference", t0)
+
+    t0 = phase("registry serve")
+    registry_launches["serve"] = serve_registry(la, card)
+    fused = serve_fused(la, card)
+    registry_launches["fused_flagship"] = fused["launches"]
+    done("registry serve", t0)
+
+    t0 = phase("registry embed")
+    registry_launches.update({f"embed_{k.replace(' ', '_')}": v
+                              for k, v in embed_check(la, card).items()})
+    print(f"registry: attention kernel launches {registry_launches}", flush=True)
+    done("registry embed", t0)
+
     t0 = phase("device times")
     device_times(la, la_rows, la_inputs_by_case)
     done("device times", t0)
@@ -3524,6 +3922,8 @@ def main() -> int:
                 **{f"launches_fit_segment_{k}": v for k, v in seg_fit_launches.items()},
                 **{f"launches_classify_{k}": v for k, v in cls_launches.items()},
                 **{f"launches_rtdetr_{k}": v for k, v in rt_launches.items()},
+                **{f"launches_registry_{k}": v for k, v in registry_launches.items()},
+                "fused_flagship": fused,
                 **la_rows[LA_MAIN_CASE], "library_ms": None,
                 "wavelet_rows": [{"shape": list(case[:4]), "dtype": case[4], **row}
                                  for case, row in zip(LA_CASES, la_rows)

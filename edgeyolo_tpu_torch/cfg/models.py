@@ -14,6 +14,7 @@ parameters.
 
 from __future__ import annotations
 
+import copy
 import re
 from pathlib import Path
 
@@ -30,7 +31,7 @@ def _file_scale(stem: str) -> str:
     return m.group(1) if m else ""
 
 
-def model_cfg(name: str | Path, scale: str | None = None) -> dict:
+def model_cfg(name: str | Path | dict, scale: str | None = None) -> dict:
     """The spec for a model name or a model YAML file, with its scale resolved.
 
     Names resolve against the bundled copies: "yolo11n", "yolo11n.yaml",
@@ -39,8 +40,12 @@ def model_cfg(name: str | Path, scale: str | None = None) -> dict:
     table takes the scale its name carries (yolov9s: s), as JAX names it;
     with no scale anywhere the first entry of the scales table is used, as
     the JAX package does. An existing file is read as it is, its scale from
-    `scale`, its own `scale` key or its name.
+    `scale`, its own `scale` key or its name. A spec dict (what a YAML file
+    reads to) is taken as it is, copied, its scale from `scale` or its own
+    `scale` key.
     """
+    if isinstance(name, dict):
+        return _with_scale(copy.deepcopy(name), "spec", "spec", name.get("scale") or "", scale)
     path = Path(str(name))
     stem = re.sub(r"\.ya?ml$", "", path.name)
     if path.suffix in (".yaml", ".yml") and path.is_file():
@@ -60,6 +65,12 @@ def model_cfg(name: str | Path, scale: str | None = None) -> dict:
         d = yaml_load(MODELS_DIR / f"{base}.yaml")
         if not d.get("scales"):  # a file of one size (yolov9s): the scale its name carries
             named = named or _file_scale(base)
+    return _with_scale(d, name, base, named, scale)
+
+
+def _with_scale(d: dict, name, base: str, named: str, scale: str | None) -> dict:
+    """Spec `d` with its scale resolved: `scale`, else the one its name or
+    file names, else the first of its scales table."""
     if scale and named and scale != named:
         raise ValueError(f"model '{name}' names scale {named}, but scale={scale!r} was passed")
     d["scale"] = scale or named or next(iter(d.get("scales") or {""}))

@@ -19,10 +19,13 @@ model with no trained weights rebuilds its head for the dataset's class
 count (a classify dataset's class folders), and a pose head for the
 dataset's `kpt_shape`. `add_callback` registers a hook for a trainer event
 (utils/callbacks.py), which the next `train` runs; `reset_callbacks`
-clears them. `predict` keeps its predictor (and so its save directory) while the
-arguments stay the same, as JAX's facade does; `track` runs it with a
-ByteTrack or BoT-SORT tracker over the frames. Every mode runs on CUDA
-unless `device` names another device ("cpu").
+clears them. `fuse` folds the model's conv and BatchNorm pairs in place
+(inference only; a saved fused model reloads fused), and `embed` returns
+one pooled feature vector per image of the layers it taps. `predict` keeps
+its predictor (and so its save directory) while the arguments stay the
+same, as JAX's facade does; `track` runs it with a ByteTrack or BoT-SORT
+tracker over the frames. Every mode runs on CUDA unless `device` names
+another device ("cpu").
 """
 
 from __future__ import annotations
@@ -34,6 +37,8 @@ import torch
 
 from edgeyolo_tpu_torch.cfg import get_cfg, get_save_dir
 from edgeyolo_tpu_torch.data.dataset import check_det_dataset
+from edgeyolo_tpu_torch.data.letterbox import letterbox
+from edgeyolo_tpu_torch.data.loaders import load_inference_source
 from edgeyolo_tpu_torch.nn.tasks import DetectionModel, for_precision, num_params, num_trainable
 from edgeyolo_tpu_torch.utils import LOGGER, select_device
 from edgeyolo_tpu_torch.utils.callbacks import EVENTS, get_default_callbacks
@@ -93,6 +98,8 @@ class YOLO:
         self.model = DetectionModel(self.model_name, scale=meta.get("scale") or None,
                                     nc=meta.get("nc"), kpt_shape=meta.get("kpt_shape"),
                                     device="cpu")
+        if meta.get("fused"):
+            self.model.fuse()
         load_checkpoint(self.model, path)
         self.model.to(self.device)
         self.ckpt_path, self.trained = path, True
@@ -221,6 +228,34 @@ class YOLO:
     def __call__(self, source, **kwargs):
         return self.predict(source, **kwargs)
 
+    def fuse(self) -> "YOLO":
+        """Fold every conv and BatchNorm pair of the f32 model in place
+        (DetectionModel.fuse), before any bf16 copy is made of it."""
+        self.model.fuse()
+        self.predictor = None  # it may hold a copy of the unfused weights
+        return self
+
+    def embed(self, source, stream: bool = False, **kwargs):
+        """One f32 feature vector per frame of `source` (a generator with
+        `stream`), on the model's device: the global average pool of each
+        layer in `embed` (default: the second to last), concatenated in layer
+        order, of the f32 model on the frame letterboxed to `imgsz` (scaleup)."""
+        args = self._args("predict", kwargs)
+        layers = tuple(args.embed or [len(self.model.layers) - 2])
+        model = self.model.eval()
+        loader, _ = load_inference_source(source, vid_stride=int(args.vid_stride),
+                                          stream_buffer=bool(args.stream_buffer))
+
+        def gen():
+            for _path, img0 in loader:
+                img, _r, _pads = letterbox(img0, int(args.imgsz), scaleup=True)
+                x = torch.from_numpy(img).to(self.device).permute(2, 0, 1)[None].float() / 255
+                with torch.inference_mode():
+                    vec = model(x, embed=layers)[0]
+                yield vec
+
+        return gen() if stream else list(gen())
+
     def save(self, filename: str | Path = "model.pt") -> Path:
         """A standalone checkpoint that YOLO(<path>) reloads."""
         dst = Path(filename)
@@ -229,7 +264,8 @@ class YOLO:
         kpt = self.model.kpt_shape
         meta = {"epoch": -1, "best_fitness": 0.0, "model_yaml": self.model_name, "task": self.task,
                 "scale": self.model.scale, "nc": self.model.nc, "names": dict(self.model.names),
-                "kpt_shape": list(kpt) if kpt else None, "train_args": {}}
+                "kpt_shape": list(kpt) if kpt else None, "train_args": {},
+                "fused": bool(getattr(self.model, "fused", False))}
         torch.save({"model": sd, "ema": sd, "meta": meta}, dst)
         dst.with_suffix(".json").write_text(json.dumps(meta, default=str))
         return dst
@@ -239,6 +275,8 @@ class YOLO:
         keeping only the tensors whose name and shape match."""
         ck = torch.load(weights, map_location="cpu", weights_only=True)
         donor = ck.get("ema") or ck["model"]
+        if (ck.get("meta") or {}).get("fused") and not self.model.fused:
+            self.model.fuse()  # the donor's convs carry its BatchNorms
         cur = self.model.state_dict()
         keep = {k: v for k, v in donor.items() if k in cur and cur[k].shape == v.shape}
         self.model.load_state_dict(keep, strict=False)

@@ -1,6 +1,9 @@
 """CSP blocks, SPP and SPPF, SCDown, the PSA attention and the DFL decode,
 NCHW (edgeyolo_tpu/nn/modules/block.py).
 
+C1 is a plain CSP row no bundled YAML uses; JAX's C3x is C3 itself (its
+bottlenecks 1 x 1, then 3 x 3), so the parser builds C3 for it.
+
 The C2f and C3 skeletons take a `block` factory for their inner blocks, which
 is how C3k2, DSC3k and the wavelet variants swap the block family.
 
@@ -94,6 +97,19 @@ class C3(nn.Module):
 
     def forward(self, x):
         return self.cv3(torch.cat([self.m(self.cv1(x)), self.cv2(x)], dim=1))
+
+
+class C1(nn.Module):
+    """CSP with 1 conv: cv1, then n 3 x 3 ConvBNs, plus cv1's output."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1):
+        super().__init__()
+        self.cv1 = ConvBN(c1, c2, 1)
+        self.m = nn.Sequential(*(ConvBN(c2, c2, 3) for _ in range(n)))
+
+    def forward(self, x):
+        y = self.cv1(x)
+        return self.m(y) + y
 
 
 class C3k(C3):

@@ -1,5 +1,7 @@
 """Convolution modules, NCHW (edgeyolo_tpu/nn/modules/conv.py): ConvBN and
 its depthwise and separable forms, LightConv (RT-DETR's HGBlock), GhostConv,
+Focus (space-to-depth, then a ConvBN), ConvTranspose (a transposed conv with
+BatchNorm and activation), Index, CBAM (channel, then spatial attention),
 and the raw torch layers a model YAML names (transposed conv, max pool, zero
 pad).
 
@@ -21,6 +23,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from edgeyolo_tpu_torch.nn.modules.activation import telu
 
 MODEL_BN_EPS = 1e-3
 MODEL_BN_MOMENTUM = 0.03
@@ -59,13 +63,16 @@ def batch_norm(c: int) -> BatchNorm2d:
     return BatchNorm2d(c, eps=MODEL_BN_EPS, momentum=MODEL_BN_MOMENTUM)
 
 
-def norm_f32(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
-    """BatchNorm in f32, then back to the compute dtype."""
+def norm_f32(bn: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """BatchNorm in f32, then back to the compute dtype; nothing for a
+    BatchNorm that `fuse` folded into its conv (an nn.Identity)."""
+    if isinstance(bn, nn.Identity):
+        return x
     return bn(x.float()).to(x.dtype)
 
 
 ACTIVATIONS = {"silu": F.silu, "relu": F.relu, "relu6": F.relu6, "sigmoid": torch.sigmoid,
-               "tanh": torch.tanh}
+               "tanh": torch.tanh, "telu": telu}
 _DEFAULT_ACT = ["silu"]
 
 
@@ -156,6 +163,88 @@ class ConvTranspose2d(nn.ConvTranspose2d):
 
     def __init__(self, c1: int, c2: int, k: int = 2, s: int = 2, p: int = 0):
         super().__init__(c1, c2, k, s, p, bias=True)
+
+
+class ConvTranspose(nn.Module):
+    """Transposed conv (bias only without BatchNorm) -> BatchNorm -> activation.
+
+    JAX pads 'SAME' when p == 0 and k == s (output in * s, torch's padding
+    0) and else pads the dilated input by p on each side, which is torch's
+    padding k - 1 - p."""
+
+    def __init__(self, c1: int, c2: int, k: int = 2, s: int = 2, p: int = 0, bn: bool = True,
+                 act: bool | str = True):
+        super().__init__()
+        pad = 0 if (p == 0 and k == s) else k - 1 - p
+        if pad < 0:
+            raise ValueError(f"ConvTranspose: padding {p} > k - 1 = {k - 1} has no torch form")
+        self.conv_transpose = nn.ConvTranspose2d(c1, c2, k, s, pad, bias=not bn)
+        self.bn = batch_norm(c2) if bn else nn.Identity()
+        self.act = activation(act)
+
+    def forward(self, x):
+        x = norm_f32(self.bn, self.conv_transpose(x))
+        return self.act(x) if self.act else x
+
+
+class Focus(nn.Module):
+    """Space-to-depth by 2 (pixels (0, 0), (1, 0), (0, 1), (1, 1) of each 2 x 2
+    cell as (row, column), stacked on channels), then a ConvBN (YOLOv5's stem)."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, p: int | None = None,
+                 g: int = 1, act: bool | str = True):
+        super().__init__()
+        self.conv = ConvBN(4 * c1, c2, k, s, p, g, 1, act)
+
+    def forward(self, x):
+        return self.conv(torch.cat([x[..., ::2, ::2], x[..., 1::2, ::2], x[..., ::2, 1::2],
+                                    x[..., 1::2, 1::2]], dim=1))
+
+
+class Index(nn.Module):
+    """One tensor of a list input."""
+
+    def __init__(self, c2: int = 0, index: int = 0):
+        super().__init__()
+        self.index = index
+
+    def forward(self, xs):
+        return xs[self.index]
+
+
+class ChannelAttention(nn.Module):
+    """x * sigmoid(fc(global mean of x)), fc a biased 1x1 conv."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.fc = nn.Conv2d(channels, channels, 1, bias=True)
+
+    def forward(self, x):
+        return x * torch.sigmoid(self.fc(x.mean(dim=(2, 3), keepdim=True)))
+
+
+class SpatialAttention(nn.Module):
+    """x * sigmoid(cv1([mean, max] over channels)), cv1 a k x k conv without bias."""
+
+    def __init__(self, k: int = 7):
+        super().__init__()
+        self.cv1 = nn.Conv2d(2, 1, k, padding=k // 2, bias=False)
+
+    def forward(self, x):
+        pooled = torch.cat([x.mean(dim=1, keepdim=True), x.amax(dim=1, keepdim=True)], dim=1)
+        return x * torch.sigmoid(self.cv1(pooled))
+
+
+class CBAM(nn.Module):
+    """Channel attention, then spatial attention, over c1 channels."""
+
+    def __init__(self, c1: int, k: int = 7):
+        super().__init__()
+        self.channel_attention = ChannelAttention(c1)
+        self.spatial_attention = SpatialAttention(k)
+
+    def forward(self, x):
+        return self.spatial_attention(self.channel_attention(x))
 
 
 class MaxPool2d(nn.MaxPool2d):

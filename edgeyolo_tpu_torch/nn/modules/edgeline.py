@@ -5,6 +5,14 @@
   the card).
 - DWT2D / WaveletEnhancer / DSBottleneck / DSC3k / DSC3K2 / DSC3K2_Wavelet:
   the wavelet neck, and DSC3K2 without the enhancer (YOLOv13).
+- The thesis's ablation blocks, which no bundled YAML uses: C3k2_Wavelet
+  (C3k2_TWavelet is the same class under a second name), SPPF_Wavelet (the
+  DWT's bands unpacked as ll, hl, lh, hh, as the reference's HaarDWT2D
+  names them, one f_h conv for the three high bands), MulGate (a DSConv,
+  relu6(f1) * f2, the zero-init `mix` conv and zero-scale BatchNorm, a
+  per-channel `gamma` residual from 1e-2) and RHJM (ECA-style 1-D convs over
+  the adaptively pooled map flattened position-major with the channel
+  fastest, and over the pooled channels; k = odd(|log2 C + b| / gamma)).
 
 In a bf16 model the wavelet branch stays in bf16: the softplus-normalised
 band weights and tanh(gamma) are computed from their f32 parameters and cast
@@ -13,14 +21,15 @@ to the activation dtype before they scale it.
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from edgeyolo_tpu_torch.nn.modules.block import C2f, C3
-from edgeyolo_tpu_torch.nn.modules.conv import ConvBN, DSConv
+from edgeyolo_tpu_torch.nn.modules.block import C2f, C3, Bottleneck, C3k
+from edgeyolo_tpu_torch.nn.modules.conv import ConvBN, DSConv, batch_norm, norm_f32
 from edgeyolo_tpu_torch.ops.linear_attention import linear_attention
 from edgeyolo_tpu_torch.ops.wavelets import dwt2d_kernel, dwt_pad_each_side
 
@@ -216,3 +225,103 @@ class DSC3K2_Wavelet(C2f):
 
     def enhance_b(self, b):
         return self.wave(b)
+
+
+class C3k2_Wavelet(C2f):
+    """C3k2 (C3k stacks, or bottlenecks at e = 1.0) with the b branch
+    wavelet-enhanced before the chain."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, c3k: bool = False, e: float = 0.5,
+                 g: int = 1, shortcut: bool = True, wave: str = "haar", use_ds: bool = False):
+        block = ((lambda c: C3k(c, c, 2, shortcut, g)) if c3k
+                 else (lambda c: Bottleneck(c, c, shortcut, g, (3, 3), 1.0)))
+        super().__init__(c1, c2, n, shortcut, g, e, block=block)
+        self.wave = WaveletEnhancer(max(1, int(c2 * e)), use_ds, wave=wave)
+
+    def enhance_b(self, b):
+        return self.wave(b)
+
+
+class SPPF_Wavelet(nn.Module):
+    """SPPF with the max pools replaced by the sub-bands of cv1's output: f_ll
+    of LL and the shared f_h of each high band at half size, each resized back
+    (`_bilinear_resize`), concatenated with cv1's output, then cv2."""
+
+    def __init__(self, c1: int, c2: int, k: int = 5, wave: str = "haar"):
+        super().__init__()
+        c_ = c1 // 2
+        self.cv1 = ConvBN(c1, c_, 1)
+        self.dwt = DWT2D(wave)
+        self.f_ll = ConvBN(c_, c_ // 2, 1)
+        self.f_h = ConvBN(c_, c_ // 2, 3)
+        self.cv2 = ConvBN(c_ + 4 * (c_ // 2), c2, 1)
+
+    def forward(self, x):
+        y0 = self.cv1(x)
+        ll, hl, lh, hh = self.dwt(y0)
+        size = y0.shape[-2:]
+        parts = [self.f_ll(ll), self.f_h(lh), self.f_h(hl), self.f_h(hh)]
+        return self.cv2(torch.cat([y0, *(_bilinear_resize(p, size) for p in parts)], dim=1))
+
+
+class MulGate(nn.Module):
+    """x + gamma * bn(mix(relu6(f1(y)) * f2(y))), y = pre(x); its output at
+    init equals its input (mix and the BatchNorm's scale start at zero)."""
+
+    def __init__(self, c1: int, c2: int, e: float = 3.0, k: int = 7, d: int = 1,
+                 gamma0: float = 1e-2):
+        super().__init__()
+        if c1 != c2:
+            raise ValueError(f"MulGate keeps its channels: c1 {c1} != c2 {c2}")
+        hidden = int(c1 * e)
+        self.pre = DSConv(c1, c1, k, d=d)
+        self.f1 = nn.Conv2d(c1, hidden, 1, bias=True)
+        self.f2 = nn.Conv2d(c1, hidden, 1, bias=True)
+        self.mix = nn.Conv2d(hidden, c1, 1, bias=False)
+        self.bn = batch_norm(c1)
+        nn.init.zeros_(self.bn.weight)
+        self.gamma = nn.Parameter(torch.full((c1,), float(gamma0)))
+
+    def seeded_init(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            self.mix.weight.zero_()
+
+    def forward(self, x):
+        y = self.pre(x)
+        z = norm_f32(self.bn, self.mix(F.relu6(self.f1(y)) * self.f2(y)))
+        return x + self.gamma.to(x.dtype)[:, None, None] * z
+
+
+def adaptive_avg_pool2d(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """Adaptive average pool to `out_hw`, down or up: out[i] is the mean of
+    in[floor(i I / O) : ceil((i + 1) I / O)] on each axis, as JAX's pooling
+    matrices compute it."""
+    return F.adaptive_avg_pool2d(x, tuple(out_hw))
+
+
+class RHJM(nn.Module):
+    """ECA-style dual 1-D conv channel attention: a local branch over the
+    `local_size` x `local_size` pooled map and a global one over the pooled
+    channels, their sigmoids blended by `local_weight`, pooled back to H x W
+    and multiplied in."""
+
+    def __init__(self, c1: int, c2: int, local_size: int = 5, gamma: int = 2, b: int = 1,
+                 local_weight: float = 0.5):
+        super().__init__()
+        if c1 != c2:
+            raise ValueError(f"RHJM keeps its channels: c1 {c1} != c2 {c2}")
+        t = int(abs(math.log2(c1) + b) / gamma)
+        k = max(t if t % 2 else t + 1, 1)
+        self.local_size, self.local_weight = local_size, local_weight
+        self.conv_local = nn.Conv1d(1, 1, k, padding=(k - 1) // 2, bias=False)
+        self.conv_global = nn.Conv1d(1, 1, k, padding=(k - 1) // 2, bias=False)
+
+    def forward(self, x):
+        b, c, h, w = x.shape
+        s = self.local_size
+        seq = adaptive_avg_pool2d(x, (s, s)).permute(0, 2, 3, 1).reshape(b, 1, s * s * c)
+        att_local = torch.sigmoid(self.conv_local(seq)).view(b, s, s, c).permute(0, 3, 1, 2)
+        att_global = torch.sigmoid(self.conv_global(x.mean(dim=(2, 3))[:, None]))  # (b, 1, c)
+        att = (att_global.view(b, c, 1, 1) * (1.0 - self.local_weight)
+               + att_local * self.local_weight)
+        return x * adaptive_avg_pool2d(att, (h, w))

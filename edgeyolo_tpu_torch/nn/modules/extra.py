@@ -16,6 +16,22 @@ blocks and the Ghost blocks, NCHW (edgeyolo_tpu/nn/modules/extra.py).
   1x1 to e x c2 without activation, plus the input or its 1x1 projection,
   then ReLU) and a stage of them, or the stem (7x7/2 ConvBN with ReLU, then
   a 3x3/2 max pool padded 1): the cls-resnet YAMLs and rtdetr-resnet50/101.
+- BottleneckCSP: YOLOv5's CSP (cv1 and its bottlenecks, then the plain
+  1x1 cv3 beside the plain 1x1 cv2 of the input, one BatchNorm over their
+  concatenation in f32, SiLU, cv4).
+- DySample: a learned sub-pixel offset per output pixel (offset channels
+  [xy][group][s^2], placed in pixel-shuffle order, times 0.25) on the base
+  grid (I + 0.5) / s - 0.5, then a bilinear gather per channel group whose
+  taps clamp to the edge. Coordinates and bilinear weights are f32 whatever
+  the activation dtype, and the result is cast back to it.
+- WTConv2d: a k x k depthwise conv scaled per channel (`base_scale`, 1.0),
+  plus a wavelet branch: per level a stride-2 DWT (zero padding kw // 2 - 1,
+  odd sides padded by one zero row or column first; bands in the order
+  [0, 2, 1, 3] of the DWT bank), a k x k depthwise conv of the 4 C band
+  channels ([C][4]) scaled by `wavelet_scale.{i}` (0.1), and bottom-up the
+  inverse DWT as a transposed conv, cropped to the level's size, with each
+  level's LL adding the coarser level's reconstruction; a stride is
+  subsampling.
 - HGStem / HGBlock: PP-HGNet's stem (2x2 convs padded at the bottom and
   right only, beside a 2x2 stride-1 max pool padded the same way) and its
   block (n ConvBNs or LightConvs chained and all concatenated, squeezed by
@@ -37,9 +53,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from edgeyolo_tpu_torch.nn.modules.block import C2f, C3, C3k
-from edgeyolo_tpu_torch.nn.modules.conv import ConvBN, DWConv, GhostConv, LightConv
+from edgeyolo_tpu_torch.nn.modules.block import C2f, C3, Bottleneck, C3k
+from edgeyolo_tpu_torch.nn.modules.conv import (ConvBN, DWConv, GhostConv, LightConv, batch_norm,
+                                                norm_f32)
 from edgeyolo_tpu_torch.nn.modules.edgeline import DSBottleneck, DSC3k
+from edgeyolo_tpu_torch.ops.wavelets import dwt2d_kernel, idwt2d_kernel
 
 
 def avg_pool_2x(x: torch.Tensor) -> torch.Tensor:
@@ -421,3 +439,128 @@ class HGBlock(nn.Module):
             y.append(m(y[-1]))
         z = self.ec(self.sc(torch.cat(y, dim=1)))
         return z + x if self.add else z
+
+
+class BottleneckCSP(nn.Module):
+    """YOLOv5's CSP bottleneck (see the module docstring)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, g: int = 1,
+                 e: float = 0.5):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = ConvBN(c1, c_, 1)
+        self.cv2 = nn.Conv2d(c1, c_, 1, bias=False)
+        self.cv3 = nn.Conv2d(c_, c_, 1, bias=False)
+        self.cv4 = ConvBN(2 * c_, c2, 1)
+        self.bn = batch_norm(2 * c_)
+        self.m = nn.Sequential(*(Bottleneck(c_, c_, shortcut, g, (3, 3), 1.0) for _ in range(n)))
+
+    def forward(self, x):
+        y = torch.cat([self.cv3(self.m(self.cv1(x))), self.cv2(x)], dim=1)
+        return self.cv4(F.silu(norm_f32(self.bn, y)))
+
+
+class DySample(nn.Module):
+    """Dynamic upsampler by `scale` (see the module docstring); the offset
+    conv starts at zero, where DySample is a bilinear upsample."""
+
+    def __init__(self, c1: int, scale: int = 2, style: str = "lp", groups: int = 4):
+        super().__init__()
+        self.scale, self.groups = int(scale), int(groups)
+        self.offset = nn.Conv2d(c1, 2 * self.groups * self.scale ** 2, 1, bias=True)
+
+    def seeded_init(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            self.offset.weight.zero_()
+            self.offset.bias.zero_()
+
+    def sample_points(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """The input coordinates (rows, columns) each output pixel samples,
+        (B, groups, H s, W s) each, in f32."""
+        b, _, h, w = x.shape
+        s, g = self.scale, self.groups
+        off = self.offset(x).float().view(b, 2, g, s, s, h, w) * 0.25  # (b, xy, g, p, q, i, j)
+        off = off.permute(0, 2, 5, 3, 6, 4, 1).reshape(b, g, h * s, w * s, 2)
+        oy = (torch.arange(h * s, device=x.device, dtype=torch.float32) + 0.5) / s - 0.5
+        ox = (torch.arange(w * s, device=x.device, dtype=torch.float32) + 0.5) / s - 0.5
+        return oy[:, None] + off[..., 1], ox[None, :] + off[..., 0]
+
+    def forward(self, x):
+        b, c, h, w = x.shape
+        s, g = self.scale, self.groups
+        sy, sx = self.sample_points(x)
+        y0, x0 = sy.floor(), sx.floor()
+        fy, fx = (sy - y0)[:, :, None], (sx - x0)[:, :, None]  # (b, g, 1, H', W')
+        y0, x0 = y0.long(), x0.long()
+        xg = x.view(b, g, c // g, h * w)
+
+        def tap(yi, xi):
+            idx = (yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)).view(b, g, 1, -1)
+            return xg.gather(3, idx.expand(b, g, c // g, idx.shape[-1])).view(
+                b, g, c // g, h * s, w * s).float()
+
+        out = (tap(y0, x0) * (1 - fy) * (1 - fx) + tap(y0, x0 + 1) * (1 - fy) * fx
+               + tap(y0 + 1, x0) * fy * (1 - fx) + tap(y0 + 1, x0 + 1) * fy * fx)
+        return out.reshape(b, c, h * s, w * s).to(x.dtype)
+
+
+class _Scale(nn.Module):
+    """A learned per-channel scale, weight (1, C, 1, 1) as the reference's."""
+
+    def __init__(self, ch: int, init: float = 1.0):
+        super().__init__()
+        self.weight = nn.Parameter(torch.full((1, ch, 1, 1), float(init)))
+
+    def forward(self, x):
+        return x * self.weight.to(x.dtype)
+
+
+class WTConv2d(nn.Module):
+    """Wavelet-enhanced depthwise conv (see the module docstring); c2 must
+    equal the input channels."""
+
+    ORDER = (0, 2, 1, 3)
+
+    def __init__(self, c1: int, c2: int, k: int = 5, s: int = 1, bias: bool = True,
+                 levels: int = 1, wave: str = "db1"):
+        super().__init__()
+        if c1 != c2:
+            raise ValueError(f"WTConv2d keeps its channels: c1 {c1} != c2 {c2}")
+        self.s, self.levels = s, levels
+        dec = torch.from_numpy(dwt2d_kernel(wave)[:, :, 0, list(self.ORDER)])  # (kw, kw, 4)
+        rec = torch.from_numpy(idwt2d_kernel(wave)[..., list(self.ORDER)])
+        # (4c, 1, kw, kw), channel 4 i + band: the bank for each channel in [C][4] order
+        self.register_buffer("dec", dec.permute(2, 0, 1)[:, None].repeat(c1, 1, 1, 1),
+                             persistent=False)
+        self.register_buffer("rec", rec.permute(2, 0, 1)[:, None].repeat(c1, 1, 1, 1),
+                             persistent=False)
+        self.pad = dec.shape[0] // 2 - 1
+        self.base_conv = nn.Conv2d(c1, c1, k, padding="same", groups=c1, bias=bias)
+        self.base_scale = _Scale(c1, 1.0)
+        self.wavelet_convs = nn.ModuleList(
+            nn.Conv2d(4 * c1, 4 * c1, k, padding="same", groups=4 * c1, bias=False)
+            for _ in range(levels))
+        self.wavelet_scale = nn.ModuleList(_Scale(4 * c1, 0.1) for _ in range(levels))
+
+    def forward(self, x):
+        c = x.shape[1]
+        out = self.base_scale(self.base_conv(x))
+        dec, rec = self.dec.to(x.dtype), self.rec.to(x.dtype)
+        lls, highs, sizes = [], [], []
+        cur = x
+        for conv, scale in zip(self.wavelet_convs, self.wavelet_scale):
+            h, w = cur.shape[-2:]
+            sizes.append((h, w))
+            cur = F.pad(cur, (0, w % 2, 0, h % 2))
+            sub = F.conv2d(cur, dec, stride=2, padding=self.pad, groups=c)  # (b, 4c, h/2, w/2)
+            cur = sub[:, 0::4]  # the next level's input: LL
+            sub = scale(conv(sub)).unflatten(1, (c, 4))
+            lls.append(sub[:, :, 0])
+            highs.append(sub[:, :, 1:])
+        nxt = 0.0
+        for lv in reversed(range(self.levels)):
+            bands = torch.cat([(lls[lv] + nxt)[:, :, None], highs[lv]], dim=2).flatten(1, 2)
+            h, w = sizes[lv]
+            nxt = F.conv_transpose2d(bands, rec, stride=2, padding=self.pad, groups=c)[..., :h, :w]
+        out = out + nxt
+        return out[..., ::self.s, ::self.s] if self.s > 1 else out

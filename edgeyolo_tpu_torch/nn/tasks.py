@@ -31,7 +31,13 @@ ResNetLayer row takes no width scale: c2 is its base width for the stem,
 else base x e; the reference's [c1, c2, s, is_first, n, e] layout is told
 by the bool at index 3), and RT-DETR's HGStem, HGBlock (its repeats at
 args index 3, no width scale), LightConv, AIFI (c1 first), RepC3 and the
-RTDETRDecoder head are registered; an unknown module name raises.
+RTDETRDecoder head are registered, and so are the rows no bundled YAML
+uses: Focus (its stride doubled), ConvTranspose (with BatchNorm; 1/s),
+Index (c2 its first argument), CBAM, C1, C3x, BottleneckCSP, the EdgeLine
+ablation blocks C3k2_Wavelet / C3k2_TWavelet, SPPF_Wavelet, MulGate and
+RHJM, DySample (c1 put first; 1/scale), WTConv2d, MSLA as a row of its own
+and `Upsample`: every row of JAX's registry but YOLO-World's. An unknown
+module name raises.
 An RT-DETR model's forward hands `dn`, the contrastive-denoising queries
 of a training step, to its head.
 `guess_model_task` names a spec's task by its head, as JAX does;
@@ -39,6 +45,9 @@ SegmentationModel, PoseModel, OBBModel and ClassificationModel are the
 DetectionModel of their tasks. A classify model's BatchNorms keep torch's
 constructor defaults (eps 1e-5, momentum 0.1), as JAX's ClassificationModel
 does; every other task takes the model-level 1e-3 and 0.03.
+`fuse_conv_bn` folds BatchNorms into their convs for inference (the
+model's `fuse`), and the forward's `embed` returns pooled features of the
+layers it taps, as JAX's do.
 """
 
 from __future__ import annotations
@@ -52,20 +61,23 @@ import torch
 from torch import nn
 
 from edgeyolo_tpu_torch.cfg.models import model_cfg
-from edgeyolo_tpu_torch.nn.modules.block import (C2, C2f, C2fPSA, C2PSA, C3, C3k, C3k2, PSA, SPP,
-                                                 SPPF, Bottleneck, SCDown)
-from edgeyolo_tpu_torch.nn.modules.conv import (BatchNorm2d, Concat, ConvBN, ConvTranspose2d,
-                                                DSConv, DWConv, GhostConv, LightConv, MaxPool2d,
-                                                Upsample, ZeroPad2d, default_act)
-from edgeyolo_tpu_torch.nn.modules.edgeline import C2PSA_LinearAttention, DSC3K2, DSC3K2_Wavelet
-from edgeyolo_tpu_torch.nn.modules.extra import (CIB, A2C2f, AdaHyperedgeGen, C2fCIB, C3Ghost,
-                                                 DownsampleConv, FullPAD_Tunnel, GhostBottleneck,
-                                                 HGBlock, HGStem, HyperACE, RepVGGDW, ResNetLayer)
+from edgeyolo_tpu_torch.nn.modules.block import (C1, C2, C2f, C2fPSA, C2PSA, C3, C3k, C3k2, PSA,
+                                                 SPP, SPPF, Bottleneck, SCDown)
+from edgeyolo_tpu_torch.nn.modules.conv import (CBAM, BatchNorm2d, Concat, ConvBN, ConvTranspose,
+                                                ConvTranspose2d, DSConv, DWConv, Focus, GhostConv,
+                                                Index, LightConv, MaxPool2d, Upsample, ZeroPad2d,
+                                                default_act)
+from edgeyolo_tpu_torch.nn.modules.edgeline import (RHJM, C2PSA_LinearAttention, C3k2_Wavelet,
+                                                    DSC3K2, DSC3K2_Wavelet, MulGate, SPPF_Wavelet)
+from edgeyolo_tpu_torch.nn.modules.extra import (CIB, A2C2f, AdaHyperedgeGen, BottleneckCSP,
+                                                 C2fCIB, C3Ghost, DownsampleConv, DySample,
+                                                 FullPAD_Tunnel, GhostBottleneck, HGBlock, HGStem,
+                                                 HyperACE, RepVGGDW, ResNetLayer, WTConv2d)
 from edgeyolo_tpu_torch.nn.modules.gelan import (ADown, AConv, CBFuse, CBLinear, ELAN1, SPPELAN,
                                                  RepConv, RepNCSPELAN4)
 from edgeyolo_tpu_torch.nn.modules.head import (OBB, Classify, Detect, E2EDetect, GFLHeadv2_uniH,
                                                 Pose, RTDETRDecoder, Segment, v10Detect)
-from edgeyolo_tpu_torch.nn.modules.msla_lgl import (C3AW_MLM, DSC3K2_LGL, DSC3K2_MSLA,
+from edgeyolo_tpu_torch.nn.modules.msla_lgl import (MSLA, C3AW_MLM, DSC3K2_LGL, DSC3K2_MSLA,
                                                     HyperACE_Wavelet, Wavelet_SS2D)
 from edgeyolo_tpu_torch.nn.modules.transformer import AIFI, MultiheadAttention, RepC3
 from edgeyolo_tpu_torch.utils import make_divisible, select_device, uniform_
@@ -81,10 +93,16 @@ _REG: dict[str, tuple[type, list[str]]] = {
     "GhostConv": (GhostConv, ["c2", "k", "s", "g", "act"]),
     "LightConv": (LightConv, ["c2", "k"]),
     "nn.ConvTranspose2d": (ConvTranspose2d, ["c2", "k", "s", "p"]),
+    "Focus": (Focus, ["c2", "k", "s", "p", "g", "act"]),
+    "ConvTranspose": (ConvTranspose, ["c2", "k", "s", "p", "bn", "act"]),
+    "Index": (Index, ["c2", "index"]),
+    "CBAM": (CBAM, ["c1", "k"]),
     "Bottleneck": (Bottleneck, ["c2", "shortcut", "g", "k", "e"]),
+    "C1": (C1, ["c2", "n"]),
     "C2": (C2, ["c2", "n", "shortcut", "g", "e"]),
     "C2f": (C2f, ["c2", "n", "shortcut", "g", "e"]),
     "C3": (C3, ["c2", "n", "shortcut", "g", "e"]),
+    "C3x": (C3, ["c2", "n", "shortcut", "g", "e"]),  # JAX's C3x is C3
     "C3k": (C3k, ["c2", "n", "shortcut", "g", "e", "k"]),
     "C3k2": (C3k2, ["c2", "n", "c3k", "e", "g", "shortcut"]),
     "SPP": (SPP, ["c2", "k"]),
@@ -98,13 +116,20 @@ _REG: dict[str, tuple[type, list[str]]] = {
     "RepVGGDW": (RepVGGDW, ["ed"]),
     "GhostBottleneck": (GhostBottleneck, ["c2", "k", "s"]),
     "C3Ghost": (C3Ghost, ["c2", "n", "shortcut", "g", "e"]),
+    "BottleneckCSP": (BottleneckCSP, ["c2", "n", "shortcut", "g", "e"]),
     "C2PSA_LinearAttention": (C2PSA_LinearAttention,
                               ["c2", "n", "e", "attn_ratio", "num_heads", "mlp_ratio"]),
+    "C3k2_Wavelet": (C3k2_Wavelet, ["c2", "n", "c3k", "e", "g", "shortcut"]),
+    "C3k2_TWavelet": (C3k2_Wavelet, ["c2", "n", "c3k", "e", "g", "shortcut"]),
+    "SPPF_Wavelet": (SPPF_Wavelet, ["c2", "k"]),
+    "MulGate": (MulGate, ["c2", "e", "k", "d", "gamma0"]),
+    "RHJM": (RHJM, ["c2", "local_size", "gamma", "b", "local_weight"]),
     "DSC3K2": (DSC3K2, ["c2", "n", "dsc3k", "e", "g", "shortcut", "k1", "k2", "d2"]),
     "DSC3K2_Wavelet": (DSC3K2_Wavelet, ["c2", "n", "dsc3k", "e", "g", "shortcut", "k1", "k2", "d2"]),
     "DSC3K2_MSLA": (DSC3K2_MSLA, ["c2", "n", "dsc3k", "e", "g", "shortcut", "k1", "k2", "d2"]),
     "DSC3K2_LGL": (DSC3K2_LGL, ["c2", "n", "dsc3k", "e", "g", "shortcut", "k1", "k2", "d2"]),
     "C3AW_MLM": (C3AW_MLM, ["c2", "e", "levels"]),
+    "MSLA": (MSLA, ["dim", "num_heads"]),
     "A2C2f": (A2C2f, ["c2", "n", "a2", "area", "residual", "mlp_ratio", "e", "g", "shortcut"]),
     "HyperACE": (HyperACE, _HYPERACE_ARGS),
     "HyperACE_Wavelet": (HyperACE_Wavelet, _HYPERACE_ARGS),
@@ -120,6 +145,8 @@ _REG: dict[str, tuple[type, list[str]]] = {
     "CBLinear": (CBLinear, ["c2s", "k", "s"]),
     "CBFuse": (CBFuse, ["idx"]),
     "ResNetLayer": (ResNetLayer, ["c2", "s", "is_first", "n", "e"]),
+    "DySample": (DySample, ["c1", "scale", "style", "groups"]),
+    "WTConv2d": (WTConv2d, ["c2", "k", "s", "bias", "levels", "wave"]),
     "Classify": (Classify, ["c2", "k", "s", "p", "g"]),
     "HGStem": (HGStem, ["cm", "c2"]),
     "HGBlock": (HGBlock, ["cm", "c2", "k", "n", "lightconv", "shortcut", "act"]),
@@ -128,6 +155,7 @@ _REG: dict[str, tuple[type, list[str]]] = {
     "nn.Identity": (nn.Identity, []),
     "Concat": (Concat, ["dim"]),
     "nn.Upsample": (Upsample, ["size", "scale_factor", "mode"]),
+    "Upsample": (Upsample, ["size", "scale_factor", "mode"]),
     "nn.MaxPool2d": (MaxPool2d, ["k", "s", "p"]),
     "nn.ZeroPad2d": (ZeroPad2d, ["pad"]),
     "Detect": (Detect, ["nc"]),
@@ -142,25 +170,28 @@ _REG: dict[str, tuple[type, list[str]]] = {
     "RTDETRDecoder": (RTDETRDecoder, ["nc"]),
 }
 _CONV_LIKE = {"Conv", "ConvBN", "DWConv", "DSConv", "GhostConv", "nn.ConvTranspose2d",
-              "Bottleneck", "C2", "C2f", "C3", "C3k", "C3k2", "SPP", "SPPF", "C2PSA", "C2fPSA",
-              "PSA", "SCDown", "CIB", "C2fCIB", "GhostBottleneck", "C3Ghost",
-              "C2PSA_LinearAttention", "DSC3K2", "DSC3K2_Wavelet", "DSC3K2_MSLA", "DSC3K2_LGL",
-              "C3AW_MLM", "A2C2f", "RepConv", "RepNCSPELAN4", "ELAN1", "AConv", "ADown",
-              "SPPELAN", "Classify", "LightConv", "RepC3"}
+              "Focus", "ConvTranspose", "Bottleneck", "C1", "C2", "C2f", "C3", "C3x", "C3k",
+              "C3k2", "SPP", "SPPF", "C2PSA", "C2fPSA", "PSA", "SCDown", "CIB", "C2fCIB",
+              "GhostBottleneck", "C3Ghost", "BottleneckCSP", "C2PSA_LinearAttention",
+              "C3k2_Wavelet", "C3k2_TWavelet", "SPPF_Wavelet", "MulGate", "RHJM", "DSC3K2",
+              "DSC3K2_Wavelet", "DSC3K2_MSLA", "DSC3K2_LGL", "C3AW_MLM", "A2C2f", "RepConv",
+              "RepNCSPELAN4", "ELAN1", "AConv", "ADown", "SPPELAN", "Classify", "LightConv",
+              "RepC3"}
 # CSP modules that take the repeats as their argument; any other module with n > 1 is
 # built as n copies in sequence
-_REPEAT_INSERT = {"C2", "C2f", "C3", "C3k2", "C2PSA", "C2fPSA", "C2fCIB", "C3Ghost",
-                  "C2PSA_LinearAttention", "DSC3K2", "DSC3K2_Wavelet", "DSC3K2_MSLA",
-                  "DSC3K2_LGL", "A2C2f", "RepC3"}
-_C3K2_FAMILY = {"C3k2", "DSC3K2", "DSC3K2_Wavelet", "DSC3K2_MSLA", "DSC3K2_LGL"}
+_REPEAT_INSERT = {"C1", "C2", "C2f", "C3", "C3x", "C3k2", "C2PSA", "C2fPSA", "C2fCIB", "C3Ghost",
+                  "BottleneckCSP", "C2PSA_LinearAttention", "C3k2_Wavelet", "C3k2_TWavelet",
+                  "DSC3K2", "DSC3K2_Wavelet", "DSC3K2_MSLA", "DSC3K2_LGL", "A2C2f", "RepC3"}
+_C3K2_FAMILY = {"C3k2", "C3k2_Wavelet", "C3k2_TWavelet", "DSC3K2", "DSC3K2_Wavelet",
+                "DSC3K2_MSLA", "DSC3K2_LGL"}
 _HYPERACE = {"HyperACE", "HyperACE_Wavelet", "Wavelet_SS2D"}
 _HEADS = {"Detect", "v10Detect", "GFLHeadv2_uniH", "GF2Detect", "E2EDetect", "GFLHeadv2_E2E",
           "Segment", "Pose", "OBB", "RTDETRDecoder"}
-_STRIDE_ARG = {"Conv", "ConvBN", "DWConv", "DSConv", "GhostConv", "SCDown", "RepConv",
+_STRIDE_ARG = {"Conv", "ConvBN", "DWConv", "DSConv", "GhostConv", "Focus", "SCDown", "RepConv",
                "nn.MaxPool2d"}
 _STRIDE_FIXED = {"AConv": 2.0, "ADown": 2.0, "DownsampleConv": 2.0, "HGStem": 4.0}
 # built from c1 (the channels of their input, the second one for HyperACE) and the args
-_TAKES_C1 = _CONV_LIKE | _HYPERACE | {"CBLinear", "ResNetLayer", "HGStem", "HGBlock"}
+_TAKES_C1 = _CONV_LIKE | _HYPERACE | {"CBLinear", "ResNetLayer", "HGStem", "HGBlock", "WTConv2d"}
 # convs that a YAML's `activation:` override reaches by argument (JAX tasks.py)
 _ACT_ARG = {"Conv", "ConvBN", "DWConv"}
 _ACT_NAMES = ("relu6", "relu", "silu", "sigmoid", "tanh")
@@ -287,9 +318,11 @@ def parse_spec(d: dict, ch: int = 3) -> tuple[tuple[LayerSpec, ...], tuple[int, 
             if name == "HGBlock":
                 args.insert(3, n_scaled)
                 n_scaled = 1
-        elif name == "AIFI":
+        elif name in ("AIFI", "DySample"):  # c1 put first
             args = [c1, *args]
             c2 = c1
+        elif name == "Index":
+            c2 = args[0]
         elif name == "RTDETRDecoder":
             kwargs["ch"] = tuple(ch_list[x] for x in f_list)
             c2 = sum(kwargs["ch"])
@@ -303,8 +336,8 @@ def parse_spec(d: dict, ch: int = 3) -> tuple[tuple[LayerSpec, ...], tuple[int, 
             if name == "Pose" and len(args) > 1 and isinstance(args[1], (list, tuple)):
                 args[1] = tuple(d.get("kpt_shape", args[1]))  # a data-level kpt_shape wins
             c2 = sum(kwargs["ch"])
-        else:  # nn.Upsample, nn.MaxPool2d, nn.ZeroPad2d, nn.Identity, RepVGGDW, FullPAD_Tunnel
-            c2 = c1
+        else:  # (nn.)Upsample, nn.MaxPool2d, nn.ZeroPad2d, nn.Identity, RepVGGDW, FullPAD_Tunnel,
+            c2 = c1  # CBAM, WTConv2d, MSLA
         args = tuple(tuple(a) if isinstance(a, list) else a for a in args)
         layers.append(LayerSpec(i=i, f=tuple(x if x == -1 else x % i for x in f_list),
                                 n=n_scaled, name=name, args=args,
@@ -325,17 +358,21 @@ def derive_strides(layers: Sequence[LayerSpec]) -> list[float]:
         s_in = 1.0 if sp.i == 0 else strides[src if src >= 0 else sp.i - 1]
         factor = 1.0
         fields = _REG[sp.name][1]
-        if sp.name in _STRIDE_ARG and fields.index("s") < len(sp.args):
-            factor = float(sp.args[fields.index("s")])
+        if sp.name in _STRIDE_ARG:
+            factor = float(sp.args[fields.index("s")]) if fields.index("s") < len(sp.args) else 1.0
+            if sp.name == "Focus":  # space-to-depth halves the map first
+                factor *= 2.0
         elif sp.name in _STRIDE_FIXED:
             factor = _STRIDE_FIXED[sp.name]
         elif sp.name == "ResNetLayer":  # the stem: conv /2 and pool /2
             factor = 4.0 if len(sp.args) > 2 and sp.args[2] else float(
                 sp.args[1] if len(sp.args) > 1 else 1)
-        elif sp.name == "nn.Upsample":
+        elif sp.name in ("nn.Upsample", "Upsample"):
             sf = sp.args[1] if len(sp.args) > 1 else 2
             factor = 1.0 / float(sf or 2)
-        elif sp.name == "nn.ConvTranspose2d":
+        elif sp.name == "DySample":
+            factor = 1.0 / float(sp.args[1] if len(sp.args) > 1 else 2)
+        elif sp.name in ("nn.ConvTranspose2d", "ConvTranspose"):
             factor = 1.0 / float(sp.args[fields.index("s")] if fields.index("s") < len(sp.args)
                                  else 2)
         strides.append(s_in * factor)
@@ -366,13 +403,19 @@ class GraphNet(nn.Module):
         self.save = frozenset(save)
         self.model = nn.ModuleList(build_module(sp, head_stride) for sp in layers)
 
-    def forward(self, x, capture: Sequence[int] | None = None, dn: dict | None = None):
+    def forward(self, x, capture: Sequence[int] | None = None, dn: dict | None = None,
+                embed: Sequence[int] | None = None):
         """The head's output; with `capture`, (output, {i: layer i's raw
         output}) for the listed layers (JAX's `capture`, feature maps). `dn`
-        goes to an RTDETRDecoder head (training's denoising queries)."""
+        goes to an RTDETRDecoder head (training's denoising queries). With
+        `embed`, the walk stops at the largest listed layer and returns the
+        global average pool of each listed layer's output, in f32,
+        concatenated in layer order (B, sum of their channels): JAX's embed."""
         y: dict[int, torch.Tensor] = {}
         want = frozenset(capture or ())
+        taps = frozenset(embed or ())
         captured: dict[int, torch.Tensor] = {}
+        feats: list[torch.Tensor] = []
         out = x
         for sp, m in zip(self.layers, self.model):
             if len(sp.f) == 1:
@@ -384,6 +427,10 @@ class GraphNet(nn.Module):
                 y[sp.i] = out
             if sp.i in want:
                 captured[sp.i] = out
+            if sp.i in taps:
+                feats.append(out.float().mean(dim=(2, 3)))
+                if sp.i == max(taps):
+                    return torch.cat(feats, dim=1)
         return (out, captured) if capture else out
 
 
@@ -391,10 +438,12 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded initialisation: every trainable conv (transposed too) and linear
     weight ~ U(+-1/sqrt(fan_in)) (torch's default, the JAX KERNEL_INIT), their biases
     0; hyperedge prototypes xavier-uniform, as flax initialises them.
-    BatchNorm, LayerNorm, the gates, the wavelet and MSLA scale weights and
-    the frozen DFL bins keep their constructor values. A module with its own
-    rule (`seeded_init`: RT-DETR's packed attention, deformable attention
-    and denoising embedding) then applies it, drawing from `generator`."""
+    BatchNorm, LayerNorm, the gates, the wavelet, WTConv2d and MSLA scale
+    weights, MulGate's gamma and the frozen DFL bins keep their constructor
+    values. A module with its own rule (`seeded_init`: RT-DETR's packed
+    attention, deformable attention and denoising embedding; DySample's
+    zero offset conv, MulGate's zero `mix`, AGLU's U(0, 1) draws) then
+    applies it, drawing from `generator`."""
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.ConvTranspose2d, nn.Linear)) and \
@@ -411,6 +460,54 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
         for m in model.modules():
             if hasattr(m, "seeded_init"):
                 m.seeded_init(generator)
+
+
+FUSE_CONVS = ("conv", "pw", "conv_transpose")
+
+
+def fuse_conv_bn(model: nn.Module) -> list[str]:
+    """Fold each BatchNorm into the conv that feeds it, in place; returns the
+    folded BatchNorms' names.
+
+    The pairs are JAX's `fuse_conv_bn`'s: a module's `bn` (a BatchNorm2d)
+    with a sibling `conv`, `pw` or `conv_transpose` (the first of them that
+    is a 2-D conv or transposed conv with as many outputs as the BatchNorm
+    has channels). The conv's weight is scaled per output channel by
+    weight / sqrt(running_var + eps), with each BatchNorm's own eps (dim 1
+    of a transposed conv's (in, out / groups, kh, kw) weight), it gets the
+    bias bias + (conv bias - running_mean) * that scale, and the BatchNorm
+    leaves the forward (an nn.Identity, which `norm_f32` passes through).
+    Unpaired BatchNorms stay: RepConv's identity branch, BottleneckCSP's
+    joint one, MulGate's (its sibling is `mix`). The fold runs in f32 from
+    the convs' weights as they are, and casts back to their dtype: fold an
+    f32 model before a bf16 copy is made of it, not after."""
+    folded = []
+    with torch.no_grad():
+        for name, m in model.named_modules():
+            bn = getattr(m, "bn", None)
+            if not isinstance(bn, nn.BatchNorm2d):
+                continue
+            for key in FUSE_CONVS:
+                conv = getattr(m, key, None)
+                if isinstance(conv, (nn.Conv2d, nn.ConvTranspose2d)) and \
+                        conv.out_channels == bn.num_features:
+                    break
+            else:
+                continue
+            g = bn.weight.float() / torch.sqrt(bn.running_var.float() + bn.eps)
+            w = conv.weight.float()
+            if isinstance(conv, nn.ConvTranspose2d):  # (in, out / groups, kh, kw)
+                w = (w.unflatten(0, (conv.groups, -1))
+                     * g.view(conv.groups, 1, -1, 1, 1)).flatten(0, 1)
+            else:
+                w = w * g.view(-1, 1, 1, 1)
+            b0 = conv.bias.float() if conv.bias is not None else torch.zeros_like(g)
+            bias = bn.bias.float() + (b0 - bn.running_mean.float()) * g
+            conv.weight.copy_(w.to(conv.weight.dtype))
+            conv.bias = nn.Parameter(bias.to(conv.weight.dtype))
+            m.bn = nn.Identity()
+            folded.append(f"{name}.bn" if name else "bn")
+    return folded
 
 
 def num_params(model: nn.Module) -> int:
@@ -491,7 +588,8 @@ def for_precision(model: nn.Module, half: bool) -> nn.Module:
 
 
 class DetectionModel(GraphNet):
-    """The detector: spec by name, seeded weights, explicit device and dtype.
+    """The detector: spec by name (or a spec dict), seeded weights, explicit
+    device and dtype.
 
     `dtype` is the compute dtype of every convolution and linear layer but
     the quality head's;
@@ -507,7 +605,7 @@ class DetectionModel(GraphNet):
     The model lands on CUDA unless `device` names another device.
     """
 
-    def __init__(self, cfg: str = "edgeline-yolo.yaml", scale: str | None = None,
+    def __init__(self, cfg: str | dict = "edgeline-yolo.yaml", scale: str | None = None,
                  device: str | torch.device | None = None, dtype: torch.dtype = torch.float32,
                  seed: int = 0, nc: int | None = None, kpt_shape: Sequence[int] | None = None):
         spec = model_cfg(cfg, scale)
@@ -529,6 +627,7 @@ class DetectionModel(GraphNet):
         self.cfg, self.scale = cfg, info["scale"]
         self.end2end = bool(getattr(self.model[-1], "end2end", False))
         self.kpt_shape = getattr(self.model[-1], "kpt_shape", None)
+        self.fused = False
         init_weights(self, torch.Generator().manual_seed(seed))
         if self.task == "classify":
             for m in self.modules():
@@ -538,6 +637,15 @@ class DetectionModel(GraphNet):
             self.model[-1].bias_init()
         self.set_dtype(dtype)
         self.to(device).eval()
+
+    def fuse(self) -> "DetectionModel":
+        """Fold conv and BatchNorm pairs for inference, in place
+        (`fuse_conv_bn`, JAX's BaseModel.fuse); a second call folds nothing.
+        `fused_bns` lists the folded BatchNorms."""
+        folded = fuse_conv_bn(self)
+        self.fused_bns = [*getattr(self, "fused_bns", []), *folded]
+        self.fused = True
+        return self
 
     def set_dtype(self, dtype: torch.dtype) -> "DetectionModel":
         """Cast every convolution and linear layer but the quality head's to

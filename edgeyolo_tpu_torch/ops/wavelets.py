@@ -17,7 +17,8 @@ import math
 
 import numpy as np
 
-__all__ = ["get_filter_bank", "dwt2d_kernel", "idwt2d_kernel", "dwt_pad_each_side"]
+__all__ = ["get_filter_bank", "dwt2d_kernel", "idwt2d_kernel", "dwt_pad_each_side",
+           "available_wavelets"]
 
 
 def _daubechies_dec_lo(N: int) -> np.ndarray:
@@ -103,6 +104,11 @@ def idwt2d_kernel(wave: str = "haar", dtype=np.float32) -> np.ndarray:
     g0, g1 = rec_lo, rec_hi
     k = np.stack([np.outer(g0, g0), np.outer(g0, g1), np.outer(g1, g0), np.outer(g1, g1)], axis=-1)
     return k.astype(dtype)
+
+
+def available_wavelets() -> list[str]:
+    """The wave names DWT2D and WTConv2d accept."""
+    return ["haar"] + [f"db{i}" for i in range(1, 21)] + ["sym1", "sym2", "sym3"]
 
 
 def dwt_pad_each_side(wave: str) -> int:

@@ -16,9 +16,10 @@ HWIO -> OIHW, transposed-conv kernels (kh, kw, in, out) -> torch's
 (in, out, kh, kw) flipped in space (JAX's torch_convert rule, inverted; keyed on the `conv_transpose` scope,
 never on the shape: Proto's square 256 -> 256 kernel has a conv's shape),
 1-D ones (k, in/g, out) -> (out, in/g, k), and dense kernels (in, out) ->
-(out, in). Plain parameters
-(`gate`, `gamma`, `scale_weights`, `prototype_base`) keep their name and
-layout.
+(out, in). A learned scale's weight (WTConv2d's `base_scale` and
+`wavelet_scale_{i}`, a flax (C,) vector) is the reference's (1, C, 1, 1).
+Plain parameters (`gate`, `gamma`, `scale_weights`, `prototype_base`,
+AGLU's `lambd` and `kappa`) keep their name and layout.
 
 An RT-DETR tree (a top scope `l{i}_RTDETRDecoder`) takes the reference's
 torch names on top (the port's copy of JAX's `RTDETR_REWRITE_RULES`): AIFI's
@@ -114,6 +115,8 @@ def from_jax_variables(flat: dict[tuple[str, ...], np.ndarray]) -> dict[str, tor
             arr = arr.transpose(2, 1, 0)
         elif path[-1] == "kernel" and arr.ndim == 2:
             arr = arr.T
+        elif path[-1] == "weight" and re.fullmatch(r"base_scale|wavelet_scale_\d+", path[-2]):
+            arr = arr.reshape(1, -1, 1, 1)
         sd[jax_path_to_torch_key(tuple(path))] = torch.tensor(arr.copy())
     if any(k[1].endswith("_RTDETRDecoder") for k in flat):  # (collection, top scope, ...)
         sd = pack_attention({rtdetr_key(k): v for k, v in sd.items()})
