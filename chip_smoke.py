@@ -55,6 +55,7 @@ Phases, each timed and each fatal when it fails:
                 statistics moving; step ms, img/s, peak memory, and one profiled
                 step (the kernel's share of device time, the top device operations)
   8. fit        every fit of the script, this phase's four and those of 11, 12 and 13 (e),
+                and the export of phase 15 (a job of its own),
                 each in a process of its own (`chip_smoke.py --fit NAME WORK CARD`),
                 FIT_PROCS at once, longest first, each one's output printed whole when it
                 ends, and each fit's process seconds. The dataset path end to end: the
@@ -179,7 +180,19 @@ Phases, each timed and each fatal when it fails:
                 best mAP50-95 less 0.1, no op without a deterministic form, and (a fit job
                 of its own) 3 epochs twice under strictly deterministic algorithms equal to
                 the bit (run in phase 8). The linear-attention kernel launches 0 times in all of it
- 15. registry   the registry rows no bundled YAML uses, in one test graph
+ 15. export     the flagship as a .pt2 (torch.export, symbolic batch) and as ONNX at 160 px
+                (both exported by a job of its own in phase 8, beside the fits), the .pt2 reloaded in a fresh process that
+                imports only edgeyolo_tpu_torch (`chip_smoke.py --serve-pt2 WORK CARD`) and
+                served at 32 x 640 px f32 in turns with the live fused f32 model: the
+                program's pred within FUSED_F32_TOL, the attention kernel launched inside
+                it once a request, request ms of each; npz exported and reloaded equal to
+                the bit; the flagship's ONNX at 160 px through the port's numpy executor
+                against the card's f32 forward (JAX's ONNX tolerance); the registered
+                op's host dispatch cost against the kernel's wrapper called directly
+ 16. benchmark  YOLO.benchmark of the fit phase's flagship at 640 px, batch 8, over native,
+                torch_export and npz, validated on the fit's val images: mAP50-95 equal
+                within 1e-6, each row's ms/img, each export's seconds
+ 17. registry   the registry rows no bundled YAML uses, in one test graph
                 (tests/torch_registry_spec.py: Focus, C3k2_Wavelet and C3k2_TWavelet,
                 MulGate, C3x, RHJM, MSLA as a row, BottleneckCSP, SPPF_Wavelet, DySample,
                 C1, ConvTranspose, CBAM, WTConv2d, a TeLU conv), and the facade's fuse and
@@ -196,7 +209,7 @@ Phases, each timed and each fatal when it fails:
                 kernels of a profiled request of each); (c) embed: YOLO.embed of 32 images
                 at 640 px, the flagship at its default tap and at [10, 22] and the graph at
                 [13, 27], card against CPU in f32 on the first 8 (EMBED_TOL)
- 16. device     each kernel's device time at the shapes of phase 3: the context and
+ 18. device     each kernel's device time at the shapes of phase 3: the context and
      times      output launches each timed by its own event pair, in DEVICE_SESSIONS
                 sessions (median and spread, the SM clock read around each); after the
                 serve, train, fit and jpeg phases
@@ -3623,6 +3636,214 @@ def embed_check(la, card: str) -> dict:
     return launches
 
 
+EXPORT = "edgeline-yolo"  # the flagship, exported as its fused f32 form
+EXPORT_ONNX_IMGSZ = 160  # the numpy executor's size: ~1 s an image there
+ONNX_TOL = {"atol": 5e-4, "rtol": 1e-3}  # JAX's own ONNX tolerance (tests/test_onnx.py)
+EXPORT_ROUNDS = 4  # live, program, program, live, ...: requests of each side
+BENCH = {"imgsz": 640, "batch": 8, "iters": 10, "formats": ["native", "torch_export", "npz"]}
+BENCH_MAP_TOL = 1e-6
+
+
+def export_flagship():
+    """The exported model: the seeded flagship with its gates open and class
+    logits at 0, f32 on the card, unfused (the exporter fuses a copy)."""
+    from edgeyolo_tpu_torch.nn.tasks import DetectionModel
+
+    return exercise_branches(DetectionModel(f"{EXPORT}.yaml", device="cuda"))
+
+
+def export_job(la, card: str, work: Path):
+    """A fit job of its own (it runs beside the fits, in the fit phase): the
+    flagship exported to a .pt2 at SERVE_IMGSZ with a symbolic batch, into
+    WORK/export/pt2, and to ONNX at EXPORT_ONNX_IMGSZ, into WORK/export/onnx;
+    the export seconds (taken beside the fits) in its log."""
+    from edgeyolo_tpu_torch.cfg import get_cfg
+    from edgeyolo_tpu_torch.export.exporter import Exporter
+
+    n0 = la.linear_attention_kernel.launches
+    model = export_flagship()
+    for fmt, imgsz in (("torch_export", SERVE_IMGSZ), ("onnx", EXPORT_ONNX_IMGSZ)):
+        ex = Exporter(get_cfg(overrides={"mode": "export", "format": fmt, "imgsz": imgsz}))
+        path = ex(model, out_dir=work / ("pt2" if fmt == "torch_export" else fmt))
+        print(f"export: {path} ({Path(path).stat().st_size} bytes) in {ex.seconds:.3f} s, beside "
+              f"the fits", flush=True)
+    launches = la.linear_attention_kernel.launches - n0
+    print(f"export: kernel launches while tracing {launches}", flush=True)
+    return {"trace": launches}, None
+
+
+def serve_pt2(work: str, card: str) -> int:
+    """`chip_smoke.py --serve-pt2 WORK CARD`, a fresh process that imports only
+    edgeyolo_tpu_torch: the .pt2 of export_job through AutoBackend, and the
+    same flagship live (fused f32), each serving SERVE_BATCH x SERVE_IMGSZ
+    uint8 requests (upload, /255, forward, NMS) in turns; the program's pred
+    held against the live one at FUSED_F32_TOL, its kernel launches counted
+    per request. Writes WORK/serve_pt2.json."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from edgeyolo_tpu_torch.nn.autobackend import AutoBackend
+    from edgeyolo_tpu_torch.ops import linear_attention as la
+    from edgeyolo_tpu_torch.ops.nms import non_max_suppression
+
+    work = Path(work)
+    t0 = time.perf_counter()
+    program = AutoBackend(work / "pt2" / f"{EXPORT}.pt2", device="cuda")
+    load_s = time.perf_counter() - t0
+    live = export_flagship().fuse().eval()
+    ops = sorted({str(n.target) for n in program._program.graph.nodes
+                  if "edgeyolo_tpu_torch" in str(n.target)})
+    imgs = torch.randint(0, 256, (SERVE_BATCH, SERVE_IMGSZ, SERVE_IMGSZ, 3), dtype=torch.uint8,
+                         generator=torch.Generator().manual_seed(3))
+
+    def request(fn):
+        with torch.inference_mode():
+            x = imgs.cuda().permute(0, 3, 1, 2).float() / 255
+            pred = fn(x)
+            return pred, non_max_suppression(pred, conf_thres=0.25, iou_thres=0.7, max_det=300,
+                                             max_nms=1024)
+
+    sides = {"live": lambda x: live(x)["pred"], "program": program}
+    out = {k: request(f) for k, f in sides.items()}  # warm-up
+    torch.cuda.synchronize()
+    times, launches = {k: [] for k in sides}, 0
+    for r in range(EXPORT_ROUNDS):
+        for k in (("live", "program") if r % 2 == 0 else ("program", "live")):
+            n0 = la.linear_attention_kernel.launches
+            t = time.perf_counter()
+            out[k] = request(sides[k])
+            torch.cuda.synchronize()
+            times[k].append((time.perf_counter() - t) * 1e3)
+            if k == "program":
+                launches += la.linear_attention_kernel.launches - n0
+    a, b = out["program"][0], out["live"][0]
+    box_gap = ((a[..., :4] - b[..., :4]).abs().max() / b[..., :4].abs().max()).item()
+    score_gap = (a[..., 4:] - b[..., 4:]).abs().max().item()
+    foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "edgeyolo_tpu"))
+    res = {"load_s": load_s, "ops": ops, "launches_per_request": launches / EXPORT_ROUNDS,
+           "ms": {k: statistics.median(v) for k, v in times.items()}, "times": times,
+           "box_gap": box_gap, "score_gap": score_gap,
+           "detections": [int(out[k][1][1].sum()) for k in ("program", "live")],
+           "shape": list(a.shape), "foreign_modules": foreign}
+    (work / "serve_pt2.json").write_text(json.dumps(res))
+    print(json.dumps(res), flush=True)
+    return 0
+
+
+def export_phase(la, card: str, work: Path) -> dict:
+    """The export path on the card: (a) the .pt2 of export_job served from a
+    fresh process (serve_pt2): the program launches the attention kernel at
+    least once a request and its pred is within FUSED_F32_TOL of the live fused
+    f32 model's; (b) npz: exported and reloaded through AutoBackend, every
+    tensor and the pred equal to the bit; (c) the flagship's ONNX of export_job
+    (EXPORT_ONNX_IMGSZ) through the port's numpy executor against the card's
+    f32 forward at ONNX_TOL; (d) the registered op's host dispatch: host ms a call
+    of `linear_attention` (the op) and of the kernel's wrapper directly, at the
+    serving shape."""
+    import numpy as np
+    import torch
+
+    from edgeyolo_tpu_torch.cfg import get_cfg
+    from edgeyolo_tpu_torch.export.exporter import Exporter
+    from edgeyolo_tpu_torch.export.onnx_runtime import OnnxModel
+    from edgeyolo_tpu_torch.nn.autobackend import AutoBackend
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--serve-pt2", str(work),
+                           card], capture_output=True, text=True, timeout=600)
+    print(proc.stdout, end="", flush=True)
+    if proc.returncode:
+        print(proc.stderr[-4000:], flush=True)
+        raise AssertionError(f"export: the .pt2 process failed (exit code {proc.returncode})")
+    res = json.loads((work / "serve_pt2.json").read_text())
+    print(f"export: .pt2 served from a fresh process in {time.perf_counter() - t0:.3f} s (load "
+          f"{res['load_s']:.3f} s): {res['launches_per_request']} kernel launches a request inside "
+          f"the program (ops {res['ops']}); request ms in turns, batch {SERVE_BATCH} x "
+          f"{SERVE_IMGSZ} f32: live fused {res['ms']['live']:.3f}, program "
+          f"{res['ms']['program']:.3f} ({res['times']}); pred gap box {res['box_gap']:.3e} of the "
+          f"box scale, score {res['score_gap']:.3e} (tol {FUSED_F32_TOL}); detections "
+          f"{res['detections']}; on {card}", flush=True)
+    if not (res["launches_per_request"] >= 1 and res["box_gap"] <= FUSED_F32_TOL
+            and res["score_gap"] <= FUSED_F32_TOL and not res["foreign_modules"]
+            and res["ops"] == ["edgeyolo_tpu_torch.linear_attention.default"]):
+        raise AssertionError(f"export: the .pt2 failed its checks: {res}")
+
+    model = export_flagship()
+    fused = copy.deepcopy(model).fuse().eval()
+    ex = Exporter(get_cfg(overrides={"mode": "export", "format": "npz", "imgsz": SERVE_IMGSZ}))
+    npz = AutoBackend(ex(model, out_dir=work / "npz"), device="cuda")
+    want, got = fused.state_dict(), npz.model.state_dict()
+    x = torch.rand(4, 3, SERVE_IMGSZ, SERVE_IMGSZ, generator=torch.Generator().manual_seed(4)).cuda()
+    with torch.inference_mode():
+        same = torch.equal(npz(x), fused(x)["pred"])
+    if not (set(want) == set(got) and all(torch.equal(want[k], got[k]) for k in want) and same):
+        raise AssertionError("export: the npz did not round-trip to the bit")
+    print(f"export: npz in {ex.seconds:.3f} s, {len(want)} tensors equal to the bit, pred of 4 "
+          f"images equal to the bit: {same}", flush=True)
+
+    path = work / "onnx" / f"{EXPORT}.onnx"
+    onnx = OnnxModel(path.read_bytes())
+    xs = x[:1, :, :EXPORT_ONNX_IMGSZ, :EXPORT_ONNX_IMGSZ].contiguous()
+    t = time.perf_counter()
+    got = onnx(xs.cpu().numpy())
+    run_s = time.perf_counter() - t
+    with torch.inference_mode():
+        want = fused(xs)["pred"].cpu().numpy()
+    gap = float(np.abs(got - want).max())
+    print(f"export: onnx ({len(onnx.m['nodes'])} nodes, exported by the job): the numpy executor "
+          f"{run_s:.3f} s for 1 x {EXPORT_ONNX_IMGSZ} px on the host; against the card's f32 forward max |gap| {gap:.3e} (box scale "
+          f"{np.abs(want[..., :4]).max():.1f}; tol {ONNX_TOL})", flush=True)
+    np.testing.assert_allclose(got, want, **ONNX_TOL)
+
+    q, k, v = la_inputs(SERVE_BATCH, 400, 2, 64, torch.bfloat16, "qkv",
+                        torch.Generator(device="cuda").manual_seed(5))
+    dispatch = {}
+    for mode in ("grad", "inference"):
+        with torch.inference_mode(mode == "inference"):
+            op_ms = host_ms(lambda: la.linear_attention(q, k, v))
+            direct_ms = host_ms(lambda: la.linear_attention_kernel(q, k, v))
+        dispatch[mode] = (op_ms - direct_ms) * 1e3
+        print(f"export: host ms a call at ({SERVE_BATCH}, 400, 2, 64) bf16 ({mode} mode): the "
+              f"registered op {op_ms:.4f}, the wrapper directly {direct_ms:.4f}: dispatch "
+              f"{dispatch[mode]:.1f} us a launch", flush=True)
+    return {"launches_per_request": res["launches_per_request"], "ms": res["ms"],
+            "onnx_s": run_s, "dispatch_us": dispatch}
+
+
+def benchmark_phase(la, card: str, best: Path, data: Path, work: Path) -> list[dict]:
+    """YOLO.benchmark of the fit phase's flagship on the card at BENCH's size over
+    native, torch_export and npz, validated on the fit's val images: every row
+    ok, their mAP50-95 equal within BENCH_MAP_TOL; each export's seconds."""
+    from edgeyolo_tpu_torch.engine.model import YOLO
+    from edgeyolo_tpu_torch.export import exporter
+
+    seconds = {}
+    call = exporter.Exporter.__call__
+
+    def timed(self, model, out_dir="runs/export"):
+        t = time.perf_counter()
+        out = call(self, model, out_dir=out_dir)
+        seconds[self.args.format] = time.perf_counter() - t
+        return out
+
+    n0 = la.linear_attention_kernel.launches
+    with mock.patch.object(exporter.Exporter, "__call__", timed):
+        rows = YOLO(best, device="cuda").benchmark(data=str(data), out_dir=str(work / "bench"),
+                                                   verbose=False, **BENCH)
+    launches = la.linear_attention_kernel.launches - n0
+    for r in rows:
+        print(f"benchmark: {json.dumps(r)}", flush=True)
+    print(f"benchmark: export seconds {seconds}; {launches} kernel launches in the table; "
+          f"{BENCH}; on {card}", flush=True)
+    maps = [r.get("mAP50-95") for r in rows]
+    if not (all(r["status"] == "ok" for r in rows) and all(isinstance(m, float) for m in maps)
+            and max(maps) - min(maps) <= BENCH_MAP_TOL and maps[0] > 0 and launches > 0):
+        raise AssertionError(f"benchmark: rows {rows}")
+    return rows
+
+
 FIT_JOBS = {  # name: the fit, longest first (their seconds alone on an H100)
     RTDETR_FIT: fit_rtdetr,
     "yolov13-test": lambda la, card, work: fit(la, card, work, "yolov13-test.yaml",
@@ -3644,6 +3865,7 @@ FIT_JOBS = {  # name: the fit, longest first (their seconds alone on an H100)
                                     jax_maps={"metrics/mAP50-95(B)": OBB_JAX_MAP},
                                     epochs=POSE_OBB_FIT_EPOCHS),
     f"{RTDETR_FIT}-repeat": repeat_rtdetr,
+    "export": export_job,
 }
 
 
@@ -3874,6 +4096,15 @@ def main() -> int:
             raise AssertionError("the attention kernel launched in an RT-DETR model")
         done("rtdetr train", t0)
 
+        t0 = phase("export")
+        export = export_phase(la, card, Path(work) / "export")
+        done("export", t0)
+
+        t0 = phase("benchmark")
+        benchmark_phase(la, card, best, Path(work) / "edgeline-yolo" / "fit" / "dataset.yaml",
+                        Path(work) / "export")
+        done("benchmark", t0)
+
     t0 = phase("registry reference")
     registry_launches = {"reference": registry_reference(la)}
     done("registry reference", t0)
@@ -3924,6 +4155,9 @@ def main() -> int:
                 **{f"launches_rtdetr_{k}": v for k, v in rt_launches.items()},
                 **{f"launches_registry_{k}": v for k, v in registry_launches.items()},
                 "fused_flagship": fused,
+                "launches_export_pt2": export["launches_per_request"],
+                "export_pt2_ms": export["ms"], "export_onnx_executor_s": export["onnx_s"],
+                "op_dispatch_us": export["dispatch_us"],
                 **la_rows[LA_MAIN_CASE], "library_ms": None,
                 "wavelet_rows": [{"shape": list(case[:4]), "dtype": case[4], **row}
                                  for case, row in zip(LA_CASES, la_rows)
@@ -3938,4 +4172,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--fit"]:
         sys.exit(fit_worker(*sys.argv[2:5]))
+    if sys.argv[1:2] == ["--serve-pt2"]:
+        sys.exit(serve_pt2(*sys.argv[2:4]))
     sys.exit(main())

@@ -7,11 +7,15 @@
     edgeyolo-torch pose train data=pose.yaml model=yolo11n-pose.yaml epochs=10
     edgeyolo-torch obb val model=runs/obb/train/best.pt data=dota.yaml
     edgeyolo-torch classify train data=path/to/class_folders model=yolo11n-cls.yaml imgsz=224
+    edgeyolo-torch detect export model=runs/detect/train/best.pt format=onnx imgsz=640
+    edgeyolo-torch detect benchmark model=runs/detect/train/best.pt data=dataset.yaml imgsz=640
 
 Also `help`, `version` and `cfg` (the defaults as JSON). Values are parsed
 as Python literals where they are one (`epochs=10`, `half=True`), else kept
-as strings; unknown keys raise with suggestions. The export, benchmark and
-tune modes are not ported yet.
+as strings; unknown keys raise with suggestions. `export` writes the
+artifact (`format`: torch_export, stablehlo, jax_export, npz or onnx) and
+prints its path; `benchmark` prints the format table (`imgsz`, `data`),
+one JSON row a format. The tune mode is not ported yet.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ CLI_HELP = f"""
     Usage: edgeyolo-torch TASK MODE ARGS
 
         TASK (optional): one of {sorted(TASKS)}
-        MODE (required): one of ['predict', 'track', 'train', 'val']
+        MODE (required): one of ['benchmark', 'export', 'predict', 'track', 'train', 'val']
         ARGS (optional): any number of 'arg=value' pairs overriding defaults.
 
     Examples:
@@ -35,6 +39,8 @@ CLI_HELP = f"""
         edgeyolo-torch detect val model=runs/detect/train/best.pt data=dataset.yaml
         edgeyolo-torch detect predict model=runs/detect/train/best.pt source=images/
         edgeyolo-torch detect track model=runs/detect/train/best.pt source=line.avi
+        edgeyolo-torch detect export model=runs/detect/train/best.pt format=onnx
+        edgeyolo-torch detect benchmark model=runs/detect/train/best.pt data=dataset.yaml
 """
 
 
@@ -83,8 +89,8 @@ def entrypoint(argv: list[str] | None = None) -> int:
         else:
             raise SyntaxError(f"'{a}' is not a valid task, mode or k=v pair.\n{CLI_HELP}")
     if mode is None:
-        raise SyntaxError(f"a MODE is required: ['predict', 'track', 'train', 'val']\n{CLI_HELP}")
-    if mode not in ("train", "val", "predict", "track"):
+        raise SyntaxError(f"a MODE is required: {sorted(MODES - {'tune'})}\n{CLI_HELP}")
+    if mode == "tune":
         raise NotImplementedError(f"mode '{mode}' is not ported yet")
 
     from edgeyolo_tpu_torch.engine.model import YOLO
@@ -119,6 +125,11 @@ def entrypoint(argv: list[str] | None = None) -> int:
             else:
                 _say(f"{r.path}: {r.verbose_str}")
         _say(f"{len(results)} images processed")
+    elif mode == "export":
+        _say(f"exported -> {model.export(**overrides)}")
+    elif mode == "benchmark":
+        for row in model.benchmark(**{k: v for k, v in overrides.items() if k in {"imgsz", "data"}}):
+            _say(json.dumps(row))
     else:
         source = overrides.pop("source", None)
         if source is None:

@@ -21,7 +21,9 @@ dataset's `kpt_shape`. `add_callback` registers a hook for a trainer event
 (utils/callbacks.py), which the next `train` runs; `reset_callbacks`
 clears them. `fuse` folds the model's conv and BatchNorm pairs in place
 (inference only; a saved fused model reloads fused), and `embed` returns
-one pooled feature vector per image of the layers it taps. `predict` keeps
+one pooled feature vector per image of the layers it taps. `export` writes
+the model as a torch.export program, npz weights or ONNX (nn/autobackend.py
+loads each), and `benchmark` times and validates each format. `predict` keeps
 its predictor (and so its save directory) while the arguments stay the
 same, as JAX's facade does; `track` runs it with a ByteTrack or BoT-SORT
 tracker over the frames. Every mode runs on CUDA unless `device` names
@@ -255,6 +257,24 @@ class YOLO:
                 yield vec
 
         return gen() if stream else list(gen())
+
+    def export(self, **kwargs) -> str:
+        """Export the model (`format`: export/exporter.py's EXPORT_FORMATS, default
+        stablehlo, the .pt2 program and its printed graph) into
+        `project`/`name` (default `name` "export"), or runs/export without a
+        project; returns the artifact's path."""
+        from edgeyolo_tpu_torch.export.exporter import Exporter
+
+        args = self._args("export", kwargs)
+        out_dir = (Path(args.project) / (args.name or "export") if args.project
+                   else Path("runs/export"))
+        return Exporter(args)(self.model, out_dir=out_dir)
+
+    def benchmark(self, **kwargs) -> list[dict]:
+        """The format x (ms, imgs/s [, mAP50-95]) table (utils/benchmarks.py)."""
+        from edgeyolo_tpu_torch.utils.benchmarks import benchmark
+
+        return benchmark(self, **kwargs)
 
     def save(self, filename: str | Path = "model.pt") -> Path:
         """A standalone checkpoint that YOLO(<path>) reloads."""

@@ -18,7 +18,11 @@ top-left xywh, go to `save_dir/predictions.json` (category ids through the
 COCO 80 -> 91 map when the split is COCO's 80 classes), and when the data
 YAML names `annotations` or `gt_json` the COCO protocol scores them
 (metrics/coco_eval.py) into `metrics.speed["coco/AP"]` and the rest.
-Plots, int8 and multi-device validation are not ported yet.
+Plots, int8 and multi-device validation are not ported yet. The model may
+also be a backend adapter that gives only `pred` (`adapter(x)["pred"]`, its
+`nc`, `names` and `end2end`; utils/benchmarks.py wraps an exported artifact
+so, as JAX's `eager_only` adapters): the network runs through it and the NMS,
+scaling and matching are the validator's own.
 
 SegmentationValidator (JAX's): box metrics on the shared matching, plus the
 mask table `metrics/mAP50(M)` and `metrics/mAP50-95(M)`. On the device, per

@@ -163,8 +163,9 @@ class WaveletEnhancer(nn.Module):
         h, w = x.shape[-2:]
         ll, lh, hl, hh = self.dwt(x)
         llp = self.f_ll(ll)
-        # the three high bands share f_h: one conv over the stacked batch
-        lhp, hlp, hhp = self.f_h(torch.cat([lh, hl, hh], dim=0)).chunk(3, dim=0)
+        # the three high bands share f_h: one conv over the stacked batch (unstacked
+        # by a reshape, which a symbolic batch traces without a guard)
+        lhp, hlp, hhp = self.f_h(torch.cat([lh, hl, hh], dim=0)).unflatten(0, (3, -1)).unbind(0)
         wgt = F.softplus(self.alpha)
         wgt = (wgt / (wgt.sum() + 1e-6)).to(x.dtype)
         subs = [_bilinear_resize(p, (h, w)) * wgt[i] for i, p in enumerate((llp, lhp, hlp, hhp))]

@@ -52,7 +52,7 @@ class MSLA(nn.Module):
     def forward(self, x):
         b = x.shape[0]
         parts = [getattr(self, f"dw_{k}x{k}")(p) for k, p in zip(_KERNELS, x.chunk(4, dim=1))]
-        outs = self.linear_attention(torch.cat(parts, dim=0)).split(b, dim=0)
+        outs = self.linear_attention(torch.cat(parts, dim=0)).unflatten(0, (4, b)).unbind(0)
         scale = self.scale_weights.to(x.dtype)
         return self.final_conv(torch.cat([o * scale[i] for i, o in enumerate(outs)], dim=1))
 
@@ -264,7 +264,7 @@ class LocalSS2DContext(nn.Module):
         rows = x.flatten(2)  # row-major tokens
         cols = x.transpose(2, 3).flatten(2)  # column-major tokens
         fwd_r, bwd_r, fwd_c, bwd_c = self.mixer(
-            torch.cat([rows, rows.flip(-1), cols, cols.flip(-1)], dim=0)).split(b, dim=0)
+            torch.cat([rows, rows.flip(-1), cols, cols.flip(-1)], dim=0)).unflatten(0, (4, b)).unbind(0)
         ctx = (fwd_r.view(b, c, h, w) + bwd_r.flip(-1).view(b, c, h, w)
                + fwd_c.view(b, c, w, h).transpose(2, 3)
                + bwd_c.flip(-1).view(b, c, w, h).transpose(2, 3)) / 4.0

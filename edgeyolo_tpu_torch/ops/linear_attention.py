@@ -14,9 +14,14 @@ The kernel splits N into S chunks across thread blocks (`split_plan`) and
 merges their partial contexts in a fixed order through an f32 workspace that
 the wrapper keeps per stream, so its output is the same bits from run to run.
 
-A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises. The backward recomputes through the plain version with autograd, as
-`_la_bwd` does with `jax.vjp(_la_reference)`.
+`linear_attention` is the registered torch op `edgeyolo_tpu_torch::linear_attention`,
+so graph capture (`torch.export`) keeps it as one node and an exported program
+launches the kernel when it runs on the card; importing this module registers
+it. A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
+raises. Either way y comes back in the kernel's layout (`_y_strides`), which
+is also what the op's fake implementation gives a traced y. The backward
+recomputes through the plain version with autograd, as `_la_bwd` does with
+`jax.vjp(_la_reference)`.
 """
 
 from __future__ import annotations
@@ -100,6 +105,14 @@ def blocks_per_sm(dtype: torch.dtype, d: int, index: int) -> int:
     return n
 
 
+def _y_strides(shape, strides) -> tuple:
+    """y's strides: token-minor (B, H, D, N) in memory when q is, else contiguous."""
+    b, n, h, d = shape
+    if strides[1] == 1:
+        return (h * d * n, 1, d * n, n)
+    return (n * h * d, h * d, d, 1)
+
+
 # (shape, strides, dtype, device) of q -> (y's strides, workspace floats,
 # (batch, head) pairs, _Shape): checked and planned on the first launch at
 # that shape, so later launches only look it up.
@@ -116,10 +129,7 @@ def _plan(shape: torch.Size, strides: tuple, dtype: torch.dtype, device: torch.d
     b, n, h, d = shape
     if min(b, n, h) <= 0:
         raise ValueError(f"empty input {tuple(shape)}")
-    if strides[1] == 1:  # (B, H, D, N) in memory: y too
-        y_strides = (h * d * n, 1, d * n, n)
-    else:
-        y_strides = (n * h * d, h * d, d, 1)
+    y_strides = _y_strides(shape, strides)
     splits, chunk, ws_bytes = split_plan(b, n, h, d, _sm_count(device.index),
                                          blocks_per_sm(dtype, d, device.index))
     args = _Shape(_DTYPE_CODE[dtype], d, b, n, h, splits, chunk, device.index,
@@ -190,24 +200,39 @@ linear_attention_kernel.launches = 0
 
 def _forward(q, k, v):
     if q.device.type == "cpu":
-        return linear_attention_reference(q, k, v)
+        y = linear_attention_reference(q, k, v)
+        return torch.empty_strided(y.shape, _y_strides(q.shape, q.stride()),
+                                   dtype=y.dtype).copy_(y)
     return linear_attention_kernel(q, k, v)
 
 
-class _LinearAttention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v):
-        ctx.save_for_backward(q, k, v)
-        return _forward(q, k, v)
+@torch.library.custom_op("edgeyolo_tpu_torch::linear_attention", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def _op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The registered op: the plain version on the CPU, the kernel on CUDA."""
+    return _forward(q, k, v)
 
-    @staticmethod
-    def backward(ctx, g):
-        q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
-        with torch.enable_grad():
-            y = linear_attention_reference(q, k, v)
-        return torch.autograd.grad(y, (q, k, v), g)
+
+@_op.register_fake
+def _(q, k, v):
+    return q.new_empty_strided(q.shape, _y_strides(q.shape, q.stride()))
+
+
+def _setup_context(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _backward(ctx, g):
+    q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+    with torch.enable_grad():
+        y = linear_attention_reference(q, k, v)
+    return torch.autograd.grad(y, (q, k, v), g)
+
+
+_op.register_autograd(_backward, setup_context=_setup_context)
+linear_attention_op = torch.ops.edgeyolo_tpu_torch.linear_attention.default
 
 
 def linear_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Fused linear attention over (B, N, heads, head_dim), differentiable."""
-    return _LinearAttention.apply(q, k, v)
+    return linear_attention_op(q, k, v)

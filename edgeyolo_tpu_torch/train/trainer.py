@@ -51,9 +51,9 @@ from __future__ import annotations
 
 import contextlib
 import csv
-import io
 import json
 import math
+import os
 import time
 from dataclasses import dataclass
 from pathlib import Path
@@ -575,17 +575,17 @@ class DetectionTrainer(CallbackMixin):
     def checkpoint(self, epoch: int) -> dict:
         """The training state as tensors and plain values (weights_only-loadable)."""
         def cpu(sd):
-            return {k: v.detach().cpu().clone() for k, v in sd.items()}
+            return {k: v.detach().to("cpu", copy=True) for k, v in sd.items()}
 
         opt = self.optimizer.opt
         return {
             "model": cpu(self.model.state_dict()),
             "ema": cpu(self.ema_state_dict()),
             "optimizer": {"name": opt.name, "count": opt.count,
-                          **{k: getattr(opt, k).detach().cpu().clone()
+                          **{k: getattr(opt, k).detach().to("cpu", copy=True)
                              for k in ("trace", "mu", "nu") if getattr(opt, k) is not None},
                           # zero at mini-step 0 (after an update): not stored then
-                          "acc": (self.optimizer.acc.detach().cpu().clone()
+                          "acc": (self.optimizer.acc.detach().to("cpu", copy=True)
                                   if self.optimizer.mini_step else None),
                           "mini_step": self.optimizer.mini_step},
             "generator": self.gen.get_state(),
@@ -604,15 +604,23 @@ class DetectionTrainer(CallbackMixin):
 
     def save_checkpoint(self, names: str | tuple[str, ...], epoch: int) -> Path:
         """{save_dir}/{name}.pt and its {name}.json metadata for each of
-        `names`: the checkpoint built and serialised once, its bytes written
-        to every file. Returns the last path."""
+        `names`: the checkpoint built and serialised once, into one file that
+        every name links to. Each name is replaced, never written in place, so a
+        later checkpoint leaves the files of an earlier one as they were.
+        Returns the last path."""
         self.save_dir.mkdir(parents=True, exist_ok=True)
-        buf = io.BytesIO()
-        torch.save(self.checkpoint(epoch), buf)
         meta = json.dumps(self.meta(epoch), default=str)
+        first = None
         for name in (names,) if isinstance(names, str) else names:
             path = self.save_dir / f"{name}.pt"
-            path.write_bytes(buf.getbuffer())
+            tmp = path.with_suffix(".pt.tmp")
+            tmp.unlink(missing_ok=True)
+            if first is None:
+                torch.save(self.checkpoint(epoch), tmp)
+                first = path
+            else:
+                os.link(first, tmp)
+            os.replace(tmp, path)
             path.with_suffix(".json").write_text(meta)
         return path
 

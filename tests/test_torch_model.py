@@ -42,7 +42,8 @@ from torch_threads import one_torch_thread  # noqa: F401  (the port on one threa
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "edgeyolo_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "yaml", "PIL", "cv2", "edgeyolo_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "yaml", "PIL", "cv2", "edgeyolo_tpu", "onnx",
+             "onnxscript")
 IMGSZ = 64
 DFL_KEY = "model.23.dfl.conv.weight"  # the reference's frozen DFL bins; JAX computes them
 
