@@ -15,7 +15,12 @@ Phases, each timed and each fatal when it fails:
                 128 at l and 192 at x), with times and the bound; the attention
                 kernel's split of N and workspace, and two launches on the same inputs
                 compared bit for bit
-  4. reference  the f32 model on the card (kernel) against the same model on the
+  4. reference  the card-against-CPU checks of the script, each group a job in a
+                process of its own (REFERENCE_JOBS, REF_PROCS at once, as the fits of
+                phase 8 run): the reference models of this phase in REF_GROUPS jobs,
+                the train references of phase 6 in four, and the World, CLIP and
+                SAM references of phases 18 (a), (b) and 19 (a). This phase's check:
+                the f32 model on the card (kernel) against the same model on the
                 CPU (plain version) at 64 px, gates open: EdgeLine-YOLO-n, the YOLO11
                 ablation family, YOLOv13 and its MSLA, LGL, wavelet and E2E variants,
                 and the YOLOv10 family, yolo11-t/-test/-tune, yolov12, yolov12x,
@@ -38,8 +43,8 @@ Phases, each timed and each fatal when it fails:
                 attention; an E2E model's before its top-k); then yolov10n (E2E without
                 quality, no kernel), yolov12n (no kernel), yolo11-test-n and
                 yolo11-tune-n (the kernel once per request) the same way
-  6. train      one f32 train step at 64 px, batch 2, on the card (kernel) against the
-     reference  same step on the CPU (plain version): same seeded weights, same
+  6. train      (run in phase 4) one f32 train step at 64 px, batch 2, on the card
+     reference  (kernel) against the same step on the CPU (plain version): same seeded weights, same
                 augmentation draws; the loss, every gradient and the updated params;
                 EdgeLine-YOLO-n from two starts, yolov13-dsc3k2-msla-n and
                 yolov13-test-n (E2EDetectLoss) from one; yolov13-test-n and yolov10n
@@ -56,7 +61,7 @@ Phases, each timed and each fatal when it fails:
                 step (the kernel's share of device time, the top device operations)
   8. fit        every fit of the script, this phase's four and those of 11, 12 and 13 (e),
                 and the export of phase 15 (a job of its own),
-                each in a process of its own (`chip_smoke.py --fit NAME WORK CARD`),
+                each in a process of its own (`chip_smoke.py --job NAME WORK CARD`),
                 FIT_PROCS at once, longest first, each one's output printed whole when it
                 ends, and each fit's process seconds. The dataset path end to end: the
                 port's synthetic dataset (16 train, 8 val
@@ -209,7 +214,31 @@ Phases, each timed and each fatal when it fails:
                 kernels of a profiled request of each); (c) embed: YOLO.embed of 32 images
                 at 640 px, the flagship at its default tap and at [10, 22] and the graph at
                 [13, 27], card against CPU in f32 on the first 8 (EMBED_TOL)
- 18. device     each kernel's device time at the shapes of phase 3: the context and
+ 18. world      YOLO-World (no kernel): (a) reference (in phase 4): yolov8-world-n and
+                yolov8-worldv2-n at 64 px in f32 with a 4-text bank, card against CPU at
+                seeded and at test weights (WORLD_REF_SCALE, similarity biases spread):
+                boxes 5e-3 px, scores 1e-4; the CLIP text tower at full width on
+                CLIP_PROMPTS seeded token sequences within CLIP_TOL; (b) train reference
+                (in phase 4): one f32 yolov8-worldv2-n step at 64 px on 4 images with an
+                80-text bank, card against CPU per tensor at TRAIN_REF_TOL; (c) serve:
+                yolov8s-worldv2 with an 80-text seeded unit-norm bank at batch 32 x 640 px
+                in bf16 (bf16 conv and linear outputs): request ms, img/s, peak memory, a
+                profiled request; the CLIP text tower's ms for 80 prompts, its bank
+                served; (d) train: yolov8s-worldv2 at batch 32 x 640 px, bf16 autocast,
+                default hyps, 80 texts: step ms, peak memory (phase 7's checks)
+ 19. sam        SAM and MobileSAM (no kernel): (a) reference (in phase 4): ViT-B at full
+                width (768 x 12) at SAM_REF_IMGSZ px, card against CPU at SAM_TOL of each
+                output's scale (encoding, masks, IoU); TinyViT on the reference's own
+                state_dict against its embedding (atol 2e-4, rtol 1e-3); (b) serve: ViT-B
+                and MobileSAM at 1024 px in f32: encode ms and peak memory, set_image,
+                point, box and multimask prompt ms, grid_generate at 16 x 16 points with
+                the default filters and with every candidate let through
+ 20. fastsam    FastSAM-s in everything mode over 8 images at 640 px (class logit at 0):
+     and auto-  request ms, proposals with masks, the box and point prompts' selections;
+     annotate   then auto_annotate of the fit's val images with the fit phase's flagship
+                prompting a seeded MobileSAM: seconds, one SAM call per detection, the
+                label files' lines well formed, the flagship's kernel launches
+ 21. device     each kernel's device time at the shapes of phase 3: the context and
      times      output launches each timed by its own event pair, in DEVICE_SESSIONS
                 sessions (median and spread, the SM clock read around each); after the
                 serve, train, fit and jpeg phases
@@ -223,6 +252,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import functools
+import gzip
 import json
 import math
 import os
@@ -787,18 +817,18 @@ def perturbed(model, scale: float, seed: int = 0):
     return model
 
 
-def check_reference(la) -> dict:
-    """Each model's f32 forward at 64 px on the card (kernel) against the CPU
-    (plain version), gates open, at its seeded weights and at the weights of
-    its tests (REF_SCALE); returns the kernel's launches on the card by model.
-    Each model is built once on the CPU and copied to the card."""
+def check_reference(la, names) -> dict:
+    """Each model of `names` (REF_NAMES) in f32 at 64 px on the card (kernel)
+    against the CPU (plain version), gates open, at its seeded weights and at
+    the weights of its tests (REF_SCALE); returns the kernel's launches on the
+    card by model. Each model is built once on the CPU and copied to the card."""
     import torch
 
     from edgeyolo_tpu_torch.nn.tasks import DetectionModel
 
     x = torch.rand(2, 3, 64, 64, generator=torch.Generator().manual_seed(1))
     launches = {}
-    for name in ("edgeline-yolo-n", *FAMILIES, *NEW_REF_SCALE):
+    for name in names:
         seeded = DetectionModel(name, device="cpu", seed=0)  # built once, copied per start
         for scale in (None, REF_SCALE[name]):
             m = copy.deepcopy(seeded)
@@ -836,9 +866,6 @@ def check_reference(la) -> dict:
                 raise AssertionError(f"{name}: {launches[name]} kernel launches in one forward, "
                                      f"{n_attention(m)} LinearAttention modules")
             del m
-    print("launches per forward of the EdgeLine variants: "
-          + ", ".join(f"{n} {launches[n.removesuffix('-n') + '.yaml']}"
-                      for n in EDGELINE_VARIANTS), flush=True)
     return launches
 
 
@@ -1117,12 +1144,12 @@ def ref_step(la, dev: str, start, batch: dict, replay: tuple | None = None,
     import torch
 
     from edgeyolo_tpu_torch.nn.modules import head as head_mod
-    from edgeyolo_tpu_torch.nn.tasks import DetectionModel
+    from edgeyolo_tpu_torch.nn.tasks import build_model
     from edgeyolo_tpu_torch.train import classify as classify_mod
     from edgeyolo_tpu_torch.train import detr_loss
     from edgeyolo_tpu_torch.train import trainer as trainer_mod
 
-    model = start(open_gates(DetectionModel(name, device=dev, seed=0)))
+    model = start(with_bank(open_gates(build_model(name, device=dev, seed=0))))
     if replay is not None:
         model.double()
     images = batch["img"].shape[0]  # one update over the batch: nbs = batch
@@ -1264,7 +1291,7 @@ def witness(la, start, batch: dict, cpu: dict, card: dict, name: str = "edgeline
     return exact
 
 
-def check_train_reference(la) -> dict:
+def check_train_reference(la, part: str) -> dict:
     """One f32 train step on the card with the kernel and on the CPU with the
     plain version, from the same seeded weights and the same draws of one
     CPU generator, from two starts each of the flagship and yolov13-test-n
@@ -1294,23 +1321,34 @@ def check_train_reference(la) -> dict:
       |grad| from the f64 one; on 4 it is within 1.9e-4 (yolov13-test-n) and
       3.7e-4 (yolov10n) of it in every tensor (ROADMAP C.10). The 2-image
       steps are printed beside them (`reading`), not held.
+
+    `part` ("flagship", MSLA, V13_TEST or "spread") runs one group of these
+    (the reference jobs run them at once, REFERENCE_JOBS).
     """
     batch = train_batch(TRAIN_REF_BATCH, TRAIN_REF_IMGSZ, TRAIN_REF_M, 4, seed=3)
-    card_vs_cpu(la, "the class prior", lambda m: m, batch, per_tensor=True)
-    launches = {MSLA: card_vs_cpu(la, "the class prior", lambda m: m, batch, per_tensor=True,
-                                  name=MSLA)[1]["launches"]}
-    cpu, card = card_vs_cpu(la, "the class prior", lambda m: m, batch, per_tensor=False,
-                            name=V13_TEST)
-    launches[V13_TEST] = card["launches"]
-    witness(la, lambda m: m, batch, cpu, card, V13_TEST)
-    batch4 = train_batch(4, TRAIN_REF_IMGSZ, TRAIN_REF_M, 4, seed=3)
-    for name in (V13_TEST, V10):
-        cpu, card = card_vs_cpu(la, "class logits spread around 0", spread_logits, batch4,
-                                per_tensor=True, name=name)
-        witness(la, spread_logits, batch4, cpu, card, name)
-        reading(la, name, spread_logits, batch)
-    cpu, card = card_vs_cpu(la, "class logits at 0", exercise_branches, batch, per_tensor=False)
-    witness(la, exercise_branches, batch, cpu, card)
+    launches = {}
+    if part == "flagship":
+        card_vs_cpu(la, "the class prior", lambda m: m, batch, per_tensor=True)
+        cpu, card = card_vs_cpu(la, "class logits at 0", exercise_branches, batch,
+                                per_tensor=False)
+        witness(la, exercise_branches, batch, cpu, card)
+    elif part == MSLA:
+        launches[MSLA] = card_vs_cpu(la, "the class prior", lambda m: m, batch, per_tensor=True,
+                                     name=MSLA)[1]["launches"]
+    elif part == V13_TEST:
+        cpu, card = card_vs_cpu(la, "the class prior", lambda m: m, batch, per_tensor=False,
+                                name=V13_TEST)
+        launches[V13_TEST] = card["launches"]
+        witness(la, lambda m: m, batch, cpu, card, V13_TEST)
+    elif part == "spread":
+        batch4 = train_batch(4, TRAIN_REF_IMGSZ, TRAIN_REF_M, 4, seed=3)
+        for name in (V13_TEST, V10):
+            cpu, card = card_vs_cpu(la, "class logits spread around 0", spread_logits, batch4,
+                                    per_tensor=True, name=name)
+            witness(la, spread_logits, batch4, cpu, card, name)
+            reading(la, name, spread_logits, batch)
+    else:
+        raise ValueError(f"unknown train reference part {part!r}")
     return launches
 
 
@@ -1743,11 +1781,12 @@ def train(la, card: str, name: str = "edgeline-yolo-n", copy_paste: float = 0.0,
 
     from edgeyolo_tpu_torch.nn.modules import edgeline
     from edgeyolo_tpu_torch.nn.modules.conv import BatchNorm2d
-    from edgeyolo_tpu_torch.nn.tasks import DetectionModel, is_rtdetr, num_trainable
+    from edgeyolo_tpu_torch.nn.tasks import build_model, is_rtdetr, num_trainable
     from edgeyolo_tpu_torch.train.trainer import DetectionTrainer, ModelEMA, batch_to_device
 
     bs, imgsz, real = shape or (TRAIN_BATCH, TRAIN_IMGSZ, TRAIN_REAL)
-    model = DetectionModel(name, device="cuda", seed=0)
+    base = torch.cuda.memory_allocated()  # what earlier phases left allocated
+    model = with_bank(build_model(name, device="cuda", seed=0))
     n_attn = n_attention(model)
     hyp = {"batch": bs, "nbs": 64, "optimizer": "SGD", "lr0": 0.01, "momentum": 0.937,
            "amp": True, "seed": 0, "copy_paste": copy_paste}
@@ -1828,7 +1867,8 @@ def train(la, card: str, name: str = "edgeline-yolo-n", copy_paste: float = 0.0,
     print(f"train {name}: batch {bs} x {imgsz} px bf16, step times "
           f"{[round(t * 1e3, 3) for t in times]} ms, median {ms:.3f} ms, "
           f"{bs / ms * 1e3:.1f} img/s, peak memory {peak / 2**30:.3f} GiB "
-          f"(max_memory_allocated) on {card}", flush=True)
+          f"(max_memory_allocated; {(peak - base) / 2**30:.3f} GiB over what was allocated "
+          f"before the model) on {card}", flush=True)
     if model.task == "segment" and peak / 2**30 > SEG_TRAIN_PEAK_GIB:
         raise AssertionError(f"{name}: peak memory {peak / 2**30:.3f} GiB over "
                              f"{SEG_TRAIN_PEAK_GIB}: a dense mask tensor was formed")
@@ -3844,6 +3884,462 @@ def benchmark_phase(la, card: str, best: Path, data: Path, work: Path) -> list[d
     return rows
 
 
+WORLD_YAMLS = ("yolov8-world.yaml", "yolov8-worldv2.yaml")  # the reference: scale n, 64 px
+WORLD_REF_SCALE = 2.5  # tests/test_torch_world.py's weight SCALE (yolov8n's)
+WORLD_BANK = 80  # texts of the bank a World model serves and trains with (COCO's classes)
+WORLD_SERVE = "yolov8s-worldv2"
+WORLD_TRAIN = ("yolov8s-worldv2", (32, 640, 4))  # batch, px, real boxes per image
+WORLD_TRAIN_REF = "yolov8-worldv2.yaml"  # scale n, TRAIN_REF_IMGSZ, 4 images
+CLIP_PROMPTS = 80
+CLIP_TOL = 1e-5  # card against CPU, unit embeddings (tests/test_torch_clip_text.py's)
+SAM_REF_IMGSZ = 256  # ViT-B at full width, card against CPU
+SAM_TOL = 1e-5  # of the output's largest magnitude (tests/test_torch_sam.py's)
+SAM_SERVE = ("vit_b", "mobile_sam")
+SAM_IMGSZ = 1024
+SAM_IMAGE = (720, 1280)  # (h, w) of the served image
+SAM_GRID = 16  # points per side of grid_generate
+SAM_PROMPT_CALLS = 20
+FASTSAM = "fastsam-s"  # FastSAM-s: YOLOv8s-seg with one class
+FASTSAM_IMAGES = 8  # 640 px images of one request
+AUTO_ANNOTATE_SAM = "mobile_sam"
+
+
+def world_bank(k: int, seed: int = 5):
+    """k seeded unit-norm text embeddings (512)."""
+    import torch
+
+    e = torch.randn(k, 512, generator=torch.Generator().manual_seed(seed))
+    return e / torch.linalg.vector_norm(e, dim=-1, keepdim=True)
+
+
+def with_bank(model, k: int = WORLD_BANK):
+    """A World model given a seeded bank of k texts (its nc becomes k); any
+    other model as it is."""
+    if hasattr(model, "set_classes"):
+        model.set_classes(world_bank(k), names=[f"text{i}" for i in range(k)])
+    return model
+
+
+def spread_similarity(model, seed: int = 1):
+    """A World head's similarity biases spread around -1.5 (N(0, 0.5)), so
+    its scores straddle the gates (tests/test_torch_world.py's)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for h in model.model[-1].cv4:
+            h.bias.copy_(torch.randn(h.bias.shape, generator=gen) * 0.5 - 1.5)
+    return model
+
+
+def world_reference(la) -> int:
+    """yolov8-world-n and yolov8-worldv2-n at 64 px in f32 with a 4-text bank,
+    card against CPU at seeded and at test weights (WORLD_REF_SCALE, the
+    similarity biases spread): boxes 5e-3 px, scores 1e-4; then the CLIP text
+    tower at full width (12 x 512, 77 tokens) on CLIP_PROMPTS seeded token
+    sequences, card against CPU within CLIP_TOL. Returns the attention
+    kernel's launches (none of these models has one)."""
+    import torch
+
+    from edgeyolo_tpu_torch.nn.clip_text import CONTEXT, VOCAB, ClipTextModel
+    from edgeyolo_tpu_torch.nn.tasks import WorldModel
+
+    x = torch.rand(2, 3, 64, 64, generator=torch.Generator().manual_seed(1))
+    la.linear_attention_kernel.launches = 0
+    for yaml in WORLD_YAMLS:
+        seeded = with_bank(WorldModel(yaml, device="cpu", seed=0), 4)
+        for scale in (None, WORLD_REF_SCALE):
+            m = copy.deepcopy(seeded)
+            if scale is not None:
+                spread_similarity(perturbed(m, scale))
+            with torch.inference_mode():
+                cpu = m(x)["pred"]
+                card = copy.deepcopy(m).to("cuda")(x.cuda())["pred"].cpu()
+            d = (card - cpu).abs()
+            box, score = d[..., :4].max().item(), d[..., 4:].max().item()
+            spread = (cpu[0] - cpu[1])[..., :4].abs().max().item()
+            print(f"world reference {yaml} (n): f32 64 px, {m.nc} texts, "
+                  f"{'seeded weights' if scale is None else f'test weights x{scale}'} (boxes of "
+                  f"the two images apart by up to {spread:.3e} px): card vs CPU box {box:.3e} px "
+                  f"(tol 5e-3), score {score:.3e} (tol 1e-4)", flush=True)
+            if not (torch.isfinite(card).all() and box < 5e-3 and score < 1e-4):
+                raise AssertionError(f"{yaml} on the card disagrees with the CPU reference")
+    gen = torch.Generator().manual_seed(3)
+    tokens = torch.zeros(CLIP_PROMPTS, CONTEXT, dtype=torch.long)
+    for i in range(CLIP_PROMPTS):
+        n = int(torch.randint(1, 20, (1,), generator=gen))
+        tokens[i, 0] = VOCAB - 2
+        tokens[i, 1:1 + n] = torch.randint(1, VOCAB - 2, (n,), generator=gen)
+        tokens[i, 1 + n] = VOCAB - 1
+    tower = ClipTextModel(seed=0).eval()
+    with torch.inference_mode():
+        cpu = tower(tokens)
+        card = copy.deepcopy(tower).cuda()(tokens.cuda()).cpu()
+    err = (card - cpu).abs().max().item()
+    print(f"world reference CLIP text tower: {sum(p.numel() for p in tower.parameters())} params, "
+          f"{CLIP_PROMPTS} prompts, f32, card vs CPU {err:.3e} (tol {CLIP_TOL}), norms "
+          f"{card.norm(dim=-1).min().item():.6f}-{card.norm(dim=-1).max().item():.6f}",
+          flush=True)
+    if not err <= CLIP_TOL:
+        raise AssertionError("the CLIP text tower on the card disagrees with the CPU")
+    return la.linear_attention_kernel.launches
+
+
+def world_train_reference(la) -> int:
+    """One f32 train step of yolov8-worldv2-n at TRAIN_REF_IMGSZ px on 4
+    images with an 80-text bank from its class prior (the similarity heads'
+    bias -10), card against CPU: the loss, every gradient per tensor and the
+    params after the update, at TRAIN_REF_TOL. Returns the kernel's launches
+    (none)."""
+    batch = train_batch(4, TRAIN_REF_IMGSZ, TRAIN_REF_M, 4, seed=3)
+    cpu, card = card_vs_cpu(la, "an 80-text bank, the class prior", lambda m: m, batch,
+                            per_tensor=True, name=WORLD_TRAIN_REF)
+    return card["launches"]
+
+
+def serve_world(la, card: str) -> dict:
+    """yolov8s-worldv2 with a seeded unit-norm bank of WORLD_BANK texts, its
+    similarity biases at 0 (scores straddle the gate, so NMS has work), in
+    bf16 at SERVE_BATCH x SERVE_IMGSZ through DetectionPredictor: bf16 conv and
+    linear outputs, SERVE_REQUESTS timed requests (median ms, img/s, peak
+    memory), the detections' shape; and the CLIP text tower encoding
+    CLIP_PROMPTS prompts on the card in f32 (ms). Returns the kernel's
+    launches per request (none)."""
+    import torch
+    from torch import nn
+
+    import numpy as np
+
+    from edgeyolo_tpu_torch.engine.predictor import DetectionPredictor
+    from edgeyolo_tpu_torch.nn.clip_text import CONTEXT, VOCAB, ClipBPETokenizer, ClipTextModel
+    from edgeyolo_tpu_torch.nn.tasks import WorldModel, num_params
+
+    base = torch.cuda.memory_allocated()  # what earlier phases left allocated
+    model = with_bank(WorldModel(WORLD_SERVE, device="cuda", dtype=torch.bfloat16, seed=0))
+    with torch.no_grad():  # similarity logits start at 0: scores straddle the gate (NMS works)
+        for h in model.model[-1].cv4:
+            h.bias.zero_()
+    predictor = DetectionPredictor(model, conf=0.25, iou=0.7, max_det=300, max_nms=1024,
+                                   device="cuda")
+    imgs = torch.randint(0, 256, (SERVE_BATCH, SERVE_IMGSZ, SERVE_IMGSZ, 3), dtype=torch.uint8,
+                         generator=torch.Generator().manual_seed(2))
+    out_dtypes = []
+    hooks = [m.register_forward_hook(lambda _m, _i, o: out_dtypes.append(o.dtype))
+             for m in model.modules()
+             if isinstance(m, (nn.Conv2d, nn.Linear)) and m.weight.dtype == torch.bfloat16]
+    predictor(imgs)
+    torch.cuda.synchronize()
+    for hk in hooks:
+        hk.remove()
+    if not out_dtypes or any(dt != torch.bfloat16 for dt in out_dtypes):
+        raise AssertionError(f"{WORLD_SERVE}: conv and linear outputs not all bf16: "
+                             f"{set(out_dtypes)}")
+    torch.cuda.reset_peak_memory_stats()
+    la.linear_attention_kernel.launches = 0
+    times = []
+    for _ in range(SERVE_REQUESTS):
+        t0 = time.perf_counter()
+        det, n = predictor(imgs)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = la.linear_attention_kernel.launches
+    peak = torch.cuda.max_memory_allocated() - base
+    ms = statistics.median(times) * 1e3
+    det, n = det.cpu(), n.cpu()
+    if not (det.shape == (SERVE_BATCH, 300, 6) and bool(torch.isfinite(det).all())
+            and int(det[..., 5].max()) < WORLD_BANK and bool(((n >= 0) & (n <= 300)).all())):
+        raise AssertionError(f"{WORLD_SERVE}: served detections are malformed")
+    print(f"world serve {WORLD_SERVE}: {num_params(model)} params, {WORLD_BANK} texts, batch "
+          f"{SERVE_BATCH} x {SERVE_IMGSZ} px bf16 ({len(out_dtypes)} conv and linear outputs, "
+          f"all bf16): request times {[round(t * 1e3, 3) for t in times]} ms, median {ms:.3f} "
+          f"ms, {SERVE_BATCH / ms * 1e3:.1f} img/s, detections per image {int(n.min())}-"
+          f"{int(n.max())}, {launches} kernel launches, peak memory {peak / 2**30:.3f} GiB "
+          f"(max_memory_allocated over what was allocated before the model) on {card}",
+          flush=True)
+    profile_request(predictor, imgs, ms)
+    gen = torch.Generator().manual_seed(3)
+    tokens = torch.zeros(CLIP_PROMPTS, CONTEXT, dtype=torch.long)
+    for i in range(CLIP_PROMPTS):
+        n_ids = int(torch.randint(1, 8, (1,), generator=gen))  # a class name's few tokens
+        tokens[i, 0], tokens[i, 1 + n_ids] = VOCAB - 2, VOCAB - 1
+        tokens[i, 1:1 + n_ids] = torch.randint(1, VOCAB - 2, (n_ids,), generator=gen)
+    tower = ClipTextModel(seed=0).cuda().eval()
+    tokens = tokens.cuda()
+    with torch.inference_mode():
+        bank = tower(tokens)
+        clip_ms = cuda_ms(lambda: tower(tokens), samples=10, warmup=2)
+    print(f"world serve: CLIP text tower, {CLIP_PROMPTS} prompts of 77 tokens in f32: "
+          f"{clip_ms:.3f} ms (CUDA events, median of 10) on {card}", flush=True)
+    # set_classes(strings), the README's entry point, on the card model: the tower's weights
+    # as a torch-keyed npz and a few synthetic BPE merges; the bank is encoded and kept on
+    # the card, and equals the CPU tower's on the same tokens within CLIP_TOL
+    names = [f"class {i}" for i in range(CLIP_PROMPTS)]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_clip_") as d:
+        npz, bpe = Path(d) / "clip_text.npz", Path(d) / "bpe.txt.gz"
+        np.savez(npz, **{k: v.cpu().numpy() for k, v in tower.state_dict().items()})
+        bpe.write_bytes(gzip.compress("#version: 0.2\nc l\ncl a\ncla s\nclas s</w>\n".encode()))
+        model.set_classes(names, clip_npz=str(npz), bpe_path=str(bpe))
+        ids = torch.from_numpy(ClipBPETokenizer(bpe).tokenize(names))
+    with torch.inference_mode():
+        want = ClipTextModel(seed=0).eval()(ids)
+    err = (model.text[0].cpu() - want).abs().max().item()
+    print(f"world serve: set_classes of {len(names)} strings (synthetic npz and merges) on the "
+          f"card model: bank {tuple(model.text.shape)} on {model.text.device}, nc {model.nc}, "
+          f"vs the CPU tower {err:.3e} (tol {CLIP_TOL})", flush=True)
+    if not (model.text.device.type == "cuda" and model.nc == CLIP_PROMPTS and err <= CLIP_TOL):
+        raise AssertionError("world serve: set_classes(strings) did not encode on the card "
+                             "or disagrees with the CPU tower")
+    det, _ = predictor(imgs[:4])
+    if not bool(torch.isfinite(det).all()):
+        raise AssertionError("world serve: non-finite detections with the tower's bank")
+    return {"launches": launches // SERVE_REQUESTS, "ms": ms, "clip_ms": clip_ms}
+
+
+def sam_reference(la) -> int:
+    """SAM ViT-B at full width (dim 768, depth 12, 12 heads) at
+    SAM_REF_IMGSZ px, card against CPU in f32 at SAM_TOL of each output's
+    largest magnitude: the encoding, and the masks and IoU predictions of a
+    prompt of points (labels 1 and 0) and a box; then TinyViT on the
+    reference's own state_dict and input (tests/.cache/ref_mobile_sam.npz)
+    on the card against the reference's embedding (atol 2e-4, rtol 1e-3,
+    JAX's test's). Returns the kernel's launches (none)."""
+    import numpy as np
+    import torch
+
+    from edgeyolo_tpu_torch.nn.sam import build_sam
+    from edgeyolo_tpu_torch.nn.tinyvit import TinyViT
+
+    la.linear_attention_kernel.launches = 0
+    net = build_sam("vit_b", img_size=SAM_REF_IMGSZ)
+    gen = torch.Generator().manual_seed(4)
+    x = torch.randn(1, 3, SAM_REF_IMGSZ, SAM_REF_IMGSZ, generator=gen)
+    pts = torch.tensor([[[0.3, 0.4], [0.7, 0.2], [0.1, 0.1], [0.9, 0.8]]])
+    labels = torch.tensor([[1, 0, 2, 3]])
+    on_card = copy.deepcopy(net).cuda()
+    outs = {}
+    with torch.inference_mode():
+        for dev, m in (("cpu", net), ("cuda", on_card)):
+            e = m.encode(x.to(dev))
+            masks, iou = m.prompt(e, pts.to(dev), labels.to(dev))
+            outs[dev] = [t.float().cpu() for t in (e, masks, iou)]
+    for name, a, b in zip(("encoding", "masks", "iou"), outs["cpu"], outs["cuda"]):
+        err, scale = (b - a).abs().max().item(), a.abs().max().item()
+        print(f"sam reference vit_b (768 x 12, {SAM_REF_IMGSZ} px) {name} {tuple(a.shape)}: card "
+              f"vs CPU {err:.3e}, {err / scale:.3e} of its scale {scale:.3e} (tol {SAM_TOL} of "
+              f"it, {SAM_TOL * scale:.3e})", flush=True)
+        if not err <= SAM_TOL * scale:
+            raise AssertionError(f"SAM vit_b {name} on the card disagrees with the CPU")
+    with torch.inference_mode():  # an f64 witness: which side carries the encoding's rounding
+        e64 = copy.deepcopy(net).double().encode(x.double())
+    scale = e64.abs().max().item()
+    print(f"sam reference vit_b encoding against the CPU's f64: card f32 "
+          f"{(outs['cuda'][0].double() - e64).abs().max().item() / scale:.3e}, CPU f32 "
+          f"{(outs['cpu'][0].double() - e64).abs().max().item() / scale:.3e} of its scale "
+          f"({torch.get_num_threads()} CPU threads)", flush=True)
+    z = np.load(ROOT / "tests" / ".cache" / "ref_mobile_sam.npz")
+    tv = TinyViT().eval()
+    tv.load_state_dict({k.removeprefix("image_encoder."): torch.from_numpy(z[k])
+                        for k in z.files if not k.startswith("__")}, strict=True)
+    with torch.inference_mode():
+        emb = tv.cuda()(torch.from_numpy(z["__input__"]).cuda()).cpu().numpy()
+    err = np.abs(emb - z["__emb__"]).max()
+    ok = np.allclose(emb, z["__emb__"], atol=2e-4, rtol=1e-3)
+    print(f"sam reference TinyViT ({sum(p.numel() for p in tv.parameters())} params) on the "
+          f"reference's state_dict and input {z['__input__'].shape}, card: {err:.3e} from the "
+          f"reference's embedding (atol 2e-4, rtol 1e-3): {ok}", flush=True)
+    if not ok:
+        raise AssertionError("TinyViT on the card disagrees with the reference's embedding")
+    return la.linear_attention_kernel.launches
+
+
+def serve_sam(la, card: str) -> dict:
+    """SAM ViT-B and MobileSAM at SAM_IMGSZ px in f32 on one SAM_IMAGE image:
+    the encode's ms (CUDA events) and peak memory, then a point, a box and a
+    multimask prompt (their ms, SAM_PROMPT_CALLS calls each, host to host: the
+    mask resized to the image and cut included), and grid_generate at
+    SAM_GRID x SAM_GRID points, with the default filters and with every
+    candidate let through (seconds, masks kept). Returns {variant: numbers}
+    and the kernel's launches (none)."""
+    import numpy as np
+    import torch
+
+    from edgeyolo_tpu_torch.engine.sam import SAM
+
+    rs = np.random.RandomState(0)
+    h, w = SAM_IMAGE
+    img = np.clip(rs.rand(h, w, 3) * 60 + 90, 0, 255).astype(np.uint8)
+    img[200:500, 300:700] = (200, 60, 40)  # two flat shapes to segment
+    img[100:300, 900:1150] = (30, 90, 220)
+    out = {}
+    la.linear_attention_kernel.launches = 0
+    for variant in SAM_SERVE:
+        base = torch.cuda.memory_allocated()  # what earlier phases left allocated
+        sam = SAM(variant, img_size=SAM_IMGSZ, device="cuda")
+        sam.set_image(img)
+        torch.cuda.synchronize()
+        x = torch.randn(1, 3, SAM_IMGSZ, SAM_IMGSZ, device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            enc_ms = cuda_ms(lambda: sam.net.encode(x), samples=10, warmup=2)
+        peak = torch.cuda.max_memory_allocated() - base
+        t0 = time.perf_counter()
+        sam.set_image(img)
+        torch.cuda.synchronize()
+        set_ms = (time.perf_counter() - t0) * 1e3
+        prompts = {"point": {"points": [[500, 350]], "labels": [1]},
+                   "box": {"bboxes": [300, 200, 700, 500]},
+                   "multimask": {"points": [[1000, 200], [500, 350]], "labels": [1, 0],
+                                 "multimask_output": True}}
+        ms = {}
+        for kind, kw in prompts.items():
+            masks, iou = sam(**kw)
+            if not (masks.shape == (1, h, w) and masks.dtype == bool and np.isfinite(iou).all()):
+                raise AssertionError(f"SAM {variant}: malformed {kind} prompt output")
+            t0 = time.perf_counter()
+            for _ in range(SAM_PROMPT_CALLS):
+                sam(**kw)
+            ms[kind] = (time.perf_counter() - t0) * 1e3 / SAM_PROMPT_CALLS
+        grid = {}
+        for label, kw in (("default filters", {}),
+                          ("every candidate", {"pred_iou_thresh": -1e9, "stability_thresh": -1.0})):
+            t0 = time.perf_counter()
+            anns = sam.generate(img, points_per_side=SAM_GRID, **kw)
+            torch.cuda.synchronize()
+            grid[label] = (time.perf_counter() - t0, len(anns))
+            if any(a["segmentation"].shape != (h, w) for a in anns):
+                raise AssertionError(f"SAM {variant}: malformed grid_generate masks")
+        print(f"sam serve {variant}: {sam.info()} params, f32, {SAM_IMGSZ} px: encode "
+              f"{enc_ms:.3f} ms (CUDA events, median of 10), peak memory {peak / 2**30:.3f} GiB "
+              f"(max_memory_allocated over what was allocated before the model); set_image of a {w} x {h} image {set_ms:.3f} ms; prompt "
+              f"ms (host to host, mask at the image's size) "
+              + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+              + f"; grid_generate {SAM_GRID} x {SAM_GRID} points: "
+              + ", ".join(f"{k} {t:.3f} s ({n} masks kept)" for k, (t, n) in grid.items())
+              + f" on {card}", flush=True)
+        out[variant] = {"encode_ms": enc_ms, "peak_gib": peak / 2**30, "prompt_ms": ms,
+                        "grid_s": {k: t for k, (t, _) in grid.items()}}
+        del sam
+    out["launches"] = la.linear_attention_kernel.launches
+    if out["launches"]:
+        raise AssertionError("the attention kernel launched in SAM")
+    return out
+
+
+def fastsam_phase(la, card: str) -> dict:
+    """FastSAM-s (fastsam.yaml at scale s) with its class logit at 0, so every
+    proposal passes the gate, in everything mode over FASTSAM_IMAGES images of
+    640 px (f32): request ms, proposals with masks; then the box and point
+    prompts select among them (the prompted Results are the proposals
+    bbox_prompt and point_prompt pick). Returns the kernel's launches (none)."""
+    import numpy as np
+    import torch
+
+    from edgeyolo_tpu_torch.engine.fastsam import FastSAM, bbox_prompt, point_prompt
+
+    fs = FastSAM(FASTSAM, device="cuda")
+    with torch.no_grad():
+        for seq in fs.yolo.model.model[-1].cv3:
+            seq[-1].bias.zero_()
+    rs = np.random.RandomState(1)
+    imgs = [rs.randint(0, 256, (480, 640, 3)).astype(np.uint8) for _ in range(FASTSAM_IMAGES)]
+    kw = {"imgsz": 640, "conf": 0.25, "save": False, "batch": FASTSAM_IMAGES}
+    fs(imgs, **kw)  # warm-up
+    la.linear_attention_kernel.launches = 0
+    t0 = time.perf_counter()
+    res = fs(imgs, **kw)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    n = [len(r) for r in res]
+    if not (len(res) == FASTSAM_IMAGES and min(n) > 0 and all(
+            r.masks is not None and r.masks.data.shape[1:] == (480, 640) for r in res)):
+        raise AssertionError(f"FastSAM: everything mode gave malformed proposals {n}")
+    boxes, points = [[100, 80, 400, 300]], [[320, 240]]
+    got_b, got_p = fs(imgs, bboxes=boxes, **kw), fs(imgs, points=points, **kw)
+    for got, sel in ((got_b, bbox_prompt(res, boxes)), (got_p, point_prompt(res, points))):
+        for r, g, idx in zip(res, got, sel):
+            if not np.array_equal(g.boxes.data, r.boxes.data[idx]):
+                raise AssertionError("FastSAM: a prompt's Results are not its selected proposals")
+    launches = la.linear_attention_kernel.launches
+    print(f"fastsam {FASTSAM}: everything mode, {FASTSAM_IMAGES} images 480 x 640 at 640 px "
+          f"f32, one request {ms:.3f} ms ({ms / FASTSAM_IMAGES:.3f} ms an image), proposals "
+          f"per image {min(n)}-{max(n)} with masks; box prompt kept "
+          f"{sum(len(g) for g in got_b)}, point prompt {sum(len(g) for g in got_p)}; "
+          f"{launches} kernel launches, on {card}", flush=True)
+    if launches:
+        raise AssertionError("the attention kernel launched in FastSAM")
+    return {"ms": ms, "launches": launches}
+
+
+def auto_annotate_phase(la, card: str, best: Path, data: Path, work: Path) -> dict:
+    """auto_annotate with the fit phase's flagship (best.pt) prompting a
+    seeded MobileSAM at SAM_IMGSZ px over the fit's val images: seconds; one
+    SAM call per detection, each mask at its image's size; the label files
+    and polygons written (a seeded SAM's masks are mostly small: the count is
+    a reading), every line a class of the detector and at least three points
+    in [0, 1]; the flagship's kernel launches in it."""
+    import numpy as np
+    import torch
+
+    from edgeyolo_tpu_torch.data.annotator import auto_annotate
+    from edgeyolo_tpu_torch.engine.model import YOLO
+    from edgeyolo_tpu_torch.engine.sam import SAM
+
+    det = YOLO(best, device="cuda")
+    sam = SAM(AUTO_ANNOTATE_SAM, img_size=SAM_IMGSZ, device="cuda")
+    images = data.parent / "images" / "val"
+    masks_seen, call = [], SAM.__call__
+
+    def counted(self, *args, **kwargs):
+        masks, iou = call(self, *args, **kwargs)
+        masks_seen.append((masks.shape, self._hw, bool(np.isfinite(iou).all())))
+        return masks, iou
+
+    n_det = sum(len(r) for r in det.predict(images, imgsz=int(FIT_TRAIN["imgsz"]), save=False,
+                                            conf=0.25, iou=0.45, verbose=False))
+    la.linear_attention_kernel.launches = 0
+    t0 = time.perf_counter()
+    with mock.patch.object(SAM, "__call__", counted):
+        out = auto_annotate(images, det, sam, imgsz=int(FIT_TRAIN["imgsz"]),
+                            output_dir=work / "auto_annotate")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = la.linear_attention_kernel.launches
+    files = sorted(out.glob("*.txt"))
+    lines = [ln.split() for f in files for ln in f.read_text().splitlines()]
+    coords = [float(v) for ln in lines for v in ln[1:]]
+    n_img = len(list(images.iterdir()))
+    if not (n_det > 0 and len(masks_seen) == n_det and launches >= 1
+            and all(shape == (1, *hw) and ok for shape, hw, ok in masks_seen)
+            and all(0.0 <= c <= 1.0 for c in coords)
+            and all(0 <= int(ln[0]) < det.model.nc and len(ln) >= 7 for ln in lines)):
+        raise AssertionError(f"auto_annotate: {n_det} detections, {len(masks_seen)} SAM calls, "
+                             f"{len(files)} label files, {launches} kernel launches")
+    print(f"auto_annotate: {n_img} images at {FIT_TRAIN['imgsz']} px, the flagship (best.pt) "
+          f"prompting {AUTO_ANNOTATE_SAM} (seeded) at {SAM_IMGSZ} px: {secs:.3f} s, {n_det} "
+          f"detections, one SAM call each; {len(files)} label files, {len(lines)} polygons "
+          f"({len(coords) // 2} points); the flagship's kernel launches {launches}, on {card}",
+          flush=True)
+    return {"s": secs, "launches": launches}
+
+
+REF_NAMES = ("edgeline-yolo-n", *FAMILIES, *NEW_REF_SCALE)
+REF_GROUPS = 6  # the models of `check_reference`, dealt round robin into this many jobs
+REFERENCE_JOBS = {  # name: a card-against-CPU check in a process of its own, longest first
+    **{f"reference-{i}": (lambda i: lambda la, card, work: (
+        check_reference(la, REF_NAMES[i::REF_GROUPS]), None))(i) for i in range(REF_GROUPS)},
+    "train-reference-spread": lambda la, card, work: (
+        check_train_reference(la, "spread"), None),
+    "train-reference-flagship": lambda la, card, work: (
+        check_train_reference(la, "flagship"), None),
+    "train-reference-v13": lambda la, card, work: (check_train_reference(la, V13_TEST), None),
+    "train-reference-msla": lambda la, card, work: (check_train_reference(la, MSLA), None),
+    "world-reference": lambda la, card, work: (world_reference(la), None),
+    "world-train-reference": lambda la, card, work: (world_train_reference(la), None),
+    "sam-reference": lambda la, card, work: (sam_reference(la), None),
+}
+REF_PROCS = 8
+
+
 FIT_JOBS = {  # name: the fit, longest first (their seconds alone on an H100)
     RTDETR_FIT: fit_rtdetr,
     "yolov13-test": lambda la, card, work: fit(la, card, work, "yolov13-test.yaml",
@@ -3869,10 +4365,10 @@ FIT_JOBS = {  # name: the fit, longest first (their seconds alone on an H100)
 }
 
 
-def fit_worker(name: str, work: str, card: str) -> int:
-    """One fit of FIT_JOBS in this process (`chip_smoke.py --fit NAME WORK CARD`),
-    its data and runs under WORK/NAME; writes its launches and best.pt to
-    WORK/NAME.json."""
+def job_worker(name: str, work: str, card: str) -> int:
+    """One job of FIT_JOBS or REFERENCE_JOBS in this process (`chip_smoke.py
+    --job NAME WORK CARD`), its data and runs under WORK/NAME; writes its
+    launches and best.pt (a fit's) to WORK/NAME.json."""
     import torch
 
     sys.path.insert(0, str(ROOT))
@@ -3881,43 +4377,44 @@ def fit_worker(name: str, work: str, card: str) -> int:
     torch.set_num_threads(FIT_THREADS)
     from edgeyolo_tpu_torch.ops import linear_attention as la  # the parent's build, loaded
 
-    launches, best = FIT_JOBS[name](la, card, Path(work) / name)
+    launches, best = {**FIT_JOBS, **REFERENCE_JOBS}[name](la, card, Path(work) / name)
     (Path(work) / f"{name}.json").write_text(json.dumps(
         {"launches": launches, "best": None if best is None else str(best)}))
     return 0
 
 
-def run_fits(card: str, work: Path) -> dict:
-    """Every fit of FIT_JOBS, FIT_PROCS at once, each in a process of its own
-    (fit_worker). A fit's output is printed whole when it ends; a fit that fails
-    or outlasts FIT_TIMEOUT fails the phase, and every fit still running is
-    killed. Returns each fit's launches and best.pt."""
-    pending, running, results = list(FIT_JOBS), {}, {}
+def run_jobs(card: str, work: Path, jobs: dict = FIT_JOBS, procs: int = FIT_PROCS) -> dict:
+    """Every job of `jobs` (the fits of FIT_JOBS, or REFERENCE_JOBS), `procs`
+    at once, each in a process of its own (job_worker). A job's output is
+    printed whole when it ends; a job that fails or outlasts FIT_TIMEOUT
+    fails the phase, and every job still running is killed. Returns each
+    job's launches and best.pt."""
+    pending, running, results = list(jobs), {}, {}
     t_start = time.perf_counter()
     try:
         while pending or running:
-            while pending and len(running) < FIT_PROCS:
+            while pending and len(running) < procs:
                 name = pending.pop(0)
                 log = open(work / f"{name}.log", "w+")
                 proc = subprocess.Popen(
-                    [sys.executable, str(Path(__file__).resolve()), "--fit", name, str(work), card],
+                    [sys.executable, str(Path(__file__).resolve()), "--job", name, str(work), card],
                     stdout=log, stderr=subprocess.STDOUT, start_new_session=True)
                 running[name] = (proc, log, time.perf_counter())
             time.sleep(0.2)
             for name, (proc, log, t0) in list(running.items()):
                 if proc.poll() is None:
                     if time.perf_counter() - t0 > FIT_TIMEOUT:
-                        raise TimeoutError(f"fit {name}: still running after {FIT_TIMEOUT} s")
+                        raise TimeoutError(f"job {name}: still running after {FIT_TIMEOUT} s")
                     continue
                 del running[name]
                 log.seek(0)
                 print(log.read(), end="", flush=True)
                 log.close()
-                print(f"fit {name}: its process took {time.perf_counter() - t0:.3f} s, started "
+                print(f"job {name}: its process took {time.perf_counter() - t0:.3f} s, started "
                       f"at +{t0 - t_start:.3f} s of the phase, exit code {proc.returncode}",
                       flush=True)
                 if proc.returncode:
-                    raise AssertionError(f"fit {name} failed (exit code {proc.returncode})")
+                    raise AssertionError(f"job {name} failed (exit code {proc.returncode})")
                 results[name] = json.loads((work / f"{name}.json").read_text())
     finally:
         for proc, log, _ in running.values():
@@ -3925,7 +4422,7 @@ def run_fits(card: str, work: Path) -> dict:
                 os.killpg(proc.pid, signal.SIGKILL)
             proc.wait()
             log.close()
-    print(f"fits: {len(results)} in {time.perf_counter() - t_start:.3f} s, {FIT_PROCS} at once",
+    print(f"jobs: {len(results)} in {time.perf_counter() - t_start:.3f} s, {procs} at once",
           flush=True)
     return results
 
@@ -3969,17 +4466,27 @@ def main() -> int:
     done("kernels", t0)
 
     t0 = phase("reference")
-    ref_launches = check_reference(la)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ref_") as work:
+        refs = run_jobs(card, Path(work), REFERENCE_JOBS, REF_PROCS)
+    ref_launches = {k: v for i in range(REF_GROUPS) for k, v in
+                    refs[f"reference-{i}"]["launches"].items()}
+    print("launches per forward of the EdgeLine variants: "
+          + ", ".join(f"{n} {ref_launches[n.removesuffix('-n') + '.yaml']}"
+                      for n in EDGELINE_VARIANTS), flush=True)
+    ref_train_launches = {**refs["train-reference-msla"]["launches"],
+                          **refs["train-reference-v13"]["launches"]}
+    new_ref_launches = {k: refs[k]["launches"]
+                        for k in ("world-reference", "world-train-reference", "sam-reference")}
+    print(f"reference: attention kernel launches in the World, CLIP and SAM checks "
+          f"{new_ref_launches} (none of them has one)", flush=True)
+    if any(new_ref_launches.values()):
+        raise AssertionError("the attention kernel launched in a World or SAM reference")
     done("reference", t0)
 
     t0 = phase("serve")
     launches, _ = serve(la, card)
     family_launches = {name: serve_family(la, card, name) for name in FAMILY_SERVE}
     done("serve", t0)
-
-    t0 = phase("train reference")
-    ref_train_launches = check_train_reference(la)
-    done("train reference", t0)
 
     t0 = phase("train")
     train_launches = train(la, card)
@@ -3996,7 +4503,7 @@ def main() -> int:
     t0 = phase("fit")
     check_tiled_nms()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_fit_") as work:
-        fits = run_fits(card, Path(work))
+        fits = run_jobs(card, Path(work))
         fit_launches = fits["edgeline-yolo"]["launches"]
         best = Path(fits["edgeline-yolo"]["best"])
         v13_fit_launches = fits["yolov13-test"]["launches"]
@@ -4105,6 +4612,33 @@ def main() -> int:
                         Path(work) / "export")
         done("benchmark", t0)
 
+        t0 = phase("world serve")
+        world = serve_world(la, card)
+        done("world serve", t0)
+
+        t0 = phase("world train")
+        world["train_launches"] = train(la, card, WORLD_TRAIN[0], shape=WORLD_TRAIN[1])
+        done("world train", t0)
+
+        t0 = phase("sam serve")
+        sam_numbers = serve_sam(la, card)
+        done("sam serve", t0)
+
+        t0 = phase("fastsam")
+        fastsam = fastsam_phase(la, card)
+        done("fastsam", t0)
+
+        t0 = phase("auto_annotate")
+        annotate = auto_annotate_phase(la, card, best, Path(work) / "edgeline-yolo" / "fit" /
+                                       "dataset.yaml", Path(work))
+        done("auto_annotate", t0)
+        new_launches = {"world_serve": world["launches"], "world_train": world["train_launches"],
+                        "sam": sam_numbers["launches"], "fastsam": fastsam["launches"]}
+        print(f"World, SAM and FastSAM paths: attention kernel launches {new_launches}; "
+              f"auto_annotate's flagship detector {annotate['launches']}", flush=True)
+        if any(new_launches.values()):
+            raise AssertionError("the attention kernel launched on a World, SAM or FastSAM path")
+
     t0 = phase("registry reference")
     registry_launches = {"reference": registry_reference(la)}
     done("registry reference", t0)
@@ -4158,6 +4692,9 @@ def main() -> int:
                 "launches_export_pt2": export["launches_per_request"],
                 "export_pt2_ms": export["ms"], "export_onnx_executor_s": export["onnx_s"],
                 "op_dispatch_us": export["dispatch_us"],
+                **{f"launches_{k}": v for k, v in new_launches.items()},
+                **{f"launches_{k.replace('-', '_')}": v for k, v in new_ref_launches.items()},
+                "launches_auto_annotate_flagship": annotate["launches"],
                 **la_rows[LA_MAIN_CASE], "library_ms": None,
                 "wavelet_rows": [{"shape": list(case[:4]), "dtype": case[4], **row}
                                  for case, row in zip(LA_CASES, la_rows)
@@ -4170,8 +4707,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--fit"]:
-        sys.exit(fit_worker(*sys.argv[2:5]))
+    if sys.argv[1:2] == ["--job"]:
+        sys.exit(job_worker(*sys.argv[2:5]))
     if sys.argv[1:2] == ["--serve-pt2"]:
         sys.exit(serve_pt2(*sys.argv[2:4]))
     sys.exit(main())

@@ -9,10 +9,19 @@ __version__ = "0.1.0"
 
 
 def __getattr__(name: str):
-    """The facades, imported on first use: YOLO, and RTDETR (JAX's name for
-    YOLO over an RT-DETR model, rtdetr-l by default)."""
-    if name in ("YOLO", "RTDETR"):
+    """The facades, imported on first use: YOLO; RTDETR and YOLOWorld (JAX's
+    names for YOLO over an RT-DETR model, rtdetr-l by default, and over a
+    YOLO-World model, yolov8-worldv2 by default); SAM and FastSAM."""
+    if name in ("YOLO", "RTDETR", "YOLOWorld"):
         from edgeyolo_tpu_torch.engine import model
 
         return getattr(model, name)
+    if name == "SAM":
+        from edgeyolo_tpu_torch.engine.sam import SAM
+
+        return SAM
+    if name == "FastSAM":
+        from edgeyolo_tpu_torch.engine.fastsam import FastSAM
+
+        return FastSAM
     raise AttributeError(f"module 'edgeyolo_tpu_torch' has no attribute '{name}'")

@@ -6,6 +6,7 @@ obb and classify tasks.
     YOLO("yolo11n-pose.yaml")         # a pose model; "yolo11n-obb.yaml" an obb one
     YOLO("yolo11n-cls.yaml")          # a classify model (data: a folder-per-class root)
     RTDETR("rtdetr-l")                # an RT-DETR model (YOLO over it; no NMS)
+    YOLOWorld("yolov8-worldv2.yaml")  # a YOLO-World model (its classes: set_classes)
     YOLO("runs/detect/train/best.pt") # a port checkpoint (train/trainer.py)
 
 The task is the model's (a Segment, Pose, OBB or Classify head makes
@@ -41,7 +42,7 @@ from edgeyolo_tpu_torch.cfg import get_cfg, get_save_dir
 from edgeyolo_tpu_torch.data.dataset import check_det_dataset
 from edgeyolo_tpu_torch.data.letterbox import letterbox
 from edgeyolo_tpu_torch.data.loaders import load_inference_source
-from edgeyolo_tpu_torch.nn.tasks import DetectionModel, for_precision, num_params, num_trainable
+from edgeyolo_tpu_torch.nn.tasks import build_model, for_precision, num_params, num_trainable
 from edgeyolo_tpu_torch.utils import LOGGER, select_device
 from edgeyolo_tpu_torch.utils.callbacks import EVENTS, get_default_callbacks
 
@@ -82,7 +83,7 @@ class YOLO:
         if model.endswith(".pt"):
             self._load_checkpoint(model)
         else:
-            self.model = DetectionModel(model, device=self.device)
+            self.model = build_model(model, device=self.device)
             self.model_name = model
         self.task = self.model.task
         if task not in (None, self.task):
@@ -97,9 +98,9 @@ class YOLO:
         if not meta and side.exists():
             meta = json.loads(side.read_text())
         self.model_name = meta.get("model_yaml") or "edgeline-yolo.yaml"
-        self.model = DetectionModel(self.model_name, scale=meta.get("scale") or None,
-                                    nc=meta.get("nc"), kpt_shape=meta.get("kpt_shape"),
-                                    device="cpu")
+        self.model = build_model(self.model_name, scale=meta.get("scale") or None,
+                                 nc=meta.get("nc"), kpt_shape=meta.get("kpt_shape"),
+                                 device="cpu")
         if meta.get("fused"):
             self.model.fuse()
         load_checkpoint(self.model, path)
@@ -161,8 +162,8 @@ class YOLO:
             LOGGER.info(f"rebuilding the model head for dataset nc={nc} (was {self.model.nc})"
                         + (f", kpt_shape={list(kpt)} (was {list(self.model.kpt_shape)})"
                            if kpt != self.model.kpt_shape else ""))
-            self.model = DetectionModel(self.model_name, scale=self.model.scale, nc=nc,
-                                        kpt_shape=kpt, seed=int(args.seed), device=self.device)
+            self.model = build_model(self.model_name, scale=self.model.scale, nc=nc,
+                                     kpt_shape=kpt, seed=int(args.seed), device=self.device)
         if args.resume is True:  # continue in the run's own directory, from its last.pt
             save_dir = Path(args.project or Path("runs") / args.task) / (args.name or "train")
         else:
@@ -308,4 +309,10 @@ class YOLO:
 
 def RTDETR(model: str | Path = "rtdetr-l", **kwargs) -> YOLO:
     """YOLO over an RT-DETR model (JAX's `edgeyolo_tpu.RTDETR`)."""
+    return YOLO(model, **kwargs)
+
+
+def YOLOWorld(model: str | Path = "yolov8-worldv2.yaml", **kwargs) -> YOLO:
+    """YOLO over a YOLO-World model (JAX's `edgeyolo_tpu.YOLOWorld`): set its
+    classes with `.model.set_classes(embeddings, names=...)`."""
     return YOLO(model, **kwargs)

@@ -22,6 +22,9 @@ Every format folds conv and BatchNorm pairs in f32 on a deep copy first
 list's long side) and batch `trace_batch` (default 1, never `args.batch`),
 and writes the metadata JAX writes (NCHW layout) into a `.json` sidecar,
 and for ONNX also into `metadata_props` and the graph's doc_string.
+A YOLO-World model exports only as npz: its graph takes the text bank as a
+second input, and every traced format raises (JAX's exporter fails to trace
+it without the texts).
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from edgeyolo_tpu_torch.nn.tasks import is_world
 from edgeyolo_tpu_torch.utils import LOGGER
 
 _TF_FORMATS = ("saved_model", "tflite")
@@ -138,6 +142,11 @@ class Exporter:
         fused = copy.deepcopy(model).set_dtype(torch.float32).fuse().eval()
         if fmt == "npz":
             return self.export_npz(fused, out_dir / f"{name}.npz", meta)
+        if is_world(model):  # JAX's exporter traces its graph without the texts and fails
+            raise NotImplementedError(
+                f"'{fmt}' export of a YOLO-World model: its graph takes the text bank as a "
+                "second input, which the exported function has no place for (JAX's exporter "
+                "fails on it too); export 'npz'")
         if fmt == "onnx":
             return self.export_onnx(fused.cpu(), batch, imgsz, out_dir / f"{name}.onnx", meta)
         return self.export_native(fused, batch, imgsz, out_dir / name, meta,

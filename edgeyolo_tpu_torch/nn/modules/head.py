@@ -113,8 +113,10 @@ def e2e_postprocess(preds: torch.Tensor, max_det: int, nc: int) -> torch.Tensor:
     return torch.cat([bsel, top[..., None], (fi % nc)[..., None].to(preds.dtype)], dim=-1)
 
 
-def _tower_lists(ch: Sequence[int], nc: int, reg_max: int, legacy: bool):
-    """The per-level reg (cv2) and cls (cv3) towers."""
+def _tower_lists(ch: Sequence[int], nc: int, reg_max: int, legacy: bool,
+                 cls_out: int | None = None):
+    """The per-level reg (cv2) and cls (cv3) towers; the cls towers end in
+    `cls_out` channels (a World head's text embedding) or nc."""
     c2 = max(16, ch[0] // 4, reg_max * 4)
     c3 = max(ch[0], min(nc, 100))
     cv2 = nn.ModuleList(
@@ -122,7 +124,8 @@ def _tower_lists(ch: Sequence[int], nc: int, reg_max: int, legacy: bool):
         for x in ch)
     if legacy:
         cv3 = nn.ModuleList(
-            nn.Sequential(ConvBN(x, c3, 3), ConvBN(c3, c3, 3), nn.Conv2d(c3, nc, 1)) for x in ch)
+            nn.Sequential(ConvBN(x, c3, 3), ConvBN(c3, c3, 3), nn.Conv2d(c3, cls_out or nc, 1))
+            for x in ch)
     else:
         cv3 = nn.ModuleList(
             nn.Sequential(nn.Sequential(DWConv(x, x, 3), ConvBN(x, c3, 1)),
@@ -163,10 +166,12 @@ class Detect(nn.Module):
     def decode(self, feats, quality=None):
         """Levels -> (B, A, 4 + nc) in f32: DFL integral boxes (xywh, or xyxy
         when end2end), sigmoid cls (times the clipped quality when there is
-        one); end2end then selects (B, max_det, 6) by `e2e_postprocess`."""
+        one); end2end then selects (B, max_det, 6) by `e2e_postprocess`. The
+        class count is the feats' (a World head's is its texts')."""
         b = feats[0].shape[0]
         flat = torch.cat([f.flatten(2) for f in feats], dim=2).float().transpose(1, 2)
-        box_logits, cls_logits = flat.split((4 * self.reg_max, self.nc), dim=-1)
+        nc = flat.shape[-1] - 4 * self.reg_max
+        box_logits, cls_logits = flat.split((4 * self.reg_max, nc), dim=-1)
         anchors, strides = make_anchors([f.shape[-2:] for f in feats], self.stride,
                                         device=flat.device)
         dbox = dist2bbox(self.dfl(box_logits), anchors[None], xywh=not self.end2end) * strides[None]
@@ -175,7 +180,7 @@ class Detect(nn.Module):
             q = torch.cat([qi.reshape(b, -1, 1) for qi in quality], dim=1)
             cls_prob = cls_prob * q.clamp(1e-6, 1 - 1e-6)
         out = torch.cat([dbox, cls_prob], dim=-1)
-        return e2e_postprocess(out, self.max_det, self.nc) if self.end2end else out
+        return e2e_postprocess(out, self.max_det, nc) if self.end2end else out
 
     def towers(self, xs, one2one: bool = False):
         """(box logits per level, feats per level) of the one2many branch, or

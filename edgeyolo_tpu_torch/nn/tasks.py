@@ -36,8 +36,13 @@ uses: Focus (its stride doubled), ConvTranspose (with BatchNorm; 1/s),
 Index (c2 its first argument), CBAM, C1, C3x, BottleneckCSP, the EdgeLine
 ablation blocks C3k2_Wavelet / C3k2_TWavelet, SPPF_Wavelet, MulGate and
 RHJM, DySample (c1 put first; 1/scale), WTConv2d, MSLA as a row of its own
-and `Upsample`: every row of JAX's registry but YOLO-World's. An unknown
+and `Upsample`, and YOLO-World's C2fAttn (its embed width and heads scaled
+as the reference's, then its repeats), ImagePoolingAttn (the channels of
+its inputs) and WorldDetect: every row of JAX's registry. An unknown
 module name raises.
+A World model's forward threads its text bank through the walk: C2fAttn
+reads the text stream, ImagePoolingAttn refreshes it (the feature stream
+passes through), and WorldDetect sees the original texts (`WorldModel`).
 An RT-DETR model's forward hands `dn`, the contrastive-denoising queries
 of a training step, to its head.
 `guess_model_task` names a spec's task by its head, as JAX does;
@@ -80,6 +85,7 @@ from edgeyolo_tpu_torch.nn.modules.head import (OBB, Classify, Detect, E2EDetect
 from edgeyolo_tpu_torch.nn.modules.msla_lgl import (MSLA, C3AW_MLM, DSC3K2_LGL, DSC3K2_MSLA,
                                                     HyperACE_Wavelet, Wavelet_SS2D)
 from edgeyolo_tpu_torch.nn.modules.transformer import AIFI, MultiheadAttention, RepC3
+from edgeyolo_tpu_torch.nn.modules.world import C2fAttn, ImagePoolingAttn, WorldDetect
 from edgeyolo_tpu_torch.utils import make_divisible, select_device, uniform_
 
 _HYPERACE_ARGS = ["c2", "n", "num_hyperedges", "dsc3k", "shortcut", "e1", "e2", "context",
@@ -168,6 +174,9 @@ _REG: dict[str, tuple[type, list[str]]] = {
     "Pose": (Pose, ["nc", "kpt_shape"]),
     "OBB": (OBB, ["nc", "ne"]),
     "RTDETRDecoder": (RTDETRDecoder, ["nc"]),
+    "C2fAttn": (C2fAttn, ["c2", "n", "ec", "nh", "gc", "shortcut", "g", "e"]),
+    "ImagePoolingAttn": (ImagePoolingAttn, ["ec"]),
+    "WorldDetect": (WorldDetect, ["nc", "embed", "with_bn"]),
 }
 _CONV_LIKE = {"Conv", "ConvBN", "DWConv", "DSConv", "GhostConv", "nn.ConvTranspose2d",
               "Focus", "ConvTranspose", "Bottleneck", "C1", "C2", "C2f", "C3", "C3x", "C3k",
@@ -176,17 +185,19 @@ _CONV_LIKE = {"Conv", "ConvBN", "DWConv", "DSConv", "GhostConv", "nn.ConvTranspo
               "C3k2_Wavelet", "C3k2_TWavelet", "SPPF_Wavelet", "MulGate", "RHJM", "DSC3K2",
               "DSC3K2_Wavelet", "DSC3K2_MSLA", "DSC3K2_LGL", "C3AW_MLM", "A2C2f", "RepConv",
               "RepNCSPELAN4", "ELAN1", "AConv", "ADown", "SPPELAN", "Classify", "LightConv",
-              "RepC3"}
+              "RepC3", "C2fAttn"}
 # CSP modules that take the repeats as their argument; any other module with n > 1 is
 # built as n copies in sequence
 _REPEAT_INSERT = {"C1", "C2", "C2f", "C3", "C3x", "C3k2", "C2PSA", "C2fPSA", "C2fCIB", "C3Ghost",
                   "BottleneckCSP", "C2PSA_LinearAttention", "C3k2_Wavelet", "C3k2_TWavelet",
-                  "DSC3K2", "DSC3K2_Wavelet", "DSC3K2_MSLA", "DSC3K2_LGL", "A2C2f", "RepC3"}
+                  "DSC3K2", "DSC3K2_Wavelet", "DSC3K2_MSLA", "DSC3K2_LGL", "A2C2f", "RepC3",
+                  "C2fAttn"}
 _C3K2_FAMILY = {"C3k2", "C3k2_Wavelet", "C3k2_TWavelet", "DSC3K2", "DSC3K2_Wavelet",
                 "DSC3K2_MSLA", "DSC3K2_LGL"}
 _HYPERACE = {"HyperACE", "HyperACE_Wavelet", "Wavelet_SS2D"}
 _HEADS = {"Detect", "v10Detect", "GFLHeadv2_uniH", "GF2Detect", "E2EDetect", "GFLHeadv2_E2E",
-          "Segment", "Pose", "OBB", "RTDETRDecoder"}
+          "Segment", "Pose", "OBB", "RTDETRDecoder", "WorldDetect"}
+_TEXT = {"C2fAttn", "ImagePoolingAttn", "WorldDetect"}  # the modules that take the texts
 _STRIDE_ARG = {"Conv", "ConvBN", "DWConv", "DSConv", "GhostConv", "Focus", "SCDown", "RepConv",
                "nn.MaxPool2d"}
 _STRIDE_FIXED = {"AConv": 2.0, "ADown": 2.0, "DownsampleConv": 2.0, "HGStem": 4.0}
@@ -266,6 +277,10 @@ def parse_spec(d: dict, ch: int = 3) -> tuple[tuple[LayerSpec, ...], tuple[int, 
             args = [c2, *args[1:]]
             if act_override and name in _ACT_ARG and len(args) < 7:
                 kwargs["act"] = act_override
+            if name == "C2fAttn":  # the embed width and the heads, as the reference scales them
+                args[1] = make_divisible(min(args[1], max_channels // 2) * width, 8)
+                args[2] = (int(max(round(min(args[2], max_channels // 2 // 32) * width), 1))
+                           if args[2] > 1 else args[2])
             if name in _REPEAT_INSERT:
                 args.insert(1, n_scaled)
                 n_scaled = 1
@@ -323,6 +338,9 @@ def parse_spec(d: dict, ch: int = 3) -> tuple[tuple[LayerSpec, ...], tuple[int, 
             c2 = c1
         elif name == "Index":
             c2 = args[0]
+        elif name == "ImagePoolingAttn":  # the texts' refresh; the features pass through
+            kwargs["ch"] = tuple(ch_list[x] for x in f_list)
+            c2 = c1
         elif name == "RTDETRDecoder":
             kwargs["ch"] = tuple(ch_list[x] for x in f_list)
             c2 = sum(kwargs["ch"])
@@ -404,13 +422,15 @@ class GraphNet(nn.Module):
         self.model = nn.ModuleList(build_module(sp, head_stride) for sp in layers)
 
     def forward(self, x, capture: Sequence[int] | None = None, dn: dict | None = None,
-                embed: Sequence[int] | None = None):
+                embed: Sequence[int] | None = None, text: torch.Tensor | None = None):
         """The head's output; with `capture`, (output, {i: layer i's raw
         output}) for the listed layers (JAX's `capture`, feature maps). `dn`
         goes to an RTDETRDecoder head (training's denoising queries). With
         `embed`, the walk stops at the largest listed layer and returns the
         global average pool of each listed layer's output, in f32,
-        concatenated in layer order (B, sum of their channels): JAX's embed."""
+        concatenated in layer order (B, sum of their channels): JAX's embed.
+        `text` (B, K, 512) is a World graph's text stream."""
+        ori_text = text  # WorldDetect sees the texts before any refresh
         y: dict[int, torch.Tensor] = {}
         want = frozenset(capture or ())
         taps = frozenset(embed or ())
@@ -422,7 +442,13 @@ class GraphNet(nn.Module):
                 inp = out if sp.f[0] == -1 else y[sp.f[0]]
             else:
                 inp = [out if j == -1 else y[j] for j in sp.f]
-            out = m(inp) if dn is None or sp.name != "RTDETRDecoder" else m(inp, dn=dn)
+            if sp.name in _TEXT:
+                if sp.name == "ImagePoolingAttn":  # refreshes the texts; `out` passes through
+                    text = m(inp, text)
+                else:
+                    out = m(inp, ori_text if sp.name == "WorldDetect" else text)
+            else:
+                out = m(inp) if dn is None or sp.name != "RTDETRDecoder" else m(inp, dn=dn)
             if sp.i in self.save:
                 y[sp.i] = out
             if sp.i in want:
@@ -713,3 +739,70 @@ class ClassificationModel(DetectionModel):
         super().__init__(cfg, *args, **kwargs)
         if self.task != "classify":
             raise ValueError(f"{cfg} has no Classify head (its task is {self.task})")
+
+
+class WorldModel(DetectionModel):
+    """YOLO-World's open-vocabulary detector: a spec whose head is
+    WorldDetect, classifying by similarity to a bank of text embeddings
+    (JAX's WorldModel). The bank starts as zeros of the spec's nc classes
+    (JAX's init); `set_classes` replaces it, and `nc` and `names` with it.
+    The forward broadcasts the bank over the batch, in the compute dtype. The
+    bank is a non-persistent f32 buffer: it lives on the model's device and
+    moves with `.to()`, and a checkpoint carries no bank, as JAX's does not."""
+
+    def __init__(self, cfg: str | dict = "yolov8-worldv2.yaml", *args, **kwargs):
+        super().__init__(cfg, *args, **kwargs)
+        if not is_world(self):
+            raise ValueError(f"{cfg} has no WorldDetect head")
+        self.register_buffer("text", torch.zeros(1, self.nc, 512, device=self.device),
+                             persistent=False)
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.parameters()).device
+
+    def set_classes(self, embeddings, names: Sequence[str] | None = None,
+                    clip_npz: str | None = None, bpe_path: str | None = None) -> "WorldModel":
+        """embeddings: a (K, 512) array, or K class-name strings, which the
+        CLIP text tower encodes given `clip_npz` (the ViT-B/32 text tower's
+        torch-keyed npz) and `bpe_path` (CLIP's BPE merges file); without
+        them strings raise, as JAX's do."""
+        import numpy as np
+
+        if isinstance(embeddings, (list, tuple)) and embeddings and isinstance(embeddings[0], str):
+            texts = list(embeddings)
+            if not (clip_npz and bpe_path):
+                raise ValueError(
+                    "set_classes(strings) needs clip_npz= (ViT-B/32 text npz) and "
+                    "bpe_path= (bpe_simple_vocab_16e6.txt.gz); neither ships with the "
+                    "package: pass precomputed (K, 512) embeddings instead")
+            from edgeyolo_tpu_torch.nn.clip_text import ClipBPETokenizer, load_clip_text
+
+            tower = load_clip_text(clip_npz, device=self.device)
+            tokens = torch.from_numpy(ClipBPETokenizer(bpe_path).tokenize(texts))
+            with torch.no_grad():
+                embeddings = tower(tokens.to(self.device))
+            names = names or texts
+        t = embeddings if isinstance(embeddings, torch.Tensor) else torch.from_numpy(
+            np.asarray(embeddings, np.float32))
+        self.text = t.detach().to(self.device, torch.float32)[None]
+        if names:
+            self.names = dict(enumerate(names))
+        self.nc = self.model[-1].nc = self.text.shape[1]
+        return self
+
+    def forward(self, x, **kwargs):
+        text = self.text.to(self.dtype).expand(x.shape[0], -1, -1)
+        return super().forward(x, text=text, **kwargs)
+
+
+def is_world(model) -> bool:
+    """Whether a model's head is YOLO-World's WorldDetect."""
+    return isinstance(getattr(model, "model", [None])[-1], WorldDetect)
+
+
+def build_model(cfg: str | dict, scale: str | None = None, **kwargs) -> DetectionModel:
+    """The model of a spec: a WorldModel when its head is WorldDetect (JAX's
+    facade probes the head's name for "World"), else a DetectionModel."""
+    head = str(model_cfg(cfg, scale)["head"][-1][2])
+    return (WorldModel if "World" in head else DetectionModel)(cfg, scale=scale, **kwargs)

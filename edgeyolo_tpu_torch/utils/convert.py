@@ -30,6 +30,33 @@ MLP's `l{i}` is `layers.{i}`, and `denoising_class_embed` is an embedding's
 `.weight`; each attention's four dense layers (`X_q`, `X_k`, `X_v`, `X_o`)
 are packed into nn.MultiheadAttention's `X.in_proj_weight`,
 `X.in_proj_bias` and `X.out_proj` (JAX's `pack_attention`).
+
+A YOLO-World graph maps by the rules above (`attn.gl`, `projections.{i}`,
+`query.{0,1}`, `cv4.{i}.logit_scale`).
+
+A SAM tree (top scopes `image_encoder`, `prompt_encoder`, `mask_decoder`;
+a bare TinyViT tree is handed over under `image_encoder`, as JAX's test
+wraps it) takes the port's copy of JAX's SAM and TinyViT rewrite rules:
+`block_{i}` are `blocks.{i}`, the patch embedding `patch_embed.proj`,
+`mlp_lin{j}` `mlp.lin{j}`, the prompt encoder's Fourier matrix, embeddings
+and mask stem the reference's names (`pe_layer.positional_encoding_
+gaussian_matrix`, `not_a_point_embed.weight`, `mask_downscaling.{0,1,3,4,6}`),
+the (4, E) point embeddings split into `point_embeddings.{i}.weight`, the
+decoder's `layer_{i}` `transformer.layers.{i}` with its attentions'
+`{q,k,v,out}_proj`, the upscaling `output_upscaling.{0,1,3}` (its
+transposed-conv kernels flipped as above), `hyper_{i}_l{j}`
+`output_hypernetworks_mlps.{i}.layers.{j}`, `iou_l{j}`
+`iou_prediction_head.layers.{j}`; TinyViT's `patch_embed_{0,1}` are
+`patch_embed.seq.{0,2}`, `s0_mb{j}` `layers.0.blocks.{j}`, `s{i}_blk{j}`
+`layers.{i}.blocks.{j}`, `s{i}_merge` `layers.{i}.downsample`, and
+`mlp_norm`/`mlp_fc{j}` `mlp.norm`/`mlp.fc{j}`.
+
+A CLIP text tower's tree (`token_embedding`, `resblock_{i}`) becomes CLIP's
+own keys: `transformer.resblocks.{i}.*`, the flax attention's query, key
+and value kernels (W, H, hd) packed into `attn.in_proj_weight` (3W, W) and
+their biases into `attn.in_proj_bias`, the output kernel (H, hd, W) into
+`attn.out_proj.weight`, `mlp_fc`/`mlp_proj` into `mlp.c_fc`/`mlp.c_proj`;
+the embeddings and the projection keep their layout.
 """
 
 from __future__ import annotations
@@ -55,6 +82,46 @@ RTDETR_REWRITE_RULES = (
     (r"\.denoising_class_embed$", ".denoising_class_embed.weight"),
     (r"\.tgt_embed$", ".tgt_embed.weight"),
 )
+
+
+SAM_REWRITE_RULES = (
+    (r"image_encoder\.patch_embed\.(weight|bias)$", r"image_encoder.patch_embed.proj.\1"),
+    (r"\.block\.(\d+)\.", r".blocks.\1."),
+    (r"mlp_lin(\d)", r"mlp.lin\1"),
+    (r"prompt_encoder\.pe_gaussian$",
+     "prompt_encoder.pe_layer.positional_encoding_gaussian_matrix"),
+    (r"prompt_encoder\.not_a_point_embed$", "prompt_encoder.not_a_point_embed.weight"),
+    (r"prompt_encoder\.no_mask_embed$", "prompt_encoder.no_mask_embed.weight"),
+    (r"prompt_encoder\.mask_down\.0\.", "prompt_encoder.mask_downscaling.0."),
+    (r"prompt_encoder\.mask_down_ln0\.", "prompt_encoder.mask_downscaling.1."),
+    (r"prompt_encoder\.mask_down\.1\.", "prompt_encoder.mask_downscaling.3."),
+    (r"prompt_encoder\.mask_down_ln1\.", "prompt_encoder.mask_downscaling.4."),
+    (r"prompt_encoder\.mask_down\.2\.", "prompt_encoder.mask_downscaling.6."),
+    (r"mask_decoder\.iou_token$", "mask_decoder.iou_token.weight"),
+    (r"mask_decoder\.mask_tokens$", "mask_decoder.mask_tokens.weight"),
+    (r"mask_decoder\.layer\.(\d+)\.", r"mask_decoder.transformer.layers.\1."),
+    (r"\.self_attn\.(q|k|v|out)\.", r".self_attn.\1_proj."),
+    (r"\.cross_t2i\.(q|k|v|out)\.", r".cross_attn_token_to_image.\1_proj."),
+    (r"\.cross_i2t\.(q|k|v|out)\.", r".cross_attn_image_to_token.\1_proj."),
+    (r"mask_decoder\.final_attn\.(q|k|v|out)\.",
+     r"mask_decoder.transformer.final_attn_token_to_image.\1_proj."),
+    (r"mask_decoder\.final_norm\.", "mask_decoder.transformer.norm_final_attn."),
+    (r"mask_decoder\.upscale\.0\.", "mask_decoder.output_upscaling.0."),
+    (r"mask_decoder\.upscale_ln\.", "mask_decoder.output_upscaling.1."),
+    (r"mask_decoder\.upscale\.1\.", "mask_decoder.output_upscaling.3."),
+    (r"mask_decoder\.hyper_(\d)_l(\d)\.", r"mask_decoder.output_hypernetworks_mlps.\1.layers.\2."),
+    (r"mask_decoder\.iou_l(\d)\.", r"mask_decoder.iou_prediction_head.layers.\1."),
+    # TinyViT (MobileSAM's encoder)
+    (r"image_encoder\.patch_embed\.0\.", "image_encoder.patch_embed.seq.0."),
+    (r"image_encoder\.patch_embed\.1\.", "image_encoder.patch_embed.seq.2."),
+    (r"image_encoder\.s0_mb(\d+)\.", r"image_encoder.layers.0.blocks.\1."),
+    (r"image_encoder\.s0_merge\.", "image_encoder.layers.0.downsample."),
+    (r"image_encoder\.s(\d)_blk(\d+)\.", r"image_encoder.layers.\1.blocks.\2."),
+    (r"image_encoder\.s(\d)_merge\.", r"image_encoder.layers.\1.downsample."),
+    (r"\.mlp_norm\.", ".mlp.norm."),
+    (r"\.mlp_fc(\d)\.", r".mlp.fc\1."),
+)
+_SAM_SCOPES = {"image_encoder", "prompt_encoder", "mask_decoder"}
 
 
 def jax_path_to_torch_key(path: tuple[str, ...]) -> str:
@@ -95,6 +162,58 @@ def pack_attention(sd: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
     return sd
 
 
+def _sam_from_jax(flat: dict) -> dict[str, torch.Tensor]:
+    sd = {}
+    for (_coll, *path), arr in flat.items():
+        arr = np.asarray(arr)
+        key = jax_path_to_torch_key(tuple(path))
+        for pat, rep in SAM_REWRITE_RULES:
+            key = re.sub(pat, rep, key)
+        if path[-1] == "kernel" and arr.ndim == 4 and re.fullmatch(r"upscale_\d", path[-2]):
+            arr = arr[::-1, ::-1].transpose(2, 3, 0, 1)  # flax ConvTranspose, k = s = 2
+        elif path[-1] == "kernel" and arr.ndim == 4:
+            arr = arr.transpose(3, 2, 0, 1)
+        elif path[-1] == "kernel" and arr.ndim == 2:
+            arr = arr.T
+        if key.endswith("point_embeddings"):  # (4, E) -> four (1, E) embeddings
+            for i, row in enumerate(arr):
+                sd[f"{key}.{i}.weight"] = torch.tensor(row[None].copy())
+            continue
+        if key.endswith(("not_a_point_embed.weight", "no_mask_embed.weight")):
+            arr = arr[None]
+        sd[key] = torch.tensor(arr.copy())
+    return sd
+
+
+def _clip_from_jax(flat: dict) -> dict[str, torch.Tensor]:
+    sd, qkv = {}, {}
+    for (_coll, *path), arr in flat.items():
+        arr = np.asarray(arr, np.float32)
+        top, leaf = path[0], _LEAF.get(path[-1], path[-1])
+        if top in ("token_embedding", "positional_embedding", "text_projection"):
+            sd[top + (".weight" if top == "token_embedding" else "")] = arr
+        elif top == "ln_final":
+            sd[f"ln_final.{leaf}"] = arr
+        else:
+            pre = f"transformer.resblocks.{top.removeprefix('resblock_')}."
+            if path[1] in ("ln_1", "ln_2"):
+                sd[f"{pre}{path[1]}.{leaf}"] = arr
+            elif path[1] in ("mlp_fc", "mlp_proj"):
+                sd[f"{pre}mlp.{'c_fc' if path[1] == 'mlp_fc' else 'c_proj'}.{leaf}"] = \
+                    arr.T if arr.ndim == 2 else arr
+            elif path[2] == "out":  # kernel (H, hd, W) -> (W, H * hd)
+                sd[f"{pre}attn.out_proj.{leaf}"] = (arr.reshape(-1, arr.shape[-1]).T
+                                                     if leaf == "weight" else arr)
+            else:  # query / key / value: kernel (W, H, hd) -> rows (H * hd, W) of in_proj
+                qkv[pre, path[2], leaf] = (arr.reshape(arr.shape[0], -1).T if leaf == "weight"
+                                           else arr.reshape(-1))
+    for pre in {k[0] for k in qkv}:
+        for leaf in ("weight", "bias"):
+            sd[f"{pre}attn.in_proj_{leaf}"] = np.concatenate(
+                [qkv[pre, p, leaf] for p in ("query", "key", "value")])
+    return {k: torch.tensor(np.ascontiguousarray(v)) for k, v in sd.items()}
+
+
 def from_jax_variables(flat: dict[tuple[str, ...], np.ndarray]) -> dict[str, torch.Tensor]:
     """{(collection, *path): array} (flax.traverse_util.flatten_dict of the
     variables, as numpy) -> {state_dict key: tensor}.
@@ -102,10 +221,15 @@ def from_jax_variables(flat: dict[tuple[str, ...], np.ndarray]) -> dict[str, tor
     The result has no source for the reference's frozen DFL bins, which the
     JAX package computes instead of storing; load it with strict=False.
     """
+    if any(coll not in _COLLECTIONS for coll, *_ in flat):
+        raise KeyError(f"unexpected variable collection in {sorted({k[0] for k in flat})}")
+    tops = {k[1] for k in flat}
+    if tops & _SAM_SCOPES:
+        return _sam_from_jax(flat)
+    if "token_embedding" in tops:
+        return _clip_from_jax(flat)
     sd = {}
     for (coll, *path), arr in flat.items():
-        if coll not in _COLLECTIONS:
-            raise KeyError(f"unexpected variable collection '{coll}'")
         arr = np.asarray(arr)
         if path[-1] == "kernel" and "conv_transpose" in path:  # (kh, kw, in, out), flipped
             arr = arr[::-1, ::-1].transpose(2, 3, 0, 1)

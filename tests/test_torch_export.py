@@ -24,6 +24,7 @@ kernels x1.5 as in tests/test_torch_classify.py) and carried onto JAX's tree:
 """
 
 import copy
+import functools
 import json
 
 import jax
@@ -198,11 +199,18 @@ def test_fake_strides_equal_the_kernel_plan(layout):
     assert la.linear_attention(q, k, v).stride() == want  # the CPU's plain version too
 
 
-@pytest.mark.parametrize("fmt", ["pb", "tfjs", "edgetpu", "nope"])
-def test_unported_and_unknown_formats_raise_as_jax(fmt):
-    pm = DetectionModel("yolo11n.yaml", device="cpu")
+@functools.lru_cache(maxsize=1)
+def _yolo11n_pair():
+    """yolo11n in both packages at its seeded (port) and zero (JAX) weights,
+    built once for the format tests, which read no weight."""
     jm = jtasks.DetectionModel("yolo11n.yaml")
     jm.variables = jax.tree.map(jnp.asarray, _jax_template(jm))
+    return DetectionModel("yolo11n.yaml", device="cpu"), jm
+
+
+@pytest.mark.parametrize("fmt", ["pb", "tfjs", "edgetpu", "nope"])
+def test_unported_and_unknown_formats_raise_as_jax(fmt):
+    pm, jm = _yolo11n_pair()
     want = ValueError if fmt == "nope" else NotImplementedError
     with pytest.raises(want):
         JaxExporter(_jax_args(fmt))(jm, out_dir="/nonexistent/never-written")
@@ -214,7 +222,7 @@ def test_unported_and_unknown_formats_raise_as_jax(fmt):
 def test_tf_formats_raise_and_are_gated(fmt):
     """JAX writes them through jax2tf where tensorflow imports (ROADMAP §C.20);
     the port has no torch -> TF bridge: gated in the table, raising on export."""
-    pm = DetectionModel("yolo11n.yaml", device="cpu")
+    pm = _yolo11n_pair()[0]
     assert not format_available(fmt)
     with pytest.raises(NotImplementedError, match="tensorflow"):
         Exporter(_args(fmt))(pm, out_dir="/nonexistent/never-written")

@@ -177,7 +177,7 @@ def test_names_and_files_resolve(tmp_path):
     m = DetectionModel(str(own), scale="n", device="cpu")
     assert num_params(m) == CONFIGS["yolo11n"][1]
     with pytest.raises(KeyError):
-        model_cfg("yolov8-world.yaml")  # not ported yet (ROADMAP A.11)
+        model_cfg("yolov8-nonexistent.yaml")  # a name no YAML of the package has
 
 
 def test_attention_kernel_dims_on_the_msla_path():

@@ -79,8 +79,8 @@ def flagship():
     missing, unexpected = pm.load_state_dict(from_jax_variables(flat), strict=False)
     assert missing == [DFL_KEY] and unexpected == []
     imgs = np.random.RandomState(1).randint(0, 256, (2, IMGSZ, IMGSZ, 3)).astype(np.uint8)
-    jpred = np.array(jm.apply(jax.tree.map(jnp.asarray, variables),
-                                jnp.asarray(imgs, jnp.float32) / 255.0, train=False)["pred"])
+    jpred = np.array(jax.jit(lambda v, x: jm.apply(v, x, train=False)["pred"])(
+        jax.tree.map(jnp.asarray, variables), jnp.asarray(imgs, jnp.float32) / 255.0))
     return jm, variables, pm, imgs, jpred
 
 
@@ -199,8 +199,9 @@ def test_model_names_resolve_the_scale():
     assert model_cfg("edgeline-yolo.yaml", scale="x")["scale"] == "x"
     with pytest.raises(ValueError):
         model_cfg("edgeline-yolo-n", scale="s")
+    assert model_cfg("yolov8s-worldv2")["scale"] == "s"  # the last family the port took in
     with pytest.raises(KeyError):
-        model_cfg("yolov8-world.yaml")  # a family the port does not build
+        model_cfg("yolov8-nonexistent.yaml")  # a name no YAML of the package has
 
 
 def test_entry_points_need_a_card_unless_told_cpu():

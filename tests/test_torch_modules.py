@@ -66,10 +66,11 @@ def _perturb(flat, seed=0):
 def _run_pair(jmod, tmod, x, **call_kw):
     """Init + perturb the JAX module, load the port module, run both on x (NHWC numpy)."""
     xj = jnp.asarray(x)
-    with jconv.bn_config():
-        v = jmod.init(jax.random.PRNGKey(0), xj, **call_kw)
+    with jconv.bn_config():  # compiled: one XLA program each, not one per eager op
+        v = jax.jit(lambda k, a: jmod.init(k, a, **call_kw))(jax.random.PRNGKey(0), xj)
         flat = _perturb(traverse_util.flatten_dict(jax.device_get(v)))
-        yj = jmod.apply(traverse_util.unflatten_dict(flat), xj, **call_kw)
+        yj = jax.jit(lambda w, a: jmod.apply(w, a, **call_kw))(traverse_util.unflatten_dict(flat),
+                                                                xj)
     missing, unexpected = tmod.load_state_dict(from_jax_variables(flat), strict=False)
     assert not unexpected and not [k for k in missing if "dfl" not in k]
     with torch.no_grad():
@@ -180,10 +181,10 @@ def test_head_matches_jax(legacy):
     jm = jhead.GFLHeadv2_uniH(nc=nc, ch=ch, legacy=legacy)
     tm = head.GFLHeadv2_uniH(nc=nc, ch=ch, legacy=legacy)
     xj = [jnp.asarray(x) for x in xs]
-    with jconv.bn_config():
-        v = jm.init(jax.random.PRNGKey(0), xj)
+    with jconv.bn_config():  # compiled, as _run_pair
+        v = jax.jit(jm.init)(jax.random.PRNGKey(0), xj)
         flat = _perturb(traverse_util.flatten_dict(jax.device_get(v)))
-        oj = jm.apply(traverse_util.unflatten_dict(flat), xj)
+        oj = jax.jit(jm.apply)(traverse_util.unflatten_dict(flat), xj)
     missing, unexpected = tm.load_state_dict(from_jax_variables(flat), strict=False)
     assert missing == ["dfl.conv.weight"] and not unexpected
     with torch.no_grad():

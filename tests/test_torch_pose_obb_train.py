@@ -43,6 +43,7 @@ from test_torch_augment import NO_HSV
 from test_torch_augment import _batch as aug_batch
 from test_torch_augment import assert_hsv_image_as_jax, jax_drawn_params
 from test_torch_train import AUG_OFF, _jax_trainer_build, build_optimizer
+from jax_host import flat_decay_mask, unravel_host
 from torch_threads import one_torch_thread  # noqa: F401  (the port on one thread)
 
 from edgeyolo_tpu.data import augment_device as jaug
@@ -359,8 +360,7 @@ def _jax_steps(task, jm, flat, batch, sched):
     variables = traverse_util.unflatten_dict({k: jnp.asarray(v) for k, v in flat.items()})
     params, bstats = variables["params"], variables["batch_stats"]
     p_flat, unravel = ravel_pytree(params)
-    mask_flat, _ = ravel_pytree(jax.tree.map(lambda p, mb: jnp.full_like(p, 1.0 if mb else 0.0),
-                                             params, jtrainer._decay_mask(params)))
+    mask_flat = flat_decay_mask(params, jtrainer._decay_mask(params))
     accumulate = max(round(HYP["nbs"] / B), 1)
     decay = HYP["weight_decay"] * B * accumulate / HYP["nbs"]
     tx = optax.MultiSteps(build_optimizer(
@@ -411,8 +411,8 @@ def _jax_steps(task, jm, flat, batch, sched):
         return from_jax_variables({(coll, *k): np.asarray(v) for k, v in
                                    traverse_util.flatten_dict(tree).items()})
 
-    return (losses, as_port(unravel(p_flat), "params"), as_port(bstats, "batch_stats"),
-            as_port(unravel(ema), "params"), int(upd))
+    return (losses, as_port(unravel_host(params, p_flat), "params"), as_port(bstats, "batch_stats"),
+            as_port(unravel_host(params, ema), "params"), int(upd))
 
 
 # The running means of the P5 box and class tower stems, fed by 2 x 2 maps at

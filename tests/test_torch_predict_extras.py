@@ -71,7 +71,8 @@ def test_capture_equals_jax(flag):
     pm, jm, v = flag
     imgs = _imgs(2, 64)
     idx = [sp.i for sp in pm.layers[:-1]]
-    jout, jcap = jm.apply(v, jnp.asarray(imgs, jnp.float32) / 255, train=False, capture=idx)
+    jout, jcap = jax.jit(lambda v, x: jm.apply(v, x, train=False, capture=idx))(
+        v, jnp.asarray(imgs, jnp.float32) / 255)
     with torch.no_grad():
         x = torch.from_numpy(imgs).permute(0, 3, 1, 2).float() / 255
         out, cap = pm(x, capture=idx)

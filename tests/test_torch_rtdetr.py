@@ -102,10 +102,12 @@ def to_jax(sd: dict, template: dict, prefix: str = "m") -> dict:
     return jax.tree.map(jnp.asarray, {c: t[prefix] for c, t in variables.items()})
 
 
-def _japply(jmod, *args, **kwargs):
-    """A JAX module applied under the detection models' BatchNorm convention."""
+def _japply(jmod, variables, *args, **kwargs):
+    """A JAX module applied under the detection models' BatchNorm convention,
+    compiled (one XLA program, not one per eager op): the variables traced,
+    the inputs, shapes and flags closed over."""
     with jconv.bn_config():
-        return jmod.apply(*args, **kwargs)
+        return jax.jit(lambda v: jmod.apply(v, *args, **kwargs))(variables)
 
 
 def _moved(module: torch.nn.Module, seed: int = 0) -> torch.nn.Module:

@@ -229,8 +229,8 @@ def _jax_query_path(jm, imgs, conf):
     """JAX's model through its validator's query path (pixels from normalised
     cxcywh, argmax class, the top max_det by best score, rows under conf out),
     the boxes clipped to the image as a predictor clips them."""
-    pred = np.asarray(jm.net.apply(jm.variables, jnp.asarray(imgs, jnp.float32) / 255.0,
-                                   train=False)["pred"])
+    pred = np.asarray(jax.jit(lambda v, x: jm.net.apply(v, x, train=False)["pred"])(
+        jm.variables, jnp.asarray(imgs, jnp.float32) / 255.0))
     h, w = imgs.shape[1:3]
     out = []
     for p in pred:

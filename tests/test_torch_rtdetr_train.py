@@ -36,6 +36,7 @@ from jax.flatten_util import ravel_pytree
 from test_torch_rtdetr import jax_template, rt_perturbed
 from test_torch_train import _jax_trainer_build
 from test_torch_v13_train import HYP, S
+from jax_host import flat_decay_mask, unravel_host
 from torch_threads import one_torch_thread  # noqa: F401  (the port on one thread)
 
 from edgeyolo_tpu.data.augment_device import augment_batch as jaugment
@@ -253,8 +254,7 @@ def _jax_rtdetr_steps(jm, variables, batch, sched):
     port state_dicts, each step's dn draws and matched columns."""
     params, bstats = variables["params"], variables["batch_stats"]
     p_flat, unravel = ravel_pytree(params)
-    mask_flat, _ = ravel_pytree(jax.tree.map(lambda p, mb: jnp.full_like(p, 1.0 if mb else 0.0),
-                                             params, jtrainer._decay_mask(params)))
+    mask_flat = flat_decay_mask(params, jtrainer._decay_mask(params))
     tx = optax.MultiSteps(build_optimizer(
         p_flat, "SGD", RT_HYP["lr0"], RT_HYP["momentum"], RT_HYP["weight_decay"],
         sched["lr_at"], momentum_schedule=sched["momentum_at"], flat_mask=mask_flat),
@@ -272,26 +272,10 @@ def _jax_rtdetr_steps(jm, variables, batch, sched):
                                 train=True, mutable=["batch_stats"], dn=tgt["dn"])
         return out, tgt, mut["batch_stats"]
 
-    @jax.jit
-    def step(state, key):
-        p_flat, bstats, opt_state, ema, upd = state
-
-        def loss_fn(pf):
-            out, tgt, new_bs = forward(pf, bstats, key)
-            return crit(out, tgt)[0], new_bs
-
-        (loss, new_bs), grads = jax.value_and_grad(loss_fn, has_aux=True)(p_flat)
-        updates, new_opt = tx.update(grads, opt_state, p_flat)
-        new_p = p_flat + updates
-        upd = upd + 1
-        d = 0.9999 * (1 - jnp.exp(-upd / 2000.0))
-        return (new_p, new_bs, new_opt, ema * d + (1 - d) * new_p, upd), loss
-
-    @jax.jit
-    def matches(p_flat, bstats, key):
+    def matches(out, tgt):
         """JAX's cost matrices and matches on JAX's outputs of this step:
         final, aux, encoder."""
-        out, tgt, _ = forward(p_flat, bstats, key)
+        out = jax.lax.stop_gradient(out)
         layers = ([(out["feats"][1], out["feats"][0])]
                   + list(zip(out["aux"][1][:-1], out["aux"][0][:-1]))
                   + [(out["enc_scores"], out["enc_bboxes"])])
@@ -300,14 +284,30 @@ def _jax_rtdetr_steps(jm, variables, batch, sched):
         return costs, jax.vmap(jax.vmap(jdetr.auction_assign))(costs, jnp.broadcast_to(
             mg > 0, costs.shape[:-1]))
 
+    @jax.jit
+    def step(state, key):
+        """One step, and the matches of its forward (one compiled program)."""
+        p_flat, bstats, opt_state, ema, upd = state
+
+        def loss_fn(pf):
+            out, tgt, new_bs = forward(pf, bstats, key)
+            return crit(out, tgt)[0], (new_bs, matches(out, tgt))
+
+        (loss, (new_bs, match)), grads = jax.value_and_grad(loss_fn, has_aux=True)(p_flat)
+        updates, new_opt = tx.update(grads, opt_state, p_flat)
+        new_p = p_flat + updates
+        upd = upd + 1
+        d = 0.9999 * (1 - jnp.exp(-upd / 2000.0))
+        return (new_p, new_bs, new_opt, ema * d + (1 - d) * new_p, upd), loss, match
+
     state = (p_flat, bstats, tx.init(p_flat), jnp.copy(p_flat), jnp.int32(0))
     losses, draws, cols = [], [], []
     for i in range(STEPS):
         key = jax.random.PRNGKey(i)
         m = batch["cls"].shape[1]
         draws.append(jax_draws(jax.random.fold_in(key, 7), B, 2 * max(1, 100 // m) * m, NC))
-        cols.append(tuple(np.asarray(a) for a in matches(state[0], state[1], key)))
-        state, loss = step(state, key)
+        state, loss, match = step(state, key)
+        cols.append(tuple(np.asarray(a) for a in match))
         losses.append(float(loss))
     p_flat, bstats, _, ema, _ = state
 
@@ -315,8 +315,8 @@ def _jax_rtdetr_steps(jm, variables, batch, sched):
         return from_jax_variables({(coll, *k): np.asarray(v) for k, v in
                                    traverse_util.flatten_dict(tree).items()})
 
-    return (losses, as_port(unravel(p_flat), "params"), as_port(bstats, "batch_stats"),
-            as_port(unravel(ema), "params"), draws, cols)
+    return (losses, as_port(unravel_host(params, p_flat), "params"), as_port(bstats, "batch_stats"),
+            as_port(unravel_host(params, ema), "params"), draws, cols)
 
 
 def test_three_rtdetr_train_steps_match_jax(v8_rtdetr, tmp_path, monkeypatch):

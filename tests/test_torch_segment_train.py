@@ -23,6 +23,7 @@ import torch
 from flax import traverse_util
 from jax.flatten_util import ravel_pytree
 from test_torch_train import AUG_OFF, _jax_trainer_build, build_optimizer
+from jax_host import flat_decay_mask, unravel_host
 from torch_threads import one_torch_thread  # noqa: F401  (the port on one thread)
 
 from edgeyolo_tpu.data.augment_device import augment_batch as jaugment
@@ -174,8 +175,7 @@ def _jax_steps(jm, flat, batch, sched):
     variables = traverse_util.unflatten_dict({k: jnp.asarray(v) for k, v in flat.items()})
     params, bstats = variables["params"], variables["batch_stats"]
     p_flat, unravel = ravel_pytree(params)
-    mask_flat, _ = ravel_pytree(jax.tree.map(lambda p, mb: jnp.full_like(p, 1.0 if mb else 0.0),
-                                             params, jtrainer._decay_mask(params)))
+    mask_flat = flat_decay_mask(params, jtrainer._decay_mask(params))
     accumulate = max(round(HYP["nbs"] / B), 1)
     decay = HYP["weight_decay"] * B * accumulate / HYP["nbs"]
     tx = optax.MultiSteps(build_optimizer(
@@ -218,8 +218,8 @@ def _jax_steps(jm, flat, batch, sched):
         return from_jax_variables({(coll, *k): np.asarray(v) for k, v in
                                    traverse_util.flatten_dict(tree).items()})
 
-    return (losses, as_port(unravel(p_flat), "params"), as_port(bstats, "batch_stats"),
-            as_port(unravel(ema), "params"), int(upd))
+    return (losses, as_port(unravel_host(params, p_flat), "params"), as_port(bstats, "batch_stats"),
+            as_port(unravel_host(params, ema), "params"), int(upd))
 
 
 def test_three_seg_train_steps_match_jax(seg_model, tmp_path, monkeypatch):

@@ -37,6 +37,7 @@ from edgeyolo_tpu_torch.nn.modules import conv
 from edgeyolo_tpu_torch.nn.tasks import DetectionModel, num_trainable
 from edgeyolo_tpu_torch.train import trainer
 from edgeyolo_tpu_torch.utils.convert import from_jax_variables, jax_path_to_torch_key
+from jax_host import flat_decay_mask, unravel_host
 from torch_threads import one_torch_thread  # noqa: F401  (the port on one thread)
 
 S, B, M = 64, 2, 8
@@ -246,8 +247,7 @@ def _jax_steps(jm, flat, batch, sched):
     variables = traverse_util.unflatten_dict({k: jnp.asarray(v) for k, v in flat.items()})
     params, bstats = variables["params"], variables["batch_stats"]
     p_flat, unravel = ravel_pytree(params)
-    mask_flat, _ = ravel_pytree(jax.tree.map(lambda p, mb: jnp.full_like(p, 1.0 if mb else 0.0),
-                                             params, jtrainer._decay_mask(params)))
+    mask_flat = flat_decay_mask(params, jtrainer._decay_mask(params))
     accumulate = max(round(HYP["nbs"] / B), 1)
     decay = HYP["weight_decay"] * B * accumulate / HYP["nbs"]
     tx = optax.MultiSteps(build_optimizer(
@@ -289,8 +289,8 @@ def _jax_steps(jm, flat, batch, sched):
         return from_jax_variables({(coll, *k): np.asarray(v) for k, v in
                                    traverse_util.flatten_dict(tree).items()})
 
-    return (losses, as_port(unravel(p_flat), "params"), as_port(bstats, "batch_stats"),
-            as_port(unravel(ema), "params"), int(upd))
+    return (losses, as_port(unravel_host(params, p_flat), "params"), as_port(bstats, "batch_stats"),
+            as_port(unravel_host(params, ema), "params"), int(upd))
 
 
 def test_three_train_steps_match_jax(flagship, tmp_path, monkeypatch):

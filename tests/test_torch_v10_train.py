@@ -41,6 +41,7 @@ from edgeyolo_tpu.train.loss import E2EDetectLoss as JE2EDetectLoss
 from edgeyolo_tpu_torch.nn.tasks import DetectionModel
 from edgeyolo_tpu_torch.train import trainer
 from edgeyolo_tpu_torch.utils.convert import from_jax_variables
+from jax_host import flat_decay_mask, unravel_host
 from torch_threads import one_torch_thread  # noqa: F401  (the port on one thread)
 
 STEPS, B = 3, 4
@@ -64,8 +65,7 @@ def _jax_e2e_steps(jm, variables, batch, sched):
     accumulate 1, the optimizer state and the EMA carried."""
     params, bstats = variables["params"], variables["batch_stats"]
     p_flat, unravel = ravel_pytree(params)
-    mask_flat, _ = ravel_pytree(jax.tree.map(lambda p, mb: jnp.full_like(p, 1.0 if mb else 0.0),
-                                             params, jtrainer._decay_mask(params)))
+    mask_flat = flat_decay_mask(params, jtrainer._decay_mask(params))
     tx = optax.MultiSteps(build_optimizer(
         p_flat, "SGD", V10_HYP["lr0"], V10_HYP["momentum"], V10_HYP["weight_decay"],
         sched["lr_at"], momentum_schedule=sched["momentum_at"], flat_mask=mask_flat),
@@ -104,8 +104,8 @@ def _jax_e2e_steps(jm, variables, batch, sched):
         return from_jax_variables({(coll, *k): np.asarray(v) for k, v in
                                    traverse_util.flatten_dict(tree).items()})
 
-    return (losses, as_port(unravel(p_flat), "params"), as_port(bstats, "batch_stats"),
-            as_port(unravel(ema), "params"))
+    return (losses, as_port(unravel_host(params, p_flat), "params"), as_port(bstats, "batch_stats"),
+            as_port(unravel_host(params, ema), "params"))
 
 
 def test_three_v10_train_steps_match_jax(tmp_path, monkeypatch):

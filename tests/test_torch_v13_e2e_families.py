@@ -47,6 +47,7 @@ from edgeyolo_tpu_torch.nn.modules.edgeline import LinearAttention
 from edgeyolo_tpu_torch.nn.tasks import DetectionModel, num_params
 from edgeyolo_tpu_torch.train import trainer
 from edgeyolo_tpu_torch.utils.convert import from_jax_variables
+from jax_host import flat_decay_mask, unravel_host
 from torch_threads import one_torch_thread  # noqa: F401  (the port on one thread)
 
 # port name at scale n: (JAX YAML, weight SCALE, end to end)
@@ -189,8 +190,7 @@ def _jax_e2e_step(jm, variables, batch):
     output dict: f32, accumulate 1, no warmup (tests/test_torch_v13_train.py)."""
     params, bstats = variables["params"], variables["batch_stats"]
     p_flat, unravel = ravel_pytree(params)
-    mask_flat, _ = ravel_pytree(jax.tree.map(lambda p, mb: jnp.full_like(p, 1.0 if mb else 0.0),
-                                             params, jtrainer._decay_mask(params)))
+    mask_flat = flat_decay_mask(params, jtrainer._decay_mask(params))
     tx = jtrainer.build_optimizer(p_flat, "SGD", HYP["lr0"], HYP["momentum"],
                                   HYP["weight_decay"], lambda s: HYP["lr0"], flat_mask=mask_flat)
     crit = JE2EDetectLoss(jm, hyp=HYP)
@@ -212,7 +212,7 @@ def _jax_e2e_step(jm, variables, batch):
         return from_jax_variables({(coll, *k): np.asarray(v) for k, v in
                                    traverse_util.flatten_dict(tree).items()})
 
-    return (float(loss), as_port(unravel(p_flat + updates), "params"),
+    return (float(loss), as_port(unravel_host(params, p_flat + updates), "params"),
             as_port(new_bs, "batch_stats"))
 
 
