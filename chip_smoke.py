@@ -18,8 +18,9 @@ Phases, each timed and each fatal when it fails:
   4. reference  the card-against-CPU checks of the script, each group a job in a
                 process of its own (REFERENCE_JOBS, REF_PROCS at once, as the fits of
                 phase 8 run): the reference models of this phase in REF_GROUPS jobs,
-                the train references of phase 6 in four, and the World, CLIP and
-                SAM references of phases 18 (a), (b) and 19 (a). This phase's check:
+                the train references of phase 6 in four, and the World, CLIP, SAM
+                and SAM2 references of phases 18 (a), (b), 19 (a) and 21 (a). This
+                phase's check:
                 the f32 model on the card (kernel) against the same model on the
                 CPU (plain version) at 64 px, gates open: EdgeLine-YOLO-n, the YOLO11
                 ablation family, YOLOv13 and its MSLA, LGL, wavelet and E2E variants,
@@ -238,7 +239,24 @@ Phases, each timed and each fatal when it fails:
      annotate   then auto_annotate of the fit's val images with the fit phase's flagship
                 prompting a seeded MobileSAM: seconds, one SAM call per detection, the
                 label files' lines well formed, the flagship's kernel launches
- 21. device     each kernel's device time at the shapes of phase 3: the context and
+ 21. sam2 and   SAM2 and YOLO-NAS (no kernel): (a) reference (in phase 4): sam2_t at full
+     nas        width at SAM2_REF_IMGSZ px in f32 at weights drawn away from init
+                (positions included), card against CPU at SAM_TOL of each output's
+                scale (mask logits SAM2_LOGIT_TOL): encode_image, sam_heads with
+                multimask and by stability, encode_memory, condition_features over two
+                memory frames and three pointers, and a 6-frame propagate (logits,
+                scores, the memory each step attends to); (b) sam2 serve: sam2_t and
+                sam2_b at 1024 px in f32 on the SAM image as in 19 (b), sam2_s and
+                sam2_l encoding one image (ms, peak memory); (c) sam2 video:
+                SAM2VideoPredictor(sam2_t, 1024 px) over 24 720p frames of a moving
+                disc from one point: ms per propagated frame while the bank ramps and
+                at the full bank (7 memory frames, 16 pointers), 1 conditioning and 23
+                other frames; (d) nas: the NAS facade's postprocess on YOLO-NAS-S's
+                output layout (batch 32, 8,400 anchors, 80 classes, planted
+                detections): ms, and the card's detections equal to the CPU's (counts,
+                classes, kept anchors; boxes NAS_BOX_TOL). Each path's linear-attention
+                launches are printed and held at 0
+ 22. device     each kernel's device time at the shapes of phase 3: the context and
      times      output launches each timed by its own event pair, in DEVICE_SESSIONS
                 sessions (median and spread, the SM clock read around each); after the
                 serve, train, fit and jpeg phases
@@ -3902,6 +3920,14 @@ SAM_PROMPT_CALLS = 20
 FASTSAM = "fastsam-s"  # FastSAM-s: YOLOv8s-seg with one class
 FASTSAM_IMAGES = 8  # 640 px images of one request
 AUTO_ANNOTATE_SAM = "mobile_sam"
+SAM2_REF_IMGSZ = 256  # sam2_t at full width, card against CPU
+SAM2_REF_FRAMES = 6  # frames of the reference's propagate (the bank still ramping)
+SAM2_LOGIT_TOL = 1e-4  # mask logits, of their scale (tests/test_torch_sam2_video.py's)
+SAM2_SERVE = ("sam2_t", "sam2_b")
+SAM2_ENCODE_ONLY = ("sam2_s", "sam2_l")
+SAM2_VIDEO = {"model": "sam2_t", "frames": 24, "hw": (720, 1280)}
+NAS_SHAPE = (32, 8400, 80)  # batch, anchors (YOLO-NAS-S at 640 px), classes
+NAS_BOX_TOL = 1e-4  # px, card against CPU
 
 
 def world_bank(k: int, seed: int = 5):
@@ -4152,73 +4178,89 @@ def sam_reference(la) -> int:
     return la.linear_attention_kernel.launches
 
 
-def serve_sam(la, card: str) -> dict:
-    """SAM ViT-B and MobileSAM at SAM_IMGSZ px in f32 on one SAM_IMAGE image:
-    the encode's ms (CUDA events) and peak memory, then a point, a box and a
-    multimask prompt (their ms, SAM_PROMPT_CALLS calls each, host to host: the
-    mask resized to the image and cut included), and grid_generate at
-    SAM_GRID x SAM_GRID points, with the default filters and with every
-    candidate let through (seconds, masks kept). Returns {variant: numbers}
-    and the kernel's launches (none)."""
+def sam_image():
+    """The SAM phases' SAM_IMAGE image: noise with two flat shapes to segment."""
     import numpy as np
-    import torch
-
-    from edgeyolo_tpu_torch.engine.sam import SAM
 
     rs = np.random.RandomState(0)
     h, w = SAM_IMAGE
     img = np.clip(rs.rand(h, w, 3) * 60 + 90, 0, 255).astype(np.uint8)
-    img[200:500, 300:700] = (200, 60, 40)  # two flat shapes to segment
+    img[200:500, 300:700] = (200, 60, 40)
     img[100:300, 900:1150] = (30, 90, 220)
-    out = {}
+    return img
+
+
+def serve_promptable(make, encode, img, label: str, card: str) -> dict:
+    """One promptable facade built by `make()` on the card, f32, on `img`:
+    the encode's ms (`encode(net, x)`, CUDA events, median of 10) and peak
+    memory over what was allocated before the model, set_image's ms, a point,
+    a box and a multimask prompt (SAM_PROMPT_CALLS calls each, host to host:
+    the mask resized to the image and cut included), and grid_generate at
+    SAM_GRID x SAM_GRID points with the default filters and with every
+    candidate let through (seconds, masks kept)."""
+    import numpy as np
+    import torch
+
+    h, w = img.shape[:2]
+    base = torch.cuda.memory_allocated()  # what earlier phases left allocated
+    sam = make()
+    sam.set_image(img)
+    torch.cuda.synchronize()
+    x = torch.randn(1, 3, sam.img_size, sam.img_size, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        enc_ms = cuda_ms(lambda: encode(sam.net, x), samples=10, warmup=2)
+    peak = torch.cuda.max_memory_allocated() - base
+    t0 = time.perf_counter()
+    sam.set_image(img)
+    torch.cuda.synchronize()
+    set_ms = (time.perf_counter() - t0) * 1e3
+    prompts = {"point": {"points": [[500, 350]], "labels": [1]},
+               "box": {"bboxes": [300, 200, 700, 500]},
+               "multimask": {"points": [[1000, 200], [500, 350]], "labels": [1, 0],
+                             "multimask_output": True}}
+    ms = {}
+    for kind, kw in prompts.items():
+        masks, iou = sam(**kw)
+        if not (masks.shape == (1, h, w) and masks.dtype == bool and np.isfinite(iou).all()):
+            raise AssertionError(f"{label}: malformed {kind} prompt output")
+        t0 = time.perf_counter()
+        for _ in range(SAM_PROMPT_CALLS):
+            sam(**kw)
+        ms[kind] = (time.perf_counter() - t0) * 1e3 / SAM_PROMPT_CALLS
+    grid = {}
+    for kind, kw in (("default filters", {}),
+                     ("every candidate", {"pred_iou_thresh": -1e9, "stability_thresh": -1.0})):
+        t0 = time.perf_counter()
+        anns = sam.generate(img, points_per_side=SAM_GRID, **kw)
+        torch.cuda.synchronize()
+        grid[kind] = (time.perf_counter() - t0, len(anns))
+        if any(a["segmentation"].shape != (h, w) for a in anns):
+            raise AssertionError(f"{label}: malformed grid_generate masks")
+    print(f"{label}: {sam.info()} params, f32, {sam.img_size} px: encode "
+          f"{enc_ms:.3f} ms (CUDA events, median of 10), peak memory {peak / 2**30:.3f} GiB "
+          f"(max_memory_allocated over what was allocated before the model); set_image of a "
+          f"{w} x {h} image {set_ms:.3f} ms; prompt ms (host to host, mask at the image's size) "
+          + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+          + f"; grid_generate {SAM_GRID} x {SAM_GRID} points: "
+          + ", ".join(f"{k} {t:.3f} s ({n} masks kept)" for k, (t, n) in grid.items())
+          + f" on {card}", flush=True)
+    return {"encode_ms": enc_ms, "peak_gib": peak / 2**30, "prompt_ms": ms,
+            "grid_s": {k: t for k, (t, _) in grid.items()}}
+
+
+def serve_sam(la, card: str) -> dict:
+    """SAM ViT-B and MobileSAM at SAM_IMGSZ px in f32 on one SAM_IMAGE image
+    (serve_promptable). Returns {variant: numbers} and the kernel's launches
+    (none)."""
+    from edgeyolo_tpu_torch.engine.sam import SAM
+
+    img, out = sam_image(), {}
     la.linear_attention_kernel.launches = 0
     for variant in SAM_SERVE:
-        base = torch.cuda.memory_allocated()  # what earlier phases left allocated
-        sam = SAM(variant, img_size=SAM_IMGSZ, device="cuda")
-        sam.set_image(img)
-        torch.cuda.synchronize()
-        x = torch.randn(1, 3, SAM_IMGSZ, SAM_IMGSZ, device="cuda")
-        torch.cuda.reset_peak_memory_stats()
-        with torch.inference_mode():
-            enc_ms = cuda_ms(lambda: sam.net.encode(x), samples=10, warmup=2)
-        peak = torch.cuda.max_memory_allocated() - base
-        t0 = time.perf_counter()
-        sam.set_image(img)
-        torch.cuda.synchronize()
-        set_ms = (time.perf_counter() - t0) * 1e3
-        prompts = {"point": {"points": [[500, 350]], "labels": [1]},
-                   "box": {"bboxes": [300, 200, 700, 500]},
-                   "multimask": {"points": [[1000, 200], [500, 350]], "labels": [1, 0],
-                                 "multimask_output": True}}
-        ms = {}
-        for kind, kw in prompts.items():
-            masks, iou = sam(**kw)
-            if not (masks.shape == (1, h, w) and masks.dtype == bool and np.isfinite(iou).all()):
-                raise AssertionError(f"SAM {variant}: malformed {kind} prompt output")
-            t0 = time.perf_counter()
-            for _ in range(SAM_PROMPT_CALLS):
-                sam(**kw)
-            ms[kind] = (time.perf_counter() - t0) * 1e3 / SAM_PROMPT_CALLS
-        grid = {}
-        for label, kw in (("default filters", {}),
-                          ("every candidate", {"pred_iou_thresh": -1e9, "stability_thresh": -1.0})):
-            t0 = time.perf_counter()
-            anns = sam.generate(img, points_per_side=SAM_GRID, **kw)
-            torch.cuda.synchronize()
-            grid[label] = (time.perf_counter() - t0, len(anns))
-            if any(a["segmentation"].shape != (h, w) for a in anns):
-                raise AssertionError(f"SAM {variant}: malformed grid_generate masks")
-        print(f"sam serve {variant}: {sam.info()} params, f32, {SAM_IMGSZ} px: encode "
-              f"{enc_ms:.3f} ms (CUDA events, median of 10), peak memory {peak / 2**30:.3f} GiB "
-              f"(max_memory_allocated over what was allocated before the model); set_image of a {w} x {h} image {set_ms:.3f} ms; prompt "
-              f"ms (host to host, mask at the image's size) "
-              + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
-              + f"; grid_generate {SAM_GRID} x {SAM_GRID} points: "
-              + ", ".join(f"{k} {t:.3f} s ({n} masks kept)" for k, (t, n) in grid.items())
-              + f" on {card}", flush=True)
-        out[variant] = {"encode_ms": enc_ms, "peak_gib": peak / 2**30, "prompt_ms": ms,
-                        "grid_s": {k: t for k, (t, _) in grid.items()}}
-        del sam
+        out[variant] = serve_promptable(
+            lambda: SAM(variant, img_size=SAM_IMGSZ, device="cuda"),
+            lambda net, x: net.encode(x), img, f"sam serve {variant}", card)
     out["launches"] = la.linear_attention_kernel.launches
     if out["launches"]:
         raise AssertionError("the attention kernel launched in SAM")
@@ -4322,9 +4364,351 @@ def auto_annotate_phase(la, card: str, best: Path, data: Path, work: Path) -> di
     return {"s": secs, "launches": launches}
 
 
+def sam2_spread(net, seed: int = 0):
+    """tests/torch_sam2_common.py's kind of weights on a seeded SAM2, every
+    variable away from its init: conv and linear weights x 1.5, each
+    LayerNorm's scale 1 + N(0, 0.1), biases, the positions, the ConvNeXt
+    gammas, the memory and no-object embeddings and the temporal encodings
+    N(0, 0.1); the tokens and the Fourier matrix keep their N(0, 1)."""
+    import torch
+    from torch import nn
+
+    gen = torch.Generator().manual_seed(seed)
+
+    def normal(t, sd, mean=0.0):
+        t.copy_(mean + torch.randn(t.shape, generator=gen) * sd)
+
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, nn.LayerNorm):
+                normal(m.weight, 0.1, 1.0)
+                normal(m.bias, 0.1)
+            elif isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+                m.weight.mul_(1.5)
+                if m.bias is not None:
+                    normal(m.bias, 0.1)
+        for name, p in net.named_parameters():
+            if name.rsplit(".", 1)[-1] in ("pos_embed", "pos_embed_window", "gamma", "no_mem_embed",
+                                           "no_mem_pos_enc", "no_obj_ptr", "maskmem_tpos_enc"):
+                normal(p, 0.1)
+    return net
+
+
+def disc_frames(n: int, hw: tuple[int, int], speed: int):
+    """n frames of a red disc (radius a ninth of the height) moving `speed`
+    px a frame to the right over a fixed noise background; returns the frames
+    and the disc's first centre (x, y)."""
+    import numpy as np
+
+    h, w = hw
+    rs = np.random.RandomState(3)
+    bg = rs.randint(0, 60, (h, w, 3)).astype(np.uint8)
+    yy, xx = np.mgrid[:h, :w]
+    r, cx, cy = h // 9, w // 4, h // 2
+    frames = []
+    for i in range(n):
+        img = bg.copy()
+        img[(yy - cy) ** 2 + (xx - cx - speed * i) ** 2 < r * r] = (230, 60, 60)
+        frames.append(img)
+    return frames, (cx, cy)
+
+
+def spy_bank(vp) -> list:
+    """Record what each step of video predictor `vp` attends to: (frame,
+    memory (1, M, 64), positions, pointer tokens) from its _assemble_memory."""
+    seen, assemble = [], vp._assemble_memory
+
+    def spied(fidx):
+        out = assemble(fidx)
+        seen.append((fidx, out[0].float().cpu(), out[1].float().cpu(), out[2]))
+        return out
+
+    vp._assemble_memory = spied
+    return seen
+
+
+def close_line(label: str, a, b, tol: float) -> None:
+    """b (card) within tol of a's (CPU) largest magnitude, printed; raises if not."""
+    err, scale = (b.double() - a.double()).abs().max().item(), a.abs().max().item()
+    print(f"{label} {tuple(a.shape)}: card vs CPU {err:.3e}, {err / max(scale, 1e-30):.3e} of its "
+          f"scale {scale:.3e} (tol {tol} of it)", flush=True)
+    if not err <= tol * scale:
+        raise AssertionError(f"{label}: the card disagrees with the CPU")
+
+
+def sam2_reference(la) -> int:
+    """sam2_t at full width (Hiera 96 -> 768, decoder and memory 256) at
+    SAM2_REF_IMGSZ px in f32 at `sam2_spread` weights, card against CPU: two
+    images' encode_image (feat, feat_s0, feat_s1, pos); sam_heads of two
+    prompts (points, a box, a pad) with multimask and with the dynamic
+    choice by stability; encode_memory of seeded mask logits;
+    condition_features over seeded memory of two frames and three pointers
+    (12 tokens). Each within SAM_TOL of its largest magnitude, mask logits
+    within SAM2_LOGIT_TOL. Then SAM2VideoPredictor over SAM2_REF_FRAMES
+    frames of a moving disc from one point: per frame the low-resolution
+    logits (SAM2_LOGIT_TOL) and the score, and the memory each step attends
+    to (the same pointer tokens, SAM_TOL). Returns the kernel's launches."""
+    import torch
+
+    from edgeyolo_tpu_torch.engine.sam2 import SAM2VideoPredictor
+    from edgeyolo_tpu_torch.nn.sam2 import build_sam2
+
+    la.linear_attention_kernel.launches = 0
+    size, g = SAM2_REF_IMGSZ, SAM2_REF_IMGSZ // 16
+    net = sam2_spread(build_sam2("sam2_t", img_size=size))
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn(2, 3, size, size, generator=gen)
+    pts = torch.rand(2, 4, 2, generator=gen)
+    labels = torch.tensor([[1, 0, 2, 3], [1, 1, 0, -1]], dtype=torch.int32)
+    hi = torch.randn(2, 1, size, size, generator=gen) * 4
+    memory = torch.randn(2, 2 * g * g + 12, 64, generator=gen)
+    mpos = torch.randn(2, 2 * g * g + 12, 64, generator=gen)
+    on_card = copy.deepcopy(net).cuda()
+    outs = {}
+    with torch.inference_mode():
+        for dev, m in (("cpu", net), ("cuda", on_card)):
+            e = m.encode_image(x.to(dev))
+            res = {f"encode_image {k}": e[k] for k in ("feat", "feat_s0", "feat_s1", "pos")}
+            feat = m.no_memory_features(e["feat"])
+            for mm, kind in ((True, "multimask"), (False, "stability")):
+                heads = m.sam_heads(feat, pts.to(dev), labels.to(dev), e["feat_s0"], e["feat_s1"],
+                                    multimask_output=mm)
+                for name, t in zip(("masks", "ious", "low_res", "high_res", "obj_ptr",
+                                    "obj_logits"), heads):
+                    res[f"sam_heads {kind} {name}"] = t
+            res["encode_memory memory"], res["encode_memory pos"] = m.encode_memory(
+                e["feat"], hi.to(dev))
+            res["condition_features (2 frames, 3 pointers)"] = m.condition_features(
+                e["feat"], e["pos"], memory.to(dev), mpos.to(dev), 12)
+            outs[dev] = {k: t.float().cpu() for k, t in res.items()}
+    print(f"sam2 reference sam2_t at {size} px: object logits "
+          f"{outs['cpu']['sam_heads multimask obj_logits'].tolist()} (a prompt at or under 0 is "
+          f"gated to -1024)", flush=True)
+    for k, a in outs["cpu"].items():
+        logit = any(w in k for w in ("masks", "low_res", "high_res"))
+        close_line(f"sam2 reference {k}", a, outs["cuda"][k], SAM2_LOGIT_TOL if logit else SAM_TOL)
+
+    frames, (cx, cy) = disc_frames(SAM2_REF_FRAMES, (180, 320), 8)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        vp = SAM2VideoPredictor("sam2_t", img_size=size, device=dev)
+        vp.net.load_state_dict(net.state_dict())
+        bank = spy_bank(vp)
+        vp.init_state(frames)
+        vp.add_points(0, points=[[cx, cy]], labels=[1])
+        steps = list(vp.propagate())
+        recs = {**vp.cond, **vp.non_cond}
+        runs[dev] = ([recs[f]["low_res"].float().cpu() for f, _, _ in steps],
+                     torch.tensor([score for _, _, score in steps]), bank,
+                     (sorted(vp.cond), sorted(vp.non_cond)))
+    (cl, cs, cb, ck), (gl, gs, gb, gk) = runs["cpu"], runs["cuda"]
+    if ck != gk or [b[0] for b in cb] != [b[0] for b in gb] or [b[3] for b in cb] != [
+            b[3] for b in gb]:
+        raise AssertionError(f"sam2 reference propagate: banks differ: {ck} {gk}")
+    close_line(f"sam2 reference propagate scores ({len(cs)} frames)", cs, gs, SAM_TOL)
+    close_line("sam2 reference propagate low-res logits", torch.stack(cl), torch.stack(gl),
+               SAM2_LOGIT_TOL)
+    close_line("sam2 reference propagate memory attended", torch.cat([b[1] for b in cb], 1),
+               torch.cat([b[1] for b in gb], 1), SAM_TOL)
+    close_line("sam2 reference propagate memory positions", torch.cat([b[2] for b in cb], 1),
+               torch.cat([b[2] for b in gb], 1), SAM_TOL)
+    print(f"sam2 reference propagate: cond {ck[0]}, non-cond {ck[1]}, memory tokens per step "
+          f"{[b[1].shape[1] for b in cb]}, of them pointer tokens {[b[3] for b in cb]}",
+          flush=True)
+    return la.linear_attention_kernel.launches
+
+
+def serve_sam2(la, card: str) -> dict:
+    """sam2_t and sam2_b at SAM_IMGSZ px in f32 on the SAM phase's image
+    (serve_promptable: encode ms and peak, set_image, point, box and
+    multimask prompt ms, grid_generate), then sam2_s and sam2_l each built at
+    SAM_IMGSZ px and encoding one image (ms, CUDA events, median of 10; peak
+    memory). Returns {variant: numbers} and the kernel's launches (none)."""
+    import torch
+
+    from edgeyolo_tpu_torch.engine.sam2 import SAM2
+
+    img, out = sam_image(), {}
+    la.linear_attention_kernel.launches = 0
+    for variant in SAM2_SERVE:
+        out[variant] = serve_promptable(
+            lambda: SAM2(variant, img_size=SAM_IMGSZ, device="cuda"),
+            lambda net, x: net.encode_image(x), img, f"sam2 serve {variant}", card)
+    for variant in SAM2_ENCODE_ONLY:
+        base = torch.cuda.memory_allocated()
+        sam = SAM2(variant, img_size=SAM_IMGSZ, device="cuda")
+        x = torch.randn(1, 3, SAM_IMGSZ, SAM_IMGSZ, device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            enc = sam.net.encode_image(x)
+            if not all(bool(torch.isfinite(t).all()) for t in enc.values()):
+                raise AssertionError(f"sam2 {variant}: non-finite encoding")
+            enc_ms = cuda_ms(lambda: sam.net.encode_image(x), samples=10, warmup=2)
+        peak = torch.cuda.max_memory_allocated() - base
+        print(f"sam2 serve {variant}: {sam.info()} params, f32, {SAM_IMGSZ} px: encode "
+              f"{enc_ms:.3f} ms (CUDA events, median of 10), peak memory {peak / 2**30:.3f} GiB "
+              f"over what was allocated before the model, on {card}", flush=True)
+        out[variant] = {"encode_ms": enc_ms, "peak_gib": peak / 2**30}
+        del sam, enc
+    out["launches"] = la.linear_attention_kernel.launches
+    if out["launches"]:
+        raise AssertionError("the attention kernel launched in SAM2")
+    return out
+
+
+def sam2_step_stages(vp, fidx: int) -> tuple[dict, float]:
+    """Frame `fidx` stepped once more (its encoding dropped from the cache)
+    with each stage synchronised and timed on the host: the preprocess, the
+    encode, the bank's assembly, the memory attention, the heads, the memory
+    encoder and the mask at the frame's size. Returns ({stage: ms}, total ms)."""
+    import torch
+
+    from edgeyolo_tpu_torch.engine import sam2
+
+    stages = {}
+    with contextlib.ExitStack() as stack:
+        for obj, name in ((sam2, "preprocess"), (vp.net, "encode_image"),
+                          (vp, "_assemble_memory"), (vp.net, "condition_features"),
+                          (vp.net, "sam_heads"), (vp.net, "encode_memory"), (vp, "_mask_at")):
+            def timed(*args, _fn=getattr(obj, name), _name=name, **kwargs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                stages[_name] = stages.get(_name, 0.0) + (time.perf_counter() - t0) * 1e3
+                return out
+            stack.enter_context(mock.patch.object(obj, name, timed))
+        vp._enc_cache.pop(fidx, None)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vp._mask_at(fidx, vp._step(fidx))
+        total = (time.perf_counter() - t0) * 1e3
+    return stages, total
+
+
+def sam2_video(la, card: str) -> dict:
+    """SAM2VideoPredictor(sam2_t, SAM_IMGSZ px, f32) over SAM2_VIDEO's frames
+    of a moving disc (720p) with one point on frame 0: add_points ms, then
+    each propagated frame's ms host to host (encode, memory attention, heads,
+    memory encoder, the mask at the frame's size), the medians before and
+    after the bank has ramped (the step where memory frames and pointers stop
+    growing); one conditioning and 23 non-conditioning frames, finite
+    scores, masks at the frame's size. Returns numbers and the launches."""
+    import numpy as np
+    import torch
+
+    from edgeyolo_tpu_torch.engine.sam2 import SAM2VideoPredictor
+
+    n, hw = SAM2_VIDEO["frames"], SAM2_VIDEO["hw"]
+    frames, (cx, cy) = disc_frames(n, hw, 12)
+    vp = SAM2VideoPredictor(SAM2_VIDEO["model"], img_size=SAM_IMGSZ, device="cuda")
+    bank = spy_bank(vp)
+    vp.init_state(frames)
+    la.linear_attention_kernel.launches = 0
+    t0 = time.perf_counter()
+    mask0, score0 = vp.add_points(0, points=[[cx, cy]], labels=[1])
+    add_ms = (time.perf_counter() - t0) * 1e3
+    steps, ms = vp.propagate(), []
+    results = [next(steps)]  # frame 0, the conditioning frame: no step
+    for _ in range(1, n):
+        t0 = time.perf_counter()
+        results.append(next(steps))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    launches = la.linear_attention_kernel.launches
+    g2 = (SAM_IMGSZ // 16) ** 2
+    counts = [((b[1].shape[1] - b[3]) // g2, b[3] // 4) for b in bank]  # (memory frames, pointers)
+    ramp = counts.index(counts[-1]) + 1  # the first propagated frame at the full bank
+    if not (len(vp.cond) == 1 and len(vp.non_cond) == n - 1 and mask0.shape == hw
+            and all(np.isfinite(s) and m.shape == hw and m.dtype == bool for _, m, s in results)):
+        raise AssertionError(f"sam2 video: cond {sorted(vp.cond)}, non-cond "
+                             f"{len(vp.non_cond)}, malformed masks or scores")
+    before, after = statistics.median(ms[:ramp - 1]), statistics.median(ms[ramp - 1:])
+    stages, total = sam2_step_stages(vp, n - 1)
+    print(f"sam2 video {SAM2_VIDEO['model']} at {SAM_IMGSZ} px, {n} frames {hw[1]} x {hw[0]}: "
+          f"add_points {add_ms:.3f} ms; per propagated frame (host to host, mask at the frame's "
+          f"size) median {before:.3f} ms while the bank ramps (frames 1-{ramp - 1}), "
+          f"{after:.3f} ms at the full bank from frame {ramp} ({counts[-1][0]} memory frames, "
+          f"{counts[-1][1]} pointers); all frames {[round(t, 3) for t in ms]}; "
+          f"bank per step (memory frames, pointers) {counts}; scores "
+          f"{[round(s, 4) for _, _, s in results]}; {launches} kernel launches, on {card}",
+          flush=True)
+    print(f"sam2 video: frame {n - 1} stepped again, each stage synchronised (host ms): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+          + f"; {total:.3f} ms in all, on {card}", flush=True)
+    return {"add_ms": add_ms, "ramp_ms": before, "steady_ms": after, "stages": stages,
+            "launches": launches}
+
+
+def nas_output(b: int, a: int, nc: int, objects: int = 10, size: float = 640.0, seed: int = 0):
+    """Seeded NAS-layout output (tests/test_torch_nas.py's): xyxy boxes over
+    the image and scores under 0.2 (below the gate), with per image
+    `objects` clusters of 8 overlapping boxes of one class at 0.3-0.95 and 4
+    strong lone boxes."""
+    import numpy as np
+
+    rs = np.random.RandomState(seed)
+    xy = rs.rand(b, a, 2) * (size - 120)
+    boxes = np.concatenate([xy, xy + 16 + rs.rand(b, a, 2) * 100], -1).astype(np.float32)
+    scores = (rs.rand(b, a, nc) * 0.2).astype(np.float32)
+    for i in range(b):
+        idx = rs.choice(a, 8 * objects + 4, replace=False)
+        for j in range(objects):  # 8 overlapping boxes of one class about each object
+            c = idx[8 * j:8 * j + 8]
+            base = rs.rand(2) * (size - 200)
+            boxes[i, c] = np.concatenate([base, base + 60 + rs.rand(2) * 100]) + rs.randn(8, 4) * 8
+            scores[i, c, rs.randint(nc)] = 0.3 + rs.rand(8) * 0.65
+        scores[i, idx[-4:], rs.randint(0, nc, 4)] = 0.6 + rs.rand(4) * 0.3  # lone ones
+    return boxes, scores
+
+
+def nas_phase(la, card: str) -> dict:
+    """The NAS facade on the card over a backend giving YOLO-NAS-S's output
+    layout at 640 px (NAS_SHAPE: 8,400 anchors, 80 classes, xyxy) with
+    planted detections, batch 32: predict once, the postprocess's ms (CUDA
+    events, median of 20), and the detections against the same postprocess
+    on the CPU: counts, classes and kept anchors equal, boxes within
+    NAS_BOX_TOL px. Returns numbers and the launches (none)."""
+    import numpy as np
+    import torch
+
+    from edgeyolo_tpu_torch.engine.nas import NAS
+    from edgeyolo_tpu_torch.ops.boxes import xyxy2xywh
+    from edgeyolo_tpu_torch.ops.nms import non_max_suppression
+
+    b, a, nc = NAS_SHAPE
+    boxes, scores = nas_output(b, a, nc)
+    on_card = (torch.from_numpy(boxes).cuda(), torch.from_numpy(scores).cuda())
+    nas = NAS("yolo_nas_s.pt", backend=lambda imgs: on_card, device="cuda")
+    la.linear_attention_kernel.launches = 0
+    det, n = nas.predict(np.zeros((b, 640, 640, 3), np.uint8))
+    ms = cuda_ms(lambda: nas.postprocess(*on_card), samples=20, warmup=3)
+    launches = la.linear_attention_kernel.launches
+    cdet, cn = NAS("yolo_nas_s.pt", backend=lambda imgs: None, device="cpu").postprocess(
+        boxes, scores)
+    idx = [non_max_suppression(torch.cat([xyxy2xywh(bx), sc], -1), return_idx=True)[2].cpu()
+           for bx, sc in (on_card, (torch.from_numpy(boxes), torch.from_numpy(scores)))]
+    det, n = det.cpu(), n.cpu()
+    box_err = max((det[i, :k, :4] - cdet[i, :k, :4]).abs().max().item() for i, k in
+                  enumerate(cn.tolist()))
+    ok = (torch.equal(n, cn) and all(
+        torch.equal(det[i, :k, 5], cdet[i, :k, 5]) and torch.equal(idx[0][i, :k], idx[1][i, :k])
+        for i, k in enumerate(cn.tolist())) and box_err <= NAS_BOX_TOL)
+    print(f"nas: backend of YOLO-NAS-S's layout at 640 px, batch {b}, {a} anchors, {nc} classes: "
+          f"postprocess {ms:.3f} ms (CUDA events, median of 20); detections per image "
+          f"{int(cn.min())}-{int(cn.max())}; card against CPU: counts, classes and kept anchors "
+          f"equal {ok}, boxes {box_err:.3e} px (tol {NAS_BOX_TOL}); {launches} kernel "
+          f"launches, on {card}", flush=True)
+    if not ok:
+        raise AssertionError("NAS: the card's detections differ from the CPU's")
+    return {"ms": ms, "launches": launches}
+
+
 REF_NAMES = ("edgeline-yolo-n", *FAMILIES, *NEW_REF_SCALE)
 REF_GROUPS = 6  # the models of `check_reference`, dealt round robin into this many jobs
 REFERENCE_JOBS = {  # name: a card-against-CPU check in a process of its own, longest first
+    # but sam2-reference (~21 s): queued behind the others it would be the job that ends the phase
+    "sam2-reference": lambda la, card, work: (sam2_reference(la), None),
     **{f"reference-{i}": (lambda i: lambda la, card, work: (
         check_reference(la, REF_NAMES[i::REF_GROUPS]), None))(i) for i in range(REF_GROUPS)},
     "train-reference-spread": lambda la, card, work: (
@@ -4475,12 +4859,12 @@ def main() -> int:
                       for n in EDGELINE_VARIANTS), flush=True)
     ref_train_launches = {**refs["train-reference-msla"]["launches"],
                           **refs["train-reference-v13"]["launches"]}
-    new_ref_launches = {k: refs[k]["launches"]
-                        for k in ("world-reference", "world-train-reference", "sam-reference")}
-    print(f"reference: attention kernel launches in the World, CLIP and SAM checks "
+    new_ref_launches = {k: refs[k]["launches"] for k in (
+        "world-reference", "world-train-reference", "sam-reference", "sam2-reference")}
+    print(f"reference: attention kernel launches in the World, CLIP, SAM and SAM2 checks "
           f"{new_ref_launches} (none of them has one)", flush=True)
     if any(new_ref_launches.values()):
-        raise AssertionError("the attention kernel launched in a World or SAM reference")
+        raise AssertionError("the attention kernel launched in a World, SAM or SAM2 reference")
     done("reference", t0)
 
     t0 = phase("serve")
@@ -4639,6 +5023,24 @@ def main() -> int:
         if any(new_launches.values()):
             raise AssertionError("the attention kernel launched on a World, SAM or FastSAM path")
 
+        t0 = phase("sam2 serve")
+        sam2_numbers = serve_sam2(la, card)
+        done("sam2 serve", t0)
+
+        t0 = phase("sam2 video")
+        sam2_vid = sam2_video(la, card)
+        done("sam2 video", t0)
+
+        t0 = phase("nas")
+        nas = nas_phase(la, card)
+        done("nas", t0)
+        sam2_nas_launches = {"sam2_serve": sam2_numbers["launches"],
+                             "sam2_video": sam2_vid["launches"], "nas": nas["launches"]}
+        print(f"SAM2 and NAS paths: attention kernel launches {sam2_nas_launches} (none of "
+              f"them has one)", flush=True)
+        if any(sam2_nas_launches.values()):
+            raise AssertionError("the attention kernel launched on a SAM2 or NAS path")
+
     t0 = phase("registry reference")
     registry_launches = {"reference": registry_reference(la)}
     done("registry reference", t0)
@@ -4693,6 +5095,7 @@ def main() -> int:
                 "export_pt2_ms": export["ms"], "export_onnx_executor_s": export["onnx_s"],
                 "op_dispatch_us": export["dispatch_us"],
                 **{f"launches_{k}": v for k, v in new_launches.items()},
+                **{f"launches_{k}": v for k, v in sam2_nas_launches.items()},
                 **{f"launches_{k.replace('-', '_')}": v for k, v in new_ref_launches.items()},
                 "launches_auto_annotate_flagship": annotate["launches"],
                 **la_rows[LA_MAIN_CASE], "library_ms": None,

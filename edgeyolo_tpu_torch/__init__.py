@@ -11,7 +11,8 @@ __version__ = "0.1.0"
 def __getattr__(name: str):
     """The facades, imported on first use: YOLO; RTDETR and YOLOWorld (JAX's
     names for YOLO over an RT-DETR model, rtdetr-l by default, and over a
-    YOLO-World model, yolov8-worldv2 by default); SAM and FastSAM."""
+    YOLO-World model, yolov8-worldv2 by default); SAM, FastSAM and NAS (SAM2 and
+    SAM2VideoPredictor come from engine/sam2.py, as JAX's do)."""
     if name in ("YOLO", "RTDETR", "YOLOWorld"):
         from edgeyolo_tpu_torch.engine import model
 
@@ -20,6 +21,10 @@ def __getattr__(name: str):
         from edgeyolo_tpu_torch.engine.sam import SAM
 
         return SAM
+    if name == "NAS":
+        from edgeyolo_tpu_torch.engine.nas import NAS
+
+        return NAS
     if name == "FastSAM":
         from edgeyolo_tpu_torch.engine.fastsam import FastSAM
 

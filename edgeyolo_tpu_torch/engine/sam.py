@@ -37,6 +37,19 @@ MEAN = (123.675, 116.28, 103.53)
 STD = (58.395, 57.12, 57.375)
 
 
+def preprocess(img: np.ndarray, size: int, device: torch.device) -> torch.Tensor:
+    """One HWC (or HW) image -> (1, 3, size, size) on `device`: the pixels
+    go up as they are and become f32 there, then jax.image.resize's bilinear
+    rule and ImageNet's mean and std in 0-255 units."""
+    h, w = img.shape[:2]
+    x = torch.as_tensor(np.asarray(img), device=device).float()
+    x = x[..., None].expand(h, w, 3) if x.ndim == 2 else x
+    x = resize_bilinear(x.permute(2, 0, 1)[None], (size, size))
+    mean = torch.tensor(MEAN, device=device).view(1, 3, 1, 1)
+    std = torch.tensor(STD, device=device).view(1, 3, 1, 1)
+    return (x - mean) / std
+
+
 class SAM:
     """Promptable segmentation handle."""
 
@@ -55,14 +68,8 @@ class SAM:
     @torch.inference_mode()
     def set_image(self, img: np.ndarray) -> "SAM":
         """Resize and normalise one HWC image and cache its embedding."""
-        h, w = img.shape[:2]
-        self._hw = (h, w)
-        x = torch.as_tensor(np.asarray(img), dtype=torch.float32, device=self.device)
-        x = x[..., None].expand(h, w, 3) if x.ndim == 2 else x
-        x = resize_bilinear(x.permute(2, 0, 1)[None], (self.img_size, self.img_size))
-        mean = torch.tensor(MEAN, device=self.device).view(1, 3, 1, 1)
-        std = torch.tensor(STD, device=self.device).view(1, 3, 1, 1)
-        self._embed = self.net.encode((x - mean) / std)
+        self._hw = img.shape[:2]
+        self._embed = self.net.encode(preprocess(img, self.img_size, self.device))
         return self
 
     @torch.inference_mode()

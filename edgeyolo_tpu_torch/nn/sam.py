@@ -85,6 +85,42 @@ class Attention(nn.Module):
         return self.proj(out.transpose(1, 2).reshape(b, h, w, c))
 
 
+def window_partition(x: torch.Tensor, ws: int):
+    """(B, H, W, C) -> (B * nW, ws, ws, C), zero-padded to whole windows;
+    returns the padded (H, W) too."""
+    b, h, w, c = x.shape
+    ph, pw = (-h) % ws, (-w) % ws
+    if ph or pw:
+        x = F.pad(x, (0, 0, 0, pw, 0, ph))
+    hp, wp = h + ph, w + pw
+    x = x.view(b, hp // ws, ws, wp // ws, ws, c).transpose(2, 3).reshape(-1, ws, ws, c)
+    return x, (hp, wp)
+
+
+def window_unpartition(wins: torch.Tensor, ws: int, pad_hw, hw) -> torch.Tensor:
+    """window_partition's inverse, the padding cut back to `hw`."""
+    hp, wp = pad_hw
+    b = wins.shape[0] // (hp // ws * (wp // ws))
+    x = wins.reshape(b, hp // ws, wp // ws, ws, ws, -1).transpose(2, 3).reshape(b, hp, wp, -1)
+    return x[:, :hw[0], :hw[1]]
+
+
+class MLP(nn.Module):
+    """Linears of widths `dims` with `act` between them (the reference's MLP:
+    `layers.{i}`), optionally a sigmoid at the output."""
+
+    def __init__(self, dims: Sequence[int], act=F.relu, sigmoid: bool = False):
+        super().__init__()
+        self.act, self.sigmoid = act, sigmoid
+        self.layers = nn.ModuleList(nn.Linear(a, b) for a, b in zip(dims[:-1], dims[1:]))
+
+    def forward(self, x):
+        last = len(self.layers) - 1
+        for i, lin in enumerate(self.layers):
+            x = lin(x) if i == last else self.act(lin(x))
+        return torch.sigmoid(x) if self.sigmoid else x
+
+
 class _MLPBlock(nn.Module):
     def __init__(self, dim: int, hidden: int, act=F.gelu):
         super().__init__()
@@ -108,17 +144,10 @@ class Block(nn.Module):
         self.mlp = _MLPBlock(dim, 4 * dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b, h, w, c = x.shape
         t = layer_norm(self.norm1, x)
         if self.window:
-            s = self.window
-            ph, pw = (-h) % s, (-w) % s
-            t = F.pad(t, (0, 0, 0, pw, 0, ph))
-            hp, wp = h + ph, w + pw
-            t = t.view(b, hp // s, s, wp // s, s, c).transpose(2, 3).reshape(-1, s, s, c)
-            t = self.attn(t)
-            t = t.view(b, hp // s, wp // s, s, s, c).transpose(2, 3).reshape(b, hp, wp, c)
-            t = t[:, :h, :w]
+            t, pad_hw = window_partition(t, self.window)
+            t = window_unpartition(self.attn(t), self.window, pad_hw, x.shape[1:3])
         else:
             t = self.attn(t)
         x = x + t
@@ -262,20 +291,6 @@ class TwoWayTransformer(nn.Module):
         self.norm_final_attn = nn.LayerNorm(dim, eps=1e-5)
 
 
-class _HeadMLP(nn.Module):
-    """Three linears, ReLU between (the hypernetworks and the IoU head)."""
-
-    def __init__(self, dim: int, hidden: int, out: int):
-        super().__init__()
-        self.layers = nn.ModuleList([nn.Linear(dim, hidden), nn.Linear(hidden, hidden),
-                                     nn.Linear(hidden, out)])
-
-    def forward(self, x):
-        for i, m in enumerate(self.layers):
-            x = m(x) if i == 2 else F.relu(m(x))
-        return x
-
-
 class MaskDecoder(nn.Module):
     """Mask logits (B, 4, 4g, 4g) and IoU predictions (B, 4) from an image
     embedding and prompt embeddings."""
@@ -290,8 +305,8 @@ class MaskDecoder(nn.Module):
             nn.ConvTranspose2d(dim, dim // 4, 2, 2), LayerNorm2d(dim // 4, eps=1e-6), nn.GELU(),
             nn.ConvTranspose2d(dim // 4, dim // 8, 2, 2), nn.GELU())
         self.output_hypernetworks_mlps = nn.ModuleList(
-            _HeadMLP(dim, dim, dim // 8) for _ in range(num_masks))
-        self.iou_prediction_head = _HeadMLP(dim, dim, num_masks)
+            MLP((dim, dim, dim, dim // 8)) for _ in range(num_masks))
+        self.iou_prediction_head = MLP((dim, dim, dim, num_masks))
 
     def forward(self, img_embed, dense_pe, sparse, dense):
         b, e = sparse.shape[0], sparse.shape[-1]

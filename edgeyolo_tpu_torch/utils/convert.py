@@ -51,6 +51,19 @@ transposed-conv kernels flipped as above), `hyper_{i}_l{j}`
 `layers.{i}.blocks.{j}`, `s{i}_merge` `layers.{i}.downsample`, and
 `mlp_norm`/`mlp_fc{j}` `mlp.norm`/`mlp.fc{j}`.
 
+A SAM2 tree (top scopes `image_encoder`, `memory_attention`,
+`memory_encoder`, `obj_ptr_proj`, ...) takes the port's copy of JAX's
+`SAM2_REWRITE_RULES` (edgeyolo_tpu/utils/torch_convert.py): the trunk's
+`block_{i}` are `trunk.blocks.{i}` with `mlp.layers.{j}`, the neck's
+`conv_{j}` `neck.convs.{j}.conv`, `conv_s0`/`conv_s1` and every decoder
+name under `sam_mask_decoder` (`obj_score_head` is `pred_obj_score_head`),
+the prompt encoder under `sam_prompt_encoder`, the memory attention's
+`layer_{i}` `layers.{i}`, the memory encoder's `mask_down_{i}` and
+`mask_down_ln{i}` the Sequential indices `mask_downsampler.encoder.{3i}`
+and `{3i + 1}` (`mask_down_out` index 12), `fuser_{i}` `fuser.layers.{i}`,
+an MLP's `l{j}` `layers.{j}`; the trunk's positions go (1, h, w, C) ->
+(1, C, h, w), and the layouts are the SAM tree's.
+
 A CLIP text tower's tree (`token_embedding`, `resblock_{i}`) becomes CLIP's
 own keys: `transformer.resblocks.{i}.*`, the flax attention's query, key
 and value kernels (W, H, hd) packed into `attn.in_proj_weight` (3W, W) and
@@ -122,6 +135,56 @@ SAM_REWRITE_RULES = (
     (r"\.mlp_fc(\d)\.", r".mlp.fc\1."),
 )
 _SAM_SCOPES = {"image_encoder", "prompt_encoder", "mask_decoder"}
+SAM2_REWRITE_RULES = (
+    (r"image_encoder\.trunk\.patch_embed\.(weight|bias)",
+     r"image_encoder.trunk.patch_embed.proj.\1"),
+    (r"image_encoder\.trunk\.block\.(\d+)\.", r"image_encoder.trunk.blocks.\1."),
+    (r"\.mlp\.0\.", ".mlp.layers.0."),
+    (r"\.mlp\.1\.", ".mlp.layers.1."),
+    (r"image_encoder\.neck\.conv\.(\d+)\.", r"image_encoder.neck.convs.\1.conv."),
+    (r"^conv_s0\.", "sam_mask_decoder.conv_s0."),
+    (r"^conv_s1\.", "sam_mask_decoder.conv_s1."),
+    (r"^prompt_encoder\.pe_gaussian$",
+     "sam_prompt_encoder.pe_layer.positional_encoding_gaussian_matrix"),
+    (r"^prompt_encoder\.not_a_point_embed$", "sam_prompt_encoder.not_a_point_embed.weight"),
+    (r"^prompt_encoder\.no_mask_embed$", "sam_prompt_encoder.no_mask_embed.weight"),
+    (r"^prompt_encoder\.point_embeddings$", "sam_prompt_encoder.point_embeddings"),
+    (r"^prompt_encoder\.mask_down\.0\.", "sam_prompt_encoder.mask_downscaling.0."),
+    (r"^prompt_encoder\.mask_down_ln0\.", "sam_prompt_encoder.mask_downscaling.1."),
+    (r"^prompt_encoder\.mask_down\.1\.", "sam_prompt_encoder.mask_downscaling.3."),
+    (r"^prompt_encoder\.mask_down_ln1\.", "sam_prompt_encoder.mask_downscaling.4."),
+    (r"^prompt_encoder\.mask_down\.2\.", "sam_prompt_encoder.mask_downscaling.6."),
+    (r"^mask_decoder\.obj_score_token$", "sam_mask_decoder.obj_score_token.weight"),
+    (r"^mask_decoder\.iou_token$", "sam_mask_decoder.iou_token.weight"),
+    (r"^mask_decoder\.mask_tokens$", "sam_mask_decoder.mask_tokens.weight"),
+    (r"^mask_decoder\.layer\.(\d+)\.", r"sam_mask_decoder.transformer.layers.\1."),
+    (r"\.self_attn\.(q|k|v|out)\.", r".self_attn.\1_proj."),
+    (r"\.cross_t2i\.(q|k|v|out)\.", r".cross_attn_token_to_image.\1_proj."),
+    (r"\.cross_i2t\.(q|k|v|out)\.", r".cross_attn_image_to_token.\1_proj."),
+    (r"mlp_lin1\.", "mlp.layers.0."),
+    (r"mlp_lin2\.", "mlp.layers.1."),
+    (r"^mask_decoder\.final_attn\.(q|k|v|out)\.",
+     r"sam_mask_decoder.transformer.final_attn_token_to_image.\1_proj."),
+    (r"^mask_decoder\.final_norm\.", "sam_mask_decoder.transformer.norm_final_attn."),
+    (r"^mask_decoder\.upscale\.0\.", "sam_mask_decoder.output_upscaling.0."),
+    (r"^mask_decoder\.upscale_ln\.", "sam_mask_decoder.output_upscaling.1."),
+    (r"^mask_decoder\.upscale\.1\.", "sam_mask_decoder.output_upscaling.3."),
+    (r"^mask_decoder\.hyper\.(\d+)\.l(\d)\.",
+     r"sam_mask_decoder.output_hypernetworks_mlps.\1.layers.\2."),
+    (r"^mask_decoder\.iou_head\.l(\d)\.", r"sam_mask_decoder.iou_prediction_head.layers.\1."),
+    (r"^mask_decoder\.obj_score_head\.l(\d)\.",
+     r"sam_mask_decoder.pred_obj_score_head.layers.\1."),
+    (r"^mask_decoder\.", "sam_mask_decoder."),
+    (r"^memory_attention\.layer\.(\d+)\.", r"memory_attention.layers.\1."),
+    (r"^memory_encoder\.mask_down\.(\d)\.",
+     lambda m: f"memory_encoder.mask_downsampler.encoder.{3 * int(m.group(1))}."),
+    (r"^memory_encoder\.mask_down_ln(\d)\.",
+     lambda m: f"memory_encoder.mask_downsampler.encoder.{3 * int(m.group(1)) + 1}."),
+    (r"^memory_encoder\.mask_down_out\.", "memory_encoder.mask_downsampler.encoder.12."),
+    (r"^memory_encoder\.fuser\.(\d)\.", r"memory_encoder.fuser.layers.\1."),
+    (r"^obj_ptr_proj\.l(\d)\.", r"obj_ptr_proj.layers.\1."),
+)
+_SAM2_SCOPES = {"memory_attention", "memory_encoder", "obj_ptr_proj", "maskmem_tpos_enc"}
 
 
 def jax_path_to_torch_key(path: tuple[str, ...]) -> str:
@@ -162,12 +225,13 @@ def pack_attention(sd: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
     return sd
 
 
-def _sam_from_jax(flat: dict) -> dict[str, torch.Tensor]:
+def _sam_from_jax(flat: dict, rules=SAM_REWRITE_RULES) -> dict[str, torch.Tensor]:
+    """A SAM (or, with SAM2_REWRITE_RULES, a SAM2) tree."""
     sd = {}
     for (_coll, *path), arr in flat.items():
         arr = np.asarray(arr)
         key = jax_path_to_torch_key(tuple(path))
-        for pat, rep in SAM_REWRITE_RULES:
+        for pat, rep in rules:
             key = re.sub(pat, rep, key)
         if path[-1] == "kernel" and arr.ndim == 4 and re.fullmatch(r"upscale_\d", path[-2]):
             arr = arr[::-1, ::-1].transpose(2, 3, 0, 1)  # flax ConvTranspose, k = s = 2
@@ -175,6 +239,8 @@ def _sam_from_jax(flat: dict) -> dict[str, torch.Tensor]:
             arr = arr.transpose(3, 2, 0, 1)
         elif path[-1] == "kernel" and arr.ndim == 2:
             arr = arr.T
+        elif path[-2:-1] == ["trunk"] and path[-1] in ("pos_embed", "pos_embed_window"):
+            arr = arr.transpose(0, 3, 1, 2)  # Hiera's positions are the reference's NCHW
         if key.endswith("point_embeddings"):  # (4, E) -> four (1, E) embeddings
             for i, row in enumerate(arr):
                 sd[f"{key}.{i}.weight"] = torch.tensor(row[None].copy())
@@ -224,6 +290,8 @@ def from_jax_variables(flat: dict[tuple[str, ...], np.ndarray]) -> dict[str, tor
     if any(coll not in _COLLECTIONS for coll, *_ in flat):
         raise KeyError(f"unexpected variable collection in {sorted({k[0] for k in flat})}")
     tops = {k[1] for k in flat}
+    if tops & _SAM2_SCOPES:
+        return _sam_from_jax(flat, SAM2_REWRITE_RULES)
     if tops & _SAM_SCOPES:
         return _sam_from_jax(flat)
     if "token_embedding" in tops:
