@@ -260,6 +260,29 @@ Phases, each timed and each fatal when it fails:
      times      output launches each timed by its own event pair, in DEVICE_SESSIONS
                 sessions (median and spread, the SM clock read around each); after the
                 serve, train, fit and jpeg phases
+ 23. int8       int8 PTQ (nn/quant.py, the int8_conv kernel): (a) reference (in phase
+                4): EdgeLine-YOLO-n, yolo11n and yolov13-test-n at 64 px in f32, each
+                calibrated on the card and on the CPU on one batch (scales within
+                INT8_REF_ACT_TOL, weights to the bit), then under the CPU's calibration
+                every conv at the CPU's own input equal to the bit and the pred within
+                INT8_PRED_TOL of its scale; (b) serve (after phase 5): the flagship at
+                batch 32 x 640 px in bf16 with int8=True (138 int8 convs, JAX's count),
+                requests in turns with bf16 ones of the same weights: ms, launches per
+                request (int8_conv 138, linear_attention 1), int8_conv's share of a
+                profiled request's device time; the kernel at every distinct conv shape
+                of that request, on its own inputs, equal to the plain version to the
+                bit in bf16 and f32, with ms (one event pair), back to back, plain, the
+                bound, torch._int_mm's im2col GEMM (groups 1) and cuDNN's bf16 conv; one
+                request under utils/profiling.py's trace and the f32 flagship's
+                cost_analysis at 640 px; (c) autobatch (after phase 7): batch=-1 on the
+                flagship at 640 px: each candidate's probe peak, the budget (0.60 of the
+                card), the choice and one real step's peak under the budget; (d) freeze
+                (after it): freeze=10, two updates at batch 16 x 640 px: held params and
+                their EMA equal to the start to the bit, their BatchNorm statistics and
+                the other params moved; (e) tune (after phase 8, a job): 2 iterations x
+                2 epochs of the fit protocol from the fit's best.pt: 2 CSV rows with
+                fitness > 0, best_hyperparameters.yaml; (f) the benchmark of phase 16
+                adds the native-int8 row, within INT8_MAP_TOL of native's mAP50-95
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside a checkout of
 the repository, the script exits non-zero and prints no result.
@@ -3698,7 +3721,8 @@ EXPORT = "edgeline-yolo"  # the flagship, exported as its fused f32 form
 EXPORT_ONNX_IMGSZ = 160  # the numpy executor's size: ~1 s an image there
 ONNX_TOL = {"atol": 5e-4, "rtol": 1e-3}  # JAX's own ONNX tolerance (tests/test_onnx.py)
 EXPORT_ROUNDS = 4  # live, program, program, live, ...: requests of each side
-BENCH = {"imgsz": 640, "batch": 8, "iters": 10, "formats": ["native", "torch_export", "npz"]}
+BENCH = {"imgsz": 640, "batch": 8, "iters": 10,
+         "formats": ["native", "native-int8", "torch_export", "npz"]}
 BENCH_MAP_TOL = 1e-6
 
 
@@ -3872,8 +3896,10 @@ def export_phase(la, card: str, work: Path) -> dict:
 
 def benchmark_phase(la, card: str, best: Path, data: Path, work: Path) -> list[dict]:
     """YOLO.benchmark of the fit phase's flagship on the card at BENCH's size over
-    native, torch_export and npz, validated on the fit's val images: every row
-    ok, their mAP50-95 equal within BENCH_MAP_TOL; each export's seconds."""
+    native, native-int8, torch_export and npz, validated on the fit's val
+    images: every row ok, native's, torch_export's and npz's mAP50-95 equal
+    within BENCH_MAP_TOL, native-int8's within INT8_MAP_TOL of native's (and
+    the int8 kernel launched); each export's seconds."""
     from edgeyolo_tpu_torch.engine.model import YOLO
     from edgeyolo_tpu_torch.export import exporter
 
@@ -3886,18 +3912,24 @@ def benchmark_phase(la, card: str, best: Path, data: Path, work: Path) -> list[d
         seconds[self.args.format] = time.perf_counter() - t
         return out
 
-    n0 = la.linear_attention_kernel.launches
+    from edgeyolo_tpu_torch.ops import int8_conv as ic
+
+    n0, i0 = la.linear_attention_kernel.launches, ic.int8_conv_kernel.launches
     with mock.patch.object(exporter.Exporter, "__call__", timed):
         rows = YOLO(best, device="cuda").benchmark(data=str(data), out_dir=str(work / "bench"),
                                                    verbose=False, **BENCH)
     launches = la.linear_attention_kernel.launches - n0
+    i8_launches = ic.int8_conv_kernel.launches - i0
     for r in rows:
         print(f"benchmark: {json.dumps(r)}", flush=True)
-    print(f"benchmark: export seconds {seconds}; {launches} kernel launches in the table; "
-          f"{BENCH}; on {card}", flush=True)
-    maps = [r.get("mAP50-95") for r in rows]
-    if not (all(r["status"] == "ok" for r in rows) and all(isinstance(m, float) for m in maps)
-            and max(maps) - min(maps) <= BENCH_MAP_TOL and maps[0] > 0 and launches > 0):
+    print(f"benchmark: export seconds {seconds}; {launches} attention and {i8_launches} int8 "
+          f"kernel launches in the table; {BENCH}; on {card}", flush=True)
+    maps = {r["format"]: r.get("mAP50-95") for r in rows}
+    fp = [m for f, m in maps.items() if f != "native-int8"]
+    if not (all(r["status"] == "ok" for r in rows) and all(isinstance(m, float) for m in
+                                                           maps.values())
+            and max(fp) - min(fp) <= BENCH_MAP_TOL and maps["native"] > 0 and launches > 0
+            and abs(maps["native-int8"] - maps["native"]) <= INT8_MAP_TOL and i8_launches > 0):
         raise AssertionError(f"benchmark: rows {rows}")
     return rows
 
@@ -4704,6 +4736,405 @@ def nas_phase(la, card: str) -> dict:
     return {"ms": ms, "launches": launches}
 
 
+INT8_REF = ("edgeline-yolo-n", "yolo11n", V13_TEST)  # 64 px, f32, at REF_SCALE's weights
+INT8_REF_ACT_TOL = 1e-5  # card calibration vs CPU calibration, relative (f32 forwards)
+INT8_PRED_TOL = 5e-2  # of the pred's scale, card vs CPU under one QuantState (see int8_reference)
+INT8_CONVS = 138  # int8 convs of the flagship (tests/test_torch_quant.py: JAX's count)
+INT8_MAP_TOL = 0.1  # native-int8 vs native mAP50-95 (the bound of JAX's tests/test_quant.py)
+INT8_TIMING = {"samples": 10, "b2b": 10, "plain": 2}  # event pairs per shape
+PEAK_INT8_OPS = 1979e12  # dense int8 tensor-core rate of the H100 SXM
+AUTOBATCH_IMGSZ = 640
+FREEZE = (10, (16, 640, 4))  # layers held; batch, px, real boxes per image
+TUNE = {"iterations": 2, "epochs": 2}  # of the flagship fit protocol (FIT, FIT_TRAIN)
+
+
+def int8_reference(la) -> int:
+    """int8 on the card against int8 on the CPU, f32 at 64 px, for INT8_REF:
+    each side calibrated on the same batch (their scales within
+    INT8_REF_ACT_TOL, the same convs, weights and weight scales to the bit);
+    then under the CPU's QuantState on both sides every conv, fed the CPU's own
+    input, equal to the bit (kernel vs plain version), and the pred within
+    INT8_PRED_TOL of its scale: a one-ulp f32 difference upstream can move a
+    code by one step, and the layers after it can carry the step to the
+    scores (4.4e-3 of their scale in tests/test_torch_quant.py; 7.6e-3 for
+    yolov13-test-n here, H100), so the exact check is the per-conv one and the
+    pred's only catches gross faults (int8 against f32 moves it 2e-3 to 0.95
+    of scale). Returns the kernel's launches."""
+    import torch
+
+    from edgeyolo_tpu_torch.nn.quant import QConv2d
+    from edgeyolo_tpu_torch.nn.tasks import DetectionModel
+    from edgeyolo_tpu_torch.ops import int8_conv as ic
+
+    x = torch.rand(2, 3, 64, 64, generator=torch.Generator().manual_seed(1))
+    launches = 0
+    for name in INT8_REF:
+        m = perturbed(DetectionModel(name, device="cpu", seed=0), REF_SCALE[name])
+        card = copy.deepcopy(m).to("cuda")
+        qs, cqs = m.quantize(x), card.quantize(x.cuda())
+        act = max(abs(cqs.act_scales[k] - v) / v for k, v in qs.act_scales.items())
+        same = (set(qs.wq) == set(cqs.wq) and all(torch.equal(qs.wq[k], cqs.wq[k]) and
+                                                  torch.equal(qs.ws[k], cqs.ws[k]) for k in qs.wq))
+        card.quant = qs
+        inputs = {}
+        hooks = [mod.register_forward_pre_hook(
+            lambda mod, args, n=n: inputs.setdefault(n, args[0].clone()))
+            for n, mod in m.named_modules() if isinstance(mod, QConv2d)]
+        with torch.inference_mode():
+            cpu_out = m(x)
+            cpu_pred = dense_pred(m, cpu_out).float()
+            n0 = ic.int8_conv_kernel.launches
+            card_out = card(x.cuda())
+            card_pred = dense_pred(card, card_out).float().cpu()
+            per_forward = ic.int8_conv_kernel.launches - n0
+            convs = dict(card.named_modules())
+            unequal = [n for n, inp in inputs.items()
+                       if not torch.equal(convs[n](inp.cuda()).cpu(), m.get_submodule(n)(inp))]
+        for h in hooks:
+            h.remove()
+        launches += per_forward
+        gaps = {part: ((card_pred[..., sl] - cpu_pred[..., sl]).abs().max()
+                       / cpu_pred[..., sl].abs().max()).item()
+                for part, sl in (("box", slice(0, 4)), ("score", slice(4, None)))}
+        print(f"int8 {name}: {len(qs.wq)} int8 convs, card vs CPU calibration: scales within "
+              f"{act:.3e} relative (tol {INT8_REF_ACT_TOL}), weights and weight scales equal "
+              f"{same}; under the CPU's QuantState: {len(inputs) - len(unequal)} of "
+              f"{len(inputs)} convs equal to the bit at the CPU's inputs, pred gap "
+              f"{gaps['box']:.3e} (boxes) and {gaps['score']:.3e} (scores) of scale (tol "
+              f"{INT8_PRED_TOL}); {per_forward} kernel launches a forward", flush=True)
+        # an E2E head's one2many convs are calibrated (as JAX's) but not run in eval
+        if not (act <= INT8_REF_ACT_TOL and same and not unequal and per_forward == len(inputs)
+                and max(gaps.values()) <= INT8_PRED_TOL
+                and bool(torch.isfinite(card_pred).all())):
+            raise AssertionError(f"int8 {name}: the card disagrees with the CPU "
+                                 f"(convs unequal: {unequal[:5]})")
+    return launches
+
+
+def int8_shape_rows(model, imgs, predictor) -> list[dict]:
+    """The int8 kernel at every distinct conv shape of one int8 request of
+    `predictor` (`model` quantized), on that request's own inputs and weights:
+    equal to the plain version to the bit in bf16 and f32; then, in the
+    served dtype, `ms` (one event pair around one call), back to back, the
+    plain version, the bound, `library_ms` (torch._int_mm on the im2col
+    matrix, K and N padded to multiples of 8, the unfold untimed; grouped
+    convs have none) and cuDNN's bf16 conv of the same shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from edgeyolo_tpu_torch.nn.quant import QConv2d
+    from edgeyolo_tpu_torch.ops import int8_conv as ic
+
+    shapes = {}
+
+    def record(mod, args):
+        x = args[0]
+        key = (tuple(x.shape), str(x.dtype).removeprefix("torch."), tuple(mod.wq.shape),
+               tuple(mod.stride), tuple(mod.pad), tuple(mod.dilation), mod.groups,
+               mod.qbias is not None)
+        if key in shapes:
+            shapes[key]["count"] += 1
+        else:
+            shapes[key] = {"count": 1, "x": x.clone(), "mod": mod}
+
+    hooks = [m.register_forward_pre_hook(record) for m in model.modules()
+             if isinstance(m, QConv2d)]
+    predictor(imgs)
+    torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    with torch.inference_mode():
+        return [int8_shape_row(key, got) for key, got in shapes.items()]
+
+
+def int8_shape_row(key: tuple, got: dict) -> dict:
+    """One row of `int8_shape_rows`: the kernel at one conv shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from edgeyolo_tpu_torch.ops import int8_conv as ic
+
+    (n, c, h, w), dt, (o, cg, kh, kw), stride, pad, dil, groups, _ = key
+    mod, x = got["mod"], got["x"]
+    args, bias = (mod.wq, mod.scale, mod.rcp), mod.qbias
+    kw_ = dict(stride=stride, padding=pad, dilation=dil, groups=groups)
+    errs = []
+    for dtype in (torch.bfloat16, torch.float32):
+        xi = x.to(dtype)
+        y = ic.int8_conv_kernel(xi, mod.wq, mod.wpack, *args[1:], bias, **kw_)
+        ref = ic.int8_conv_reference(xi, *args, bias, **kw_)
+        torch.cuda.synchronize()
+        bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        if not torch.equal(y.view(bits), ref.view(bits)):
+            raise AssertionError(f"int8_conv {key} {dtype}: kernel and plain version differ "
+                                 f"(max {(y.float() - ref.float()).abs().max().item()})")
+        errs.append((y.float() - ref.float()).abs().max().item())
+    kernel = functools.partial(ic.int8_conv_kernel, x, mod.wq, mod.wpack, *args[1:], bias, **kw_)
+    y = kernel()
+    ms = cuda_ms(kernel, samples=INT8_TIMING["samples"], warmup=2)
+    ms_b2b = cuda_ms(kernel, calls_per_event=INT8_TIMING["b2b"], samples=3, warmup=0)
+    plain_ms = cuda_ms(lambda: ic.int8_conv_reference(x, *args, bias, **kw_),
+                       samples=INT8_TIMING["plain"], warmup=0)
+    oh, ow = y.shape[2:]
+    macs = n * o * oh * ow * cg * kh * kw
+    nbytes = (x.numel() * x.element_size() + y.numel() * y.element_size() + mod.wq.numel()
+              + 4 * o + (0 if bias is None else bias.numel() * bias.element_size()))
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, 2 * macs / PEAK_INT8_OPS * 1e3
+    library_ms = None
+    if groups == 1:  # im2col of the codes, then one int8 GEMM
+        codes = ic.quantize_codes(x, mod.rcp).to(torch.bfloat16)
+        cols = F.unfold(codes, (kh, kw), dilation=dil, padding=pad, stride=stride)
+        a = cols.transpose(1, 2).reshape(-1, c * kh * kw)
+        kp, op_ = -(-a.shape[1] // 8) * 8, -(-o // 8) * 8
+        a = F.pad(a, (0, kp - a.shape[1])).to(torch.int8).contiguous()
+        # (kp, op_) column-major, cuBLASLt's int8 layout
+        b = F.pad(mod.wq.reshape(o, -1), (0, kp - cg * kh * kw, 0, op_ - o)).t()
+        try:
+            library_ms = cuda_ms(lambda: torch._int_mm(a, b),
+                                 samples=INT8_TIMING["samples"], warmup=2)
+        except RuntimeError as e:  # a yardstick only: its failure is reported, not fatal
+            print(f"torch._int_mm refused {tuple(a.shape)} x {tuple(b.shape)}: "
+                  f"{str(e).splitlines()[0]}", flush=True)
+        del codes, cols, a, b
+    wb = mod.weight.detach().to(torch.bfloat16)
+    xb, bb = x.to(torch.bfloat16), None if bias is None else bias.to(torch.bfloat16)
+    cudnn_ms = cuda_ms(lambda: F.conv2d(xb, wb, bb, stride, pad, dil, groups),
+                       samples=INT8_TIMING["samples"], warmup=2)
+    row = {"shape": {"x": [n, c, h, w], "w": [o, cg, kh, kw], "stride": list(stride),
+                     "pad": list(pad), "groups": groups}, "dtype": dt,
+           "launches_per_request": got["count"], "max_abs_err": max(errs), "ms": ms,
+           "ms_back_to_back": ms_b2b, "plain_ms": plain_ms,
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "library_ms": library_ms, "cudnn_bf16_ms": cudnn_ms}
+    print(f"int8_conv x{[n, c, h, w]} {dt} w{[o, cg, kh, kw]} s{stride[0]} p{pad[0]} "
+          f"g{groups}, {got['count']}x a request: bit-equal in bf16 and f32, "
+          f"{ms:.4f} ms per call, {ms_b2b:.4f} back to back, plain {plain_ms:.4f}, bound "
+          f"{row['bound_ms']:.4f} ({row['bound_by']}), _int_mm "
+          f"{'none' if library_ms is None else f'{library_ms:.4f}'}, cuDNN bf16 "
+          f"{cudnn_ms:.4f}", flush=True)
+    del got["x"]
+    return row
+
+
+def serve_int8(la, card: str, work: Path) -> dict:
+    """The flagship's int8 request: 32 x 640 bf16 through `predict`'s int8
+    flag (calibrated on the first request), timed in turns with the bf16
+    request of the same weights; int8_conv and linear_attention launches per
+    request; one profiled int8 request (int8_conv's share of device-busy
+    time); the kernel at every distinct conv shape (`int8_shape_rows`); one
+    request under utils/profiling.py's `trace`, and the f32 flagship's
+    `cost_analysis` at 640 px."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from edgeyolo_tpu_torch.engine.predictor import DetectionPredictor
+    from edgeyolo_tpu_torch.nn.tasks import DetectionModel, for_precision
+    from edgeyolo_tpu_torch.ops import int8_conv as ic
+    from edgeyolo_tpu_torch.utils.profiling import cost_analysis, trace
+
+    # the facade's predict(half=True): bf16 copies of the f32 handle, whose
+    # f32 weights and biases the int8 convs are quantized from (as JAX's)
+    handle = exercise_branches(DetectionModel("edgeline-yolo.yaml", scale="n", device="cuda",
+                                              seed=0))
+    model, model_i8 = for_precision(handle, True), for_precision(handle, True)
+    kw = dict(conf=0.25, iou=0.7, max_det=300, max_nms=1024, device="cuda")
+    p_bf, p_i8 = DetectionPredictor(model, **kw), DetectionPredictor(model_i8, int8=True, **kw)
+    imgs = torch.randint(0, 256, (SERVE_BATCH, SERVE_IMGSZ, SERVE_IMGSZ, 3), dtype=torch.uint8,
+                         generator=torch.Generator().manual_seed(2))
+    t0 = time.perf_counter()
+    p_i8(imgs)
+    torch.cuda.synchronize()
+    first = (time.perf_counter() - t0) * 1e3
+    qs = model_i8.quant
+    n_convs = len(qs.wq)
+    convs = dict(handle.named_modules())
+    f32_bias = all(torch.equal(b, convs[k].bias.detach().cpu()) and b.dtype == torch.float32
+                   for k, b in qs.bias.items())
+    print(f"int8 serve: first request {first:.3f} ms (calibration on it, {n_convs} int8 convs, "
+          f"{len(qs.bias)} f32 biases of the handle's; the state on the handle "
+          f"{handle.quant is qs})", flush=True)
+    if n_convs != INT8_CONVS or handle.quant is not qs or not f32_bias:
+        raise AssertionError(f"{n_convs} int8 convs (JAX quantizes {INT8_CONVS}), or the "
+                             f"state is not the f32 handle's")
+    p_bf(imgs)
+    torch.cuda.synchronize()
+    times = {"bf16": [], "int8": []}
+    ic.int8_conv_kernel.launches = la.linear_attention_kernel.launches = 0
+    i8_launches = la_launches = 0
+    for _ in range(SERVE_REQUESTS):
+        for key, pred in (("bf16", p_bf), ("int8", p_i8)):
+            if key == "int8":
+                ic.int8_conv_kernel.launches = la.linear_attention_kernel.launches = 0
+            t0 = time.perf_counter()
+            det, n = pred(imgs)
+            torch.cuda.synchronize()
+            times[key].append((time.perf_counter() - t0) * 1e3)
+            if key == "int8":
+                i8_launches += ic.int8_conv_kernel.launches
+                la_launches += la.linear_attention_kernel.launches
+    per_request = {"int8_conv": i8_launches / SERVE_REQUESTS,
+                   "linear_attention": la_launches / SERVE_REQUESTS}
+    ms = {k: statistics.median(v) for k, v in times.items()}
+    print(f"int8 serve: batch {SERVE_BATCH} x {SERVE_IMGSZ} px, request ms in turns: bf16 "
+          f"{[round(t, 3) for t in times['bf16']]}, int8 {[round(t, 3) for t in times['int8']]}; "
+          f"medians bf16 {ms['bf16']:.3f}, int8 {ms['int8']:.3f} ms "
+          f"({ms['int8'] / ms['bf16']:.3f}x); launches per int8 request {per_request} on {card}",
+          flush=True)
+    if per_request != {"int8_conv": INT8_CONVS, "linear_attention": 1}:
+        raise AssertionError(f"int8 request launches {per_request}")
+    det, n = det.cpu(), n.cpu()
+    if not (det.shape == (SERVE_BATCH, 300, 6) and bool(torch.isfinite(det).all())
+            and bool(((n >= 0) & (n <= 300)).all())):
+        raise AssertionError("int8 detections are malformed")
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        p_i8(imgs)
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(r[1] for r in rows)
+    i8 = [r for r in rows if any(k in r[0] for k in ("quantize_quads", "quantize_plain",
+                                                      "conv_dp4a", "conv_scalar"))]
+    share = sum(r[1] for r in i8) / busy if busy else None
+    print(f"int8 profile: device busy {busy / 1e3:.3f} ms; int8_conv's launches "
+          + ", ".join(f"{r[0].split('(')[0].split('::')[-1]} {r[1] / 1e3:.3f} ms {r[2]}x"
+                      for r in i8)
+          + (f" = {100 * share:.1f}% of device-busy time" if share is not None
+             else "; device time not measured (no device events)"), flush=True)
+
+    shape_rows = int8_shape_rows(model_i8, imgs, p_i8)
+    if sum(r["launches_per_request"] for r in shape_rows) != INT8_CONVS:
+        raise AssertionError("the shape rows do not cover the request's convs")
+    sums = {k: sum(r["launches_per_request"] * r[k] for r in shape_rows)
+            for k in ("ms", "ms_back_to_back", "plain_ms", "bound_ms", "cudnn_bf16_ms")}
+    print(f"int8_conv over one request ({len(shape_rows)} distinct shapes, launches x ms): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in sums.items()), flush=True)
+
+    with trace(work / "profile"):
+        p_i8(imgs)
+    size = (work / "profile" / "trace.json").stat().st_size
+    f32 = DetectionModel("edgeline-yolo.yaml", scale="n", device="cuda", seed=0)
+    x = torch.rand(1, 3, SERVE_IMGSZ, SERVE_IMGSZ, device="cuda")
+    costs = cost_analysis(lambda t: f32(t)["pred"], x)
+    print(f"profiling: trace of one int8 request {size} bytes; cost_analysis of the f32 "
+          f"flagship at 1 x {SERVE_IMGSZ} px: {costs['flops'] / 1e9:.3f} GFLOP, "
+          f"{costs['bytes_accessed'] / 1e9:.3f} GB accessed, "
+          f"{costs['transcendentals'] / 1e6:.3f} M transcendentals", flush=True)
+    if not (size > 0 and costs["flops"] > 0):
+        raise AssertionError("profiling: empty trace or no FLOPs counted")
+    main = max(shape_rows, key=lambda r: r["launches_per_request"] * r["ms_back_to_back"]
+               if r["shape"]["groups"] == 1 else 0)
+    return {"ms": ms, "launches": per_request, "share": share, "rows": shape_rows,
+            "sums": sums, "main": main, "gflops_640": costs["flops"] / 1e9}
+
+
+def autobatch_phase(la, card: str) -> dict:
+    """`batch=-1` on the flagship at 640 px: AutoBatch's probes through the
+    trainer (each candidate's measured peak), its budget and choice, then one
+    real train step at that batch with its peak, which must stay under the
+    budget."""
+    import torch
+
+    from edgeyolo_tpu_torch.nn.tasks import build_model
+    from edgeyolo_tpu_torch.train.trainer import DetectionTrainer, batch_to_device
+
+    model = build_model("edgeline-yolo.yaml", device="cuda", seed=0)
+    trainer = DetectionTrainer(model, {"batch": -1, "imgsz": AUTOBATCH_IMGSZ, "nbs": 64,
+                                       "optimizer": "SGD", "amp": True, "seed": 0},
+                               device="cuda")
+    t0 = time.perf_counter()
+    bs = trainer.resolve_batch()
+    probe_s = time.perf_counter() - t0
+    budget = 0.60 * torch.cuda.get_device_properties(0).total_memory
+    trainer.setup(nb=2)
+    batch = batch_to_device(train_batch(bs, AUTOBATCH_IMGSZ, TRAIN_M, TRAIN_REAL, seed=5),
+                            torch.device("cuda"))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    loss, _, _ = trainer.train_step(batch, mosaic=True)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    peaks = {b: round(p / 2**30, 3) for b, p in trainer.autobatch_peaks.items()}
+    print(f"autobatch: flagship at {AUTOBATCH_IMGSZ} px, train probe peaks by candidate {peaks} "
+          f"GiB, budget {budget / 2**30:.3f} GiB (0.60 of the card), batch {bs} in "
+          f"{probe_s:.3f} s; one real step at batch {bs}: peak {peak / 2**30:.3f} GiB over what "
+          f"was allocated before it, loss {loss.item():.4f}, on {card}", flush=True)
+    if not (peak < budget and math.isfinite(loss.item())):
+        raise AssertionError(f"autobatch: the real step's peak {peak} is over the budget {budget}")
+    return {"batch": bs, "peaks_gib": peaks, "budget_gib": budget / 2**30,
+            "step_peak_gib": peak / 2**30, "probe_s": probe_s}
+
+
+def freeze_phase(la, card: str) -> dict:
+    """`freeze` on the flagship: two steps (two real updates) at FREEZE's
+    shape; the held params and their EMA equal to the start to the bit, their
+    BatchNorm statistics moved, the other params moved."""
+    import torch
+
+    from edgeyolo_tpu_torch.nn.tasks import build_model
+    from edgeyolo_tpu_torch.train.trainer import DetectionTrainer, batch_to_device
+
+    layers, (bs, imgsz, real) = FREEZE
+    model = build_model("edgeline-yolo.yaml", device="cuda", seed=0)
+    trainer = DetectionTrainer(model, {"batch": bs, "nbs": bs, "freeze": layers, "imgsz": imgsz,
+                                       "optimizer": "SGD", "amp": True, "seed": 0},
+                               device="cuda")
+    trainer.setup(nb=4)
+    held = trainer.keep == 0
+    start = trainer.flat.data.clone()
+    stats = {n: b.clone() for n, b in model.named_buffers()
+             if n.endswith("running_var") and int(n.split(".")[1]) < layers}
+    batch = batch_to_device(train_batch(bs, imgsz, TRAIN_M, real, seed=5), torch.device("cuda"))
+    t0 = time.perf_counter()
+    updates = [trainer.train_step(batch, mosaic=True)[2] for _ in range(2)]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / 2 * 1e3
+    p, ema = trainer.flat.data, trainer.ema.ema
+    frozen_same = bool(torch.equal(p[held], start[held]) and torch.equal(ema[held], start[held]))
+    stats_moved = all(not torch.equal(b, stats[n]) for n, b in model.named_buffers() if n in stats)
+    others_moved = bool((p[~held] != start[~held]).any())
+    print(f"freeze={layers}: {int(held.sum())} of {held.numel()} params held; after 2 steps "
+          f"(updates {updates}, {ms:.3f} ms a step at {bs} x {imgsz} px): held params and their "
+          f"EMA equal to the start {frozen_same}, their {len(stats)} BatchNorm variances moved "
+          f"{stats_moved}, the other params moved {others_moved}, on {card}", flush=True)
+    if not (all(updates) and frozen_same and stats and stats_moved and others_moved):
+        raise AssertionError("freeze: held params moved, or nothing else did")
+    return {"held": int(held.sum()), "step_ms": ms}
+
+
+def tune_job(la, card: str, work: Path):
+    """`tune`: TUNE's iterations of the flagship fit protocol, each from the
+    fit phase's best.pt (`pretrained`), on its data; 2 CSV rows with fitness
+    > 0 and the best hyperparameters' yaml."""
+    import csv
+
+    import numpy as np
+
+    from edgeyolo_tpu_torch.engine.model import YOLO
+
+    best = json.loads((work.parent / "edgeline-yolo.json").read_text())["best"]
+    data = work.parent / "edgeline-yolo" / "fit" / "dataset.yaml"
+    n0 = la.linear_attention_kernel.launches
+    t0 = time.perf_counter()
+    hyp, fitness = YOLO("edgeline-yolo.yaml", device="cuda").tune(
+        iterations=TUNE["iterations"], rng=np.random.default_rng(0), data=str(data),
+        pretrained=best, project=str(work), **{**FIT_TRAIN, "epochs": TUNE["epochs"]})
+    seconds = time.perf_counter() - t0
+    with open(work / "tune" / "tune_results.csv", newline="") as f:
+        rows = list(csv.DictReader(f))
+    print(f"tune: {TUNE['iterations']} iterations x {TUNE['epochs']} epochs from {best} in "
+          f"{seconds:.3f} s; fitness by iteration {[float(r['fitness']) for r in rows]}, best "
+          f"{fitness:.5f}; best_hyperparameters.yaml "
+          f"{(work / 'tune' / 'best_hyperparameters.yaml').exists()}", flush=True)
+    if not (len(rows) == TUNE["iterations"] and all(float(r["fitness"]) > 0 for r in rows)
+            and (work / "tune" / "best_hyperparameters.yaml").exists()):
+        raise AssertionError(f"tune: rows {rows}")
+    return {"tune": la.linear_attention_kernel.launches - n0, "seconds": seconds}, None
+
+
 REF_NAMES = ("edgeline-yolo-n", *FAMILIES, *NEW_REF_SCALE)
 REF_GROUPS = 6  # the models of `check_reference`, dealt round robin into this many jobs
 REFERENCE_JOBS = {  # name: a card-against-CPU check in a process of its own, longest first
@@ -4720,6 +5151,7 @@ REFERENCE_JOBS = {  # name: a card-against-CPU check in a process of its own, lo
     "world-reference": lambda la, card, work: (world_reference(la), None),
     "world-train-reference": lambda la, card, work: (world_train_reference(la), None),
     "sam-reference": lambda la, card, work: (sam_reference(la), None),
+    "int8-reference": lambda la, card, work: (int8_reference(la), None),
 }
 REF_PROCS = 8
 
@@ -4747,6 +5179,7 @@ FIT_JOBS = {  # name: the fit, longest first (their seconds alone on an H100)
     f"{RTDETR_FIT}-repeat": repeat_rtdetr,
     "export": export_job,
 }
+AFTER_FIT_JOBS = {"tune": tune_job}  # jobs that start from the fits' checkpoints
 
 
 def job_worker(name: str, work: str, card: str) -> int:
@@ -4761,7 +5194,8 @@ def job_worker(name: str, work: str, card: str) -> int:
     torch.set_num_threads(FIT_THREADS)
     from edgeyolo_tpu_torch.ops import linear_attention as la  # the parent's build, loaded
 
-    launches, best = {**FIT_JOBS, **REFERENCE_JOBS}[name](la, card, Path(work) / name)
+    launches, best = {**FIT_JOBS, **AFTER_FIT_JOBS, **REFERENCE_JOBS}[name](
+        la, card, Path(work) / name)
     (Path(work) / f"{name}.json").write_text(json.dumps(
         {"launches": launches, "best": None if best is None else str(best)}))
     return 0
@@ -4822,6 +5256,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
 
+    t_main = time.perf_counter()
     t0 = phase("device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
@@ -4872,6 +5307,11 @@ def main() -> int:
     family_launches = {name: serve_family(la, card, name) for name in FAMILY_SERVE}
     done("serve", t0)
 
+    t0 = phase("int8 serve")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_int8_") as work:
+        int8 = serve_int8(la, card, Path(work))
+    done("int8 serve", t0)
+
     t0 = phase("train")
     train_launches = train(la, card)
     msla_train_launches = train(la, card, MSLA)
@@ -4881,6 +5321,14 @@ def main() -> int:
     train(la, card, V10)
     train(la, card, V12)
     done("train", t0)
+
+    t0 = phase("autobatch")
+    auto = autobatch_phase(la, card)
+    done("autobatch", t0)
+
+    t0 = phase("freeze")
+    frozen = freeze_phase(la, card)
+    done("freeze", t0)
 
     from edgeyolo_tpu_torch.engine.model import YOLO
 
@@ -4896,6 +5344,10 @@ def main() -> int:
         # the flagship at full width, alone on the card
         val640(la, YOLO(best, device="cuda"), card, Path(work) / "edgeline-yolo")
         done("fit", t0)
+
+        t0 = phase("tune")
+        tuned = run_jobs(card, Path(work), AFTER_FIT_JOBS, 1)["tune"]["launches"]
+        done("tune", t0)
 
         t0 = phase("jpeg")
         jpeg_launches = jpeg(la, card, Path(work) / "edgeline-yolo", best)
@@ -5061,6 +5513,7 @@ def main() -> int:
     device_times(la, la_rows, la_inputs_by_case)
     done("device times", t0)
 
+    i8_main = int8["main"]
     kernels = [{"name": "linear_attention", "route": "cuda",
                 "source": "edgeyolo_tpu_torch/csrc/linear_attention.cu",
                 "replaces": "edgeyolo_tpu/ops/pallas/linear_attention.py:25",
@@ -5098,10 +5551,27 @@ def main() -> int:
                 **{f"launches_{k}": v for k, v in sam2_nas_launches.items()},
                 **{f"launches_{k.replace('-', '_')}": v for k, v in new_ref_launches.items()},
                 "launches_auto_annotate_flagship": annotate["launches"],
+                "launches_int8_request": int8["launches"]["linear_attention"],
+                "launches_tune": tuned["tune"],
                 **la_rows[LA_MAIN_CASE], "library_ms": None,
                 "wavelet_rows": [{"shape": list(case[:4]), "dtype": case[4], **row}
                                  for case, row in zip(LA_CASES, la_rows)
-                                 if case in WAVELET_CASES]}]
+                                 if case in WAVELET_CASES]},
+               {"name": "int8_conv", "route": "cuda",
+                "source": "edgeyolo_tpu_torch/csrc/int8_conv.cu",
+                "replaces": "edgeyolo_tpu/nn/quant.py:143",
+                "replaces_note": "XLA's int8 conv (lax.conv_general_dilated, int32 sums); "
+                                 "no Pallas kernel",
+                "launches": int8["launches"]["int8_conv"],
+                **{k: i8_main[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                           "bound_by", "library_ms")},
+                "max_abs_err_all_shapes": max(r["max_abs_err"] for r in int8["rows"]),
+                "main_shape": i8_main["shape"], "ms_back_to_back": i8_main["ms_back_to_back"],
+                "cudnn_bf16_ms": i8_main["cudnn_bf16_ms"],
+                "request_ms": int8["ms"], "request_sums_ms": int8["sums"],
+                "device_share": int8["share"], "shape_rows": int8["rows"],
+                "autobatch": auto, "freeze": frozen, "flagship_gflops_640": int8["gflops_640"]}]
+    print(f"chip_smoke: {time.perf_counter() - t_main:.3f} s in all on {card}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

@@ -9,13 +9,15 @@
     edgeyolo-torch classify train data=path/to/class_folders model=yolo11n-cls.yaml imgsz=224
     edgeyolo-torch detect export model=runs/detect/train/best.pt format=onnx imgsz=640
     edgeyolo-torch detect benchmark model=runs/detect/train/best.pt data=dataset.yaml imgsz=640
+    edgeyolo-torch detect tune model=yolo11n.yaml data=dataset.yaml epochs=10 iterations=30
 
 Also `help`, `version` and `cfg` (the defaults as JSON). Values are parsed
 as Python literals where they are one (`epochs=10`, `half=True`), else kept
 as strings; unknown keys raise with suggestions. `export` writes the
 artifact (`format`: torch_export, stablehlo, jax_export, npz or onnx) and
 prints its path; `benchmark` prints the format table (`imgsz`, `data`),
-one JSON row a format. The tune mode is not ported yet.
+one JSON row a format. `tune` runs `iterations` (default 10) evolutionary
+fits (engine/tuner.py) and prints the best hyperparameters and fitness.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ CLI_HELP = f"""
     Usage: edgeyolo-torch TASK MODE ARGS
 
         TASK (optional): one of {sorted(TASKS)}
-        MODE (required): one of ['benchmark', 'export', 'predict', 'track', 'train', 'val']
+        MODE (required): one of ['benchmark', 'export', 'predict', 'track', 'train', 'tune', 'val']
         ARGS (optional): any number of 'arg=value' pairs overriding defaults.
 
     Examples:
@@ -80,7 +82,8 @@ def entrypoint(argv: list[str] | None = None) -> int:
     for a in args:
         if "=" in a:
             k, v = parse_key_value(a)
-            check_dict_alignment(DEFAULT_CFG_DICT, {k: v})
+            if k != "iterations":  # the tune mode's own key, no cfg key
+                check_dict_alignment(DEFAULT_CFG_DICT, {k: v})
             overrides[k] = v
         elif a in TASKS:
             task = a
@@ -89,9 +92,7 @@ def entrypoint(argv: list[str] | None = None) -> int:
         else:
             raise SyntaxError(f"'{a}' is not a valid task, mode or k=v pair.\n{CLI_HELP}")
     if mode is None:
-        raise SyntaxError(f"a MODE is required: {sorted(MODES - {'tune'})}\n{CLI_HELP}")
-    if mode == "tune":
-        raise NotImplementedError(f"mode '{mode}' is not ported yet")
+        raise SyntaxError(f"a MODE is required: {sorted(MODES)}\n{CLI_HELP}")
 
     from edgeyolo_tpu_torch.engine.model import YOLO
 
@@ -127,6 +128,9 @@ def entrypoint(argv: list[str] | None = None) -> int:
         _say(f"{len(results)} images processed")
     elif mode == "export":
         _say(f"exported -> {model.export(**overrides)}")
+    elif mode == "tune":
+        best, fitness = model.tune(iterations=int(overrides.pop("iterations", 10)), **overrides)
+        _say(f"best fitness {fitness:.5g}: {json.dumps(best)}")
     elif mode == "benchmark":
         for row in model.benchmark(**{k: v for k, v in overrides.items() if k in {"imgsz", "data"}}):
             _say(json.dumps(row))

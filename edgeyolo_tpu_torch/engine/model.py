@@ -8,6 +8,7 @@ obb and classify tasks.
     RTDETR("rtdetr-l")                # an RT-DETR model (YOLO over it; no NMS)
     YOLOWorld("yolov8-worldv2.yaml")  # a YOLO-World model (its classes: set_classes)
     YOLO("runs/detect/train/best.pt") # a port checkpoint (train/trainer.py)
+    YOLO("runs/detect/train/last.msgpack")  # a JAX checkpoint (its .json sidecar beside it)
 
 The task is the model's (a Segment, Pose, OBB or Classify head makes
 "segment", "pose", "obb" or "classify"); `task=` may name it, and must
@@ -29,6 +30,18 @@ its predictor (and so its save directory) while the arguments stay the
 same, as JAX's facade does; `track` runs it with a ByteTrack or BoT-SORT
 tracker over the frames. Every mode runs on CUDA unless `device` names
 another device ("cpu").
+
+A JAX checkpoint (`.msgpack`, from JAX's trainer or `YOLO.save`) is read by
+the port's own decoder (utils/msgpack.py): the sidecar names the model
+(`model_yaml` or an embedded `model_cfg`, `scale`, `nc`, `task`, `names`),
+the EMA weights and BatchNorm statistics load through `from_jax_variables`.
+`load` takes a `.pt` or a `.msgpack` donor (the tensors whose name and shape
+match). `save_pretrained(dir)` writes `model.pt`, `model.json`,
+`config.json` and a README card; `from_pretrained(dir)` reads such a
+directory, or a JAX `save_pretrained` one (`model.msgpack`); a Hub repo id
+needs `huggingface_hub`. `tune` runs the evolutionary hyperparameter search
+(engine/tuner.py) over fresh models of the same spec. `int8=True` in `val`
+and `predict` runs the int8 forward (nn/quant.py).
 """
 
 from __future__ import annotations
@@ -39,6 +52,7 @@ from pathlib import Path
 import torch
 
 from edgeyolo_tpu_torch.cfg import get_cfg, get_save_dir
+from edgeyolo_tpu_torch.cfg.models import MODELS_DIR
 from edgeyolo_tpu_torch.data.dataset import check_det_dataset
 from edgeyolo_tpu_torch.data.letterbox import letterbox
 from edgeyolo_tpu_torch.data.loaders import load_inference_source
@@ -82,6 +96,8 @@ class YOLO:
         model = str(model)
         if model.endswith(".pt"):
             self._load_checkpoint(model)
+        elif model.endswith(".msgpack"):
+            self._load_msgpack(model, task)
         else:
             self.model = build_model(model, device=self.device)
             self.model_name = model
@@ -98,12 +114,41 @@ class YOLO:
         if not meta and side.exists():
             meta = json.loads(side.read_text())
         self.model_name = meta.get("model_yaml") or "edgeline-yolo.yaml"
-        self.model = build_model(self.model_name, scale=meta.get("scale") or None,
+        self.model = build_model(meta.get("model_cfg") or self.model_name,
+                                 scale=meta.get("scale") or None,
                                  nc=meta.get("nc"), kpt_shape=meta.get("kpt_shape"),
                                  device="cpu")
         if meta.get("fused"):
             self.model.fuse()
         load_checkpoint(self.model, path)
+        self.model.to(self.device)
+        self.ckpt_path, self.trained = path, True
+        self.overrides.update({k: v for k, v in (meta.get("train_args") or {}).items()
+                               if k in ("imgsz", "single_cls")})
+
+    def _load_msgpack(self, path: str, task: str | None):
+        """A JAX trainer checkpoint or `YOLO.save` file and its .json sidecar."""
+        side = Path(path).with_suffix(".json")
+        if not side.exists():
+            raise FileNotFoundError(f"checkpoint metadata {side} not found")
+        meta = json.loads(side.read_text())
+        name = meta.get("model_yaml") or "yolo11n.yaml"
+        # JAX records its own YAML's path: a bundled model reads the port's copy
+        self.model_name = Path(name).name if (MODELS_DIR / Path(name).name).is_file() else name
+        self.model = build_model(meta.get("model_cfg") or self.model_name,
+                                 scale=meta.get("scale") or None, nc=meta.get("nc"),
+                                 device="cpu")
+        want = task or meta.get("task") or (meta.get("train_args") or {}).get("task")
+        if want not in (None, self.model.task):
+            raise ValueError(f"{path} holds a {self.model.task} model, not a {want} one")
+        missing, unexpected = self.model.load_state_dict(msgpack_state_dict(path), strict=False)
+        frozen = {n for n, p in self.model.named_parameters() if not p.requires_grad}
+        left = [k for k in missing if k not in frozen and not k.endswith("num_batches_tracked")]
+        if unexpected or left:  # JAX computes the frozen DFL bins; nothing else may be absent
+            raise KeyError(f"{path} does not fit {self.model_name}: missing {left[:5]}, "
+                           f"unexpected {unexpected[:5]}")
+        if meta.get("names"):
+            self.model.names = {int(k): v for k, v in meta["names"].items()}
         self.model.to(self.device)
         self.ckpt_path, self.trained = path, True
         self.overrides.update({k: v for k, v in (meta.get("train_args") or {}).items()
@@ -141,7 +186,8 @@ class YOLO:
 
     def train(self, **kwargs) -> float:
         """Train on `data` (a dataset YAML, or a classify dataset's root); the
-        handle then holds the EMA weights."""
+        handle then holds the EMA weights. `pretrained=<path>` (a .pt or a JAX
+        .msgpack) first loads that checkpoint's matching tensors, as JAX's does."""
         from edgeyolo_tpu_torch.train.classify import ClassificationTrainer
         from edgeyolo_tpu_torch.train.trainer import DetectionTrainer
 
@@ -164,6 +210,10 @@ class YOLO:
                            if kpt != self.model.kpt_shape else ""))
             self.model = build_model(self.model_name, scale=self.model.scale, nc=nc,
                                      kpt_shape=kpt, seed=int(args.seed), device=self.device)
+        pre = args.pretrained  # a path seeds the model with its weights (shape-intersected)
+        if isinstance(pre, (str, Path)) and str(pre) not in ("True", "False", ""):
+            LOGGER.info(f"loading pretrained weights from {pre}")
+            self.load(pre)
         if args.resume is True:  # continue in the run's own directory, from its last.pt
             save_dir = Path(args.project or Path("runs") / args.task) / (args.name or "train")
         else:
@@ -208,7 +258,7 @@ class YOLO:
                     save=bool(args.save), augment=bool(args.augment),
                     visualize=bool(args.visualize), line_width=args.line_width,
                     show_labels=bool(args.show_labels), show_conf=bool(args.show_conf),
-                    show=bool(args.show), **common)
+                    show=bool(args.show), int8=bool(args.int8), **common)
             self._predictor_key = key
         predictor = self.predictor
         return predictor.stream(source) if stream else predictor.predict(source)
@@ -283,7 +333,9 @@ class YOLO:
         dst.parent.mkdir(parents=True, exist_ok=True)
         sd = {k: v.detach().cpu().clone() for k, v in self.model.state_dict().items()}
         kpt = self.model.kpt_shape
-        meta = {"epoch": -1, "best_fitness": 0.0, "model_yaml": self.model_name, "task": self.task,
+        cfg = self.model.cfg if isinstance(self.model.cfg, dict) else None
+        meta = {"epoch": -1, "best_fitness": 0.0, "model_yaml": "" if cfg else self.model_name,
+                "model_cfg": cfg, "task": self.task,
                 "scale": self.model.scale, "nc": self.model.nc, "names": dict(self.model.names),
                 "kpt_shape": list(kpt) if kpt else None, "train_args": {},
                 "fused": bool(getattr(self.model, "fused", False))}
@@ -292,12 +344,16 @@ class YOLO:
         return dst
 
     def load(self, weights: str | Path) -> "YOLO":
-        """Load a port checkpoint's weights into the current architecture,
-        keeping only the tensors whose name and shape match."""
-        ck = torch.load(weights, map_location="cpu", weights_only=True)
-        donor = ck.get("ema") or ck["model"]
-        if (ck.get("meta") or {}).get("fused") and not self.model.fused:
-            self.model.fuse()  # the donor's convs carry its BatchNorms
+        """Load a port checkpoint's weights (or a JAX `.msgpack`'s EMA weights
+        and BatchNorm statistics) into the current architecture, keeping only
+        the tensors whose name and shape match."""
+        if str(weights).endswith(".msgpack"):
+            donor = msgpack_state_dict(weights)
+        else:
+            ck = torch.load(weights, map_location="cpu", weights_only=True)
+            donor = ck.get("ema") or ck["model"]
+            if (ck.get("meta") or {}).get("fused") and not self.model.fused:
+                self.model.fuse()  # the donor's convs carry its BatchNorms
         cur = self.model.state_dict()
         keep = {k: v for k, v in donor.items() if k in cur and cur[k].shape == v.shape}
         self.model.load_state_dict(keep, strict=False)
@@ -305,6 +361,87 @@ class YOLO:
         self.trained = True
         self.predictor = None
         return self
+
+
+    # -- the local halves of the Hub interop ------------------------------------
+    def save_pretrained(self, save_directory: str | Path, card: bool = True) -> Path:
+        """A Hub-layout snapshot in a local directory: model.pt with its
+        model.json sidecar, config.json and a README model card."""
+        save_dir = Path(save_directory)
+        save_dir.mkdir(parents=True, exist_ok=True)
+        self.save(save_dir / "model.pt")
+        meta = json.loads((save_dir / "model.json").read_text())
+        (save_dir / "config.json").write_text(
+            json.dumps({"library_name": "edgeyolo_tpu_torch", **meta}, default=str))
+        if card and not (save_dir / "README.md").exists():
+            (save_dir / "README.md").write_text(
+                f"---\nlibrary_name: edgeyolo_tpu_torch\npipeline_tag: object-detection\n"
+                f"tags:\n- {self.task}\n- pytorch\n---\n\n"
+                f"# {Path(str(self.model_name)).stem}\n\n"
+                f"edgeyolo_tpu_torch {self.task} model ({self.model.nc} classes). Load with\n"
+                f"`YOLO.from_pretrained(\"<dir>\")`.\n")
+        return save_dir
+
+    @classmethod
+    def from_pretrained(cls, repo_id: str | Path, task: str | None = None,
+                        device: str | torch.device | None = None, revision: str | None = None,
+                        **download_kwargs) -> "YOLO":
+        """A local `save_pretrained` directory, the port's (model.pt) or JAX's
+        (model.msgpack), or a Hub repo id through huggingface_hub."""
+        p = Path(repo_id)
+        if not p.is_dir():
+            try:
+                from huggingface_hub import snapshot_download
+            except ImportError as e:
+                raise ImportError(
+                    "from_pretrained with a repo id requires the huggingface_hub "
+                    "package (probed, not importable); pass a local directory instead"
+                ) from e
+            p = Path(snapshot_download(str(repo_id), revision=revision, **download_kwargs))
+        cfg_p = p / "config.json"
+        cfg = json.loads(cfg_p.read_text()) if cfg_p.exists() else {}
+        weights = p / "model.pt" if (p / "model.pt").exists() else p / "model.msgpack"
+        return cls(weights, task=task or cfg.get("task"), device=device)
+
+    def tune(self, iterations: int = 10, rng=None, **kwargs):
+        """Evolutionary hyperparameter search (engine/tuner.py): `iterations`
+        fits of fresh models of this spec with mutated hyperparameters, each
+        `train(**kwargs, **hyp)`, the first with the call's own values of the
+        searched keys (their defaults where the call names none); results under
+        `project`/tune (runs/<task>/tune without a project). `rng` is the
+        mutations' np.random.Generator.
+        Returns (best hyperparameters, best fitness)."""
+        from edgeyolo_tpu_torch.engine.tuner import Tuner
+
+        model, device = self.model, self.device
+
+        def factory() -> YOLO:
+            y = YOLO.__new__(YOLO)
+            y.overrides, y.callbacks, y.device = dict(self.overrides), self.callbacks, device
+            y.ckpt_path, y.trained, y.model_name, y.task = None, False, self.model_name, self.task
+            y.predictor, y._predictor_key, y._tracker = None, None, None
+            y.model = build_model(model.cfg, scale=model.scale, nc=model.nc,
+                                  kpt_shape=model.kpt_shape, device=device)
+            y.model.names = dict(model.names)
+            return y
+
+        args = get_cfg(overrides={**kwargs, "mode": "train", "task": self.task})
+        # the search starts from this call's hyperparameters, as the reference's
+        # Tuner does (JAX's starts from the defaults)
+        return Tuner(vars(args), save_dir=get_save_dir(args, name="tune"), rng=rng)(
+            factory, iterations=iterations, **kwargs)
+
+
+def msgpack_state_dict(path: str | Path) -> dict[str, torch.Tensor]:
+    """A JAX checkpoint's EMA weights and BatchNorm statistics as the port's
+    state_dict (no DFL bins: JAX computes them)."""
+    from edgeyolo_tpu_torch.utils.convert import from_jax_variables
+    from edgeyolo_tpu_torch.utils.msgpack import flatten, restore
+
+    ck = restore(Path(path).read_bytes())
+    flat = flatten({"params": ck["ema"], "batch_stats": ck.get("batch_stats") or {}})
+    return from_jax_variables({k: v.float().numpy() if isinstance(v, torch.Tensor) else v
+                               for k, v in flat.items()})
 
 
 def RTDETR(model: str | Path = "rtdetr-l", **kwargs) -> YOLO:

@@ -58,6 +58,12 @@ back out of the letterbox (not clipped) into `Results.obb`.
 
 Test-time augmentation is for a detect model only: the segment, pose and
 obb predictors warn and serve single-scale, as JAX's do.
+
+`int8=True` serves the int8 forward (nn/quant.py): the model is calibrated
+on the first request's batch, in its dtype, unless it holds or has stashed a
+calibration; `int8=False` stashes an active one, so the call runs full
+precision (JAX's per-call semantics). A bf16 copy (`for_precision`) is
+quantized from its f32 master's weights and keeps the state on the master.
 """
 
 from __future__ import annotations
@@ -75,6 +81,7 @@ from edgeyolo_tpu_torch.data.letterbox import letterbox
 from edgeyolo_tpu_torch.data.loaders import load_inference_source
 from edgeyolo_tpu_torch.engine.results import Keypoints, Masks, Results
 from edgeyolo_tpu_torch.nn.modules.head import topk_stable
+from edgeyolo_tpu_torch.nn.quant import set_int8
 from edgeyolo_tpu_torch.nn.tasks import is_rtdetr
 from edgeyolo_tpu_torch.ops.boxes import xywh2xyxy
 from edgeyolo_tpu_torch.ops.nms import nms_rotated, non_max_suppression
@@ -150,9 +157,10 @@ class DetectionPredictor:
                  verbose: bool = False, save: bool = False, augment: bool = False,
                  visualize: bool = False, vid_stride: int = 1, stream_buffer: bool = False,
                  line_width: int | None = None, show_labels: bool = True,
-                 show_conf: bool = True, show: bool = False):
+                 show_conf: bool = True, show: bool = False, int8: bool = False):
         self.device = select_device(device)
         self.model = model.to(self.device).eval()
+        self.int8 = bool(int8)
         self.conf, self.iou, self.max_det, self.max_nms = conf, iou, max_det, max_nms
         self.imgsz, self.batch = int(imgsz), max(1, int(batch or 1))
         self.classes = None if classes is None else tuple(
@@ -208,7 +216,11 @@ class DetectionPredictor:
         if x.dtype != torch.uint8 or x.ndim != 4 or x.shape[-1] != 3:
             raise ValueError(f"expected uint8 (B, H, W, 3) images, got {x.dtype} {tuple(x.shape)}")
         x = x.to(self.device).permute(0, 3, 1, 2).contiguous()
-        return x.to(self.model.dtype) / 255
+        x = x.to(self.model.dtype) / 255
+        # the per-call int8 flag (JAX's predictor): calibrate on the first chunk,
+        # in the request's dtype, or reuse a stashed calibration
+        set_int8(self.model, self.int8, lambda: x)
+        return x
 
     @torch.inference_mode()
     def __call__(self, images_u8_nhwc: np.ndarray | torch.Tensor):

@@ -18,7 +18,11 @@ top-left xywh, go to `save_dir/predictions.json` (category ids through the
 COCO 80 -> 91 map when the split is COCO's 80 classes), and when the data
 YAML names `annotations` or `gt_json` the COCO protocol scores them
 (metrics/coco_eval.py) into `metrics.speed["coco/AP"]` and the rest.
-Plots, int8 and multi-device validation are not ported yet. The model may
+With `int8` the model runs the int8 forward (nn/quant.py), calibrated on
+the first val batch (/255, on the f32 model before a `half` copy is made
+of it) unless it holds or has stashed a calibration; without it an active calibration is stashed for the
+call (JAX's per-call semantics). Plots and multi-device validation are not
+ported yet. The model may
 also be a backend adapter that gives only `pred` (`adapter(x)["pred"]`, its
 `nc`, `names` and `end2end`; utils/benchmarks.py wraps an exported artifact
 so, as JAX's `eager_only` adapters): the network runs through it and the NMS,
@@ -75,6 +79,7 @@ from edgeyolo_tpu_torch.engine.predictor import (detr_detections, e2e_detections
 from edgeyolo_tpu_torch.metrics.coco_eval import evaluate_coco
 from edgeyolo_tpu_torch.metrics.metrics import (DetMetrics, _box_iou_np, match_predictions,
                                                 match_predictions_device)
+from edgeyolo_tpu_torch.nn.quant import set_int8
 from edgeyolo_tpu_torch.nn.tasks import for_precision, is_rtdetr
 from edgeyolo_tpu_torch.ops.boxes import box_iou, probiou, xywhr2xyxyxyxy
 from edgeyolo_tpu_torch.ops.nms import nms_rotated, non_max_suppression
@@ -106,6 +111,17 @@ class DetectionValidator:
                 dataset.set_rectangle(bs)
             self._loader = build_dataloader(dataset, bs, shuffle=False)
         return self._loader
+
+    def _net(self, model, loader):
+        """The network this call runs: `model` under the call's int8 flag
+        (calibrated in f32 on the first val batch, on `model`, as JAX's), or
+        with `half` its bf16 copy, which inherits that state."""
+        def calib():
+            img = torch.from_numpy(loader.first_batch()["img"]).to(self.device)
+            return img.permute(0, 3, 1, 2).float().div(255).to(model.dtype)
+
+        set_int8(model, bool(getattr(self.args, "int8", False)), calib)
+        return for_precision(model, bool(self.args.half)) if isinstance(model, nn.Module) else model
 
     @torch.inference_mode()
     def infer(self, model, img: torch.Tensor, gt: tuple, max_nms: int):
@@ -147,7 +163,7 @@ class DetectionValidator:
                           and "coco" in str(split).lower() else None)
         self.jdict = []
         loader = self._dataloader(data_cfg, bs)
-        net = for_precision(model, bool(args.half)) if isinstance(model, nn.Module) else model
+        net = self._net(model, loader)
         was_training = getattr(net, "training", False)
         if hasattr(net, "eval"):
             net.eval()
@@ -314,7 +330,7 @@ class SegmentationValidator(DetectionValidator):
         names = data_cfg["names"]
         bs = int(batch_size or args.batch or 16)
         loader = self._dataloader(data_cfg, bs)
-        net = for_precision(model, bool(args.half)) if isinstance(model, nn.Module) else model
+        net = self._net(model, loader)
         was_training = getattr(net, "training", False)
         if hasattr(net, "eval"):
             net.eval()
@@ -401,7 +417,7 @@ class _TaskValidator(DetectionValidator):
         self.begin(self.names)
         bs = int(batch_size or args.batch or 16)
         loader = self._dataloader(data_cfg, bs, **loader_kw)
-        net = for_precision(model, bool(args.half)) if isinstance(model, nn.Module) else model
+        net = self._net(model, loader)
         was_training = getattr(net, "training", False)
         if hasattr(net, "eval"):
             net.eval()

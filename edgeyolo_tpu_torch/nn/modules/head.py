@@ -192,6 +192,12 @@ class Detect(nn.Module):
         boxes = [m(x) for m, x in zip(cv2, xs)]
         return boxes, [torch.cat([bx, m(x)], dim=1) for bx, m, x in zip(boxes, cv3, xs)]
 
+    def one2many(self, xs) -> None:
+        """Run the one2many branch alone, for its side effects: an
+        end-to-end head's eval forward skips it, JAX's computes it, and int8
+        calibration (nn/quant.py) observes its convs as JAX's does."""
+        self.towers(xs)
+
     def forward(self, xs):
         out = {}
         if self.training or not self.end2end:
@@ -246,6 +252,11 @@ class GFLHeadv2_uniH(Detect):
                 parts.append(prob.mean(dim=2, keepdim=True))
             stat = torch.cat(parts, dim=2).flatten(1, 2)  # side-major, (B, 4*(k+1), H, W)
             return (self.one2one_reg_conf if one2one else self.reg_conf)[i](stat)
+
+    def one2many(self, xs) -> None:
+        boxes, _ = self.towers(xs)
+        for i, bx in enumerate(boxes):
+            self.quality(bx, i)
 
     def forward(self, xs):
         out = {}

@@ -607,10 +607,14 @@ def train_forward(model: nn.Module, x: torch.Tensor, amp: bool = True,
 
 def for_precision(model: nn.Module, half: bool) -> nn.Module:
     """The model an inference runs: `model`, or with `half` a bf16 copy of it
-    (convolutions bf16; BatchNorm, the quality head and the decode f32)."""
+    (convolutions bf16; BatchNorm, the quality head and the decode f32). The
+    copy's `master` is `model`: int8 quantizes its full-precision weights and
+    keeps its QuantState there (nn/quant.py)."""
     if not half or model.dtype == torch.bfloat16:
         return model
-    return copy.deepcopy(model).set_dtype(torch.bfloat16)
+    net = copy.deepcopy(model).set_dtype(torch.bfloat16)
+    net.__dict__["master"] = model  # a plain attribute, not a submodule
+    return net
 
 
 class DetectionModel(GraphNet):
@@ -663,6 +667,37 @@ class DetectionModel(GraphNet):
             self.model[-1].bias_init()
         self.set_dtype(dtype)
         self.to(device).eval()
+        self._quant = self._quant_stash = None
+
+    @property
+    def quant(self):
+        """The active QuantState (nn/quant.py), or None: setting one swaps its
+        convs for int8 ones (eval only; training stays full precision), None
+        swaps them back."""
+        return self.__dict__.get("_quant")
+
+    @quant.setter
+    def quant(self, qs) -> None:
+        from edgeyolo_tpu_torch.nn.quant import install, uninstall
+
+        if qs is None:
+            uninstall(self)
+        else:
+            install(self, qs)
+        self.__dict__["_quant"] = qs
+
+    def quantize(self, calib_images, skip=()):
+        """Calibrate on `calib_images` (a model-space NCHW batch on the
+        model's device, or a list of them) in full precision, then enable the
+        int8 forward; returns the QuantState. The engines' per-call `int8`
+        flag decides for their calls (int8=False stashes the state in
+        `_quant_stash`, a later int8=True reuses it)."""
+        from edgeyolo_tpu_torch.nn.quant import calibrate, quantize
+
+        self.quant = None
+        batches = [calib_images] if isinstance(calib_images, torch.Tensor) else calib_images
+        self.quant = quantize(self, calibrate(self, batches), skip=skip)
+        return self.quant
 
     def fuse(self) -> "DetectionModel":
         """Fold conv and BatchNorm pairs for inference, in place

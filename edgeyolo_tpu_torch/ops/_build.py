@@ -30,7 +30,7 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-SOURCES = ("linear_attention",)  # CUDA
+SOURCES = ("linear_attention", "int8_conv")  # CUDA
 HOST_SOURCES = ("imageio", "rasterize")  # host C++
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC")

@@ -52,6 +52,9 @@ class ClassificationTrainer(DetectionTrainer):
     def build_criterion(self, loss_cls):
         return ClassificationLoss()
 
+    def freeze_mask(self):
+        return None  # JAX's classify trainer takes no `freeze`
+
     def train_step(self, batch: dict, mosaic: bool = True):
         """One micro-step on a device batch {"img" uint8 (B, S, S, 3), "cls"
         (B,), "img_weight" (B,)}. Returns (loss, {"cls"}, whether the

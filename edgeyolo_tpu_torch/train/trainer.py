@@ -44,7 +44,15 @@ flax tree) of the trained and the EMA weights, the optimizer's flat
 buffers, the MultiSteps state (its accumulator only between updates: it is
 zero at mini-step 0), the augmentation generator, the update
 count, the epoch and the best fitness, with a JSON sidecar of metadata.
-Freeze and multi-host training are not ported yet.
+
+`batch` <= 0 sizes the batch by AutoBatch at 60% of the card's memory, and
+0 < `batch` < 1 at that fraction (utils/profiling.py::autobatch, the train
+probe), as JAX's trainer does. `freeze` (an int N: layers 0 to N-1; a list:
+those layer indices) holds the parameters of `model.{i}.*`: their gradient
+and their update are multiplied by 0 in the flat vectors, so neither the
+clip, the momentum step nor the weight decay moves them, and their EMA stays
+equal to them; their BatchNorm statistics still update in train mode, as
+JAX's `mutable=["batch_stats"]` does. Multi-host training is not ported yet.
 """
 
 from __future__ import annotations
@@ -170,7 +178,9 @@ class FlatOptimizer:
 
     def __init__(self, name: str, lr_at: Callable[[int], float], momentum: float,
                  decay: float, mask: torch.Tensor,
-                 momentum_at: Callable[[int], float] | None = None):
+                 momentum_at: Callable[[int], float] | None = None,
+                 keep: torch.Tensor | None = None):
+        self.keep = keep  # 0 where `freeze` holds a parameter: its update is zeroed
         self.name = name.lower()
         if self.name not in ("sgd", "adam", "adamw", "rmsprop"):
             raise ValueError(f"unknown optimizer {name}")
@@ -194,7 +204,7 @@ class FlatOptimizer:
             g = g + wd * p
             self.trace = g + m * self.trace
             u = g + m * self.trace  # nesterov
-            p.add_(u * -lr)
+            p.add_(self._held(u * -lr))
         elif self.name in ("adam", "adamw"):
             if self.name == "adam":
                 g = g + wd * p
@@ -205,13 +215,16 @@ class FlatOptimizer:
                 torch.sqrt(self.nu / (1 - b2 ** self.count)) + 1e-8)
             if self.name == "adamw":
                 u = u + wd * p
-            p.add_(u * -lr)
+            p.add_(self._held(u * -lr))
         else:  # rmsprop: scale by rms, then the learning rate, then momentum
             g = g + wd * p
             self.nu = (1 - 0.9) * g ** 2 + 0.9 * self.nu
             u = g * torch.rsqrt(self.nu + 1e-8) * -lr
             self.trace = u + m * self.trace
-            p.add_(self.trace)
+            p.add_(self._held(self.trace))
+
+    def _held(self, update: torch.Tensor) -> torch.Tensor:
+        return update if self.keep is None else update * self.keep
 
 
 class MultiSteps:
@@ -237,9 +250,10 @@ class MultiSteps:
 class ModelEMA:
     """EMA of the flat parameters, decay 0.9999 (1 - exp(-updates / 2000))."""
 
-    def __init__(self, p: torch.Tensor):
+    def __init__(self, p: torch.Tensor, keep: torch.Tensor | None = None):
         self.ema = p.clone()
         self.updates = 0
+        self.held = None if keep is None else keep == 0  # frozen entries keep their value
 
     @staticmethod
     def decay(updates: int) -> float:
@@ -248,7 +262,8 @@ class ModelEMA:
     def update(self, p: torch.Tensor) -> None:
         self.updates += 1
         d = self.decay(self.updates)
-        self.ema = self.ema * d + (1 - d) * p
+        ema = self.ema * d + (1 - d) * p
+        self.ema = ema if self.held is None else torch.where(self.held, self.ema, ema)
 
 
 @dataclass(frozen=True)
@@ -369,9 +384,36 @@ class DetectionTrainer(CallbackMixin):
     def build_criterion(self, loss_cls):
         return loss_cls.for_model(self.model, self.args)
 
+    def resolve_batch(self) -> int:
+        """args["batch"] as a batch size: AutoBatch for batch <= 0 (at 60% of
+        the card's memory) or 0 < batch < 1 (at that fraction); its measured
+        peak bytes by candidate go to `autobatch_peaks`."""
+        a = self.args
+        bs = float(a["batch"])
+        if bs < 1:
+            from edgeyolo_tpu_torch.utils import profiling
+
+            self.autobatch_peaks: dict[int, int] = {}
+            a["batch"] = profiling.autobatch(self.model, imgsz=int(a.get("imgsz", 640)),
+                                             fraction=bs if bs > 0 else 0.60, train=True,
+                                             peaks=self.autobatch_peaks)
+        return int(a["batch"])
+
+    def freeze_mask(self) -> torch.Tensor | None:
+        """The flat 0/1 vector that `freeze` holds at 0 (None: nothing frozen)."""
+        freeze = self.args.get("freeze")
+        if freeze in (None, 0, False):
+            return None
+        idxs = ({int(i) for i in freeze} if isinstance(freeze, (list, tuple))
+                else set(range(int(freeze))))
+        keep = self.flat.vector({name: not any(name.startswith(f"model.{i}.") for i in idxs)
+                                 for name in self.flat.slices})
+        LOGGER.info(f"freeze: layers {sorted(idxs)} -> {int((keep == 0).sum())} params held")
+        return keep
+
     def setup(self, nb: int) -> None:
         a = self.args
-        bs, epochs = int(a["batch"]), int(a["epochs"])
+        bs, epochs = self.resolve_batch(), int(a["epochs"])
         self.accumulate = max(round(int(a["nbs"]) / bs), 1)
         name, lr0, momentum = (
             (a["optimizer"], float(a["lr0"]), float(a["momentum"])) if a["optimizer"] != "auto"
@@ -382,11 +424,13 @@ class DetectionTrainer(CallbackMixin):
         # weight decay scaled as the reference: decay * batch * accumulate / nbs
         self.decay = float(a["weight_decay"]) * bs * self.accumulate / int(a["nbs"])
         self.flat = FlatParams(self.model)
+        self.keep = self.freeze_mask()
         opt = FlatOptimizer(name, self.schedule.lr_at, momentum, self.decay,
                             self.flat.vector(_decay_mask(self.model)),
-                            self.schedule.momentum_at if self.schedule.warmup_steps else None)
+                            self.schedule.momentum_at if self.schedule.warmup_steps else None,
+                            keep=self.keep)
         self.optimizer = MultiSteps(opt, self.accumulate)
-        self.ema = ModelEMA(self.flat.data)
+        self.ema = ModelEMA(self.flat.data, keep=self.keep)
 
     def train_step(self, batch: dict, mosaic: bool = True):
         """One micro-step on a device batch (see `batch_to_device`). Returns
@@ -411,6 +455,8 @@ class DetectionTrainer(CallbackMixin):
             items = {**items, "box": items["l1"], "dfl": items["giou"]}
         self.flat.grad.zero_()
         loss.backward()
+        if self.keep is not None:
+            self.flat.grad.mul_(self.keep)
         updated = self.optimizer.step(self.flat.data, self.flat.grad)
         if updated:
             self.ema.update(self.flat.data)
@@ -453,6 +499,7 @@ class DetectionTrainer(CallbackMixin):
     def _train_data(self) -> tuple[dict, DataLoader]:
         """The dataset config and the shuffled, augmenting train loader."""
         a = self.args
+        self.resolve_batch()
         data_cfg = check_det_dataset(a["data"])
         if data_cfg["nc"] != self.model.nc:
             raise ValueError(f"dataset nc={data_cfg['nc']} != model nc={self.model.nc}")

@@ -7,9 +7,12 @@ images (upload, /255 in f32, forward, NMS; on CUDA synchronised around the
 timed calls); with `data=` it validates each artifact too, the batch then
 at least 8, through a backend adapter that gives the validator only `pred`
 (the network runs through the artifact, the NMS and matching are the
-validator's own). Rows: `native` (the model as it is), `native-int8`
-(gated until nn/quant.py is ported) and every format of EXPORT_FORMATS;
-a format that cannot run here reports `gated ...`, a failure `error: ...`.
+validator's own). Rows: `native` (the model as it is), `native-int8` (the
+model's int8 forward, nn/quant.py, calibrated on up to 8 real val images
+when `data` is given, else on the timed batch; validated with int8 on, and
+the model back in full precision after the row) and every format of
+EXPORT_FORMATS; a format that cannot run here reports `gated ...`, a
+failure `error: ...`.
 """
 
 from __future__ import annotations
@@ -20,8 +23,6 @@ import numpy as np
 import torch
 
 from edgeyolo_tpu_torch.utils import LOGGER
-
-INT8_GATED = "gated (nn/quant.py not ported yet; ROADMAP §A.12)"
 
 
 class _BackendAdapter:
@@ -89,26 +90,27 @@ def benchmark(model, imgsz: int = 640, batch: int = 1, iters: int = 30, data=Non
 
         return pipeline
 
-    def val_map(m_handle):
+    def val_map(m_handle, int8: bool = False):
         # the model validates through its task's validator; an adapter gives only
-        # pred, the detect surface
+        # pred, the detect surface. The validator's int8 flag decides for its call
+        # (it stashes an active calibration otherwise), so the int8 row says so.
         vcls = task_class(task if m_handle is handle else "detect", 0)
         vargs = get_cfg(overrides={"mode": "val", "data": data, "imgsz": imgsz,
-                                   "batch": max(batch, 8), "plots": False, "task": task})
+                                   "batch": max(batch, 8), "plots": False, "task": task,
+                                   "int8": int8})
         res = vcls(vargs, save_dir=f"{out_dir}/val", device=device)(m_handle, data=data)
         return round(res.get("metrics/mAP50-95(B)", 0.0), 4)
 
     fmts = formats or ["native", "native-int8", *EXPORT_FORMATS]
     rows = []
     for fmt in fmts:
-        if fmt == "native-int8":
-            rows.append({"format": fmt, "status": INT8_GATED})
-            continue
-        if fmt != "native" and not format_available(fmt):
+        if fmt not in ("native", "native-int8") and not format_available(fmt):
             rows.append({"format": fmt, "status": "gated (backend not in image)"})
             continue
         try:
-            if fmt == "native":
+            if fmt in ("native", "native-int8"):
+                if fmt == "native-int8":
+                    handle.quantize(calibration_batch(handle, img, data, imgsz, device))
                 apply_fn, m_for_val = (lambda x: handle(x.to(handle.dtype))["pred"]), handle
             else:
                 ex = Exporter(get_cfg(overrides={"mode": "export", "imgsz": imgsz,
@@ -121,11 +123,15 @@ def benchmark(model, imgsz: int = 640, batch: int = 1, iters: int = 30, data=Non
             row = {"format": fmt, "status": "ok", "compile_s": round(first, 1),
                    "ms/img": round(ms, 3), "imgs/s": round(1000 / ms, 1)}
             if data is not None:
-                row["mAP50-95"] = (val_map(m_for_val) if task == "detect" or fmt == "native"
+                row["mAP50-95"] = (val_map(m_for_val, int8=fmt == "native-int8")
+                                   if task == "detect" or fmt.startswith("native")
                                    else "n/a (task)")  # adapters give the validator pred only
             rows.append(row)
         except Exception as e:
             rows.append({"format": fmt, "status": f"error: {str(e)[:60]}"})
+        finally:
+            if fmt == "native-int8":
+                handle.quant = None  # later rows run full precision
 
     if verbose:
         hdr = f"{'format':<14}{'status':<28}{'ms/img':>10}{'imgs/s':>10}" + (
@@ -136,6 +142,22 @@ def benchmark(model, imgsz: int = 640, batch: int = 1, iters: int = 30, data=Non
                         f"{r.get('imgs/s', ''):>10}"
                         + (f"{r.get('mAP50-95', ''):>10}" if data is not None else ""))
     return rows
+
+
+def calibration_batch(handle, img: torch.Tensor, data, imgsz: int,
+                      device: torch.device) -> torch.Tensor:
+    """The int8 row's calibration input, model-space NCHW on `device`: up to 8
+    real val images when `data` is given (random images misrange the
+    activation scales), else the timed batch `img`."""
+    if data is not None:
+        from edgeyolo_tpu_torch.data.dataset import (YOLODataset, build_dataloader,
+                                                     check_det_dataset)
+
+        cfg = check_det_dataset(str(data))
+        val = YOLODataset(cfg["val"], imgsz=imgsz, augment=False, names=cfg["names"])
+        img = torch.from_numpy(build_dataloader(val, min(8, len(val)), shuffle=False,
+                                                seed=0).first_batch()["img"])
+    return (img.to(device).permute(0, 3, 1, 2).float() / 255.0).to(handle.dtype)
 
 
 def profile_layers(model, imgsz: int = 640, iters: int = 10) -> list[dict]:

@@ -315,9 +315,9 @@ def _dump_scalar(v) -> str:
     return s
 
 
-def yaml_save(file: str | Path, data: dict) -> None:
-    """Write a flat dict of scalars and lists (a run's args.yaml); `yaml_load`
-    reads it back."""
+def yaml_save(file: str | Path, data: dict, header: str = "") -> None:
+    """Write a flat dict of scalars and lists (a run's args.yaml), after the
+    `header` text (comment lines); `yaml_load` reads it back."""
     file = Path(file)
     file.parent.mkdir(parents=True, exist_ok=True)
     lines = []
@@ -327,4 +327,4 @@ def yaml_save(file: str | Path, data: dict) -> None:
             lines += [f"  {_dump_scalar(kk)}: {_dump_scalar(vv)}" for kk, vv in v.items()]
         else:
             lines.append(f"{k}: {_dump_scalar(v if not isinstance(v, Path) else str(v))}")
-    file.write_text("\n".join(lines) + "\n")
+    file.write_text(header + "\n".join(lines) + "\n")

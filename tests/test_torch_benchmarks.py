@@ -6,11 +6,13 @@
   3-class yolo11n with its class logits at 0 scores above 0): every artifact
   row ok, native / torch_export / npz mAP50-95 equal within 1e-6 (one forward
   function, reloaded three ways), onnx within 1e-3 (the numpy executor sums
-  in another order: NMS may keep another near-duplicate), native-int8 gated
-  until nn/quant.py is ported.
+  in another order: NMS may keep another near-duplicate), native-int8 within
+  0.1 of native (the bound of JAX's tests/test_quant.py), the model back in
+  full precision after its row.
 - The native row within 1e-3 of JAX's `benchmark` native row on the same
   weights (the validators' mAP, f32 forward on both sides).
-- The CLI's export and benchmark modes end to end on device=cpu; tune refused.
+- The CLI's export and benchmark modes end to end on device=cpu; the tune
+  mode reaches the facade's `tune` with its `iterations`.
 """
 
 import json
@@ -31,7 +33,7 @@ from edgeyolo_tpu_torch.cfg.cli import entrypoint
 from edgeyolo_tpu_torch.data.synthetic import generate_dataset
 from edgeyolo_tpu_torch.engine.model import YOLO
 from edgeyolo_tpu_torch.export import exporter
-from edgeyolo_tpu_torch.utils.benchmarks import INT8_GATED, profile_layers
+from edgeyolo_tpu_torch.utils.benchmarks import profile_layers
 
 S = 64
 FORMATS = ["native", "native-int8", "torch_export", "npz", "onnx"]
@@ -63,8 +65,7 @@ def table(tmp_path_factory):
 def test_table_rows_and_their_maps(table):
     rows = table["rows"]
     assert list(rows) == FORMATS
-    assert rows["native-int8"]["status"] == INT8_GATED
-    for f in ("native", "torch_export", "npz", "onnx"):
+    for f in FORMATS:
         r = rows[f]
         assert r["status"] == "ok", r
         assert r["imgs/s"] > 0 and r["ms/img"] > 0 and isinstance(r["mAP50-95"], float)
@@ -74,6 +75,9 @@ def test_table_rows_and_their_maps(table):
     assert abs(maps["torch_export"] - maps["native"]) <= 1e-6
     assert abs(maps["npz"] - maps["native"]) <= 1e-6
     assert abs(maps["onnx"] - maps["native"]) <= 1e-3
+    print(f"native-int8 mAP50-95: {rows['native-int8']['mAP50-95']}")
+    assert abs(rows["native-int8"]["mAP50-95"] - maps["native"]) < 0.1
+    assert table["model"].model.quant is None  # later rows ran full precision
     assert not table["model"].model.fused  # the table exports copies
 
 
@@ -105,9 +109,14 @@ def test_cli_export_and_benchmark_modes(table, tmp_path, monkeypatch, capsys):
     rows = [json.loads(line) for line in capsys.readouterr().out.splitlines()
             if line.startswith("{")]
     assert [r["format"] for r in rows] == ["native", "native-int8", "npz"]
-    assert rows[0]["status"] == rows[2]["status"] == "ok" and rows[1]["status"] == INT8_GATED
-    with pytest.raises(NotImplementedError, match="tune"):
-        entrypoint(["detect", "tune", "model=yolo11n.yaml"])
+    assert [r["status"] for r in rows] == ["ok"] * 3
+    seen = {}
+    monkeypatch.setattr(YOLO, "tune", lambda self, iterations, **kw: (
+        seen.update(iterations=iterations, **kw) or ({"lr0": 0.01}, 0.5)))
+    assert entrypoint(["detect", "tune", "model=yolo11n.yaml", "iterations=3", "epochs=2",
+                       "device=cpu"]) == 0
+    assert seen == {"iterations": 3, "epochs": 2}
+    assert "best fitness 0.5" in capsys.readouterr().out
 
 
 def test_profile_layers_covers_every_layer():
